@@ -1,0 +1,25 @@
+"""Declarative experiment API of the port (counterpart of `repro.api`)::
+
+    from repro_torch.api import ExperimentSpec, SyntheticTrace, run
+
+    spec = ExperimentSpec(
+        traces=[SyntheticTrace.make(n_functions=200, n_requests=60_000,
+                                    seed=0, utilization=0.2)],
+        policies=("esff",), capacities=(8, 16, 32), queue_cap=4096)
+    rs = run(spec).check()            # on CUDA; device="cpu" for the CPU
+    print(rs.value("mean_response", capacity=16))
+"""
+from repro_torch.api.registry import (available_policies, get_kernel,
+                                      register_policy, unregister_policy)
+from repro_torch.api.results import ResultSet
+from repro_torch.api.runner import run, run_experiment
+from repro_torch.api.spec import (ArrayTrace, ExperimentSpec,
+                                  SyntheticTrace, TraceSource,
+                                  as_trace_source)
+
+__all__ = [
+    "ExperimentSpec", "TraceSource", "SyntheticTrace", "ArrayTrace",
+    "as_trace_source", "ResultSet", "run", "run_experiment",
+    "register_policy", "unregister_policy", "get_kernel",
+    "available_policies",
+]

@@ -1,0 +1,205 @@
+"""Labeled experiment results: the `ResultSet`.
+
+Counterpart of `repro.api.results` for single-node grids. Every metric
+array carries the grid axes ``(policy, trace, capacity, beta)`` in that
+order; metric-specific dims (histogram bins, per-request N) follow.
+Selection (`sel` / `value`), tidy rows (`rows`), CSV (`to_csv`) and an
+npz round-trip (`save_npz` / `load_npz`) work as in the JAX package.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import sys
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+DIMS = ("policy", "trace", "capacity", "beta")
+
+# metrics that must be zero on every computed cell for a valid run
+HEALTH_METRICS = ("overflow", "stalled")
+
+
+@dataclass
+class ResultSet:
+    """Metric arrays over the labeled experiment grid."""
+
+    data: Dict[str, np.ndarray]
+    coords: Dict[str, list]
+    computed: Optional[np.ndarray] = None    # (P, T, K, B) bool
+    meta: dict = field(default_factory=dict)
+
+    def __post_init__(self):
+        shape = self.grid_shape
+        if self.computed is None:
+            self.computed = np.ones(shape, bool)
+        for k, v in self.data.items():
+            if tuple(v.shape[:len(DIMS)]) != shape:
+                raise ValueError(
+                    f"ResultSet: metric {k!r} shape {v.shape} does not "
+                    f"lead with the grid shape {shape}")
+
+    @property
+    def grid_shape(self):
+        return tuple(len(self.coords[d]) for d in DIMS)
+
+    @property
+    def metrics(self) -> List[str]:
+        return sorted(self.data)
+
+    def __getitem__(self, metric: str) -> np.ndarray:
+        try:
+            return self.data[metric]
+        except KeyError:
+            raise KeyError(f"ResultSet: no metric {metric!r}; have "
+                           f"{self.metrics}") from None
+
+    # -------------------------------------------------------- selection
+    def _axis_indices(self, dim: str, want) -> List[int]:
+        values = self.coords[dim]
+        singular = not isinstance(want, (list, tuple, np.ndarray))
+        wants = [want] if singular else list(want)
+        idx = []
+        for w in wants:
+            matches = [i for i, v in enumerate(values)
+                       if v == w or (isinstance(v, float)
+                                     and isinstance(w, (int, float))
+                                     and float(v) == float(w))]
+            if not matches:
+                raise KeyError(
+                    f"ResultSet.sel: {dim}={w!r} not on the {dim} axis "
+                    f"{values}")
+            if singular and len(matches) > 1:
+                raise KeyError(
+                    f"ResultSet.sel: {dim}={w!r} is ambiguous "
+                    f"({len(matches)} axis entries match) -- pass a "
+                    "list to select all of them")
+            idx.extend(matches)
+        return idx
+
+    def sel(self, **which) -> "ResultSet":
+        """Subset by coordinate *value* (scalar or list per dim), e.g.
+        ``rs.sel(policy="esff", capacity=[8, 16])``. Axes are retained
+        (scalar selections become size-1); use `value` for one cell."""
+        unknown = set(which) - set(DIMS)
+        if unknown:
+            raise KeyError(f"ResultSet.sel: unknown dim(s) "
+                           f"{sorted(unknown)}; dims are {DIMS}")
+        coords = dict(self.coords)
+        data = dict(self.data)
+        comp = self.computed
+        for d, want in which.items():
+            ax = DIMS.index(d)
+            ids = self._axis_indices(d, want)
+            coords[d] = [self.coords[d][i] for i in ids]
+            data = {k: np.take(v, ids, axis=ax) for k, v in data.items()}
+            comp = np.take(comp, ids, axis=ax)
+        return ResultSet(data=data, coords=coords, computed=comp,
+                         meta=dict(self.meta))
+
+    def value(self, metric: str, **which):
+        """The one cell of ``metric`` selected by ``which``: a python
+        scalar for scalar metrics, an ndarray for metrics with trailing
+        dims (``resp_hist``, ``response``)."""
+        sub = self.sel(**which) if which else self
+        if sub.grid_shape != (1,) * len(DIMS):
+            raise KeyError(
+                f"ResultSet.value({metric!r}): selection leaves grid "
+                f"{dict(zip(DIMS, sub.grid_shape))}, need exactly one "
+                "cell -- add coords")
+        cell = sub[metric][(0,) * len(DIMS)]
+        return cell.item() if np.ndim(cell) == 0 else np.asarray(cell)
+
+    # ------------------------------------------------------- tidy rows
+    def rows(self, metrics: Optional[Sequence[str]] = None
+             ) -> Iterator[dict]:
+        """One dict per computed grid cell with every coordinate and
+        every scalar metric (vector metrics only when named)."""
+        names = list(metrics) if metrics is not None else [
+            m for m in self.metrics if self.data[m].ndim == len(DIMS)]
+        for cell_ix in np.ndindex(*self.grid_shape):
+            if not self.computed[cell_ix]:
+                continue
+            row = {d: self.coords[d][i] for d, i in zip(DIMS, cell_ix)}
+            for m in names:
+                cell = self.data[m][cell_ix]
+                row[m] = (cell.item() if np.ndim(cell) == 0
+                          else np.asarray(cell))
+            yield row
+
+    def to_csv(self, out=None,
+               metrics: Optional[Sequence[str]] = None) -> str:
+        """Write the tidy rows as CSV to ``out`` (path, file object, or
+        None for stdout); returns the header line."""
+        rows = list(self.rows(metrics))
+        if not rows:
+            raise ValueError("ResultSet.to_csv: no computed cells")
+        header = list(rows[0].keys())
+
+        def _write(fh):
+            w = csv.DictWriter(fh, fieldnames=header)
+            w.writeheader()
+            for r in rows:
+                w.writerow({k: (f"{v:.6g}" if isinstance(v, float)
+                                else v) for k, v in r.items()})
+        if out is None:
+            _write(sys.stdout)
+        elif isinstance(out, (str, bytes)) or hasattr(out, "__fspath__"):
+            with open(out, "w", newline="") as fh:
+                _write(fh)
+        else:
+            _write(out)
+        return ",".join(header)
+
+    # ----------------------------------------------------------- health
+    def _bad_cells(self, bad: np.ndarray, limit: int = 8) -> str:
+        cells = np.argwhere(bad)[:limit]
+        named = "; ".join(
+            ", ".join(f"{d}={self.coords[d][i]!r}"
+                      for d, i in zip(DIMS, c)) for c in cells)
+        more = int(bad.sum()) - len(cells)
+        return named + (f"; ... {more} more" if more > 0 else "")
+
+    def check(self) -> "ResultSet":
+        """Raise if any computed cell has nonzero ``overflow`` (a queue
+        overran: requests were dropped) or ``stalled`` (the event loop
+        ran out of events or iterations before draining); returns
+        self."""
+        for m in HEALTH_METRICS:
+            if m not in self.data:
+                continue
+            bad = (self.data[m] != 0) & self.computed
+            if bad.any():
+                raise RuntimeError(
+                    f"ResultSet.check: {int(bad.sum())} cell(s) with "
+                    f"nonzero {m!r}: {self._bad_cells(bad)}")
+        return self
+
+    # -------------------------------------------------------- npz io
+    def save_npz(self, path) -> None:
+        payload = {f"m_{k}": v for k, v in self.data.items()}
+        payload["computed"] = self.computed
+        payload["coords_json"] = np.frombuffer(
+            json.dumps(self.coords).encode(), np.uint8)
+        payload["meta_json"] = np.frombuffer(
+            json.dumps(self.meta, default=str).encode(), np.uint8)
+        np.savez_compressed(path, **payload)
+
+    @staticmethod
+    def load_npz(path) -> "ResultSet":
+        with np.load(path) as z:
+            data = {k[2:]: z[k] for k in z.files if k.startswith("m_")}
+            coords = json.loads(bytes(z["coords_json"]).decode())
+            meta = json.loads(bytes(z["meta_json"]).decode())
+            computed = np.asarray(z["computed"], bool)
+        return ResultSet(data=data, coords=coords, computed=computed,
+                         meta=meta)
+
+    def __repr__(self):
+        axes = ", ".join(f"{d}={n}"
+                         for d, n in zip(DIMS, self.grid_shape))
+        return (f"ResultSet({axes}; {int(self.computed.sum())}/"
+                f"{int(np.prod(self.grid_shape))} cells, "
+                f"metrics={self.metrics})")

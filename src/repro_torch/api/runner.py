@@ -1,0 +1,141 @@
+"""Lower an `ExperimentSpec` onto the lane-batched engine.
+
+Counterpart of the single-node branch of `repro.api.runner`: the grid
+is flattened per policy, lanes ordered trace-major, then capacity, then
+beta, split into lane chunks, and each chunk is one engine call on one
+device. A capacity is a slot mask over max(capacities) slots, so every
+capacity of the grid shares one call. Lanes are independent and the
+engine is deterministic per lane, so results do not depend on the
+chunking.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.api.registry import get_kernel
+from repro_torch.api.results import ResultSet
+from repro_torch.api.spec import ExperimentSpec
+from repro_torch.core.engine import (lane_chunk_for, resolve_device,
+                                     sweep_metrics)
+
+_BETA_DEFAULT = "default"
+
+
+def _unique_labels(labels):
+    """Disambiguate repeated source labels positionally (``#k``
+    suffix) so coordinate selection stays unambiguous."""
+    seen: Dict[str, int] = {}
+    out = []
+    for lab in labels:
+        k = seen.get(lab, 0)
+        seen[lab] = k + 1
+        out.append(lab if k == 0 else f"{lab}#{k}")
+    return out
+
+
+def _lower_grid(spec: ExperimentSpec):
+    """Materialise sources and stack them into (T, ...) columns."""
+    sources = spec.expanded_traces()
+    arrs = [src.arrays() for src in sources]
+    F = len(arrs[0]["cold_start"])
+    N = len(arrs[0]["fn_id"])
+    for src, a in zip(sources, arrs):
+        if len(a["cold_start"]) != F or len(a["fn_id"]) != N:
+            raise ValueError(
+                f"ExperimentSpec traces must share shape "
+                f"(n_functions, n_requests): {src.label} has "
+                f"({len(a['cold_start'])}, {len(a['fn_id'])}), "
+                f"{sources[0].label} has ({F}, {N})")
+    stacked = {k: np.stack([np.asarray(a[k]) for a in arrs])
+               for k in ("fn_id", "arrival", "exec_time", "cold_start",
+                         "evict")}
+    return sources, stacked, F, N
+
+
+def _chunk_plan(spec: ExperimentSpec, T: int, chunk: int):
+    """The chunk list [(policy_index, lane_lo, lane_hi)] (policy-major;
+    lanes trace-major, then capacity, then beta)."""
+    K = len(spec.capacities)
+    B = 1 if spec.betas is None else len(spec.betas)
+    plan = [(pi, lo, min(lo + chunk, T * K * B))
+            for pi in range(len(spec.policies))
+            for lo in range(0, T * K * B, chunk)]
+    return plan, K, B
+
+
+def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
+    """Execute ``spec`` and return its labeled `ResultSet`.
+
+    Runs on ``device`` (default ``spec.device``; CUDA unless it is
+    ``"cpu"``) and raises when CUDA is wanted but absent."""
+    spec.validate()
+    dev = resolve_device(spec.device if device is None else device)
+    sources, stacked, F, N = _lower_grid(spec)
+    T = len(sources)
+    C = max(spec.capacities)
+    masks = np.stack([np.arange(C) < c for c in spec.capacities])
+    chunk = lane_chunk_for(spec.lane_chunk, dev)
+    plan, K, B = _chunk_plan(spec, T, chunk)
+
+    f64 = torch.float64
+    dtypes = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
+                  cold_start=f64, evict=f64)
+    shared = {k: torch.as_tensor(v, dtype=dtypes[k], device=dev)
+              for k, v in stacked.items()}
+    kernels = {p: get_kernel(p) for p in spec.policies}
+    tix_col = np.repeat(np.arange(T, dtype=np.int64), K * B)
+    mask_col = np.tile(np.repeat(masks, B, axis=0), (T, 1))
+
+    def beta_col(policy: str) -> np.ndarray:
+        bs = np.asarray(
+            [kernels[policy].default_beta] if spec.betas is None
+            else list(spec.betas), np.float64)
+        return np.tile(bs, T * K)
+
+    beta_cols = {p: beta_col(p) for p in spec.policies}
+
+    P = len(spec.policies)
+    flat: Dict[str, np.ndarray] = {}
+    for pi, lo, hi in plan:
+        policy = spec.policies[pi]
+        out = sweep_metrics(
+            shared["fn_id"], shared["arrival"], shared["exec_time"],
+            shared["cold_start"], shared["evict"],
+            torch.as_tensor(tix_col[lo:hi], device=dev),
+            torch.as_tensor(mask_col[lo:hi], device=dev),
+            torch.as_tensor(beta_cols[policy][lo:hi], device=dev),
+            spec.prior, spec.threshold, kernel=kernels[policy],
+            n_fns=F, capacity=C, queue_cap=spec.queue_cap,
+            stream=spec.stream, keep_responses=spec.keep_per_request)
+        for k, v in out.items():
+            v = v.cpu().numpy()
+            if k not in flat:
+                flat[k] = np.zeros((P, T * K * B) + v.shape[1:], v.dtype)
+            flat[k][pi, lo:hi] = v
+
+    data = {k: v.reshape((P, T, K, B) + v.shape[2:])
+            for k, v in flat.items()}
+    coords = dict(policy=list(spec.policies),
+                  trace=_unique_labels([s.label for s in sources]),
+                  capacity=list(spec.capacities),
+                  beta=(list(spec.betas) if spec.betas is not None
+                        else [_BETA_DEFAULT]))
+    meta = dict(spec.meta,
+                n_requests=N, n_functions=F, queue_cap=spec.queue_cap,
+                stream=spec.stream, prior=spec.prior,
+                threshold=spec.threshold, lane_chunk=chunk,
+                seeds=(list(spec.seeds) if spec.seeds is not None
+                       else None),
+                device=str(dev),
+                device_name=(torch.cuda.get_device_name(dev)
+                             if dev.type == "cuda" else "cpu"),
+                default_betas={p: kernels[p].default_beta
+                               for p in spec.policies})
+    return ResultSet(data=data, coords=coords, meta=meta)
+
+
+# short alias -- `from repro_torch.api import run`
+run = run_experiment

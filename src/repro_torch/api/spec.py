@@ -1,0 +1,280 @@
+"""Declarative experiment surface: `TraceSource` + `ExperimentSpec`.
+
+Counterpart of `repro.api.spec` for the ported single-node engine. A
+trace source declares where a request stream comes from (a seeded
+synthetic generator or inline columnar arrays) and materialises it to
+the engine's columnar layout once (``arrays()``, cached). An
+`ExperimentSpec` declares a whole study -- sources x policies x
+capacities x betas plus the engine knobs -- as one validated value;
+`repro_torch.api.run_experiment` lowers it onto the engine's lanes.
+
+The spec keeps every field of the JAX package's spec so the two are
+built the same way, but only these are ported: ``traces``,
+``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
+``keep_per_request``, ``queue_cap``, ``prior``, ``threshold``,
+``lane_chunk`` and ``meta``, plus the port's own ``device``. Any other
+field set away from its default fails validation with ValueError,
+naming the ROADMAP item that will port it; it is never ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field, fields, replace
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.request import Trace
+
+TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
+
+# fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
+_NOT_PORTED = {
+    "window": "Queue 1, item 4", "tl_bins": "Queue 1, item 4",
+    "tl_bucket": "Queue 1, item 4", "deadlines": "Queue 1, item 4",
+    "fail_prob": "Queue 1, item 8", "timeouts": "Queue 1, item 8",
+    "retry": "Queue 1, item 8", "on_overflow": "Queue 1, item 8",
+    "fail_seed": "Queue 1, item 8", "devices": "Queue 1 (multi-device)",
+    "host_shard": "Queue 1 (multi-host)", "cluster": "Queue 1, item 5",
+    "trace_events": "Queue 1, item 9",
+}
+
+
+class TraceSource:
+    """Declarative origin of one request stream.
+
+    Subclasses implement ``_materialise() -> dict`` returning the
+    engine's columnar layout (`TRACE_COLUMNS`) and a ``label``.
+    ``arrays()`` caches the materialised columns for the source's
+    lifetime."""
+
+    label: str = "trace"
+
+    def _materialise(self) -> Dict[str, np.ndarray]:
+        raise NotImplementedError
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        """Columnar view (cached; arrays are marked read-only)."""
+        cached = getattr(self, "_cache", None)
+        if cached is None:
+            cached = validate_trace_arrays(self._materialise(),
+                                           where=self.label)
+            for v in cached.values():
+                v.setflags(write=False)
+            object.__setattr__(self, "_cache", cached)
+        return dict(cached)
+
+    def with_seed(self, seed: int) -> "TraceSource":
+        """Re-seeded copy (generator-backed sources only)."""
+        raise TypeError(
+            f"trace source {self.label!r} ({type(self).__name__}) is "
+            "not reseedable; ExperimentSpec(seeds=...) needs "
+            "generator-backed sources (SyntheticTrace)")
+
+
+def validate_trace_arrays(a: dict, where: str = "trace"
+                          ) -> Dict[str, np.ndarray]:
+    """Check/normalise a columnar trace dict (`TRACE_COLUMNS` layout)."""
+    missing = [k for k in TRACE_COLUMNS if k not in a]
+    if missing:
+        raise ValueError(f"{where}: missing trace column(s) {missing}; "
+                         f"need {list(TRACE_COLUMNS)}")
+    out = dict(
+        fn_id=np.ascontiguousarray(a["fn_id"], np.int32),
+        arrival=np.ascontiguousarray(a["arrival"], np.float64),
+        exec_time=np.ascontiguousarray(a["exec_time"], np.float64),
+        cold_start=np.ascontiguousarray(a["cold_start"], np.float64),
+        evict=np.ascontiguousarray(a["evict"], np.float64),
+    )
+    n = len(out["fn_id"])
+    if not (len(out["arrival"]) == len(out["exec_time"]) == n):
+        raise ValueError(f"{where}: request columns disagree on length")
+    if len(out["cold_start"]) != len(out["evict"]):
+        raise ValueError(f"{where}: function columns disagree on length")
+    if n and out["fn_id"].max(initial=0) >= len(out["cold_start"]):
+        raise ValueError(f"{where}: fn_id exceeds catalogue size "
+                         f"{len(out['cold_start'])}")
+    return out
+
+
+@dataclass(frozen=True)
+class SyntheticTrace(TraceSource):
+    """Seeded Azure-like generator spec
+    (`repro_torch.traces.synth_azure_arrays`)."""
+
+    n_functions: int = 200
+    n_requests: int = 30_000
+    seed: int = 0
+    params: Tuple[Tuple[str, float], ...] = ()
+
+    @staticmethod
+    def make(n_functions: int = 200, n_requests: int = 30_000,
+             seed: int = 0, **params) -> "SyntheticTrace":
+        """Keyword-friendly constructor (generator knobs as kwargs)."""
+        return SyntheticTrace(n_functions=n_functions,
+                              n_requests=n_requests, seed=seed,
+                              params=tuple(sorted(params.items())))
+
+    @property
+    def label(self) -> str:
+        return (f"synth[f{self.n_functions},n{self.n_requests},"
+                f"seed{self.seed}]")
+
+    def _materialise(self):
+        from repro_torch.traces import synth_azure_arrays
+        return synth_azure_arrays(n_functions=self.n_functions,
+                                  n_requests=self.n_requests,
+                                  seed=self.seed, **dict(self.params))
+
+    def with_seed(self, seed: int) -> "SyntheticTrace":
+        return replace(self, seed=int(seed))
+
+
+@dataclass(frozen=True)
+class ArrayTrace(TraceSource):
+    """Inline columnar arrays (already in the engine layout)."""
+
+    arrays_in: Tuple[Tuple[str, np.ndarray], ...] = ()
+    name: str = "arrays"
+
+    @staticmethod
+    def from_arrays(arrays: dict, name: str = "arrays") -> "ArrayTrace":
+        """Wrap a columnar dict, e.g. what ``TraceSource.arrays()``
+        returns in either package."""
+        return ArrayTrace(arrays_in=tuple(sorted(arrays.items())),
+                          name=name)
+
+    @staticmethod
+    def from_trace(trace: Trace, name: str = "") -> "ArrayTrace":
+        """Wrap a `repro_torch.core.request.Trace` object."""
+        return ArrayTrace.from_arrays(trace.to_arrays(),
+                                      name or f"trace[n{len(trace)}]")
+
+    @property
+    def label(self) -> str:
+        return self.name
+
+    def _materialise(self):
+        return dict(self.arrays_in)
+
+    # ndarray is unhashable, so hash/eq fall back to identity
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+def as_trace_source(obj, name: str = "") -> TraceSource:
+    """Coerce a source, a `Trace` or a columnar array dict into a
+    `TraceSource`."""
+    if isinstance(obj, TraceSource):
+        return obj
+    if isinstance(obj, Trace):
+        return ArrayTrace.from_trace(obj, name)
+    if isinstance(obj, dict):
+        return ArrayTrace.from_arrays(obj, name or "arrays")
+    if isinstance(obj, str):
+        raise NotImplementedError(
+            f"npz trace path {obj!r}: NpzTrace is not ported yet; load "
+            "the columns and pass ArrayTrace.from_arrays(...)")
+    raise TypeError(
+        f"cannot interpret {type(obj).__name__!r} as a trace source; "
+        "pass a TraceSource, Trace or columnar array dict")
+
+
+@dataclass
+class ExperimentSpec:
+    """One declared experiment: the grid ``traces x policies x
+    capacities x betas`` plus engine options (see the module docstring
+    for which fields are ported). ``seeds`` expands each reseedable
+    source into one trace per seed. ``device`` is where the run goes:
+    CUDA unless it is ``"cpu"``."""
+
+    traces: Sequence = ()
+    policies: Sequence[str] = ("esff",)
+    capacities: Sequence[int] = (8, 16, 32)
+    betas: Optional[Sequence[float]] = None
+    seeds: Optional[Sequence[int]] = None
+    queue_cap: int = 2048
+    prior: float = 0.1
+    threshold: float = 0.1
+    stream: bool = True
+    window: int = 0
+    tl_bins: int = 0
+    tl_bucket: float = 60.0
+    keep_per_request: bool = False
+    deadlines: Union[float, Sequence[float], None] = None
+    fail_prob: Union[float, Sequence[float]] = 0.0
+    timeouts: Union[float, Sequence[float], None] = None
+    retry: Optional[object] = None
+    on_overflow: str = "error"
+    fail_seed: int = 0
+    lane_chunk: Optional[int] = None
+    devices: Optional[int] = None
+    host_shard: Tuple[int, int] = (0, 1)
+    cluster: Optional[Sequence] = None
+    trace_events: bool = False
+    meta: dict = field(default_factory=dict)
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        if isinstance(self.traces, (TraceSource, dict, Trace)):
+            self.traces = [self.traces]
+        self.traces = tuple(as_trace_source(t) for t in self.traces)
+        self.policies = tuple(self.policies)
+        self.capacities = tuple(int(c) for c in self.capacities)
+        if self.betas is not None:
+            self.betas = tuple(float(b) for b in self.betas)
+        if self.seeds is not None:
+            self.seeds = tuple(int(s) for s in self.seeds)
+        self.host_shard = tuple(int(x) for x in self.host_shard)
+
+    def validate(self) -> "ExperimentSpec":
+        """Raise on the first invalid or unported field; returns self."""
+        from repro_torch.api.registry import get_kernel
+        defaults = {f.name: f.default for f in fields(self)
+                    if f.name in _NOT_PORTED}
+        for name, item in _NOT_PORTED.items():
+            if getattr(self, name) != defaults[name]:
+                raise ValueError(
+                    f"ExperimentSpec: {name}={getattr(self, name)!r} is "
+                    f"not ported yet (ROADMAP {item}); leave it at "
+                    f"{defaults[name]!r}")
+        if not self.traces:
+            raise ValueError("ExperimentSpec: no trace sources")
+        if not self.policies:
+            raise ValueError("ExperimentSpec: no policies")
+        for p in self.policies:
+            get_kernel(p)
+        if len(set(self.policies)) != len(self.policies):
+            raise ValueError(
+                f"ExperimentSpec: duplicate policies {self.policies}")
+        if not self.capacities:
+            raise ValueError("ExperimentSpec: no capacities")
+        if any(c <= 0 for c in self.capacities):
+            raise ValueError(
+                f"ExperimentSpec: capacities must be positive, got "
+                f"{self.capacities}")
+        if self.betas is not None and not self.betas:
+            raise ValueError("ExperimentSpec: betas=() -- use None for "
+                             "per-policy defaults")
+        if self.seeds is not None:
+            if not self.seeds:
+                raise ValueError("ExperimentSpec: seeds=() -- use None "
+                                 "to keep sources as declared")
+            for t in self.traces:
+                t.with_seed(self.seeds[0])   # raises on non-reseedable
+        if self.queue_cap <= 0:
+            raise ValueError("ExperimentSpec: queue_cap must be > 0")
+        if self.keep_per_request and self.stream:
+            raise ValueError(
+                "ExperimentSpec: keep_per_request needs stream=False "
+                "(streaming folds per-request records away)")
+        return self
+
+    def expanded_traces(self) -> Tuple[TraceSource, ...]:
+        """The trace axis after seed expansion (seed-major per source)."""
+        if self.seeds is None:
+            return self.traces
+        return tuple(src.with_seed(s)
+                     for src in self.traces for s in self.seeds)

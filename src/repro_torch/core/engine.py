@@ -1,0 +1,637 @@
+"""Lane-batched event engine for a C-slot edge server, in PyTorch.
+
+Port of `repro.core.jax_engine` (single window, no timers): the state
+layout, the queue ops, the slot primitives (`dispatch` / `start_cold`),
+the running-mean estimator, the per-event metric fold and the event
+loop. Decisions live in policy kernels (`repro_torch.core.policies`).
+Every array carries a leading *lane* dimension L, one lane per sweep
+point (trace x capacity x beta), where the JAX engine used ``vmap``.
+
+State (F functions, C slots, N requests, L lanes; int64 where a value
+indexes, int32 for counts, float64 for every time):
+
+  slots:  slot_fn (L, C) resident function (-1 empty), slot_state
+          {COLD, IDLE, BUSY}, slot_ready (next slot event time, BIG when
+          idle), slot_req (request in service), slot_used (last
+          dispatch time), slot_seq (creation sequence: the tie-break of
+          victim and idle-slot scans)
+  queues: per-function FIFOs as position cursors into the trace's
+          per-function arrival order (``pos_rids`` / ``pos_off``, a
+          stable argsort of fn_id): q_head_pos, q_head_rid, q_len (L, F)
+  est:    est_sum (L, F) f64 / est_n (L, F) running means, with the
+          global mean (g_sum / g_n), then ``prior``, as fallback
+  ctrs:   one (L,) tensor per counter: ``next`` (arrival cursor),
+          ``done``, ``iters`` (processed events), ``stall``, ``seq``,
+          ``cold``, ``evict``, ``ovf`` and the f64 sums ``cold_t``,
+          ``evict_t``, ``r_sum``, ``s_sum``, ``r_max``. (The JAX engine
+          packs them into two arrays to shrink its loop carry; here a
+          named tensor each costs the same one op per update.)
+  out:    ``hist`` (L, HIST_BINS), the log-spaced response histogram;
+          in exact mode (``stream=False``) also start/completion
+          (L, N) per request.
+
+Event arbitration is the reference's: one first-index argmin over the
+packed candidate times [BUSY slots | COLD slots | next arrival] per
+lane, so at equal times EXEC_DONE < COLD_DONE < ARRIVAL and the slot
+index breaks ties within a class. Writes are guarded: a disabled write
+(``on`` false, or an index out of range) matches no element of its
+one-hot mask, which is where the JAX engine sent writes to a dropped
+sentinel index. Each f64 accumulation touches one element per lane per
+event, in event order, so sums are deterministic on every device and
+streamed sums are bitwise the exact-mode ones.
+
+The loop runs SEG events between termination checks: the host reads
+one flag per segment and never inside an event step. Eager PyTorch
+launches every op of the step separately, so on a GPU the loop is
+bound by launch latency (see PERF.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.request import Trace
+
+BIG = 1e30
+COLD, IDLE, BUSY = 0, 1, 2
+I32_MAX = int(np.iinfo(np.int32).max)
+SEG = 32          # events between host-side termination checks
+
+# Streaming response histogram: log-spaced, 8 bins/decade over
+# [1e-4, 1e4) seconds. Quantile reads are exact to one bin width.
+HIST_BINS = 64
+HIST_LO = -4.0
+HIST_PER_DECADE = 8
+# jnp.log10 is log(x) * (1 / ln 10); the bin index uses the same
+# spelling so a response on a bin edge lands in the reference's bin
+INV_LN10 = 0.4342944819032518
+
+# Lanes per engine call, by device type. Results do not depend on it.
+LANE_CHUNKS = {"cpu": 8, "cuda": 256}
+
+_COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
+             "evict", "ovf")
+_SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
+
+_NOT_PORTED = {
+    "window": "windows (ROADMAP Queue 1, item 4)",
+    "tl_bins": "the timeline fold (ROADMAP Queue 1, item 4)",
+    "n_live": "ragged n_live prefixes (ROADMAP Queue 1, item 4)",
+    "deadlines": "deadline accounting (ROADMAP Queue 1, item 4)",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to run on: CUDA unless the caller asks for the CPU.
+    Raises when CUDA is asked for (or implied) and no card is present;
+    it never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "the engine on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _reject_unported(**opts) -> None:
+    for name, val in opts.items():
+        if val:
+            raise NotImplementedError(
+                f"{name}={val!r}: {_NOT_PORTED[name]} is not ported yet")
+
+
+class EngineCtx:
+    """Per-run view handed to policy kernels: the shared trace operands
+    (flattened, read through per-lane base offsets), the per-lane knobs
+    and the shape constants. Counterpart of `jax_engine.EngineCtx` in
+    its single-window form: every read goes to the full trace."""
+
+    def __init__(self, *, fn_id, arrival, exec_time, t_cold_l, t_evict_l,
+                 trace_ix, cap_mask, beta, prior, f, c, q, stream):
+        T, N = fn_id.shape
+        dev = fn_id.device
+        self.N, self.F, self.C, self.Q = N, f, c, q
+        self.L = trace_ix.shape[0]
+        self.stream = stream
+        self._fn = fn_id.reshape(-1)
+        self._arr = arrival.reshape(-1)
+        self._ex = exec_time.reshape(-1)
+        # positional queue layout: request ids sorted by (fn, id) and
+        # per-function offsets -- fn j's k-th arrival is
+        # pos_rids[pos_off[j] + k]
+        self._pos = torch.argsort(fn_id, dim=1, stable=True).reshape(-1)
+        counts = torch.zeros((T, f), dtype=torch.int64, device=dev)
+        counts.scatter_add_(1, fn_id.clamp(0, f - 1),
+                            torch.ones_like(fn_id))
+        self._off = torch.cat(
+            [torch.zeros((T, 1), dtype=torch.int64, device=dev),
+             torch.cumsum(counts, 1)], 1).reshape(-1)
+        self.b_n = trace_ix * N          # per-lane base into (T, N)
+        self.b_f1 = trace_ix * (f + 1)   # per-lane base into (T, F+1)
+        self.t_cold = t_cold_l           # (L, F) this lane's row
+        self.t_evict = t_evict_l
+        self.cap_mask = cap_mask         # (L, C) bool
+        self.beta = beta                 # (L,) f64
+        self.prior = prior
+        self.lanes = torch.arange(self.L, device=dev)
+        self.ar_c = torch.arange(c, device=dev)
+        self.ar_f = torch.arange(f, device=dev)
+        self.ar_h = torch.arange(HIST_BINS, device=dev)
+
+    # ------------------------------------------------------ trace reads
+    def _rid(self, rid):
+        return self.b_n + rid.clamp(0, self.N - 1)
+
+    def fn_at(self, rid):
+        return self._fn[self._rid(rid)]
+
+    def arrival_at(self, rid):
+        return self._arr[self._rid(rid)]
+
+    def exec_at(self, rid):
+        return self._ex[self._rid(rid)]
+
+    def rid_at_pos(self, fn, pos):
+        """Request id at arrival position ``pos`` of function ``fn``
+        (garbage on out-of-range positions; callers gate)."""
+        gi = self._off[self.b_f1 + fn.clamp(0, self.F - 1)] + pos
+        return self._pos[self.b_n + gi.clamp(0, self.N - 1)]
+
+    def row(self, x, idx, n):
+        """``x[l, idx[l]]`` per lane, ``idx`` clipped to [0, n)."""
+        return x[self.lanes, idx.clamp(0, n - 1)]
+
+    # -------------------------------------------------------- estimator
+    def est_means(self, s):
+        """Per-function running means with global-mean / prior
+        fallback, (L, F) f64."""
+        counts = s["est_n"].to(torch.float64)
+        g_n = s["gn"]
+        g = torch.where(g_n > 0,
+                        s["g_sum"] / torch.clamp_min(g_n.to(torch.float64),
+                                                     1),
+                        self.prior)
+        return torch.where(s["est_n"] > 0,
+                           s["est_sum"] / torch.clamp_min(counts, 1),
+                           g[:, None])
+
+    # ----------------------------------------------------------- queues
+    def q_push(self, s, fn, rid, on):
+        """Append ``rid`` (by construction the next arrival position of
+        ``fn``): only the length moves, plus the head cache when the
+        queue was empty. A push onto a full backlog (q_len ==
+        queue_cap) is dropped and counted in ``ovf``."""
+        q0 = self.row(s["q_len"], fn, self.F)
+        full = q0 >= self.Q
+        do = on & ~full
+        s["q_head_rid"] = torch.where(_hit(do & (q0 == 0), fn, self.ar_f),
+                                      rid[:, None], s["q_head_rid"])
+        s["q_len"] = s["q_len"] + _hit(do, fn, self.ar_f)
+        s["ovf"] = s["ovf"] + (on & full)
+
+    def q_consume_direct(self, s, fn, on):
+        """Account a directly dispatched arrival: its (empty-queue)
+        head position is consumed without ever being enqueued."""
+        s["q_head_pos"] = s["q_head_pos"] + _hit(on, fn, self.ar_f)
+
+    def q_pop(self, s, fn, on):
+        """Consume the head of ``fn``'s queue and return its rid; the
+        head cache is refreshed with the successor (garbage when the
+        queue empties; reads gate on q_len)."""
+        rid = self.row(s["q_head_rid"], fn, self.F)
+        succ = self.rid_at_pos(fn, self.row(s["q_head_pos"], fn, self.F)
+                               + 1)
+        m = _hit(on, fn, self.ar_f)
+        s["q_head_rid"] = torch.where(m, succ[:, None], s["q_head_rid"])
+        s["q_head_pos"] = s["q_head_pos"] + m
+        s["q_len"] = s["q_len"] - m.to(torch.int32)
+        return rid
+
+
+class PolicyKernel:
+    """Interface a policy implements over the engine state (counterpart
+    of `jax_engine.PolicyKernel`). Each hook runs every event step for
+    every lane and folds its ``on`` (L,) predicate into every write;
+    the engine has already done the policy-independent bookkeeping
+    (arrival cursor, estimator update and slot release) before it
+    calls a hook. Hooks update the state dict ``s`` in place.
+
+    Queue contract: every enabled ``on_arrival`` consumes exactly one
+    queue position of the request's function -- ``q_push`` when it
+    queues, ``q_consume_direct`` when it dispatches straight to a slot.
+    """
+
+    name = "base"
+    has_timers = False
+    default_beta = 1.0
+
+    def on_arrival(self, ctx, s, rid, t, on):
+        raise NotImplementedError
+
+    def on_cold_done(self, ctx, s, slot, t, on):
+        raise NotImplementedError
+
+    def on_exec_done(self, ctx, s, slot, rid, t, on):
+        raise NotImplementedError
+
+
+# --------------------------------------------------------------- helpers
+def _hit(on, idx, ar):
+    """(L, n) one-hot write mask: ``idx[l]`` where ``on[l]``. An index
+    outside [0, n) matches nothing -- the counterpart of the JAX
+    engine's dropped sentinel index (`jax_engine._gidx`)."""
+    return (ar == idx[:, None]) & on[:, None]
+
+
+def lex_argmin(primary, secondary, valid):
+    """First index minimising ``(primary, secondary)`` among ``valid``,
+    per lane: iterate in ``secondary`` order, keep on strict
+    improvement."""
+    p = torch.where(valid, primary, BIG)
+    tie = valid & (p <= p.min(dim=1, keepdim=True).values)
+    return torch.argmin(torch.where(tie, secondary, I32_MAX), dim=1)
+
+
+def argmin_i32(vals, valid):
+    """First valid index minimising an integer key, per lane."""
+    return torch.argmin(torch.where(valid, vals, I32_MAX), dim=1)
+
+
+def k_counts(ctx, s):
+    """|K^j| -- slots assigned to each function, any state: (L, F)
+    int32, contiguous."""
+    return (s["slot_fn"][:, :, None] == ctx.ar_f).sum(1, dtype=torch.int32)
+
+
+def idle_own(ctx, s, fn):
+    """Mask of usable idle slots already resident with ``fn``."""
+    return ((s["slot_fn"] == fn[:, None]) & (s["slot_state"] == IDLE)
+            & ctx.cap_mask)
+
+
+def pick_idle_own(ctx, s, fn):
+    """(any, earliest-created idle own slot) per lane."""
+    mask = idle_own(ctx, s, fn)
+    return mask.any(1), argmin_i32(s["slot_seq"], mask)
+
+
+def dispatch(ctx, s, slot, rid, t, on):
+    """Run ``rid`` on the idle ``slot`` of its function.
+
+    The metric fold happens once at the end of the event
+    (`_fold_event`): the dispatch only records (rid, completion, exec)
+    in the per-event registers ``ev_*``. At most one dispatch happens
+    per event, so the registers never clobber a live record. Exact
+    mode also writes the per-request start/completion."""
+    e = ctx.exec_at(rid)
+    comp = t + e
+    m = _hit(on, slot, ctx.ar_c)
+    s["slot_state"] = torch.where(m, BUSY, s["slot_state"])
+    s["slot_ready"] = torch.where(m, comp[:, None], s["slot_ready"])
+    s["slot_req"] = torch.where(m, rid[:, None], s["slot_req"])
+    s["slot_used"] = torch.where(m, t[:, None], s["slot_used"])
+    s["ev_rid"] = torch.where(on, rid, s["ev_rid"])
+    s["ev_comp"] = torch.where(on, comp, s["ev_comp"])
+    s["ev_exec"] = torch.where(on, e, s["ev_exec"])
+    if not ctx.stream:
+        col = torch.where(on, rid, ctx.N)[:, None]   # column N: dropped
+        s["start"].scatter_(1, col, t[:, None])
+        s["completion"].scatter_(1, col, comp[:, None])
+
+
+def _fold_event(ctx, s):
+    """End-of-event metric fold of the ``ev_*`` dispatch registers, in
+    event order: response and slowdown sums, maximum, histogram."""
+    rid = s["ev_rid"]
+    on = rid >= 0
+    resp = s["ev_comp"] - ctx.arrival_at(rid)
+    slow = resp / torch.clamp_min(s["ev_exec"], 1e-9)
+    s["r_sum"] = s["r_sum"] + torch.where(on, resp, 0.0)
+    s["s_sum"] = s["s_sum"] + torch.where(on, slow, 0.0)
+    s["r_max"] = torch.maximum(s["r_max"], torch.where(on, resp, 0.0))
+    s["hist"] = s["hist"] + _hit(on, hist_bin(resp), ctx.ar_h)
+
+
+def start_cold(ctx, s, slot, fn, t, evict_fn, on):
+    """Claim/convert ``slot`` for ``fn`` (``evict_fn`` = -1: an empty
+    slot; otherwise the resident function pays its eviction cost
+    first)."""
+    evicting = on & (evict_fn >= 0)
+    ev_cost = torch.where(evicting,
+                          ctx.row(ctx.t_evict, evict_fn, ctx.F), 0.0)
+    tc = ctx.row(ctx.t_cold, fn, ctx.F)
+    m = _hit(on, slot, ctx.ar_c)
+    s["slot_fn"] = torch.where(m, fn[:, None], s["slot_fn"])
+    s["slot_state"] = torch.where(m, COLD, s["slot_state"])
+    s["slot_ready"] = torch.where(m, (t + tc + ev_cost)[:, None],
+                                  s["slot_ready"])
+    s["slot_req"] = torch.where(m, -1, s["slot_req"])
+    s["slot_used"] = torch.where(m, 0.0, s["slot_used"])
+    s["slot_seq"] = torch.where(m, s["seq"][:, None], s["slot_seq"])
+    s["seq"] = s["seq"] + on
+    s["cold"] = s["cold"] + on
+    s["evict"] = s["evict"] + evicting
+    s["cold_t"] = s["cold_t"] + torch.where(on, tc, 0.0)
+    s["evict_t"] = s["evict_t"] + ev_cost
+
+
+# ----------------------------------------------------- streaming metrics
+def hist_edges() -> np.ndarray:
+    """Bin edges (HIST_BINS + 1,) of the streaming response histogram."""
+    return 10.0 ** (HIST_LO + np.arange(HIST_BINS + 1) / HIST_PER_DECADE)
+
+
+def hist_bin(resp):
+    """Log-spaced bin index of response times (int64)."""
+    lg = torch.log(torch.clamp_min(resp, 1e-30)) * INV_LN10
+    b = torch.floor((lg - HIST_LO) * HIST_PER_DECADE)
+    return b.clamp(0, HIST_BINS - 1).to(torch.int64)
+
+
+def hist_quantile(hist, q, n, resp_max=None):
+    """Upper edge of the bin holding the q-quantile of ``n`` folded
+    responses, clamped to ``resp_max`` (the top bin reports the
+    maximum itself); (L, HIST_BINS) -> (L,)."""
+    cum = torch.cumsum(hist, dim=-1)
+    need = math.ceil(q * n)
+    b = torch.argmax((cum >= need).to(torch.uint8), dim=-1)
+    edge = torch.as_tensor(hist_edges(), device=hist.device)[b + 1]
+    if resp_max is None:
+        return edge
+    return torch.where(b >= HIST_BINS - 1, resp_max,
+                       torch.minimum(edge, resp_max))
+
+
+def hist_cdf(hist):
+    """(edges, cdf) numpy arrays for plotting a CDF from the streamed
+    histogram."""
+    h = np.asarray(hist, np.float64)
+    cum = h.cumsum(axis=-1)
+    total = np.maximum(cum[..., -1:], 1.0)
+    return hist_edges()[1:], cum / total
+
+
+def percentile_linear(x, q: float):
+    """Row-wise percentile with linear interpolation, in the spelling
+    of ``jnp.percentile`` (sort, q * (n - 1), weights 1 - frac and
+    frac)."""
+    a = torch.sort(x, dim=1).values
+    n = a.shape[1]
+    pos = (q / 100.0) * (n - 1)
+    lo, hi = math.floor(pos), math.ceil(pos)
+    hw = pos - lo
+    lo, hi = min(max(lo, 0), n - 1), min(max(hi, 0), n - 1)
+    return a[:, lo] * (1.0 - hw) + a[:, hi] * hw
+
+
+# ------------------------------------------------------------ event loop
+def _init_state(L, C, F, N, stream, dev) -> Dict[str, torch.Tensor]:
+    i64, i32, f64 = torch.int64, torch.int32, torch.float64
+    s = dict(
+        slot_fn=torch.full((L, C), -1, dtype=i64, device=dev),
+        slot_state=torch.full((L, C), IDLE, dtype=i64, device=dev),
+        slot_ready=torch.full((L, C), BIG, dtype=f64, device=dev),
+        slot_req=torch.full((L, C), -1, dtype=i64, device=dev),
+        slot_used=torch.zeros((L, C), dtype=f64, device=dev),
+        slot_seq=torch.full((L, C), I32_MAX, dtype=i64, device=dev),
+        q_head_pos=torch.zeros((L, F), dtype=i64, device=dev),
+        q_head_rid=torch.full((L, F), -1, dtype=i64, device=dev),
+        q_len=torch.zeros((L, F), dtype=i32, device=dev),
+        est_sum=torch.zeros((L, F), dtype=f64, device=dev),
+        est_n=torch.zeros((L, F), dtype=i32, device=dev),
+        hist=torch.zeros((L, HIST_BINS), dtype=i64, device=dev),
+    )
+    for k in _COUNTERS:
+        s[k] = torch.zeros((L,), dtype=i64, device=dev)
+    for k in _SUMS:
+        s[k] = torch.zeros((L,), dtype=f64, device=dev)
+    if not stream:
+        # one spare column takes the disabled writes
+        s["start"] = torch.full((L, N + 1), -1.0, dtype=f64, device=dev)
+        s["completion"] = torch.full((L, N + 1), -1.0, dtype=f64,
+                                     device=dev)
+    return s
+
+
+def _event_step(ctx, kernel, s, max_iters):
+    """One event for every lane: pick, handle, fold."""
+    N, C = ctx.N, ctx.C
+    # ---- pick: first-index argmin over [busy | cold | arrival]
+    na = s["next"]
+    t_arr = torch.where(na < N, ctx.arrival_at(na), BIG)
+    ready = torch.where(ctx.cap_mask, s["slot_ready"], BIG)
+    st = s["slot_state"]
+    cand = torch.cat([torch.where(st == BUSY, ready, BIG),
+                      torch.where(st == COLD, ready, BIG),
+                      t_arr[:, None]], dim=1)
+    t_ev, ei = torch.min(cand, dim=1)   # first index of the minimum
+
+    active = (s["done"] < N) & (s["stall"] == 0)
+    live = active & (t_ev < BIG)
+    ev_slot = live & (ei < 2 * C)
+    is_cold = ei >= C
+    slot = torch.where(is_cold, ei - C, ei).clamp(0, C - 1)
+    ev_arr = live & (ei == 2 * C) & (na < N)
+
+    # ---- slot event: release, estimator, then the policy hooks
+    cold_on = ev_slot & is_cold
+    exec_on = ev_slot & ~is_cold
+    rid_done = ctx.row(s["slot_req"], slot, C)
+    j_done = ctx.row(s["slot_fn"], slot, C)
+    e_done = ctx.exec_at(rid_done)
+    m = _hit(ev_slot, slot, ctx.ar_c)
+    s["slot_state"] = torch.where(m, IDLE, s["slot_state"])
+    s["slot_ready"] = torch.where(m, BIG, s["slot_ready"])
+    s["slot_req"] = torch.where(m, -1, s["slot_req"])
+    mj = _hit(exec_on, j_done, ctx.ar_f)
+    s["est_sum"] = torch.where(mj, s["est_sum"] + e_done[:, None],
+                               s["est_sum"])
+    s["est_n"] = s["est_n"] + mj
+    s["g_sum"] = s["g_sum"] + torch.where(exec_on, e_done, 0.0)
+    s["gn"] = s["gn"] + exec_on
+    s["done"] = s["done"] + exec_on
+    s["ev_rid"] = torch.full_like(na, -1)
+    s["ev_comp"] = torch.zeros_like(t_ev)
+    s["ev_exec"] = torch.zeros_like(t_ev)
+    kernel.on_cold_done(ctx, s, slot, t_ev, cold_on)
+    kernel.on_exec_done(ctx, s, slot, rid_done, t_ev, exec_on)
+
+    # ---- arrival
+    s["next"] = na + ev_arr
+    s["iters"] = s["iters"] + (ev_slot | ev_arr)
+    kernel.on_arrival(ctx, s, na.clamp(max=N - 1), t_arr, ev_arr)
+
+    _fold_event(ctx, s)
+    s["stall"] = torch.where(
+        active & ~live, 1,
+        torch.where(active & (s["iters"] >= max_iters), 2, s["stall"]))
+
+
+def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
+             cap_mask, beta, prior, threshold=0.1, *, kernel, n_fns,
+             capacity, queue_cap, stream=False, window=0, tl_bins=0,
+             n_live=None, deadlines=None) -> Dict[str, torch.Tensor]:
+    """Lane-batched engine (counterpart of `jax_engine._simulate`).
+
+    Trace arrays are shared (T, ...) tensors; ``trace_ix`` (L,) int64,
+    ``cap_mask`` (L, C) bool and ``beta`` (L,) f64 carry the lane
+    dimension. All tensors must sit on one device; the run stays
+    there. ``threshold`` belongs to the timer policies and is unused
+    by the ported ones. Returns per-lane counters (int32), f64 sums
+    and the histogram; in exact mode also start/completion (L, N)."""
+    _reject_unported(window=window, tl_bins=tl_bins, n_live=n_live,
+                     deadlines=deadlines)
+    if kernel.has_timers:
+        raise NotImplementedError(
+            f"policy {kernel.name!r} arms timers: the timer rail is not "
+            "ported yet (ROADMAP Queue 1, item 3)")
+    L = trace_ix.shape[0]
+    N = fn_id.shape[1]
+    F, C = n_fns, capacity
+    dev = fn_id.device
+    f64 = torch.float64
+    trace_ix = trace_ix.to(torch.int64)
+    ctx = EngineCtx(
+        fn_id=fn_id.to(torch.int64), arrival=arrival.to(f64),
+        exec_time=exec_time.to(f64),
+        t_cold_l=t_cold.to(f64)[trace_ix].contiguous(),
+        t_evict_l=t_evict.to(f64)[trace_ix].contiguous(),
+        trace_ix=trace_ix, cap_mask=cap_mask.to(torch.bool),
+        beta=beta.to(f64), prior=float(prior), f=F, c=C, q=queue_cap,
+        stream=stream)
+    s = _init_state(L, C, F, N, stream, dev)
+    max_iters = 256 * N + 4096
+
+    def running():
+        return bool(((s["done"] < N) & (s["stall"] == 0)).any())
+
+    while running():   # one host sync per SEG events
+        for _ in range(SEG):
+            _event_step(ctx, kernel, s, max_iters)
+
+    i32 = torch.int32
+    out = dict(cold_starts=s["cold"].to(i32), cold_time=s["cold_t"],
+               evictions=s["evict"].to(i32), evict_time=s["evict_t"],
+               overflow=s["ovf"].to(i32), stalled=s["stall"].to(i32),
+               n_events=s["iters"].to(i32), done=s["done"].to(i32),
+               resp_sum=s["r_sum"], slow_sum=s["s_sum"],
+               max_response=s["r_max"], resp_hist=s["hist"].to(i32))
+    if not stream:
+        out["start"] = s["start"][:, :N]
+        out["completion"] = s["completion"][:, :N]
+    return out
+
+
+def _as_tensor(x, dtype, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=dtype, device=dev)
+    return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+
+# ------------------------------------------------------------ public API
+def simulate_policy(fn_id, arrival, exec_time, t_cold, t_evict, *,
+                    policy: str = "esff", n_fns: int, capacity: int,
+                    queue_cap: int = 512, beta=None, prior: float = 0.1,
+                    threshold: float = 0.1, cap_mask=None,
+                    stream: bool = False, window: int = 0,
+                    tl_bins: int = 0, device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """Run ``policy`` over one (arrival-sorted) request stream on
+    ``device`` (CUDA unless ``device="cpu"``). Counterpart of
+    `jax_engine.simulate_policy_jax`; inputs may be numpy arrays or
+    tensors. Returns the counters, the streamed sums and the
+    histogram, plus per-request start/completion unless ``stream``."""
+    from repro_torch.api.registry import get_kernel
+    dev = resolve_device(device)
+    kernel = get_kernel(policy)
+    if beta is None:
+        beta = kernel.default_beta
+    if cap_mask is None:
+        cap_mask = np.ones((capacity,), bool)
+    f64 = torch.float64
+    share = lambda x, dt: _as_tensor(x, dt, dev)[None]  # noqa: E731
+    out = simulate(share(fn_id, torch.int64), share(arrival, f64),
+                   share(exec_time, f64), share(t_cold, f64),
+                   share(t_evict, f64),
+                   torch.zeros((1,), dtype=torch.int64, device=dev),
+                   share(cap_mask, torch.bool),
+                   torch.full((1,), float(beta), dtype=f64, device=dev),
+                   prior, threshold, kernel=kernel, n_fns=n_fns,
+                   capacity=capacity, queue_cap=queue_cap, stream=stream,
+                   window=window, tl_bins=tl_bins)
+    return {k: v[0] for k, v in out.items()}
+
+
+def simulate_policy_from_trace(trace: Trace, policy: str, capacity: int,
+                               *, beta=None, queue_cap: int = 1024,
+                               prior: float = 0.1, threshold: float = 0.1,
+                               device=None) -> Dict[str, np.ndarray]:
+    """Trace-object convenience wrapper (exact per-request mode);
+    returns numpy arrays plus ``response`` and ``mean_response``."""
+    a = trace.to_arrays()
+    out = simulate_policy(
+        a["fn_id"], a["arrival"], a["exec_time"], a["cold_start"],
+        a["evict"], policy=policy, n_fns=trace.n_functions,
+        capacity=capacity, queue_cap=queue_cap, beta=beta, prior=prior,
+        threshold=threshold, device=device)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out["response"] = out["completion"] - a["arrival"]
+    out["mean_response"] = float(out["response"].mean())
+    return out
+
+
+def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
+                  threshold=0.1, *, kernel, n_fns, capacity, queue_cap,
+                  stream=True, keep_responses=False
+                  ) -> Dict[str, torch.Tensor]:
+    """Lane-batched run + metric reduction (counterpart of
+    `jax_engine._sweep_metrics`). Means and slowdowns come from the
+    streamed sums in both modes; p99 is exact in exact mode (linear
+    interpolation, as ``jnp.percentile``) and one-bin-accurate from the
+    histogram in streaming mode. ``keep_responses`` (exact mode only)
+    also returns the (L, N) per-request responses."""
+    if keep_responses and stream:
+        raise ValueError("keep_responses requires stream=False")
+    out = simulate(fn, arr, ex, cold, ev, tix, masks, betas, prior,
+                   threshold, kernel=kernel, n_fns=n_fns,
+                   capacity=capacity, queue_cap=queue_cap, stream=stream)
+    N = fn.shape[1]
+    # the reference's mean is XLA's a / N, which XLA folds into
+    # a * (1 / N); spelled out here so the CPU and CUDA (which also
+    # turns division by a Python scalar into a reciprocal multiply)
+    # both give the reference's bits
+    inv_n = 1.0 / N
+    if stream:
+        p99 = hist_quantile(out["resp_hist"], 0.99, N, out["max_response"])
+    else:
+        resp = out["completion"] - arr.to(torch.float64)[tix]
+        p99 = percentile_linear(resp, 99.0)
+    res = dict(mean_response=out["resp_sum"] * inv_n,
+               mean_slowdown=out["slow_sum"] * inv_n,
+               resp_sum=out["resp_sum"], slow_sum=out["slow_sum"],
+               done=out["done"], p99_response=p99,
+               max_response=out["max_response"],
+               resp_hist=out["resp_hist"],
+               cold_starts=out["cold_starts"], cold_time=out["cold_time"],
+               evictions=out["evictions"], overflow=out["overflow"],
+               stalled=out["stalled"], n_events=out["n_events"])
+    if keep_responses:
+        res["response"] = resp
+    return res
+
+
+def lane_chunk_for(setting: Optional[int], device: torch.device) -> int:
+    """Lanes per engine call: ``setting`` when given, else the
+    per-device `LANE_CHUNKS` entry."""
+    if setting is None:
+        return LANE_CHUNKS[device.type]
+    if isinstance(setting, bool) or not isinstance(setting, int):
+        raise ValueError(
+            f"lane_chunk must be an int or None, got {setting!r} (the "
+            "'auto' probe is not ported)")
+    return max(1, setting)

@@ -1,0 +1,158 @@
+// FRP candidate selection for ESFF (paper Alg. 3, Eq. 7 and Eq. 10),
+// hand-written for Hopper (sm_90a).
+//
+// Replaces the TPU kernel src/repro/kernels/sched_weights.py::frp_select
+// (Pallas `_weights_kernel`, pallas_call at :93). The same body also
+// serves the engine's own f64 FRP scan, the inline argmin of
+// src/repro/core/jax_policies.py (ESFFKernel.on_exec_done, :131-140),
+// one lane per thread block.
+//
+// For every function f of a row:
+//   n_e = (n_w + 1) - ((t_l + t_v_j) * K) / t_e              (Eq. 7)
+//   w   = t_e + ((beta * (t_l + t_v)) * (K + 1)) / max(n_e, eps)  (Eq. 10)
+// masked to n_w > 0, n_e > 0, f != self; the row's result is the
+// first index of the minimum (BIG = 1e30 for masked entries) and -1
+// when the minimum is BIG, exactly jnp.argmin's first-index rule.
+//
+// Two contracts share the body:
+//   f32 (ENGINE = false): the TPU kernel's own. t_e is clamped at 1e-9,
+//     eps = 1e-9, beta = 1, one row, scalars by value.
+//   f64 (ENGINE = true): the engine's. No clamp on t_e (the running
+//     means are positive), eps = 1e-30, beta / t_v_j / self per lane.
+// The operations run in the reference's order and the library is built
+// with --fmad=false, so no multiply-add is contracted and each weight is
+// bitwise the plain PyTorch version's.
+//
+// What bounds it on an H100: it reads about 20 B per function in f32
+// (three f32 times + two i32 counts) and about 32 B in f64 (three f64
+// times + two i32 counts) and writes one (w, i) pair per row. At the
+// main path's F = 200 a row is 6.4 KB: the call is bound by launch
+// latency, not by the card. At F = 65,536 the f32 call moves 1.3 MB,
+// about 0.4 us at 3.35 TB/s.
+// What the design does about it: nothing clever yet. One block per row
+// walks the functions with a block-stride loop (neighbouring threads
+// read neighbouring addresses), keeps a private (w, i), reduces by warp
+// shuffles and then across warps through shared memory, and launches
+// once for all lanes of an event step, so the lanes share one launch.
+// A single block cannot reach the memory bound at F = 65,536; a
+// two-pass multi-block reduction is the next step if that size matters.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ T clamp_lo(T x, T lo) {
+  // jnp.maximum(x, lo) for finite lo: NaN stays NaN
+  return x < lo ? lo : x;
+}
+
+template <typename T>
+__device__ __forceinline__ void keep_first_min(T& w, int& i, T ow, int oi) {
+  if (ow < w || (ow == w && oi < i)) {
+    w = ow;
+    i = oi;
+  }
+}
+
+template <typename T, bool ENGINE>
+__global__ void frp_select_kernel(const T* __restrict__ t_e,
+                                  const T* __restrict__ t_l,
+                                  const T* __restrict__ t_v,
+                                  const int32_t* __restrict__ n_w,
+                                  const int32_t* __restrict__ k_cnt,
+                                  const T* __restrict__ tv_j_lanes,
+                                  const int32_t* __restrict__ self_lanes,
+                                  const T* __restrict__ beta_lanes,
+                                  T tv_j0, int self0, int n_fns,
+                                  T* __restrict__ best_w,
+                                  int32_t* __restrict__ best_i) {
+  const int lane = blockIdx.x;
+  const size_t row = static_cast<size_t>(lane) * n_fns;
+  const T big = T(1e30);
+  const T tv_j = ENGINE ? tv_j_lanes[lane] : tv_j0;
+  const int self = ENGINE ? self_lanes[lane] : self0;
+  const T beta = ENGINE ? beta_lanes[lane] : T(1);
+  const T eps = ENGINE ? T(1e-30) : T(1e-9);
+
+  T w_min = big;
+  int i_min = n_fns;  // beyond every index: loses every tie
+  for (int f = threadIdx.x; f < n_fns; f += blockDim.x) {
+    const T nw = static_cast<T>(n_w[row + f]);
+    const T k = static_cast<T>(k_cnt[row + f]);
+    const T te = t_e[row + f];
+    const T tl = t_l[row + f];
+    const T den = ENGINE ? te : clamp_lo(te, T(1e-9));
+    const T n_e = (nw + T(1)) - ((tl + tv_j) * k) / den;
+    T w = te + ((beta * (tl + t_v[row + f])) * (k + T(1))) / clamp_lo(n_e, eps);
+    const bool valid = (nw > T(0)) && (n_e > T(0)) && (f != self);
+    w = valid ? w : big;
+    if (w < w_min) {  // f rises per thread: strict < keeps the first
+      w_min = w;
+      i_min = f;
+    }
+  }
+
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ow = __shfl_down_sync(0xffffffffu, w_min, off);
+    const int oi = __shfl_down_sync(0xffffffffu, i_min, off);
+    keep_first_min(w_min, i_min, ow, oi);
+  }
+  __shared__ T warp_w[32];
+  __shared__ int warp_i[32];
+  const int warp = threadIdx.x / 32;
+  const int n_warps = (blockDim.x + 31) / 32;
+  if ((threadIdx.x & 31) == 0) {
+    warp_w[warp] = w_min;
+    warp_i[warp] = i_min;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    w_min = threadIdx.x < n_warps ? warp_w[threadIdx.x] : big;
+    i_min = threadIdx.x < n_warps ? warp_i[threadIdx.x] : n_fns;
+    for (int off = 16; off > 0; off >>= 1) {
+      const T ow = __shfl_down_sync(0xffffffffu, w_min, off);
+      const int oi = __shfl_down_sync(0xffffffffu, i_min, off);
+      keep_first_min(w_min, i_min, ow, oi);
+    }
+    if (threadIdx.x == 0) {
+      best_w[lane] = w_min;
+      best_i[lane] = w_min >= big ? -1 : i_min;
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C interface for ctypes. Each returns cudaGetLastError() right
+// after the launch (0 = launched); the launch is asynchronous on
+// `stream`, and nothing here allocates or synchronises.
+extern "C" int frp_select_f32(const float* t_e, const float* t_l,
+                              const float* t_v, const int32_t* n_w,
+                              const int32_t* k_cnt, float tv_j,
+                              int self_idx, int n_fns, float* best_w,
+                              int32_t* best_i, void* stream) {
+  frp_select_kernel<float, false>
+      <<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+          t_e, t_l, t_v, n_w, k_cnt, nullptr, nullptr, nullptr, tv_j,
+          self_idx, n_fns, best_w, best_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int frp_select_lanes_f64(const double* means,
+                                    const double* t_cold,
+                                    const double* t_evict,
+                                    const int32_t* n_w,
+                                    const int32_t* k_cnt,
+                                    const double* tv_j,
+                                    const int32_t* self_idx,
+                                    const double* beta, int n_lanes,
+                                    int n_fns, double* best_w,
+                                    int32_t* best_i, void* stream) {
+  frp_select_kernel<double, true>
+      <<<n_lanes, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+          means, t_cold, t_evict, n_w, k_cnt, tv_j, self_idx, beta, 0.0,
+          0, n_fns, best_w, best_i);
+  return static_cast<int>(cudaGetLastError());
+}

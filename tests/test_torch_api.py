@@ -1,0 +1,125 @@
+"""The port's experiment API (`repro_torch.api`) against `repro.api`:
+the same spec fields give equal coords and equal metrics (ints exact,
+floats rtol 1e-9), the trace generator is bitwise the JAX package's,
+and the ResultSet round-trips through npz."""
+import numpy as np
+import pytest
+
+import repro.api as japi
+import repro_torch.api as tapi
+from repro.traces import synth_azure_arrays as j_synth
+from repro_torch.traces import synth_azure_arrays as t_synth
+
+TRACE = dict(n_functions=20, n_requests=250, seed=0, utilization=0.25)
+
+
+def _run_both(**fields):
+    j = japi.run_experiment(japi.ExperimentSpec(
+        traces=[japi.SyntheticTrace.make(**TRACE)], **fields))
+    t = tapi.run_experiment(tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(**TRACE)], **fields),
+        device="cpu")
+    return j, t
+
+
+def _assert_same(j, t):
+    assert t.coords == j.coords
+    for k in j.metrics:
+        a, b = t[k], j[k]
+        assert a.shape == b.shape, k
+        if b.dtype.kind in "iub":
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-9, atol=0,
+                                       err_msg=k)
+
+
+@pytest.mark.parametrize("stream", [True, False])
+def test_run_experiment_matches_jax(stream):
+    fields = dict(policies=("esff",), capacities=(4, 8), seeds=(0, 1),
+                  queue_cap=256, stream=stream,
+                  keep_per_request=not stream)
+    j, t = _run_both(**fields)
+    t.check()
+    assert t["done"].min() == TRACE["n_requests"]
+    _assert_same(j, t)
+
+
+def test_array_trace_from_jax_arrays():
+    """One trace fed to both packages through its columnar dict."""
+    src = japi.SyntheticTrace.make(**TRACE)
+    fields = dict(policies=("esff",), capacities=(6,), queue_cap=256)
+    j = japi.run_experiment(japi.ExperimentSpec(traces=[src], **fields))
+    t = tapi.run_experiment(tapi.ExperimentSpec(
+        traces=[tapi.ArrayTrace.from_arrays(src.arrays(), src.label)],
+        **fields), device="cpu")
+    _assert_same(j, t)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_functions=30, n_requests=500, seed=3),
+    dict(n_functions=200, n_requests=5000, seed=0, utilization=0.2,
+         exec_median=0.1, exec_sigma=1.4, burst_frac=0.3)])
+def test_synth_azure_arrays_bitwise_equal(kw):
+    a, b = j_synth(**kw), t_synth(**kw)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_result_set_npz_round_trip(tmp_path):
+    rs = tapi.run_experiment(tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(n_functions=8, n_requests=60)],
+        capacities=(2, 3), queue_cap=64), device="cpu")
+    path = tmp_path / "grid.npz"
+    rs.save_npz(path)
+    back = tapi.ResultSet.load_npz(path)
+    assert back.coords == rs.coords and back.meta == rs.meta
+    assert back.metrics == rs.metrics
+    for k in rs.metrics:
+        np.testing.assert_array_equal(back[k], rs[k])
+    assert back.value("cold_starts", capacity=3) == \
+        rs.value("cold_starts", capacity=3)
+    rows = list(back.rows())
+    assert [r["capacity"] for r in rows] == [2, 3]
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tl_bins", 4), ("window", 1024), ("deadlines", 1.0),
+    ("fail_prob", 0.1), ("on_overflow", "shed"), ("devices", 2),
+    ("host_shard", (0, 2)), ("trace_events", True)])
+def test_unported_spec_field_raises(field, value):
+    spec = tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
+        **{field: value})
+    with pytest.raises(ValueError, match="not ported"):
+        tapi.run_experiment(spec, device="cpu")
+
+
+def test_unported_policy_raises():
+    spec = tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
+        policies=("sff",))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spec.validate()
+
+
+def test_register_policy_joins_the_spec():
+    from repro_torch.core.policies import ESFFKernel
+    k = tapi.register_policy("esff_copy", ESFFKernel("esff_copy"))
+    try:
+        assert "esff_copy" in tapi.available_policies()
+        assert tapi.get_kernel("esff_copy") is k
+        with pytest.raises(ValueError, match="already registered"):
+            tapi.register_policy("esff_copy", k)
+        with pytest.raises(TypeError):
+            tapi.register_policy("bad", object())
+        tapi.ExperimentSpec(
+            traces=[tapi.SyntheticTrace.make(n_functions=4,
+                                             n_requests=10)],
+            policies=("esff", "esff_copy")).validate()
+    finally:
+        tapi.unregister_policy("esff_copy")
+    with pytest.raises(KeyError):
+        tapi.get_kernel("esff_copy")

@@ -1,0 +1,113 @@
+"""Guards of the port's rules: it imports neither JAX nor the JAX
+package, it never runs on the CPU unless asked to, and a kernel
+wrapper given a non-CPU tensor launches or raises -- it never falls
+back to the plain version."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import repro_torch.api as tapi
+from repro_torch.kernels import _build
+from repro_torch.kernels import frp_select as fs
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_import_loads_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 12   # every submodule was imported
+
+
+def test_run_experiment_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
+        capacities=(2,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.run_experiment(spec)
+    spec.device = "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapi.run_experiment(spec)
+
+
+def _lanes(device="meta", L=2, F=8, **override):
+    f64, i32 = torch.float64, torch.int32
+    a = dict(means=torch.ones(L, F, dtype=f64, device=device),
+             t_cold=torch.ones(L, F, dtype=f64, device=device),
+             t_evict=torch.ones(L, F, dtype=f64, device=device),
+             nw=torch.ones(L, F, dtype=i32, device=device),
+             K=torch.ones(L, F, dtype=i32, device=device),
+             tv_j=torch.ones(L, dtype=f64, device=device),
+             self_idx=torch.zeros(L, dtype=i32, device=device),
+             beta=torch.ones(L, dtype=f64, device=device))
+    a.update(override)
+    return a
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """The kernel library cannot be had: every load raises."""
+    def refuse(name):
+        raise RuntimeError(f"no library {name}")
+    monkeypatch.setattr(_build, "load_library", refuse)
+
+
+@pytest.mark.parametrize("bad,exc", [
+    (dict(means=torch.ones(2, 8, dtype=torch.float32, device="meta")),
+     TypeError),
+    (dict(nw=torch.ones(2, 8, dtype=torch.int64, device="meta")),
+     TypeError),
+    (dict(means=torch.ones(8, 2, dtype=torch.float64,
+                           device="meta").t()), ValueError),
+    (dict(beta=torch.ones(3, dtype=torch.float64, device="meta")),
+     ValueError)])
+def test_wrapper_rejects_what_the_kernel_does_not_take(no_library, bad,
+                                                       exc):
+    before = fs.frp_select_lanes.plain_calls
+    with pytest.raises(exc):
+        fs.frp_select_lanes(**_lanes(**bad))
+    assert fs.frp_select_lanes.plain_calls == before
+
+
+def test_wrapper_raises_without_library_instead_of_falling_back(
+        no_library):
+    before = (fs.frp_select_lanes.plain_calls,
+              fs.frp_select_lanes.launches)
+    with pytest.raises(RuntimeError, match="no library"):
+        fs.frp_select_lanes(**_lanes())
+    t = [torch.ones(8, dtype=torch.float32, device="meta")] * 3
+    t += [torch.ones(8, dtype=torch.int32, device="meta")] * 2
+    with pytest.raises(RuntimeError, match="no library"):
+        fs.frp_select(*t, 1.0, 0)
+    assert (fs.frp_select_lanes.plain_calls,
+            fs.frp_select_lanes.launches) == before
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
