@@ -10,10 +10,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. ``build``     nvcc builds every kernel source of ``src/repro_torch/csrc``
                  into ``build/kernels/`` (seconds, ptxas report).
 3. ``kernel``    each kernel against its plain PyTorch version on the
-                 card, at the main path's shapes and beyond: index
-                 exact, f32 weight within rtol 1e-6, f64 bitwise; times
-                 (CUDA events) for the kernel, the plain version and
-                 the bound.
+                 card, at the main path's shapes and beyond. FRP: index
+                 exact, f32 weight within rtol 1e-6, f64 bitwise. The
+                 serving kernels (flash and decode attention, RMSNorm
+                 with and without the residual add) at Qwen3-4B's
+                 shapes in bf16, each within its own limit (KERNEL_TOL;
+                 the residual output bitwise), and each case with a
+                 planted fault that the limit must reject. Times (CUDA
+                 events, back to back, and the device time from
+                 torch.profiler) for the kernel, the plain version, one
+                 PyTorch call computing the same (a yardstick the port
+                 never calls) and the bound.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
                  grid (F = 200 functions, Azure-like requests, ESFF,
                  C = 8..32: seven lanes), with the kernels' launch
@@ -24,8 +31,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  default): the eager event loop is launch-bound, and
                  60,000 would take most of the run's time limit.
 5. ``parity``    the same spec at N = 2,000 on the card and on the CPU.
-6. ``profile``   (``--profile`` only) torch.profiler over a short run:
-                 device busy share and the kernels' device times.
+6. ``model_parity`` qwen3-4b's smoke() config in f32 on the card, on
+                 weights and a prompt made with numpy, through prefill
+                 and 8 greedy decode steps, against the JAX package's
+                 tokens and logits (the constants below).
+7. ``serve``     `repro_torch.serving.EdgeServingEngine` (ESFF, 2 slots)
+                 serves 12 requests from three full-width Qwen3-4B
+                 functions (SERVE_CATALOGUE); cold starts, executions
+                 and responses are measured on the card, and the
+                 serving kernels' launch counts, set to 0 just before
+                 the run, read just after. Then one warm instance per
+                 function splits prefill tok/s from decode ms/token.
+8. ``profile``   (``--profile`` only) torch.profiler over a short Fig. 5
+                 run (device busy share, the FRP kernel's device time)
+                 and over one served request of each function (busy
+                 share, the serving kernels' device time per launch).
 
 Then the card's name and power limit as nvidia-smi prints them, one
 ``kernels`` JSON line, and as the last line
@@ -42,6 +62,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -57,6 +78,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (it is n_requests + cold_starts: one arrival, one completion per
 # request, one cold-done per cold start).
 CAPACITIES = (8, 12, 16, 20, 24, 28, 32)
+N_REQUESTS = 30000
 EXPECTED = {
     60000: {
         "done": [60000] * 7, "overflow": [0] * 7, "stalled": [0] * 7,
@@ -101,9 +123,102 @@ TRACE_KW = dict(utilization=0.2, exec_median=0.1, exec_sigma=1.4,
 RTOL = 1e-9
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, f32 and f64 rates outside the
-# tensor cores
+# tensor cores, dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
+
+# The serving path: three Qwen3-4B functions at full width (36 layers,
+# d 2560, 32 heads, 8 kv heads, head_dim 128, d_ff 9728, bf16), random
+# weights seeded by the function's id; (name, prompt, new tokens,
+# max_len). ESFF on a 2-slot server, 12 requests over 5 s.
+SERVE_ARCH = "qwen3-4b"
+SERVE_CATALOGUE = (("chat", 512, 32, 1024), ("summarize", 2048, 8, 2560),
+                   ("classify", 256, 1, 512))
+SERVE_REQUESTS = dict(n=12, duration=5.0, seed=0)
+# The limit of each bf16 serving kernel against its plain version on
+# the card, elementwise |kernel - plain| <= atol + rtol * |plain|. Both
+# sides compute in f32 and round the output to bf16 once, so they may
+# differ by one bf16 ulp of the output (at most 2^-7 of it: rtol 1e-2)
+# plus what the order of the f32 sums adds (atol, far below the
+# outputs: ~0.03 for decode at length 2559, ~0.1-1 for the others):
+# - flash_attention: the tensor-core body also rounds each weight p to
+#   bf16 for the value product, a relative error of at most 2^-8 a
+#   weight; so its limit adds 2^-8 sum_j p_ij |v_j| / l_i to each
+#   element (``p_round``; the plain attention of |v|), which bounds
+#   that rounding's effect;
+# - decode_attention: f32 throughout, split over blocks (the ranges
+#   merged in f32);
+# - rmsnorm, rmsnorm_residual: one f32 sum of squares per row.
+# Every case also holds the kernel against a planted fault in the plain
+# version (FAULTS) and fails unless the limit rejects it, so a limit
+# that would let a wrong kernel through fails the run.
+KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
+                                      p_round=2.0 ** -8),
+              "decode_attention": dict(rtol=1e-2, atol=1e-3),
+              "rmsnorm": dict(rtol=1e-2, atol=1e-3),
+              "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3)}
+# the planted faults: attention without one tile of 64 kv positions (or,
+# with a single valid position, with one position too many); RMSNorm
+# with the last eighth of each row left out of the sum of squares
+FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
+          "decode_attention": "kv tile of 64 around length/2 dropped "
+                              "(length 0: position 1 attended too)",
+          "rmsnorm": "last D/8 of the row left out of the sum of squares",
+          "rmsnorm_residual": "last D/8 of the row left out of the sum "
+                              "of squares"}
+
+# the serving kernels in the `kernels` line: (name, the TPU kernel it
+# replaces, the kernel-phase case whose times the line carries: the
+# serving path's largest)
+SERVING_KERNELS = (
+    ("flash_attention", "flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:79", "causal S=2048"),
+    ("decode_attention", "decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:66", "T=2560 length=2559"),
+    ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34",
+     "(2048, 2560)"),
+    ("rmsnorm_residual", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:59",
+     "(2048, 2560)"),
+)
+
+# model_parity: qwen3-4b's smoke() config in f32, weights and prompt
+# from numpy (`parity_weights`, `parity_tokens`), greedy decoding. The
+# JAX package's result, computed on the CPU with (PYTHONPATH=src:.,
+# JAX_PLATFORMS=cpu; the same weights through its parameter tree):
+#   import jax, jax.numpy as jnp, numpy as np, chip_smoke as cs
+#   from repro.configs.registry import get_arch
+#   from repro.models import build_model
+#   cfg = get_arch("qwen3-4b").smoke(); m = build_model(cfg)
+#   abstract = m.init_abstract()[0]
+#   flat = {".".join(k.key for k in path): leaf.shape for path, leaf
+#           in jax.tree_util.tree_flatten_with_path(abstract)[0]}
+#   w = cs.parity_weights(np, flat)
+#   params = jax.tree_util.tree_map_with_path(lambda path, leaf:
+#       jnp.asarray(w[".".join(k.key for k in path)]), abstract)
+#   P = cs.PARITY; toks = cs.parity_tokens(np, cfg.vocab_size)
+#   cache = m.cache_spec(1, P["max_len"]).zeros()
+#   logits, cache = m.prefill(params, {"tokens": jnp.asarray(toks)}, cache)
+#   out = [int(jnp.argmax(logits[0, -1]))]
+#   for _ in range(P["steps"]):
+#       logits, cache = m.decode_step(params, jnp.asarray([[out[-1]]]),
+#                                     cache)
+#       out.append(int(jnp.argmax(logits[0, -1])))
+#   last = np.asarray(logits[0, -1], np.float64)
+#   tokens = out; head = last[:16].tolist()
+#   l2 = float(np.linalg.norm(last)); top5 = np.argsort(-last)[:5].tolist()
+# Held at rtol = atol = 2e-4 (tests/test_kernels.py's f32 TOL); tokens
+# exact.
+PARITY = dict(arch="qwen3-4b", seed=0, prompt_len=16, steps=8, max_len=32)
+PARITY_EXPECTED = dict(
+    tokens=[109, 109, 109, 109, 197, 109, 197, 499, 109],
+    head=[0.379649817943573, 0.20407500863075256, -1.714565634727478,
+          -0.757085382938385, -0.9032574892044067, 0.9934298396110535,
+          -0.32991284132003784, 0.024288363754749298, -1.0093311071395874,
+          0.5340211391448975, 0.8158217072486877, -0.031137609854340553,
+          -0.3577105402946472, -2.7966647148132324, 1.069676160812378,
+          0.5712822675704956],
+    l2=22.92498078263572, top5=[109, 499, 207, 417, 459])
+PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 class SmokeFailure(RuntimeError):
@@ -144,6 +259,24 @@ def time_ms(torch, fn, reps: int = 200, trials: int = 7) -> float:
         e1.synchronize()
         ts.append(e0.elapsed_time(e1) / reps)
     return sorted(ts)[len(ts) // 2]
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time of one call of ``fn``: the device time of every
+    kernel it launches over ``reps`` calls (torch.profiler), divided by
+    ``reps``; None when the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def bound_ms(n_bytes: int, n_ops: int, kind: str):
@@ -369,10 +502,383 @@ def phase_profile(torch, api, n_requests=300):
                                         -e.self_cpu_time_total)[:15]]))
 
 
+
+def phase_profile_serving(torch):
+    """Device busy share of one served request of each SERVE_CATALOGUE
+    function on a warm instance, and the serving kernels' device time
+    per launch at the path's own shapes, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import ServedFunction
+    from repro_torch.serving.instance import ModelInstance
+    cfg = get_arch(SERVE_ARCH)
+
+    def is_kernel(name, key):
+        # K4a and K4b are the rmsnorm_kernel instances ending in false
+        # and true (the RESIDUAL template argument); K2 has a CUDA-core
+        # and a tensor-core (flash_attention_mma_kernel) body; K3 adds
+        # a merging kernel when it splits the cache (its device time
+        # counts, its launches not: the wrapper launches once)
+        if name.startswith("rmsnorm"):
+            flag = "true>" if name == "rmsnorm_residual" else "false>"
+            return "rmsnorm_kernel<" in key and flag in key
+        if name == "decode_attention" and "::decode_combine_" in key:
+            return True
+        return f"::{name}_" in key
+
+    out = []
+    for i, (name, p, g, m) in enumerate(SERVE_CATALOGUE):
+        inst = ModelInstance(ServedFunction(i, cfg, prompt_len=p,
+                                            gen_tokens=g, max_len=m,
+                                            name=name))
+        inst.cold_start()
+        inst.execute(seed=1)            # warm-up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = inst.execute(seed=2)
+        inst.evict()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev_us = sum(e.self_device_time_total for e in rows)
+        kernels = {}
+        for k in ("flash_attention", "decode_attention", "rmsnorm",
+                  "rmsnorm_residual"):
+            hit = [e for e in rows if is_kernel(k, e.key)]
+            n = sum(e.count for e in hit
+                    if "::decode_combine_" not in e.key)
+            kernels[k] = dict(launches=n, device_us_per_launch=(
+                sum(e.self_device_time_total for e in hit) / n
+                if n else None))
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
+        out.append(dict(
+            function=name, prompt=p, gen_tokens=g, wall_s=wall,
+            device_busy_s=dev_us * 1e-6,
+            device_busy_share=dev_us * 1e-6 / wall,
+            device_ops=sum(e.count for e in rows), kernels=kernels,
+            top=[dict(name=e.key[:80], count=e.count,
+                      device_us=e.self_device_time_total) for e in top]))
+    emit(dict(phase="profile_serving", requests=out))
+
+# ----------------------------------------- phase 3b: the serving kernels
+def _tol_use(got, want, tol, abs_v=None):
+    """max |got - want| / limit, with the limit atol + rtol |want| (+
+    p_round * abs_v, the plain attention of |v|, where the kernel rounds
+    its weights): at most 1 within the limit."""
+    g, w = got.float(), want.float()
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    if "p_round" in tol:
+        lim = lim + tol["p_round"] * abs_v
+    return ((g - w).abs() / lim).max().item()
+
+
+def _close(torch, name, case, got, want, fault, abs_v=None):
+    """Hold ``got`` within KERNEL_TOL[name] of the plain version
+    ``want``, and make sure the same check fails for the planted fault
+    ``fault`` in its place. Returns the numbers the kernel row
+    carries."""
+    tol = KERNEL_TOL[name]
+    err = (got.float() - want.float()).abs().max().item()
+    need(bool(torch.isfinite(got.float()).all()),
+         f"{name} {case}: non-finite output")
+    use = _tol_use(got, want, tol, abs_v)
+    need(use <= 1.0, f"{name} {case}: max |kernel - plain| = {err} "
+         f"beyond {tol} ({use:.3g} of the limit)")
+    # the same check on a kernel whose output were the fault
+    caught = _tol_use(fault, want, tol, abs_v)
+    need(caught > 1.0, f"{name} {case}: the limit {tol} does not reject "
+         f"the planted fault ({FAULTS[name]}): {caught:.3g} of the limit")
+    return dict(max_abs_err=err, tol_use=use, fault_ratio=caught,
+                typical_abs=want.float().abs().mean().item())
+
+
+def attention_f32(torch, q, k, v, allowed):
+    """Softmax attention in f32 over the key positions ``allowed`` (an
+    (S, T) bool mask), GQA by repeating kv heads, the output in q's
+    dtype: the planted faults of the attention kernels."""
+    g = q.shape[2] // k.shape[2]
+    kf = k.repeat_interleave(g, dim=2).float()
+    vf = v.repeat_interleave(g, dim=2).float()
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kf) / math.sqrt(
+        q.shape[-1])
+    p = torch.softmax(s.masked_fill(~allowed, float("-inf")), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+def rmsnorm_fault(torch, s, w, eps, dtype):
+    """RMSNorm of the rows ``s`` (f32) with the last eighth of each row
+    left out of the sum of squares, cast to ``dtype`` (the planted fault
+    of K4a and K4b)."""
+    D = s.shape[-1]
+    var = s[..., :D - D // 8].square().sum(-1, keepdim=True) / D
+    return (s * torch.rsqrt(var + eps) * w.float()).to(dtype)
+
+
+def phase_serving_kernels(torch, FA, DA, RN):
+    """K2, K3, K4a and K4b against their plain versions on the card, at
+    the serving path's shapes (B = 1, H = 32, KVH = 8, D = 128, d 2560,
+    bf16), with the kernel's, the plain version's and one PyTorch
+    call's times (the yardstick; the port never calls it) and the
+    bound."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H, KVH, D, d = 32, 8, 128, 2560
+    timing = dict(reps=20, trials=5)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf16)
+
+    def row(kernel, case, check, call, plain, library, n_bytes, n_ops,
+            kind):
+        b, by = bound_ms(n_bytes, n_ops, kind)
+        return dict(kernel=kernel, case=case, **check,
+                    ms=time_ms(torch, call, **timing),
+                    plain_ms=time_ms(torch, plain, **timing),
+                    library_ms=(None if library is None
+                                else time_ms(torch, library, **timing)),
+                    device_ms=device_ms(torch, call),
+                    plain_device_ms=device_ms(torch, plain),
+                    library_device_ms=(None if library is None
+                                       else device_ms(torch, library)),
+                    bound_ms=b, bound_by=by, bytes=n_bytes, ops=n_ops)
+
+    rows = []
+    for S in (256, 512, 2048):
+        q, k, v = randn(1, S, H, D), randn(1, S, KVH, D), randn(1, S, KVH, D)
+        call = partial(FA.flash_attention, q, k, v, causal=True)
+        plain = partial(FA.flash_attention_plain, q, k, v, causal=True)
+        pos = torch.arange(S, device=dev)
+        allowed = (pos[:, None] >= pos[None, :]) & ~(
+            (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+        check = _close(torch, "flash_attention", f"S={S}", call(), plain(),
+                       attention_f32(torch, q, k, v, allowed),
+                       FA.flash_attention_plain(q.float(), k.float(),
+                                                v.float().abs()))
+        rows.append(row(
+            "flash_attention", f"causal S={S}", check, call, plain,
+            partial(F.scaled_dot_product_attention,
+                    *(x.transpose(1, 2) for x in (q, k, v)),
+                    is_causal=True, enable_gqa=True),
+            2 * (2 * S * H * D + 2 * S * KVH * D),
+            4 * H * D * S * (S + 1) // 2, "bf16"))
+    T = 2560
+    kc, vc = randn(1, T, KVH, D), randn(1, T, KVH, D)
+    q = randn(1, 1, H, D)
+    pos = torch.arange(T, device=dev)
+    for length in (0, 1000, T - 1):
+        n = length + 1
+        call = partial(DA.decode_attention, q, kc, vc, length)
+        plain = partial(DA.decode_attention_plain, q, kc, vc, length)
+        if length == 0:
+            allowed = pos <= 1
+        else:
+            t0 = length // 2 // 64 * 64
+            allowed = (pos <= length) & ~((pos >= t0) & (pos < t0 + 64))
+        check = _close(torch, "decode_attention", f"length={length}",
+                       call(), plain(),
+                       attention_f32(torch, q, kc, vc, allowed[None, :]))
+        rows.append(row(
+            "decode_attention", f"T={T} length={length}", check, call,
+            plain,
+            partial(F.scaled_dot_product_attention, q.transpose(1, 2),
+                    kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2),
+                    enable_gqa=True),
+            2 * (2 * H * D + 2 * n * KVH * D), 4 * H * D * n, "bf16"))
+    for R, Dn in ((2048, d), (2048 * H, D)):
+        x, w = randn(R, Dn), (1.0 + 0.1 * randn(Dn)).to(bf16)
+        call = partial(RN.rmsnorm, x, w, eps=1e-6)
+        plain = partial(RN.rmsnorm_plain, x, w, 1e-6)
+        check = _close(torch, "rmsnorm", f"({R}, {Dn})", call(), plain(),
+                       rmsnorm_fault(torch, x.float(), w, 1e-6, bf16))
+        rows.append(row(
+            "rmsnorm", f"({R}, {Dn})", check, call, plain,
+            partial(F.rms_norm, x, (Dn,), w, eps=1e-6),
+            2 * (2 * R * Dn + Dn), 4 * R * Dn, "f32"))
+    for R in (2048, 1):
+        x, r, w = randn(R, d), randn(R, d), (1.0 + 0.1 * randn(d)).to(bf16)
+        call = partial(RN.rmsnorm_residual, x, r, w, eps=1e-6)
+        plain = partial(RN.rmsnorm_residual_plain, x, r, w, 1e-6)
+        (kn, kr), (pn, pr) = call(), plain()
+        check = _close(torch, "rmsnorm_residual", f"({R}, {d})", kn, pn,
+                       rmsnorm_fault(torch, x.float() + r.float(), w, 1e-6,
+                                     bf16))
+        need(torch.equal(kr, pr), f"rmsnorm_residual ({R}, {d}): the "
+             "residual is not bitwise the plain version's")
+        rows.append(row(
+            "rmsnorm_residual", f"({R}, {d})", check, call, plain, None,
+            2 * (4 * R * d + d), 5 * R * d, "f32"))
+    emit(dict(phase="kernel", serving=rows))
+    return rows
+
+
+# -------------------------------------------------- phase 6: model_parity
+def parity_weights(np, shapes):
+    """Weights for the model_parity phase from numpy: {dotted name of a
+    leaf of the JAX parameter tree (= the port's state-dict name): f32
+    array}, drawn in sorted name order. Norm weights 1 + 0.1 N(0, 1),
+    everything else N(0, 1) / sqrt(fan-in)."""
+    r = np.random.default_rng(PARITY["seed"])
+    out = {}
+    for name in sorted(shapes):
+        shape = tuple(shapes[name])
+        z = r.standard_normal(shape)
+        if name.rsplit(".", 1)[-1] in ("final_norm", "norm1", "norm2",
+                                       "q_norm", "k_norm"):
+            out[name] = (1.0 + 0.1 * z).astype(np.float32)
+        else:
+            fan_in = shape[1] if name.startswith("blocks.") else shape[0]
+            out[name] = (z / math.sqrt(fan_in)).astype(np.float32)
+    return out
+
+
+def parity_tokens(np, vocab_size):
+    r = np.random.default_rng(PARITY["seed"] + 1)
+    return r.integers(0, vocab_size, (1, PARITY["prompt_len"]))
+
+
+def phase_model_parity(torch, np):
+    """The port's model on the card against the JAX package's own
+    output (PARITY_EXPECTED, computed on the CPU)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import from_jax_params
+    cfg = get_arch(PARITY["arch"]).smoke()
+    model = build_model(cfg)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model.load_state_dict(from_jax_params(cfg, parity_weights(np, shapes)))
+    toks = torch.tensor(parity_tokens(np, cfg.vocab_size), device="cuda")
+    cache = model.cache_spec(1, PARITY["max_len"]).zeros("cuda")
+    logits, cache = model.prefill({"tokens": toks}, cache)
+    out = [int(logits[0, -1].argmax())]
+    for _ in range(PARITY["steps"]):
+        tok = torch.tensor([[out[-1]]], device="cuda")
+        logits, cache = model.decode_step(tok, cache)
+        out.append(int(logits[0, -1].argmax()))
+    last = logits[0, -1].double().cpu().numpy()
+    exp = PARITY_EXPECTED
+    got = dict(tokens=out, head=last[:16].tolist(),
+               l2=float(np.linalg.norm(last)),
+               top5=np.argsort(-last)[:5].tolist())
+    head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
+    emit(dict(phase="model_parity", arch=PARITY["arch"] + " smoke f32",
+              tokens=out, expected_tokens=exp["tokens"],
+              head_max_abs_err=head_err, l2=got["l2"],
+              expected_l2=exp["l2"], top5=got["top5"],
+              expected_top5=exp["top5"]))
+    need(bool(np.isfinite(last).all()), "model_parity: non-finite logits")
+    need(out == exp["tokens"], f"model_parity: greedy tokens {out} != "
+         f"the JAX package's {exp['tokens']}")
+    need(got["top5"] == exp["top5"], "model_parity: top-5 logits differ")
+    need(np.allclose(last[:16], exp["head"], **PARITY_TOL)
+         and math.isclose(got["l2"], exp["l2"], rel_tol=PARITY_TOL["rtol"]),
+         f"model_parity: last-step logits beyond {PARITY_TOL} of the JAX "
+         f"package's (head err {head_err}, l2 {got['l2']} vs {exp['l2']})")
+
+
+# --------------------------------------------------------- phase 7: serve
+def phase_serve(torch, np, FA, DA, RN):
+    """`repro_torch.serving.EdgeServingEngine` with ESFF on 2 slots
+    serving the SERVE_CATALOGUE's Qwen3-4B functions at full width:
+    cold starts, executions and responses measured on the card, with
+    the serving kernels' launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serving import EdgeServingEngine, ServedFunction
+    from repro_torch.serving.instance import ModelInstance
+    cfg = get_arch(SERVE_ARCH)
+    fns = [ServedFunction(i, cfg, prompt_len=p, gen_tokens=g, max_len=m,
+                          name=name)
+           for i, (name, p, g, m) in enumerate(SERVE_CATALOGUE)]
+    eng = EdgeServingEngine(fns, capacity=2, policy="esff")
+    reqs = eng.make_requests(SERVE_REQUESTS["n"],
+                             duration=SERVE_REQUESTS["duration"],
+                             seed=SERVE_REQUESTS["seed"])
+    kernels = {"flash_attention": FA.flash_attention,
+               "decode_attention": DA.decode_attention,
+               "rmsnorm": RN.rmsnorm,
+               "rmsnorm_residual": RN.rmsnorm_residual}
+    torch.cuda.reset_peak_memory_stats()
+    # set-up: one throwaway instance a function measures its cold start
+    # and execution (the engine's FunctionProfile)
+    t0 = time.perf_counter()
+    profiles = {i: (p.cold_start, p.true_mean_exec)
+                for i, p in eng.warm_profile().items()}
+    profile_s = time.perf_counter() - t0
+    for f in kernels.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fn_of = np.array([r.fn_id for r in reqs])
+    per_fn = []
+    for fn in fns:
+        ex = res.exec_times[fn_of == fn.fn_id]   # reqs are in order
+        per_fn.append(dict(name=fn.name, prompt=fn.prompt_len,
+                           gen_tokens=fn.gen_tokens, max_len=fn.max_len,
+                           requests=int((fn_of == fn.fn_id).sum()),
+                           profiled_cold_s=profiles[fn.fn_id][0],
+                           profiled_exec_s=profiles[fn.fn_id][1],
+                           exec_s_mean=float(ex.mean()) if len(ex) else None))
+    # prefill / decode split and the output's shape, one warm instance
+    # per function
+    for fn, row in zip(fns, per_fn):
+        inst = ModelInstance(fn)
+        row["cold_s"] = inst.cold_start()
+        model, batch = inst.model, inst._dummy_batch(1)
+        pre, dec = [], []
+        for _ in range(3):
+            cache = model.cache_spec(1, fn.max_len).zeros("cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = model.prefill(batch, cache)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tok = logits[:, -1].argmax(-1)[:, None]
+            steps = max(fn.gen_tokens, 8)
+            for _ in range(steps):
+                logits, cache = model.decode_step(tok, cache)
+                tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            pre.append(t2 - t1)
+            dec.append((time.perf_counter() - t2) / steps)
+        need(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+             and bool(torch.isfinite(logits).all()),
+             f"serve {fn.name}: logits {tuple(logits.shape)} not finite "
+             "or of the wrong shape")
+        row["prefill_s"] = sorted(pre)[1]
+        row["prefill_tok_per_s"] = fn.prompt_len / row["prefill_s"]
+        row["decode_ms_per_token"] = 1e3 * sorted(dec)[1]
+        inst.evict()
+    emit(dict(phase="serve", arch=SERVE_ARCH, policy="esff", capacity=2,
+              n_requests=len(reqs), profile_s=profile_s, wall_s=wall,
+              mean_response=res.mean_response,
+              max_response=float(res.responses.max()),
+              p95_response=res.percentile(95),
+              cold_starts=res.server.cold_starts,
+              evictions=res.server.evictions,
+              cold_time=res.server.cold_time, peak_mem_gb=peak_gb,
+              launches=launches, functions=per_fn))
+    need(len(res.responses) == len(reqs), "serve: not every request done")
+    need(bool(np.isfinite(res.responses).all()
+              and (res.responses > 0).all()), "serve: bad response times")
+    need(res.server.cold_starts >= 1 and res.server.evictions >= 1,
+         "serve: no cold start or no eviction")
+    for k, n in launches.items():
+        need(n > 0, f"serve: {k} was never launched")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n-requests", type=int, default=30000,
-                    help="main path trace length (the paper's is 60000)")
+    ap.add_argument("--n-requests", type=int, default=N_REQUESTS,
+                    help="Fig. 5 trace length (the paper's is 60000)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler phase")
     args = ap.parse_args(argv)
@@ -384,7 +890,10 @@ def main(argv=None) -> int:
 
         from repro_torch import api
         from repro_torch.kernels import _build
+        from repro_torch.kernels import decode_attention as DA
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import frp_select as fs
+        from repro_torch.kernels import rmsnorm as RN
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -393,23 +902,38 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 3
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     try:
         smi = smi_line()
         kind = torch.cuda.get_device_name(0)
         emit(dict(phase="device", name=kind, nvidia_smi=smi,
                   count=torch.cuda.device_count(),
                   torch=torch.__version__, cuda=torch.version.cuda))
-        t0 = time.perf_counter()
-        _build.build()
-        emit(dict(phase="build", seconds=time.perf_counter() - t0,
+        timed("build", _build.build)
+        emit(dict(phase="build", seconds=phase_s["build"],
                   sources=list(_build.SOURCES),
+                  per_source_s={k: v["seconds"] for k, v in
+                                _build.BUILD_INFO.items()},
                   ptxas={k: v["ptxas"] for k, v in
                          _build.BUILD_INFO.items()}))
-        kres = phase_kernel(torch, np, fs)
-        launches = phase_main_path(torch, api, fs, args.n_requests)
-        phase_parity(np, api)
+        kres = timed("kernel", phase_kernel, torch, np, fs)
+        srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
+                      DA, RN)
+        launches = timed("main_path", phase_main_path, torch, api, fs,
+                         args.n_requests)
+        timed("parity", phase_parity, np, api)
+        timed("model_parity", phase_model_parity, torch, np)
+        launches.update(timed("serve", phase_serve, torch, np, FA, DA, RN))
         if args.profile:
-            phase_profile(torch, api)
+            timed("profile", phase_profile, torch, api)
+            timed("profile_serving", phase_profile_serving, torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -421,8 +945,24 @@ def main(argv=None) -> int:
         launches=launches["frp_select"], max_abs_err=lanes["max_abs_err"],
         ms=lanes["ms"], plain_ms=lanes["plain_ms"],
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
-        library_ms=None, check="passed")]
-    emit(dict(phase="done", total_s=time.perf_counter() - t_start))
+        library_ms=None, check="passed", at="(7, 200) f64 lanes")]
+    for name, source, replaces, at in SERVING_KERNELS:
+        mine = [r for r in srows if r["kernel"] == name]
+        rep = next(r for r in mine if r["case"] == at)
+        kernels.append(dict(
+            name=name, entry=name, route="cuda",
+            source=f"src/repro_torch/csrc/{source}",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=rep["ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"], device_ms=rep["device_ms"],
+            tol=KERNEL_TOL[name],
+            tol_use=max(r["tol_use"] for r in mine),
+            fault_ratio_min=min(r["fault_ratio"] for r in mine),
+            check="passed", at=at))
+    emit(dict(phase="done", total_s=time.perf_counter() - t_start,
+              phase_s=phase_s))
     print(smi, flush=True)
     emit(dict(kernels=kernels))
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,

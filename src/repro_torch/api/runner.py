@@ -18,8 +18,8 @@ import torch
 from repro_torch.api.registry import get_kernel
 from repro_torch.api.results import ResultSet
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.core.engine import (lane_chunk_for, resolve_device,
-                                     sweep_metrics)
+from repro_torch.core.engine import lane_chunk_for, sweep_metrics
+from repro_torch.utils.device import resolve_device
 
 _BETA_DEFAULT = "default"
 

@@ -1,0 +1,20 @@
+"""InternLM2-20B [arXiv:2403.17297; hf]: 48L, d=6144, 48 heads (GQA kv=8),
+d_ff=16384, vocab=92544, SwiGLU + RMSNorm + RoPE."""
+from repro_torch.configs.registry import ARCHS
+from repro_torch.models.config import ModelConfig
+
+
+@ARCHS.register("internlm2-20b")
+def internlm2_20b() -> ModelConfig:
+    return ModelConfig(
+        name="internlm2-20b",
+        family="dense",
+        n_layers=48,
+        d_model=6144,
+        n_heads=48,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=16384,
+        vocab_size=92544,
+        rope_theta=1e6,
+    )

@@ -1,0 +1,46 @@
+"""Architecture registry of the port (counterpart of
+`repro.configs.registry`).
+
+The port's model runs the dense family, so ``ARCHS`` holds the JAX
+package's four dense configs, copied field for field: qwen3-4b and
+qwen3-14b (qk-norm), qwen1.5-4b (qkv bias) and internlm2-20b. Every
+other name the JAX package registers raises NotImplementedError naming
+the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.utils.registry import Registry
+
+ARCHS = Registry("architectures")
+
+_ARCH_MODULES = ["internlm2_20b", "qwen3_14b", "qwen1_5_4b", "qwen3_4b"]
+
+# names of the JAX package's registry that the port does not build yet
+NOT_PORTED = {
+    "mamba2-780m": "ROADMAP Queue 2, K5 (the Mamba2/Zamba2 slice)",
+    "zamba2-2.7b": "ROADMAP Queue 2, K5 (the Mamba2/Zamba2 slice)",
+    "deepseek-v3-671b": "ROADMAP Queue 1, item 11 (MoE and MLA)",
+    "deepseek-moe-16b": "ROADMAP Queue 1, item 11 (MoE)",
+    "whisper-tiny": "ROADMAP Queue 1, item 11 (encoder-decoder)",
+    "internvl2-76b": "ROADMAP Queue 1, item 11 (VLM)",
+    "paper_edge": "ROADMAP Queue 1, item 11 (scenario configs)",
+}
+
+
+def _load_all() -> None:
+    for m in _ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{m}")
+
+
+def get_arch(name: str) -> ModelConfig:
+    """The config registered under ``name``. NotImplementedError for an
+    architecture of the JAX package not ported yet, KeyError (listing
+    what exists) for an unknown name."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: {NOT_PORTED[name]}")
+    _load_all()
+    return ARCHS[name]()

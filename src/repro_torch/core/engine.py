@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.request import Trace
+from repro_torch.utils.device import resolve_device
 
 BIG = 1e30
 COLD, IDLE, BUSY = 0, 1, 2
@@ -82,20 +83,6 @@ _NOT_PORTED = {
     "n_live": "ragged n_live prefixes (ROADMAP Queue 1, item 4)",
     "deadlines": "deadline accounting (ROADMAP Queue 1, item 4)",
 }
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device to run on: CUDA unless the caller asks for the CPU.
-    Raises when CUDA is asked for (or implied) and no card is present;
-    it never falls back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run "
-            "the engine on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _reject_unported(**opts) -> None:

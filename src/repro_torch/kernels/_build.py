@@ -4,13 +4,18 @@ ctypes).
 Each ``csrc/<name>.cu`` exports a plain C interface and compiles on its
 own into ``build/kernels/lib<name>-<digest>.so`` under the repository
 root (listed in ``.gitignore``), at first use. The digest covers the
-source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Building needs ``nvcc`` (on ``PATH`` or under
-``$CUDA_HOME``/``/usr/local/cuda``); there is no fallback when it is
-missing or fails: the caller gets the compiler's error.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and a stale library is never loaded. Building needs
+``nvcc`` (on ``PATH`` or under ``$CUDA_HOME``/``/usr/local/cuda``);
+there is no fallback when it is missing or fails: the caller gets the
+compiler's error.
 
 `build` starts one ``nvcc`` per source, all at once, and waits for all
 of them, so the build time of several kernels is that of the slowest.
+
+The helpers at the end are what every kernel wrapper shares: the
+ctypes binding of an entry, the checks on its tensors, the launch's
+error code and the stream.
 """
 from __future__ import annotations
 
@@ -23,12 +28,22 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler",
-              "-fPIC", "-Xptxas", "-v")
-SOURCES = ("frp_select",)
+COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+                "-v")
+# per source, on top of COMMON_FLAGS: the f64 engine body of
+# frp_select must be bitwise the reference, so no multiply-add is
+# contracted there; the attention and norm kernels hold a tolerance
+EXTRA_FLAGS = {"frp_select": ("--fmad=false",)}
+SOURCES = ("frp_select", "rmsnorm", "decode_attention", "flash_attention")
+
+
+def nvcc_flags(name: str) -> tuple:
+    return COMMON_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: seconds the build took (0.0 when an existing library was
@@ -50,8 +65,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    # the source, every shared header it may include, and the flags
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -72,7 +89,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     procs = {}
     for n in todo:
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *nvcc_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
@@ -96,3 +113,53 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build((name,))[name]))
         _LIBS[name] = lib
     return lib
+
+
+# ----------------------------------------------- shared by the wrappers
+PTR = ctypes.c_void_p
+# the dtype codes of the attention and norm entries
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def c_entry(source: str, symbol: str, argtypes):
+    """``symbol`` of ``csrc/<source>.cu`` (built on first use) with its
+    argument types set; every entry returns a cudaError_t as int."""
+    f = getattr(load_library(source), symbol)
+    if f.argtypes is None:
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    return f
+
+
+def check_tensor(name: str, x, dtypes, device, ndim: int = None) -> None:
+    """Raise unless ``x`` is a contiguous tensor on ``device`` with a
+    dtype in ``dtypes`` (and ``ndim`` dimensions, when given)."""
+    import torch
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got "
+                        f"{type(x).__name__}")
+    if x.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {x.dtype}, kernel takes "
+                        f"{' or '.join(str(d) for d in dtypes)}")
+    if ndim is not None and x.dim() != ndim:
+        raise ValueError(f"{name}: {x.dim()} dimensions, expected {ndim}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, other inputs on "
+                         f"{device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def launch_check(rc: int, symbol: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{symbol}: launch failed with CUDA error {rc}")
+
+
+def require_cuda(name: str, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: device {device} is neither cpu nor "
+                         "cuda")
+
+
+def stream_of(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

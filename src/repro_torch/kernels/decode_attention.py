@@ -1,0 +1,130 @@
+"""Single-token GQA attention over a KV cache (K3): the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Port of the TPU kernel `repro.kernels.decode_attention.decode_attention`
+(Pallas): one new query position per sequence attends the positions
+``<= length`` of a (B, T, KVH, D) cache; the G = H / KVH query heads of
+a kv head share one pass over it; f32 products and softmax, the output
+in q's dtype. The kernel cuts the attended positions into ranges
+(`split_plan`), one block each, and merges them in a second pass.
+``length`` is a host ``int`` (the model keeps the cache's length as a
+Python int), so a decode loop never reads the device. The kernel is
+``csrc/decode_attention.cu``; see its header for the bound and the
+design.
+
+The wrapper checks device, dtype, shape and contiguity and raises on
+anything the kernel does not take. A CPU tensor goes to the plain
+version (counted in ``plain_calls``); a CUDA tensor launches the kernel
+(counted in ``launches``) or raises. There is no fallback from a failed
+build or launch to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPES = tuple(_build.DTYPE_CODE)
+# a block of the kernel takes at least MIN_SPLIT positions, in whole
+# multiples of SPLIT_ALIGN
+MIN_SPLIT = 64
+SPLIT_ALIGN = 16
+_P = _build.PTR
+_I = ctypes.c_int
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _P]
+
+
+def split_plan(n_valid: int, n_heads_kv: int, n_sms: int):
+    """(per_split, n_splits): how the kernel cuts the ``n_valid``
+    attended positions into contiguous ranges, one block each per kv
+    head (``n_heads_kv`` = B * KVH). Enough ranges for about two blocks
+    per SM, none shorter than MIN_SPLIT positions and none empty."""
+    want = -(-2 * n_sms // n_heads_kv)
+    n_splits = max(1, min(want, n_valid // MIN_SPLIT))
+    per = -(-n_valid // n_splits)
+    per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+    return per, -(-n_valid // per)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_attention_plain(q, k_cache, v_cache, length: int, *,
+                           scale=None):
+    """Plain version (`repro.kernels.ref.decode_attention_ref`, with the
+    kernel's ``* scale``). Like the kernel it reads only the positions
+    ``<= length``, so whatever lies past them cannot leak in."""
+    B, _, H, D = q.shape
+    KVH = k_cache.shape[2]
+    n = length + 1
+    g = H // KVH
+    scale = scale or 1.0 / math.sqrt(D)
+    kf = k_cache[:, :n].repeat_interleave(g, dim=2).to(torch.float32)
+    vf = v_cache[:, :n].repeat_interleave(g, dim=2).to(torch.float32)
+    s = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), kf) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
+    """q (B, 1, H, D); caches (B, T, KVH, D); ``length`` a Python int
+    >= 0 (positions ``<= length`` are attended). Returns (B, 1, H, D).
+    H % KVH == 0, D in HEAD_DIMS; f32 or bf16, one dtype for all."""
+    name = "decode_attention"
+    dev = q.device
+    _build.check_tensor(f"{name}: q", q, DTYPES, dev, ndim=4)
+    for nm, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        _build.check_tensor(f"{name}: {nm}", x, (q.dtype,), dev, ndim=4)
+    B, S1, H, D = q.shape
+    T, KVH = k_cache.shape[1], k_cache.shape[2]
+    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[3] != D or S1 != 1):
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be (B, 1, H, D) "
+                         f"and both caches (B, T, KVH, D), got "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if min(B, T, KVH) < 1 or H % KVH != 0:
+        raise ValueError(f"{name}: need B, T >= 1 and H ({H}) a multiple "
+                         f"of KVH ({KVH})")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D}, kernel takes D in "
+                         f"{HEAD_DIMS}")
+    if isinstance(length, bool) or not isinstance(length, int) \
+            or length < 0:
+        raise TypeError(f"{name}: length must be a Python int >= 0, got "
+                        f"{length!r}")
+    scale = scale or 1.0 / math.sqrt(D)
+    if dev.type == "cpu":
+        decode_attention.plain_calls += 1
+        return decode_attention_plain(q, k_cache, v_cache, length,
+                                      scale=scale)
+    fn = _build.c_entry("decode_attention", "decode_attention", _ARGTYPES)
+    _build.require_cuda(name, dev)
+    if any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
+        raise ValueError(f"{name}: the kernel reads 16-byte vectors; q and "
+                         "the caches must start on a 16-byte boundary")
+    n_valid = min(length + 1, T)
+    per, n_splits = split_plan(n_valid, B * KVH, _sm_count(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+    out = torch.empty_like(q)
+    ws = (torch.empty(n_splits * B * H * (D + 2), dtype=torch.float32,
+                      device=dev) if n_splits > 1 else None)
+    rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), B, T, KVH, H // KVH, D,
+            n_valid - 1, per, n_splits, float(scale),
+            _build.stream_of(dev))
+    _build.launch_check(rc, name)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+decode_attention.plain_calls = 0

@@ -26,7 +26,7 @@ from repro_torch.kernels import _build
 
 BIG = 1e30
 
-_P = ctypes.c_void_p
+_P = _build.PTR
 _ARGTYPES = {
     "frp_select_f32": [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
                        ctypes.c_int, _P, _P, _P],
@@ -36,37 +36,14 @@ _ARGTYPES = {
 
 
 def _fn(symbol: str):
-    lib = _build.load_library("frp_select")
-    f = getattr(lib, symbol)
-    if f.argtypes is None:
-        f.argtypes = _ARGTYPES[symbol]
-        f.restype = ctypes.c_int
-    return f
+    return _build.c_entry("frp_select", symbol, _ARGTYPES[symbol])
 
 
 def _check(name, x, dtype, shape, device):
-    if not isinstance(x, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got "
-                        f"{type(x).__name__}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: dtype {x.dtype}, kernel takes {dtype}")
+    _build.check_tensor(name, x, (dtype,), device)
     if tuple(x.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected "
                          f"{shape}")
-    if x.device != device:
-        raise ValueError(f"{name}: on {x.device}, other inputs on "
-                         f"{device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _launch_check(rc: int, symbol: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{symbol}: launch failed with CUDA error {rc}")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ------------------------------------------------------------ f32 contract
@@ -105,15 +82,13 @@ def frp_select(t_e, t_l, t_v, n_w, K, tv_j: float, self_idx: int):
         frp_select.plain_calls += 1
         return frp_select_plain(t_e, t_l, t_v, n_w, K, tv_j, self_idx)
     fn = _fn("frp_select_f32")
-    if dev.type != "cuda":
-        raise ValueError(f"frp_select: device {dev} is neither cpu nor "
-                         "cuda")
+    _build.require_cuda("frp_select", dev)
     best_w = torch.empty((1,), dtype=torch.float32, device=dev)
     best_i = torch.empty((1,), dtype=torch.int32, device=dev)
     rc = fn(t_e.data_ptr(), t_l.data_ptr(), t_v.data_ptr(),
             n_w.data_ptr(), K.data_ptr(), float(tv_j), int(self_idx), F,
-            best_w.data_ptr(), best_i.data_ptr(), _stream(dev))
-    _launch_check(rc, "frp_select_f32")
+            best_w.data_ptr(), best_i.data_ptr(), _build.stream_of(dev))
+    _build.launch_check(rc, "frp_select_f32")
     frp_select.launches += 1
     return best_w[0], best_i[0]
 
@@ -168,16 +143,14 @@ def frp_select_lanes(means, t_cold, t_evict, nw, K, tv_j, self_idx, beta):
         return frp_select_lanes_plain(means, t_cold, t_evict, nw, K, tv_j,
                                       self_idx, beta)
     fn = _fn("frp_select_lanes_f64")
-    if dev.type != "cuda":
-        raise ValueError(f"frp_select_lanes: device {dev} is neither cpu "
-                         "nor cuda")
+    _build.require_cuda("frp_select_lanes", dev)
     best_w = torch.empty((L,), dtype=f64, device=dev)
     best_i = torch.empty((L,), dtype=i32, device=dev)
     rc = fn(means.data_ptr(), t_cold.data_ptr(), t_evict.data_ptr(),
             nw.data_ptr(), K.data_ptr(), tv_j.data_ptr(),
             self_idx.data_ptr(), beta.data_ptr(), L, F, best_w.data_ptr(),
-            best_i.data_ptr(), _stream(dev))
-    _launch_check(rc, "frp_select_lanes_f64")
+            best_i.data_ptr(), _build.stream_of(dev))
+    _build.launch_check(rc, "frp_select_lanes_f64")
     frp_select_lanes.launches += 1
     return best_w, best_i
 

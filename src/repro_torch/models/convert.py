@@ -1,0 +1,39 @@
+"""Carry a JAX parameter tree across to the port.
+
+`from_jax_params` turns the tree of `repro.models.Model.init` (nested
+dicts whose leaves are numpy arrays, or anything ``np.asarray`` takes;
+the ``blocks`` leaves stacked on a leading layer axis) into the state
+dict of `repro_torch.models.Model`: the module tree mirrors the JAX
+tree, so a leaf's path joined by dots is its parameter's name and its
+layout is the same. Load it with ``model.load_state_dict(...)`` (strict:
+a missing or extra leaf raises), and both packages compute the same
+function.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def from_jax_params(cfg, tree) -> Dict[str, torch.Tensor]:
+    """State dict (CPU tensors in ``cfg.pdtype``) of the JAX tree."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: only 'dense' is ported (ROADMAP "
+            "Queue 1, item 11)")
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(prefix + (k,), v)
+            return
+        # via f32: numpy has no bf16 of its own, and bf16 -> f32 -> bf16
+        # is exact
+        arr = np.asarray(node, dtype=np.float32)
+        out[".".join(prefix)] = torch.tensor(arr).to(cfg.pdtype)
+
+    walk((), tree)
+    return out

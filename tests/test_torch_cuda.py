@@ -1,7 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain
-PyTorch version, and the engine on the card against the engine on the
-CPU. Every test skips without a CUDA device (a CUDA kernel has no CPU
-mode). The file imports no JAX, so it runs on a machine without it
+PyTorch version, and the engine and the model on the card against
+themselves on the CPU. Every test skips without a CUDA device (a CUDA
+kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
 (``--noconftest`` skips tests/conftest.py, which imports JAX):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
@@ -10,8 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.core import engine as E
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
+from repro_torch.kernels import rmsnorm as RN
+from repro_torch.models import build_model
 from repro_torch.traces import synth_azure_arrays
 
 COLS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
@@ -76,3 +81,137 @@ def test_engine_on_card_matches_cpu(cuda):
     assert fs.frp_select_lanes.launches > launches
     for k, v in cpu.items():
         assert torch.equal(card[k].cpu(), v), k
+
+
+# ------------------------------------------- the serving path's kernels
+def _bf16_or_f32(shape, dtype, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=device).to(dtype)
+
+
+# f32: tests/test_kernels.py's TOL. bf16: chip_smoke.py's per-kernel
+# limits (KERNEL_TOL): both sides round the output to bf16 once, so one
+# ulp of it (rtol 1e-2) plus the f32 sums' order (atol); flash
+# attention's tensor-core body also rounds its weights p to bf16, and
+# its limit adds 2^-8 of the plain attention of |v|, which bounds that.
+F32_TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_TOL = dict(rtol=1e-2, atol=1e-3)
+P_ROUND = 2.0 ** -8
+
+
+def _assert_within(got, want, dtype, abs_v=None):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+        return
+    g, w = got.float(), want.float()
+    lim = BF16_TOL["atol"] + BF16_TOL["rtol"] * w.abs()
+    if abs_v is not None:
+        lim = lim + P_ROUND * abs_v
+    use = ((g - w).abs() / lim).max().item()
+    assert use <= 1.0, (f"max |kernel - plain| = {(g - w).abs().max()} "
+                        f"is {use:.3g} of the limit")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,KVH,D,causal,dtype", [
+    (128, 128, 4, 4, 64, True, torch.float32),
+    (100, 180, 4, 2, 64, False, torch.float32),
+    (100, 180, 4, 2, 32, True, torch.float32),
+    (33, 33, 2, 1, 16, True, torch.float32),
+    (256, 256, 8, 2, 128, True, torch.bfloat16),  # the tensor-core path
+    (512, 512, 32, 8, 128, True, torch.bfloat16),
+    (100, 180, 4, 2, 64, False, torch.bfloat16),  # ragged S and T
+    (33, 33, 2, 1, 16, True, torch.bfloat16),
+])
+def test_flash_attention_kernel_matches_plain(cuda, S, T, H, KVH, D,
+                                              causal, dtype):
+    q = _bf16_or_f32((2, S, H, D), dtype, 0, cuda)
+    k = _bf16_or_f32((2, T, KVH, D), dtype, 1, cuda)
+    v = _bf16_or_f32((2, T, KVH, D), dtype, 2, cuda)
+    launches = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    abs_v = FA.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == launches + 1
+    _assert_within(got, want, dtype, abs_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,KVH,D,length,dtype", [
+    (512, 8, 2, 64, 200, torch.float32),
+    (300, 4, 1, 64, 0, torch.float32),
+    (64, 4, 2, 32, 100, torch.float32),
+    (512, 8, 8, 128, 511, torch.bfloat16),
+    (2560, 32, 8, 128, 1000, torch.bfloat16),
+    (2560, 32, 8, 128, 2559, torch.bfloat16),   # split over 32 blocks
+    (4096, 40, 8, 128, 3000, torch.bfloat16),   # G = 5
+    (1000, 20, 20, 128, 999, torch.bfloat16),   # G = 1
+    (700, 4, 2, 256, 650, torch.float32),
+    (200, 4, 2, 16, 150, torch.bfloat16),
+])
+def test_decode_attention_kernel_matches_plain(cuda, T, H, KVH, D, length,
+                                               dtype):
+    q = _bf16_or_f32((2, 1, H, D), dtype, 0, cuda)
+    k = _bf16_or_f32((2, T, KVH, D), dtype, 1, cuda)
+    v = _bf16_or_f32((2, T, KVH, D), dtype, 2, cuda)
+    launches = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == launches + 1
+    _assert_within(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,wdtype", [
+    ((4, 128, 512), torch.float32, torch.float32),
+    ((2, 300, 384), torch.bfloat16, torch.float32),
+    ((2048, 2560), torch.bfloat16, torch.bfloat16),
+    ((4096, 128), torch.bfloat16, torch.bfloat16),
+    ((3, 8192), torch.float32, torch.bfloat16),
+])
+def test_rmsnorm_kernels_match_plain(cuda, shape, dtype, wdtype):
+    x = _bf16_or_f32(shape, dtype, 0, cuda)
+    r = _bf16_or_f32(shape, dtype, 1, cuda)
+    w = (1.0 + 0.1 * _bf16_or_f32(shape[-1:], torch.float32, 2,
+                                  cuda)).to(wdtype)
+    n0, n1 = RN.rmsnorm.launches, RN.rmsnorm_residual.launches
+    got = RN.rmsnorm(x, w)
+    got_n, got_r = RN.rmsnorm_residual(x, r, w)
+    want = RN.rmsnorm_plain(x, w)
+    want_n, want_r = RN.rmsnorm_residual_plain(x, r, w)
+    torch.cuda.synchronize()
+    assert (RN.rmsnorm.launches, RN.rmsnorm_residual.launches) == (
+        n0 + 1, n1 + 1)
+    _assert_within(got, want, dtype)
+    _assert_within(got_n, want_n, dtype)
+    assert torch.equal(got_r, want_r)
+
+
+@pytest.mark.cuda
+def test_model_on_card_matches_cpu(cuda):
+    """The smoke-size model through the kernels on the card against the
+    same weights through the plain versions on the CPU (f32)."""
+    cfg = get_arch("qwen3-4b").smoke()
+    cpu = build_model(cfg, "cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    card = build_model(cfg, cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)))
+    launches = FA.flash_attention.launches, DA.decode_attention.launches
+    outs = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        cache = m.cache_spec(2, 32).zeros(dev)
+        lg, cache = m.prefill({"tokens": toks.to(dev)}, cache)
+        steps = [lg]
+        for i in range(3):
+            lg, cache = m.decode_step(toks[:, i:i + 1].to(dev), cache)
+            steps.append(lg)
+        outs.append([s.cpu() for s in steps])
+    assert FA.flash_attention.launches > launches[0]
+    assert DA.decode_attention.launches > launches[1]
+    for a, b in zip(*outs):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)

@@ -11,7 +11,10 @@ import torch
 
 import repro_torch.api as tapi
 from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
+from repro_torch.kernels import rmsnorm as RN
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
@@ -37,7 +40,7 @@ def test_import_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 12   # every submodule was imported
+    assert n_modules >= 46   # every submodule was imported
 
 
 def test_run_experiment_without_cuda_raises(monkeypatch):
@@ -105,9 +108,49 @@ def test_wrapper_raises_without_library_instead_of_falling_back(
             fs.frp_select_lanes.launches) == before
 
 
+def _meta(*shape, dtype=torch.float32):
+    return torch.ones(*shape, dtype=dtype, device="meta")
+
+
+NEW_WRAPPERS = {
+    "flash_attention": (FA.flash_attention, lambda: FA.flash_attention(
+        _meta(1, 8, 4, 32), _meta(1, 8, 2, 32), _meta(1, 8, 2, 32))),
+    "decode_attention": (DA.decode_attention, lambda: DA.decode_attention(
+        _meta(1, 1, 4, 32), _meta(1, 8, 2, 32), _meta(1, 8, 2, 32), 3)),
+    "rmsnorm": (RN.rmsnorm, lambda: RN.rmsnorm(_meta(4, 32),
+                                               _meta(32))),
+    "rmsnorm_residual": (RN.rmsnorm_residual, lambda: RN.rmsnorm_residual(
+        _meta(4, 32, dtype=torch.bfloat16),
+        _meta(4, 32, dtype=torch.bfloat16), _meta(32))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_WRAPPERS))
+def test_new_wrappers_raise_without_library_instead_of_falling_back(
+        no_library, name):
+    wrapper, call = NEW_WRAPPERS[name]
+    before = (wrapper.plain_calls, wrapper.launches)
+    with pytest.raises(RuntimeError, match="no library"):
+        call()
+    assert (wrapper.plain_calls, wrapper.launches) == before
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
+    assert set(_build.SOURCES) == {"frp_select", "rmsnorm",
+                                   "decode_attention", "flash_attention"}
+    for name in _build.SOURCES:
+        assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
+    # only the f64 engine body needs contraction off (bitwise parity)
+    assert "--fmad=false" in _build.nvcc_flags("frp_select")
+    assert "--fmad=false" not in _build.nvcc_flags("flash_attention")
+    a = _build._lib_path("rmsnorm")
+    monkeypatch.setitem(_build.EXTRA_FLAGS, "rmsnorm", ("--fmad=false",))
+    assert _build._lib_path("rmsnorm") != a   # flags change the key
