@@ -20,7 +20,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  events, back to back, and the device time from
                  torch.profiler) for the kernel, the plain version, one
                  PyTorch call computing the same (a yardstick the port
-                 never calls) and the bound.
+                 never calls) and the bound. K2 and K3 also at head_dim
+                 80 (Zamba2-2.7B's shared block, MHA). K5 (ssd_chunk)
+                 in f32 at Mamba2-780M's (S = 2048) and Zamba2-2.7B's
+                 (S = 1024) full-width shapes, a ragged S = 2000, x in
+                 bf16 and f32, g = 8, within its own limit, each case
+                 with two planted faults.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
                  grid (F = 200 functions, Azure-like requests, ESFF,
                  C = 8..32: seven lanes), with the kernels' launch
@@ -31,10 +36,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  default): the eager event loop is launch-bound, and
                  60,000 would take most of the run's time limit.
 5. ``parity``    the same spec at N = 2,000 on the card and on the CPU.
-6. ``model_parity`` qwen3-4b's smoke() config in f32 on the card, on
-                 weights and a prompt made with numpy, through prefill
-                 and 8 greedy decode steps, against the JAX package's
-                 tokens and logits (the constants below).
+6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
+                 zamba2-2.7b in f32 on the card, on weights and a prompt
+                 made with numpy, through prefill and 8 greedy decode
+                 steps, against the JAX package's tokens and logits (the
+                 constants below).
 7. ``serve``     `repro_torch.serving.EdgeServingEngine` (ESFF, 2 slots)
                  serves 12 requests from three full-width Qwen3-4B
                  functions (SERVE_CATALOGUE); cold starts, executions
@@ -42,10 +48,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  serving kernels' launch counts, set to 0 just before
                  the run, read just after. Then one warm instance per
                  function splits prefill tok/s from decode ms/token.
-8. ``profile``   (``--profile`` only) torch.profiler over a short Fig. 5
+8. ``serve_ssm`` the same engine, 2 slots and 12 requests over three
+                 full-width functions of the ssm and hybrid families
+                 (SERVE_SSM_CATALOGUE: Mamba2-780M chat and summarize,
+                 Zamba2-2.7B chat); K5 must launch exactly once a layer
+                 a prefill of the run, K2 and K3 (head_dim 80) once a
+                 shared-block application.
+9. ``profile``   (``--profile`` only) torch.profiler over a short Fig. 5
                  run (device busy share, the FRP kernel's device time)
-                 and over one served request of each function (busy
-                 share, the serving kernels' device time per launch).
+                 and over one served request of each function of both
+                 serving phases (busy share, the serving kernels'
+                 device time per launch, K5's among them).
 
 Then the card's name and power limit as nvidia-smi prints them, one
 ``kernels`` JSON line, and as the last line
@@ -135,6 +148,16 @@ SERVE_ARCH = "qwen3-4b"
 SERVE_CATALOGUE = (("chat", 512, 32, 1024), ("summarize", 2048, 8, 2560),
                    ("classify", 256, 1, 512))
 SERVE_REQUESTS = dict(n=12, duration=5.0, seed=0)
+# The ssm and hybrid serving path (serve_ssm): Mamba2-780M (48 layers, d
+# 1536, 48 SSM heads of 64, state 128, chunk 256, bf16) and Zamba2-2.7B
+# (54 Mamba2 layers at d 2560, 80 heads of 64, state 64, a shared MHA
+# block of 32 heads of 80 every 6 layers) at full width, random weights
+# seeded by the function's id; (name, arch, prompt, new tokens,
+# max_len). The prompt of 2000 pads its last chunk (8 chunks of 256).
+# ESFF on a 2-slot server, the same 12 requests' arrivals.
+SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
+                       ("ssm-summarize", "mamba2-780m", 2000, 8, 2048),
+                       ("hybrid-chat", "zamba2-2.7b", 1024, 16, 1280))
 # The limit of each bf16 serving kernel against its plain version on
 # the card, elementwise |kernel - plain| <= atol + rtol * |plain|. Both
 # sides compute in f32 and round the output to bf16 once, so they may
@@ -152,11 +175,18 @@ SERVE_REQUESTS = dict(n=12, duration=5.0, seed=0)
 # Every case also holds the kernel against a planted fault in the plain
 # version (FAULTS) and fails unless the limit rejects it, so a limit
 # that would let a wrong kernel through fails the run.
+# - ssd_chunk (K5): f32 inputs but x (bf16 or f32, widened exactly)
+#   and f32 outputs on both sides, so only the order of the f32 sums
+#   differs (over up to c n products for a score and c for an output);
+#   measured at 3.8e-6 on y (mean |y| 2.3) and 3.6e-7 on the states
+#   (mean 0.21) at Mamba2-780M's and Zamba2-2.7B's shapes, so atol 3e-5
+#   (8x that) plus rtol 1e-5.
 KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                       p_round=2.0 ** -8),
               "decode_attention": dict(rtol=1e-2, atol=1e-3),
               "rmsnorm": dict(rtol=1e-2, atol=1e-3),
-              "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3)}
+              "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3),
+              "ssd_chunk": dict(rtol=1e-5, atol=3e-5)}
 # the planted faults: attention without one tile of 64 kv positions (or,
 # with a single valid position, with one position too many); RMSNorm
 # with the last eighth of each row left out of the sum of squares
@@ -165,7 +195,9 @@ FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
                               "(length 0: position 1 attended too)",
           "rmsnorm": "last D/8 of the row left out of the sum of squares",
           "rmsnorm_residual": "last D/8 of the row left out of the sum "
-                              "of squares"}
+                              "of squares",
+          "ssd_chunk": "y: the diagonal term s = t left out; states: the "
+                       "last position t = c - 1 left out"}
 
 # the serving kernels in the `kernels` line: (name, the TPU kernel it
 # replaces, the kernel-phase case whose times the line carries: the
@@ -179,27 +211,31 @@ SERVING_KERNELS = (
      "(2048, 2560)"),
     ("rmsnorm_residual", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:59",
      "(2048, 2560)"),
+    ("ssd_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:54",
+     "mamba2-780m S=2048 bf16"),
 )
 
-# model_parity: qwen3-4b's smoke() config in f32, weights and prompt
-# from numpy (`parity_weights`, `parity_tokens`), greedy decoding. The
-# JAX package's result, computed on the CPU with (PYTHONPATH=src:.,
-# JAX_PLATFORMS=cpu; the same weights through its parameter tree):
+# model_parity: the smoke() configs of qwen3-4b, mamba2-780m and
+# zamba2-2.7b in f32, weights and prompt from numpy (`parity_weights`,
+# `parity_tokens`), greedy decoding. The JAX package's result, computed
+# on the CPU with (PYTHONPATH=src:., JAX_PLATFORMS=cpu; the same weights
+# through its parameter tree), for each arch of PARITY_CASES:
 #   import jax, jax.numpy as jnp, numpy as np, chip_smoke as cs
 #   from repro.configs.registry import get_arch
 #   from repro.models import build_model
-#   cfg = get_arch("qwen3-4b").smoke(); m = build_model(cfg)
+#   case = cs.PARITY_CASES[arch]
+#   cfg = get_arch(arch).smoke(); m = build_model(cfg)
 #   abstract = m.init_abstract()[0]
 #   flat = {".".join(k.key for k in path): leaf.shape for path, leaf
 #           in jax.tree_util.tree_flatten_with_path(abstract)[0]}
 #   w = cs.parity_weights(np, flat)
 #   params = jax.tree_util.tree_map_with_path(lambda path, leaf:
 #       jnp.asarray(w[".".join(k.key for k in path)]), abstract)
-#   P = cs.PARITY; toks = cs.parity_tokens(np, cfg.vocab_size)
-#   cache = m.cache_spec(1, P["max_len"]).zeros()
+#   toks = cs.parity_tokens(np, cfg.vocab_size, case["prompt_len"])
+#   cache = m.cache_spec(1, case["max_len"]).zeros()
 #   logits, cache = m.prefill(params, {"tokens": jnp.asarray(toks)}, cache)
 #   out = [int(jnp.argmax(logits[0, -1]))]
-#   for _ in range(P["steps"]):
+#   for _ in range(cs.PARITY["steps"]):
 #       logits, cache = m.decode_step(params, jnp.asarray([[out[-1]]]),
 #                                     cache)
 #       out.append(int(jnp.argmax(logits[0, -1])))
@@ -207,17 +243,39 @@ SERVING_KERNELS = (
 #   tokens = out; head = last[:16].tolist()
 #   l2 = float(np.linalg.norm(last)); top5 = np.argsort(-last)[:5].tolist()
 # Held at rtol = atol = 2e-4 (tests/test_kernels.py's f32 TOL); tokens
-# exact.
-PARITY = dict(arch="qwen3-4b", seed=0, prompt_len=16, steps=8, max_len=32)
-PARITY_EXPECTED = dict(
-    tokens=[109, 109, 109, 109, 197, 109, 197, 499, 109],
-    head=[0.379649817943573, 0.20407500863075256, -1.714565634727478,
-          -0.757085382938385, -0.9032574892044067, 0.9934298396110535,
-          -0.32991284132003784, 0.024288363754749298, -1.0093311071395874,
-          0.5340211391448975, 0.8158217072486877, -0.031137609854340553,
-          -0.3577105402946472, -2.7966647148132324, 1.069676160812378,
-          0.5712822675704956],
-    l2=22.92498078263572, top5=[109, 499, 207, 417, 459])
+# exact. The ssm and hybrid prompts span several chunks (80 positions at
+# the smoke chunk of 32), and their A_log, dt_bias and D are drawn so
+# that the SSM state carries across them (`parity_weights`).
+PARITY = dict(seed=0, steps=8)
+PARITY_CASES = {
+    "qwen3-4b": dict(prompt_len=16, max_len=32, expected=dict(
+        tokens=[109, 109, 109, 109, 197, 109, 197, 499, 109],
+        head=[0.379649817943573, 0.20407500863075256, -1.714565634727478,
+              -0.757085382938385, -0.9032574892044067, 0.9934298396110535,
+              -0.32991284132003784, 0.024288363754749298,
+              -1.0093311071395874, 0.5340211391448975, 0.8158217072486877,
+              -0.031137609854340553, -0.3577105402946472,
+              -2.7966647148132324, 1.069676160812378, 0.5712822675704956],
+        l2=22.92498078263572, top5=[109, 499, 207, 417, 459])),
+    "mamba2-780m": dict(prompt_len=80, max_len=96, expected=dict(
+        tokens=[96, 322, 269, 142, 15, 145, 87, 198, 54],
+        head=[-0.3030654191970825, 0.3607064187526703, 0.27357152104377747,
+              0.33041974902153015, 0.4164256453514099, -0.8068743944168091,
+              2.6302826404571533, 0.9608327746391296, 0.4020775258541107,
+              -0.5312789678573608, 1.3507639169692993, 2.0768024921417236,
+              -1.5179356336593628, 0.30655622482299805, 0.7198376655578613,
+              0.6450364589691162],
+        l2=22.064299519144427, top5=[54, 64, 6, 391, 326])),
+    "zamba2-2.7b": dict(prompt_len=80, max_len=96, expected=dict(
+        tokens=[20, 199, 42, 106, 504, 176, 388, 378, 12],
+        head=[-0.8232154846191406, 1.0594764947891235, -0.7592185139656067,
+              -0.0631871446967125, -0.266035795211792, -0.7335025668144226,
+              0.7261479496955872, 0.029081862419843674, -0.9029608964920044,
+              0.1253446787595749, -1.5731626749038696, -0.906587541103363,
+              2.591974973678589, 0.35452720522880554, 0.4741246700286865,
+              1.6971371173858643],
+        l2=22.521312696958773, top5=[12, 504, 199, 121, 44])),
+}
 PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -504,16 +562,14 @@ def phase_profile(torch, api, n_requests=300):
 
 
 def phase_profile_serving(torch):
-    """Device busy share of one served request of each SERVE_CATALOGUE
-    function on a warm instance, and the serving kernels' device time
-    per launch at the path's own shapes, from torch.profiler."""
+    """Device busy share of one served request of each function of
+    SERVE_CATALOGUE and SERVE_SSM_CATALOGUE on a warm instance, and the
+    serving kernels' device time per launch at the path's own shapes,
+    from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
-    from repro_torch.serving import ServedFunction
     from repro_torch.serving.instance import ModelInstance
-    cfg = get_arch(SERVE_ARCH)
 
     def is_kernel(name, key):
         # K4a and K4b are the rmsnorm_kernel instances ending in false
@@ -529,10 +585,11 @@ def phase_profile_serving(torch):
         return f"::{name}_" in key
 
     out = []
-    for i, (name, p, g, m) in enumerate(SERVE_CATALOGUE):
-        inst = ModelInstance(ServedFunction(i, cfg, prompt_len=p,
-                                            gen_tokens=g, max_len=m,
-                                            name=name))
+    fns = serve_catalogue([(name, SERVE_ARCH, p, g, m)
+                           for name, p, g, m in SERVE_CATALOGUE]
+                          + list(SERVE_SSM_CATALOGUE))
+    for fn in fns:
+        inst = ModelInstance(fn)
         inst.cold_start()
         inst.execute(seed=1)            # warm-up
         with profile(activities=[ProfilerActivity.CPU,
@@ -545,7 +602,7 @@ def phase_profile_serving(torch):
         dev_us = sum(e.self_device_time_total for e in rows)
         kernels = {}
         for k in ("flash_attention", "decode_attention", "rmsnorm",
-                  "rmsnorm_residual"):
+                  "rmsnorm_residual", "ssd_chunk"):
             hit = [e for e in rows if is_kernel(k, e.key)]
             n = sum(e.count for e in hit
                     if "::decode_combine_" not in e.key)
@@ -554,7 +611,8 @@ def phase_profile_serving(torch):
                 if n else None))
         top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
         out.append(dict(
-            function=name, prompt=p, gen_tokens=g, wall_s=wall,
+            function=fn.name, arch=fn.cfg.name, prompt=fn.prompt_len,
+            gen_tokens=fn.gen_tokens, wall_s=wall,
             device_busy_s=dev_us * 1e-6,
             device_busy_share=dev_us * 1e-6 / wall,
             device_ops=sum(e.count for e in rows), kernels=kernels,
@@ -665,6 +723,47 @@ def phase_serving_kernels(torch, FA, DA, RN):
                     is_causal=True, enable_gqa=True),
             2 * (2 * S * H * D + 2 * S * KVH * D),
             4 * H * D * S * (S + 1) // 2, "bf16"))
+    # Zamba2-2.7B's shared block: MHA, 32 heads of 80, prompt 1024
+    H8, D8 = 32, 80
+    S = 1024
+    q, k, v = randn(1, S, H8, D8), randn(1, S, H8, D8), randn(1, S, H8, D8)
+    call = partial(FA.flash_attention, q, k, v, causal=True)
+    plain = partial(FA.flash_attention_plain, q, k, v, causal=True)
+    pos = torch.arange(S, device=dev)
+    allowed = (pos[:, None] >= pos[None, :]) & ~(
+        (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+    check = _close(torch, "flash_attention", f"D=80 S={S}", call(), plain(),
+                   attention_f32(torch, q, k, v, allowed),
+                   FA.flash_attention_plain(q.float(), k.float(),
+                                            v.float().abs()))
+    rows.append(row(
+        "flash_attention", f"D=80 causal S={S}", check, call, plain,
+        partial(F.scaled_dot_product_attention,
+                *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True),
+        2 * 4 * S * H8 * D8, 4 * H8 * D8 * S * (S + 1) // 2, "bf16"))
+    T = 1280
+    kc, vc = randn(1, T, H8, D8), randn(1, T, H8, D8)
+    q = randn(1, 1, H8, D8)
+    pos = torch.arange(T, device=dev)
+    for length in (0, 1039):
+        n = length + 1
+        call = partial(DA.decode_attention, q, kc, vc, length)
+        plain = partial(DA.decode_attention_plain, q, kc, vc, length)
+        if length == 0:
+            allowed = pos <= 1
+        else:
+            t0 = length // 2 // 64 * 64
+            allowed = (pos <= length) & ~((pos >= t0) & (pos < t0 + 64))
+        check = _close(torch, "decode_attention", f"D=80 length={length}",
+                       call(), plain(),
+                       attention_f32(torch, q, kc, vc, allowed[None, :]))
+        rows.append(row(
+            "decode_attention", f"D=80 T={T} length={length}", check, call,
+            plain,
+            partial(F.scaled_dot_product_attention, q.transpose(1, 2),
+                    kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)),
+            2 * (2 * H8 * D8 + 2 * n * H8 * D8), 4 * H8 * D8 * n, "bf16"))
+
     T = 2560
     kc, vc = randn(1, T, KVH, D), randn(1, T, KVH, D)
     q = randn(1, 1, H, D)
@@ -715,91 +814,234 @@ def phase_serving_kernels(torch, FA, DA, RN):
     return rows
 
 
+# ------------------------------------------------ phase 3c: K5, ssd_chunk
+def ssd_inputs(torch, np, b, nc, c, h, p, n, g, xdtype, seed, valid=None):
+    """K5's inputs on the card, made with numpy: mild decay (dt in [0.01,
+    0.2], A in [-2, -0.5], as tests/test_kernels.py) so that every (s, t)
+    term counts; ``valid`` < nc * c zero-pads the tail as `ssd_chunked`
+    pads a ragged length (x, dt, B, C zero there, cum flat)."""
+    r = np.random.default_rng(seed)
+    L = nc * c
+    x = r.normal(size=(b, L, h, p))
+    dt = r.uniform(0.01, 0.2, (b, L, h))
+    A = -r.uniform(0.5, 2.0, (h,))
+    B, C = r.normal(size=(2, b, L, g, n))
+    if valid is not None:
+        for a in (x, dt, B, C):
+            a[:, valid:] = 0.0
+    cum = np.cumsum((dt * A).reshape(b, nc, c, h), axis=2)
+    f32 = torch.float32
+    mk = lambda a, shape, d=f32: torch.tensor(  # noqa: E731
+        a.reshape(shape), dtype=d, device="cuda")
+    return (mk(x, (b, nc, c, h, p), xdtype), mk(dt, (b, nc, c, h)),
+            mk(cum, (b, nc, c, h)), mk(B, (b, nc, c, g, n)),
+            mk(C, (b, nc, c, g, n)))
+
+
+def ssd_faults(torch, x, dt, cum, B, C, y, S):
+    """The planted faults of K5 from the plain outputs (y, S): y without
+    its diagonal term (C[s] . B[s]) dt[s] x[s], and the states without
+    the last position's B[c-1] dt[c-1] (x) x[c-1] (decay exp(0) = 1)."""
+    b, nc, c, h, p = x.shape
+    g = B.shape[3]
+    rep = lambda a: a.repeat_interleave(h // g, dim=3)  # noqa: E731
+    xf = x.float()
+    diag = (rep(C) * rep(B)).sum(-1) * dt                   # (b,nc,c,h)
+    y_fault = y - diag[..., None] * xf
+    last = (rep(B)[:, :, -1] * dt[:, :, -1, :, None])       # (b,nc,h,n)
+    S_fault = S - xf[:, :, -1, :, :, None] * last[:, :, :, None, :]
+    return y_fault, S_fault
+
+
+def phase_ssd_kernel(torch, np, K5):
+    """K5 against its plain version on the card, in f32, at Mamba2-780M's
+    (S = 2048) and Zamba2-2.7B's (S = 1024) full-width shapes, a ragged
+    S = 2000 padded to 2048, x in bf16 and in f32, and g > 1; each case
+    within KERNEL_TOL["ssd_chunk"], and each with its two planted faults
+    rejected. Times as the serving kernels' (no library call computes
+    the intra-chunk SSD)."""
+    timing = dict(reps=20, trials=5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (
+        ("mamba2-780m S=2048 bf16", (1, 8, 256, 48, 64, 128, 1), bf16, None),
+        ("zamba2-2.7b S=1024 bf16", (1, 4, 256, 80, 64, 64, 1), bf16, None),
+        ("mamba2-780m S=2048 f32", (1, 8, 256, 48, 64, 128, 1), f32, None),
+        ("mamba2-780m S=2000 ragged bf16", (1, 8, 256, 48, 64, 128, 1),
+         bf16, 2000),
+        ("g=8 S=2048 bf16", (1, 8, 256, 48, 64, 128, 8), bf16, None),
+    )
+    rows = []
+    for i, (case, shape, xdtype, valid) in enumerate(cases):
+        b, nc, c, h, p, n, g = shape
+        args = ssd_inputs(torch, np, *shape, xdtype, seed=i, valid=valid)
+        call = partial(K5.ssd_chunk, *args)
+        plain = partial(K5.ssd_chunk_plain, *args)
+        (ky, ks), (py, ps) = call(), plain()
+        fy, fs_ = ssd_faults(torch, *args, py, ps)
+        cy = _close(torch, "ssd_chunk", f"{case} y", ky, py, fy)
+        cs = _close(torch, "ssd_chunk", f"{case} states", ks, ps, fs_)
+        check = dict(max_abs_err=max(cy["max_abs_err"], cs["max_abs_err"]),
+                     tol_use=max(cy["tol_use"], cs["tol_use"]),
+                     fault_ratio=min(cy["fault_ratio"], cs["fault_ratio"]),
+                     typical_abs_y=cy["typical_abs"],
+                     typical_abs_states=cs["typical_abs"])
+        cells = b * nc * h
+        tri = c * (c + 1) // 2
+        # bytes: each input read once, each output written once; ops:
+        # the s >= t scores and products, the weights (difference,
+        # exponent, two products) and the states with their decay
+        n_bytes = (args[0].element_size() * cells * c * p
+                   + 4 * 2 * b * nc * c * h + 4 * 2 * b * nc * c * g * n
+                   + 4 * cells * c * p + 4 * cells * p * n)
+        n_ops = cells * (2 * tri * (n + p) + 4 * tri + 2 * c * p * n
+                         + 3 * c * n)
+        bnd, by = bound_ms(n_bytes, n_ops, "f32")
+        rows.append(dict(kernel="ssd_chunk", case=case, **check,
+                         ms=time_ms(torch, call, **timing),
+                         plain_ms=time_ms(torch, plain, **timing),
+                         library_ms=None, device_ms=device_ms(torch, call),
+                         plain_device_ms=device_ms(torch, plain),
+                         library_device_ms=None, bound_ms=bnd, bound_by=by,
+                         bytes=n_bytes, ops=n_ops))
+    emit(dict(phase="kernel", ssd_chunk=rows))
+    return rows
+
+
 # -------------------------------------------------- phase 6: model_parity
 def parity_weights(np, shapes):
     """Weights for the model_parity phase from numpy: {dotted name of a
     leaf of the JAX parameter tree (= the port's state-dict name): f32
-    array}, drawn in sorted name order. Norm weights 1 + 0.1 N(0, 1),
-    everything else N(0, 1) / sqrt(fan-in)."""
+    array}, drawn in sorted name order, one N(0, 1) array z a leaf. Norm
+    weights (gate_norm too) 1 + 0.1 z; the Mamba2 leaves A_log = log U
+    (0.01, 0.1) (a second, uniform draw), dt_bias -3 + 0.1 z, D = z and
+    conv_b 0.1 z, so that the SSM state decays slowly and every skip
+    and bias counts; everything else z / sqrt(fan-in)."""
     r = np.random.default_rng(PARITY["seed"])
     out = {}
     for name in sorted(shapes):
         shape = tuple(shapes[name])
         z = r.standard_normal(shape)
-        if name.rsplit(".", 1)[-1] in ("final_norm", "norm1", "norm2",
-                                       "q_norm", "k_norm"):
-            out[name] = (1.0 + 0.1 * z).astype(np.float32)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("final_norm", "norm1", "norm2", "q_norm", "k_norm",
+                    "gate_norm"):
+            a = 1.0 + 0.1 * z
+        elif leaf == "A_log":
+            a = np.log(r.uniform(0.01, 0.1, shape))
+        elif leaf == "dt_bias":
+            a = -3.0 + 0.1 * z
+        elif leaf in ("D", "conv_b"):
+            a = z if leaf == "D" else 0.1 * z
         else:
             fan_in = shape[1] if name.startswith("blocks.") else shape[0]
-            out[name] = (z / math.sqrt(fan_in)).astype(np.float32)
+            a = z / math.sqrt(fan_in)
+        out[name] = a.astype(np.float32)
     return out
 
 
-def parity_tokens(np, vocab_size):
+def parity_tokens(np, vocab_size, prompt_len):
     r = np.random.default_rng(PARITY["seed"] + 1)
-    return r.integers(0, vocab_size, (1, PARITY["prompt_len"]))
+    return r.integers(0, vocab_size, (1, prompt_len))
 
 
 def phase_model_parity(torch, np):
-    """The port's model on the card against the JAX package's own
-    output (PARITY_EXPECTED, computed on the CPU)."""
+    """The port's models on the card against the JAX package's own
+    output (PARITY_CASES' expected, computed on the CPU)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
     from repro_torch.models.convert import from_jax_params
-    cfg = get_arch(PARITY["arch"]).smoke()
-    model = build_model(cfg)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    model.load_state_dict(from_jax_params(cfg, parity_weights(np, shapes)))
-    toks = torch.tensor(parity_tokens(np, cfg.vocab_size), device="cuda")
-    cache = model.cache_spec(1, PARITY["max_len"]).zeros("cuda")
-    logits, cache = model.prefill({"tokens": toks}, cache)
-    out = [int(logits[0, -1].argmax())]
-    for _ in range(PARITY["steps"]):
-        tok = torch.tensor([[out[-1]]], device="cuda")
-        logits, cache = model.decode_step(tok, cache)
-        out.append(int(logits[0, -1].argmax()))
-    last = logits[0, -1].double().cpu().numpy()
-    exp = PARITY_EXPECTED
-    got = dict(tokens=out, head=last[:16].tolist(),
-               l2=float(np.linalg.norm(last)),
-               top5=np.argsort(-last)[:5].tolist())
-    head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
-    emit(dict(phase="model_parity", arch=PARITY["arch"] + " smoke f32",
-              tokens=out, expected_tokens=exp["tokens"],
-              head_max_abs_err=head_err, l2=got["l2"],
-              expected_l2=exp["l2"], top5=got["top5"],
-              expected_top5=exp["top5"]))
-    need(bool(np.isfinite(last).all()), "model_parity: non-finite logits")
-    need(out == exp["tokens"], f"model_parity: greedy tokens {out} != "
-         f"the JAX package's {exp['tokens']}")
-    need(got["top5"] == exp["top5"], "model_parity: top-5 logits differ")
-    need(np.allclose(last[:16], exp["head"], **PARITY_TOL)
-         and math.isclose(got["l2"], exp["l2"], rel_tol=PARITY_TOL["rtol"]),
-         f"model_parity: last-step logits beyond {PARITY_TOL} of the JAX "
-         f"package's (head err {head_err}, l2 {got['l2']} vs {exp['l2']})")
+    for arch, case in PARITY_CASES.items():
+        cfg = get_arch(arch).smoke()
+        model = build_model(cfg)
+        shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        model.load_state_dict(from_jax_params(cfg, parity_weights(np,
+                                                                  shapes)))
+        toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
+                                          case["prompt_len"]), device="cuda")
+        cache = model.cache_spec(1, case["max_len"]).zeros("cuda")
+        logits, cache = model.prefill({"tokens": toks}, cache)
+        out = [int(logits[0, -1].argmax())]
+        for _ in range(PARITY["steps"]):
+            tok = torch.tensor([[out[-1]]], device="cuda")
+            logits, cache = model.decode_step(tok, cache)
+            out.append(int(logits[0, -1].argmax()))
+        last = logits[0, -1].double().cpu().numpy()
+        exp = case["expected"]
+        got = dict(tokens=out, head=last[:16].tolist(),
+                   l2=float(np.linalg.norm(last)),
+                   top5=np.argsort(-last)[:5].tolist())
+        head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
+        emit(dict(phase="model_parity", arch=arch + " smoke f32",
+                  tokens=out, expected_tokens=exp["tokens"],
+                  head_max_abs_err=head_err, l2=got["l2"],
+                  expected_l2=exp["l2"], top5=got["top5"],
+                  expected_top5=exp["top5"]))
+        need(bool(np.isfinite(last).all()),
+             f"model_parity {arch}: non-finite logits")
+        need(out == exp["tokens"], f"model_parity {arch}: greedy tokens "
+             f"{out} != the JAX package's {exp['tokens']}")
+        need(got["top5"] == exp["top5"],
+             f"model_parity {arch}: top-5 logits differ")
+        need(np.allclose(last[:16], exp["head"], **PARITY_TOL)
+             and math.isclose(got["l2"], exp["l2"],
+                              rel_tol=PARITY_TOL["rtol"]),
+             f"model_parity {arch}: last-step logits beyond {PARITY_TOL} "
+             f"of the JAX package's (head err {head_err}, l2 {got['l2']} "
+             f"vs {exp['l2']})")
 
 
 # --------------------------------------------------------- phase 7: serve
-def phase_serve(torch, np, FA, DA, RN):
-    """`repro_torch.serving.EdgeServingEngine` with ESFF on 2 slots
-    serving the SERVE_CATALOGUE's Qwen3-4B functions at full width:
-    cold starts, executions and responses measured on the card, with
-    the serving kernels' launch counts."""
+def serve_catalogue(catalogue):
+    """ServedFunctions of a catalogue of (name, arch, prompt, new
+    tokens, max_len); function i's weights are seeded by i."""
     from repro_torch.configs import get_arch
-    from repro_torch.serving import EdgeServingEngine, ServedFunction
+    from repro_torch.serving import ServedFunction
+    return [ServedFunction(i, get_arch(arch), prompt_len=p, gen_tokens=g,
+                           max_len=m, name=name)
+            for i, (name, arch, p, g, m) in enumerate(catalogue)]
+
+
+class CountModelCalls:
+    """Counts `Model.prefill` and `Model.decode_step` calls by model name
+    while it is entered (the serving engine builds its models itself)."""
+
+    def __init__(self):
+        from repro_torch.models.model import Model
+        self.cls, self.counts = Model, {}
+
+    def _wrap(self, kind, orig):
+        def call(model, *a, **kw):
+            key = (kind, model.cfg.name)
+            self.counts[key] = self.counts.get(key, 0) + 1
+            return orig(model, *a, **kw)
+        return call
+
+    def __enter__(self):
+        self.orig = (self.cls.prefill, self.cls.decode_step)
+        self.cls.prefill = self._wrap("prefill", self.orig[0])
+        self.cls.decode_step = self._wrap("decode", self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.prefill, self.cls.decode_step = self.orig
+
+    def get(self, kind, name):
+        return self.counts.get((kind, name), 0)
+
+
+def serve_run(torch, np, phase, fns, kernels, calls=None):
+    """`repro_torch.serving.EdgeServingEngine` with ESFF on 2 slots
+    serving ``fns``: cold starts, executions and responses measured on
+    the card, with the launch counts of ``kernels`` ({name: wrapper})
+    set to 0 just before the run and read just after (and, with
+    ``calls``, the run's prefill and decode calls counted). Then one
+    warm instance per function splits prefill tok/s from decode
+    ms/token. Emits the phase's line and returns (launches, line)."""
+    from repro_torch.serving import EdgeServingEngine
     from repro_torch.serving.instance import ModelInstance
-    cfg = get_arch(SERVE_ARCH)
-    fns = [ServedFunction(i, cfg, prompt_len=p, gen_tokens=g, max_len=m,
-                          name=name)
-           for i, (name, p, g, m) in enumerate(SERVE_CATALOGUE)]
     eng = EdgeServingEngine(fns, capacity=2, policy="esff")
     reqs = eng.make_requests(SERVE_REQUESTS["n"],
                              duration=SERVE_REQUESTS["duration"],
                              seed=SERVE_REQUESTS["seed"])
-    kernels = {"flash_attention": FA.flash_attention,
-               "decode_attention": DA.decode_attention,
-               "rmsnorm": RN.rmsnorm,
-               "rmsnorm_residual": RN.rmsnorm_residual}
     torch.cuda.reset_peak_memory_stats()
     # set-up: one throwaway instance a function measures its cold start
     # and execution (the engine's FunctionProfile)
@@ -811,7 +1053,11 @@ def phase_serve(torch, np, FA, DA, RN):
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.run(reqs)
+    if calls is None:
+        res = eng.run(reqs)
+    else:
+        with calls:
+            res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
@@ -820,7 +1066,8 @@ def phase_serve(torch, np, FA, DA, RN):
     per_fn = []
     for fn in fns:
         ex = res.exec_times[fn_of == fn.fn_id]   # reqs are in order
-        per_fn.append(dict(name=fn.name, prompt=fn.prompt_len,
+        per_fn.append(dict(name=fn.name, arch=fn.cfg.name,
+                           prompt=fn.prompt_len,
                            gen_tokens=fn.gen_tokens, max_len=fn.max_len,
                            requests=int((fn_of == fn.fn_id).sum()),
                            profiled_cold_s=profiles[fn.fn_id][0],
@@ -848,30 +1095,82 @@ def phase_serve(torch, np, FA, DA, RN):
             torch.cuda.synchronize()
             pre.append(t2 - t1)
             dec.append((time.perf_counter() - t2) / steps)
-        need(tuple(logits.shape) == (1, 1, cfg.padded_vocab)
+        need(tuple(logits.shape) == (1, 1, fn.cfg.padded_vocab)
              and bool(torch.isfinite(logits).all()),
-             f"serve {fn.name}: logits {tuple(logits.shape)} not finite "
+             f"{phase} {fn.name}: logits {tuple(logits.shape)} not finite "
              "or of the wrong shape")
         row["prefill_s"] = sorted(pre)[1]
         row["prefill_tok_per_s"] = fn.prompt_len / row["prefill_s"]
         row["decode_ms_per_token"] = 1e3 * sorted(dec)[1]
         inst.evict()
-    emit(dict(phase="serve", arch=SERVE_ARCH, policy="esff", capacity=2,
-              n_requests=len(reqs), profile_s=profile_s, wall_s=wall,
-              mean_response=res.mean_response,
-              max_response=float(res.responses.max()),
-              p95_response=res.percentile(95),
-              cold_starts=res.server.cold_starts,
-              evictions=res.server.evictions,
-              cold_time=res.server.cold_time, peak_mem_gb=peak_gb,
-              launches=launches, functions=per_fn))
-    need(len(res.responses) == len(reqs), "serve: not every request done")
+    line = dict(phase=phase, archs=sorted({fn.cfg.name for fn in fns}),
+                policy="esff", capacity=2,
+                n_requests=len(reqs), profile_s=profile_s, wall_s=wall,
+                mean_response=res.mean_response,
+                max_response=float(res.responses.max()),
+                p95_response=res.percentile(95),
+                cold_starts=res.server.cold_starts,
+                evictions=res.server.evictions,
+                cold_time=res.server.cold_time, peak_mem_gb=peak_gb,
+                launches=launches, functions=per_fn)
+    if calls is not None:
+        line["model_calls"] = {f"{k}:{n}": c
+                               for (k, n), c in sorted(calls.counts.items())}
+    emit(line)
+    need(len(res.responses) == len(reqs),
+         f"{phase}: not every request done")
     need(bool(np.isfinite(res.responses).all()
-              and (res.responses > 0).all()), "serve: bad response times")
+              and (res.responses > 0).all()), f"{phase}: bad response times")
     need(res.server.cold_starts >= 1 and res.server.evictions >= 1,
-         "serve: no cold start or no eviction")
+         f"{phase}: no cold start or no eviction")
     for k, n in launches.items():
-        need(n > 0, f"serve: {k} was never launched")
+        need(n > 0, f"{phase}: {k} was never launched")
+    return launches, line
+
+
+def phase_serve(torch, np, FA, DA, RN):
+    """SERVE_CATALOGUE's Qwen3-4B functions at full width, with the
+    dense serving kernels' launch counts."""
+    kernels = {"flash_attention": FA.flash_attention,
+               "decode_attention": DA.decode_attention,
+               "rmsnorm": RN.rmsnorm,
+               "rmsnorm_residual": RN.rmsnorm_residual}
+    fns = serve_catalogue((name, SERVE_ARCH, p, g, m)
+                          for name, p, g, m in SERVE_CATALOGUE)
+    return serve_run(torch, np, "serve", fns, kernels)[0]
+
+
+def phase_serve_ssm(torch, np, FA, DA, RN, K5):
+    """SERVE_SSM_CATALOGUE's Mamba2-780M and Zamba2-2.7B functions at
+    full width. K5 must have launched exactly once a layer a prefill of
+    the run (warm-ups of its live cold starts included); K2 and K3 (at
+    head_dim 80: the only attention here is Zamba2's shared block) once
+    a shared-block application a hybrid prefill and decode step."""
+    kernels = {"flash_attention": FA.flash_attention,
+               "decode_attention": DA.decode_attention,
+               "rmsnorm": RN.rmsnorm,
+               "rmsnorm_residual": RN.rmsnorm_residual,
+               "ssd_chunk": K5.ssd_chunk}
+    fns = serve_catalogue(SERVE_SSM_CATALOGUE)
+    calls = CountModelCalls()
+    launches, _ = serve_run(torch, np, "serve_ssm", fns, kernels, calls)
+    cfgs = {fn.cfg.name: fn.cfg for fn in fns}
+    want_k5 = sum(c.n_layers * calls.get("prefill", n)
+                  for n, c in cfgs.items())
+    need(launches["ssd_chunk"] == want_k5,
+         f"serve_ssm: ssd_chunk launched {launches['ssd_chunk']} times, "
+         f"not once a layer a prefill ({want_k5})")
+    hyb = [c for c in cfgs.values() if c.family == "hybrid"]
+    want_k2 = sum(c.n_layers // c.attn_every * calls.get("prefill", c.name)
+                  for c in hyb)
+    want_k3 = sum(c.n_layers // c.attn_every * calls.get("decode", c.name)
+                  for c in hyb)
+    need(all(c.head_dim_ == 80 for c in hyb) and want_k2 > 0
+         and (launches["flash_attention"], launches["decode_attention"])
+         == (want_k2, want_k3),
+         f"serve_ssm: K2 / K3 launched {launches['flash_attention']} / "
+         f"{launches['decode_attention']} times at head_dim 80, not "
+         f"{want_k2} / {want_k3}")
     return launches
 
 
@@ -894,6 +1193,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import frp_select as fs
         from repro_torch.kernels import rmsnorm as RN
+        from repro_torch.kernels import ssd_chunk as K5
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -926,11 +1226,15 @@ def main(argv=None) -> int:
         kres = timed("kernel", phase_kernel, torch, np, fs)
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
+        srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
         launches = timed("main_path", phase_main_path, torch, api, fs,
                          args.n_requests)
         timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
-        launches.update(timed("serve", phase_serve, torch, np, FA, DA, RN))
+        by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
+                                  RN),
+                   "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
+                                      np, FA, DA, RN, K5)}
         if args.profile:
             timed("profile", phase_profile, torch, api)
             timed("profile_serving", phase_profile_serving, torch)
@@ -949,10 +1253,15 @@ def main(argv=None) -> int:
     for name, source, replaces, at in SERVING_KERNELS:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)
+        # launches: the serving path that carries the kernel's timed case
+        # (serve for K2-K4 at Qwen3-4B's shapes, serve_ssm for K5); the
+        # counts of every serving path beside them
+        main = "serve_ssm" if name == "ssd_chunk" else "serve"
         kernels.append(dict(
             name=name, entry=name, route="cuda",
             source=f"src/repro_torch/csrc/{source}",
-            replaces=replaces, launches=launches[name],
+            replaces=replaces, launches=by_path[main][name],
+            launches_by_path={k: v.get(name, 0) for k, v in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],

@@ -1,11 +1,12 @@
 """Architecture registry of the port (counterpart of
 `repro.configs.registry`).
 
-The port's model runs the dense family, so ``ARCHS`` holds the JAX
-package's four dense configs, copied field for field: qwen3-4b and
-qwen3-14b (qk-norm), qwen1.5-4b (qkv bias) and internlm2-20b. Every
-other name the JAX package registers raises NotImplementedError naming
-the ROADMAP item that ports it.
+The port's model runs the dense, ssm and hybrid families, so
+``ARCHS`` holds the JAX package's configs of those families, copied
+field for field: the dense qwen3-4b and qwen3-14b (qk-norm),
+qwen1.5-4b (qkv bias) and internlm2-20b; the ssm mamba2-780m; the
+hybrid zamba2-2.7b. Every other name the JAX package registers raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -16,12 +17,11 @@ from repro_torch.utils.registry import Registry
 
 ARCHS = Registry("architectures")
 
-_ARCH_MODULES = ["internlm2_20b", "qwen3_14b", "qwen1_5_4b", "qwen3_4b"]
+_ARCH_MODULES = ["internlm2_20b", "qwen3_14b", "qwen1_5_4b", "qwen3_4b",
+                 "mamba2_780m", "zamba2_2_7b"]
 
 # names of the JAX package's registry that the port does not build yet
 NOT_PORTED = {
-    "mamba2-780m": "ROADMAP Queue 2, K5 (the Mamba2/Zamba2 slice)",
-    "zamba2-2.7b": "ROADMAP Queue 2, K5 (the Mamba2/Zamba2 slice)",
     "deepseek-v3-671b": "ROADMAP Queue 1, item 11 (MoE and MLA)",
     "deepseek-moe-16b": "ROADMAP Queue 1, item 11 (MoE)",
     "whisper-tiny": "ROADMAP Queue 1, item 11 (encoder-decoder)",

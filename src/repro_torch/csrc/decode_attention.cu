@@ -8,7 +8,7 @@
 // over the positions t <= length (t < T); the later positions are
 // masked and never read. Products and the online softmax in f32, the
 // output cast to q's type. f32 or bf16 (q, k, v and out of one type),
-// D in {16, 32, 64, 128, 256}.
+// D in {16, 32, 64, 80, 128, 256}.
 //
 // What bounds it on an H100: bytes. Each call must read the valid part
 // of both caches once, 2 * min(length + 1, T) * KVH * D elements; the
@@ -49,16 +49,29 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;  // query heads a block serves at most
 constexpr int kU = 4;     // rows in flight per lane group
 
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p *= 2;
+  return p;
+}
+
+// A row of D elements is NVEC 16-byte vectors, read by a lane group of
+// LPR lanes, a power of two (the shuffles halve it). Where NVEC is not a
+// power of two (D = 80: 10 vectors in bf16, 20 in f32), the group is the next
+// power of two and its last lanes own no vector: they load nothing and
+// add zeros.
 template <typename T, int D>
 struct Layout {
   static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elems/16 B
   static constexpr int NVEC = D / VEC;         // 16-byte vectors in a row
-  static constexpr int LPR = NVEC < 32 ? NVEC : 32;  // lanes on one row
-  static constexpr int NV = NVEC / LPR;        // vectors per lane
+  static constexpr int LPR = NVEC < 32 ? pow2_at_least(NVEC) : 32;  // lanes
+  static constexpr int NV = (NVEC + LPR - 1) / LPR;  // vectors per lane
   static constexpr int EPL = NV * VEC;         // elements per lane
   static constexpr int RPW = 32 / LPR;         // rows a warp reads at once
-  static_assert(NVEC * VEC == D && NV * LPR == NVEC && RPW * LPR == 32,
+  static_assert(NVEC * VEC == D && NV * LPR >= NVEC && RPW * LPR == 32,
                 "unsupported head dim");
+  // whether lane j of a group owns its n-th vector
+  __device__ static bool owns(int j, int n) { return j + n * LPR < NVEC; }
 };
 
 // one 16-byte vector widened to f32
@@ -83,14 +96,17 @@ __device__ __forceinline__ void widen(const uint4& v, float* out,
 }
 
 // the part of a row that lane j of its lane group owns: vectors j,
-// j + LPR, ... (NV of them), loaded raw (16 bytes each) ...
+// j + LPR, ... (NV of them, zeros past the row), loaded raw (16 bytes
+// each) ...
 template <typename T, int D>
 __device__ __forceinline__ void load_raw(const T* row, int j, uint4* out) {
   using L = Layout<T, D>;
 #pragma unroll
   for (int n = 0; n < L::NV; ++n)
-    out[n] = __ldg(reinterpret_cast<const uint4*>(row + (j + n * L::LPR) *
-                                                            L::VEC));
+    out[n] = L::owns(j, n)
+                 ? __ldg(reinterpret_cast<const uint4*>(
+                       row + (j + n * L::LPR) * L::VEC))
+                 : make_uint4(0u, 0u, 0u, 0u);
 }
 // ... and widened to its EPL f32 elements
 template <typename T, int D>
@@ -254,10 +270,11 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
 #pragma unroll
       for (int n = 0; n < L::NV; ++n)
+        if (L::owns(j, n))
 #pragma unroll
-        for (int i = 0; i < L::VEC; ++i)
-          red_acc[warp][g][(j + n * L::LPR) * L::VEC + i] =
-              acc[g][n * L::VEC + i];
+          for (int i = 0; i < L::VEC; ++i)
+            red_acc[warp][g][(j + n * L::LPR) * L::VEC + i] =
+                acc[g][n * L::VEC + i];
     }
   }
   __syncthreads();
@@ -362,6 +379,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     DECODE_CASE(16)
     DECODE_CASE(32)
     DECODE_CASE(64)
+    DECODE_CASE(80)
     DECODE_CASE(128)
     DECODE_CASE(256)
     default:

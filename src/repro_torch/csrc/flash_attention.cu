@@ -8,7 +8,7 @@
 //                  v[b, j, h / G]
 // over j < T, and j <= i when causal. The running max and sum and the
 // accumulator in f32, the output cast to q's type. f32 or bf16 (q, k, v
-// and out of one type); D in {16, 32, 64, 128}.
+// and out of one type); D in {16, 32, 64, 80, 128}.
 //
 // What bounds it on an H100: operations. A causal prefill of S tokens
 // does about 2 * S^2 * H * D multiply-adds (4 * S^2 * H * D / 2
@@ -34,6 +34,11 @@
 //   the output accumulator in registers; the running max and sum of
 //   each row live in shared memory, updated by 4 threads a row with
 //   shuffles.
+// D = 80 (Zamba2-2.7B's shared attention) needs nothing of its own: it
+// is five mma.sync k-steps of 16 and ten n-tiles of 8, ten 16-byte
+// chunks a staged row (rows of 88 elements, 176 bytes: 16-byte aligned,
+// and the 8 rows a fragment load touches still fall in distinct
+// banks); the CUDA-core body's thread owns 5 output columns of 16.
 
 #include <cstdint>
 #include <type_traits>
@@ -463,6 +468,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                              causal, s);
     case 64:
       return launch_d<T, 64>(q, k, v, out, B, S, T_len, H, KVH, scale,
+                             causal, s);
+    case 80:
+      return launch_d<T, 80>(q, k, v, out, B, S, T_len, H, KVH, scale,
                              causal, s);
     case 128:
       return launch_d<T, 128>(q, k, v, out, B, S, T_len, H, KVH, scale,

@@ -37,9 +37,10 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                 "-v")
 # per source, on top of COMMON_FLAGS: the f64 engine body of
 # frp_select must be bitwise the reference, so no multiply-add is
-# contracted there; the attention and norm kernels hold a tolerance
+# contracted there; the attention, norm and SSD kernels hold a tolerance
 EXTRA_FLAGS = {"frp_select": ("--fmad=false",)}
-SOURCES = ("frp_select", "rmsnorm", "decode_attention", "flash_attention")
+SOURCES = ("frp_select", "rmsnorm", "decode_attention", "flash_attention",
+           "ssd_chunk")
 
 
 def nvcc_flags(name: str) -> tuple:

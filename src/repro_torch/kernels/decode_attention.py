@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = tuple(_build.DTYPE_CODE)
 # a block of the kernel takes at least MIN_SPLIT positions, in whole
 # multiples of SPLIT_ALIGN

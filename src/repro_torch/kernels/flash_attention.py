@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 DTYPES = tuple(_build.DTYPE_CODE)
 _P = _build.PTR
 _I = ctypes.c_int
@@ -55,7 +55,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """q (B, S, H, D); k, v (B, T, KVH, D) -> (B, S, H, D). H % KVH ==
-    0, D in {16, 32, 64, 128}; f32 or bf16, one dtype for all three."""
+    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three."""
     name = "flash_attention"
     dev = q.device
     _build.check_tensor(f"{name}: q", q, DTYPES, dev, ndim=4)

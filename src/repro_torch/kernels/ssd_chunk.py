@@ -1,0 +1,107 @@
+"""The Mamba2 SSD intra-chunk block (K5): the CUDA kernel's wrapper and
+its plain PyTorch version.
+
+Port of the TPU kernel `repro.kernels.ssd_chunk.ssd_chunk_kernel`
+(Pallas), with its contract: per (batch, chunk, head) cell, in f32,
+
+    scores = C B^T                                          (c x c)
+    L[s,t] = exp(cum[s] - cum[t]) for s >= t, else 0 (masked before
+             the exponent)
+    y_diag = (scores * L * dt[t]) x                         (c x p)
+    S      = (B * exp(cum[c-1] - cum) * dt)^T x,  stored as (p, n)
+
+and the TPU entry's layout, except that B and C come by group: x
+(b, nc, c, h, p), dt and cum (b, nc, c, h), B and C (b, nc, c, g, n),
+head h reading group ``h // (h / g)`` (the TPU entry takes them
+already repeated over the heads: the same function without the copy).
+x may be f32 or bf16 and is widened as it is read; dt, cum, B and C
+are f32; both outputs are f32: y (b, nc, c, h, p) and the states
+(b, nc, h, p, n). The kernel is ``csrc/ssd_chunk.cu``; see its header
+for the bound and the design.
+
+The wrapper checks device, dtype, shape and contiguity and raises on
+anything the kernel does not take. A CPU tensor goes to the plain
+version (counted in ``plain_calls``); a CUDA tensor launches the kernel
+(counted in ``launches``) or raises. There is no fallback from a failed
+build or launch to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_P = 64      # head dims the kernel takes
+MAX_N = 256     # state sizes the kernel takes
+X_DTYPES = tuple(_build.DTYPE_CODE)
+_P = _build.PTR
+_I = ctypes.c_int
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+
+
+def ssd_chunk_plain(x, dt, cum, B, C):
+    """Plain version (`repro.kernels.ref.ssd_chunk_ref`, with B and C by
+    group). Returns (y (b, nc, c, h, p), states (b, nc, h, p, n)), f32."""
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    hg = h // g
+    xf = x.to(torch.float32).view(b, nc, c, g, hg, p)
+    dtf = dt.view(b, nc, c, g, hg)
+    cumf = cum.view(b, nc, c, g, hg)
+    diff = cumf[:, :, :, None] - cumf[:, :, None, :]   # (b,nc,s,t,g,hg)
+    causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    diff = diff.masked_fill(~causal[:, :, None, None], float("-inf"))
+    scores = torch.einsum("bcsgn,bctgn->bcstg", C, B)
+    y = torch.einsum("bcstgj,bctgj,bctgjp->bcsgjp",
+                     scores[..., None] * torch.exp(diff), dtf, xf)
+    decay_in = torch.exp(cumf[:, :, -1:] - cumf) * dtf  # (b,nc,c,g,hg)
+    S = torch.einsum("bctgn,bctgj,bctgjp->bcgjpn", B, decay_in, xf)
+    return y.reshape(b, nc, c, h, p), S.reshape(b, nc, h, p, n)
+
+
+def ssd_chunk(x, dt, cum, B, C):
+    """K5: x (b, nc, c, h, p) f32/bf16; dt, cum (b, nc, c, h) f32; B, C
+    (b, nc, c, g, n) f32, h % g == 0, p <= 64, n <= 256. Returns
+    (y_diag (b, nc, c, h, p), states (b, nc, h, p, n)), both f32."""
+    name = "ssd_chunk"
+    dev = x.device
+    f32 = (torch.float32,)
+    _build.check_tensor(f"{name}: x", x, X_DTYPES, dev, ndim=5)
+    for nm, t in (("dt", dt), ("cum", cum)):
+        _build.check_tensor(f"{name}: {nm}", t, f32, dev, ndim=4)
+    for nm, t in (("B", B), ("C", C)):
+        _build.check_tensor(f"{name}: {nm}", t, f32, dev, ndim=5)
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    if (dt.shape != (b, nc, c, h) or cum.shape != dt.shape
+            or B.shape[:3] != (b, nc, c) or C.shape != B.shape):
+        raise ValueError(f"{name}: x {tuple(x.shape)} needs dt and cum "
+                         f"(b, nc, c, h) and B, C (b, nc, c, g, n); got "
+                         f"{tuple(dt.shape)}, {tuple(cum.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    if min(b, nc, c, h, g) < 1 or h % g != 0:
+        raise ValueError(f"{name}: need b, nc, c >= 1 and h ({h}) a "
+                         f"multiple of g ({g})")
+    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N):
+        raise ValueError(f"{name}: head dim {p} and state {n}, kernel "
+                         f"takes p <= {MAX_P} and n <= {MAX_N}")
+    if dev.type == "cpu":
+        ssd_chunk.plain_calls += 1
+        return ssd_chunk_plain(x, dt, cum, B, C)
+    fn = _build.c_entry("ssd_chunk", "ssd_chunk", _ARGTYPES)
+    _build.require_cuda(name, dev)
+    y = torch.empty(b, nc, c, h, p, dtype=torch.float32, device=dev)
+    states = torch.empty(b, nc, h, p, n, dtype=torch.float32, device=dev)
+    rc = fn(_build.DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+            cum.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+            states.data_ptr(), b * nc, c, h, g, p, n,
+            _build.stream_of(dev))
+    _build.launch_check(rc, name)
+    ssd_chunk.launches += 1
+    return y, states
+
+
+ssd_chunk.launches = 0
+ssd_chunk.plain_calls = 0

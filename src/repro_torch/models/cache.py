@@ -1,13 +1,21 @@
-"""Decode-time KV cache of the dense family (counterpart of
-`repro.models.cache`).
+"""Decode-time caches of the dense, ssm and hybrid families (counterpart
+of `repro.models.cache`).
 
-Per-layer tensors are stacked on a leading ``layers`` axis: k and v are
-(L, B, T, KVH, hd) in the compute dtype, keys already rotary-encoded
-(rope applied at write time), as in the JAX package. ``length`` is a
-Python int, so the decode loop never reads the device to know where it
-writes. Unlike the JAX package, whose functions return rewritten
-arrays, the port's prefill and decode step write into these tensors in
-place and return the same dict.
+Per-layer tensors are stacked on a leading ``layers`` axis, as in the
+JAX package:
+
+* dense: k and v (L, B, T, KVH, hd) in the compute dtype, keys already
+  rotary-encoded (rope applied at write time);
+* ssm: ``conv`` (L, B, K-1, d_inner + 2 g n), the last K-1 inputs of
+  each layer's causal conv, in the compute dtype, and ``ssm`` (L, B, h,
+  p, n), the state, in f32 whatever the compute dtype;
+* hybrid: those two, plus k and v (L / attn_every, B, T, KVH, hd) for
+  the shared attention block's applications.
+
+``length`` is a Python int, so the decode loop never reads the device
+to know where it writes. Unlike the JAX package, whose functions return
+rewritten arrays, the port's prefill and decode step write into these
+tensors in place and return the same dict.
 """
 from __future__ import annotations
 
@@ -31,12 +39,36 @@ class CacheSpec:
         return out
 
 
+# the families the JAX package serves that the port does not, and the
+# ROADMAP item that ports each
+NOT_PORTED = {
+    "moe": "ROADMAP Queue 1, item 11 (MoE)",
+    "encdec": "ROADMAP Queue 1, item 11 (encoder-decoder)",
+    "vlm": "ROADMAP Queue 1, item 11 (VLM)",
+}
+
+
 def cache_spec(cfg, batch: int, max_len: int) -> CacheSpec:
-    """The dense family's cache: k and v (L, batch, max_len, KVH, hd)."""
-    if cfg.family != "dense":
+    """The cache of ``cfg``'s family for ``batch`` sequences of at most
+    ``max_len`` positions."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"cache of family {cfg.family!r}: only 'dense' is ported "
-            "(ROADMAP Queue 1, item 11; ssm/hybrid: Queue 2, K5)")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return CacheSpec({"k": shape, "v": shape},
-                     {"k": cfg.cdtype, "v": cfg.cdtype})
+            f"cache of family {cfg.family!r}: not ported "
+            f"({NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 11')})")
+    shapes, dtypes = {}, {}
+    L = cfg.n_layers
+    if cfg.family != "ssm":
+        kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    if cfg.family == "dense":
+        shapes["k"] = shapes["v"] = (L,) + kv
+    else:
+        conv_c = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+        shapes["conv"] = (L, batch, cfg.ssm_conv - 1, conv_c)
+        shapes["ssm"] = (L, batch, cfg.ssm_heads, cfg.ssm_headdim,
+                         cfg.ssm_state)
+        dtypes["ssm"] = torch.float32
+        if cfg.family == "hybrid":
+            shapes["k"] = shapes["v"] = (L // cfg.attn_every,) + kv
+    for k in shapes:
+        dtypes.setdefault(k, cfg.cdtype)
+    return CacheSpec(shapes, dtypes)

@@ -2,9 +2,10 @@
 
 The same frozen dataclass, fields and `smoke()` as the JAX package, so
 one config describes a model in both packages; `pdtype`/`cdtype` give
-`torch.dtype`s. The port's model runs the ``dense`` family only
-(`repro_torch.models.model`); the other families' fields are kept so
-that every config of the JAX package can be expressed. ``use_pallas``
+`torch.dtype`s. The port's model runs the ``dense``, ``ssm`` and
+``hybrid`` families (`repro_torch.models.model`); the other families'
+fields are kept so that every config of the JAX package can be
+expressed. ``use_pallas``
 is an inert field here as it is in the JAX package: on CUDA tensors the
 hand-written kernels always run. Architecture instances live in
 ``repro_torch/configs/<id>.py``.

@@ -2,10 +2,13 @@
 
 `from_jax_params` turns the tree of `repro.models.Model.init` (nested
 dicts whose leaves are numpy arrays, or anything ``np.asarray`` takes;
-the ``blocks`` leaves stacked on a leading layer axis) into the state
-dict of `repro_torch.models.Model`: the module tree mirrors the JAX
-tree, so a leaf's path joined by dots is its parameter's name and its
-layout is the same. Load it with ``model.load_state_dict(...)`` (strict:
+the ``blocks`` leaves stacked on a leading layer axis; the dense, ssm
+and hybrid trees: ``blocks.norm1``, ``blocks.attn.*`` / ``blocks.mlp.*``
+or ``blocks.mamba.*``, and the hybrid's ``shared_attn.{shared_in,
+norm1, norm2, attn.*, mlp.*}``) into the state dict of
+`repro_torch.models.Model`: the module tree mirrors the JAX tree, so a
+leaf's path joined by dots is its parameter's name and its layout is
+the same. Load it with ``model.load_state_dict(...)`` (strict:
 a missing or extra leaf raises), and both packages compute the same
 function.
 """
@@ -16,13 +19,16 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models.cache import NOT_PORTED
+from repro_torch.models.model import FAMILIES
+
 
 def from_jax_params(cfg, tree) -> Dict[str, torch.Tensor]:
     """State dict (CPU tensors in ``cfg.pdtype``) of the JAX tree."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: only 'dense' is ported (ROADMAP "
-            "Queue 1, item 11)")
+            f"family {cfg.family!r} is not ported ("
+            f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 11')})")
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix, node):

@@ -1,5 +1,5 @@
-"""Dense transformer layers of the port (counterpart of the dense subset
-of `repro.models.layers`).
+"""Transformer layers of the port (counterpart of the dense subset of
+`repro.models.layers`).
 
 Parameters keep the JAX package's names and layouts (``wq`` (d, h, hd),
 ``wo`` (h, hd, d), ``w_gate`` (d, f), ...), stacked on a leading layer
@@ -27,12 +27,21 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 
-def stacked(n_layers: int, *shape, dtype, device) -> nn.Parameter:
-    """An uninitialised (n_layers, *shape) parameter on ``device``:
-    allocated, not filled, so that a full-width model is built in place
-    on the card (`init_normal_` and friends fill it)."""
-    return nn.Parameter(torch.empty(n_layers, *shape, dtype=dtype,
+def stacked(n_layers, *shape, dtype, device) -> nn.Parameter:
+    """An uninitialised (n_layers, *shape) parameter on ``device`` (just
+    ``shape`` when ``n_layers`` is None: a block that is not stacked,
+    such as the hybrid family's shared one): allocated, not filled, so
+    that a full-width model is built in place on the card
+    (`init_normal_` and friends fill it)."""
+    lead = () if n_layers is None else (n_layers,)
+    return nn.Parameter(torch.empty(*lead, *shape, dtype=dtype,
                                     device=device), requires_grad=False)
+
+
+def at(p: torch.Tensor, l):
+    """Layer ``l`` of a stacked parameter; the parameter itself when
+    ``l`` is None (a block that is not stacked)."""
+    return p if l is None else p[l]
 
 
 def init_normal_(p: torch.Tensor, gen: torch.Generator,
@@ -70,10 +79,11 @@ def apply_rope(x, cos, sin):
 
 # ------------------------------------------------------------- attention
 class Attention(nn.Module):
-    """Grouped-query self-attention of ``n_layers`` layers, with the
+    """Grouped-query self-attention of ``n_layers`` layers (one block,
+    not stacked, when None; its methods then take ``l=None``), with the
     optional qkv bias (qwen1.5) and per-head qk RMSNorm (qwen3)."""
 
-    def __init__(self, cfg, n_layers: int, device):
+    def __init__(self, cfg, n_layers, device):
         super().__init__()
         self.cfg = cfg
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, \
@@ -110,22 +120,22 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        q = (x @ self.wq[l].view(d, h * hd)).view(B, S, h, hd)
-        k = (x @ self.wk[l].view(d, kv * hd)).view(B, S, kv, hd)
-        v = (x @ self.wv[l].view(d, kv * hd)).view(B, S, kv, hd)
+        q = (x @ at(self.wq, l).view(d, h * hd)).view(B, S, h, hd)
+        k = (x @ at(self.wk, l).view(d, kv * hd)).view(B, S, kv, hd)
+        v = (x @ at(self.wv, l).view(d, kv * hd)).view(B, S, kv, hd)
         if cfg.qkv_bias:
-            q = q + self.bq[l]
-            k = k + self.bk[l]
-            v = v + self.bv[l]
+            q = q + at(self.bq, l)
+            k = k + at(self.bk, l)
+            v = v + at(self.bv, l)
         if cfg.qk_norm:
-            q = rms_norm(q, self.q_norm[l], cfg.norm_eps)
-            k = rms_norm(k, self.k_norm[l], cfg.norm_eps)
+            q = rms_norm(q, at(self.q_norm, l), cfg.norm_eps)
+            k = rms_norm(k, at(self.k_norm, l), cfg.norm_eps)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def out(self, l: int, y):
         """Output projection of the heads y (B, S, h, hd) -> (B, S, d)."""
         B, S, h, hd = y.shape
-        return y.reshape(B, S, h * hd) @ self.wo[l].view(h * hd, -1)
+        return y.reshape(B, S, h * hd) @ at(self.wo, l).view(h * hd, -1)
 
     def forward(self, l: int, x, cos, sin):
         """Causal full-sequence attention (prefill) through K2. Returns
@@ -137,9 +147,10 @@ class Attention(nn.Module):
 
 # ------------------------------------------------------------------ MLP
 class MLP(nn.Module):
-    """SwiGLU MLP of ``n_layers`` layers: (silu(x Wg) * x Wu) Wd."""
+    """SwiGLU MLP of ``n_layers`` layers (one, not stacked, when None):
+    (silu(x Wg) * x Wu) Wd."""
 
-    def __init__(self, cfg, n_layers: int, device):
+    def __init__(self, cfg, n_layers, device):
         super().__init__()
         self.cfg = cfg
         d, f = cfg.d_model, cfg.d_ff
@@ -155,8 +166,8 @@ class MLP(nn.Module):
         init_normal_(self.w_down, gen, 1.0 / math.sqrt(cfg.d_ff))
 
     def forward(self, l: int, x):
-        return (F.silu(x @ self.w_gate[l]) * (x @ self.w_up[l])) \
-            @ self.w_down[l]
+        return (F.silu(x @ at(self.w_gate, l)) * (x @ at(self.w_up, l))) \
+            @ at(self.w_down, l)
 
 
 # ----------------------------------------------------------- embeddings

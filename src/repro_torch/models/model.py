@@ -1,24 +1,43 @@
-"""Model assembly of the port: the dense family (counterpart of
-`repro.models.model`).
+"""Model assembly of the port: the dense, ssm and hybrid families
+(counterpart of `repro.models.model`).
 
 `Model` is an ``nn.Module`` whose module tree mirrors the JAX parameter
-tree (``embed``, ``unembed``, ``final_norm``, ``blocks.norm1``,
-``blocks.attn.wq``, ...; block leaves stacked on a leading layer axis).
-``build_model(cfg, device)`` allocates it on the device without filling
-it; ``init_weights(generator)`` fills it in place, and
-`convert.from_jax_params` loads the JAX package's weights instead.
+tree (``embed``, ``unembed``, ``final_norm``; dense: ``blocks.norm1``,
+``blocks.attn.wq``, ...; ssm and hybrid: ``blocks.norm1``,
+``blocks.mamba.w_xz``, ...; hybrid also ``shared_attn.shared_in``,
+``shared_attn.attn.wq``, ...; block leaves stacked on a leading layer
+axis, the shared block's not). ``build_model(cfg, device)`` allocates it
+on the device without filling it; ``init_weights(generator)`` fills it
+in place, and `convert.from_jax_params` loads the JAX package's weights
+instead.
 
 The serving methods follow `repro.models.model.Model.prefill` and
-``decode_step`` for the dense family, with the hand-written kernels at
-the places where the JAX package computes what a TPU kernel computes:
+``decode_step``, with the hand-written kernels at the places where the
+JAX package computes what a TPU kernel computes:
 
-* prefill attention: K2 (`kernels.flash_attention`), one launch a layer;
+* prefill attention: K2 (`kernels.flash_attention`), one launch a layer
+  (dense) or a shared-block application (hybrid, head_dim 80);
 * decode attention over the cache: K3 (`kernels.decode_attention`), one
-  launch a layer a token; slot ``min(length, T - 1)``, positions
-  ``<= length`` attended, scale ``1/sqrt(hd)``;
-* the first norm1 and the qk-norm: K4a (`kernels.rmsnorm.rmsnorm`);
+  launch a layer (or application) a token; the dense family writes slot
+  ``min(length, T - 1)``, the hybrid its ring slot ``length % T``, and
+  both attend the positions ``<= min(length, T - 1)`` (all of them once
+  the ring is full, as the JAX ring mask), scale ``1/sqrt(hd)``;
+* the SSD intra-chunk block of each Mamba2 layer's prefill: K5
+  (`kernels.ssd_chunk`), one launch a layer (`models.mamba`); decode is
+  the plain per-token recurrence;
+* the first norm1, the qk-norm, the Mamba2 gate norm and the shared
+  block's first norm: K4a (`kernels.rmsnorm.rmsnorm`);
 * every residual add with the norm after it -- each norm2, each later
   norm1 and the final norm -- K4b (`kernels.rmsnorm.rmsnorm_residual`).
+
+The hybrid family (Zamba2) runs, after every ``attn_every`` Mamba2
+layers, one shared attention block on ``concat(h, h0) @ shared_in``
+(``h0`` the token embeddings): K4a, attention, K4b, the MLP, and the
+block's output is added to ``h``; each of its ``L / attn_every``
+applications has its own k/v cache layer. The JAX order of adds is
+kept (``z = z + mlp``, then ``h = h + z``), so the residual stream is
+the JAX one. A hybrid prompt longer than the cache takes a sliding
+window in the JAX package, which K2 does not have: it raises here.
 
 Numbers: in f32 this is the JAX model's arithmetic up to the order of
 sums. In bf16 three places round differently: the norms multiply by the
@@ -30,15 +49,20 @@ before the value product.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from repro_torch.utils.device import resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.rmsnorm import rmsnorm_residual
 from repro_torch.models import layers as L
-from repro_torch.models.cache import CacheSpec, cache_spec
+from repro_torch.models.cache import NOT_PORTED, CacheSpec, cache_spec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba import Mamba
+from repro_torch.utils.device import resolve_device
+
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class DenseBlocks(nn.Module):
@@ -59,19 +83,63 @@ class DenseBlocks(nn.Module):
         self.mlp.reset_parameters(gen)
 
 
-class Model(nn.Module):
-    """A dense decoder-only LM on one device."""
+class MambaBlocks(nn.Module):
+    """The stacked Mamba2 blocks of the ssm and hybrid families: norm1,
+    then the mixer."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        if cfg.family != "dense":
+        self.norm1 = L.stacked(cfg.n_layers, cfg.d_model, dtype=cfg.pdtype,
+                               device=device)
+        self.mamba = Mamba(cfg, cfg.n_layers, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.fill_(1.0)
+        self.mamba.reset_parameters(gen)
+
+
+class SharedAttention(nn.Module):
+    """The hybrid family's one shared attention block (not stacked):
+    ``shared_in`` (2d, d), norm1, attention, norm2, MLP."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        kw = dict(dtype=cfg.pdtype, device=device)
+        self.shared_in = L.stacked(None, 2 * d, d, **kw)
+        self.norm1 = L.stacked(None, d, **kw)
+        self.norm2 = L.stacked(None, d, **kw)
+        self.attn = L.Attention(cfg, None, device)
+        self.mlp = L.MLP(cfg, None, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        L.init_normal_(self.shared_in, gen, 1.0 / math.sqrt(
+            self.shared_in.shape[0]))
+        self.norm1.fill_(1.0)
+        self.norm2.fill_(1.0)
+        self.attn.reset_parameters(gen)
+        self.mlp.reset_parameters(gen)
+
+
+class Model(nn.Module):
+    """A decoder-only LM of the dense, ssm or hybrid family on one
+    device."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}: only 'dense' is ported (ROADMAP "
-                "Queue 1, item 11; ssm/hybrid: Queue 2, K5)")
+                f"family {cfg.family!r} is not ported ("
+                f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 11')})")
         if cfg.window is not None or cfg.mla or cfg.n_experts:
             raise NotImplementedError(
                 "sliding windows, MLA and MoE are not ported (ROADMAP "
                 "Queue 1, item 11)")
+        if cfg.family == "hybrid" and (cfg.attn_every < 1 or
+                                       cfg.n_layers % cfg.attn_every):
+            raise ValueError(f"hybrid serving needs n_layers "
+                             f"({cfg.n_layers}) a multiple of attn_every "
+                             f"({cfg.attn_every})")
         self.cfg = cfg
         self.device = torch.device(device)
         v, d = cfg.padded_vocab, cfg.d_model
@@ -83,7 +151,12 @@ class Model(nn.Module):
                                         requires_grad=False)
         self.final_norm = nn.Parameter(torch.empty(d, **kw),
                                        requires_grad=False)
-        self.blocks = DenseBlocks(cfg, self.device)
+        if cfg.family == "dense":
+            self.blocks = DenseBlocks(cfg, self.device)
+        else:
+            self.blocks = MambaBlocks(cfg, self.device)
+        if cfg.family == "hybrid":
+            self.shared_attn = SharedAttention(cfg, self.device)
 
     @torch.no_grad()
     def init_weights(self, gen: torch.Generator) -> "Model":
@@ -96,6 +169,8 @@ class Model(nn.Module):
             L.init_normal_(self.unembed, gen, cfg.d_model ** -0.5)
         self.final_norm.fill_(1.0)
         self.blocks.reset_parameters(gen)
+        if cfg.family == "hybrid":
+            self.shared_attn.reset_parameters(gen)
         return self
 
     def cache_spec(self, batch: int, max_len: int) -> CacheSpec:
@@ -115,13 +190,33 @@ class Model(nn.Module):
                                 self.final_norm, eps=self.cfg.norm_eps)
         return L.logits_from_hidden(self._head(), self.cfg, x)
 
+    def _shared_after(self, li: int) -> bool:
+        """Whether the shared attention block runs after layer ``li``."""
+        k = self.cfg.attn_every
+        return self.cfg.family == "hybrid" and (li + 1) % k == 0
+
     # ---------------------------------------------------------- serving
     @torch.no_grad()
     def prefill(self, batch, cache):
         """Full-sequence forward that fills the cache. ``batch`` is
-        ``{"tokens": (B, S) int}``. Writes the last ``min(S, T)``
-        positions' k and v into cache slots ``0..``, sets ``length`` to
-        S and returns (last-position logits (B, 1, V), cache)."""
+        ``{"tokens": (B, S) int}``. Sets ``length`` to S and returns
+        (last-position logits (B, 1, V), cache). Dense: writes the last
+        ``min(S, T)`` positions' k and v into cache slots ``0..``. ssm
+        and hybrid: writes each layer's conv and SSM state, and (hybrid,
+        S <= T only) the shared block's k and v into slots ``0..S-1``."""
+        if self.cfg.family == "dense":
+            return self._prefill_dense(batch, cache)
+        return self._prefill_ssm(batch, cache)
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache):
+        """One-token decode against the cache. tokens (B, 1). Returns
+        (logits (B, 1, V), cache) with ``length`` one further."""
+        if self.cfg.family == "dense":
+            return self._decode_dense(tokens, cache)
+        return self._decode_ssm(tokens, cache)
+
+    def _prefill_dense(self, batch, cache):
         cfg, blk = self.cfg, self.blocks
         tokens = batch["tokens"]
         S = tokens.shape[1]
@@ -141,10 +236,7 @@ class Model(nn.Module):
         cache["length"] = S
         return self._logits(y[:, -1:], h[:, -1:]), cache
 
-    @torch.no_grad()
-    def decode_step(self, tokens, cache):
-        """One-token decode against the cache. tokens (B, 1). Returns
-        (logits (B, 1, V), cache) with ``length`` one further."""
+    def _decode_dense(self, tokens, cache):
         cfg, blk = self.cfg, self.blocks
         length = cache["length"]
         T = cache["k"].shape[2]
@@ -162,6 +254,94 @@ class Model(nn.Module):
             y = blk.attn.out(li, decode_attention(q, k_l, v_l, length))
             x, h = rmsnorm_residual(y, h, blk.norm2[li], eps=cfg.norm_eps)
             y = blk.mlp(li, x)
+            if li + 1 < cfg.n_layers:
+                x, h = rmsnorm_residual(y, h, blk.norm1[li + 1],
+                                        eps=cfg.norm_eps)
+        cache["length"] = length + 1
+        return self._logits(y, h), cache
+
+    def _shared_block(self, h, h0, attend):
+        """The hybrid family's shared block on the residual stream ``h``
+        (the last Mamba2 layer's output already added) and the
+        embeddings ``h0``: ``attend(x)`` is the attention of the normed
+        input. Returns z, the block's output, to be added to ``h``."""
+        cfg, sh = self.cfg, self.shared_attn
+        z = torch.cat([h, h0], dim=-1) @ sh.shared_in
+        x = L.rms_norm(z, sh.norm1, cfg.norm_eps)
+        x, z = rmsnorm_residual(attend(x), z, sh.norm2, eps=cfg.norm_eps)
+        return z + sh.mlp(None, x)
+
+    def _prefill_ssm(self, batch, cache):
+        cfg, blk = self.cfg, self.blocks
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        h = L.embed_tokens(self.embed, cfg, tokens)
+        if cfg.family == "hybrid":
+            if S > cache["k"].shape[2]:
+                raise NotImplementedError(
+                    f"hybrid prompt of {S} tokens longer than the cache "
+                    f"({cache['k'].shape[2]}): the JAX package's sliding-"
+                    "window prefill is not ported (ROADMAP Queue 1, item "
+                    "11, hybrid prompts longer than the cache)")
+            cos, sin = self._rope(torch.arange(S, device=h.device))
+        h0 = h
+
+        def attend(ai):
+            def run(x):
+                y, (k, v) = self.shared_attn.attn(None, x, cos, sin)
+                cache["k"][ai, :, :S] = k
+                cache["v"][ai, :, :S] = v
+                return y
+            return run
+
+        x = L.rms_norm(h, blk.norm1[0], cfg.norm_eps)
+        for li in range(cfg.n_layers):
+            y, (conv, ssm) = blk.mamba(li, x)
+            cache["conv"][li] = conv
+            cache["ssm"][li] = ssm
+            if self._shared_after(li):
+                h = h + y
+                y = self._shared_block(h, h0,
+                                       attend(li // cfg.attn_every))
+            if li + 1 < cfg.n_layers:
+                x, h = rmsnorm_residual(y, h, blk.norm1[li + 1],
+                                        eps=cfg.norm_eps)
+        cache["length"] = S
+        return self._logits(y[:, -1:], h[:, -1:]), cache
+
+    def _decode_ssm(self, tokens, cache):
+        cfg, blk = self.cfg, self.blocks
+        length = cache["length"]
+        h = L.embed_tokens(self.embed, cfg, tokens)
+        if cfg.family == "hybrid":
+            T = cache["k"].shape[2]
+            cos, sin = self._rope(torch.arange(length, length + 1,
+                                               device=h.device))
+        h0 = h
+
+        def attend(ai):
+            def run(x):
+                attn = self.shared_attn.attn
+                q, k, v = attn.qkv(None, x, cos, sin)
+                k_l, v_l = cache["k"][ai], cache["v"][ai]
+                # the ring of the JAX package: slot length % T, every
+                # position valid once it is full
+                k_l[:, length % T] = k[:, 0]
+                v_l[:, length % T] = v[:, 0]
+                return attn.out(None, decode_attention(
+                    q, k_l, v_l, min(length, T - 1)))
+            return run
+
+        x = L.rms_norm(h, blk.norm1[0], cfg.norm_eps)
+        for li in range(cfg.n_layers):
+            y, (conv, ssm) = blk.mamba.decode(li, x, cache["conv"][li],
+                                              cache["ssm"][li])
+            cache["conv"][li] = conv
+            cache["ssm"][li] = ssm
+            if self._shared_after(li):
+                h = h + y
+                y = self._shared_block(h, h0,
+                                       attend(li // cfg.attn_every))
             if li + 1 < cfg.n_layers:
                 x, h = rmsnorm_residual(y, h, blk.norm1[li + 1],
                                         eps=cfg.norm_eps)

@@ -1,6 +1,6 @@
 """Card-only checks of the port: each CUDA kernel against its plain
-PyTorch version, and the engine and the model on the card against
-themselves on the CPU. Every test skips without a CUDA device (a CUDA
+PyTorch version, and the engine, the chunked SSD and the models (dense,
+ssm, hybrid) on the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
 kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
 (``--noconftest`` skips tests/conftest.py, which imports JAX):
 
@@ -16,6 +16,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd_chunk as K5
 from repro_torch.models import build_model
 from repro_torch.traces import synth_azure_arrays
 
@@ -122,6 +123,9 @@ def _assert_within(got, want, dtype, abs_v=None):
     (512, 512, 32, 8, 128, True, torch.bfloat16),
     (100, 180, 4, 2, 64, False, torch.bfloat16),  # ragged S and T
     (33, 33, 2, 1, 16, True, torch.bfloat16),
+    (1024, 1024, 32, 32, 80, True, torch.bfloat16),  # Zamba2's shared block
+    (100, 180, 4, 4, 80, False, torch.bfloat16),
+    (100, 100, 4, 4, 80, True, torch.float32),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, S, T, H, KVH, D,
                                               causal, dtype):
@@ -150,6 +154,9 @@ def test_flash_attention_kernel_matches_plain(cuda, S, T, H, KVH, D,
     (1000, 20, 20, 128, 999, torch.bfloat16),   # G = 1
     (700, 4, 2, 256, 650, torch.float32),
     (200, 4, 2, 16, 150, torch.bfloat16),
+    (1280, 32, 32, 80, 1030, torch.bfloat16),   # Zamba2's shared block
+    (1280, 32, 32, 80, 0, torch.bfloat16),
+    (300, 4, 2, 80, 250, torch.float32),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, T, H, KVH, D, length,
                                                dtype):
@@ -190,28 +197,83 @@ def test_rmsnorm_kernels_match_plain(cuda, shape, dtype, wdtype):
     assert torch.equal(got_r, want_r)
 
 
+# K5: f32 on both sides, sums in another order; tests/test_kernels.py's
+# f32 TOL of the TPU kernel (3e-4 there), here 2e-4
+def _ssd_inputs(b, nc, c, h, p, n, g, xdtype, device, seed):
+    r = np.random.default_rng(seed)
+    f32 = torch.float32
+    dt = r.uniform(0.01, 0.2, (b, nc, c, h))
+    A = -r.uniform(0.5, 2.0, (h,))
+    mk = lambda a, d=f32: torch.tensor(a, dtype=d, device=device)  # noqa
+    return (mk(r.normal(size=(b, nc, c, h, p)), xdtype), mk(dt),
+            mk(np.cumsum(dt * A, axis=2)), mk(r.normal(size=(b, nc, c, g, n))),
+            mk(r.normal(size=(b, nc, c, g, n))))
+
+
 @pytest.mark.cuda
-def test_model_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("b,nc,c,h,p,n,g,xdtype", [
+    (1, 8, 256, 48, 64, 128, 1, torch.bfloat16),   # Mamba2-780M, S 2048
+    (1, 4, 256, 80, 64, 64, 1, torch.bfloat16),    # Zamba2-2.7B, S 1024
+    (1, 8, 256, 48, 64, 128, 1, torch.float32),
+    (2, 3, 32, 8, 16, 16, 2, torch.float32),       # smoke shapes, g 2
+    (1, 2, 100, 6, 40, 72, 3, torch.bfloat16),     # ragged tiles
+])
+def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, c, h, p, n, g, xdtype):
+    args = _ssd_inputs(b, nc, c, h, p, n, g, xdtype, cuda, c + h)
+    launches = K5.ssd_chunk.launches
+    got = K5.ssd_chunk(*args)
+    want = K5.ssd_chunk_plain(*args)
+    torch.cuda.synchronize()
+    assert K5.ssd_chunk.launches == launches + 1
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **F32_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_ragged_on_card_matches_cpu(cuda):
+    """S = 2000 at Mamba2-780M's widths, padded to 8 chunks of 256."""
+    from repro_torch.models.mamba import ssd_chunked
+    r = np.random.default_rng(0)
+    l, h, p, n = 2000, 48, 64, 128
+    x = r.normal(size=(1, l, h, p))
+    dt = r.uniform(0.01, 0.2, (1, l, h))
+    A = -r.uniform(0.5, 2.0, (h,))
+    B, C = r.normal(size=(2, 1, l, 1, n))
+    outs = []
+    for dev in ("cpu", cuda):
+        t = [torch.tensor(a, dtype=torch.float32, device=dev)
+             for a in (x, dt, A, B, C)]
+        outs.append([o.cpu() for o in ssd_chunked(*t, chunk=256)])
+    for a, w in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, w, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m", "zamba2-2.7b"])
+def test_model_on_card_matches_cpu(cuda, arch):
     """The smoke-size model through the kernels on the card against the
     same weights through the plain versions on the CPU (f32)."""
-    cfg = get_arch("qwen3-4b").smoke()
+    cfg = get_arch(arch).smoke()
     cpu = build_model(cfg, "cpu").init_weights(
         torch.Generator().manual_seed(0))
     card = build_model(cfg, cuda)
     card.load_state_dict(cpu.state_dict())
     toks = torch.tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (2, 20)))
-    launches = FA.flash_attention.launches, DA.decode_attention.launches
+        0, cfg.vocab_size, (2, 70)))
+    attn = cfg.family != "ssm"
+    launches = (FA.flash_attention.launches, DA.decode_attention.launches,
+                K5.ssd_chunk.launches)
     outs = []
     for m, dev in ((cpu, "cpu"), (card, cuda)):
-        cache = m.cache_spec(2, 32).zeros(dev)
+        cache = m.cache_spec(2, 80).zeros(dev)
         lg, cache = m.prefill({"tokens": toks.to(dev)}, cache)
         steps = [lg]
         for i in range(3):
             lg, cache = m.decode_step(toks[:, i:i + 1].to(dev), cache)
             steps.append(lg)
         outs.append([s.cpu() for s in steps])
-    assert FA.flash_attention.launches > launches[0]
-    assert DA.decode_attention.launches > launches[1]
+    assert (FA.flash_attention.launches > launches[0]) == attn
+    assert (DA.decode_attention.launches > launches[1]) == attn
+    assert (K5.ssd_chunk.launches > launches[2]) == (cfg.family != "dense")
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)

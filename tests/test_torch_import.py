@@ -15,6 +15,7 @@ from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
 from repro_torch.kernels import rmsnorm as RN
+from repro_torch.kernels import ssd_chunk as K5
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src")
@@ -122,6 +123,10 @@ NEW_WRAPPERS = {
     "rmsnorm_residual": (RN.rmsnorm_residual, lambda: RN.rmsnorm_residual(
         _meta(4, 32, dtype=torch.bfloat16),
         _meta(4, 32, dtype=torch.bfloat16), _meta(32))),
+    "ssd_chunk": (K5.ssd_chunk, lambda: K5.ssd_chunk(
+        _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16), _meta(1, 2, 32, 4),
+        _meta(1, 2, 32, 4), _meta(1, 2, 32, 1, 16),
+        _meta(1, 2, 32, 1, 16))),
 }
 
 
@@ -145,7 +150,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
     assert set(_build.SOURCES) == {"frp_select", "rmsnorm",
-                                   "decode_attention", "flash_attention"}
+                                   "decode_attention", "flash_attention",
+                                   "ssd_chunk"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine body needs contraction off (bitwise parity)

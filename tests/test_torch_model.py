@@ -141,7 +141,7 @@ def test_decode_continues_prefill():
     assert cache["length"] == 9
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-2.7b",
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "internvl2-76b",
                                   "deepseek-v3-671b", "whisper-tiny"])
 def test_other_families_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
