@@ -20,8 +20,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  events, back to back, and the device time from
                  torch.profiler) for the kernel, the plain version, one
                  PyTorch call computing the same (a yardstick the port
-                 never calls) and the bound. K2 and K3 also at head_dim
-                 80 (Zamba2-2.7B's shared block, MHA). K5 (ssd_chunk)
+                 never calls) and the bound. K2 also at a ragged S =
+                 2000 and at B = 2, K3 at B = 2, both at head_dim 80
+                 (Zamba2-2.7B's shared block, MHA). K5 (ssd_chunk)
                  in f32 at Mamba2-780M's (S = 2048) and Zamba2-2.7B's
                  (S = 1024) full-width shapes, a ragged S = 2000, x in
                  bf16 and f32, g = 8, within its own limit, each case
@@ -320,9 +321,12 @@ def time_ms(torch, fn, reps: int = 200, trials: int = 7) -> float:
 
 
 def device_ms(torch, fn, reps: int = 20):
-    """Device time of one call of ``fn``: the device time of every
-    kernel it launches over ``reps`` calls (torch.profiler), divided by
-    ``reps``; None when the profiler records no device activity."""
+    """Device time of one call of ``fn`` over ``reps`` calls
+    (torch.profiler): for each kernel it launches, the mean device time
+    of the records the profiler kept, times the launches a call makes
+    (its records / reps, rounded, at least 1). The profiler can drop
+    records; dividing its total by ``reps`` would then read low. None
+    when it records no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -332,9 +336,10 @@ def device_ms(torch, fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.count)
+    return us / 1e3 if us > 0 else None
 
 
 def bound_ms(n_bytes: int, n_ops: int, kind: str):
@@ -574,14 +579,11 @@ def phase_profile_serving(torch):
     def is_kernel(name, key):
         # K4a and K4b are the rmsnorm_kernel instances ending in false
         # and true (the RESIDUAL template argument); K2 has a CUDA-core
-        # and a tensor-core (flash_attention_mma_kernel) body; K3 adds
-        # a merging kernel when it splits the cache (its device time
-        # counts, its launches not: the wrapper launches once)
+        # (f32) and a TMA + wgmma (flash_attention_wgmma_kernel, bf16)
+        # body; K3 is one kernel, one launch a call
         if name.startswith("rmsnorm"):
             flag = "true>" if name == "rmsnorm_residual" else "false>"
             return "rmsnorm_kernel<" in key and flag in key
-        if name == "decode_attention" and "::decode_combine_" in key:
-            return True
         return f"::{name}_" in key
 
     out = []
@@ -604,8 +606,7 @@ def phase_profile_serving(torch):
         for k in ("flash_attention", "decode_attention", "rmsnorm",
                   "rmsnorm_residual", "ssd_chunk"):
             hit = [e for e in rows if is_kernel(k, e.key)]
-            n = sum(e.count for e in hit
-                    if "::decode_combine_" not in e.key)
+            n = sum(e.count for e in hit)
             kernels[k] = dict(launches=n, device_us_per_launch=(
                 sum(e.self_device_time_total for e in hit) / n
                 if n else None))
@@ -705,88 +706,71 @@ def phase_serving_kernels(torch, FA, DA, RN):
                     bound_ms=b, bound_by=by, bytes=n_bytes, ops=n_ops)
 
     rows = []
-    for S in (256, 512, 2048):
-        q, k, v = randn(1, S, H, D), randn(1, S, KVH, D), randn(1, S, KVH, D)
+
+    def flash_case(case, B, S, Hq, KVHq, Dq):
+        """K2 causal at (B, S, Hq, KVHq, Dq), its fault a dropped kv tile
+        of 64 at S/2; SDPA (with enable_gqa where Hq > KVHq) beside it."""
+        q = randn(B, S, Hq, Dq)
+        k, v = randn(B, S, KVHq, Dq), randn(B, S, KVHq, Dq)
         call = partial(FA.flash_attention, q, k, v, causal=True)
         plain = partial(FA.flash_attention_plain, q, k, v, causal=True)
         pos = torch.arange(S, device=dev)
         allowed = (pos[:, None] >= pos[None, :]) & ~(
             (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
-        check = _close(torch, "flash_attention", f"S={S}", call(), plain(),
+        check = _close(torch, "flash_attention", case, call(), plain(),
                        attention_f32(torch, q, k, v, allowed),
                        FA.flash_attention_plain(q.float(), k.float(),
                                                 v.float().abs()))
         rows.append(row(
-            "flash_attention", f"causal S={S}", check, call, plain,
+            "flash_attention", case, check, call, plain,
             partial(F.scaled_dot_product_attention,
                     *(x.transpose(1, 2) for x in (q, k, v)),
-                    is_causal=True, enable_gqa=True),
-            2 * (2 * S * H * D + 2 * S * KVH * D),
-            4 * H * D * S * (S + 1) // 2, "bf16"))
+                    is_causal=True, enable_gqa=Hq > KVHq),
+            2 * B * (2 * S * Hq * Dq + 2 * S * KVHq * Dq),
+            4 * B * Hq * Dq * S * (S + 1) // 2, "bf16"))
+
+    def decode_case(case, q, kc, vc, length):
+        """K3 at ``length``, its fault a dropped kv tile of 64 around
+        length/2 (length 0: position 1 attended too)."""
+        B, T, KVHq, Dq = kc.shape
+        Hq, n = q.shape[2], length + 1
+        call = partial(DA.decode_attention, q, kc, vc, length)
+        plain = partial(DA.decode_attention_plain, q, kc, vc, length)
+        pos = torch.arange(T, device=dev)
+        if length == 0:
+            allowed = pos <= 1
+        else:
+            t0 = length // 2 // 64 * 64
+            allowed = (pos <= length) & ~((pos >= t0) & (pos < t0 + 64))
+        check = _close(torch, "decode_attention", case, call(), plain(),
+                       attention_f32(torch, q, kc, vc, allowed[None, :]))
+        rows.append(row(
+            "decode_attention", case, check, call, plain,
+            partial(F.scaled_dot_product_attention, q.transpose(1, 2),
+                    kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2),
+                    enable_gqa=Hq > KVHq),
+            2 * B * (2 * Hq * Dq + 2 * n * KVHq * Dq), 4 * B * Hq * Dq * n,
+            "bf16"))
+
+    for S in (256, 512, 2048):
+        flash_case(f"causal S={S}", 1, S, H, KVH, D)
+    flash_case("causal S=2000", 1, 2000, H, KVH, D)     # a ragged q tile
+    flash_case("causal B=2 S=2000", 2, 2000, H, KVH, D)
     # Zamba2-2.7B's shared block: MHA, 32 heads of 80, prompt 1024
     H8, D8 = 32, 80
-    S = 1024
-    q, k, v = randn(1, S, H8, D8), randn(1, S, H8, D8), randn(1, S, H8, D8)
-    call = partial(FA.flash_attention, q, k, v, causal=True)
-    plain = partial(FA.flash_attention_plain, q, k, v, causal=True)
-    pos = torch.arange(S, device=dev)
-    allowed = (pos[:, None] >= pos[None, :]) & ~(
-        (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
-    check = _close(torch, "flash_attention", f"D=80 S={S}", call(), plain(),
-                   attention_f32(torch, q, k, v, allowed),
-                   FA.flash_attention_plain(q.float(), k.float(),
-                                            v.float().abs()))
-    rows.append(row(
-        "flash_attention", f"D=80 causal S={S}", check, call, plain,
-        partial(F.scaled_dot_product_attention,
-                *(x.transpose(1, 2) for x in (q, k, v)), is_causal=True),
-        2 * 4 * S * H8 * D8, 4 * H8 * D8 * S * (S + 1) // 2, "bf16"))
+    flash_case("D=80 causal S=1024", 1, 1024, H8, H8, D8)
     T = 1280
     kc, vc = randn(1, T, H8, D8), randn(1, T, H8, D8)
     q = randn(1, 1, H8, D8)
-    pos = torch.arange(T, device=dev)
     for length in (0, 1039):
-        n = length + 1
-        call = partial(DA.decode_attention, q, kc, vc, length)
-        plain = partial(DA.decode_attention_plain, q, kc, vc, length)
-        if length == 0:
-            allowed = pos <= 1
-        else:
-            t0 = length // 2 // 64 * 64
-            allowed = (pos <= length) & ~((pos >= t0) & (pos < t0 + 64))
-        check = _close(torch, "decode_attention", f"D=80 length={length}",
-                       call(), plain(),
-                       attention_f32(torch, q, kc, vc, allowed[None, :]))
-        rows.append(row(
-            "decode_attention", f"D=80 T={T} length={length}", check, call,
-            plain,
-            partial(F.scaled_dot_product_attention, q.transpose(1, 2),
-                    kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2)),
-            2 * (2 * H8 * D8 + 2 * n * H8 * D8), 4 * H8 * D8 * n, "bf16"))
-
+        decode_case(f"D=80 T={T} length={length}", q, kc, vc, length)
     T = 2560
     kc, vc = randn(1, T, KVH, D), randn(1, T, KVH, D)
     q = randn(1, 1, H, D)
-    pos = torch.arange(T, device=dev)
     for length in (0, 1000, T - 1):
-        n = length + 1
-        call = partial(DA.decode_attention, q, kc, vc, length)
-        plain = partial(DA.decode_attention_plain, q, kc, vc, length)
-        if length == 0:
-            allowed = pos <= 1
-        else:
-            t0 = length // 2 // 64 * 64
-            allowed = (pos <= length) & ~((pos >= t0) & (pos < t0 + 64))
-        check = _close(torch, "decode_attention", f"length={length}",
-                       call(), plain(),
-                       attention_f32(torch, q, kc, vc, allowed[None, :]))
-        rows.append(row(
-            "decode_attention", f"T={T} length={length}", check, call,
-            plain,
-            partial(F.scaled_dot_product_attention, q.transpose(1, 2),
-                    kc[:, :n].transpose(1, 2), vc[:, :n].transpose(1, 2),
-                    enable_gqa=True),
-            2 * (2 * H * D + 2 * n * KVH * D), 4 * H * D * n, "bf16"))
+        decode_case(f"T={T} length={length}", q, kc, vc, length)
+    decode_case(f"B=2 T={T} length={T - 1}", randn(2, 1, H, D),
+                randn(2, T, KVH, D), randn(2, T, KVH, D), T - 1)
     for R, Dn in ((2048, d), (2048 * H, D)):
         x, w = randn(R, Dn), (1.0 + 0.1 * randn(Dn)).to(bf16)
         call = partial(RN.rmsnorm, x, w, eps=1e-6)

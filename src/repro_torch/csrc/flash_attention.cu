@@ -14,39 +14,52 @@
 // does about 2 * S^2 * H * D multiply-adds (4 * S^2 * H * D / 2
 // operations) against 2 * (S * H + 2 * T * KVH) * D bytes in bf16, far
 // above the card's 295 operations a byte: the tensor cores' 989
-// TFLOP/s are the bound.
-// What the design does: one block per (q tile of 64 rows, q head, batch
-// row). The block walks the k/v tiles of 64 positions with an in-block
-// loop, the place of the TPU kernel's sequential kv grid axis; a causal
-// block stops at the last tile that holds a position <= its last row,
-// so fully masked tiles above the diagonal are never loaded. Ragged S
-// and T are masked in the kernel: rows past S are not stored, positions
-// past T get no weight.
-// - bf16 runs on the tensor cores through mma.sync
-//   (flash_attention_mma_kernel: one warp per 16 q rows, the scores kept
-//   in registers from one product to the next, p rounded to bf16 for
-//   the value product as the tensor cores take it). wgmma with TMA is
-//   the later step.
-// - f32 has no tensor-core path at its precision and runs on the CUDA
-//   cores (flash_attention_kernel, 256 threads): tiles staged in shared
-//   memory (k rows padded by 4 bytes against bank conflicts); each
-//   thread computes a 4 x 4 block of scores and owns a 4 x D/16 block of
-//   the output accumulator in registers; the running max and sum of
-//   each row live in shared memory, updated by 4 threads a row with
-//   shuffles.
-// D = 80 (Zamba2-2.7B's shared attention) needs nothing of its own: it
-// is five mma.sync k-steps of 16 and ten n-tiles of 8, ten 16-byte
-// chunks a staged row (rows of 88 elements, 176 bytes: 16-byte aligned,
-// and the 8 rows a fragment load touches still fall in distinct
-// banks); the CUDA-core body's thread owns 5 output columns of 16.
+// TFLOP/s are the bound, and only wgmma reaches them.
+//
+// bf16 (flash_attention_wgmma_kernel): one block of three warpgroups per
+// (q tile of 128 rows, q head, batch row).
+// - Loads: one producer thread issues TMA copies through 4-D tensor maps
+//   over (B, S|T, H|KVH, D), so a tile never crosses into the next batch
+//   row and the hardware zero-fills the ragged S and T edges. q comes
+//   once; k and v tiles of 128 positions go through a ring of STAGES
+//   buffers, each with a "full" mbarrier (the copies' bytes) and an
+//   "empty" one (the consumer warps' release), so the loads of the next
+//   tiles overlap the products of this one. The producer warpgroup gives
+//   up registers (setmaxnreg) to the two consumers.
+// - Products: each consumer warpgroup owns 64 q rows. S = Q K^T is a
+//   wgmma with both operands in shared memory (K-major); the scores stay
+//   in registers, are rounded to bf16 and become the register A operand
+//   of O += P V, whose B operand is the v tile in its natural (t, d)
+//   layout read through wgmma's transpose bit (MN-major).
+// - Layout: a tile is stored as column chunks of CW elements, CW * 2
+//   bytes a row, swizzled by the TMA and read by wgmma with the same
+//   swizzle: 128-byte chunks where D is a multiple of 64, 64 bytes at
+//   D = 32, 32 bytes at D = 16 and D = 80 (a 160-byte row is five
+//   32-byte chunks).
+// - Softmax in base 2 (scores times scale * log2(e), exp2f). Only the
+//   tiles that cross the diagonal or the end of T are masked; a causal
+//   block stops at the last tile that holds a position <= its last row.
+//   The blocks of the last (heaviest) q tiles are launched first.
+// - p is rounded to bf16 for the value product, as the tensor cores
+//   take it; the running sum keeps the f32 p.
+// f32 has no tensor-core path at its precision and runs on the CUDA
+// cores (flash_attention_kernel, 256 threads): tiles staged in shared
+// memory (k rows padded by 4 bytes against bank conflicts); each thread
+// computes a 4 x 4 block of scores and owns a 4 x D/16 block of the
+// output accumulator in registers; the running max and sum of each row
+// live in shared memory, updated by 4 threads a row with shuffles; at
+// D = 80 a thread owns 5 output columns of 16.
 
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "dtype.cuh"
+#include "mbarrier.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -57,9 +70,6 @@ constexpr int kThreads = 256;
 // elements d and d + 1 of a staged row (d even)
 __device__ __forceinline__ float2 pair(const float* row, int d) {
   return make_float2(row[d], row[d + 1]);
-}
-__device__ __forceinline__ float2 pair(const __nv_bfloat16* row, int d) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + d));
 }
 
 // padded row stride of a staged q or k tile, in elements: one 4-byte word
@@ -224,22 +234,55 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------ bf16: tensor cores
-// mma.sync m16n8k16, bf16 in, f32 accumulate. Fragment layouts (PTX ISA,
-// "Matrix Fragments for mma.m16n8k16"), with g = lane / 4, t = lane % 4:
-//   A (16 x 16, row): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
-//                     a3 (g + 8, 2t + 8..)
-//   B (16 x 8, col):  b0 (k 2t..2t+1, n g), b1 (k 2t + 8.., n g)
-//   C (16 x 8):       c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..2t+1)
-// The low half of each 32-bit register holds the lower index.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+
+// ------------------------------------- bf16: TMA + wgmma, Hopper only
+constexpr int kFaBQ = 128;       // q rows a block: 64 a consumer warpgroup
+constexpr int kFaBK = 128;       // k/v positions a tile
+constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
+constexpr int kConsumerWarps = 8;
+constexpr int kSmemBudget = 200 * 1024;
+
+// one TMA tile copy of a 4-D tensor map into shared memory, completing
+// on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of an accumulator above the wait
+// that completes it
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B,
+// 3: 32 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -247,195 +290,298 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<const uint32_t*>(&v);
+// The shared-memory plan of head dim D: column chunks of CW elements
+// (SW = 2 CW bytes a row, the swizzle span), q (kFaBQ rows), then STAGES
+// k/v buffers (kFaBK rows each of k and v), then the mbarriers. Every
+// chunk starts on a multiple of its swizzle pattern (8 rows x SW bytes).
+template <int D>
+struct FaPlan {
+  static constexpr int CW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int SW = 2 * CW;
+  static constexpr int NCH = D / CW;
+  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
+  static constexpr int Q_BYTES = kFaBQ * D * 2;
+  static constexpr int KV_BYTES = kFaBK * D * 2;  // one of k, v
+  static constexpr int STAGES_FIT = (kSmemBudget - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  // + the mbarriers, + 1 KB to align the base
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+  static_assert(D % 16 == 0 && NCH * CW == D && STAGES >= 2,
+                "unsupported head dim");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFaThreads, 1)
+flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ out, int S,
+                             int T_len, int H, int KVH, float scale_log2,
+                             int causal) {
+  using P = FaPlan<D>;
+  extern __shared__ __align__(1024) unsigned char fa_smem[];
+  unsigned char* base = fa_smem + ((1024 - (smem_u32(fa_smem) & 1023)) & 1023);
+  unsigned char* q_s = base;
+  unsigned char* kv_s = base + P::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + P::BAR_OFF);
+  uint64_t* empty = full + P::STAGES;
+  uint64_t* q_bar = empty + P::STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kFaBQ;  // heaviest first
+  const int kvh = h / (H / KVH);
+  const int k_end = causal ? min(T_len, q0 + kFaBQ) : T_len;
+  const int n_k = (k_end + kFaBK - 1) / kFaBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_bar, P::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < P::NCH; ++c)
+        tma_load_4d(q_s + c * kFaBQ * P::SW, &tm_q, q_bar, c * P::CW, h,
+                    q0, b);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % P::STAGES;
+        if (j >= P::STAGES) mbar_wait(&empty[s], (j / P::STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * P::KV_BYTES);
+        unsigned char* k_dst = kv_s + s * 2 * P::KV_BYTES;
+        unsigned char* v_dst = k_dst + P::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < P::NCH; ++c) {
+          tma_load_4d(k_dst + c * kFaBK * P::SW, &tm_k, &full[s],
+                      c * P::CW, kvh, j * kFaBK, b);
+          tma_load_4d(v_dst + c * kFaBK * P::SW, &tm_v, &full[s],
+                      c * P::CW, kvh, j * kFaBK, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int NS = kFaBK / 2;  // score registers a thread
+    constexpr int NO = D / 2;      // output registers a thread
+    const int tid = threadIdx.x - 128;
+    const int cw = tid / 128;  // rows [64 cw, 64 cw + 64) of the tile
+    const int warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int row_lo = q0 + 64 * cw;
+    const int r0 = row_lo + 16 * warp + g, r1 = r0 + 8;
+
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float m_run[2] = {neg_inf(), neg_inf()}, l_run[2] = {0.f, 0.f};
+    const uint32_t q_addr = smem_u32(q_s) + 64 * cw * P::SW;
+    mbar_wait(q_bar, 0);
+
+    for (int j = 0; j < n_k; ++j) {
+      const int s = j % P::STAGES;
+      const int k0 = j * kFaBK;
+      mbar_wait(&full[s], (j / P::STAGES) & 1);
+      const uint32_t k_addr = smem_u32(kv_s + s * 2 * P::KV_BYTES);
+      const uint32_t v_addr = k_addr + P::KV_BYTES;
+
+      // S = Q K^T over D / 16 k-steps: k-step kk lies in chunk
+      // kk * 16 / CW, at byte (kk * 16 % CW) * 2 of its rows
+      float sc[NS];
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk * 16 / P::CW;
+        const uint32_t off = (kk * 16 % P::CW) * 2;
+        const uint64_t da = smem_desc(q_addr + c * kFaBQ * P::SW + off, 16,
+                                      8 * P::SW, P::LAYOUT);
+        const uint64_t db = smem_desc(k_addr + c * kFaBK * P::SW + off, 16,
+                                      8 * P::SW, P::LAYOUT);
+        Wgmma<kFaBK>::ss(sc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin<NS>(sc);
+
+      // scale (base 2), mask where the tile crosses the diagonal or the
+      // end of T, and the online softmax of rows r0 (sc[4i + 0, 1]) and
+      // r1 (sc[4i + 2, 3]); a row's scores sit in the 4 threads of a quad
+      const bool masked =
+          k0 + kFaBK > T_len || (causal && k0 + kFaBK - 1 > row_lo);
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int e = 0; e < NS; ++e) {
+        float x = sc[e] * scale_log2;
+        if (masked) {
+          const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
+          const int row = (e & 2) ? r1 : r0;
+          if (key >= T_len || (causal && key > row)) x = neg_inf();
+        }
+        sc[e] = x;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+      }
+      float m_use[2], corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        // a row with no visible position yet keeps weight 0 everywhere
+        m_use[hh] = mx[hh] == neg_inf() ? 0.f : mx[hh];
+        corr[hh] = exp2f(m_run[hh] - m_use[hh]);
+        m_run[hh] = mx[hh];
+        l_run[hh] *= corr[hh];
+      }
+      // the row sums stay per thread (a quad's parts) until the end
+#pragma unroll
+      for (int e = 0; e < NS; ++e) {
+        const int hh = (e >> 1) & 1;
+        sc[e] = exp2f(sc[e] - m_use[hh]);
+        l_run[hh] += sc[e];
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+
+      // O += P V: the scores of columns 16 kj .. 16 kj + 15 are the A
+      // fragment of k-step kj; V's rows 16 kj .. at 16 kj * SW bytes,
+      // its column chunks LBO = kFaBK * SW apart
+      uint32_t pa[kFaBK / 16][4];
+#pragma unroll
+      for (int kj = 0; kj < kFaBK / 16; ++kj) {
+        pa[kj][0] = pack_bf16(sc[8 * kj], sc[8 * kj + 1]);
+        pa[kj][1] = pack_bf16(sc[8 * kj + 2], sc[8 * kj + 3]);
+        pa[kj][2] = pack_bf16(sc[8 * kj + 4], sc[8 * kj + 5]);
+        pa[kj][3] = pack_bf16(sc[8 * kj + 6], sc[8 * kj + 7]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kj = 0; kj < kFaBK / 16; ++kj) {
+        const uint64_t db = smem_desc(v_addr + kj * 16 * P::SW,
+                                      kFaBK * P::SW, 8 * P::SW, P::LAYOUT);
+        Wgmma<D>::rs(o, pa[kj], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin<NO>(o);
+      // this warp is done with the k and v of stage s
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // the quad's row sums, then out = O / l, rows past S not stored
+    __nv_bfloat16* o_b = out + static_cast<size_t>(b) * S * H * D + h * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_run[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = hh == 0 ? r0 : r1;
+      if (row >= S) continue;
+      const float inv_l = 1.f / fmaxf(l, 1e-30f);
+      __nv_bfloat16* o_r = o_b + static_cast<size_t>(row) * H * D;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(o_r + 8 * i + 2 * t4) =
+            pack_bf16(o[4 * i + 2 * hh] * inv_l,
+                      o[4 * i + 2 * hh + 1] * inv_l);
+    }
+  }
 }
 
-constexpr int kMmaWarps = 4;  // 16 q rows a warp, 64 a block
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (the
+// library links only the CUDA runtime)
+using EncodeTiledFn = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
 
-// bf16 at head dim D: one block of 4 warps per (q tile of 64 rows, q
-// head, batch row); each warp owns 16 q rows, holds their q fragments
-// in registers for the whole pass, and computes its 16 x 64 scores and
-// its 16 x D output with mma.sync. The k and v tiles are staged in
-// shared memory with 16-byte loads (rows padded by 16 bytes, so that
-// the 8 rows a fragment load touches fall in distinct banks). The
-// scores' accumulator layout is the next product's A layout, so p goes
-// from registers to the tensor cores without shared memory (rounded to
-// bf16 there; the running sum keeps the f32 p).
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a contiguous bf16 (B, L, NH, D) tensor as a 4-D map (innermost first:
+// D, NH, L, B) with boxes of CW x 1 x rows x 1, swizzled over CW * 2
+// bytes; reads past L come back as zeros
+bool bf16_map(CUtensorMap* map, const void* p, int B, int L, int NH, int D,
+              int CW, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(NH),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * NH * D, 2ull * L * NH * D};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CW), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ out, int S, int T_len,
-                           int H, int KVH, float scale, int causal) {
-  constexpr int KS = D / 16;     // k-steps over the head dim
-  constexpr int ND = D / 8;      // n-tiles over the head dim
-  constexpr int NK = kBK / 8;    // n-tiles over a k tile
-  constexpr int RS = D + 8;      // staged row stride, elements
-  constexpr int CH = D / 8;      // 16-byte chunks a row
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBK * RS];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kBK * RS];
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t4 = lane % 4;
-
-  const size_t q_row = static_cast<size_t>(H) * D;
-  const size_t kv_row = static_cast<size_t>(KVH) * D;
-  const __nv_bfloat16* q_b = q + static_cast<size_t>(b) * S * q_row + h * D;
-  const __nv_bfloat16* k_b =
-      k + static_cast<size_t>(b) * T_len * kv_row + kvh * D;
-  const __nv_bfloat16* v_b =
-      v + static_cast<size_t>(b) * T_len * kv_row + kvh * D;
-
-  // this thread's two q rows (fragment rows g and g + 8 of the warp)
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const int c = ks * 16 + 2 * t4;
-    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(
-        q_b + static_cast<size_t>(r0) * q_row + c);
-    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(
-        q_b + static_cast<size_t>(r1) * q_row + c);
-    qa[ks][0] = r0 < S ? p0[0] : 0u;
-    qa[ks][1] = r1 < S ? p1[0] : 0u;
-    qa[ks][2] = r0 < S ? p0[4] : 0u;  // columns c + 8, c + 9
-    qa[ks][3] = r1 < S ? p1[4] : 0u;
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int S, int T_len, int H, int KVH,
+                         float scale, int causal, cudaStream_t s) {
+  using P = FaPlan<D>;
+  CUtensorMap mq, mk, mv;
+  if (!bf16_map(&mq, q, B, S, H, D, P::CW, kFaBQ) ||
+      !bf16_map(&mk, k, B, T_len, KVH, D, P::CW, kFaBK) ||
+      !bf16_map(&mv, v, B, T_len, KVH, D, P::CW, kFaBK))
+    return cudaErrorInvalidValue;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
   }
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {neg_inf(), neg_inf()}, l_run[2] = {0.f, 0.f};
-
-  const int k_end = causal ? min(T_len, q0 + kBQ) : T_len;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int i = threadIdx.x; i < kBK * CH; i += kMmaWarps * 32) {
-      const int tr = i / CH, ch = i % CH;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + tr < T_len) {
-        const size_t off = static_cast<size_t>(k0 + tr) * kv_row + ch * 8;
-        kv = *reinterpret_cast<const uint4*>(k_b + off);
-        vv = *reinterpret_cast<const uint4*>(v_b + off);
-      }
-      *reinterpret_cast<uint4*>(k_s + tr * RS + ch * 8) = kv;
-      *reinterpret_cast<uint4*>(v_s + tr * RS + ch * 8) = vv;
-    }
-    __syncthreads();
-
-    // scores: 16 rows x 64 positions a warp
-    float sc[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      const __nv_bfloat16* kr = k_s + (n * 8 + g) * RS + 2 * t4;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(kr + ks * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
-        mma_bf16(sc[n], qa[ks], b0, b1);
-      }
-    }
-    // scale, mask, and the online softmax of rows r0 (e = 0, 1) and r1
-    // (e = 2, 3); a row's 64 scores sit in the 4 threads of a quad
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t4 + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const bool ok = key < T_len && (!causal || key <= row);
-        sc[n][e] = ok ? sc[n][e] * scale : neg_inf();
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
-      }
-    float corr[2], m_use[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m_run[hh], mx[hh]);
-      // a row with no visible position yet keeps weight 0 everywhere
-      m_use[hh] = m_new == neg_inf() ? 0.f : m_new;
-      corr[hh] = expf(m_run[hh] - m_use[hh]);
-      m_run[hh] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[n][e] = expf(sc[n][e] - m_use[e >> 1]);
-        sum[e >> 1] += sc[n][e];
-      }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-      l_run[hh] = l_run[hh] * corr[hh] + sum[hh];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-    // acc += p v: the scores of n-tiles 2j, 2j + 1 are the A fragment of
-    // k-step j
-#pragma unroll
-    for (int j = 0; j < NK / 2; ++j) {
-      const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-                              pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-                              pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-                              pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
-      const __nv_bfloat16* vr = v_s + (j * 16 + 2 * t4) * RS + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vc = vr + n * 8;
-        const uint32_t b0 = pack_bf16(vc[0], vc[RS]);
-        const uint32_t b1 = pack_bf16(vc[8 * RS], vc[9 * RS]);
-        mma_bf16(acc[n], pa, b0, b1);
-      }
-    }
-  }
-  __nv_bfloat16* o_b = out + static_cast<size_t>(b) * S * q_row + h * D;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int row = hh == 0 ? r0 : r1;
-    if (row >= S) continue;
-    const float inv_l = 1.f / fmaxf(l_run[hh], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(o_b + static_cast<size_t>(row) * q_row +
-                                   n * 8 + 2 * t4) =
-          pack_bf16(acc[n][2 * hh] * inv_l, acc[n][2 * hh + 1] * inv_l);
-    }
-  }
+  const int n_q = (S + kFaBQ - 1) / kFaBQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  const float log2e = 1.4426950408889634f;
+  flash_attention_wgmma_kernel<D><<<dim3(H, B, n_q), kFaThreads, P::SMEM,
+                                    s>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, H, KVH,
+      scale * log2e, causal);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      int B, int S, int T_len, int H, int KVH, float scale,
                      int causal, cudaStream_t s) {
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    flash_attention_mma_kernel<D><<<grid, kMmaWarps * 32, 0, s>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
-        scale, causal);
+    return launch_wgmma<D>(q, k, v, out, B, S, T_len, H, KVH, scale, causal,
+                           s);
   } else {
+    const dim3 grid((S + kBQ - 1) / kBQ, H, B);
     const size_t smem =
         sizeof(T) * (static_cast<size_t>(kBQ + kBK) * padded<T>(D) +
                      kBK * D) +
@@ -451,8 +597,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
         scale, causal);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -6,7 +6,9 @@ Port of the TPU kernel `repro.kernels.decode_attention.decode_attention`
 ``<= length`` of a (B, T, KVH, D) cache; the G = H / KVH query heads of
 a kv head share one pass over it; f32 products and softmax, the output
 in q's dtype. The kernel cuts the attended positions into ranges
-(`split_plan`), one block each, and merges them in a second pass.
+(`cluster_plan`), one block each; the ranges of a kv head are the blocks
+of one thread-block cluster, which merge their partial softmaxes through
+each other's shared memory, in the same launch.
 ``length`` is a host ``int`` (the model keeps the cache's length as a
 Python int), so a decode loop never reads the device. The kernel is
 ``csrc/decode_attention.cu``; see its header for the bound and the
@@ -31,22 +33,26 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = tuple(_build.DTYPE_CODE)
 # a block of the kernel takes at least MIN_SPLIT positions, in whole
-# multiples of SPLIT_ALIGN
+# multiples of SPLIT_ALIGN; a cluster holds at most MAX_CLUSTER blocks
+# (16: a non-portable cluster size, which Hopper allows)
 MIN_SPLIT = 64
 SPLIT_ALIGN = 16
+MAX_CLUSTER = 16
 _P = _build.PTR
 _I = ctypes.c_int
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _P]
 
 
-def split_plan(n_valid: int, n_heads_kv: int, n_sms: int):
-    """(per_split, n_splits): how the kernel cuts the ``n_valid``
-    attended positions into contiguous ranges, one block each per kv
-    head (``n_heads_kv`` = B * KVH). Enough ranges for about two blocks
-    per SM, none shorter than MIN_SPLIT positions and none empty."""
-    want = -(-2 * n_sms // n_heads_kv)
-    n_splits = max(1, min(want, n_valid // MIN_SPLIT))
+def cluster_plan(n_valid: int, n_heads_kv: int, n_sms: int):
+    """(per, n_splits): how the kernel cuts the ``n_valid`` attended
+    positions into ``n_splits`` contiguous ranges of ``per`` positions
+    (the last one shorter), the blocks of one cluster per kv head
+    (``n_heads_kv`` = B * KVH clusters). About one block per SM, at most
+    MAX_CLUSTER blocks a cluster, none shorter than MIN_SPLIT positions
+    (unless there is one), none empty."""
+    want = -(-n_sms // n_heads_kv)
+    n_splits = max(1, min(want, MAX_CLUSTER, n_valid // MIN_SPLIT))
     per = -(-n_valid // n_splits)
     per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
     return per, -(-n_valid // per)
@@ -111,14 +117,11 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
         raise ValueError(f"{name}: the kernel reads 16-byte vectors; q and "
                          "the caches must start on a 16-byte boundary")
     n_valid = min(length + 1, T)
-    per, n_splits = split_plan(n_valid, B * KVH, _sm_count(
+    per, n_splits = cluster_plan(n_valid, B * KVH, _sm_count(
         torch.cuda.current_device() if dev.index is None else dev.index))
     out = torch.empty_like(q)
-    ws = (torch.empty(n_splits * B * H * (D + 2), dtype=torch.float32,
-                      device=dev) if n_splits > 1 else None)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, T, KVH, H // KVH, D,
+            v_cache.data_ptr(), out.data_ptr(), B, T, KVH, H // KVH, D,
             n_valid - 1, per, n_splits, float(scale),
             _build.stream_of(dev))
     _build.launch_check(rc, name)

@@ -4,11 +4,11 @@ plain PyTorch version.
 Port of the TPU kernel `repro.kernels.flash_attention.flash_attention`
 (Pallas): causal or bidirectional attention with an online softmax,
 grouped-query (q head h reads kv head h // G), f32 accumulation, the
-output in q's dtype. In bf16 the kernel runs on the tensor cores and
-rounds the softmax weights to bf16 for the value product, one rounding
-the plain version (all f32) does not make. The causal mask compares
-absolute indices from 0 (q row i sees positions j <= i), as the TPU
-kernel's does. The kernel is ``csrc/flash_attention.cu``; see its
+output in q's dtype. In bf16 the kernel runs on the tensor cores
+(wgmma, its tiles brought in by TMA) and rounds the softmax weights to
+bf16 for the value product, one rounding the plain version (all f32)
+does not make. The causal mask compares absolute indices from 0 (q row
+i sees positions j <= i), as the TPU kernel's does. The kernel is ``csrc/flash_attention.cu``; see its
 header for the bound and the design.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
@@ -78,7 +78,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     fn = _build.c_entry("flash_attention", "flash_attention", _ARGTYPES)
     _build.require_cuda(name, dev)
-    # the bf16 kernel stages k and v with 16-byte loads
+    # the bf16 kernel's TMA tensor maps need 16-byte aligned addresses
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start at 16-byte "
                          "aligned addresses")

@@ -123,14 +123,30 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
 
 
 @pytest.mark.parametrize("n_valid", [1, 63, 64, 65, 1001, 2560, 100000])
-@pytest.mark.parametrize("n_heads_kv,n_sms", [(8, 132), (64, 132), (1, 4)])
+@pytest.mark.parametrize("n_heads_kv,n_sms", [
+    (8, 132),     # Qwen3-4B at B = 1: clusters of 16
+    (64, 132),    # a batch that fills the card: small clusters
+    (1, 4),
+    (32, 132),    # Zamba2-2.7B's MHA block: clusters of 5
+    (16, 132),    # Qwen3-4B at B = 2: clusters of 9
+])
 def test_decode_split_plan_covers_every_position_once(n_valid, n_heads_kv,
                                                       n_sms):
-    per, n_splits = DA.split_plan(n_valid, n_heads_kv, n_sms)
-    # contiguous ranges [i * per, min((i + 1) * per, n_valid)): all
-    # positions covered, none of the ranges empty
+    """The cluster plan cuts the attended positions into contiguous
+    ranges [i * per, min((i + 1) * per, n_valid)), one block each of a
+    cluster: every position in exactly one range, none empty, the
+    cluster within its size limit."""
+    per, n_splits = DA.cluster_plan(n_valid, n_heads_kv, n_sms)
     assert per * n_splits >= n_valid > per * (n_splits - 1)
     assert per % DA.SPLIT_ALIGN == 0
+    assert 1 <= n_splits <= DA.MAX_CLUSTER <= 16   # Hopper's cluster limit
     if n_splits > 1:
         assert per >= DA.MIN_SPLIT
-        assert n_splits <= -(-2 * n_sms // n_heads_kv)
+        assert n_splits <= -(-n_sms // n_heads_kv)   # ~ a block an SM
+    if n_valid <= 2560:
+        seen = np.zeros(n_valid, np.int64)
+        for i in range(n_splits):
+            lo, hi = i * per, min((i + 1) * per, n_valid)
+            assert hi > lo
+            seen[lo:hi] += 1
+        assert (seen == 1).all()

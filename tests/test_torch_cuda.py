@@ -172,6 +172,76 @@ def test_decode_attention_kernel_matches_plain(cuda, T, H, KVH, D, length,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+@pytest.mark.parametrize("S,T,H,KVH,causal", [
+    (1, 1, 4, 4, True),         # one row of a 128-row tile
+    (127, 127, 8, 1, True),     # G = 8, a ragged tile
+    (129, 129, 4, 1, True),     # G = 4, one row into the second tile
+    (2000, 2000, 8, 8, True),   # G = 1, ragged S past 16 tiles
+    (100, 300, 8, 2, False),    # T > S, bidirectional
+])
+def test_flash_attention_wgmma_body_edges(cuda, D, S, T, H, KVH, causal):
+    """The bf16 (TMA + wgmma) body at every head dim, at B = 2, against
+    the plain version: ragged q and kv tiles (the TMA zero-fills them),
+    a single row, every GQA group size."""
+    q = _bf16_or_f32((2, S, H, D), torch.bfloat16, 3, cuda)
+    k = _bf16_or_f32((2, T, KVH, D), torch.bfloat16, 4, cuda)
+    v = _bf16_or_f32((2, T, KVH, D), torch.bfloat16, 5, cuda)
+    launches = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    abs_v = FA.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     causal=causal)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == launches + 1
+    assert torch.isfinite(got.float()).all()
+    _assert_within(got, want, torch.bfloat16, abs_v)
+
+
+def _length_at_boundary(T, n_heads_kv, n_sms, last):
+    """The first length >= T // 2 whose cluster plan leaves ``last``
+    positions (1, or a whole range) in the last block."""
+    for length in range(T // 2, T):
+        n = length + 1
+        per, n_splits = DA.cluster_plan(n, n_heads_kv, n_sms)
+        if n_splits > 1 and n - per * (n_splits - 1) == (last or per):
+            return length
+    raise AssertionError("no such length")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KVH,D,length,dtype", [
+    (2, 999, 32, 8, 128, 0, torch.bfloat16),      # length 0, T % 16 != 0
+    (2, 1000, 32, 8, 128, "one", torch.bfloat16),  # last range: 1 position
+    (2, 1000, 32, 8, 128, "full", torch.bfloat16),  # last range full
+    (1, 2560, 32, 8, 128, "one", torch.bfloat16),
+    (1, 2560, 32, 8, 128, "full", torch.bfloat16),
+    (2, 1001, 4, 2, 256, 1000, torch.float32),     # D = 256 in f32
+    (2, 1283, 32, 32, 80, 1282, torch.bfloat16),   # D = 80, B = 2
+    (1, 32768, 32, 8, 128, 30000, torch.bfloat16),  # ranges in stages
+    (1, 9000, 8, 2, 256, 8999, torch.float32),
+])
+def test_decode_attention_cluster_edges(cuda, B, T, H, KVH, D, length,
+                                        dtype):
+    """K3's one launch over clusters: the edges of its cluster plan and
+    of its shared-memory staging, against the plain version."""
+    if isinstance(length, str):
+        n_sms = torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+        length = _length_at_boundary(T, B * KVH, n_sms,
+                                     1 if length == "one" else 0)
+    q = _bf16_or_f32((B, 1, H, D), dtype, 6, cuda)
+    k = _bf16_or_f32((B, T, KVH, D), dtype, 7, cuda)
+    v = _bf16_or_f32((B, T, KVH, D), dtype, 8, cuda)
+    launches = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == launches + 1
+    _assert_within(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,wdtype", [
     ((4, 128, 512), torch.float32, torch.float32),
     ((2, 300, 384), torch.bfloat16, torch.float32),
