@@ -14,7 +14,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  exact, f32 weight within rtol 1e-6, f64 bitwise. The
                  serving kernels (flash and decode attention, RMSNorm
                  with and without the residual add) at Qwen3-4B's
-                 shapes in bf16, each within its own limit (KERNEL_TOL;
+                 shapes in bf16 (RMSNorm also at Mamba2-780M's and
+                 Zamba2-2.7B's widths, at decode rows, and through its
+                 general body), each within its own limit (KERNEL_TOL;
                  the residual output bitwise), and each case with a
                  planted fault that the limit must reject. Times (CUDA
                  events, back to back, and the device time from
@@ -59,7 +61,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  run (device busy share, the FRP kernel's device time)
                  and over one served request of each function of both
                  serving phases (busy share, the serving kernels'
-                 device time per launch, K5's among them).
+                 device time per launch, K5's among them, and the SM
+                 clock sampled by nvidia-smi).
 
 Then the card's name and power limit as nvidia-smi prints them, one
 ``kernels`` JSON line, and as the last line
@@ -304,20 +307,30 @@ def smi_line() -> str:
 def time_ms(torch, fn, reps: int = 200, trials: int = 7) -> float:
     """Median over ``trials`` of the mean time of ``reps`` back-to-back
     calls, by CUDA events, after a warm-up."""
-    for _ in range(20):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(trials):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
+    return time_in_turns(torch, [fn], reps, trials)[0]
+
+
+def time_in_turns(torch, fns, reps: int = 200, trials: int = 7):
+    """`time_ms` of each of ``fns``, which take turns inside every trial
+    (the first of a trial rotating), so that a slow spell of the host or
+    the card falls on all of them alike."""
+    for fn in fns:
+        for _ in range(20):
             fn()
-        e1.record()
-        e1.synchronize()
-        ts.append(e0.elapsed_time(e1) / reps)
-    return sorted(ts)[len(ts) // 2]
+    torch.cuda.synchronize()
+    ts = [[] for _ in fns]
+    for t in range(trials):
+        for k in range(len(fns)):
+            i = (t + k) % len(fns)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                fns[i]()
+            e1.record()
+            e1.synchronize()
+            ts[i].append(e0.elapsed_time(e1) / reps)
+    return [sorted(x)[len(x) // 2] for x in ts]
 
 
 def device_ms(torch, fn, reps: int = 20):
@@ -566,6 +579,29 @@ def phase_profile(torch, api, n_requests=300):
 
 
 
+class SmClock:
+    """nvidia-smi's SM clock (MHz), sampled every 20 ms while entered
+    (the sampler is stopped on exit)."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.mhz = [int(v) for v in out.split() if v.isdigit()]
+
+    def summary(self):
+        m = sorted(self.mhz)
+        return dict(samples=len(m), min=m[0] if m else None,
+                    median=m[len(m) // 2] if m else None,
+                    max=m[-1] if m else None)
+
+
 def phase_profile_serving(torch):
     """Device busy share of one served request of each function of
     SERVE_CATALOGUE and SERVE_SSM_CATALOGUE on a warm instance, and the
@@ -577,13 +613,15 @@ def phase_profile_serving(torch):
     from repro_torch.serving.instance import ModelInstance
 
     def is_kernel(name, key):
-        # K4a and K4b are the rmsnorm_kernel instances ending in false
-        # and true (the RESIDUAL template argument); K2 has a CUDA-core
+        # K4a and K4b are the instances of rmsnorm_vector_kernel and
+        # rmsnorm_scalar_kernel (the general body) whose last template
+        # argument, RESIDUAL, is false and true; K2 has a CUDA-core
         # (f32) and a TMA + wgmma (flash_attention_wgmma_kernel, bf16)
         # body; K3 is one kernel, one launch a call
         if name.startswith("rmsnorm"):
             flag = "true>" if name == "rmsnorm_residual" else "false>"
-            return "rmsnorm_kernel<" in key and flag in key
+            return (("rmsnorm_vector_kernel<" in key
+                     or "rmsnorm_scalar_kernel<" in key) and flag in key)
         return f"::{name}_" in key
 
     out = []
@@ -594,8 +632,9 @@ def phase_profile_serving(torch):
         inst = ModelInstance(fn)
         inst.cold_start()
         inst.execute(seed=1)            # warm-up
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with SmClock() as clock, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             wall = inst.execute(seed=2)
         inst.evict()
         rows = [e for e in prof.key_averages()
@@ -617,6 +656,7 @@ def phase_profile_serving(torch):
             device_busy_s=dev_us * 1e-6,
             device_busy_share=dev_us * 1e-6 / wall,
             device_ops=sum(e.count for e in rows), kernels=kernels,
+            sm_clock_mhz=clock.summary(),
             top=[dict(name=e.key[:80], count=e.count,
                       device_us=e.self_device_time_total) for e in top]))
     emit(dict(phase="profile_serving", requests=out))
@@ -678,9 +718,11 @@ def rmsnorm_fault(torch, s, w, eps, dtype):
 def phase_serving_kernels(torch, FA, DA, RN):
     """K2, K3, K4a and K4b against their plain versions on the card, at
     the serving path's shapes (B = 1, H = 32, KVH = 8, D = 128, d 2560,
-    bf16), with the kernel's, the plain version's and one PyTorch
-    call's times (the yardstick; the port never calls it) and the
-    bound."""
+    bf16; K4a and K4b also at Mamba2-780M's and Zamba2-2.7B's widths and
+    at decode rows, and through their general body at an odd width and
+    a view off 16 bytes), with the kernel's, the plain version's and one
+    PyTorch call's times (the yardstick; the port never calls it; for
+    K4b the two calls it fuses, as ``fused_pair``) and the bound."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -692,18 +734,26 @@ def phase_serving_kernels(torch, FA, DA, RN):
         return torch.randn(*shape, generator=gen, device=dev).to(bf16)
 
     def row(kernel, case, check, call, plain, library, n_bytes, n_ops,
-            kind):
+            kind, pair=None, timing=timing):
+        """The case's row: the kernel, its plain version, the library call
+        and (K4b) the ``pair`` of calls it fuses, timed in turns."""
         b, by = bound_ms(n_bytes, n_ops, kind)
-        return dict(kernel=kernel, case=case, **check,
-                    ms=time_ms(torch, call, **timing),
-                    plain_ms=time_ms(torch, plain, **timing),
-                    library_ms=(None if library is None
-                                else time_ms(torch, library, **timing)),
-                    device_ms=device_ms(torch, call),
-                    plain_device_ms=device_ms(torch, plain),
-                    library_device_ms=(None if library is None
-                                       else device_ms(torch, library)),
-                    bound_ms=b, bound_by=by, bytes=n_bytes, ops=n_ops)
+        timed = [f for f in (call, plain, library, pair) if f is not None]
+        ms = dict(zip(timed, time_in_turns(torch, timed, **timing)))
+        out = dict(kernel=kernel, case=case, **check, ms=ms[call],
+                   plain_ms=ms[plain], library_ms=ms.get(library),
+                   device_ms=device_ms(torch, call),
+                   plain_device_ms=device_ms(torch, plain),
+                   library_device_ms=(None if library is None
+                                      else device_ms(torch, library)),
+                   bound_ms=b, bound_by=by, bytes=n_bytes, ops=n_ops)
+        if pair is not None:
+            out.update(fused_pair_ms=ms[pair],
+                       fused_pair_device_ms=device_ms(torch, pair),
+                       fused_pair_note="two PyTorch calls, torch.add then "
+                                       "F.rms_norm: not a one-call library "
+                                       "time")
+        return out
 
     rows = []
 
@@ -771,30 +821,84 @@ def phase_serving_kernels(torch, FA, DA, RN):
         decode_case(f"T={T} length={length}", q, kc, vc, length)
     decode_case(f"B=2 T={T} length={T - 1}", randn(2, 1, H, D),
                 randn(2, T, KVH, D), randn(2, T, KVH, D), T - 1)
-    for R, Dn in ((2048, d), (2048 * H, D)):
-        x, w = randn(R, Dn), (1.0 + 0.1 * randn(Dn)).to(bf16)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def norm_body(x, extra, w, want):
+        """The body `_plan` gives these inputs, held to ``want``."""
+        ptrs = [t.data_ptr() for t in (x, w, *extra)]
+        aligned = not any(p & 15 for p in ptrs)
+        R, Dn = x.numel() // x.shape[-1], x.shape[-1]
+        body = RN._plan(R, Dn, x.dtype, w.dtype, aligned, n_sms).body
+        need(body == want, f"rmsnorm ({R}, {Dn}): _plan chose the {body} "
+             f"body, not the {want} one")
+        return body
+
+    def inputs(R, Dn, offset):
+        """x (R, Dn) ``offset`` elements into its buffer (1: off 16 bytes),
+        and the timing: decode-sized calls are host-bound, so more calls
+        a trial and more trials."""
+        x = randn(R * Dn + offset)[offset:].view(R, Dn)
+        small = R * Dn <= 1 << 16
+        return x, dict(reps=200, trials=15) if small else timing
+
+    def norm_case(R, Dn, body="vector", offset=0):
+        """K4a at (R, Dn), bf16, F.rms_norm beside it."""
+        x, times = inputs(R, Dn, offset)
+        w = (1.0 + 0.1 * randn(Dn)).to(bf16)
+        case = f"({R}, {Dn})" + (f" offset {offset}" if offset else "")
         call = partial(RN.rmsnorm, x, w, eps=1e-6)
         plain = partial(RN.rmsnorm_plain, x, w, 1e-6)
-        check = _close(torch, "rmsnorm", f"({R}, {Dn})", call(), plain(),
+        got = call()
+        norm_body(x, [got], w, body)
+        check = _close(torch, "rmsnorm", case, got, plain(),
                        rmsnorm_fault(torch, x.float(), w, 1e-6, bf16))
-        rows.append(row(
-            "rmsnorm", f"({R}, {Dn})", check, call, plain,
+        rows.append(dict(row(
+            "rmsnorm", case, check, call, plain,
             partial(F.rms_norm, x, (Dn,), w, eps=1e-6),
-            2 * (2 * R * Dn + Dn), 4 * R * Dn, "f32"))
-    for R in (2048, 1):
-        x, r, w = randn(R, d), randn(R, d), (1.0 + 0.1 * randn(d)).to(bf16)
+            2 * (2 * R * Dn + Dn), 4 * R * Dn, "f32", timing=times),
+            body=body))
+
+    def residual_case(R, Dn, body="vector", offset=0):
+        """K4b at (R, Dn), bf16, its residual bitwise the plain one's;
+        the two PyTorch calls it fuses (torch.add, then F.rms_norm)
+        timed beside it as ``fused_pair``."""
+        x, times = inputs(R, Dn, offset)
+        r, w = randn(R, Dn), (1.0 + 0.1 * randn(Dn)).to(bf16)
+        case = f"({R}, {Dn})" + (f" offset {offset}" if offset else "")
         call = partial(RN.rmsnorm_residual, x, r, w, eps=1e-6)
         plain = partial(RN.rmsnorm_residual_plain, x, r, w, 1e-6)
         (kn, kr), (pn, pr) = call(), plain()
-        check = _close(torch, "rmsnorm_residual", f"({R}, {d})", kn, pn,
+        norm_body(x, [r, kn, kr], w, body)
+        check = _close(torch, "rmsnorm_residual", case, kn, pn,
                        rmsnorm_fault(torch, x.float() + r.float(), w, 1e-6,
                                      bf16))
-        need(torch.equal(kr, pr), f"rmsnorm_residual ({R}, {d}): the "
+        need(torch.equal(kr, pr), f"rmsnorm_residual {case}: the "
              "residual is not bitwise the plain version's")
-        rows.append(row(
-            "rmsnorm_residual", f"({R}, {d})", check, call, plain, None,
-            2 * (4 * R * d + d), 5 * R * d, "f32"))
-    emit(dict(phase="kernel", serving=rows))
+
+        def pair():
+            return F.rms_norm(torch.add(x, r), (Dn,), w, eps=1e-6)
+        rows.append(dict(row(
+            "rmsnorm_residual", case, check, call, plain, None,
+            2 * (4 * R * Dn + Dn), 5 * R * Dn, "f32", pair=pair,
+            timing=times), body=body))
+
+    # K4a: Qwen3-4B's prefill hidden norm and q-norm (the kernels line's
+    # case first), a decode step's hidden norm and q-norm, Mamba2-780M's
+    # gate norm over 2,000 tokens, Zamba2-2.7B's decode gate norm; then
+    # the general body at an odd width and at a view off 16 bytes
+    t_norm = time.perf_counter()
+    for R, Dn in ((2048, d), (2048 * H, D), (1, d), (32, D), (2000, 3072),
+                  (1, 5120)):
+        norm_case(R, Dn)
+    norm_case(7, 1001, "general")
+    norm_case(64, d, "general", offset=1)
+    # K4b: Qwen3-4B's prefill and decode, Mamba2-780M's prefill; general
+    for R, Dn in ((2048, d), (1, d), (2048, 1536)):
+        residual_case(R, Dn)
+    residual_case(7, 1001, "general")
+    residual_case(64, d, "general", offset=1)
+    t_norm = time.perf_counter() - t_norm
+    emit(dict(phase="kernel", serving=rows, rmsnorm_cases_s=t_norm))
     return rows
 
 
@@ -1250,6 +1354,8 @@ def main(argv=None) -> int:
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"], device_ms=rep["device_ms"],
+            **({"fused_pair_ms": rep["fused_pair_ms"]}
+               if "fused_pair_ms" in rep else {}),
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

@@ -15,11 +15,12 @@ of them, so the build time of several kernels is that of the slowest.
 
 The helpers at the end are what every kernel wrapper shares: the
 ctypes binding of an entry, the checks on its tensors, the launch's
-error code and the stream.
+error code, the device's SM count and the stream.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -135,7 +136,6 @@ def c_entry(source: str, symbol: str, argtypes):
 def check_tensor(name: str, x, dtypes, device, ndim: int = None) -> None:
     """Raise unless ``x`` is a contiguous tensor on ``device`` with a
     dtype in ``dtypes`` (and ``ndim`` dimensions, when given)."""
-    import torch
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got "
                         f"{type(x).__name__}")
@@ -162,5 +162,17 @@ def require_cuda(name: str, device) -> None:
                          "cuda")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def stream_of(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of PyTorch's current stream on ``device`` (a
+    torch.device or a CUDA index): the raw pointer, read as Triton's
+    launcher reads it, without building a ``Stream`` object."""
+    index = device if isinstance(device, int) else device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

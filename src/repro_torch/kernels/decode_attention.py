@@ -23,7 +23,6 @@ build or launch to the plain version.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -56,11 +55,6 @@ def cluster_plan(n_valid: int, n_heads_kv: int, n_sms: int):
     per = -(-n_valid // n_splits)
     per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
     return per, -(-n_valid // per)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q, k_cache, v_cache, length: int, *,
@@ -117,7 +111,7 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
         raise ValueError(f"{name}: the kernel reads 16-byte vectors; q and "
                          "the caches must start on a 16-byte boundary")
     n_valid = min(length + 1, T)
-    per, n_splits = cluster_plan(n_valid, B * KVH, _sm_count(
+    per, n_splits = cluster_plan(n_valid, B * KVH, _build.sm_count(
         torch.cuda.current_device() if dev.index is None else dev.index))
     out = torch.empty_like(q)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),

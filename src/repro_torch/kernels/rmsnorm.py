@@ -7,17 +7,23 @@ the rsqrt and the product with the weight in f32, one cast to x's dtype
 at the end. (The JAX model's own `rms_norm`, and `kernels/ref.py`'s
 `rmsnorm_ref`, cast before the weight product instead: in bf16 the two
 differ by one rounding.) The kernel is ``csrc/rmsnorm.cu``; see its
-header for the bound and the design.
+header for the bound and the design. `_plan` chooses its body and
+geometry from the shape, the dtypes and the pointers' alignment.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
 (counted in ``launches``) or raises. There is no fallback from a failed
-build or launch to the plain version.
+build or launch to the plain version. A decode step calls these
+wrappers ~140 times a token, so the checks read each input's
+attributes once, the C entry is bound once and the stream is taken as
+its raw handle.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -25,9 +31,85 @@ from repro_torch.kernels import _build
 
 MAX_D = 8192
 DTYPES = tuple(_build.DTYPE_CODE)
+_CODE = _build.DTYPE_CODE
 _P = _build.PTR
-_ARGTYPES = [ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, _P]
+# x, r, w, y, res; R, D, the two dtype codes and the geometry as
+# pointer-sized words (ctypes converts a c_void_p about twice as fast as
+# a c_int); eps; the stream
+_ARGTYPES = [_P] * 13 + [ctypes.c_float, _P]
+
+# The vector body's instances: vectors a thread (the kernel's VPT), and
+# the most threads a block of each may have (its __launch_bounds__).
+VECTORS = (1, 2, 3, 4, 6, 8)
+
+
+def max_threads(vpt: int) -> int:
+    return 1024 if vpt <= 2 else (512 if vpt <= 4 else 256)
+
+
+# The shape classes' geometry, chosen by measuring candidates on an H100
+# (scripts/rmsnorm_timing.py --sweep; the numbers are in PERF.md).
+# Narrow rows (at most 32 vectors) take blocks of NARROW_THREADS and at most
+# NARROW_BLOCKS_PER_SM blocks a SM, which then walk the rest of the rows.
+# A wide row takes one vector a thread while every row's threads fit on
+# the card at once (FEW_ROWS_THREADS a SM); otherwise one block a row of
+# about WIDE_ROW_THREADS threads (D / 8 / WIDE_ROW_THREADS vectors a
+# thread, at least one) and at most WIDE_BLOCKS_PER_SM blocks a SM.
+NARROW_THREADS = 128
+NARROW_BLOCKS_PER_SM = 8
+FEW_ROWS_THREADS = 2048
+WIDE_ROW_THREADS = 192
+WIDE_BLOCKS_PER_SM = 4
+
+
+class Plan(NamedTuple):
+    """How the kernel covers x (R, D): ``body`` "vector" (16-byte vectors
+    in registers) or "general" (scalar loads, the row in shared memory);
+    ``threads_per_row`` (G), ``rows_per_block``, ``vectors_per_thread``
+    (VPT, 0 for the general body) and ``grid`` blocks, which walk the
+    rows ``rows_per_block`` at a time with a grid stride."""
+    body: str
+    threads_per_row: int
+    rows_per_block: int
+    vectors_per_thread: int
+    grid: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(R: int, D: int, x_dtype, w_dtype, aligned: bool,
+          n_sms: int = 132) -> Plan:
+    """The body and geometry for x (R, D) of ``x_dtype`` under a weight
+    of ``w_dtype``; ``aligned`` says that every pointer (x, r, w, y,
+    res) is 16-byte aligned. The vector body takes D a multiple of the
+    vector's elements (8 bf16 or 4 f32) at aligned pointers; everything
+    else takes the general body."""
+    V = 16 // x_dtype.itemsize
+    if not aligned or D % V:
+        threads = min(max(_cdiv(_cdiv(D, 4), 32) * 32, 32), 256)
+        return Plan("general", threads, 1, 0, R)
+    nv = D // V
+    if nv <= 32:
+        # narrow: a power-of-two group of lanes a row, several rows a warp
+        G = 1 << (nv - 1).bit_length()
+        threads = min(NARROW_THREADS, max(32, _cdiv(R * G, 32) * 32))
+        rows = threads // G
+        return Plan("vector", G, rows, 1,
+                    min(_cdiv(R, rows), NARROW_BLOCKS_PER_SM * n_sms))
+    vpt = next(v for v in VECTORS if v * 1024 >= nv)
+    G = _cdiv(_cdiv(nv, vpt), 32) * 32
+    if R * G <= FEW_ROWS_THREADS * n_sms:
+        # few rows: one vector a thread (two for f32 at D > 4096)
+        return Plan("vector", G, 1, vpt, R)
+    # many wide rows: one block a row, the grid walking the rows
+    want = max(1, nv // WIDE_ROW_THREADS)
+    vpt = next((v for v in VECTORS if v >= want), VECTORS[-1])
+    G = _cdiv(_cdiv(nv, vpt), 32) * 32
+    vpt = next(v for v in VECTORS if v * G >= nv)
+    return Plan("vector", G, 1, vpt, min(R, WIDE_BLOCKS_PER_SM * n_sms))
 
 
 def rmsnorm_plain(x, weight, eps: float = 1e-6):
@@ -46,51 +128,97 @@ def rmsnorm_residual_plain(x, residual, weight, eps: float = 1e-6):
     return normed.to(x.dtype), s.to(x.dtype)
 
 
-def _check_inputs(name, x, residual, weight):
-    dev = x.device
-    _build.check_tensor(f"{name}: x", x, DTYPES, dev)
-    D = x.shape[-1] if x.dim() >= 1 else 0
+def _check(name, what, t, dtypes, x=None):
+    """Raise unless ``t`` is a contiguous tensor with a dtype in
+    ``dtypes`` (on x's device, when ``x`` is given); return its CUDA
+    index, -1 off CUDA."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: {what} must be a tensor, got "
+                        f"{type(t).__name__}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: {what} dtype {t.dtype}, the kernel takes "
+                        f"{' or '.join(str(d) for d in dtypes)}")
+    i = t.get_device()
+    if x is not None and (i != x.get_device()
+                          or (i < 0 and t.device != x.device)):
+        raise ValueError(f"{name}: {what} on {t.device}, x on {x.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} is not contiguous")
+    return i
+
+
+def _check_inputs(name, x, residual, weight) -> int:
+    """Raise on anything the kernel does not take; return x's CUDA
+    index, -1 off CUDA. Reads each input's attributes once: a decode
+    step calls the wrappers ~140 times a token."""
+    index = _check(name, "x", x, _CODE)
+    shape = x.shape
+    D = shape[-1] if shape else 0
     if not 1 <= D <= MAX_D or x.numel() == 0:
         raise ValueError(f"{name}: x must be (..., D) with 1 <= D <= "
                          f"{MAX_D} and at least one row, got "
-                         f"{tuple(x.shape)}")
+                         f"{tuple(shape)}")
     if residual is not None:
-        _build.check_tensor(f"{name}: residual", residual, (x.dtype,), dev)
-        if residual.shape != x.shape:
+        _check(name, "residual", residual, (x.dtype,), x)
+        if residual.shape != shape:
             raise ValueError(f"{name}: residual shape "
                              f"{tuple(residual.shape)} != x shape "
-                             f"{tuple(x.shape)}")
-    _build.check_tensor(f"{name}: weight", weight, DTYPES, dev, ndim=1)
-    if weight.shape[0] != D:
+                             f"{tuple(shape)}")
+    _check(name, "weight", weight, _CODE, x)
+    if weight.shape != (D,):
         raise ValueError(f"{name}: weight {tuple(weight.shape)}, expected "
                          f"({D},)")
-    return dev, D
+    return index
 
 
-def _launch(name, x, residual, weight, eps):
-    dev, D = x.device, x.shape[-1]
-    fn = _build.c_entry("rmsnorm", "rmsnorm", _ARGTYPES)
-    _build.require_cuda(name, dev)
-    y = torch.empty_like(x)
-    res = None if residual is None else torch.empty_like(x)
-    code = _build.DTYPE_CODE
-    rc = fn(code[x.dtype], code[weight.dtype], x.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            weight.data_ptr(), y.data_ptr(),
-            None if res is None else res.data_ptr(), x.numel() // D, D,
-            float(eps), _build.stream_of(dev))
+_FN = None   # the C entry, bound at the first launch
+
+
+def _entry():
+    global _FN
+    if _FN is None:
+        _FN = _build.c_entry("rmsnorm", "rmsnorm", _ARGTYPES)
+    return _FN
+
+
+@functools.lru_cache(maxsize=4096)
+def _words(R: int, D: int, x_dtype, w_dtype, aligned: bool, index: int):
+    """The C entry's integer words for x (R, D) on CUDA device ``index``:
+    R, D, the two dtype codes and `_plan`'s geometry (vectors a thread,
+    threads a row, rows a block, grid)."""
+    p = _plan(R, D, x_dtype, w_dtype, aligned, _build.sm_count(index))
+    return (R, D, _CODE[x_dtype], _CODE[w_dtype], p.vectors_per_thread,
+            p.threads_per_row, p.rows_per_block, p.grid)
+
+
+def _launch(name, x, residual, weight, y, res, eps, index):
+    """Launch the kernel into y (and res) on the current stream of CUDA
+    device ``index``, with `_plan`'s geometry; raise off CUDA (after
+    binding the entry, so that a missing build is what a caller sees
+    first)."""
+    fn = _entry()
+    if index < 0:
+        _build.require_cuda(name, x.device)
+    D = x.shape[-1]
+    xp, wp, yp = x.data_ptr(), weight.data_ptr(), y.data_ptr()
+    rp = sp = 0
+    if residual is not None:
+        rp, sp = residual.data_ptr(), res.data_ptr()
+    words = _words(x.numel() // D, D, x.dtype, weight.dtype,
+                   not (xp | wp | yp | rp | sp) & 15, index)
+    rc = fn(xp, rp, wp, yp, sp, *words, eps, _build.stream_of(index))
     _build.launch_check(rc, name)
-    return y, res
 
 
 def rmsnorm(x, weight, *, eps: float = 1e-6):
     """K4a over the last dim: x (..., D) f32/bf16, weight (D,) f32/bf16.
     Returns x's shape and dtype."""
-    dev, _ = _check_inputs("rmsnorm", x, None, weight)
-    if dev.type == "cpu":
+    index = _check_inputs("rmsnorm", x, None, weight)
+    if index < 0 and x.is_cpu:
         rmsnorm.plain_calls += 1
         return rmsnorm_plain(x, weight, eps)
-    y, _ = _launch("rmsnorm", x, None, weight, eps)
+    y = torch.empty_like(x)
+    _launch("rmsnorm", x, None, weight, y, None, eps, index)
     rmsnorm.launches += 1
     return y
 
@@ -102,11 +230,12 @@ rmsnorm.plain_calls = 0
 def rmsnorm_residual(x, residual, weight, *, eps: float = 1e-6):
     """K4b: (x + residual) -> RMSNorm. Returns (normed, new residual),
     both in x's shape and dtype."""
-    dev, _ = _check_inputs("rmsnorm_residual", x, residual, weight)
-    if dev.type == "cpu":
+    index = _check_inputs("rmsnorm_residual", x, residual, weight)
+    if index < 0 and x.is_cpu:
         rmsnorm_residual.plain_calls += 1
         return rmsnorm_residual_plain(x, residual, weight, eps)
-    y, res = _launch("rmsnorm_residual", x, residual, weight, eps)
+    y, res = torch.empty_like(x), torch.empty_like(x)
+    _launch("rmsnorm_residual", x, residual, weight, y, res, eps, index)
     rmsnorm_residual.launches += 1
     return y, res
 

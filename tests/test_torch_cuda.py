@@ -242,29 +242,83 @@ def test_decode_attention_cluster_edges(cuda, B, T, H, KVH, D, length,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,wdtype", [
-    ((4, 128, 512), torch.float32, torch.float32),
-    ((2, 300, 384), torch.bfloat16, torch.float32),
-    ((2048, 2560), torch.bfloat16, torch.bfloat16),
-    ((4096, 128), torch.bfloat16, torch.bfloat16),
-    ((3, 8192), torch.float32, torch.bfloat16),
+@pytest.mark.parametrize("shape,dtype,wdtype,offset,body", [
+    ((4, 128, 512), torch.float32, torch.float32, 0, "vector"),
+    ((2, 300, 384), torch.bfloat16, torch.float32, 0, "vector"),
+    ((2048, 2560), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((4096, 128), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((3, 8192), torch.float32, torch.bfloat16, 0, "vector"),
+    # the served shapes: a decode step's hidden norm, q-norm and k-norm
+    # (Qwen3-4B), Zamba2-2.7B's decode gate norm, Mamba2-780M's gate
+    # norm over a 2,000-token prompt
+    ((1, 2560), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((32, 128), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((8, 128), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((1, 5120), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((2000, 3072), torch.bfloat16, torch.bfloat16, 0, "vector"),
+    ((2, 4096, 8192), torch.bfloat16, torch.float32, 0, "vector"),
+    # the general body: odd widths, and contiguous views off 16 bytes
+    ((1, 1), torch.float32, torch.float32, 0, "general"),
+    ((5, 1001), torch.bfloat16, torch.bfloat16, 0, "general"),
+    ((6, 2560), torch.bfloat16, torch.bfloat16, 1, "general"),
+    ((6, 1024), torch.float32, torch.float32, 1, "general"),
 ])
-def test_rmsnorm_kernels_match_plain(cuda, shape, dtype, wdtype):
-    x = _bf16_or_f32(shape, dtype, 0, cuda)
+def test_rmsnorm_kernels_match_plain(cuda, monkeypatch, shape, dtype,
+                                     wdtype, offset, body):
+    # x ``offset`` elements into its buffer (1: off 16 bytes)
+    n = int(np.prod(shape))
+    x = _bf16_or_f32((n + offset,), dtype, 0, cuda)[offset:].view(shape)
     r = _bf16_or_f32(shape, dtype, 1, cuda)
     w = (1.0 + 0.1 * _bf16_or_f32(shape[-1:], torch.float32, 2,
                                   cuda)).to(wdtype)
+    entry, bodies = RN._entry(), []
+
+    def spy(*a):
+        # after the five pointers: R, D, the two dtype codes and the
+        # vectors a thread, 0 for the general body
+        bodies.append("general" if a[9] == 0 else "vector")
+        return entry(*a)
+
+    monkeypatch.setattr(RN, "_FN", spy)
     n0, n1 = RN.rmsnorm.launches, RN.rmsnorm_residual.launches
     got = RN.rmsnorm(x, w)
     got_n, got_r = RN.rmsnorm_residual(x, r, w)
     want = RN.rmsnorm_plain(x, w)
     want_n, want_r = RN.rmsnorm_residual_plain(x, r, w)
     torch.cuda.synchronize()
+    assert bodies == [body, body]
     assert (RN.rmsnorm.launches, RN.rmsnorm_residual.launches) == (
         n0 + 1, n1 + 1)
     _assert_within(got, want, dtype)
     _assert_within(got_n, want_n, dtype)
     assert torch.equal(got_r, want_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,exc", [
+    ("x float16", TypeError), ("weight of 7", ValueError),
+    ("x not contiguous", ValueError), ("D 8193", ValueError),
+    ("residual bf16", TypeError), ("residual (2, 8)", ValueError),
+    ("weight on the cpu", ValueError)])
+def test_rmsnorm_wrappers_reject_on_the_card(cuda, bad, exc):
+    """The common path on the card raises on every input the full
+    checks reject (tests/test_torch_rmsnorm.py's cases, on CUDA)."""
+    D = 8193 if bad == "D 8193" else 8
+    x, r = torch.ones(4, D, device=cuda), torch.ones(4, D, device=cuda)
+    w = torch.ones(D, device=cuda)
+    x = {"x float16": x.half(),
+         "x not contiguous": torch.ones(D, 4, device=cuda).t()}.get(bad, x)
+    w = {"weight of 7": torch.ones(7, device=cuda),
+         "weight on the cpu": torch.ones(D)}.get(bad, w)
+    r = {"residual bf16": r.bfloat16(),
+         "residual (2, 8)": torch.ones(2, 8, device=cuda)}.get(bad, r)
+    n0, n1 = RN.rmsnorm.launches, RN.rmsnorm_residual.launches
+    with pytest.raises(exc):
+        if bad.startswith("residual"):
+            RN.rmsnorm_residual(x, r, w)
+        else:
+            RN.rmsnorm(x, w)
+    assert (RN.rmsnorm.launches, RN.rmsnorm_residual.launches) == (n0, n1)
 
 
 # K5: f32 on both sides, sums in another order; tests/test_kernels.py's

@@ -2,13 +2,17 @@
 plain versions) against the JAX package's Pallas kernels (interpret
 mode) and its pure-jnp oracles, at the shapes of tests/test_kernels.py
 and with its tolerances. The CUDA kernel's own check against its plain
-version needs a card: tests/test_torch_cuda.py."""
+version needs a card: tests/test_torch_cuda.py. `_plan`, the pure
+function that chooses the kernel's body and geometry, is checked here:
+the vector body for every shape the served models launch, the general
+body for the rest, and a geometry that covers each row once."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch.configs import get_arch
 from repro_torch.kernels import rmsnorm as RN
 
 # tests/test_kernels.py's TOL
@@ -34,6 +38,8 @@ def _np(x):
     ((2, 300, 384), "bfloat16"),   # ragged rows
     ((1000, 256), "float32"),
     ((64, 128), "bfloat16"),       # qk-norm rows of head_dim 128
+    ((1, 2560), "bfloat16"),       # a decode step's hidden norm
+    ((32, 128), "bfloat16"),       # a decode step's q-norm
 ])
 def test_rmsnorm_matches_pallas_and_ref(shape, dtype):
     r = np.random.default_rng(0)
@@ -96,3 +102,90 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad, exc):
             RN.rmsnorm_residual(a["x"], a["r"], a["w"])
         else:
             RN.rmsnorm(a["x"], a["w"])
+
+
+# ------------------------------------------------------------- _plan
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _served_shapes(arch, S):
+    """The (R, D) of every K4a and K4b call of ``arch`` at full width
+    over S positions (B = 1): the hidden norms, the q/k-norm rows (dense)
+    and the Mamba2 gate norm (ssm, hybrid)."""
+    cfg = get_arch(arch)
+    shapes = {(S, cfg.d_model)}
+    if cfg.family == "dense" and cfg.qk_norm:
+        shapes |= {(S * cfg.n_heads, cfg.head_dim_),
+                   (S * cfg.n_kv_heads, cfg.head_dim_)}
+    if cfg.family in ("ssm", "hybrid"):
+        shapes.add((S, cfg.d_inner))
+    return sorted(shapes)
+
+
+# the serving smoke's prompts (chip_smoke.SERVE_CATALOGUE and
+# SERVE_SSM_CATALOGUE) and a decode step (S = 1)
+@pytest.mark.parametrize("arch,S", [
+    ("qwen3-4b", 256), ("qwen3-4b", 512), ("qwen3-4b", 2048),
+    ("qwen3-4b", 1), ("mamba2-780m", 512), ("mamba2-780m", 2000),
+    ("mamba2-780m", 1), ("zamba2-2.7b", 1024), ("zamba2-2.7b", 1)])
+def test_plan_sends_every_served_shape_to_the_vector_body(arch, S):
+    cfg = get_arch(arch)
+    assert (cfg.pdtype, cfg.cdtype) == (BF16, BF16)
+    for R, D in _served_shapes(arch, S):
+        plan = RN._plan(R, D, BF16, BF16, True)
+        assert plan.body == "vector", (arch, R, D, plan)
+        # a decode step's wide row: one vector a thread, one block a row
+        if R == 1 and D > 256:
+            assert (plan.vectors_per_thread, plan.rows_per_block) == (1, 1)
+            assert plan.threads_per_row == D // 8
+
+
+@pytest.mark.parametrize("R,D,dtype,aligned", [
+    (7, 1001, BF16, True),      # D not a multiple of 8 bf16
+    (5, 1001, F32, True),
+    (1, 1, F32, True),
+    (3, 6, F32, True),          # 6 f32 is not whole 16-byte vectors
+    (2048, 2560, BF16, False),  # a pointer off 16 bytes
+    (1, 128, F32, False),
+])
+def test_plan_sends_odd_widths_and_misaligned_pointers_to_general(
+        R, D, dtype, aligned):
+    plan = RN._plan(R, D, dtype, BF16, aligned)
+    assert plan.body == "general"
+    assert (plan.rows_per_block, plan.vectors_per_thread, plan.grid) == (
+        1, 0, R)
+    assert 32 <= plan.threads_per_row <= 256
+    assert plan.threads_per_row % 32 == 0
+
+
+def _covered(plan, R, nv):
+    """How often the kernel's index map (csrc/rmsnorm.cu) visits each
+    row, and each vector of a row: (rows (R,), vectors (nv,))."""
+    G, rows_pb, vpt, grid = (plan.threads_per_row, plan.rows_per_block,
+                             plan.vectors_per_thread, plan.grid)
+    rows = np.zeros(R, np.int64)
+    for b in range(grid):
+        for base in range(b * rows_pb, R, grid * rows_pb):
+            rows[base:min(base + rows_pb, R)] += 1
+    g = np.arange(G)[:, None] + G * np.arange(vpt)[None, :]
+    vecs = np.bincount(g[g < nv], minlength=nv)
+    return rows, vecs
+
+
+@pytest.mark.parametrize("dtype,wdtype", [(BF16, BF16), (BF16, F32),
+                                          (F32, BF16), (F32, F32)])
+def test_plan_covers_every_row_once_within_the_kernels_instances(
+        dtype, wdtype):
+    V = 16 // dtype.itemsize
+    for R in (1, 3, 8, 32, 48, 132, 300, 2000, 2048, 65536):
+        for D in (8, 64, 128, 256, 384, 1536, 2560, 3072, 5120, 8192):
+            plan = RN._plan(R, D, dtype, wdtype, True)
+            assert plan.body == "vector"
+            G, vpt = plan.threads_per_row, plan.vectors_per_thread
+            threads = G * plan.rows_per_block
+            assert vpt in RN.VECTORS
+            assert threads <= RN.max_threads(vpt) and threads % 32 == 0
+            assert (G & (G - 1)) == 0 if G <= 32 else G % 32 == 0
+            rows, vecs = _covered(plan, R, D // V)
+            assert (rows == 1).all(), (R, D, plan)
+            assert (vecs == 1).all(), (R, D, plan)
