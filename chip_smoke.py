@@ -25,10 +25,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  never calls) and the bound. K2 also at a ragged S =
                  2000 and at B = 2, K3 at B = 2, both at head_dim 80
                  (Zamba2-2.7B's shared block, MHA). K5 (ssd_chunk)
-                 in f32 at Mamba2-780M's (S = 2048) and Zamba2-2.7B's
-                 (S = 1024) full-width shapes, a ragged S = 2000, x in
-                 bf16 and f32, g = 8, within its own limit, each case
-                 with two planted faults.
+                 at Mamba2-780M's (S = 2048) and Zamba2-2.7B's (S =
+                 1024) full-width shapes, a ragged S = 2000 and g = 8:
+                 in the served dtypes (x, B, C bf16: its wgmma body)
+                 and with B and C in f32 (x bf16 or f32: its CUDA-core
+                 body), within its own limit, each case with two
+                 planted faults, the body that ran each case and the
+                 ptxas report of both bodies.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
                  grid (F = 200 functions, Azure-like requests, ESFF,
                  C = 8..32: seven lanes), with the kernels' launch
@@ -43,7 +46,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  zamba2-2.7b in f32 on the card, on weights and a prompt
                  made with numpy, through prefill and 8 greedy decode
                  steps, against the JAX package's tokens and logits (the
-                 constants below).
+                 constants below); then the same in bf16 (and Mamba2 at
+                 head dim 64, so that K5's wgmma body runs), fed the JAX
+                 tokens, each step's logits within 5e-2 of its largest
+                 |logit|, with the greedy-token agreement.
 7. ``serve``     `repro_torch.serving.EdgeServingEngine` (ESFF, 2 slots)
                  serves 12 requests from three full-width Qwen3-4B
                  functions (SERVE_CATALOGUE); cold starts, executions
@@ -55,8 +61,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  full-width functions of the ssm and hybrid families
                  (SERVE_SSM_CATALOGUE: Mamba2-780M chat and summarize,
                  Zamba2-2.7B chat); K5 must launch exactly once a layer
-                 a prefill of the run, K2 and K3 (head_dim 80) once a
-                 shared-block application.
+                 a prefill of the run, every time through its wgmma
+                 body, K2 and K3 (head_dim 80) once a shared-block
+                 application.
 9. ``profile``   (``--profile`` only) torch.profiler over a short Fig. 5
                  run (device busy share, the FRP kernel's device time)
                  and over one served request of each function of both
@@ -179,12 +186,15 @@ SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
 # Every case also holds the kernel against a planted fault in the plain
 # version (FAULTS) and fails unless the limit rejects it, so a limit
 # that would let a wrong kernel through fails the run.
-# - ssd_chunk (K5): f32 inputs but x (bf16 or f32, widened exactly)
-#   and f32 outputs on both sides, so only the order of the f32 sums
-#   differs (over up to c n products for a score and c for an output);
-#   measured at 3.8e-6 on y (mean |y| 2.3) and 3.6e-7 on the states
-#   (mean 0.21) at Mamba2-780M's and Zamba2-2.7B's shapes, so atol 3e-5
-#   (8x that) plus rtol 1e-5.
+# - ssd_chunk (K5): inputs widened exactly (x, B and C may be bf16) and
+#   f32 outputs on both sides, so only the order of the f32 sums differs
+#   (over up to c n products for a score and c for an output); measured
+#   at 3.8e-6 on y (mean |y| 2.3) and 3.6e-7 on the states (mean 0.21)
+#   at Mamba2-780M's and Zamba2-2.7B's shapes by the CUDA-core body, so
+#   atol 3e-5 (8x that) plus rtol 1e-5. The wgmma body is held to the
+#   same limit: its products are exact and its weights carry ~24 bits
+#   (three bf16 parts); it uses 0.06-0.19 of the limit on y and ~0.01
+#   on the states at the same shapes.
 KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                       p_round=2.0 ** -8),
               "decode_attention": dict(rtol=1e-2, atol=1e-3),
@@ -281,6 +291,204 @@ PARITY_CASES = {
         l2=22.521312696958773, top5=[12, 504, 199, 121, 44])),
 }
 PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
+# The bf16 rows of model_parity: the same smoke() configs (and Mamba2-780M's
+# at head dim 64, state 64 and chunk 64, so that its prefill takes K5's
+# wgmma body) with params and activations in bf16, on the same weights
+# cast to bf16. The port is fed the JAX package's greedy tokens, and each
+# step's logits are held at PARITY_BF16_TOL of that step's largest
+# |logit| (the bound of the tier-1 bf16 tests, test_torch_model.py and
+# test_torch_mamba.py) at the JAX top-5 and at logits[:8]; greedy-token
+# agreement is reported, and a token that differs where the JAX top-2 gap
+# exceeds the bound fails the row. The JAX package's steps, computed on
+# the CPU with (PYTHONPATH=src:., JAX_PLATFORMS=cpu), for each row:
+#   case = cs.PARITY_BF16_CASES[row]
+#   cfg = get_arch(case["arch"]).smoke().replace(**case["config"])
+#   m = build_model(cfg); abstract, flat, w as for f32 above
+#   params = jax.tree_util.tree_map_with_path(lambda path, leaf:
+#       jnp.asarray(w[".".join(k.key for k in path)], cfg.pdtype), abstract)
+#   toks = cs.parity_tokens(np, cfg.vocab_size, case["prompt_len"])
+#   cache = m.cache_spec(1, case["max_len"]).zeros()
+#   logits, cache = m.prefill(params, {"tokens": jnp.asarray(toks)}, cache)
+#   steps = []
+#   for i in range(cs.PARITY["steps"] + 1):
+#       steps.append(cs.parity_step(np, np.asarray(logits[0, -1],
+#                                                  np.float64)))
+#       if i < cs.PARITY["steps"]:
+#           logits, cache = m.decode_step(
+#               params, jnp.asarray([[steps[-1][0]]]), cache)
+PARITY_BF16_TOL = 5e-2
+_BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+PARITY_BF16_CASES = {
+    "qwen3-4b smoke bf16": dict(arch="qwen3-4b", config=_BF16,
+                                prompt_len=16, max_len=32, steps=[
+        (109, 3.3281, 0.5938, [109, 34, 459, 499, 207],
+         [3.1094, 2.5156, 2.3594, 2.2812, 2.2656],
+         [0.3828, 0.2969, -1.3359, -0.4648,
+          -1.5, 1.4297, -0.5156, -0.334]),
+        (109, 3.5938, 0.125, [109, 463, 132, 31, 72],
+         [2.5312, 2.4062, 2.3438, 2.25, 2.2344],
+         [-0.0718, 0.3262, -1.2422, -0.377,
+          -0.8945, 1.0312, 0.4316, -0.5234]),
+        (109, 3.5, 0.2188, [109, 463, 197, 31, 132],
+         [2.6406, 2.4219, 2.3594, 2.2969, 2.1875],
+         [0.0194, 0.4512, -1.3438, -0.3789,
+          -0.8828, 1.1562, 0.5078, -0.6523]),
+        (109, 3.5469, 0.0625, [109, 197, 463, 31, 499],
+         [2.7031, 2.6406, 2.3281, 2.2344, 2.2344],
+         [0.2617, 0.5234, -1.3906, -0.2969,
+          -0.8242, 1.3203, 0.6445, -0.8164]),
+        (197, 3.5938, 0.1562, [197, 109, 499, 463, 202],
+         [2.8438, 2.6875, 2.3125, 2.125, 2.125],
+         [0.5508, 0.625, -1.4219, -0.1963,
+          -0.7539, 1.4766, 0.8125, -1.0859]),
+        (109, 3.2656, 0.1406, [109, 499, 72, 34, 207],
+         [2.7344, 2.5938, 2.4688, 2.3906, 2.2031],
+         [0.625, 0.1562, -1.6797, -0.0304,
+          -0.9102, 1.3984, 0.0126, -0.2754]),
+        (197, 3.5781, 0.2656, [197, 109, 499, 72, 215],
+         [2.8281, 2.5625, 2.3594, 2.1562, 2.1406],
+         [0.5898, 0.6797, -1.4375, -0.1494,
+          -0.6758, 1.2969, 0.7852, -1.1328]),
+        (499, 3.5625, 0.2812, [499, 109, 72, 207, 463],
+         [2.9062, 2.625, 2.4062, 2.1562, 2.0781],
+         [0.6367, 0.3652, -1.625, -0.2539,
+          -0.6055, 1.25, -0.0698, -0.2207]),
+        (109, 3.1875, 0.4375, [109, 499, 207, 417, 459],
+         [3.0312, 2.5938, 2.2969, 2.1562, 2.1094],
+         [0.3848, 0.2178, -1.7188, -0.7656,
+          -0.8945, 0.9805, -0.3105, 0.0117]),
+    ]),
+    "mamba2-780m smoke bf16": dict(arch="mamba2-780m", config=_BF16,
+                                   prompt_len=80, max_len=96, steps=[
+        (96, 2.7969, 0.0625, [96, 435, 473, 263, 160],
+         [2.7656, 2.7031, 2.5938, 2.375, 2.375],
+         [-0.5859, -0.3906, -0.0405, -1.5312,
+          1.3594, -1.5469, -0.3789, 1.7188]),
+        (322, 3.1406, 0.0469, [322, 122, 30, 87, 494],
+         [2.8438, 2.7969, 2.6406, 2.5312, 2.4844],
+         [1.5781, -0.1592, -0.5938, 0.793,
+          0.5234, -0.7383, 0.8008, 0.5]),
+        (269, 3.5938, 0.0781, [269, 404, 463, 26, 198],
+         [2.4219, 2.3438, 2.2188, 2.1719, 2.0938],
+         [1.3281, 0.8516, -0.3965, 0.1689,
+          -0.1543, -1.4453, -1.4375, 0.793]),
+        (142, 4.0, 1.0, [142, 238, 270, 198, 156],
+         [4.0, 3.0, 2.5469, 2.3906, 2.2812],
+         [0.3203, 0.0021, -0.5117, 0.168,
+          -1.2266, 0.0684, 2.0625, 0.248]),
+        (15, 3.2031, 0.5625, [15, 193, 73, 370, 291],
+         [3.2031, 2.6406, 2.5156, 2.5156, 2.375],
+         [-0.334, 0.543, -0.793, -0.9492,
+          0.2734, 1.5703, 1.5391, 0.3398]),
+        (145, 3.2344, 0.1562, [145, 263, 287, 73, 341],
+         [3.2344, 3.0781, 2.8594, 2.7188, 2.5312],
+         [-1.6172, 0.6641, -1.5, 1.2344,
+          -1.0781, 0.0085, 1.1562, -2.2969]),
+        (87, 3.375, 0.2812, [87, 431, 507, 420, 207],
+         [3.3281, 3.0469, 2.8125, 2.5781, 2.4688],
+         [-0.0737, 0.6602, -1.1172, -0.3926,
+          -0.0383, -0.5586, -0.2598, 0.1001]),
+        (198, 4.125, 1.1719, [198, 276, 143, 28, 404],
+         [4.125, 2.9531, 2.6875, 2.3906, 2.3438],
+         [1.5859, 0.21, 1.3906, -0.2695,
+          -0.9023, 0.8711, -1.7734, 0.5]),
+        (54, 3.2344, 0.0312, [54, 64, 6, 391, 326],
+         [2.7344, 2.7031, 2.6562, 2.5312, 2.3125],
+         [-0.2363, 0.3535, 0.2354, 0.2539,
+          0.3828, -0.7539, 2.6562, 1.0]),
+    ]),
+    "zamba2-2.7b smoke bf16": dict(arch="zamba2-2.7b", config=_BF16,
+                                   prompt_len=80, max_len=96, steps=[
+        (20, 3.2656, 0.0156, [20, 59, 388, 154, 170],
+         [3.2656, 3.25, 2.9844, 2.4219, 2.4062],
+         [-1.2578, 1.2266, -1.3672, -0.3164,
+          -0.8867, -1.3594, 0.2793, 1.4766]),
+        (199, 3.2188, 0.2969, [199, 419, 44, 187, 12],
+         [3.2188, 2.9219, 2.3125, 2.2812, 2.25],
+         [-2.375, 0.9805, 0.2188, -0.4062,
+          0.0065, 0.8203, 0.0815, 0.5039]),
+        (42, 3.4375, 0.5625, [42, 261, 403, 208, 102],
+         [3.3438, 2.7812, 2.5312, 2.3281, 2.1875],
+         [-0.6328, 0.3379, -1.2969, -1.0547,
+          -1.1016, 0.2578, 0.4395, -0.3555]),
+        (106, 3.75, 0.0156, [106, 42, 326, 102, 177],
+         [2.1719, 2.1562, 2.0938, 2.0469, 1.9922],
+         [-0.3672, 0.2812, -1.1484, -1.2812,
+          -1.7422, 1.0938, 0.0918, 0.1445]),
+        (504, 3.3281, 0.4062, [504, 285, 262, 431, 401],
+         [3.3281, 2.9219, 2.5, 2.4844, 2.4062],
+         [-1.3203, 0.4023, -1.3438, -0.832,
+          -1.3516, 0.6445, 1.0859, -0.0981]),
+        (176, 2.7969, 0.2031, [176, 170, 361, 400, 504],
+         [2.7656, 2.5625, 2.5, 2.4531, 2.2656],
+         [-0.8359, 1.1562, -1.5703, -0.3184,
+          -1.0, 0.2676, -0.6719, -0.1396]),
+        (388, 3.2812, 0.1562, [388, 500, 298, 44, 467],
+         [2.5938, 2.4375, 2.2344, 2.2031, 2.1875],
+         [0.875, 0.0757, -0.0791, 0.668,
+          -1.5938, -0.2969, -0.1494, 0.0312]),
+        (378, 2.7344, 0.1719, [378, 503, 401, 197, 20],
+         [2.6875, 2.5156, 2.3594, 2.0469, 2.0],
+         [-0.7461, 0.1143, -1.5781, -0.3906,
+          -0.9922, -0.0134, -0.8203, 0.0299]),
+        (12, 2.6719, 0.0, [12, 504, 199, 121, 44],
+         [2.5469, 2.5469, 2.4844, 2.3438, 2.25],
+         [-0.832, 1.0781, -0.7461, -0.0488,
+          -0.2578, -0.7305, 0.7461, 0.0757]),
+    ]),
+    "mamba2-780m smoke bf16 p64 n64 chunk64": dict(
+        arch="mamba2-780m", config=dict(_BF16, ssm_headdim=64, ssm_state=64,
+                                        ssm_chunk=64),
+        prompt_len=80, max_len=96, k5_body="wgmma", steps=[
+        (321, 4.1562, 0.2969, [321, 360, 378, 294, 119],
+         [3.4531, 3.1562, 2.7969, 2.5781, 2.5312],
+         [-0.5703, -0.0615, 1.7031, -0.5078,
+          -0.6797, 0.4277, 0.1777, 0.3379]),
+        (466, 3.3281, 0.2344, [466, 381, 288, 272, 329],
+         [2.7969, 2.5625, 2.3438, 2.25, 2.25],
+         [-1.3047, -1.7344, 0.377, -0.9336,
+          0.127, -0.582, -0.6094, 1.1797]),
+        (112, 3.4219, 0.6719, [112, 257, 288, 128, 180],
+         [3.4219, 2.75, 2.6719, 2.4375, 2.2344],
+         [-0.7383, -0.5625, -0.7383, -0.9453,
+          0.9375, -0.1006, -0.0161, -0.007]),
+        (467, 3.2188, 0.5, [467, 53, 316, 477, 465],
+         [3.2188, 2.7188, 2.6562, 2.5781, 2.5781],
+         [-0.1133, 0.8945, -0.1162, -1.4297,
+          -0.2109, -0.3457, -1.0078, -0.0275]),
+        (317, 3.2031, 0.6406, [317, 39, 355, 23, 280],
+         [3.2031, 2.5625, 2.5, 2.4688, 2.2656],
+         [-0.8789, -0.8125, 0.9883, -0.6445,
+          0.2559, -0.6094, -2.0, -0.4238]),
+        (107, 3.3438, 0.3281, [107, 212, 301, 408, 41],
+         [2.7812, 2.4531, 2.4219, 2.2031, 2.1406],
+         [0.2715, 0.1602, 0.2168, -2.0312,
+          -0.4414, -1.2969, 0.9648, -1.4531]),
+        (292, 2.7188, 0.0312, [292, 96, 427, 418, 81],
+         [2.25, 2.2188, 2.1719, 2.125, 2.125],
+         [0.5781, -0.3242, 0.8594, -0.3203,
+          -1.5469, 1.3281, 0.3477, -0.0339]),
+        (270, 3.1094, 0.2188, [270, 369, 206, 10, 173],
+         [3.1094, 2.8906, 2.8438, 2.8438, 2.625],
+         [-0.0537, 0.2559, -1.1875, -0.9453,
+          -0.7539, -0.7812, 0.4219, 0.248]),
+        (380, 4.0, 0.0938, [380, 467, 469, 245, 327],
+         [2.9219, 2.8281, 2.5156, 2.4375, 2.375],
+         [-0.0981, -2.0312, 0.0297, -0.0708,
+          0.7305, 0.8125, -0.5781, 0.0549]),
+    ]),
+}
+
+
+def parity_step(np, logits):
+    """What a bf16 row keeps of one step's logits (f64, over the vocab):
+    (the greedy token, the largest |logit|, the top-2 gap, the top-5
+    ids, their logits, logits[:8]), rounded to 4 decimals."""
+    top = np.argsort(-logits)[:5]
+    r = lambda a: [round(float(v), 4) for v in a]  # noqa: E731
+    return (int(top[0]), round(float(np.abs(logits).max()), 4),
+            round(float(logits[top[0]] - logits[top[1]]), 4),
+            [int(i) for i in top], r(logits[top]), r(logits[:8]))
 
 
 class SmokeFailure(RuntimeError):
@@ -903,11 +1111,13 @@ def phase_serving_kernels(torch, FA, DA, RN):
 
 
 # ------------------------------------------------ phase 3c: K5, ssd_chunk
-def ssd_inputs(torch, np, b, nc, c, h, p, n, g, xdtype, seed, valid=None):
+def ssd_inputs(torch, np, b, nc, c, h, p, n, g, xdtype, bcdtype, seed,
+               valid=None):
     """K5's inputs on the card, made with numpy: mild decay (dt in [0.01,
     0.2], A in [-2, -0.5], as tests/test_kernels.py) so that every (s, t)
-    term counts; ``valid`` < nc * c zero-pads the tail as `ssd_chunked`
-    pads a ragged length (x, dt, B, C zero there, cum flat)."""
+    term counts; x in ``xdtype``, B and C in ``bcdtype``; ``valid`` < nc
+    * c zero-pads the tail as `ssd_chunked` pads a ragged length (x, dt,
+    B, C zero there, cum flat)."""
     r = np.random.default_rng(seed)
     L = nc * c
     x = r.normal(size=(b, L, h, p))
@@ -922,8 +1132,8 @@ def ssd_inputs(torch, np, b, nc, c, h, p, n, g, xdtype, seed, valid=None):
     mk = lambda a, shape, d=f32: torch.tensor(  # noqa: E731
         a.reshape(shape), dtype=d, device="cuda")
     return (mk(x, (b, nc, c, h, p), xdtype), mk(dt, (b, nc, c, h)),
-            mk(cum, (b, nc, c, h)), mk(B, (b, nc, c, g, n)),
-            mk(C, (b, nc, c, g, n)))
+            mk(cum, (b, nc, c, h)), mk(B, (b, nc, c, g, n), bcdtype),
+            mk(C, (b, nc, c, g, n), bcdtype))
 
 
 def ssd_faults(torch, x, dt, cum, B, C, y, S):
@@ -932,7 +1142,7 @@ def ssd_faults(torch, x, dt, cum, B, C, y, S):
     the last position's B[c-1] dt[c-1] (x) x[c-1] (decay exp(0) = 1)."""
     b, nc, c, h, p = x.shape
     g = B.shape[3]
-    rep = lambda a: a.repeat_interleave(h // g, dim=3)  # noqa: E731
+    rep = lambda a: a.float().repeat_interleave(h // g, dim=3)  # noqa
     xf = x.float()
     diag = (rep(C) * rep(B)).sum(-1) * dt                   # (b,nc,c,h)
     y_fault = y - diag[..., None] * xf
@@ -941,57 +1151,122 @@ def ssd_faults(torch, x, dt, cum, B, C, y, S):
     return y_fault, S_fault
 
 
+def ssd_work(x, B):
+    """(bytes, f32 operations, tensor-core operations) of one K5 call:
+    each input read once at its element size and each output written
+    once; the f32 count is the s >= t scores and products, the weights
+    (difference, exponent, two products) and the states with their
+    decay; the tensor-core count is the wgmma body's passes: one for the
+    scores, three (the weight's bf16 parts) for y and for the states."""
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    cells = b * nc * h
+    tri = c * (c + 1) // 2
+    n_bytes = (x.element_size() * cells * c * p + 4 * 2 * b * nc * c * h
+               + B.element_size() * 2 * b * nc * c * g * n
+               + 4 * cells * c * p + 4 * cells * p * n)
+    f32_ops = cells * (2 * tri * (n + p) + 4 * tri + 2 * c * p * n
+                       + 3 * c * n)
+    tc_ops = cells * (2 * tri * n + 3 * 2 * tri * p + 3 * 2 * c * p * n)
+    return n_bytes, f32_ops, tc_ops
+
+
+def ptxas_lines(report, *names):
+    """The lines of an nvcc -Xptxas -v report about the kernels whose
+    mangled names hold one of ``names``: each function's line and the
+    register / shared memory / spill lines after it."""
+    out, keep = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            keep = any(n in line for n in names)
+        if keep:
+            out.append(line.strip())
+    return out
+
+
+# K5's cases: (name, (b, nc, c, h, p, n, g), x dtype, B and C dtype,
+# valid length, the body that must run it). The served dtypes (x, B, C
+# bf16) take the wgmma body at the served widths and the CUDA-core body
+# at the smoke models' (p = n = 16, chunk 32) and other ragged widths;
+# PR 13's cases (B and C f32) the CUDA-core body.
+SSD_CASES = (
+    ("mamba2-780m S=2048 bf16", (1, 8, 256, 48, 64, 128, 1), "bf16",
+     "bf16", None, "wgmma"),
+    ("zamba2-2.7b S=1024 bf16", (1, 4, 256, 80, 64, 64, 1), "bf16", "bf16",
+     None, "wgmma"),
+    ("mamba2-780m S=2000 ragged bf16", (1, 8, 256, 48, 64, 128, 1), "bf16",
+     "bf16", 2000, "wgmma"),
+    ("g=8 S=2048 bf16", (1, 8, 256, 48, 64, 128, 8), "bf16", "bf16", None,
+     "wgmma"),
+    ("smoke widths bf16", (1, 2, 32, 4, 16, 16, 1), "bf16", "bf16", None,
+     "cuda_core"),
+    ("ragged widths g=3 bf16", (1, 2, 100, 6, 40, 72, 3), "bf16", "bf16",
+     None, "cuda_core"),
+    ("mamba2-780m S=2048 bf16 x, f32 B/C", (1, 8, 256, 48, 64, 128, 1),
+     "bf16", "f32", None, "cuda_core"),
+    ("zamba2-2.7b S=1024 bf16 x, f32 B/C", (1, 4, 256, 80, 64, 64, 1),
+     "bf16", "f32", None, "cuda_core"),
+    ("mamba2-780m S=2048 f32", (1, 8, 256, 48, 64, 128, 1), "f32", "f32",
+     None, "cuda_core"),
+    ("mamba2-780m S=2000 ragged bf16 x, f32 B/C",
+     (1, 8, 256, 48, 64, 128, 1), "bf16", "f32", 2000, "cuda_core"),
+    ("g=8 S=2048 bf16 x, f32 B/C", (1, 8, 256, 48, 64, 128, 8), "bf16",
+     "f32", None, "cuda_core"),
+)
+
+
 def phase_ssd_kernel(torch, np, K5):
-    """K5 against its plain version on the card, in f32, at Mamba2-780M's
-    (S = 2048) and Zamba2-2.7B's (S = 1024) full-width shapes, a ragged
-    S = 2000 padded to 2048, x in bf16 and in f32, and g > 1; each case
-    within KERNEL_TOL["ssd_chunk"], and each with its two planted faults
-    rejected. Times as the serving kernels' (no library call computes
-    the intra-chunk SSD)."""
+    """K5 against its plain version on the card at Mamba2-780M's (S =
+    2048) and Zamba2-2.7B's (S = 1024) full-width shapes, a ragged S =
+    2000 padded to 2048 and g > 1: in the served dtypes (x, B, C bf16:
+    the wgmma body; at the smoke models' widths the CUDA-core body) and
+    with B and C in f32 (x bf16 or f32: the CUDA-core body); each case within KERNEL_TOL["ssd_chunk"], with its two planted
+    faults rejected, and run by the body its dtypes name. Times as the
+    serving kernels' (no library call computes the intra-chunk SSD);
+    the bound of a wgmma case counts its tensor-core passes, with the
+    f32 CUDA-core bound beside it."""
+    from repro_torch.kernels import _build
     timing = dict(reps=20, trials=5)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = (
-        ("mamba2-780m S=2048 bf16", (1, 8, 256, 48, 64, 128, 1), bf16, None),
-        ("zamba2-2.7b S=1024 bf16", (1, 4, 256, 80, 64, 64, 1), bf16, None),
-        ("mamba2-780m S=2048 f32", (1, 8, 256, 48, 64, 128, 1), f32, None),
-        ("mamba2-780m S=2000 ragged bf16", (1, 8, 256, 48, 64, 128, 1),
-         bf16, 2000),
-        ("g=8 S=2048 bf16", (1, 8, 256, 48, 64, 128, 8), bf16, None),
-    )
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     rows = []
-    for i, (case, shape, xdtype, valid) in enumerate(cases):
-        b, nc, c, h, p, n, g = shape
-        args = ssd_inputs(torch, np, *shape, xdtype, seed=i, valid=valid)
+    for i, (case, shape, xd, bcd, valid, body) in enumerate(SSD_CASES):
+        args = ssd_inputs(torch, np, *shape, dtypes[xd], dtypes[bcd],
+                          seed=i, valid=valid)
         call = partial(K5.ssd_chunk, *args)
         plain = partial(K5.ssd_chunk_plain, *args)
+        before = dict(K5.ssd_chunk.body_launches)
         (ky, ks), (py, ps) = call(), plain()
+        ran = [k for k, v in K5.ssd_chunk.body_launches.items()
+               if v != before[k]]
+        need(ran == [body], f"ssd_chunk {case}: ran the {ran} body, not "
+             f"the {body} one")
         fy, fs_ = ssd_faults(torch, *args, py, ps)
         cy = _close(torch, "ssd_chunk", f"{case} y", ky, py, fy)
         cs = _close(torch, "ssd_chunk", f"{case} states", ks, ps, fs_)
         check = dict(max_abs_err=max(cy["max_abs_err"], cs["max_abs_err"]),
                      tol_use=max(cy["tol_use"], cs["tol_use"]),
+                     tol_use_y=cy["tol_use"], tol_use_states=cs["tol_use"],
                      fault_ratio=min(cy["fault_ratio"], cs["fault_ratio"]),
                      typical_abs_y=cy["typical_abs"],
                      typical_abs_states=cs["typical_abs"])
-        cells = b * nc * h
-        tri = c * (c + 1) // 2
-        # bytes: each input read once, each output written once; ops:
-        # the s >= t scores and products, the weights (difference,
-        # exponent, two products) and the states with their decay
-        n_bytes = (args[0].element_size() * cells * c * p
-                   + 4 * 2 * b * nc * c * h + 4 * 2 * b * nc * c * g * n
-                   + 4 * cells * c * p + 4 * cells * p * n)
-        n_ops = cells * (2 * tri * (n + p) + 4 * tri + 2 * c * p * n
-                         + 3 * c * n)
-        bnd, by = bound_ms(n_bytes, n_ops, "f32")
-        rows.append(dict(kernel="ssd_chunk", case=case, **check,
-                         ms=time_ms(torch, call, **timing),
-                         plain_ms=time_ms(torch, plain, **timing),
+        n_bytes, f32_ops, tc_ops = ssd_work(args[0], args[3])
+        b_f32, by_f32 = bound_ms(n_bytes, f32_ops, "f32")
+        if ran == ["wgmma"]:
+            bnd, by = bound_ms(n_bytes, tc_ops, "bf16")
+        else:
+            bnd, by = b_f32, by_f32
+        ms, plain_ms = time_in_turns(torch, [call, plain], **timing)
+        rows.append(dict(kernel="ssd_chunk", case=case, body=ran[0],
+                         **check, ms=ms, plain_ms=plain_ms,
                          library_ms=None, device_ms=device_ms(torch, call),
                          plain_device_ms=device_ms(torch, plain),
                          library_device_ms=None, bound_ms=bnd, bound_by=by,
-                         bytes=n_bytes, ops=n_ops))
-    emit(dict(phase="kernel", ssd_chunk=rows))
+                         bound_f32_ms=b_f32, bound_f32_by=by_f32,
+                         bytes=n_bytes, ops=f32_ops, tc_ops=tc_ops))
+    report = _build.BUILD_INFO.get("ssd_chunk", {}).get("ptxas", "")
+    emit(dict(phase="kernel", ssd_chunk=rows, ptxas=dict(
+        wgmma=ptxas_lines(report, "ssd_chunk_wgmma_kernel"),
+        cuda_core=ptxas_lines(report, "16ssd_chunk_kernel"))))
     return rows
 
 
@@ -1031,18 +1306,25 @@ def parity_tokens(np, vocab_size, prompt_len):
     return r.integers(0, vocab_size, (1, prompt_len))
 
 
-def phase_model_parity(torch, np):
-    """The port's models on the card against the JAX package's own
-    output (PARITY_CASES' expected, computed on the CPU)."""
-    from repro_torch.configs import get_arch
+def parity_model(torch, np, cfg):
+    """The port's model of ``cfg`` on the card with the parity weights
+    (`parity_weights`, cast to the config's dtype)."""
     from repro_torch.models import build_model
     from repro_torch.models.convert import from_jax_params
+    model = build_model(cfg)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    model.load_state_dict(from_jax_params(cfg, parity_weights(np, shapes)))
+    return model
+
+
+def phase_model_parity(torch, np):
+    """The port's models on the card against the JAX package's own
+    output (PARITY_CASES' expected, computed on the CPU), in f32; then
+    in bf16 (PARITY_BF16_CASES), fed the JAX package's tokens."""
+    from repro_torch.configs import get_arch
     for arch, case in PARITY_CASES.items():
         cfg = get_arch(arch).smoke()
-        model = build_model(cfg)
-        shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-        model.load_state_dict(from_jax_params(cfg, parity_weights(np,
-                                                                  shapes)))
+        model = parity_model(torch, np, cfg)
         toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
                                           case["prompt_len"]), device="cuda")
         cache = model.cache_spec(1, case["max_len"]).zeros("cuda")
@@ -1075,6 +1357,58 @@ def phase_model_parity(torch, np):
              f"model_parity {arch}: last-step logits beyond {PARITY_TOL} "
              f"of the JAX package's (head err {head_err}, l2 {got['l2']} "
              f"vs {exp['l2']})")
+    for row, case in PARITY_BF16_CASES.items():
+        model_parity_bf16(torch, np, row, case)
+
+
+def model_parity_bf16(torch, np, row, case):
+    """One bf16 row: prefill and decode fed the JAX package's greedy
+    tokens, each step's logits within PARITY_BF16_TOL of its largest
+    |logit| at the JAX top-5 and at logits[:8]; a greedy token that
+    differs from the JAX one where the JAX top-2 gap exceeds that bound
+    is a fault of the port. A row with ``k5_body`` must run K5's prefill
+    launches through that body."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_chunk as K5
+    before = dict(K5.ssd_chunk.body_launches)
+    cfg = get_arch(case["arch"]).smoke().replace(**case["config"])
+    model = parity_model(torch, np, cfg)
+    toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
+                                      case["prompt_len"]), device="cuda")
+    cache = model.cache_spec(1, case["max_len"]).zeros("cuda")
+    logits, cache = model.prefill({"tokens": toks}, cache)
+    steps = case["steps"]
+    mine, worst = [], 0.0
+    for i, (tok, amax, gap, ids, vals, head) in enumerate(steps):
+        last = logits[0, -1].double().cpu().numpy()
+        need(bool(np.isfinite(last).all()),
+             f"model_parity {row}: non-finite logits at step {i}")
+        bound = PARITY_BF16_TOL * amax
+        err = max(np.abs(last[ids] - vals).max(),
+                  np.abs(last[:len(head)] - head).max())
+        worst = max(worst, err / bound)
+        mine.append(int(last.argmax()))
+        need(err <= bound, f"model_parity {row}: step {i}'s logits "
+             f"{err:.4g} off the JAX package's, beyond {bound:.4g}")
+        need(mine[-1] == tok or gap <= bound,
+             f"model_parity {row}: step {i} picks {mine[-1]}, the JAX "
+             f"package {tok} by a top-2 gap {gap} over the bound {bound:.4g}")
+        if i + 1 < len(steps):
+            logits, cache = model.decode_step(
+                torch.tensor([[tok]], device="cuda"), cache)
+    want = [s[0] for s in steps]
+    bodies = {k: v - before[k]
+              for k, v in K5.ssd_chunk.body_launches.items()}
+    emit(dict(phase="model_parity", arch=row, tokens=mine,
+              expected_tokens=want,
+              token_agreement=sum(a == b for a, b in zip(mine, want)),
+              steps=len(steps), tol_use=worst, tol=PARITY_BF16_TOL,
+              k5_launches_by_body=bodies))
+    if "k5_body" in case:
+        need(bodies[case["k5_body"]] == cfg.n_layers
+             and sum(bodies.values()) == cfg.n_layers,
+             f"model_parity {row}: K5 ran {bodies}, not once a layer "
+             f"through its {case['k5_body']} body")
 
 
 # --------------------------------------------------------- phase 7: serve
@@ -1139,6 +1473,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
     profile_s = time.perf_counter() - t0
     for f in kernels.values():
         f.launches = 0
+        if hasattr(f, "body_launches"):
+            f.body_launches = dict.fromkeys(f.body_launches, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if calls is None:
@@ -1149,6 +1485,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
+    by_body = {k: dict(f.body_launches) for k, f in kernels.items()
+               if hasattr(f, "body_launches")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fn_of = np.array([r.fn_id for r in reqs])
     per_fn = []
@@ -1200,7 +1538,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
                 cold_starts=res.server.cold_starts,
                 evictions=res.server.evictions,
                 cold_time=res.server.cold_time, peak_mem_gb=peak_gb,
-                launches=launches, functions=per_fn)
+                launches=launches, launches_by_body=by_body,
+                functions=per_fn)
     if calls is not None:
         line["model_calls"] = {f"{k}:{n}": c
                                for (k, n), c in sorted(calls.counts.items())}
@@ -1231,7 +1570,8 @@ def phase_serve(torch, np, FA, DA, RN):
 def phase_serve_ssm(torch, np, FA, DA, RN, K5):
     """SERVE_SSM_CATALOGUE's Mamba2-780M and Zamba2-2.7B functions at
     full width. K5 must have launched exactly once a layer a prefill of
-    the run (warm-ups of its live cold starts included); K2 and K3 (at
+    the run (warm-ups of its live cold starts included), every time
+    through its wgmma body (x, B and C in bf16); K2 and K3 (at
     head_dim 80: the only attention here is Zamba2's shared block) once
     a shared-block application a hybrid prefill and decode step."""
     kernels = {"flash_attention": FA.flash_attention,
@@ -1241,13 +1581,18 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
                "ssd_chunk": K5.ssd_chunk}
     fns = serve_catalogue(SERVE_SSM_CATALOGUE)
     calls = CountModelCalls()
-    launches, _ = serve_run(torch, np, "serve_ssm", fns, kernels, calls)
+    launches, line = serve_run(torch, np, "serve_ssm", fns, kernels, calls)
     cfgs = {fn.cfg.name: fn.cfg for fn in fns}
     want_k5 = sum(c.n_layers * calls.get("prefill", n)
                   for n, c in cfgs.items())
     need(launches["ssd_chunk"] == want_k5,
          f"serve_ssm: ssd_chunk launched {launches['ssd_chunk']} times, "
          f"not once a layer a prefill ({want_k5})")
+    k5_bodies = line["launches_by_body"]["ssd_chunk"]
+    need(k5_bodies["wgmma"] == want_k5,
+         f"serve_ssm: ssd_chunk ran {k5_bodies} times by body, not every "
+         f"one of the {want_k5} launches on the wgmma body (the served "
+         "dtypes are bf16)")
     hyb = [c for c in cfgs.values() if c.family == "hybrid"]
     want_k2 = sum(c.n_layers // c.attn_every * calls.get("prefill", c.name)
                   for c in hyb)
@@ -1356,6 +1701,8 @@ def main(argv=None) -> int:
             library_ms=rep["library_ms"], device_ms=rep["device_ms"],
             **({"fused_pair_ms": rep["fused_pair_ms"]}
                if "fused_pair_ms" in rep else {}),
+            **({k: rep[k] for k in ("body", "bound_f32_ms")}
+               if name == "ssd_chunk" else {}),
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

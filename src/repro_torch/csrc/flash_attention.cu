@@ -59,6 +59,7 @@
 
 #include "dtype.cuh"
 #include "mbarrier.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -241,54 +242,6 @@ constexpr int kFaBK = 128;       // k/v positions a tile
 constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kSmemBudget = 200 * 1024;
-
-// one TMA tile copy of a 4-D tensor map into shared memory, completing
-// on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads of an accumulator above the wait
-// that completes it
-template <int N>
-__device__ __forceinline__ void pin(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B,
-// 3: 32 B)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo,
-                                              uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // The shared-memory plan of head dim D: column chunks of CW elements
 // (SW = 2 CW bytes a row, the swizzle span), q (kFaBQ rows), then STAGES
@@ -497,52 +450,6 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       o[4 * i + 2 * hh + 1] * inv_l);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (the
-// library links only the CUDA runtime)
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// a contiguous bf16 (B, L, NH, D) tensor as a 4-D map (innermost first:
-// D, NH, L, B) with boxes of CW x 1 x rows x 1, swizzled over CW * 2
-// bytes; reads past L come back as zeros
-bool bf16_map(CUtensorMap* map, const void* p, int B, int L, int NH, int D,
-              int CW, int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(NH),
-                              static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * NH * D, 2ull * L * NH * D};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CW), 1,
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = CW == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CW == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

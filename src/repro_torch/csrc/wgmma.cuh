@@ -1,8 +1,8 @@
 // Hopper warpgroup matrix multiply (wgmma), bf16 in, f32 accumulate, as
 // inline PTX: one function per output width N (the instruction names
 // every accumulator register, so each width is written out).
-//   ss (N = 128, the scores): A (64 x 16) and B (16 x N) from shared
-//       memory, by descriptor; both K-major (no transpose).
+//   ss (N = 64, 128): A (64 x 16) and B (16 x N) from shared memory, by
+//       descriptor; both K-major (no transpose).
 //   rs: A from registers (four .b32 of packed bf16, the mma.sync m16n8k16
 //       A fragment of the warp's 16 rows), B from shared memory by
 //       descriptor, MN-major (the transpose bit set).
@@ -10,9 +10,14 @@
 // row 16 w + l / 4, columns 8 i + 2 (l % 4) + {0, 1}; d[4 i + 2, 3] the
 // same columns eight rows down (w the warp of the warpgroup, l the lane).
 // scale_d = 0 overwrites the accumulator, 1 adds to it.
+// Below the widths: the fence, commit and wait that bracket a batch of
+// wgmmas, the shared-memory descriptor and the bf16 packing of an A
+// fragment.
 #pragma once
 
 #include <cstdint>
+
+#include <cuda_bf16.h>
 
 namespace {
 
@@ -56,6 +61,25 @@ struct Wgmma<32> {
 
 template <>
 struct Wgmma<64> {
+  __device__ __forceinline__ static void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+        "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+        "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
   __device__ __forceinline__ static void rs(float* d, const uint32_t* a,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -163,5 +187,39 @@ struct Wgmma<128> {
           "r"(scale_d));
   }
 };
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of an accumulator above the wait
+// that completes it
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B,
+// 3: 32 B)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              uint32_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 }  // namespace

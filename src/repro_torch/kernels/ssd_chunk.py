@@ -14,16 +14,27 @@ and the TPU entry's layout, except that B and C come by group: x
 (b, nc, c, h, p), dt and cum (b, nc, c, h), B and C (b, nc, c, g, n),
 head h reading group ``h // (h / g)`` (the TPU entry takes them
 already repeated over the heads: the same function without the copy).
-x may be f32 or bf16 and is widened as it is read; dt, cum, B and C
-are f32; both outputs are f32: y (b, nc, c, h, p) and the states
+x may be f32 or bf16, B and C both f32 or both bf16 (bf16 only with x
+in bf16: the served dtypes); every input is
+widened exactly as it is read, as the TPU kernel widens them. dt and
+cum are f32; both outputs are f32: y (b, nc, c, h, p) and the states
 (b, nc, h, p, n). The kernel is ``csrc/ssd_chunk.cu``; see its header
 for the bound and the design.
+
+The kernel has two bodies, and `body_for` picks one by dtype and shape
+class: "wgmma" (TMA + tensor cores, each f32 weight split into three
+bf16 parts) for the served dtypes, x, B and C all bf16, with p = 64, n
+a multiple of 64 (<= 256), c <= 256 and x, B, C starting on 16 bytes;
+"cuda_core" (f32 FMA) for everything else: x or B and C in f32, other
+head dims or state sizes, longer chunks. Both are hand-written kernels;
+neither falls back to the other.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
-(counted in ``launches``) or raises. There is no fallback from a failed
-build or launch to the plain version.
+(counted in ``launches``, and by body in ``body_launches``) or raises.
+There is no fallback from a failed build or launch to the plain
+version.
 """
 from __future__ import annotations
 
@@ -35,44 +46,74 @@ from repro_torch.kernels import _build
 
 MAX_P = 64      # head dims the kernel takes
 MAX_N = 256     # state sizes the kernel takes
-X_DTYPES = tuple(_build.DTYPE_CODE)
+DTYPES = tuple(_build.DTYPE_CODE)   # of x, and of B and C
+BODIES = ("cuda_core", "wgmma")     # the entry's body codes 0, 1
+# the shape class of the wgmma body
+TC_P = 64
+TC_N_STEP = 64
+TC_MAX_C = 256
 _P = _build.PTR
 _I = ctypes.c_int
-_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _P]
 
 
 def ssd_chunk_plain(x, dt, cum, B, C):
     """Plain version (`repro.kernels.ref.ssd_chunk_ref`, with B and C by
-    group). Returns (y (b, nc, c, h, p), states (b, nc, h, p, n)), f32."""
+    group; every input widened to f32). Returns (y (b, nc, c, h, p),
+    states (b, nc, h, p, n)), f32."""
     b, nc, c, h, p = x.shape
     g, n = B.shape[3], B.shape[4]
     hg = h // g
-    xf = x.to(torch.float32).view(b, nc, c, g, hg, p)
+    f32 = torch.float32
+    xf = x.to(f32).view(b, nc, c, g, hg, p)
+    Bf, Cf = B.to(f32), C.to(f32)
     dtf = dt.view(b, nc, c, g, hg)
     cumf = cum.view(b, nc, c, g, hg)
     diff = cumf[:, :, :, None] - cumf[:, :, None, :]   # (b,nc,s,t,g,hg)
     causal = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
     diff = diff.masked_fill(~causal[:, :, None, None], float("-inf"))
-    scores = torch.einsum("bcsgn,bctgn->bcstg", C, B)
+    scores = torch.einsum("bcsgn,bctgn->bcstg", Cf, Bf)
     y = torch.einsum("bcstgj,bctgj,bctgjp->bcsgjp",
                      scores[..., None] * torch.exp(diff), dtf, xf)
     decay_in = torch.exp(cumf[:, :, -1:] - cumf) * dtf  # (b,nc,c,g,hg)
-    S = torch.einsum("bctgn,bctgj,bctgjp->bcgjpn", B, decay_in, xf)
+    S = torch.einsum("bctgn,bctgj,bctgjp->bcgjpn", Bf, decay_in, xf)
     return y.reshape(b, nc, c, h, p), S.reshape(b, nc, h, p, n)
+
+
+def body_for(x, B, C) -> str:
+    """The body that takes these (checked) inputs: "wgmma" for x, B
+    and C in bf16 at p = 64, n a multiple of 64 and c <= 256, with x, B
+    and C starting on 16 bytes (the tensor maps' rule); else
+    "cuda_core"."""
+    c, p, n = x.shape[2], x.shape[4], B.shape[4]
+    bf16 = torch.bfloat16
+    aligned = not ((x.data_ptr() | B.data_ptr() | C.data_ptr()) & 15)
+    if (x.dtype == bf16 and B.dtype == bf16 and p == TC_P
+            and n % TC_N_STEP == 0 and c <= TC_MAX_C and aligned):
+        return "wgmma"
+    return "cuda_core"
 
 
 def ssd_chunk(x, dt, cum, B, C):
     """K5: x (b, nc, c, h, p) f32/bf16; dt, cum (b, nc, c, h) f32; B, C
-    (b, nc, c, g, n) f32, h % g == 0, p <= 64, n <= 256. Returns
-    (y_diag (b, nc, c, h, p), states (b, nc, h, p, n)), both f32."""
+    (b, nc, c, g, n), both f32 or both bf16 (bf16 only with x bf16),
+    h % g == 0, p <= 64, n <= 256. Returns (y_diag (b, nc, c, h, p), states (b, nc, h, p, n)),
+    both f32."""
     name = "ssd_chunk"
     dev = x.device
     f32 = (torch.float32,)
-    _build.check_tensor(f"{name}: x", x, X_DTYPES, dev, ndim=5)
+    _build.check_tensor(f"{name}: x", x, DTYPES, dev, ndim=5)
     for nm, t in (("dt", dt), ("cum", cum)):
         _build.check_tensor(f"{name}: {nm}", t, f32, dev, ndim=4)
     for nm, t in (("B", B), ("C", C)):
-        _build.check_tensor(f"{name}: {nm}", t, f32, dev, ndim=5)
+        _build.check_tensor(f"{name}: {nm}", t, DTYPES, dev, ndim=5)
+    if C.dtype != B.dtype:
+        raise TypeError(f"{name}: B is {B.dtype} and C {C.dtype}; the "
+                        "kernel takes both f32 or both bf16")
+    if B.dtype == torch.bfloat16 and x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: B and C in bf16 need x in bf16, not "
+                        f"{x.dtype}")
     b, nc, c, h, p = x.shape
     g, n = B.shape[3], B.shape[4]
     if (dt.shape != (b, nc, c, h) or cum.shape != dt.shape
@@ -92,16 +133,20 @@ def ssd_chunk(x, dt, cum, B, C):
         return ssd_chunk_plain(x, dt, cum, B, C)
     fn = _build.c_entry("ssd_chunk", "ssd_chunk", _ARGTYPES)
     _build.require_cuda(name, dev)
+    body = body_for(x, B, C)
     y = torch.empty(b, nc, c, h, p, dtype=torch.float32, device=dev)
     states = torch.empty(b, nc, h, p, n, dtype=torch.float32, device=dev)
-    rc = fn(_build.DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
+    rc = fn(BODIES.index(body), _build.DTYPE_CODE[x.dtype],
+            _build.DTYPE_CODE[B.dtype], x.data_ptr(), dt.data_ptr(),
             cum.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
             states.data_ptr(), b * nc, c, h, g, p, n,
             _build.stream_of(dev))
     _build.launch_check(rc, name)
     ssd_chunk.launches += 1
+    ssd_chunk.body_launches[body] += 1
     return y, states
 
 
 ssd_chunk.launches = 0
+ssd_chunk.body_launches = dict.fromkeys(BODIES, 0)
 ssd_chunk.plain_calls = 0

@@ -52,7 +52,9 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
     init_state: (b, h, p, n) or None.
     Returns (y (b, l, h, p) in x's dtype, final_state (b, h, p, n) f32).
     The length is padded to a multiple of ``chunk`` with zeros (dt = 0
-    there, so the padded steps leave the state as it is).
+    there, so the padded steps leave the state as it is). x, B and C go
+    to K5 in their own dtype (it widens them exactly: bf16 ones take its
+    tensor-core body); dt and everything after K5 is f32.
     """
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -71,8 +73,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
 
     xc = x.reshape(b, nc, chunk, h, p).contiguous()
     dtc = dt.reshape(b, nc, chunk, h).to(f32).contiguous()
-    Bc = B.reshape(b, nc, chunk, g, n).to(f32).contiguous()
-    Cc = C.reshape(b, nc, chunk, g, n).to(f32).contiguous()
+    Bc = B.reshape(b, nc, chunk, g, n).contiguous()
+    Cc = C.reshape(b, nc, chunk, g, n).contiguous()
 
     dA = dtc * A.to(f32)                       # (b, nc, c, h) <= 0
     cum = torch.cumsum(dA, dim=2)              # within-chunk cumsum
@@ -92,8 +94,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
     S_prev = torch.stack(S_prev, dim=1)        # (b, nc, h, p, n)
 
     # inter-chunk contribution: y[s] += exp(cum[s]) * C[s] . S_prev,
-    # contracted per group (no copy of C over the heads)
-    y_off = torch.einsum("bcsgn,bcgjpn->bcsgjp", Cc,
+    # contracted per group (no copy of C over the heads), in f32
+    y_off = torch.einsum("bcsgn,bcgjpn->bcsgjp", Cc.to(f32),
                          S_prev.view(b, nc, g, hg, p, n))
     y_off = y_off * torch.exp(cum).view(b, nc, chunk, g, hg, 1)
     y = (y_diag + y_off.reshape(b, nc, chunk, h, p)).reshape(

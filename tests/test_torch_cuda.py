@@ -322,16 +322,42 @@ def test_rmsnorm_wrappers_reject_on_the_card(cuda, bad, exc):
 
 
 # K5: f32 on both sides, sums in another order; tests/test_kernels.py's
-# f32 TOL of the TPU kernel (3e-4 there), here 2e-4
-def _ssd_inputs(b, nc, c, h, p, n, g, xdtype, device, seed):
+# f32 TOL of the TPU kernel (3e-4 there), here 2e-4 for the CUDA-core
+# body; the wgmma body is held to chip_smoke.py's KERNEL_TOL["ssd_chunk"]
+SSD_TC_TOL = dict(rtol=1e-5, atol=3e-5)
+
+
+def _ssd_inputs(b, nc, c, h, p, n, g, xdtype, device, seed,
+                bcdtype=torch.float32, valid=None):
+    """x in ``xdtype``, B and C in ``bcdtype``; ``valid`` zero-pads the
+    tail as `ssd_chunked` pads a ragged length (cum flat there)."""
     r = np.random.default_rng(seed)
     f32 = torch.float32
-    dt = r.uniform(0.01, 0.2, (b, nc, c, h))
+    x = r.normal(size=(b, nc * c, h, p))
+    dt = r.uniform(0.01, 0.2, (b, nc * c, h))
     A = -r.uniform(0.5, 2.0, (h,))
+    B, C = r.normal(size=(2, b, nc * c, g, n))
+    if valid is not None:
+        for a in (x, dt, B, C):
+            a[:, valid:] = 0.0
+    dt = dt.reshape(b, nc, c, h)
     mk = lambda a, d=f32: torch.tensor(a, dtype=d, device=device)  # noqa
-    return (mk(r.normal(size=(b, nc, c, h, p)), xdtype), mk(dt),
-            mk(np.cumsum(dt * A, axis=2)), mk(r.normal(size=(b, nc, c, g, n))),
-            mk(r.normal(size=(b, nc, c, g, n))))
+    return (mk(x.reshape(b, nc, c, h, p), xdtype), mk(dt),
+            mk(np.cumsum(dt * A, axis=2)),
+            mk(B.reshape(b, nc, c, g, n), bcdtype),
+            mk(C.reshape(b, nc, c, g, n), bcdtype))
+
+
+def _run_body(args, body):
+    """K5 on ``args``, asserting that it launched once, through ``body``."""
+    launches = K5.ssd_chunk.launches
+    before = dict(K5.ssd_chunk.body_launches)
+    got = K5.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    assert K5.ssd_chunk.launches == launches + 1
+    assert K5.ssd_chunk.body_launches == {
+        k: v + (k == body) for k, v in before.items()}
+    return got
 
 
 @pytest.mark.cuda
@@ -343,14 +369,72 @@ def _ssd_inputs(b, nc, c, h, p, n, g, xdtype, device, seed):
     (1, 2, 100, 6, 40, 72, 3, torch.bfloat16),     # ragged tiles
 ])
 def test_ssd_chunk_kernel_matches_plain(cuda, b, nc, c, h, p, n, g, xdtype):
+    """B and C in f32: the CUDA-core body."""
     args = _ssd_inputs(b, nc, c, h, p, n, g, xdtype, cuda, c + h)
-    launches = K5.ssd_chunk.launches
-    got = K5.ssd_chunk(*args)
+    got = _run_body(args, "cuda_core")
     want = K5.ssd_chunk_plain(*args)
-    torch.cuda.synchronize()
-    assert K5.ssd_chunk.launches == launches + 1
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,c,h,p,n,g", [
+    (1, 2, 32, 4, 16, 16, 1),                      # smoke widths
+    (1, 2, 100, 6, 40, 72, 3),                     # ragged tiles
+])
+def test_ssd_chunk_cuda_core_body_takes_bf16_b_and_c(cuda, b, nc, c, h, p,
+                                                     n, g):
+    """x, B and C in bf16 at shapes outside the wgmma body's class (the
+    bf16 smoke models): the CUDA-core body, as for f32 B and C."""
+    bf16 = torch.bfloat16
+    args = _ssd_inputs(b, nc, c, h, p, n, g, bf16, cuda, c + h + 1,
+                       bcdtype=bf16)
+    got = _run_body(args, "cuda_core")
+    want = K5.ssd_chunk_plain(*args)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,c,h,p,n,g,valid", [
+    (1, 8, 256, 48, 64, 128, 1, None),    # Mamba2-780M, S 2048
+    (1, 4, 256, 80, 64, 64, 1, None),     # Zamba2-2.7B, S 1024
+    (1, 8, 256, 48, 64, 128, 1, 2000),    # ragged S 2000, padded
+    (1, 8, 256, 48, 64, 128, 8, None),    # g 8
+    (2, 3, 100, 6, 64, 256, 3, None),     # a ragged tile, n 256, b 2
+    (1, 2, 64, 4, 64, 192, 2, None),      # one row tile, n 192
+])
+def test_ssd_chunk_wgmma_body_matches_plain(cuda, b, nc, c, h, p, n, g,
+                                            valid):
+    """x, B and C in bf16 (the served dtypes): the wgmma body, within
+    the smoke's KERNEL_TOL of the plain version on the same values."""
+    bf16 = torch.bfloat16
+    args = _ssd_inputs(b, nc, c, h, p, n, g, bf16, cuda, c + h + g,
+                       bcdtype=bf16, valid=valid)
+    got = _run_body(args, "wgmma")
+    want = K5.ssd_chunk_plain(*args)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, w, **SSD_TC_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdtype", [torch.bfloat16, torch.float32])
+def test_ssd_chunk_large_decay_finite_on_card(cuda, xdtype):
+    """cum down to about -560 over a chunk of 256 (dt 0.8, A = -e): no
+    decay overflows and no weight's split turns into a NaN, in both
+    bodies."""
+    args = list(_ssd_inputs(1, 2, 256, 4, 64, 128, 1, xdtype, cuda, 3,
+                            bcdtype=xdtype))
+    args[1] = torch.full_like(args[1], 0.8)
+    args[2] = torch.cumsum(args[1] * -np.e, dim=2)
+    assert args[2].min() < -500
+    body = "wgmma" if xdtype == torch.bfloat16 else "cuda_core"
+    got = _run_body(args, body)
+    want = K5.ssd_chunk_plain(*args)
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, w, **SSD_TC_TOL)
 
 
 @pytest.mark.cuda

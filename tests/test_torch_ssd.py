@@ -75,6 +75,69 @@ def test_ssd_chunk_reads_bf16_x_as_is():
     torch.testing.assert_close(s1, s2, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("b,nc,c,h,p,n,g", [
+    (1, 2, 32, 4, 16, 16, 1),     # smoke widths: the CUDA-core body
+    (1, 2, 64, 4, 64, 64, 2),     # the wgmma body's shape class
+])
+def test_ssd_chunk_widens_bf16_b_and_c_exactly(b, nc, c, h, p, n, g):
+    """x, B and C in bf16 (the served dtypes) are widened exactly: the
+    same y and states as their f32 copies, bit for bit."""
+    rng = np.random.default_rng(17 + c)
+    x, dt, cum, B, C = (torch.tensor(a) for a in
+                        _chunk_inputs(rng, b, nc, c, h, p, n, g))
+    bf = [a.to(torch.bfloat16) for a in (x, B, C)]
+    y1, s1 = K5.ssd_chunk(bf[0], dt, cum, bf[1], bf[2])
+    y2, s2 = K5.ssd_chunk(bf[0].float(), dt, cum, bf[1].float(),
+                          bf[2].float())
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,nc,c,h,p,n,g", [
+    (1, 2, 32, 2, 16, 16, 1),
+    (2, 2, 64, 4, 64, 128, 1),    # the wgmma body's shape class
+    (1, 1, 100, 6, 64, 64, 3),    # a ragged tile of 64, groups
+])
+def test_ssd_chunk_served_dtypes_match_tpu_kernel(b, nc, c, h, p, n, g):
+    """x, B and C in bf16: the port's plain version against the TPU
+    kernel (interpret mode) on the same values widened to f32."""
+    rng = np.random.default_rng(29 + c + g)
+    x, dt, cum, B, C = _chunk_inputs(rng, b, nc, c, h, p, n, g)
+    x, B, C = (torch.tensor(a).to(torch.bfloat16) for a in (x, B, C))
+    wide = [a.float().numpy() for a in (x, B, C)]
+    rep = h // g
+    want_y, want_s = ops.ssd_chunk(
+        jnp.asarray(wide[0]), jnp.asarray(dt), jnp.asarray(cum),
+        jnp.repeat(jnp.asarray(wide[1]), rep, axis=3),
+        jnp.repeat(jnp.asarray(wide[2]), rep, axis=3), interpret=True)
+    got_y, got_s = K5.ssd_chunk(x, torch.tensor(dt), torch.tensor(cum), B, C)
+    assert got_y.dtype == got_s.dtype == torch.float32
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               **KERNEL_TOL)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               **KERNEL_TOL)
+
+
+def test_ssd_chunk_body_by_dtype_and_shape_class():
+    """The wgmma body takes x, B and C in bf16 at p = 64, n a multiple
+    of 64 and c <= 256, starting on 16 bytes; everything else goes to
+    the CUDA-core body."""
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def body(c=256, p=64, n=128, xd=bf16, bcd=bf16, offset=0):
+        x = torch.zeros(1 * 2 * c * 4 * p + offset, dtype=xd)[offset:]
+        B = torch.zeros(1, 2, c, 1, n, dtype=bcd)
+        return K5.body_for(x.view(1, 2, c, 4, p), B, B.clone())
+
+    assert body() == "wgmma"
+    assert body(n=64) == body(n=256) == body(c=100) == "wgmma"
+    assert body(bcd=f32) == "cuda_core"
+    assert body(xd=f32, bcd=f32) == "cuda_core"
+    assert body(p=16) == body(p=32) == body(n=96) == "cuda_core"
+    assert body(c=512) == "cuda_core"
+    assert body(offset=1) == "cuda_core"          # x off 16 bytes
+
+
 def test_ssd_chunk_large_decay_stays_finite():
     """cum falls to about -500 over a chunk with the JAX init (A = -e,
     dt ~ 0.8): the decays are single exponents of differences, so
@@ -96,6 +159,13 @@ def test_ssd_chunk_large_decay_stays_finite():
      ValueError),                                          # h % g != 0
     (dict(dt=torch.ones(1, 1, 8, 2, dtype=torch.float64)), TypeError),
     (dict(cum=torch.ones(1, 1, 2, 8).transpose(2, 3)), ValueError),
+    (dict(B=torch.ones(1, 1, 8, 1, 4, dtype=torch.float16),
+          C=torch.ones(1, 1, 8, 1, 4, dtype=torch.float16)), TypeError),
+    (dict(C=torch.ones(1, 1, 8, 1, 4, dtype=torch.bfloat16)),
+     TypeError),                                           # B f32, C bf16
+    (dict(B=torch.ones(1, 1, 8, 1, 4, dtype=torch.bfloat16),
+          C=torch.ones(1, 1, 8, 1, 4, dtype=torch.bfloat16)),
+     TypeError),                                    # x f32, B and C bf16
 ])
 def test_ssd_chunk_rejects_what_the_kernel_does_not_take(bad, exc):
     args = dict(x=torch.ones(1, 1, 8, 2, 4), dt=torch.ones(1, 1, 8, 2),
@@ -163,3 +233,26 @@ def test_ssd_chunked_goes_through_k5_once():
     before = K5.ssd_chunk.plain_calls
     M.ssd_chunked(*t, chunk=32)
     assert K5.ssd_chunk.plain_calls == before + 1
+
+
+def test_ssd_chunked_passes_bf16_b_and_c_to_k5_once(monkeypatch):
+    """In bf16, `ssd_chunked` hands K5 its x, B and C as they are (no
+    f32 copies): one call, with the same result as the f32 copies of
+    the inputs give."""
+    rng = np.random.default_rng(6)
+    x, dt, A, B, C = (torch.tensor(v) for v in
+                      _seq_inputs(rng, 1, 70, 2, 4, 1, 8))
+    x, B, C = (a.to(torch.bfloat16) for a in (x, B, C))
+    seen = []
+
+    def spy(*a):
+        seen.append(tuple(t.dtype for t in a))
+        return K5.ssd_chunk(*a)
+    monkeypatch.setattr(M, "ssd_chunk", spy)
+    y, s = M.ssd_chunked(x, dt, A, B, C, chunk=32)
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert seen == [(bf16, f32, f32, bf16, bf16)]
+    y2, s2 = M.ssd_chunked(x.float(), dt, A, B.float(), C.float(), chunk=32)
+    assert y.dtype == bf16
+    torch.testing.assert_close(y, y2.to(bf16), rtol=0, atol=0)
+    torch.testing.assert_close(s, s2, rtol=0, atol=0)
