@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py                      # the full check, one card
-    python3 chip_smoke.py --n-requests 60000   # the paper's full trace
+    python3 chip_smoke.py --n-requests 30000   # Fig. 5 cut to 30,000
     python3 chip_smoke.py --profile            # + a torch.profiler phase
 
 Phases, each printing one JSON line; any failure exits non-zero:
@@ -33,15 +33,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  planted faults, the body that ran each case and the
                  ptxas report of both bodies.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
-                 grid (F = 200 functions, Azure-like requests, ESFF,
-                 C = 8..32: seven lanes), with the kernels' launch
-                 counts set to 0 just before and read just after; the
-                 results are held against the JAX package's own (the
-                 constants below). The trace is cut from the paper's
-                 60,000 requests to 30,000 (`benchmarks/common.py`'s
-                 default): the eager event loop is launch-bound, and
-                 60,000 would take most of the run's time limit.
-5. ``parity``    the same spec at N = 2,000 on the card and on the CPU.
+                 grid (F = 200 functions, the paper's N = 60,000
+                 Azure-like requests, ESFF, C = 8..32: seven lanes),
+                 with the kernels' launch counts set to 0 just before
+                 and read just after. The whole event loop is one
+                 launch of the event-loop kernel K0 (one a lane chunk),
+                 with K1's FRP scan inline: K0 must launch once, K1's
+                 own entry never, and K0's count of inline FRP scans
+                 must be N on every lane (one a completion). The
+                 results are held bitwise against the JAX package's
+                 own (the constants below; ``--n-requests 30000`` has
+                 constants too). Then K0 alone by CUDA events on the
+                 same inputs, its outputs held bitwise to the runner's
+                 launch.
+   ``eager_card`` the eager loop, K0's plain version, on the card at
+                 N = 2,000 (its whole run and ms an event step) and K0
+                 on the same inputs, held bitwise to each other.
+   ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
+                 one lane chunk) at N = 30,000: wall time, req/s, us an
+                 event; the seed-0 lanes at Fig. 5's capacities must be
+                 bitwise ``EXPECTED[30000]``.
+5. ``parity``    the same spec at N = 2,000 on the card (K0) and on the
+                 CPU (the eager loop), bitwise on every metric; a
+                 planted one-ulp fault in ``resp_sum`` must be rejected.
 6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
                  zamba2-2.7b in f32 on the card, on weights and a prompt
                  made with numpy, through prefill and 8 greedy decode
@@ -64,8 +78,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a prefill of the run, every time through its wgmma
                  body, K2 and K3 (head_dim 80) once a shared-block
                  application.
-9. ``profile``   (``--profile`` only) torch.profiler over a short Fig. 5
-                 run (device busy share, the FRP kernel's device time)
+9. ``profile``   (``--profile`` only) torch.profiler over the Fig. 5
+                 run (K0's device time a launch, the device busy share)
                  and over one served request of each function of both
                  serving phases (busy share, the serving kernels'
                  device time per launch, K5's among them, and the SM
@@ -102,7 +116,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (it is n_requests + cold_starts: one arrival, one completion per
 # request, one cold-done per cold start).
 CAPACITIES = (8, 12, 16, 20, 24, 28, 32)
-N_REQUESTS = 30000
+N_REQUESTS = 60000
+# the wide row: seeds x capacities as one lane chunk
+WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
+            n_requests=30000)
 EXPECTED = {
     60000: {
         "done": [60000] * 7, "overflow": [0] * 7, "stalled": [0] * 7,
@@ -662,62 +679,221 @@ def phase_kernel(torch, np, fs):
 
 
 # --------------------------------------------------------- phases 4, 5
-def fig5_spec(api, n_requests: int, device: str):
+def fig5_spec(api, n_requests: int, device: str, **kw):
     src = api.SyntheticTrace.make(n_functions=200, n_requests=n_requests,
                                   seed=0, **TRACE_KW)
+    kw.setdefault("capacities", CAPACITIES)
     return api.ExperimentSpec(traces=[src], policies=("esff",),
-                              capacities=CAPACITIES, queue_cap=4096,
-                              device=device)
+                              queue_cap=4096, device=device, **kw)
 
 
 def lane_values(rs, metric):
     return [rs.value(metric, capacity=c) for c in CAPACITIES]
 
 
-def phase_main_path(torch, api, fs, n_requests):
+def held_against(exp, got):
+    """The mismatches of ``got`` (metric -> per-capacity values) against
+    the constants ``exp``: integers exact, floats within RTOL, and
+    whether every value was bitwise equal."""
+    mismatch, bitwise = [], True
+    for k, want in exp.items():
+        for c, g, w in zip(CAPACITIES, got[k], want):
+            bitwise &= g == w
+            ok = (g == w if isinstance(w, int)
+                  else math.isclose(g, w, rel_tol=RTOL, abs_tol=0.0))
+            if not ok:
+                mismatch.append(f"{k}[C={c}]: {g!r} != {w!r}")
+    return mismatch, bitwise
+
+
+def fig5_inputs(torch, api, n_requests, dev):
+    """`engine.simulate`'s inputs for the Fig. 5 lanes, as the runner
+    lowers them (one trace, one lane a capacity)."""
+    a = fig5_spec(api, n_requests, "cpu").expanded_traces()[0].arrays()
+    f64 = torch.float64
+    t = {k: torch.tensor(a[k], dtype=torch.int64 if k == "fn_id"
+                         else f64, device=dev)[None]
+         for k in ("fn_id", "arrival", "exec_time", "cold_start", "evict")}
+    C, L = max(CAPACITIES), len(CAPACITIES)
+    masks = torch.tensor([[i < c for i in range(C)] for c in CAPACITIES],
+                         device=dev)
+    args = (t["fn_id"], t["arrival"], t["exec_time"], t["cold_start"],
+            t["evict"], torch.zeros(L, dtype=torch.int64, device=dev), masks,
+            torch.ones(L, dtype=f64, device=dev), 0.1)
+    return args, dict(n_fns=len(a["cold_start"]), capacity=C,
+                      queue_cap=4096, stream=True)
+
+
+# the raw outputs of a K0 launch that a ResultSet also carries
+K0_KEYS = ("done", "n_events", "resp_sum", "slow_sum", "max_response",
+           "resp_hist", "cold_starts", "cold_time", "evictions",
+           "overflow", "stalled")
+
+
+def k0_differs(np, out, want):
+    """The keys in which K0's raw outputs ``out`` differ at all from
+    ``want``: another launch's outputs, or a ResultSet of the Fig. 5
+    lanes (policy 0, trace 0, every capacity, beta 0)."""
+    def lanes(v):
+        return (v.cpu().numpy() if hasattr(v, "cpu") else v[0, 0, :, 0])
+    return [k for k in K0_KEYS
+            if not np.array_equal(lanes(out[k]), lanes(want[k]))]
+
+
+def k0_timed(torch, K0, args, kw, reps=3):
+    """K0 alone on ``args`` by CUDA events (not counted in a path's
+    launches): the median time (ms), the last launch's outputs and its
+    inline FRP scan counts."""
+    from repro_torch.core.policies import KERNELS
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = K0.event_loop(*args, kernel=KERNELS["esff"], **kw)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return sorted(ms)[reps // 2], out, K0.event_loop.last_scans.tolist()
+
+
+def k0_bound(n_requests, n_fns, lanes, done, n_events):
+    """K0's least time on the card for this run's work: the trace read
+    once (fn_id, arrival, exec_time, pos_rids: 32 B a request; pos_off,
+    t_cold, t_evict by function) and the results written once (counters,
+    sums, histogram, scan counts), against the FRP scans' f64 operations
+    (~12 a function a completion: the mean, Eq. 7, Eq. 10, the compare)
+    plus ~20 an event (the pick, the handlers, the fold)."""
+    n_bytes = (32 * n_requests + 8 * (n_fns + 1) + 16 * n_fns
+               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 8))
+    n_ops = 12 * n_fns * sum(done) + 20 * sum(n_events)
+    return bound_ms(n_bytes, n_ops, "f64")
+
+
+def phase_main_path(torch, np, api, fs, K0, n_requests):
     spec = fig5_spec(api, n_requests, "cuda")
     spec.expanded_traces()[0].arrays()   # trace generation is set-up
     fs.frp_select.launches = 0
     fs.frp_select_lanes.launches = 0
+    K0.event_loop.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rs = api.run_experiment(spec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"frp_select": fs.frp_select_lanes.launches}
+    launches = {"event_loop": K0.event_loop.launches,
+                "frp_select": fs.frp_select_lanes.launches}
+    scans = K0.event_loop.last_scans.tolist()
     rs.check()
     got = {k: lane_values(rs, k) for k in
            ("done", "overflow", "stalled", "cold_starts", "evictions",
             "n_events", "mean_response", "mean_slowdown",
             "max_response")}
+    chunks = -(-len(CAPACITIES) // rs.meta["lane_chunk"])
     need(all(d == n_requests for d in got["done"]),
          f"main_path: done {got['done']} != {n_requests}")
-    need(launches["frp_select"] > 0,
-         "main_path: frp_select_lanes was never launched")
+    need(launches["event_loop"] == chunks,
+         f"main_path: event_loop launched {launches['event_loop']} times, "
+         f"not once a lane chunk ({chunks})")
+    need(launches["frp_select"] == 0,
+         f"main_path: frp_select_lanes launched {launches['frp_select']} "
+         "times: K1 runs inline in K0 on this path")
+    need(scans == [n_requests] * len(CAPACITIES),
+         f"main_path: inline FRP scans {scans}, not one a completion")
     exp = EXPECTED.get(n_requests)
-    mismatch, bitwise = [], exp is not None
-    if exp is not None:
-        for k, want in exp.items():
-            for c, g, w in zip(CAPACITIES, got[k], want):
-                bitwise &= g == w
-                ok = (g == w if isinstance(w, int)
-                      else math.isclose(g, w, rel_tol=RTOL, abs_tol=0.0))
-                if not ok:
-                    mismatch.append(f"{k}[C={c}]: {g!r} != {w!r}")
+    mismatch, bitwise = ([], False) if exp is None else held_against(exp,
+                                                                    got)
     events = sum(got["n_events"])
     steps = max(got["n_events"])
-    emit(dict(phase="main_path", n_requests=n_requests,
-              capacities=list(CAPACITIES), wall_s=wall,
-              req_per_s=len(CAPACITIES) * n_requests / wall,
-              n_events=got["n_events"], events_total=events,
-              ms_per_event_step=1e3 * wall / steps,
-              mean_response=got["mean_response"],
-              cold_starts=got["cold_starts"], launches=launches,
-              held_against_jax=exp is not None,
-              bitwise_vs_jax=bitwise, mismatch=mismatch))
+    # K0 alone by events on the Fig. 5 inputs lowered again, held
+    # bitwise to the runner's launch above, so the timed work is its
+    args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
+    k0_ms, out, k0_scans = k0_timed(torch, K0, args, kw)
+    timed_differs = k0_differs(np, out, rs)
+    need(not timed_differs and k0_scans == scans,
+         f"main_path: the timed K0 launches differ from the runner's in "
+         f"{timed_differs} (scans {k0_scans} vs {scans})")
+    b, by = k0_bound(n_requests, kw["n_fns"], len(CAPACITIES),
+                     got["done"], got["n_events"])
+    res = dict(phase="main_path", n_requests=n_requests,
+               capacities=list(CAPACITIES), wall_s=wall,
+               req_per_s=len(CAPACITIES) * n_requests / wall,
+               n_events=got["n_events"], events_total=events,
+               us_per_event=1e6 * wall / steps,
+               k0_ms=k0_ms, k0_us_per_event=1e3 * k0_ms / steps,
+               bound_ms=b, bound_by=by,
+               mean_response=got["mean_response"],
+               cold_starts=got["cold_starts"], launches=launches,
+               frp_scans=scans, held_against_jax=exp is not None,
+               bitwise_vs_jax=bitwise, mismatch=mismatch)
+    emit(res)
     need(not mismatch, "main_path: differs from the JAX package: "
          + "; ".join(mismatch))
-    return launches
+    need(exp is None or bitwise,
+         "main_path: within RTOL of the JAX package but not bitwise")
+    return res
+
+
+def phase_eager_card(torch, np, api, K0, n_requests=2000):
+    """The plain version of K0, the eager loop, on the card (every op of
+    a step its own launch, K1 its own kernel), and K0 on the same
+    inputs: each one's time, held bitwise to each other."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.policies import KERNELS
+    args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = E.simulate_eager(*args, kernel=KERNELS["esff"], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k0_ms, out, _ = k0_timed(torch, K0, args, kw)
+    differs = k0_differs(np, out, eager)
+    # the loop runs whole segments of SEG steps until every lane is done
+    steps = -(-int(eager["n_events"].max()) // E.SEG) * E.SEG
+    res = dict(phase="eager_card", n_requests=n_requests,
+               plain_ms=1e3 * wall, event_steps=steps,
+               plain_ms_per_step=1e3 * wall / steps, k0_ms=k0_ms,
+               k0_differs=differs)
+    emit(res)
+    need(not differs, f"eager_card: K0 and the eager loop differ in "
+         f"{differs}")
+    return res
+
+
+def phase_wide(torch, api, K0):
+    spec = fig5_spec(api, WIDE["n_requests"], "cuda", seeds=WIDE["seeds"],
+                     capacities=WIDE["capacities"], lane_chunk=256)
+    for src in spec.expanded_traces():
+        src.arrays()                      # set-up
+    K0.event_loop.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = api.run_experiment(spec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rs.check()
+    lanes = len(WIDE["seeds"]) * len(WIDE["capacities"])
+    ix = [WIDE["capacities"].index(c) for c in CAPACITIES]
+    got = {k: [rs[k][0, 0, i, 0].item() for i in ix]
+           for k in EXPECTED[WIDE["n_requests"]]}
+    mismatch, bitwise = held_against(EXPECTED[WIDE["n_requests"]], got)
+    ev = rs["n_events"]
+    emit(dict(phase="wide", lanes=lanes, n_requests=WIDE["n_requests"],
+              launches=K0.event_loop.launches, wall_s=wall,
+              req_per_s=lanes * WIDE["n_requests"] / wall,
+              events_total=int(ev.sum()), max_lane_events=int(ev.max()),
+              us_per_event=1e6 * wall / int(ev.max()),
+              bitwise_vs_jax=bitwise, mismatch=mismatch))
+    need(K0.event_loop.launches == 1,
+         f"wide: {K0.event_loop.launches} launches, not one lane chunk")
+    need(bitwise, "wide: seed-0 Fig. 5 lanes differ from the JAX "
+         "package: " + "; ".join(mismatch))
+
+
+def parity_failures(np, card, cpu):
+    """Metrics in which two ResultSets differ at all (bitwise)."""
+    return [k for k in sorted(cpu.data)
+            if not np.array_equal(card[k], cpu[k])]
 
 
 def phase_parity(np, api, n_requests=2000):
@@ -726,28 +902,30 @@ def phase_parity(np, api, n_requests=2000):
     t1 = time.perf_counter()
     cpu = api.run_experiment(fig5_spec(api, n_requests, "cpu"))
     t2 = time.perf_counter()
-    bad, not_bitwise = [], []
-    for k in sorted(cpu.data):
-        a, b = card[k], cpu[k]
-        if (a == b).all():
-            continue
-        if a.dtype.kind == "f" and np.allclose(a, b, rtol=RTOL, atol=0.0):
-            not_bitwise.append(k)
-        else:
-            bad.append(k)
+    bad = parity_failures(np, card, cpu)
+    max_abs = max(float(np.abs(card[k].astype(np.float64)
+                               - cpu[k].astype(np.float64)).max())
+                  for k in cpu.data)
+    # a planted fault: one ulp off in one lane's resp_sum
+    card.data["resp_sum"] = card["resp_sum"].copy()
+    v = card.data["resp_sum"].reshape(-1)
+    v[3] = np.nextafter(v[3], np.inf)
+    fault = parity_failures(np, card, cpu)
     emit(dict(phase="parity", n_requests=n_requests, card_s=t1 - t0,
               cpu_s=t2 - t1, metrics=sorted(cpu.data), failed=bad,
-              within_rtol_not_bitwise=not_bitwise))
+              max_abs_err=max_abs, planted_fault_caught=fault))
     need(not bad, f"parity: card and CPU differ in {bad}")
+    need(fault == ["resp_sum"], f"parity: the planted one-ulp fault in "
+         f"resp_sum was not rejected alone ({fault})")
+    return max_abs
 
 
-def phase_profile(torch, api, n_requests=300):
-    """Device busy share of the eager event loop and the kernels'
-    device times, from torch.profiler over a short main-path run."""
+def phase_profile(torch, api, n_requests):
+    """K0's device time and the device busy share, from torch.profiler
+    over the main path's run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.engine import SEG
     spec = fig5_spec(api, n_requests, "cuda")
     spec.expanded_traces()[0].arrays()
     api.run_experiment(spec)            # warm-up
@@ -755,36 +933,26 @@ def phase_profile(torch, api, n_requests=300):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rs = api.run_experiment(spec)
+        api.run_experiment(spec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the loop runs whole segments of SEG steps until every lane is done
-    steps = -(-int(rs["n_events"].max()) // SEG) * SEG
     # device-side rows only (kernels, copies): an aten op's row also
     # carries the device time of the kernels it launched
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in rows)
-    launches = sum(e.count for e in rows)
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:12]
-    frp = [e for e in rows if "frp_select" in e.key]
+    k0 = [e for e in rows if "event_loop" in e.key]
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
     emit(dict(phase="profile", n_requests=n_requests, wall_s=wall,
-              event_steps=steps, device_us_per_step=dev_us / steps,
               device_busy_s=dev_us * 1e-6,
               device_busy_share=dev_us * 1e-6 / wall,
-              device_ops=launches, device_ops_per_step=launches / steps,
-              frp_select_device_us=(frp[0].self_device_time_total
-                                    / frp[0].count if frp else None),
+              device_ops=sum(e.count for e in rows),
+              event_loop_device_ms=(k0[0].self_device_time_total
+                                    / k0[0].count / 1e3 if k0 else None),
               top=[dict(name=e.key[:80], count=e.count,
                         device_us=e.self_device_time_total)
-                   for e in top],
-              host_top=[dict(name=e.key[:60], count=e.count,
-                             cpu_us=e.self_cpu_time_total)
-                        for e in sorted(prof.key_averages(),
-                                        key=lambda e:
-                                        -e.self_cpu_time_total)[:15]]))
-
+                   for e in top]))
 
 
 class SmClock:
@@ -1610,7 +1778,8 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-requests", type=int, default=N_REQUESTS,
-                    help="Fig. 5 trace length (the paper's is 60000)")
+                    help="Fig. 5 trace length (the paper's, 60000, by "
+                    "default)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler phase")
     args = ap.parse_args(argv)
@@ -1623,6 +1792,7 @@ def main(argv=None) -> int:
         from repro_torch import api
         from repro_torch.kernels import _build
         from repro_torch.kernels import decode_attention as DA
+        from repro_torch.kernels import event_loop as K0
         from repro_torch.kernels import flash_attention as FA
         from repro_torch.kernels import frp_select as fs
         from repro_torch.kernels import rmsnorm as RN
@@ -1660,26 +1830,51 @@ def main(argv=None) -> int:
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
         srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
-        launches = timed("main_path", phase_main_path, torch, api, fs,
-                         args.n_requests)
-        timed("parity", phase_parity, np, api)
+        main = timed("main_path", phase_main_path, torch, np, api, fs, K0,
+                     args.n_requests)
+        eager = timed("eager_card", phase_eager_card, torch, np, api, K0)
+        timed("wide", phase_wide, torch, api, K0)
+        parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
                                   RN),
                    "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
                                       np, FA, DA, RN, K5)}
         if args.profile:
-            timed("profile", phase_profile, torch, api)
+            timed("profile", phase_profile, torch, api, args.n_requests)
             timed("profile_serving", phase_profile_serving, torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     lanes = kres["lanes"]
+    steps = max(main["n_events"])
     kernels = [dict(
+        name="event_loop", entry="event_loop", route="cuda",
+        source="src/repro_torch/csrc/event_loop.cu",
+        replaces="src/repro/core/jax_engine.py:1001",
+        pallas=False, note="engine work with no Pallas twin (K0): the "
+        "XLA while_loop of _simulate with ESFFKernel, K1 inline",
+        launches=main["launches"]["event_loop"], max_abs_err=parity_err,
+        ms=main["k0_ms"], ms_per_step=main["k0_ms"] / steps,
+        wall_s=main["wall_s"], plain_ms=eager["plain_ms"],
+        plain_n_requests=eager["n_requests"],
+        plain_ms_per_step=eager["plain_ms_per_step"],
+        ms_at_plain_n=eager["k0_ms"],
+        plain_note=f"the eager loop's run at N = {eager['n_requests']} "
+        f"(the main path's N = {main['n_requests']} would take minutes); "
+        f"ms_at_plain_n is K0 on those same inputs",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+        ptxas=ptxas_lines(_build.BUILD_INFO.get("event_loop", {}).get(
+            "ptxas", ""), "event_loop"),
+        check="passed", at=f"(7 lanes, N = {main['n_requests']}, F = 200)"),
+        dict(
         name="frp_select", entry="frp_select_lanes", route="cuda",
         source="src/repro_torch/csrc/frp_select.cu",
         replaces="src/repro/kernels/sched_weights.py:68",
-        launches=launches["frp_select"], max_abs_err=lanes["max_abs_err"],
+        launches=main["launches"]["frp_select"], inlined_in="event_loop",
+        inline_scans=sum(main["frp_scans"]),
+        max_abs_err=lanes["max_abs_err"],
         ms=lanes["ms"], plain_ms=lanes["plain_ms"],
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
         library_ms=None, check="passed", at="(7, 200) f64 lanes")]

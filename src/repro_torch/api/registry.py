@@ -30,7 +30,7 @@ def get_kernel(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"policy {name!r} is not ported yet (ROADMAP Queue 1, item "
-            f"3); ported: {sorted(kernels)}")
+            f"1); ported: {sorted(kernels)}")
     raise KeyError(f"unknown policy {name!r}; registered policies: "
                    f"{sorted(kernels)} (add your own with "
                    "repro_torch.api.register_policy)")

@@ -29,13 +29,13 @@ TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 
 # fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "window": "Queue 1, item 4", "tl_bins": "Queue 1, item 4",
-    "tl_bucket": "Queue 1, item 4", "deadlines": "Queue 1, item 4",
-    "fail_prob": "Queue 1, item 8", "timeouts": "Queue 1, item 8",
-    "retry": "Queue 1, item 8", "on_overflow": "Queue 1, item 8",
-    "fail_seed": "Queue 1, item 8", "devices": "Queue 1 (multi-device)",
-    "host_shard": "Queue 1 (multi-host)", "cluster": "Queue 1, item 5",
-    "trace_events": "Queue 1, item 9",
+    "window": "Queue 1, item 2", "tl_bins": "Queue 1, item 2",
+    "tl_bucket": "Queue 1, item 2", "deadlines": "Queue 1, item 2",
+    "fail_prob": "Queue 1, item 6", "timeouts": "Queue 1, item 6",
+    "retry": "Queue 1, item 6", "on_overflow": "Queue 1, item 6",
+    "fail_seed": "Queue 1, item 6", "devices": "Queue 1 (multi-device)",
+    "host_shard": "Queue 1 (multi-host)", "cluster": "Queue 1, items 3-4",
+    "trace_events": "Queue 1, item 7",
 }
 
 

@@ -40,10 +40,16 @@ sentinel index. Each f64 accumulation touches one element per lane per
 event, in event order, so sums are deterministic on every device and
 streamed sums are bitwise the exact-mode ones.
 
-The loop runs SEG events between termination checks: the host reads
-one flag per segment and never inside an event step. Eager PyTorch
-launches every op of the step separately, so on a GPU the loop is
-bound by launch latency (see PERF.md).
+Two routes run this loop. `simulate` sends a built-in ESFF policy to
+the event-loop kernel `repro_torch.kernels.event_loop` (K0): on a CUDA
+device one launch per lane chunk runs every event of every lane, and on
+the CPU the wrapper takes its plain version, `simulate_eager`. Any
+other `PolicyKernel` runs `simulate_eager` on either device. The eager
+loop runs SEG events between termination checks (the host reads one
+flag per segment, never inside an event step) and launches every op of
+the step separately, ~418 ops a step on a GPU: it is the kernel's plain
+version, the reference that the kernel is held to bitwise, and too slow
+on a card for the paper's traces (see PERF.md).
 """
 from __future__ import annotations
 
@@ -78,10 +84,10 @@ _COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
 _SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
 _NOT_PORTED = {
-    "window": "windows (ROADMAP Queue 1, item 4)",
-    "tl_bins": "the timeline fold (ROADMAP Queue 1, item 4)",
-    "n_live": "ragged n_live prefixes (ROADMAP Queue 1, item 4)",
-    "deadlines": "deadline accounting (ROADMAP Queue 1, item 4)",
+    "window": "windows (ROADMAP Queue 1, item 2)",
+    "tl_bins": "the timeline fold (ROADMAP Queue 1, item 2)",
+    "n_live": "ragged n_live prefixes (ROADMAP Queue 1, item 2)",
+    "deadlines": "deadline accounting (ROADMAP Queue 1, item 2)",
 }
 
 
@@ -92,6 +98,22 @@ def _reject_unported(**opts) -> None:
                 f"{name}={val!r}: {_NOT_PORTED[name]} is not ported yet")
 
 
+def positional_layout(fn_id, f):
+    """The positional queue layout of (T, N) int64 ``fn_id``: request
+    ids sorted by (fn, id), (T, N), and per-function offsets, (T, F + 1)
+    -- fn j's k-th arrival is ``pos_rids[pos_off[j] + k]``. Shared by
+    the eager loop and the event-loop kernel."""
+    T = fn_id.shape[0]
+    dev = fn_id.device
+    pos_rids = torch.argsort(fn_id, dim=1, stable=True)
+    counts = torch.zeros((T, f), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, fn_id.clamp(0, f - 1), torch.ones_like(fn_id))
+    pos_off = torch.cat(
+        [torch.zeros((T, 1), dtype=torch.int64, device=dev),
+         torch.cumsum(counts, 1)], 1)
+    return pos_rids, pos_off
+
+
 class EngineCtx:
     """Per-run view handed to policy kernels: the shared trace operands
     (flattened, read through per-lane base offsets), the per-lane knobs
@@ -100,7 +122,7 @@ class EngineCtx:
 
     def __init__(self, *, fn_id, arrival, exec_time, t_cold_l, t_evict_l,
                  trace_ix, cap_mask, beta, prior, f, c, q, stream):
-        T, N = fn_id.shape
+        N = fn_id.shape[1]
         dev = fn_id.device
         self.N, self.F, self.C, self.Q = N, f, c, q
         self.L = trace_ix.shape[0]
@@ -108,16 +130,9 @@ class EngineCtx:
         self._fn = fn_id.reshape(-1)
         self._arr = arrival.reshape(-1)
         self._ex = exec_time.reshape(-1)
-        # positional queue layout: request ids sorted by (fn, id) and
-        # per-function offsets -- fn j's k-th arrival is
-        # pos_rids[pos_off[j] + k]
-        self._pos = torch.argsort(fn_id, dim=1, stable=True).reshape(-1)
-        counts = torch.zeros((T, f), dtype=torch.int64, device=dev)
-        counts.scatter_add_(1, fn_id.clamp(0, f - 1),
-                            torch.ones_like(fn_id))
-        self._off = torch.cat(
-            [torch.zeros((T, 1), dtype=torch.int64, device=dev),
-             torch.cumsum(counts, 1)], 1).reshape(-1)
+        pos, off = positional_layout(fn_id, f)
+        self._pos = pos.reshape(-1)
+        self._off = off.reshape(-1)
         self.b_n = trace_ix * N          # per-lane base into (T, N)
         self.b_f1 = trace_ix * (f + 1)   # per-lane base into (T, F+1)
         self.t_cold = t_cold_l           # (L, F) this lane's row
@@ -470,29 +485,53 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     dimension. All tensors must sit on one device; the run stays
     there. ``threshold`` belongs to the timer policies and is unused
     by the ported ones. Returns per-lane counters (int32), f64 sums
-    and the histogram; in exact mode also start/completion (L, N)."""
+    and the histogram; in exact mode also start/completion (L, N).
+
+    A built-in ESFF policy goes to the event-loop kernel (one launch a
+    call on a CUDA device, its plain version `simulate_eager` on the
+    CPU); any other `PolicyKernel` runs `simulate_eager`. The route is
+    chosen by the policy's type, never by a failed build."""
     _reject_unported(window=window, tl_bins=tl_bins, n_live=n_live,
                      deadlines=deadlines)
     if kernel.has_timers:
         raise NotImplementedError(
             f"policy {kernel.name!r} arms timers: the timer rail is not "
-            "ported yet (ROADMAP Queue 1, item 3)")
+            "ported yet (ROADMAP Queue 1, item 1)")
+    from repro_torch.kernels import event_loop as K0
+    f64 = torch.float64
+    args = (fn_id.to(torch.int64).contiguous(),
+            arrival.to(f64).contiguous(), exec_time.to(f64).contiguous(),
+            t_cold.to(f64).contiguous(), t_evict.to(f64).contiguous(),
+            trace_ix.to(torch.int64).contiguous(),
+            cap_mask.to(torch.bool).contiguous(), beta.to(f64).contiguous(),
+            float(prior))
+    kw = dict(kernel=kernel, n_fns=n_fns, capacity=capacity,
+              queue_cap=queue_cap, stream=stream)
+    if K0.has_device_loop(kernel):
+        return K0.event_loop(*args, **kw)
+    return simulate_eager(*args, **kw)
+
+
+def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
+                   cap_mask, beta, prior, *, kernel, n_fns, capacity,
+                   queue_cap, stream=False) -> Dict[str, torch.Tensor]:
+    """The eager event loop: `_event_step` over every lane, SEG steps
+    between host checks, the policy's hooks run gated for every lane on
+    every step. Inputs as `simulate` (int64 ``fn_id`` and ``trace_ix``,
+    f64 times and ``beta``, bool ``cap_mask``); the plain version of the
+    event-loop kernel and the route of every policy without one."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
     dev = fn_id.device
-    f64 = torch.float64
-    trace_ix = trace_ix.to(torch.int64)
     ctx = EngineCtx(
-        fn_id=fn_id.to(torch.int64), arrival=arrival.to(f64),
-        exec_time=exec_time.to(f64),
-        t_cold_l=t_cold.to(f64)[trace_ix].contiguous(),
-        t_evict_l=t_evict.to(f64)[trace_ix].contiguous(),
-        trace_ix=trace_ix, cap_mask=cap_mask.to(torch.bool),
-        beta=beta.to(f64), prior=float(prior), f=F, c=C, q=queue_cap,
-        stream=stream)
+        fn_id=fn_id, arrival=arrival, exec_time=exec_time,
+        t_cold_l=t_cold[trace_ix].contiguous(),
+        t_evict_l=t_evict[trace_ix].contiguous(),
+        trace_ix=trace_ix, cap_mask=cap_mask, beta=beta,
+        prior=float(prior), f=F, c=C, q=queue_cap, stream=stream)
     s = _init_state(L, C, F, N, stream, dev)
-    max_iters = 256 * N + 4096
+    max_iters = max_events(N)
 
     def running():
         return bool(((s["done"] < N) & (s["stall"] == 0)).any())
@@ -512,6 +551,11 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
         out["start"] = s["start"][:, :N]
         out["completion"] = s["completion"][:, :N]
     return out
+
+
+def max_events(n_requests: int) -> int:
+    """A lane stalls (code 2) once it has processed this many events."""
+    return 256 * n_requests + 4096
 
 
 def _as_tensor(x, dtype, dev):

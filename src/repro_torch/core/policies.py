@@ -4,12 +4,15 @@ Counterpart of `repro.core.jax_policies`. Ported so far:
 
 * **esff** -- FCP (Alg. 2) on arrival and FRP (Alg. 3) on completion,
   with running-mean estimation; ``beta`` = 1.0 is the paper-faithful
-  scheduler. The FRP scan over all functions goes through the
-  `repro_torch.kernels.frp_select.frp_select_lanes` kernel (the plain
-  PyTorch version on the CPU).
+  scheduler. These hooks are the plain version of the event-loop
+  kernel (`repro_torch.kernels.event_loop`, whose device functions
+  ``on_arrival`` / ``on_cold_done`` / ``on_exec_done`` mirror them):
+  `engine.simulate` runs them only on the CPU, or on a card when called
+  through `engine.simulate_eager`. Their FRP scan over all functions
+  goes through `repro_torch.kernels.frp_select.frp_select_lanes`.
 
 The other policies (esff_h, sff, openwhisk, faascache, openwhisk_v2)
-are ROADMAP Queue 1, item 3.
+are ROADMAP Queue 1, item 1.
 
 Hooks follow the engine's guarded-write convention: they run every
 event for every lane, compute with possibly-garbage values where their

@@ -14,7 +14,9 @@
 // first index of the minimum (BIG = 1e30 for masked entries) and -1
 // when the minimum is BIG, exactly jnp.argmin's first-index rule.
 //
-// Two contracts share the body:
+// The weight and the first-index reduction live in csrc/frp_select.cuh,
+// which csrc/event_loop.cu includes too: the FRP scan that the event loop
+// runs inline on every completion is this code. Two contracts share it:
 //   f32 (ENGINE = false): the TPU kernel's own. t_e is clamped at 1e-9,
 //     eps = 1e-9, beta = 1, one row, scalars by value.
 //   f64 (ENGINE = true): the engine's. No clamp on t_e (the running
@@ -40,21 +42,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "frp_select.cuh"
+
 namespace {
-
-template <typename T>
-__device__ __forceinline__ T clamp_lo(T x, T lo) {
-  // jnp.maximum(x, lo) for finite lo: NaN stays NaN
-  return x < lo ? lo : x;
-}
-
-template <typename T>
-__device__ __forceinline__ void keep_first_min(T& w, int& i, T ow, int oi) {
-  if (ow < w || (ow == w && oi < i)) {
-    w = ow;
-    i = oi;
-  }
-}
 
 template <typename T, bool ENGINE>
 __global__ void frp_select_kernel(const T* __restrict__ t_e,
@@ -74,31 +64,21 @@ __global__ void frp_select_kernel(const T* __restrict__ t_e,
   const T tv_j = ENGINE ? tv_j_lanes[lane] : tv_j0;
   const int self = ENGINE ? self_lanes[lane] : self0;
   const T beta = ENGINE ? beta_lanes[lane] : T(1);
-  const T eps = ENGINE ? T(1e-30) : T(1e-9);
 
   T w_min = big;
   int i_min = n_fns;  // beyond every index: loses every tie
   for (int f = threadIdx.x; f < n_fns; f += blockDim.x) {
-    const T nw = static_cast<T>(n_w[row + f]);
-    const T k = static_cast<T>(k_cnt[row + f]);
-    const T te = t_e[row + f];
-    const T tl = t_l[row + f];
-    const T den = ENGINE ? te : clamp_lo(te, T(1e-9));
-    const T n_e = (nw + T(1)) - ((tl + tv_j) * k) / den;
-    T w = te + ((beta * (tl + t_v[row + f])) * (k + T(1))) / clamp_lo(n_e, eps);
-    const bool valid = (nw > T(0)) && (n_e > T(0)) && (f != self);
-    w = valid ? w : big;
+    const T w = frp::weight<T, ENGINE>(
+        t_e[row + f], t_l[row + f], t_v[row + f],
+        static_cast<T>(n_w[row + f]), static_cast<T>(k_cnt[row + f]), tv_j,
+        beta, f != self);
     if (w < w_min) {  // f rises per thread: strict < keeps the first
       w_min = w;
       i_min = f;
     }
   }
 
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ow = __shfl_down_sync(0xffffffffu, w_min, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i_min, off);
-    keep_first_min(w_min, i_min, ow, oi);
-  }
+  frp::warp_first_min(w_min, i_min);
   __shared__ T warp_w[32];
   __shared__ int warp_i[32];
   const int warp = threadIdx.x / 32;
@@ -111,11 +91,7 @@ __global__ void frp_select_kernel(const T* __restrict__ t_e,
   if (warp == 0) {
     w_min = threadIdx.x < n_warps ? warp_w[threadIdx.x] : big;
     i_min = threadIdx.x < n_warps ? warp_i[threadIdx.x] : n_fns;
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ow = __shfl_down_sync(0xffffffffu, w_min, off);
-      const int oi = __shfl_down_sync(0xffffffffu, i_min, off);
-      keep_first_min(w_min, i_min, ow, oi);
-    }
+    frp::warp_first_min(w_min, i_min);
     if (threadIdx.x == 0) {
       best_w[lane] = w_min;
       best_i[lane] = w_min >= big ? -1 : i_min;

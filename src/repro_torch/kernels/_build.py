@@ -36,12 +36,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                 "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
                 "-v")
-# per source, on top of COMMON_FLAGS: the f64 engine body of
-# frp_select must be bitwise the reference, so no multiply-add is
-# contracted there; the attention, norm and SSD kernels hold a tolerance
-EXTRA_FLAGS = {"frp_select": ("--fmad=false",)}
-SOURCES = ("frp_select", "rmsnorm", "decode_attention", "flash_attention",
-           "ssd_chunk")
+# per source, on top of COMMON_FLAGS: the f64 engine bodies (frp_select
+# and the event loop, which inlines it) must be bitwise the reference,
+# so no multiply-add is contracted there; the attention, norm and SSD
+# kernels hold a tolerance
+EXTRA_FLAGS = {"frp_select": ("--fmad=false",),
+               "event_loop": ("--fmad=false",)}
+SOURCES = ("event_loop", "frp_select", "rmsnorm", "decode_attention",
+           "flash_attention", "ssd_chunk")
 
 
 def nvcc_flags(name: str) -> tuple:

@@ -1,6 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain
-PyTorch version, and the engine, the chunked SSD and the models (dense,
-ssm, hybrid) on the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
+PyTorch version (the event-loop kernel against the eager loop, bitwise),
+and the engine, the chunked SSD and the models (dense, ssm, hybrid) on
+the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
 kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
 (``--noconftest`` skips tests/conftest.py, which imports JAX):
 
@@ -12,13 +13,16 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import engine as E
+from repro_torch.core.policies import KERNELS
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import event_loop as K0
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels import ssd_chunk as K5
 from repro_torch.models import build_model
 from repro_torch.traces import synth_azure_arrays
+from torch_event_traces import overflow_trace, tie_trace
 
 COLS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 
@@ -77,11 +81,109 @@ def test_engine_on_card_matches_cpu(cuda):
                            utilization=0.2, seed=2)
     run = lambda dev: E.simulate_policy(  # noqa: E731
         *(a[k] for k in COLS), n_fns=200, capacity=16, device=dev)
-    launches = fs.frp_select_lanes.launches
-    card, cpu = run(cuda), run("cpu")
-    assert fs.frp_select_lanes.launches > launches
+    launches = (K0.event_loop.launches, fs.frp_select_lanes.launches)
+    card = run(cuda)
+    assert K0.event_loop.launches == launches[0] + 1
+    assert fs.frp_select_lanes.launches == launches[1]   # K1 is inline
+    cpu = run("cpu")
     for k, v in cpu.items():
         assert torch.equal(card[k].cpu(), v), k
+
+
+# ------------------------------------------------ the event-loop kernel
+def _azure(F, n, seed):
+    return synth_azure_arrays(n_functions=F, n_requests=n, utilization=0.2,
+                              seed=seed)
+
+
+# name: (traces, F, capacities, betas, queue_cap, stream)
+EVENT_LOOP_CASES = {
+    "stream": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, True),
+    "exact": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, False),
+    "overflow": ([overflow_trace()], 1, (1,), (1.0,), 2, False),
+    "global_layout": ([_azure(5000, 600, 4)], 5000, (8,), (1.0,), 512,
+                      True),
+    # the function state in shared memory above 48 KB (~104 KB)
+    "shared_over_48k": ([_azure(2000, 800, 7)], 2000, (16,), (1.0,), 512,
+                        True),
+    "c48": ([_azure(50, 800, 5)], 50, (48,), (1.0,), 512, False),
+    "mixed_lanes": ([_azure(20, 300, 1), _azure(20, 300, 6)], 20,
+                    (4, 6, 8), (1.0, 2.0), 512, True),
+    "ties": ([tie_trace()], 6, (2, 3, 4), (1.0,), 512, False),
+}
+
+
+def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream):
+    """Every trace x capacity x beta as one lane batch on ``device``."""
+    t = {k: torch.tensor(np.stack([a[k] for a in traces]), device=device)
+         for k in COLS}
+    lanes = [(ti, c, b) for ti in range(len(traces)) for c in caps
+             for b in betas]
+    C = max(caps)
+    tix = torch.tensor([x[0] for x in lanes], device=device)
+    masks = torch.tensor(np.stack([np.arange(C) < x[1] for x in lanes]),
+                         device=device)
+    beta = torch.tensor([x[2] for x in lanes], dtype=torch.float64,
+                        device=device)
+    return E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
+                      t["cold_start"], t["evict"], tix, masks, beta, 0.1,
+                      kernel=KERNELS["esff"], n_fns=F, capacity=C,
+                      queue_cap=queue_cap, stream=stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EVENT_LOOP_CASES))
+def test_event_loop_kernel_bitwise_eager(cuda, case):
+    traces, F, caps, betas, queue_cap, stream = EVENT_LOOP_CASES[case]
+    launches = K0.event_loop.launches
+    card = _event_loop_run(cuda, traces, F, caps, betas, queue_cap, stream)
+    torch.cuda.synchronize()
+    assert K0.event_loop.launches == launches + 1
+    cpu = _event_loop_run("cpu", traces, F, caps, betas, queue_cap, stream)
+    assert sorted(card) == sorted(cpu)
+    for k, v in cpu.items():
+        assert torch.equal(card[k].cpu(), v), (case, k)
+    if case == "overflow":
+        assert int(cpu["overflow"][0]) > 0 and int(cpu["stalled"][0]) == 1
+    plan = K0.layout_plan(F, max(caps))
+    if case == "global_layout":
+        assert not plan["fn_in_shared"]
+    if case == "shared_over_48k":
+        assert plan["fn_in_shared"] and plan["smem_bytes"] > 48 * 1024
+    # one inline FRP scan per completion
+    assert torch.equal(K0.event_loop.last_scans.cpu(),
+                       cpu["done"].to(torch.int64))
+
+
+@pytest.mark.cuda
+def test_event_loop_library_layout_is_the_wrappers(cuda):
+    """The built library reports the slot and function sizes and the
+    result columns the wrapper plans and reads by."""
+    K0._check_layout.done = False
+    K0._check_layout()
+    assert K0._check_layout.done
+
+
+@pytest.mark.cuda
+def test_eager_loop_on_card_matches_kernel(cuda):
+    """The plain version itself on the card (every op a launch, K1 as
+    its own kernel) gives the kernel's bits."""
+    a = _azure(50, 300, 3)
+    t = {k: torch.tensor(a[k], dtype=torch.int64 if k == "fn_id"
+                         else torch.float64, device=cuda)[None]
+         for k in COLS}
+    args = (t["fn_id"], t["arrival"], t["exec_time"], t["cold_start"],
+            t["evict"], torch.zeros(1, dtype=torch.int64, device=cuda),
+            torch.ones(1, 8, dtype=torch.bool, device=cuda),
+            torch.ones(1, dtype=torch.float64, device=cuda), 0.1)
+    kw = dict(kernel=KERNELS["esff"], n_fns=50, capacity=8, queue_cap=512,
+              stream=False)
+    k1 = fs.frp_select_lanes.launches
+    eager = E.simulate_eager(*args, **kw)
+    assert fs.frp_select_lanes.launches > k1
+    card = K0.event_loop(*args, **kw)
+    for k, v in eager.items():
+        assert torch.equal(card[k], v), k
 
 
 # ------------------------------------------- the serving path's kernels

@@ -11,7 +11,9 @@ import torch
 
 import repro_torch.api as tapi
 from repro_torch.kernels import _build
+from repro_torch.core.policies import ESFFKernel
 from repro_torch.kernels import decode_attention as DA
+from repro_torch.kernels import event_loop as K0
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import frp_select as fs
 from repro_torch.kernels import rmsnorm as RN
@@ -123,6 +125,12 @@ NEW_WRAPPERS = {
     "rmsnorm_residual": (RN.rmsnorm_residual, lambda: RN.rmsnorm_residual(
         _meta(4, 32, dtype=torch.bfloat16),
         _meta(4, 32, dtype=torch.bfloat16), _meta(32))),
+    "event_loop": (K0.event_loop, lambda: K0.event_loop(
+        _meta(1, 8, dtype=torch.int64), _meta(1, 8, dtype=torch.float64),
+        _meta(1, 8, dtype=torch.float64), _meta(1, 4, dtype=torch.float64),
+        _meta(1, 4, dtype=torch.float64), _meta(2, dtype=torch.int64),
+        _meta(2, 3, dtype=torch.bool), _meta(2, dtype=torch.float64), 0.1,
+        kernel=ESFFKernel(), n_fns=4, capacity=3, queue_cap=16)),
     "ssd_chunk": (K5.ssd_chunk, lambda: K5.ssd_chunk(
         _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16), _meta(1, 2, 32, 4),
         _meta(1, 2, 32, 4), _meta(1, 2, 32, 1, 16),
@@ -149,13 +157,14 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
-    assert set(_build.SOURCES) == {"frp_select", "rmsnorm",
+    assert set(_build.SOURCES) == {"event_loop", "frp_select", "rmsnorm",
                                    "decode_attention", "flash_attention",
                                    "ssd_chunk"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
-    # only the f64 engine body needs contraction off (bitwise parity)
+    # only the f64 engine bodies need contraction off (bitwise parity)
     assert "--fmad=false" in _build.nvcc_flags("frp_select")
+    assert "--fmad=false" in _build.nvcc_flags("event_loop")
     assert "--fmad=false" not in _build.nvcc_flags("flash_attention")
     a = _build._lib_path("rmsnorm")
     monkeypatch.setitem(_build.EXTRA_FLAGS, "rmsnorm", ("--fmad=false",))
