@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  into ``build/kernels/`` (seconds, ptxas report).
 3. ``kernel``    each kernel against its plain PyTorch version on the
                  card, at the main path's shapes and beyond. FRP: index
-                 exact, f32 weight within rtol 1e-6, f64 bitwise. The
+                 exact, f32 weight within rtol 1e-6, f64 bitwise (also
+                 with ESFF-H's cold-aware term). The
                  serving kernels (flash and decode attention, RMSNorm
                  with and without the residual add) at Qwen3-4B's
                  shapes in bf16 (RMSNorm also at Mamba2-780M's and
@@ -34,28 +35,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  ptxas report of both bodies.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
                  grid (F = 200 functions, the paper's N = 60,000
-                 Azure-like requests, ESFF, C = 8..32: seven lanes),
-                 with the kernels' launch counts set to 0 just before
-                 and read just after. The whole event loop is one
-                 launch of the event-loop kernel K0 (one a lane chunk),
-                 with K1's FRP scan inline: K0 must launch once, K1's
-                 own entry never, and K0's count of inline FRP scans
-                 must be N on every lane (one a completion). The
-                 results are held bitwise against the JAX package's
-                 own (the constants below; ``--n-requests 30000`` has
-                 constants too). Then K0 alone by CUDA events on the
-                 same inputs, its outputs held bitwise to the runner's
-                 launch.
-   ``eager_card`` the eager loop, K0's plain version, on the card at
-                 N = 2,000 (its whole run and ms an event step) and K0
-                 on the same inputs, held bitwise to each other.
+                 Azure-like requests, the six policies x C = 8..32: 42
+                 lanes, queue_cap QUEUE_CAP), with the kernels' launch
+                 counts set to 0 just before and read just after. Each
+                 policy's lanes are one launch of its variant of the
+                 event-loop kernel K0 (one a lane chunk): six launches,
+                 K1's own entry never (its FRP scan runs inline in the
+                 ESFF variants, one a completion), no built-in policy on
+                 the eager loop; the central queue's head scans and
+                 OpenWhisk-v2's timer events are counted too. Every
+                 lane is held bitwise against the JAX package's own
+                 results (scripts/k0_expected.json; ``--n-requests
+                 30000`` has constants too). Then each policy's K0
+                 alone by CUDA events on the same inputs (ms a launch,
+                 us an event on its longest lane), its outputs held
+                 bitwise to the runner's launch, and ESFF's at the
+                 former queue_cap of 4096, held bitwise to the grid's.
+   ``fig6``      Fig. 6: the trace's arrivals scaled by 0.6..1.4
+                 (`TraceSource.scaled`) x the six policies at C = 16, at
+                 the same N and queue_cap: six launches, bitwise the JAX
+                 package's constants.
+   ``eager_card`` the eager loop, K0's plain version, on the card (its
+                 whole run and ms an event step) and K0 on the same
+                 inputs, held bitwise to each other, for every policy:
+                 ESFF at N = 2,000, the others at N = 500.
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
-                 one lane chunk) at N = 30,000: wall time, req/s, us an
-                 event; the seed-0 lanes at Fig. 5's capacities must be
-                 bitwise ``EXPECTED[30000]``.
-5. ``parity``    the same spec at N = 2,000 on the card (K0) and on the
-                 CPU (the eager loop), bitwise on every metric; a
-                 planted one-ulp fault in ``resp_sum`` must be rejected.
+                 ESFF, one lane chunk) at N = 30,000: wall time, req/s,
+                 us an event; the seed-0 lanes at Fig. 5's capacities
+                 must be bitwise ESFF's constants at N = 30,000.
+5. ``parity``    the Fig. 5 spec (six policies) at N = 2,000 on the card
+                 (K0) and on the CPU (the eager loop), bitwise on every
+                 metric; a planted one-ulp fault in ``resp_sum`` must be
+                 rejected.
 6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
                  zamba2-2.7b in f32 on the card, on weights and a prompt
                  made with numpy, through prefill and 8 greedy decode
@@ -79,7 +90,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  body, K2 and K3 (head_dim 80) once a shared-block
                  application.
 9. ``profile``   (``--profile`` only) torch.profiler over the Fig. 5
-                 run (K0's device time a launch, the device busy share)
+                 run (each policy's K0 device time a launch, the device
+                 busy share)
                  and over one served request of each function of both
                  serving phases (busy share, the serving kernels'
                  device time per launch, K5's among them, and the SM
@@ -104,61 +116,57 @@ from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# The JAX package's results for the main path's spec, regenerated on
-# the CPU with (PYTHONPATH=src, JAX_PLATFORMS=cpu):
-#   from repro.api import ExperimentSpec, SyntheticTrace, run_experiment
-#   src = SyntheticTrace.make(n_functions=200, n_requests=N, seed=0,
-#       utilization=0.2, exec_median=0.1, exec_sigma=1.4, burst_frac=0.3)
-#   rs = run_experiment(ExperimentSpec(traces=[src], policies=("esff",),
-#       capacities=(8, 12, 16, 20, 24, 28, 32), queue_cap=4096))
-#   {k: rs[k][0, 0, :, 0].tolist() for k in rs.metrics}   # repr floats
-# and n_events from repro.core.jax_engine._simulate on the same lanes
-# (it is n_requests + cold_starts: one arrival, one completion per
-# request, one cold-done per cold start).
+# The JAX package's results for the Fig. 5 and Fig. 6 grids, every
+# policy, are in scripts/k0_expected.json, made on the CPU with
+# (PYTHONPATH=src, JAX_PLATFORMS=cpu)
+#   python scripts/k0_expected.py --n 60000 --queue-cap 8192 \
+#       --out scripts/k0_expected.json        # and again with --n 30000
+# which runs, for each policy, the engine call of
+# repro.api.run_experiment (repro.core.jax_engine._simulate over the
+# grid's lanes) and keeps the counters, n_events (n_requests +
+# cold_starts + the timer events, which the ResultSet does not carry),
+# the means as sum * (1 / N) (XLA's spelling of the ResultSet's sum / N)
+# and max_response, floats as their repr.
+EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
+POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
+            "openwhisk_v2")
 CAPACITIES = (8, 12, 16, 20, 24, 28, 32)
 N_REQUESTS = 60000
-# the wide row: seeds x capacities as one lane chunk
+# Fig. 6 (benchmarks/fig6_intensity.py): the trace's arrivals scaled
+# (TraceSource.scaled), at one capacity
+RATIOS = (0.6, 0.8, 1.0, 1.2, 1.4)
+FIG6_CAPACITY = 16
+# OpenWhisk-v2 overruns a queue_cap of 4096 at N = 60,000 in the JAX
+# package itself (overflow 1,252 to 2,291 a lane, stalled 1); 8192 is the
+# smallest power of two at which every policy of both grids, at N =
+# 60,000 and 30,000, ends with overflow 0 and stalled 0 there. It only
+# bounds a backlog: a run that never reaches it gives the same results at
+# any larger value (main_path holds ESFF's lanes at 4096, the former
+# setting, bitwise to those at 8192).
+QUEUE_CAP = 8192
+# the wide row (ESFF): seeds x capacities as one lane chunk
 WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
             n_requests=30000)
-EXPECTED = {
-    60000: {
-        "done": [60000] * 7, "overflow": [0] * 7, "stalled": [0] * 7,
-        "cold_starts": [9423, 14137, 17843, 16405, 15296, 14703, 14359],
-        "evictions": [9415, 14125, 17827, 16385, 15272, 14675, 14327],
-        "n_events": [129423, 134137, 137843, 136405, 135296, 134703,
-                     134359],
-        "mean_response": [143.78454297076706, 52.45100160552744,
-                          4.230609046076287, 1.4971670603323834,
-                          1.2750254489707686, 1.1734215412632854,
-                          1.1703959354039148],
-        "mean_slowdown": [854.6009082847161, 327.1091848107679,
-                          41.07946092393565, 20.861325222135303,
-                          15.671335892000945, 13.41032052525046,
-                          12.78277794792688],
-        "max_response": [3415.331204672056, 3077.6253492575997,
-                         555.796439412451, 76.55581702542122,
-                         16.471047930082023, 8.393050979419513,
-                         4.916179406674928],
-    },
-    30000: {
-        "done": [30000] * 7, "overflow": [0] * 7, "stalled": [0] * 7,
-        "cold_starts": [5229, 7667, 9764, 8926, 8330, 8022, 7814],
-        "evictions": [5221, 7655, 9748, 8906, 8306, 7994, 7782],
-        "n_events": [65229, 67667, 69764, 68926, 68330, 68022, 67814],
-        "mean_response": [88.60186846894098, 35.52233884090608,
-                          3.730139683524422, 1.4171491405443895,
-                          1.2464849243290084, 1.2123480372516626,
-                          1.192458003033613],
-        "mean_slowdown": [740.6544979220394, 311.0606409123218,
-                          36.06815591525324, 19.72626758493041,
-                          15.813160391982638, 14.059284743713494,
-                          13.15188591046504],
-        "max_response": [1801.3315051097882, 1597.6201583096656,
-                         483.9878575462176, 9.19898387422245,
-                         5.21228674725964, 5.216760139215808,
-                         5.1412160224715535],
-    },
-}
+# the metrics held against the JAX constants
+HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
+        "n_events", "mean_response", "mean_slowdown", "max_response")
+# the eager loop on the card (eager_card): ESFF at N = 2,000, the other
+# policies at a smaller N (a step costs ~5 ms there)
+EAGER_N = dict(esff=2000, default=500)
+# each policy's kernel instantiation: Policy<kind, lru, cold_aware, sff>
+# of csrc/event_loop.cu, and how its mangled name (ptxas) spells it
+POLICY_ARGS = {"esff": (0, 0, 0, 0), "esff_h": (0, 1, 1, 0),
+               "sff": (1, 0, 0, 1), "openwhisk": (1, 0, 0, 0),
+               "faascache": (2, 0, 0, 0), "openwhisk_v2": (3, 0, 0, 0)}
+PTXAS_NAME = {p: "PolicyILi{}ELb{}ELb{}ELb{}E".format(*a)
+              for p, a in POLICY_ARGS.items()}
+# the JAX policy kernel each variant carries out
+POLICY_SOURCE = {"esff": "src/repro/core/jax_policies.py:59",
+                 "esff_h": "src/repro/core/jax_policies.py:59",
+                 "sff": "src/repro/core/jax_policies.py:149",
+                 "openwhisk": "src/repro/core/jax_policies.py:149",
+                 "faascache": "src/repro/core/jax_policies.py:242",
+                 "openwhisk_v2": "src/repro/core/jax_policies.py:295"}
 TRACE_KW = dict(utilization=0.2, exec_median=0.1, exec_sigma=1.4,
                 burst_frac=0.3)
 RTOL = 1e-9
@@ -665,10 +673,20 @@ def phase_kernel(torch, np, fs):
          f"!= plain {pi.tolist()}")
     need(torch.equal(kw, pw), "frp_select_lanes: weights not bitwise "
          f"equal to the plain version ({kw.tolist()} vs {pw.tolist()})")
+    # ESFF-H's cold-aware term: the COLD slots a function (at most K)
+    coldK = torch.minimum(lanes[4], torch.tensor(
+        r.integers(0, 3, (L, F)), dtype=i32, device=dev)).contiguous()
+    cw, ci = fs.frp_select_lanes(*lanes, coldK)
+    cpw, cpi = fs.frp_select_lanes_plain(*lanes, coldK)
+    torch.cuda.synchronize()
+    need(torch.equal(ci, cpi) and torch.equal(cw, cpw),
+         "frp_select_lanes with coldK: not bitwise the plain version "
+         f"({ci.tolist()} vs {cpi.tolist()})")
     b, by = bound_ms(L * F * 32 + L * 32, L * F * 15, "f64")
     res["lanes"] = dict(
-        shape=[L, F], index=ki.tolist(),
-        max_abs_err=float((kw - pw).abs().max()),
+        shape=[L, F], index=ki.tolist(), cold_aware_index=ci.tolist(),
+        max_abs_err=max(float((kw - pw).abs().max()),
+                        float((cw - cpw).abs().max())),
         ms=time_ms(torch, lambda: fs.frp_select_lanes(*lanes)),
         plain_ms=time_ms(torch, lambda: fs.frp_select_lanes_plain(*lanes)),
         bound_ms=b, bound_by=by)
@@ -679,34 +697,55 @@ def phase_kernel(torch, np, fs):
 
 
 # --------------------------------------------------------- phases 4, 5
-def fig5_spec(api, n_requests: int, device: str, **kw):
+def load_expected():
+    with open(EXPECTED_FILE) as f:
+        exp = json.load(f)
+    need(exp["queue_cap"] == QUEUE_CAP,
+         f"{EXPECTED_FILE}: made at queue_cap {exp['queue_cap']}, the "
+         f"grids run at {QUEUE_CAP}")
+    return exp
+
+
+def fig5_spec(api, n_requests: int, device: str, policies=POLICIES, **kw):
     src = api.SyntheticTrace.make(n_functions=200, n_requests=n_requests,
                                   seed=0, **TRACE_KW)
     kw.setdefault("capacities", CAPACITIES)
-    return api.ExperimentSpec(traces=[src], policies=("esff",),
-                              queue_cap=4096, device=device, **kw)
+    return api.ExperimentSpec(traces=[src], policies=policies,
+                              queue_cap=QUEUE_CAP, device=device, **kw)
 
 
-def lane_values(rs, metric):
-    return [rs.value(metric, capacity=c) for c in CAPACITIES]
+def fig6_spec(api, n_requests: int, device: str):
+    src = api.SyntheticTrace.make(n_functions=200, n_requests=n_requests,
+                                  seed=0, **TRACE_KW)
+    return api.ExperimentSpec(traces=[src.scaled(r) for r in RATIOS],
+                              policies=POLICIES,
+                              capacities=(FIG6_CAPACITY,),
+                              queue_cap=QUEUE_CAP, device=device)
 
 
-def held_against(exp, got):
-    """The mismatches of ``got`` (metric -> per-capacity values) against
-    the constants ``exp``: integers exact, floats within RTOL, and
-    whether every value was bitwise equal."""
+def lanes_of(rs, metric, policy):
+    """A policy's lanes of a ResultSet, in the engine's lane order
+    (trace, then capacity), as Python numbers."""
+    pi = rs.coords["policy"].index(policy)
+    return rs[metric][pi].reshape(-1).tolist()
+
+
+def held_against(exp, got, labels):
+    """The mismatches of ``got`` (metric -> per-lane values) against the
+    constants ``exp``: integers exact, floats within RTOL, and whether
+    every value was bitwise equal."""
     mismatch, bitwise = [], True
-    for k, want in exp.items():
-        for c, g, w in zip(CAPACITIES, got[k], want):
+    for k in HELD:
+        for lab, g, w in zip(labels, got[k], exp[k]):
             bitwise &= g == w
             ok = (g == w if isinstance(w, int)
                   else math.isclose(g, w, rel_tol=RTOL, abs_tol=0.0))
             if not ok:
-                mismatch.append(f"{k}[C={c}]: {g!r} != {w!r}")
+                mismatch.append(f"{k}[{lab}]: {g!r} != {w!r}")
     return mismatch, bitwise
 
 
-def fig5_inputs(torch, api, n_requests, dev):
+def fig5_inputs(torch, api, n_requests, dev, queue_cap=QUEUE_CAP):
     """`engine.simulate`'s inputs for the Fig. 5 lanes, as the runner
     lowers them (one trace, one lane a capacity)."""
     a = fig5_spec(api, n_requests, "cpu").expanded_traces()[0].arrays()
@@ -721,7 +760,14 @@ def fig5_inputs(torch, api, n_requests, dev):
             t["evict"], torch.zeros(L, dtype=torch.int64, device=dev), masks,
             torch.ones(L, dtype=f64, device=dev), 0.1)
     return args, dict(n_fns=len(a["cold_start"]), capacity=C,
-                      queue_cap=4096, stream=True)
+                      queue_cap=queue_cap, stream=True)
+
+
+def with_beta(torch, args, kernel):
+    """``args`` with every lane's beta set to the policy's default, as
+    the runner sets it."""
+    beta = torch.full_like(args[7], kernel.default_beta)
+    return args[:7] + (beta,) + args[8:]
 
 
 # the raw outputs of a K0 launch that a ResultSet also carries
@@ -730,102 +776,190 @@ K0_KEYS = ("done", "n_events", "resp_sum", "slow_sum", "max_response",
            "overflow", "stalled")
 
 
-def k0_differs(np, out, want):
+def k0_differs(np, out, want, policy=None):
     """The keys in which K0's raw outputs ``out`` differ at all from
     ``want``: another launch's outputs, or a ResultSet of the Fig. 5
-    lanes (policy 0, trace 0, every capacity, beta 0)."""
+    lanes (``policy``'s, trace 0, every capacity, beta 0)."""
     def lanes(v):
-        return (v.cpu().numpy() if hasattr(v, "cpu") else v[0, 0, :, 0])
+        if hasattr(v, "cpu"):
+            return v.cpu().numpy()
+        return v[want.coords["policy"].index(policy), 0, :, 0]
     return [k for k in K0_KEYS
             if not np.array_equal(lanes(out[k]), lanes(want[k]))]
 
 
-def k0_timed(torch, K0, args, kw, reps=3):
+def k0_timed(torch, K0, kernel, args, kw, reps=3):
     """K0 alone on ``args`` by CUDA events (not counted in a path's
     launches): the median time (ms), the last launch's outputs and its
-    inline FRP scan counts."""
-    from repro_torch.core.policies import KERNELS
+    (L, 3) policy counts (FRP scans, head scans, timer events)."""
     ms = []
+    args = with_beta(torch, args, kernel)
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = K0.event_loop(*args, kernel=KERNELS["esff"], **kw)
+        out = K0.event_loop(*args, kernel=kernel, **kw)
         e1.record()
         e1.synchronize()
         ms.append(e0.elapsed_time(e1))
-    return sorted(ms)[reps // 2], out, K0.event_loop.last_scans.tolist()
+    variant = K0.variant_of(kernel)
+    return (sorted(ms)[reps // 2], out,
+            K0.event_loop.last_by_variant[variant].tolist())
 
 
-def k0_bound(n_requests, n_fns, lanes, done, n_events):
+def k0_bound(n_requests, n_fns, lanes, n_events, counts, timers_pick):
     """K0's least time on the card for this run's work: the trace read
     once (fn_id, arrival, exec_time, pos_rids: 32 B a request; pos_off,
     t_cold, t_evict by function) and the results written once (counters,
-    sums, histogram, scan counts), against the FRP scans' f64 operations
-    (~12 a function a completion: the mean, Eq. 7, Eq. 10, the compare)
-    plus ~20 an event (the pick, the handlers, the fold)."""
+    sums, histogram, policy counts), against the f64 operations: ~12 a
+    function an FRP scan (the mean, Eq. 7, Eq. 10, the compare), ~4 a
+    function a head scan (the mean, the compare), 2 a function an event
+    for OpenWhisk-v2's pick over its timer rail (``timers_pick``), and
+    ~20 an event (the pick, the handlers, the fold). ``counts`` holds
+    each lane's (FRP scans, head scans, timer events)."""
     n_bytes = (32 * n_requests + 8 * (n_fns + 1) + 16 * n_fns
-               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 8))
-    n_ops = 12 * n_fns * sum(done) + 20 * sum(n_events)
+               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 3 * 8))
+    events = sum(n_events)
+    n_ops = (12 * n_fns * sum(c[0] for c in counts)
+             + 4 * n_fns * sum(c[1] for c in counts)
+             + (2 * n_fns * events if timers_pick else 0) + 20 * events)
     return bound_ms(n_bytes, n_ops, "f64")
 
 
-def phase_main_path(torch, np, api, fs, K0, n_requests):
-    spec = fig5_spec(api, n_requests, "cuda")
-    spec.expanded_traces()[0].arrays()   # trace generation is set-up
+def reset_counts(fs, K0):
     fs.frp_select.launches = 0
     fs.frp_select_lanes.launches = 0
     K0.event_loop.launches = 0
+    K0.event_loop.variant_launches = {}
+    K0.event_loop.last_by_variant = {}
+
+
+def check_counts(K0, phase, kernels, lanes, n_requests, got, counts):
+    """Each policy's policy counts of its launch: one FRP scan a
+    completion in the ESFF variants (none elsewhere), head scans in the
+    central queue's, and the timer events (the events that are neither
+    a slot's nor an arrival) in OpenWhisk-v2's."""
+    for p, kernel in kernels.items():
+        v = K0.variant_of(kernel)
+        c = counts[v]
+        frp = [x[0] for x in c]
+        head = [x[1] for x in c]
+        tmr = [x[2] for x in c]
+        timers = [e - n_requests - d - k for e, d, k in
+                  zip(got[p]["n_events"], got[p]["done"],
+                      got[p]["cold_starts"])]
+        need(frp == (got[p]["done"] if v.startswith("esff")
+                     else [0] * lanes),
+             f"{phase}: {p}: inline FRP scans {frp}, not one a completion "
+             "in an ESFF variant and none elsewhere")
+        central = v in ("sff", "fifo", "faascache")
+        need(all((h > 0) == central for h in head),
+             f"{phase}: {p}: head scans {head}")
+        need(tmr == (timers if v == "openwhisk_v2" else [0] * lanes),
+             f"{phase}: {p}: timer events {tmr}, expected {timers}")
+
+
+def run_grid(torch, api, fs, K0, spec):
+    """One run of ``spec`` on the card with the launch counts set to 0
+    just before and read just after: the ResultSet, the wall time, the
+    launches (all, by variant, K1's own entry, the eager loop's) and
+    each variant's policy counts."""
+    for src in spec.expanded_traces():
+        src.arrays()                      # trace generation is set-up
+    reset_counts(fs, K0)
+    plain0 = K0.event_loop.plain_calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rs = api.run_experiment(spec)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"event_loop": K0.event_loop.launches,
-                "frp_select": fs.frp_select_lanes.launches}
-    scans = K0.event_loop.last_scans.tolist()
+    launches = dict(event_loop=K0.event_loop.launches,
+                    by_variant=dict(K0.event_loop.variant_launches),
+                    frp_select=fs.frp_select_lanes.launches,
+                    plain_calls=K0.event_loop.plain_calls - plain0)
+    counts = {v: c.tolist() for v, c in K0.event_loop.last_by_variant.items()}
+    return rs, wall, launches, counts
+
+
+def check_grid(K0, phase, rs, launches, counts, exp, labels, n_requests):
+    """The launches and policy counts of a grid's run, and each policy's
+    lanes against its JAX constants ``exp`` (None: not held): (per-policy
+    results, mismatches, bitwise)."""
+    from repro_torch.core.policies import KERNELS
+    kernels = {p: KERNELS[p] for p in POLICIES}
     rs.check()
-    got = {k: lane_values(rs, k) for k in
-           ("done", "overflow", "stalled", "cold_starts", "evictions",
-            "n_events", "mean_response", "mean_slowdown",
-            "max_response")}
-    chunks = -(-len(CAPACITIES) // rs.meta["lane_chunk"])
-    need(all(d == n_requests for d in got["done"]),
-         f"main_path: done {got['done']} != {n_requests}")
-    need(launches["event_loop"] == chunks,
-         f"main_path: event_loop launched {launches['event_loop']} times, "
-         f"not once a lane chunk ({chunks})")
+    chunks = -(-len(labels) // rs.meta["lane_chunk"])
+    want = {K0.variant_of(k): chunks for k in kernels.values()}
+    need(launches["event_loop"] == len(POLICIES) * chunks
+         and launches["by_variant"] == want,
+         f"{phase}: event_loop launched {launches['by_variant']}, not once "
+         f"a policy a lane chunk ({want})")
     need(launches["frp_select"] == 0,
-         f"main_path: frp_select_lanes launched {launches['frp_select']} "
+         f"{phase}: frp_select_lanes launched {launches['frp_select']} "
          "times: K1 runs inline in K0 on this path")
-    need(scans == [n_requests] * len(CAPACITIES),
-         f"main_path: inline FRP scans {scans}, not one a completion")
-    exp = EXPECTED.get(n_requests)
-    mismatch, bitwise = ([], False) if exp is None else held_against(exp,
-                                                                    got)
-    events = sum(got["n_events"])
-    steps = max(got["n_events"])
-    # K0 alone by events on the Fig. 5 inputs lowered again, held
-    # bitwise to the runner's launch above, so the timed work is its
+    need(launches["plain_calls"] == 0,
+         f"{phase}: a built-in policy took the eager loop "
+         f"({launches['plain_calls']} calls)")
+    got = {p: {k: lanes_of(rs, k, p) for k in HELD} for p in POLICIES}
+    check_counts(K0, phase, kernels, len(labels), n_requests, got, counts)
+    mismatch, bitwise = [], exp is not None
+    for p in POLICIES if exp is not None else ():
+        mm, bw = held_against(exp[p], got[p], labels)
+        mismatch += [f"{p}: {m}" for m in mm]
+        bitwise &= bw
+    return got, mismatch, bitwise
+
+
+def phase_main_path(torch, np, api, fs, K0, exp_all, n_requests):
+    from repro_torch.core.policies import KERNELS
+    spec = fig5_spec(api, n_requests, "cuda")
+    rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+    exp = exp_all["fig5"].get(str(n_requests))
+    labels = [f"C={c}" for c in CAPACITIES]
+    got, mismatch, bitwise = check_grid(K0, "main_path", rs, launches,
+                                        counts, exp, labels, n_requests)
+    # each policy's K0 alone by events on the Fig. 5 inputs lowered
+    # again, held bitwise to the runner's launch above, so the timed
+    # work is its
     args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
-    k0_ms, out, k0_scans = k0_timed(torch, K0, args, kw)
-    timed_differs = k0_differs(np, out, rs)
-    need(not timed_differs and k0_scans == scans,
-         f"main_path: the timed K0 launches differ from the runner's in "
-         f"{timed_differs} (scans {k0_scans} vs {scans})")
-    b, by = k0_bound(n_requests, kw["n_fns"], len(CAPACITIES),
-                     got["done"], got["n_events"])
+    per = {}
+    for p in POLICIES:
+        kernel = KERNELS[p]
+        v = K0.variant_of(kernel)
+        k0_ms, out, pc = k0_timed(torch, K0, kernel, args, kw)
+        differs = k0_differs(np, out, rs, p)
+        need(not differs and pc == counts[v],
+             f"main_path: {p}: the timed K0 launches differ from the "
+             f"runner's in {differs} (policy counts {pc} vs {counts[v]})")
+        steps = max(got[p]["n_events"])
+        b, by = k0_bound(n_requests, kw["n_fns"], len(CAPACITIES),
+                         got[p]["n_events"], pc, v == "openwhisk_v2")
+        per[p] = dict(variant=v, k0_ms=k0_ms, n_events=got[p]["n_events"],
+                      longest_lane_events=steps,
+                      k0_us_per_event=1e3 * k0_ms / steps,
+                      bound_ms=b, bound_by=by,
+                      mean_response=got[p]["mean_response"],
+                      cold_starts=got[p]["cold_starts"],
+                      policy_counts=[sum(x[i] for x in pc)
+                                     for i in range(3)])
+    # queue_cap only bounds a backlog: ESFF's lanes at the former 4096
+    # are bitwise the runner's at QUEUE_CAP
+    args4, kw4 = fig5_inputs(torch, api, n_requests, torch.device("cuda"),
+                             queue_cap=4096)
+    _, out4, _ = k0_timed(torch, K0, KERNELS["esff"], args4, kw4, reps=1)
+    cap_differs = k0_differs(np, out4, rs, "esff")
+    need(not cap_differs, f"main_path: ESFF at queue_cap 4096 differs from "
+         f"{QUEUE_CAP} in {cap_differs}")
     res = dict(phase="main_path", n_requests=n_requests,
-               capacities=list(CAPACITIES), wall_s=wall,
-               req_per_s=len(CAPACITIES) * n_requests / wall,
-               n_events=got["n_events"], events_total=events,
-               us_per_event=1e6 * wall / steps,
-               k0_ms=k0_ms, k0_us_per_event=1e3 * k0_ms / steps,
-               bound_ms=b, bound_by=by,
-               mean_response=got["mean_response"],
-               cold_starts=got["cold_starts"], launches=launches,
-               frp_scans=scans, held_against_jax=exp is not None,
-               bitwise_vs_jax=bitwise, mismatch=mismatch)
+               capacities=list(CAPACITIES), policies=list(POLICIES),
+               queue_cap=QUEUE_CAP, wall_s=wall,
+               req_per_s=len(POLICIES) * len(CAPACITIES) * n_requests / wall,
+               events_total=sum(sum(got[p]["n_events"]) for p in POLICIES),
+               k0_ms_total=sum(r["k0_ms"] for r in per.values()),
+               per_policy=per, launches=launches,
+               esff_queue_cap_4096_bitwise=True,
+               held_against_jax=exp is not None, bitwise_vs_jax=bitwise,
+               mismatch=mismatch)
     emit(res)
     need(not mismatch, "main_path: differs from the JAX package: "
          + "; ".join(mismatch))
@@ -834,35 +968,62 @@ def phase_main_path(torch, np, api, fs, K0, n_requests):
     return res
 
 
-def phase_eager_card(torch, np, api, K0, n_requests=2000):
-    """The plain version of K0, the eager loop, on the card (every op of
-    a step its own launch, K1 its own kernel), and K0 on the same
-    inputs: each one's time, held bitwise to each other."""
-    from repro_torch.core import engine as E
-    from repro_torch.core.policies import KERNELS
-    args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eager = E.simulate_eager(*args, kernel=KERNELS["esff"], **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k0_ms, out, _ = k0_timed(torch, K0, args, kw)
-    differs = k0_differs(np, out, eager)
-    # the loop runs whole segments of SEG steps until every lane is done
-    steps = -(-int(eager["n_events"].max()) // E.SEG) * E.SEG
-    res = dict(phase="eager_card", n_requests=n_requests,
-               plain_ms=1e3 * wall, event_steps=steps,
-               plain_ms_per_step=1e3 * wall / steps, k0_ms=k0_ms,
-               k0_differs=differs)
+def phase_fig6(torch, api, fs, K0, exp_all, n_requests):
+    spec = fig6_spec(api, n_requests, "cuda")
+    rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+    exp = exp_all["fig6"].get(str(n_requests))
+    need(exp is not None, f"fig6: no JAX constants at N = {n_requests}")
+    labels = [f"ratio={r:g}" for r in RATIOS]
+    got, mismatch, bitwise = check_grid(K0, "fig6", rs, launches, counts,
+                                        exp, labels, n_requests)
+    res = dict(phase="fig6", n_requests=n_requests, ratios=list(RATIOS),
+               capacity=FIG6_CAPACITY, queue_cap=QUEUE_CAP, wall_s=wall,
+               launches=launches,
+               mean_response={p: got[p]["mean_response"] for p in POLICIES},
+               n_events={p: got[p]["n_events"] for p in POLICIES},
+               bitwise_vs_jax=bitwise, mismatch=mismatch)
     emit(res)
-    need(not differs, f"eager_card: K0 and the eager loop differ in "
-         f"{differs}")
+    need(not mismatch, "fig6: differs from the JAX package: "
+         + "; ".join(mismatch))
+    need(bitwise, "fig6: within RTOL of the JAX package but not bitwise")
     return res
 
 
-def phase_wide(torch, api, K0):
-    spec = fig5_spec(api, WIDE["n_requests"], "cuda", seeds=WIDE["seeds"],
-                     capacities=WIDE["capacities"], lane_chunk=256)
+def phase_eager_card(torch, np, api, K0):
+    """The plain version of K0, the eager loop, on the card (every op of
+    a step its own launch, K1 its own kernel) and K0 on the same inputs,
+    for every policy: each one's time, held bitwise to each other."""
+    from repro_torch.core import engine as E
+    from repro_torch.core.policies import KERNELS
+    rows = {}
+    for p in POLICIES:
+        n = EAGER_N.get(p, EAGER_N["default"])
+        kernel = KERNELS[p]
+        args, kw = fig5_inputs(torch, api, n, torch.device("cuda"))
+        args = with_beta(torch, args, kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = E.simulate_eager(*args, kernel=kernel, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k0_ms, out, _ = k0_timed(torch, K0, kernel, args, kw)
+        differs = k0_differs(np, out, eager)
+        # the loop runs whole segments of SEG steps until every lane is
+        # done
+        steps = -(-int(eager["n_events"].max()) // E.SEG) * E.SEG
+        rows[p] = dict(n_requests=n, plain_ms=1e3 * wall, event_steps=steps,
+                       plain_ms_per_step=1e3 * wall / steps, k0_ms=k0_ms,
+                       k0_differs=differs)
+    emit(dict(phase="eager_card", rows=rows))
+    bad = {p: r["k0_differs"] for p, r in rows.items() if r["k0_differs"]}
+    need(not bad, f"eager_card: K0 and the eager loop differ in {bad}")
+    return rows
+
+
+def phase_wide(torch, api, K0, exp_all):
+    spec = fig5_spec(api, WIDE["n_requests"], "cuda", policies=("esff",),
+                     seeds=WIDE["seeds"], capacities=WIDE["capacities"],
+                     lane_chunk=256)
     for src in spec.expanded_traces():
         src.arrays()                      # set-up
     K0.event_loop.launches = 0
@@ -874,9 +1035,10 @@ def phase_wide(torch, api, K0):
     rs.check()
     lanes = len(WIDE["seeds"]) * len(WIDE["capacities"])
     ix = [WIDE["capacities"].index(c) for c in CAPACITIES]
-    got = {k: [rs[k][0, 0, i, 0].item() for i in ix]
-           for k in EXPECTED[WIDE["n_requests"]]}
-    mismatch, bitwise = held_against(EXPECTED[WIDE["n_requests"]], got)
+    got = {k: [rs[k][0, 0, i, 0].item() for i in ix] for k in HELD}
+    mismatch, bitwise = held_against(
+        exp_all["fig5"][str(WIDE["n_requests"])]["esff"], got,
+        [f"C={c}" for c in CAPACITIES])
     ev = rs["n_events"]
     emit(dict(phase="wide", lanes=lanes, n_requests=WIDE["n_requests"],
               launches=K0.event_loop.launches, wall_s=wall,
@@ -897,21 +1059,27 @@ def parity_failures(np, card, cpu):
 
 
 def phase_parity(np, api, n_requests=2000):
+    """Every policy's Fig. 5 lanes at N = 2,000 on the card (K0) and on
+    the CPU (the eager loop), bitwise on every metric, and a planted
+    one-ulp fault that must be rejected. Returns each policy's largest
+    absolute difference."""
     t0 = time.perf_counter()
     card = api.run_experiment(fig5_spec(api, n_requests, "cuda"))
     t1 = time.perf_counter()
     cpu = api.run_experiment(fig5_spec(api, n_requests, "cpu"))
     t2 = time.perf_counter()
     bad = parity_failures(np, card, cpu)
-    max_abs = max(float(np.abs(card[k].astype(np.float64)
-                               - cpu[k].astype(np.float64)).max())
-                  for k in cpu.data)
+    max_abs = {p: max(float(np.abs(card[k][pi].astype(np.float64)
+                                   - cpu[k][pi].astype(np.float64)).max())
+                      for k in cpu.data)
+               for pi, p in enumerate(card.coords["policy"])}
     # a planted fault: one ulp off in one lane's resp_sum
     card.data["resp_sum"] = card["resp_sum"].copy()
     v = card.data["resp_sum"].reshape(-1)
     v[3] = np.nextafter(v[3], np.inf)
     fault = parity_failures(np, card, cpu)
-    emit(dict(phase="parity", n_requests=n_requests, card_s=t1 - t0,
+    emit(dict(phase="parity", n_requests=n_requests,
+              policies=card.coords["policy"], card_s=t1 - t0,
               cpu_s=t2 - t1, metrics=sorted(cpu.data), failed=bad,
               max_abs_err=max_abs, planted_fault_caught=fault))
     need(not bad, f"parity: card and CPU differ in {bad}")
@@ -942,14 +1110,20 @@ def phase_profile(torch, api, n_requests):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     dev_us = sum(e.self_device_time_total for e in rows)
-    k0 = [e for e in rows if "event_loop" in e.key]
+    # one row a K0 variant (a policy), named by its instantiation
+    # (demangled, or not)
+    spell = {p: (PTXAS_NAME[p], "Policy<{}, {}, {}, {}>".format(
+        a[0], *("true" if x else "false" for x in a[1:])))
+        for p, a in POLICY_ARGS.items()}
+    k0 = {p: e.self_device_time_total / e.count / 1e3
+          for e in rows if "event_loop" in e.key
+          for p, names in spell.items() if any(n in e.key for n in names)}
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
     emit(dict(phase="profile", n_requests=n_requests, wall_s=wall,
               device_busy_s=dev_us * 1e-6,
               device_busy_share=dev_us * 1e-6 / wall,
               device_ops=sum(e.count for e in rows),
-              event_loop_device_ms=(k0[0].self_device_time_total
-                                    / k0[0].count / 1e3 if k0 else None),
+              event_loop_device_ms=k0,
               top=[dict(name=e.key[:80], count=e.count,
                         device_us=e.self_device_time_total)
                    for e in top]))
@@ -1830,10 +2004,12 @@ def main(argv=None) -> int:
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
         srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
+        exp = load_expected()
         main = timed("main_path", phase_main_path, torch, np, api, fs, K0,
-                     args.n_requests)
+                     exp, args.n_requests)
+        timed("fig6", phase_fig6, torch, api, fs, K0, exp, args.n_requests)
         eager = timed("eager_card", phase_eager_card, torch, np, api, K0)
-        timed("wide", phase_wide, torch, api, K0)
+        timed("wide", phase_wide, torch, api, K0, exp)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -1847,37 +2023,44 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     lanes = kres["lanes"]
-    steps = max(main["n_events"])
-    kernels = [dict(
-        name="event_loop", entry="event_loop", route="cuda",
-        source="src/repro_torch/csrc/event_loop.cu",
-        replaces="src/repro/core/jax_engine.py:1001",
-        pallas=False, note="engine work with no Pallas twin (K0): the "
-        "XLA while_loop of _simulate with ESFFKernel, K1 inline",
-        launches=main["launches"]["event_loop"], max_abs_err=parity_err,
-        ms=main["k0_ms"], ms_per_step=main["k0_ms"] / steps,
-        wall_s=main["wall_s"], plain_ms=eager["plain_ms"],
-        plain_n_requests=eager["n_requests"],
-        plain_ms_per_step=eager["plain_ms_per_step"],
-        ms_at_plain_n=eager["k0_ms"],
-        plain_note=f"the eager loop's run at N = {eager['n_requests']} "
-        f"(the main path's N = {main['n_requests']} would take minutes); "
-        f"ms_at_plain_n is K0 on those same inputs",
-        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=None,
-        ptxas=ptxas_lines(_build.BUILD_INFO.get("event_loop", {}).get(
-            "ptxas", ""), "event_loop"),
-        check="passed", at=f"(7 lanes, N = {main['n_requests']}, F = 200)"),
-        dict(
+    report = _build.BUILD_INFO.get("event_loop", {}).get("ptxas", "")
+    kernels = []
+    for p in POLICIES:
+        m, e = main["per_policy"][p], eager[p]
+        kernels.append(dict(
+            name=f"event_loop[{p}]", entry="event_loop", variant=m["variant"],
+            route="cuda", source="src/repro_torch/csrc/event_loop.cu",
+            replaces="src/repro/core/jax_engine.py:1001",
+            policy_kernel=POLICY_SOURCE[p], pallas=False,
+            note="engine work with no Pallas twin (K0): the XLA while_loop "
+            "of _simulate with this policy's hooks"
+            + (", K1 inline" if m["variant"].startswith("esff") else ""),
+            launches=main["launches"]["by_variant"][m["variant"]],
+            max_abs_err=parity_err[p], ms=m["k0_ms"],
+            us_per_event=m["k0_us_per_event"],
+            longest_lane_events=m["longest_lane_events"],
+            plain_ms=e["plain_ms"], plain_n_requests=e["n_requests"],
+            plain_ms_per_step=e["plain_ms_per_step"],
+            ms_at_plain_n=e["k0_ms"],
+            plain_note=f"the eager loop's run at N = {e['n_requests']} (the "
+            f"main path's N = {main['n_requests']} would take minutes to "
+            "hours); ms_at_plain_n is K0 on those same inputs",
+            bound_ms=m["bound_ms"], bound_by=m["bound_by"],
+            library_ms=None, ptxas=ptxas_lines(report, PTXAS_NAME[p]),
+            check="passed",
+            at=f"(7 lanes, N = {main['n_requests']}, F = 200)"))
+    kernels.append(dict(
         name="frp_select", entry="frp_select_lanes", route="cuda",
         source="src/repro_torch/csrc/frp_select.cu",
         replaces="src/repro/kernels/sched_weights.py:68",
         launches=main["launches"]["frp_select"], inlined_in="event_loop",
-        inline_scans=sum(main["frp_scans"]),
+        inline_scans=sum(main["per_policy"][p]["policy_counts"][0]
+                         for p in POLICIES),
         max_abs_err=lanes["max_abs_err"],
         ms=lanes["ms"], plain_ms=lanes["plain_ms"],
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
-        library_ms=None, check="passed", at="(7, 200) f64 lanes")]
+        library_ms=None, check="passed",
+        at="(7, 200) f64 lanes, with and without ESFF-H's coldK"))
     for name, source, replaces, at in SERVING_KERNELS:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)

@@ -5,7 +5,8 @@
     spec = ExperimentSpec(
         traces=[SyntheticTrace.make(n_functions=200, n_requests=60_000,
                                     seed=0, utilization=0.2)],
-        policies=("esff",), capacities=(8, 16, 32), queue_cap=4096)
+        policies=("esff", "openwhisk_v2"), capacities=(8, 16, 32),
+        queue_cap=8192)
     rs = run(spec).check()            # on CUDA; device="cpu" for the CPU
     print(rs.value("mean_response", capacity=16))
 """
@@ -13,12 +14,13 @@ from repro_torch.api.registry import (available_policies, get_kernel,
                                       register_policy, unregister_policy)
 from repro_torch.api.results import ResultSet
 from repro_torch.api.runner import run, run_experiment
-from repro_torch.api.spec import (ArrayTrace, ExperimentSpec,
-                                  SyntheticTrace, TraceSource,
+from repro_torch.api.spec import (ArrayTrace, ExperimentSpec, HeadTrace,
+                                  ScaledTrace, SyntheticTrace, TraceSource,
                                   as_trace_source)
 
 __all__ = [
     "ExperimentSpec", "TraceSource", "SyntheticTrace", "ArrayTrace",
+    "HeadTrace", "ScaledTrace",
     "as_trace_source", "ResultSet", "run", "run_experiment",
     "register_policy", "unregister_policy", "get_kernel",
     "available_policies",

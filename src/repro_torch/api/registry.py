@@ -6,10 +6,6 @@ from __future__ import annotations
 
 from typing import List
 
-# policies of the JAX package whose kernels are not ported yet
-NOT_PORTED = ("esff_h", "sff", "openwhisk", "faascache", "openwhisk_v2")
-
-
 def _kernels() -> dict:
     from repro_torch.core.policies import KERNELS
     return KERNELS
@@ -21,16 +17,11 @@ def available_policies() -> List[str]:
 
 
 def get_kernel(name: str):
-    """Kernel registered under ``name``. Raises NotImplementedError for
-    a policy of the JAX package not ported yet, KeyError (listing what
-    exists) for an unknown name."""
+    """Kernel registered under ``name``; KeyError (listing what exists)
+    for an unknown name."""
     kernels = _kernels()
     if name in kernels:
         return kernels[name]
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is not ported yet (ROADMAP Queue 1, item "
-            f"1); ported: {sorted(kernels)}")
     raise KeyError(f"unknown policy {name!r}; registered policies: "
                    f"{sorted(kernels)} (add your own with "
                    "repro_torch.api.register_policy)")

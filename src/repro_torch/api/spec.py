@@ -3,7 +3,9 @@
 Counterpart of `repro.api.spec` for the ported single-node engine. A
 trace source declares where a request stream comes from (a seeded
 synthetic generator or inline columnar arrays) and materialises it to
-the engine's columnar layout once (``arrays()``, cached). An
+the engine's columnar layout once (``arrays()``, cached); ``head(n)``
+and ``scaled(ratio)`` (Fig. 6) wrap a source as the paper's figures
+slice and re-intensify the shared trace. An
 `ExperimentSpec` declares a whole study -- sources x policies x
 capacities x betas plus the engine knobs -- as one validated value;
 `repro_torch.api.run_experiment` lowers it onto the engine's lanes.
@@ -62,6 +64,16 @@ class TraceSource:
                 v.setflags(write=False)
             object.__setattr__(self, "_cache", cached)
         return dict(cached)
+
+    def head(self, n: int) -> "TraceSource":
+        """First ``n`` requests (arrival order), same catalogue."""
+        return HeadTrace(base=self, n=int(n))
+
+    def scaled(self, ratio: float) -> "TraceSource":
+        """Inter-arrival intensity scaling (paper Fig. 6): arrivals are
+        multiplied by ``ratio`` (> 1 = lighter load), execution times
+        untouched."""
+        return ScaledTrace(base=self, ratio=float(ratio))
 
     def with_seed(self, seed: int) -> "TraceSource":
         """Re-seeded copy (generator-backed sources only)."""
@@ -162,6 +174,50 @@ class ArrayTrace(TraceSource):
 
     def __eq__(self, other):
         return self is other
+
+
+@dataclass(frozen=True)
+class HeadTrace(TraceSource):
+    """First-``n``-requests view of another source."""
+
+    base: TraceSource = None
+    n: int = 0
+
+    @property
+    def label(self) -> str:
+        return f"head{self.n}({self.base.label})"
+
+    def _materialise(self):
+        a = self.base.arrays()
+        out = {k: a[k][: self.n] for k in ("fn_id", "arrival",
+                                           "exec_time")}
+        out["cold_start"] = a["cold_start"]
+        out["evict"] = a["evict"]
+        return out
+
+    def with_seed(self, seed: int) -> "HeadTrace":
+        return replace(self, base=self.base.with_seed(seed))
+
+
+@dataclass(frozen=True)
+class ScaledTrace(TraceSource):
+    """Intensity-scaled view (arrivals x ``ratio``) of another source."""
+
+    base: TraceSource = None
+    ratio: float = 1.0
+
+    @property
+    def label(self) -> str:
+        return f"scale{self.ratio:g}({self.base.label})"
+
+    def _materialise(self):
+        a = self.base.arrays()
+        out = dict(a)
+        out["arrival"] = a["arrival"] * self.ratio
+        return out
+
+    def with_seed(self, seed: int) -> "ScaledTrace":
+        return replace(self, base=self.base.with_seed(seed))
 
 
 def as_trace_source(obj, name: str = "") -> TraceSource:

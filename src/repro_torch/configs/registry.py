@@ -22,11 +22,11 @@ _ARCH_MODULES = ["internlm2_20b", "qwen3_14b", "qwen1_5_4b", "qwen3_4b",
 
 # names of the JAX package's registry that the port does not build yet
 NOT_PORTED = {
-    "deepseek-v3-671b": "ROADMAP Queue 1, item 11 (MoE and MLA)",
-    "deepseek-moe-16b": "ROADMAP Queue 1, item 11 (MoE)",
-    "whisper-tiny": "ROADMAP Queue 1, item 11 (encoder-decoder)",
-    "internvl2-76b": "ROADMAP Queue 1, item 11 (VLM)",
-    "paper_edge": "ROADMAP Queue 1, item 11 (scenario configs)",
+    "deepseek-v3-671b": "ROADMAP Queue 1, item 9 (MoE and MLA)",
+    "deepseek-moe-16b": "ROADMAP Queue 1, item 9 (MoE)",
+    "whisper-tiny": "ROADMAP Queue 1, item 9 (encoder-decoder)",
+    "internvl2-76b": "ROADMAP Queue 1, item 9 (VLM)",
+    "paper_edge": "ROADMAP Queue 1, item 1 (scenario configs)",
 }
 
 

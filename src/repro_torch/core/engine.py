@@ -1,9 +1,10 @@
 """Lane-batched event engine for a C-slot edge server, in PyTorch.
 
-Port of `repro.core.jax_engine` (single window, no timers): the state
+Port of `repro.core.jax_engine` in its single-window form: the state
 layout, the queue ops, the slot primitives (`dispatch` / `start_cold`),
-the running-mean estimator, the per-event metric fold and the event
-loop. Decisions live in policy kernels (`repro_torch.core.policies`).
+the timer rail, the running-mean estimator, the per-event metric fold
+and the event loop. Decisions live in policy kernels
+(`repro_torch.core.policies`).
 Every array carries a leading *lane* dimension L, one lane per sweep
 point (trace x capacity x beta), where the JAX engine used ``vmap``.
 
@@ -20,6 +21,13 @@ indexes, int32 for counts, float64 for every time):
           stable argsort of fn_id): q_head_pos, q_head_rid, q_len (L, F)
   est:    est_sum (L, F) f64 / est_n (L, F) running means, with the
           global mean (g_sum / g_n), then ``prior``, as fallback
+  timers: (only for a kernel with ``has_timers``) original timers fire
+          at arrival + threshold in arrival order, so the rail rides the
+          per-function positions: tmr_pos (L, F) i32 is the next
+          position whose timer fires, arr_cnt (L, F) i32 counts arrived
+          positions, tmr_next (L, F) f64 is the head fire time (BIG when
+          idle). Re-arms (only ever the queue head) keep the one-entry
+          cache rearm_t (L, F) f64 / rearm_rid (L, F)
   ctrs:   one (L,) tensor per counter: ``next`` (arrival cursor),
           ``done``, ``iters`` (processed events), ``stall``, ``seq``,
           ``cold``, ``evict``, ``ovf`` and the f64 sums ``cold_t``,
@@ -31,20 +39,22 @@ indexes, int32 for counts, float64 for every time):
           (L, N) per request.
 
 Event arbitration is the reference's: one first-index argmin over the
-packed candidate times [BUSY slots | COLD slots | next arrival] per
-lane, so at equal times EXEC_DONE < COLD_DONE < ARRIVAL and the slot
-index breaks ties within a class. Writes are guarded: a disabled write
-(``on`` false, or an index out of range) matches no element of its
-one-hot mask, which is where the JAX engine sent writes to a dropped
-sentinel index. Each f64 accumulation touches one element per lane per
-event, in event order, so sums are deterministic on every device and
-streamed sums are bitwise the exact-mode ones.
+packed candidate times [BUSY slots | COLD slots | (original timers |
+re-arms) | next arrival] per lane, so at equal times EXEC_DONE <
+COLD_DONE < TIMER (original < re-arm) < ARRIVAL and the slot or
+function index breaks ties within a class. Writes are guarded: a
+disabled write (``on`` false, or an index out of range) matches no
+element of its one-hot mask, which is where the JAX engine sent writes
+to a dropped sentinel index. Each f64 accumulation touches one element
+per lane per event, in event order, so sums are deterministic on every
+device and streamed sums are bitwise the exact-mode ones.
 
-Two routes run this loop. `simulate` sends a built-in ESFF policy to
-the event-loop kernel `repro_torch.kernels.event_loop` (K0): on a CUDA
-device one launch per lane chunk runs every event of every lane, and on
-the CPU the wrapper takes its plain version, `simulate_eager`. Any
-other `PolicyKernel` runs `simulate_eager` on either device. The eager
+Two routes run this loop. `simulate` sends a built-in policy (the four
+kernel classes of `repro_torch.core.policies`) to the event-loop kernel
+`repro_torch.kernels.event_loop` (K0): on a CUDA device one launch per
+lane chunk runs every event of every lane, and on the CPU the wrapper
+takes its plain version, `simulate_eager`. Any other `PolicyKernel` (a
+subclass too) runs `simulate_eager` on either device. The eager
 loop runs SEG events between termination checks (the host reads one
 flag per segment, never inside an event step) and launches every op of
 the step separately, ~418 ops a step on a GPU: it is the kernel's plain
@@ -121,7 +131,8 @@ class EngineCtx:
     its single-window form: every read goes to the full trace."""
 
     def __init__(self, *, fn_id, arrival, exec_time, t_cold_l, t_evict_l,
-                 trace_ix, cap_mask, beta, prior, f, c, q, stream):
+                 trace_ix, cap_mask, beta, prior, f, c, q, stream,
+                 threshold=0.1):
         N = fn_id.shape[1]
         dev = fn_id.device
         self.N, self.F, self.C, self.Q = N, f, c, q
@@ -140,6 +151,7 @@ class EngineCtx:
         self.cap_mask = cap_mask         # (L, C) bool
         self.beta = beta                 # (L,) f64
         self.prior = prior
+        self.threshold = threshold       # timer delay (timer policies)
         self.lanes = torch.arange(self.L, device=dev)
         self.ar_c = torch.arange(c, device=dev)
         self.ar_f = torch.arange(f, device=dev)
@@ -187,7 +199,8 @@ class EngineCtx:
         """Append ``rid`` (by construction the next arrival position of
         ``fn``): only the length moves, plus the head cache when the
         queue was empty. A push onto a full backlog (q_len ==
-        queue_cap) is dropped and counted in ``ovf``."""
+        queue_cap) is dropped and counted in ``ovf``. Returns whether
+        it pushed, (L,) bool."""
         q0 = self.row(s["q_len"], fn, self.F)
         full = q0 >= self.Q
         do = on & ~full
@@ -195,6 +208,7 @@ class EngineCtx:
                                       rid[:, None], s["q_head_rid"])
         s["q_len"] = s["q_len"] + _hit(do, fn, self.ar_f)
         s["ovf"] = s["ovf"] + (on & full)
+        return do
 
     def q_consume_direct(self, s, fn, on):
         """Account a directly dispatched arrival: its (empty-queue)
@@ -221,7 +235,8 @@ class PolicyKernel:
     every lane and folds its ``on`` (L,) predicate into every write;
     the engine has already done the policy-independent bookkeeping
     (arrival cursor, estimator update and slot release) before it
-    calls a hook. Hooks update the state dict ``s`` in place.
+    calls a hook (and, for a timer event, consumed the timer). Hooks
+    update the state dict ``s`` in place.
 
     Queue contract: every enabled ``on_arrival`` consumes exactly one
     queue position of the request's function -- ``q_push`` when it
@@ -232,6 +247,12 @@ class PolicyKernel:
     has_timers = False
     default_beta = 1.0
 
+    def extra_state(self, L, C, F) -> Dict[str, torch.Tensor]:
+        """Kernel-private state tensors (leading L), e.g. FaasCache's
+        per-slot GREEDY-DUAL bookkeeping; the engine moves them to the
+        run's device. Keys must not collide with the engine's."""
+        return {}
+
     def on_arrival(self, ctx, s, rid, t, on):
         raise NotImplementedError
 
@@ -240,6 +261,10 @@ class PolicyKernel:
 
     def on_exec_done(self, ctx, s, slot, rid, t, on):
         raise NotImplementedError
+
+    def on_timer(self, ctx, s, rid, t, on):
+        """A timer of request ``rid`` fires (kernels with
+        ``has_timers``)."""
 
 
 # --------------------------------------------------------------- helpers
@@ -268,6 +293,43 @@ def k_counts(ctx, s):
     """|K^j| -- slots assigned to each function, any state: (L, F)
     int32, contiguous."""
     return (s["slot_fn"][:, :, None] == ctx.ar_f).sum(1, dtype=torch.int32)
+
+
+def cold_counts(ctx, s):
+    """Slots warming up (state COLD) per function: (L, F) int32."""
+    warming = (s["slot_state"] == COLD)[:, :, None]
+    return ((s["slot_fn"][:, :, None] == ctx.ar_f) & warming).sum(
+        1, dtype=torch.int32)
+
+
+def q_head(ctx, s, fn):
+    """Head request id of ``fn``'s queue, (L,) (garbage when empty:
+    callers gate on ``q_len``)."""
+    return ctx.row(s["q_head_rid"], fn, ctx.F)
+
+
+def arm_timer(ctx, s, fn, t, pushed, on):
+    """Account the original timer of an arrival of ``fn`` at ``t``, the
+    newest entry of ``fn``'s timer rail (its position identifies the
+    request). If the rail is idle (this arrival is
+    its head) a *pushed* arrival arms the head fire time, while one
+    that was not pushed is consumed silently; an arrival behind a busy
+    rail stays armed and later fires as a no-op (its is-head gate
+    fails)."""
+    rail_head = (ctx.row(s["tmr_pos"], fn, ctx.F)
+                 == ctx.row(s["arr_cnt"], fn, ctx.F) - 1)
+    m = _hit(on & rail_head & pushed, fn, ctx.ar_f)
+    s["tmr_next"] = torch.where(m, (t + ctx.threshold)[:, None],
+                                s["tmr_next"])
+    s["tmr_pos"] = s["tmr_pos"] + _hit(on & rail_head & ~pushed, fn,
+                                       ctx.ar_f)
+
+
+def rearm_timer(ctx, s, fn, rid, t_fire, on):
+    """Re-arm the (unique) blocked queue head of ``fn`` at ``t_fire``."""
+    m = _hit(on, fn, ctx.ar_f)
+    s["rearm_t"] = torch.where(m, t_fire[:, None], s["rearm_t"])
+    s["rearm_rid"] = torch.where(m, rid[:, None], s["rearm_rid"])
 
 
 def idle_own(ctx, s, fn):
@@ -392,7 +454,8 @@ def percentile_linear(x, q: float):
 
 
 # ------------------------------------------------------------ event loop
-def _init_state(L, C, F, N, stream, dev) -> Dict[str, torch.Tensor]:
+def _init_state(kernel, L, C, F, N, stream, dev
+                ) -> Dict[str, torch.Tensor]:
     i64, i32, f64 = torch.int64, torch.int32, torch.float64
     s = dict(
         slot_fn=torch.full((L, C), -1, dtype=i64, device=dev),
@@ -417,20 +480,35 @@ def _init_state(L, C, F, N, stream, dev) -> Dict[str, torch.Tensor]:
         s["start"] = torch.full((L, N + 1), -1.0, dtype=f64, device=dev)
         s["completion"] = torch.full((L, N + 1), -1.0, dtype=f64,
                                      device=dev)
+    if kernel.has_timers:
+        s["arr_cnt"] = torch.zeros((L, F), dtype=i32, device=dev)
+        s["tmr_pos"] = torch.zeros((L, F), dtype=i32, device=dev)
+        s["tmr_next"] = torch.full((L, F), BIG, dtype=f64, device=dev)
+        s["rearm_t"] = torch.full((L, F), BIG, dtype=f64, device=dev)
+        s["rearm_rid"] = torch.full((L, F), -1, dtype=i64, device=dev)
+    for k, v in kernel.extra_state(L, C, F).items():
+        if k in s:
+            raise ValueError(f"policy {kernel.name!r}: extra_state key "
+                             f"{k!r} collides with the engine's state")
+        s[k] = v.to(dev)
     return s
 
 
 def _event_step(ctx, kernel, s, max_iters):
     """One event for every lane: pick, handle, fold."""
-    N, C = ctx.N, ctx.C
-    # ---- pick: first-index argmin over [busy | cold | arrival]
+    N, C, F = ctx.N, ctx.C, ctx.F
+    timers = kernel.has_timers
+    # ---- pick: first-index argmin over
+    # [busy | cold | (original timers | re-arms) | arrival]
     na = s["next"]
     t_arr = torch.where(na < N, ctx.arrival_at(na), BIG)
     ready = torch.where(ctx.cap_mask, s["slot_ready"], BIG)
     st = s["slot_state"]
-    cand = torch.cat([torch.where(st == BUSY, ready, BIG),
-                      torch.where(st == COLD, ready, BIG),
-                      t_arr[:, None]], dim=1)
+    blocks = [torch.where(st == BUSY, ready, BIG),
+              torch.where(st == COLD, ready, BIG)]
+    if timers:
+        blocks += [s["tmr_next"], s["rearm_t"]]
+    cand = torch.cat(blocks + [t_arr[:, None]], dim=1)
     t_ev, ei = torch.min(cand, dim=1)   # first index of the minimum
 
     active = (s["done"] < N) & (s["stall"] == 0)
@@ -438,7 +516,7 @@ def _event_step(ctx, kernel, s, max_iters):
     ev_slot = live & (ei < 2 * C)
     is_cold = ei >= C
     slot = torch.where(is_cold, ei - C, ei).clamp(0, C - 1)
-    ev_arr = live & (ei == 2 * C) & (na < N)
+    ev_arr = live & (ei == cand.shape[1] - 1) & (na < N)
 
     # ---- slot event: release, estimator, then the policy hooks
     cold_on = ev_slot & is_cold
@@ -463,10 +541,38 @@ def _event_step(ctx, kernel, s, max_iters):
     kernel.on_cold_done(ctx, s, slot, t_ev, cold_on)
     kernel.on_exec_done(ctx, s, slot, rid_done, t_ev, exec_on)
 
+    # ---- timer: an original (arrival + threshold, in arrival order)
+    # or the re-armed head; the timer is consumed before the hook
+    ev_timer = torch.zeros_like(live)
+    if timers:
+        n0 = 2 * C
+        fire_orig = live & (ei >= n0) & (ei < n0 + F)
+        fire_re = live & (ei >= n0 + F) & (ei < n0 + 2 * F)
+        ev_timer = fire_orig | fire_re
+        f_o = (ei - n0).clamp(0, F - 1)
+        f_r = (ei - n0 - F).clamp(0, F - 1)
+        p_o = ctx.row(s["tmr_pos"], f_o, F)
+        rid_o = ctx.rid_at_pos(f_o, p_o)
+        succ = ctx.rid_at_pos(f_o, p_o + 1)
+        more = p_o + 1 < ctx.row(s["arr_cnt"], f_o, F)
+        mo = _hit(fire_orig, f_o, ctx.ar_f)
+        s["tmr_pos"] = s["tmr_pos"] + mo
+        nxt = torch.where(more, ctx.arrival_at(succ) + ctx.threshold, BIG)
+        s["tmr_next"] = torch.where(mo, nxt[:, None], s["tmr_next"])
+        rid_r = ctx.row(s["rearm_rid"], f_r, F)
+        s["rearm_t"] = torch.where(_hit(fire_re, f_r, ctx.ar_f), BIG,
+                                   s["rearm_t"])
+        kernel.on_timer(ctx, s, torch.where(fire_orig, rid_o, rid_r), t_ev,
+                        ev_timer)
+
     # ---- arrival
+    rid_a = na.clamp(max=N - 1)
     s["next"] = na + ev_arr
-    s["iters"] = s["iters"] + (ev_slot | ev_arr)
-    kernel.on_arrival(ctx, s, na.clamp(max=N - 1), t_arr, ev_arr)
+    s["iters"] = s["iters"] + (ev_slot | ev_timer | ev_arr)
+    if timers:
+        s["arr_cnt"] = s["arr_cnt"] + _hit(ev_arr, ctx.fn_at(rid_a),
+                                           ctx.ar_f)
+    kernel.on_arrival(ctx, s, rid_a, t_arr, ev_arr)
 
     _fold_event(ctx, s)
     s["stall"] = torch.where(
@@ -483,20 +589,17 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     Trace arrays are shared (T, ...) tensors; ``trace_ix`` (L,) int64,
     ``cap_mask`` (L, C) bool and ``beta`` (L,) f64 carry the lane
     dimension. All tensors must sit on one device; the run stays
-    there. ``threshold`` belongs to the timer policies and is unused
-    by the ported ones. Returns per-lane counters (int32), f64 sums
-    and the histogram; in exact mode also start/completion (L, N).
+    there. ``threshold`` is the timer policies' delay: a timer fires
+    ``threshold`` seconds after its arrival or re-arm. Returns per-lane
+    counters (int32), f64 sums and the histogram; in exact mode also
+    start/completion (L, N).
 
-    A built-in ESFF policy goes to the event-loop kernel (one launch a
-    call on a CUDA device, its plain version `simulate_eager` on the
-    CPU); any other `PolicyKernel` runs `simulate_eager`. The route is
-    chosen by the policy's type, never by a failed build."""
+    A built-in policy goes to the event-loop kernel (one launch a call
+    on a CUDA device, its plain version `simulate_eager` on the CPU);
+    any other `PolicyKernel` runs `simulate_eager`. The route is chosen
+    by the policy's type, never by a failed build."""
     _reject_unported(window=window, tl_bins=tl_bins, n_live=n_live,
                      deadlines=deadlines)
-    if kernel.has_timers:
-        raise NotImplementedError(
-            f"policy {kernel.name!r} arms timers: the timer rail is not "
-            "ported yet (ROADMAP Queue 1, item 1)")
     from repro_torch.kernels import event_loop as K0
     f64 = torch.float64
     args = (fn_id.to(torch.int64).contiguous(),
@@ -506,7 +609,8 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             cap_mask.to(torch.bool).contiguous(), beta.to(f64).contiguous(),
             float(prior))
     kw = dict(kernel=kernel, n_fns=n_fns, capacity=capacity,
-              queue_cap=queue_cap, stream=stream)
+              queue_cap=queue_cap, stream=stream,
+              threshold=float(threshold))
     if K0.has_device_loop(kernel):
         return K0.event_loop(*args, **kw)
     return simulate_eager(*args, **kw)
@@ -514,7 +618,8 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
 def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                    cap_mask, beta, prior, *, kernel, n_fns, capacity,
-                   queue_cap, stream=False) -> Dict[str, torch.Tensor]:
+                   queue_cap, stream=False, threshold=0.1
+                   ) -> Dict[str, torch.Tensor]:
     """The eager event loop: `_event_step` over every lane, SEG steps
     between host checks, the policy's hooks run gated for every lane on
     every step. Inputs as `simulate` (int64 ``fn_id`` and ``trace_ix``,
@@ -529,8 +634,9 @@ def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
         t_cold_l=t_cold[trace_ix].contiguous(),
         t_evict_l=t_evict[trace_ix].contiguous(),
         trace_ix=trace_ix, cap_mask=cap_mask, beta=beta,
-        prior=float(prior), f=F, c=C, q=queue_cap, stream=stream)
-    s = _init_state(L, C, F, N, stream, dev)
+        prior=float(prior), f=F, c=C, q=queue_cap, stream=stream,
+        threshold=float(threshold))
+    s = _init_state(kernel, L, C, F, N, stream, dev)
     max_iters = max_events(N)
 
     def running():

@@ -21,6 +21,9 @@
 //     eps = 1e-9, beta = 1, one row, scalars by value.
 //   f64 (ENGINE = true): the engine's. No clamp on t_e (the running
 //     means are positive), eps = 1e-30, beta / t_v_j / self per lane.
+// ESFF-H's cold-aware term (jax_policies.py:133-134, n_e -= coldK after
+// Eq. 7) is the f64 entry's optional `cold_k` (L, F) i32: null for ESFF,
+// which then runs the COLD = false instantiation, the code it always ran.
 // The operations run in the reference's order and the library is built
 // with --fmad=false, so no multiply-add is contracted and each weight is
 // bitwise the plain PyTorch version's.
@@ -46,7 +49,7 @@
 
 namespace {
 
-template <typename T, bool ENGINE>
+template <typename T, bool ENGINE, bool COLD>
 __global__ void frp_select_kernel(const T* __restrict__ t_e,
                                   const T* __restrict__ t_l,
                                   const T* __restrict__ t_v,
@@ -55,6 +58,7 @@ __global__ void frp_select_kernel(const T* __restrict__ t_e,
                                   const T* __restrict__ tv_j_lanes,
                                   const int32_t* __restrict__ self_lanes,
                                   const T* __restrict__ beta_lanes,
+                                  const int32_t* __restrict__ cold_k,
                                   T tv_j0, int self0, int n_fns,
                                   T* __restrict__ best_w,
                                   int32_t* __restrict__ best_i) {
@@ -68,10 +72,10 @@ __global__ void frp_select_kernel(const T* __restrict__ t_e,
   T w_min = big;
   int i_min = n_fns;  // beyond every index: loses every tie
   for (int f = threadIdx.x; f < n_fns; f += blockDim.x) {
-    const T w = frp::weight<T, ENGINE>(
+    const T w = frp::weight<T, ENGINE, COLD>(
         t_e[row + f], t_l[row + f], t_v[row + f],
         static_cast<T>(n_w[row + f]), static_cast<T>(k_cnt[row + f]), tv_j,
-        beta, f != self);
+        beta, f != self, COLD ? static_cast<T>(cold_k[row + f]) : T(0));
     if (w < w_min) {  // f rises per thread: strict < keeps the first
       w_min = w;
       i_min = f;
@@ -109,10 +113,10 @@ extern "C" int frp_select_f32(const float* t_e, const float* t_l,
                               const int32_t* k_cnt, float tv_j,
                               int self_idx, int n_fns, float* best_w,
                               int32_t* best_i, void* stream) {
-  frp_select_kernel<float, false>
+  frp_select_kernel<float, false, false>
       <<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-          t_e, t_l, t_v, n_w, k_cnt, nullptr, nullptr, nullptr, tv_j,
-          self_idx, n_fns, best_w, best_i);
+          t_e, t_l, t_v, n_w, k_cnt, nullptr, nullptr, nullptr, nullptr,
+          tv_j, self_idx, n_fns, best_w, best_i);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -123,12 +127,18 @@ extern "C" int frp_select_lanes_f64(const double* means,
                                     const int32_t* k_cnt,
                                     const double* tv_j,
                                     const int32_t* self_idx,
-                                    const double* beta, int n_lanes,
+                                    const double* beta,
+                                    const int32_t* cold_k, int n_lanes,
                                     int n_fns, double* best_w,
                                     int32_t* best_i, void* stream) {
-  frp_select_kernel<double, true>
-      <<<n_lanes, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-          means, t_cold, t_evict, n_w, k_cnt, tv_j, self_idx, beta, 0.0,
-          0, n_fns, best_w, best_i);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cold_k == nullptr)
+    frp_select_kernel<double, true, false><<<n_lanes, 256, 0, st>>>(
+        means, t_cold, t_evict, n_w, k_cnt, tv_j, self_idx, beta, nullptr,
+        0.0, 0, n_fns, best_w, best_i);
+  else
+    frp_select_kernel<double, true, true><<<n_lanes, 256, 0, st>>>(
+        means, t_cold, t_evict, n_w, k_cnt, tv_j, self_idx, beta, cold_k,
+        0.0, 0, n_fns, best_w, best_i);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,13 +43,17 @@ __device__ __forceinline__ void warp_first_min(T& w, int& i) {
 //   w   = t_e + ((beta * (t_l + t_v)) * (K + 1)) / max(n_e, eps) (Eq. 10)
 // ENGINE = false is the TPU kernel's f32 contract (t_e clamped at 1e-9,
 // eps = 1e-9, beta = 1); ENGINE = true the engine's f64 contract (t_e
-// the running mean, unclamped; eps = 1e-30).
-template <typename T, bool ENGINE>
+// the running mean, unclamped; eps = 1e-30). COLD = true is ESFF-H's
+// cold-aware drain estimate: each instance still warming up claims one
+// waiting request, n_e -= coldK (the function's COLD slots) after Eq. 7;
+// with COLD = false `coldk` is never read.
+template <typename T, bool ENGINE, bool COLD = false>
 __device__ __forceinline__ T weight(T te, T tl, T tv, T nw, T k, T tv_j,
-                                    T beta, bool other) {
+                                    T beta, bool other, T coldk = T(0)) {
   const T eps = ENGINE ? T(1e-30) : T(1e-9);
   const T den = ENGINE ? te : clamp_lo(te, T(1e-9));
-  const T n_e = (nw + T(1)) - ((tl + tv_j) * k) / den;
+  T n_e = (nw + T(1)) - ((tl + tv_j) * k) / den;
+  if (COLD) n_e = n_e - coldk;
   const T w = te + ((beta * (tl + tv)) * (k + T(1))) / clamp_lo(n_e, eps);
   return (nw > T(0) && n_e > T(0) && other) ? w : T(1e30);
 }

@@ -1,21 +1,28 @@
-"""The ESFF event loop (K0): the CUDA kernel's wrapper and its plain
-version.
+"""The scheduling event loop (K0): the CUDA kernel's wrapper and its
+plain version.
 
 Port of the lane-batched XLA ``while_loop`` of
-`repro.core.jax_engine._simulate` with `repro.core.jax_policies`'
-``ESFFKernel``. The kernel is ``csrc/event_loop.cu`` (see its header
-for the design and the bound): one launch runs every lane of a chunk to
-completion, one warp a lane, with the FRP scan (K1,
-``csrc/frp_select.cuh``) inline. Its plain version is the eager loop,
-`repro_torch.core.engine.simulate_eager`, and the kernel's results are
-bitwise that loop's.
+`repro.core.jax_engine._simulate` with the policy kernels of
+`repro.core.jax_policies`. The kernel is ``csrc/event_loop.cu`` (see its
+header for the design and the bound): one launch runs every lane of a
+chunk to completion, one warp a lane, in the variant of the lane
+chunk's policy (`VARIANTS`): ESFF and ESFF-H with the FRP scan (K1,
+``csrc/frp_select.cuh``) inline, the central queue (SFF, OpenWhisk),
+FaasCache and OpenWhisk-v2 with its timer rail. Its plain version is the
+eager loop, `repro_torch.core.engine.simulate_eager`, and the kernel's
+results are bitwise that loop's.
 
 `event_loop` checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. CPU tensors go to the plain version
 (counted in ``plain_calls``); CUDA tensors launch the kernel (counted in
 ``launches``) or raise. There is no fallback from a failed build or
 launch to the plain version. `engine.simulate` routes a policy here by
-its type (`has_device_loop`).
+its type (`has_device_loop`). After a launch, ``last_scans`` (FRP
+scans, ESFF variants), ``last_head_scans`` (central-queue head scans)
+and ``last_timers`` (timer events, OpenWhisk-v2) hold its (L,) counts;
+``variant_launches`` counts the launches of each variant and
+``last_by_variant`` keeps each variant's last (L, 3) policy counts, so
+that a run over several policies can be read back policy by policy.
 """
 from __future__ import annotations
 
@@ -24,43 +31,92 @@ import ctypes
 import torch
 
 from repro_torch.core import engine as E
-from repro_torch.core.policies import ESFFKernel
+from repro_torch.core.policies import (CentralQueueKernel, ESFFKernel,
+                                       FaasCacheKernel, OpenWhiskV2Kernel)
 from repro_torch.kernels import _build
 
-# The kernel's layout: the bytes of one slot and of one function's
-# state, and the columns of its (L, 9) counters and (L, 6) sums. The
-# library reports its own (esff_event_loop_layout), and `_check_layout`
-# holds it to these once before the first launch.
-SLOT_BYTES = 40
-FN_BYTES = 52
+# The kernel's variants: the policy code of the C entry, the bytes of
+# one slot and of one function's state. ESFF's two flags add the last
+# dispatch time a slot (8 B: the LRU victim) and a COLD-slot count a
+# function (4 B); the central queue's LRU needs the slot's last use,
+# FaasCache a priority and a use count a slot (12 B), OpenWhisk-v2 the
+# last use and a timer rail a function (32 B).
+VARIANTS = {
+    "esff": dict(code=0, slot_bytes=40, fn_bytes=52),
+    "esff_cold": dict(code=1, slot_bytes=40, fn_bytes=56),
+    "esff_lru": dict(code=2, slot_bytes=48, fn_bytes=52),
+    "esff_h": dict(code=3, slot_bytes=48, fn_bytes=56),
+    "fifo": dict(code=4, slot_bytes=48, fn_bytes=52),
+    "sff": dict(code=5, slot_bytes=48, fn_bytes=52),
+    "faascache": dict(code=6, slot_bytes=52, fn_bytes=52),
+    "openwhisk_v2": dict(code=7, slot_bytes=48, fn_bytes=84),
+}
+# the columns of the kernel's (L, 9) counters, (L, 6) sums and (L, 3)
+# policy counts
 COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
             "evict", "ovf")
 SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
-LAYOUT = (SLOT_BYTES, FN_BYTES, E.HIST_BINS, *range(len(COUNTERS)),
-          len(COUNTERS), *range(len(SUMS)), len(SUMS))
-# the dynamic shared memory one block can have on an H100 (227 KB)
-SHARED_MAX = 232448
+POLICY_COUNTS = ("frp_scans", "head_scans", "timers")
+# the dynamic shared memory one block can have on an H100: 227 KB less
+# room for the kernel's static shared memory (its lane tallies, 72 B;
+# ptxas reports 80)
+SHARED_MAX = 232448 - 128
 _I32_LIMIT = 2 ** 31 - 1
 
 _P = _build.PTR
 _I, _LL, _D = ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = [_P] * 10 + [_D] + [_I] * 7 + [_P, _LL, _LL] + [_P] * 7
+_ARGTYPES = ([_I] + [_P] * 10 + [_D, _D] + [_I] * 7 + [_P, _LL, _LL]
+             + [_P] * 7)
+
+# the built-in kernel classes, each with its variants (`variant_of`)
+_BUILT_IN = (ESFFKernel, CentralQueueKernel, FaasCacheKernel,
+             OpenWhiskV2Kernel)
 
 
 def has_device_loop(kernel) -> bool:
-    """Whether ``kernel`` has the event-loop kernel's hooks: the
-    built-in ESFF policy (any name or default beta), not a subclass,
-    which may override a hook."""
-    return type(kernel) is ESFFKernel
+    """Whether ``kernel`` has the event-loop kernel's hooks: an instance
+    of one of the four built-in policy classes (any name, flags or
+    default beta), not of a subclass, which may override a hook."""
+    return type(kernel) in _BUILT_IN
 
 
-def layout_plan(n_fns: int, n_slots: int) -> dict:
-    """Where the kernel keeps a lane's state: the slots always in shared
-    memory; the per-function state beside them when both fit in one
-    block's shared memory, else in global scratch (``scratch_bytes`` a
-    lane, 16-byte aligned)."""
-    slots = SLOT_BYTES * n_slots
-    fns = FN_BYTES * n_fns
+def variant_of(kernel) -> str:
+    """The kernel's variant (a key of `VARIANTS`) for a built-in policy;
+    ValueError for any other."""
+    if not has_device_loop(kernel):
+        raise ValueError(f"event_loop: policy {kernel.name!r} "
+                         f"({type(kernel).__name__}) has no device hooks")
+    if type(kernel) is ESFFKernel:
+        return {(False, False): "esff", (False, True): "esff_cold",
+                (True, False): "esff_lru", (True, True): "esff_h"}[
+            (bool(kernel.lru_victim), bool(kernel.cold_aware))]
+    if type(kernel) is CentralQueueKernel:
+        return kernel.order
+    if type(kernel) is FaasCacheKernel:
+        return "faascache"
+    return "openwhisk_v2"
+
+
+def layout(variant: str) -> tuple:
+    """What the library reports for ``variant`` (event_loop_layout): its
+    slot and function bytes, the histogram's bins, then the column of
+    each counter, sum and policy count, each group followed by its
+    width."""
+    v = VARIANTS[variant]
+    return (v["slot_bytes"], v["fn_bytes"], E.HIST_BINS,
+            *range(len(COUNTERS)), len(COUNTERS), *range(len(SUMS)),
+            len(SUMS), *range(len(POLICY_COUNTS)), len(POLICY_COUNTS))
+
+
+def layout_plan(n_fns: int, n_slots: int, variant: str = "esff") -> dict:
+    """Where the kernel keeps a lane's state in ``variant``: the slots
+    always in shared memory (their bytes rounded up to 8); the
+    per-function state beside them when both fit in one block's shared
+    memory, else in global scratch (``scratch_bytes`` a lane, 16-byte
+    aligned)."""
+    v = VARIANTS[variant]
+    slots = -(-v["slot_bytes"] * n_slots // 8) * 8
+    fns = v["fn_bytes"] * n_fns
     if slots + fns <= SHARED_MAX:
         return dict(fn_in_shared=True, smem_bytes=slots + fns,
                     scratch_bytes=0)
@@ -68,20 +124,23 @@ def layout_plan(n_fns: int, n_slots: int) -> dict:
                 scratch_bytes=-(-fns // 16) * 16)
 
 
-def _check_layout() -> None:
-    """Raise unless the built library's layout is `LAYOUT`."""
-    if _check_layout.done:
+_CHECKED = set()
+
+
+def _check_layout(variant: str) -> None:
+    """Raise unless the built library's layout of ``variant`` is
+    `layout` (checked once a variant)."""
+    if variant in _CHECKED:
         return
-    f = _build.c_entry("event_loop", "esff_event_loop_layout", [_P, _I])
-    got = (ctypes.c_longlong * len(LAYOUT))()
-    n = f(got, len(LAYOUT))
-    if n != len(LAYOUT) or tuple(got) != LAYOUT:
-        raise RuntimeError(f"esff_event_loop: the library's layout "
-                           f"{tuple(got)[:n]} is not the wrapper's {LAYOUT}")
-    _check_layout.done = True
-
-
-_check_layout.done = False
+    f = _build.c_entry("event_loop", "event_loop_layout", [_I, _P, _I])
+    want = layout(variant)
+    got = (ctypes.c_longlong * len(want))()
+    n = f(VARIANTS[variant]["code"], got, len(want))
+    if n != len(want) or tuple(got) != want:
+        raise RuntimeError(f"event_loop: the library's layout of "
+                           f"{variant} {tuple(got)[:max(n, 0)]} is not "
+                           f"the wrapper's {want}")
+    _CHECKED.add(variant)
 
 
 def _check(name, x, dtype, shape, device):
@@ -94,18 +153,19 @@ def _check(name, x, dtype, shape, device):
 
 def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                cap_mask, beta, prior, *, kernel, n_fns, capacity, queue_cap,
-               stream=False):
-    """Run the ESFF engine over L lanes to completion.
+               stream=False, threshold=0.1):
+    """Run the engine over L lanes to completion under the built-in
+    policy ``kernel``.
 
     ``fn_id`` (T, N) int64, ``arrival`` and ``exec_time`` (T, N) f64,
     ``t_cold`` and ``t_evict`` (T, F) f64, ``trace_ix`` (L,) int64,
     ``cap_mask`` (L, C) bool, ``beta`` (L,) f64, all contiguous on one
-    device; ``prior`` a float. Returns `engine.simulate`'s dict. On a
-    card, ``event_loop.last_scans`` is then the (L,) count of inline FRP
-    scans of the launch (one per completion)."""
-    if not has_device_loop(kernel):
-        raise ValueError(f"event_loop: policy {kernel.name!r} "
-                         f"({type(kernel).__name__}) has no device hooks")
+    device; ``prior`` and ``threshold`` floats. Returns
+    `engine.simulate`'s dict. On a card, ``event_loop.last_scans``,
+    ``last_head_scans`` and ``last_timers`` are then the launch's (L,)
+    counts of inline FRP scans (one per completion in the ESFF
+    variants), central-queue head scans and timer events."""
+    variant = variant_of(kernel)
     if fn_id.dim() != 2 or trace_ix.dim() != 1:
         raise ValueError(f"event_loop: fn_id must be (T, N) and trace_ix "
                          f"(L,), got {tuple(fn_id.shape)} and "
@@ -127,39 +187,45 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             ("beta", beta, f64, (L,))):
         _check(name, x, dt, shape, dev)
     kw = dict(kernel=kernel, n_fns=F, capacity=C, queue_cap=queue_cap,
-              stream=stream)
+              stream=stream, threshold=threshold)
     if dev.type == "cpu":
         event_loop.plain_calls += 1
         return E.simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict,
                                 trace_ix, cap_mask, beta, prior, **kw)
-    fn = _build.c_entry("event_loop", "esff_event_loop", _ARGTYPES)
+    fn = _build.c_entry("event_loop", "event_loop_run", _ARGTYPES)
     _build.require_cuda("event_loop", dev)
-    _check_layout()
+    _check_layout(variant)
     pos_rids, pos_off = E.positional_layout(fn_id, F)
-    plan = layout_plan(F, C)
+    plan = layout_plan(F, C, variant)
     scratch = (None if plan["fn_in_shared"] else
                torch.empty((L, plan["scratch_bytes"]), dtype=torch.uint8,
                            device=dev))
     ctr = torch.empty((L, len(COUNTERS)), dtype=i64, device=dev)
     sums = torch.empty((L, len(SUMS)), dtype=f64, device=dev)
     hist = torch.empty((L, E.HIST_BINS), dtype=torch.int32, device=dev)
-    scans = torch.empty((L,), dtype=i64, device=dev)
+    pcounts = torch.empty((L, len(POLICY_COUNTS)), dtype=i64, device=dev)
     start = comp = None
     if not stream:
         start = torch.full((L, N), -1.0, dtype=f64, device=dev)
         comp = torch.full((L, N), -1.0, dtype=f64, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = fn(fn_id.data_ptr(), arrival.data_ptr(), exec_time.data_ptr(),
-            pos_rids.data_ptr(), pos_off.data_ptr(), t_cold.data_ptr(),
-            t_evict.data_ptr(), trace_ix.data_ptr(), cap_mask.data_ptr(),
-            beta.data_ptr(), float(prior), L, N, F, C, queue_cap,
+    rc = fn(VARIANTS[variant]["code"], fn_id.data_ptr(),
+            arrival.data_ptr(), exec_time.data_ptr(), pos_rids.data_ptr(),
+            pos_off.data_ptr(), t_cold.data_ptr(), t_evict.data_ptr(),
+            trace_ix.data_ptr(), cap_mask.data_ptr(), beta.data_ptr(),
+            float(prior), float(threshold), L, N, F, C, queue_cap,
             int(plan["fn_in_shared"]), plan["smem_bytes"], ptr(scratch),
             plan["scratch_bytes"], E.max_events(N), ctr.data_ptr(),
-            sums.data_ptr(), hist.data_ptr(), scans.data_ptr(), ptr(start),
-            ptr(comp), _build.stream_of(dev))
-    _build.launch_check(rc, "esff_event_loop")
+            sums.data_ptr(), hist.data_ptr(), pcounts.data_ptr(),
+            ptr(start), ptr(comp), _build.stream_of(dev))
+    _build.launch_check(rc, f"event_loop_run ({variant})")
     event_loop.launches += 1
-    event_loop.last_scans = scans
+    event_loop.variant_launches[variant] = (
+        event_loop.variant_launches.get(variant, 0) + 1)
+    event_loop.last_by_variant[variant] = pcounts
+    event_loop.last_scans = pcounts[:, 0]
+    event_loop.last_head_scans = pcounts[:, 1]
+    event_loop.last_timers = pcounts[:, 2]
     col = {k: i for i, k in enumerate(COUNTERS)}
     col.update({k: i for i, k in enumerate(SUMS)})
     i32 = torch.int32
@@ -181,4 +247,8 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
 event_loop.launches = 0
 event_loop.plain_calls = 0
+event_loop.variant_launches = {}
+event_loop.last_by_variant = {}
 event_loop.last_scans = None
+event_loop.last_head_scans = None
+event_loop.last_timers = None

@@ -8,7 +8,8 @@ its header for the bound and the design.
 
 * `frp_select` — the TPU kernel's f32 contract over one (F,) row.
 * `frp_select_lanes` — the engine's f64 contract over (L, F) lanes,
-  with ``beta`` and no clamp on the running means.
+  with ``beta``, no clamp on the running means and, for ESFF-H, the
+  optional cold-aware term ``coldK``.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. A CPU tensor goes to the plain
@@ -30,7 +31,7 @@ _P = _build.PTR
 _ARGTYPES = {
     "frp_select_f32": [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
                        ctypes.c_int, _P, _P, _P],
-    "frp_select_lanes_f64": [_P, _P, _P, _P, _P, _P, _P, _P,
+    "frp_select_lanes_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                              ctypes.c_int, ctypes.c_int, _P, _P, _P],
 }
 
@@ -99,14 +100,17 @@ frp_select.plain_calls = 0
 
 # ---------------------------------------------------- f64 engine contract
 def frp_select_lanes_plain(means, t_cold, t_evict, nw, K, tv_j, self_idx,
-                           beta):
+                           beta, coldK=None):
     """Plain version of the engine's f64 contract
     (`repro.core.jax_policies` ESFF FRP, in the same order of
-    operations): returns (best weight (L,) f64, best index (L,) i32, -1
-    if none qualifies)."""
+    operations; ``coldK`` (L, F) i32, ESFF-H's COLD slots a function,
+    is subtracted after Eq. 7): returns (best weight (L,) f64, best
+    index (L,) i32, -1 if none qualifies)."""
     nwf = nw.to(torch.float64)
     k = K.to(torch.float64)
     n_e = nwf + 1.0 - (t_cold + tv_j[:, None]) * k / means
+    if coldK is not None:
+        n_e = n_e - coldK.to(torch.float64)
     w = (means + beta[:, None] * (t_cold + t_evict) * (k + 1.0)
          / torch.clamp_min(n_e, 1e-30))
     idx = torch.arange(means.shape[1], device=means.device)
@@ -117,12 +121,14 @@ def frp_select_lanes_plain(means, t_cold, t_evict, nw, K, tv_j, self_idx,
     return bw, torch.where(bw >= BIG, -1, bi).to(torch.int32)
 
 
-def frp_select_lanes(means, t_cold, t_evict, nw, K, tv_j, self_idx, beta):
+def frp_select_lanes(means, t_cold, t_evict, nw, K, tv_j, self_idx, beta,
+                     coldK=None):
     """FRP selection for L lanes at once (the engine's f64 contract).
 
     ``means``, ``t_cold``, ``t_evict`` (L, F) f64; ``nw``, ``K`` (L, F)
     i32; ``tv_j`` (L,) f64 (the finishing function's eviction time);
-    ``self_idx`` (L,) i32; ``beta`` (L,) f64. Returns (best weight (L,)
+    ``self_idx`` (L,) i32; ``beta`` (L,) f64; ``coldK`` (L, F) i32 or
+    None (ESFF-H's cold-aware term). Returns (best weight (L,)
     f64, best index (L,) i32, -1 if none qualifies). The caller keeps
     the reference's decision: replace iff ``best_i >= 0 and best_w <
     w_own``."""
@@ -138,17 +144,21 @@ def frp_select_lanes(means, t_cold, t_evict, nw, K, tv_j, self_idx, beta):
             ("K", K, i32, (L, F)), ("tv_j", tv_j, f64, (L,)),
             ("self_idx", self_idx, i32, (L,)), ("beta", beta, f64, (L,))):
         _check(f"frp_select_lanes: {name}", x, dt, shape, dev)
+    if coldK is not None:
+        _check("frp_select_lanes: coldK", coldK, i32, (L, F), dev)
     if dev.type == "cpu":
         frp_select_lanes.plain_calls += 1
         return frp_select_lanes_plain(means, t_cold, t_evict, nw, K, tv_j,
-                                      self_idx, beta)
+                                      self_idx, beta, coldK)
     fn = _fn("frp_select_lanes_f64")
     _build.require_cuda("frp_select_lanes", dev)
     best_w = torch.empty((L,), dtype=f64, device=dev)
     best_i = torch.empty((L,), dtype=i32, device=dev)
     rc = fn(means.data_ptr(), t_cold.data_ptr(), t_evict.data_ptr(),
             nw.data_ptr(), K.data_ptr(), tv_j.data_ptr(),
-            self_idx.data_ptr(), beta.data_ptr(), L, F, best_w.data_ptr(),
+            self_idx.data_ptr(), beta.data_ptr(),
+            None if coldK is None else coldK.data_ptr(), L, F,
+            best_w.data_ptr(),
             best_i.data_ptr(), _build.stream_of(dev))
     _build.launch_check(rc, "frp_select_lanes_f64")
     frp_select_lanes.launches += 1

@@ -98,10 +98,18 @@ def test_unported_spec_field_raises(field, value):
 
 
 def test_unported_policy_raises():
+    """Every policy of the JAX package is registered in the port, with
+    the same default beta; a name the JAX package lacks raises."""
+    from repro.core.jax_policies import KERNELS as JAX_KERNELS
+    assert set(tapi.available_policies()) >= set(JAX_KERNELS)
+    for name, k in JAX_KERNELS.items():
+        assert tapi.get_kernel(name).default_beta == k.default_beta, name
     spec = tapi.ExperimentSpec(
         traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
-        policies=("sff",))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        policies=tuple(JAX_KERNELS))
+    spec.validate()
+    spec.policies = ("sff", "lru_only")
+    with pytest.raises(KeyError, match="lru_only"):
         spec.validate()
 
 

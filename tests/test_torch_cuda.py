@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import engine as E
-from repro_torch.core.policies import KERNELS
+from repro_torch.core.policies import KERNELS, ESFFKernel
 from repro_torch.kernels import decode_attention as DA
 from repro_torch.kernels import event_loop as K0
 from repro_torch.kernels import flash_attention as FA
@@ -96,24 +96,65 @@ def _azure(F, n, seed):
                               seed=seed)
 
 
-# name: (traces, F, capacities, betas, queue_cap, stream)
+# the built-in ESFF class with one flag of ESFF-H each
+POLICIES = dict(KERNELS, esff_lru=ESFFKernel("esff_lru", lru_victim=True),
+                esff_cold=ESFFKernel("esff_cold", cold_aware=True))
+
+# name: (traces, F, capacities, betas, queue_cap, stream, policy)
 EVENT_LOOP_CASES = {
-    "stream": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, True),
-    "exact": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, False),
-    "overflow": ([overflow_trace()], 1, (1,), (1.0,), 2, False),
+    "stream": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, True,
+               "esff"),
+    "exact": ([_azure(200, 1000, 2)], 200, (16,), (1.0,), 512, False,
+              "esff"),
+    "overflow": ([overflow_trace()], 1, (1,), (1.0,), 2, False, "esff"),
     "global_layout": ([_azure(5000, 600, 4)], 5000, (8,), (1.0,), 512,
-                      True),
+                      True, "esff"),
     # the function state in shared memory above 48 KB (~104 KB)
     "shared_over_48k": ([_azure(2000, 800, 7)], 2000, (16,), (1.0,), 512,
-                        True),
-    "c48": ([_azure(50, 800, 5)], 50, (48,), (1.0,), 512, False),
+                        True, "esff"),
+    "c48": ([_azure(50, 800, 5)], 50, (48,), (1.0,), 512, False, "esff"),
     "mixed_lanes": ([_azure(20, 300, 1), _azure(20, 300, 6)], 20,
-                    (4, 6, 8), (1.0, 2.0), 512, True),
-    "ties": ([tie_trace()], 6, (2, 3, 4), (1.0,), 512, False),
+                    (4, 6, 8), (1.0, 2.0), 512, True, "esff"),
+    "ties": ([tie_trace()], 6, (2, 3, 4), (1.0,), 512, False, "esff"),
+    # the other variants
+    "esff_h": ([_azure(200, 1000, 2), _azure(200, 1000, 3)], 200,
+               (4, 8, 16), (1.0, 2.0), 512, False, "esff_h"),
+    "esff_h_ties": ([tie_trace()], 6, (2, 3, 4), (2.0,), 512, False,
+                    "esff_h"),
+    "esff_lru": ([_azure(50, 800, 5)], 50, (4, 8), (1.0,), 512, True,
+                 "esff_lru"),
+    "esff_cold": ([_azure(50, 800, 5)], 50, (4, 8), (1.0,), 512, True,
+                  "esff_cold"),
+    "sff": ([_azure(200, 1000, 2)], 200, (4, 8, 16), (1.0,), 512, False,
+            "sff"),
+    "openwhisk": ([_azure(200, 1000, 2)], 200, (4, 8, 16), (1.0,), 512,
+                  False, "openwhisk"),
+    "central_ties": ([tie_trace()], 6, (2, 3, 4), (1.0,), 512, False,
+                     "sff"),
+    "central_overflow": ([overflow_trace()], 1, (1,), (1.0,), 2, False,
+                         "openwhisk"),
+    "faascache": ([_azure(50, 800, 5), _azure(50, 800, 6)], 50, (3, 8, 48),
+                  (1.0,), 512, False, "faascache"),
+    # FaasCache's 52 B slots at an odd C, and its functions above 48 KB
+    "faascache_f2000": ([_azure(2000, 800, 7)], 2000, (7, 16), (1.0,), 512,
+                        True, "faascache"),
+    "faascache_global": ([_azure(5000, 600, 4)], 5000, (8,), (1.0,), 512,
+                         True, "faascache"),
+    "openwhisk_v2": ([_azure(200, 1000, 2), _azure(200, 1000, 3)], 200,
+                     (8, 16), (1.0,), 512, False, "openwhisk_v2"),
+    # arrivals in fours at one time: original timers tie, and re-arms
+    # fall on originals
+    "openwhisk_v2_ties": ([tie_trace()], 6, (1, 2, 3, 4), (1.0,), 512,
+                          False, "openwhisk_v2"),
+    "openwhisk_v2_global": ([_azure(3000, 600, 4)], 3000, (16,), (1.0,),
+                            512, True, "openwhisk_v2"),
+    "openwhisk_v2_overflow": ([overflow_trace()], 1, (1,), (1.0,), 2,
+                              False, "openwhisk_v2"),
 }
 
 
-def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream):
+def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream,
+                    policy="esff"):
     """Every trace x capacity x beta as one lane batch on ``device``."""
     t = {k: torch.tensor(np.stack([a[k] for a in traces]), device=device)
          for k in COLS}
@@ -127,41 +168,66 @@ def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream):
                         device=device)
     return E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
                       t["cold_start"], t["evict"], tix, masks, beta, 0.1,
-                      kernel=KERNELS["esff"], n_fns=F, capacity=C,
+                      kernel=POLICIES[policy], n_fns=F, capacity=C,
                       queue_cap=queue_cap, stream=stream)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(EVENT_LOOP_CASES))
 def test_event_loop_kernel_bitwise_eager(cuda, case):
-    traces, F, caps, betas, queue_cap, stream = EVENT_LOOP_CASES[case]
+    traces, F, caps, betas, queue_cap, stream, policy = \
+        EVENT_LOOP_CASES[case]
     launches = K0.event_loop.launches
-    card = _event_loop_run(cuda, traces, F, caps, betas, queue_cap, stream)
+    card = _event_loop_run(cuda, traces, F, caps, betas, queue_cap, stream,
+                           policy)
     torch.cuda.synchronize()
     assert K0.event_loop.launches == launches + 1
-    cpu = _event_loop_run("cpu", traces, F, caps, betas, queue_cap, stream)
+    counts = {k: getattr(K0.event_loop, k).cpu()
+              for k in ("last_scans", "last_head_scans", "last_timers")}
+    cpu = _event_loop_run("cpu", traces, F, caps, betas, queue_cap, stream,
+                          policy)
     assert sorted(card) == sorted(cpu)
     for k, v in cpu.items():
         assert torch.equal(card[k].cpu(), v), (case, k)
-    if case == "overflow":
+    if "overflow" in case:
         assert int(cpu["overflow"][0]) > 0 and int(cpu["stalled"][0]) == 1
-    plan = K0.layout_plan(F, max(caps))
-    if case == "global_layout":
+    variant = K0.variant_of(POLICIES[policy])
+    plan = K0.layout_plan(F, max(caps), variant)
+    if "global" in case:
         assert not plan["fn_in_shared"]
-    if case == "shared_over_48k":
+    if case in ("shared_over_48k", "faascache_f2000"):
         assert plan["fn_in_shared"] and plan["smem_bytes"] > 48 * 1024
-    # one inline FRP scan per completion
-    assert torch.equal(K0.event_loop.last_scans.cpu(),
-                       cpu["done"].to(torch.int64))
+    i64 = torch.int64
+    zero = torch.zeros_like(counts["last_scans"])
+    # one inline FRP scan per completion in the ESFF variants; the
+    # timer events are the events that are neither a slot's nor an
+    # arrival
+    esff = variant.startswith("esff")
+    assert torch.equal(counts["last_scans"],
+                       cpu["done"].to(i64) if esff else zero)
+    if variant in ("sff", "fifo", "faascache"):
+        assert bool((counts["last_head_scans"] > 0).all())
+    else:
+        assert torch.equal(counts["last_head_scans"], zero)
+    if variant == "openwhisk_v2" and "overflow" not in case:
+        N = traces[0]["fn_id"].shape[0]
+        timers = (cpu["n_events"] - cpu["done"] - cpu["cold_starts"]
+                  - N).to(i64)
+        assert torch.equal(counts["last_timers"], timers)
+        assert bool((timers > 0).all())
+    elif variant != "openwhisk_v2":
+        assert torch.equal(counts["last_timers"], zero)
 
 
 @pytest.mark.cuda
 def test_event_loop_library_layout_is_the_wrappers(cuda):
-    """The built library reports the slot and function sizes and the
-    result columns the wrapper plans and reads by."""
-    K0._check_layout.done = False
-    K0._check_layout()
-    assert K0._check_layout.done
+    """The built library reports, for every variant, the slot and
+    function sizes and the result columns the wrapper plans and reads
+    by."""
+    K0._CHECKED.clear()
+    for variant in K0.VARIANTS:
+        K0._check_layout(variant)
+    assert K0._CHECKED == set(K0.VARIANTS)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,9 @@ import torch
 from repro.core.jax_engine import simulate_policy_jax
 from repro.traces import synth_azure_arrays
 from repro_torch.core import engine as E
-from repro_torch.core.policies import KERNELS, ESFFKernel
+from repro_torch.core.policies import (KERNELS, CentralQueueKernel,
+                                       ESFFKernel, FaasCacheKernel,
+                                       OpenWhiskV2Kernel)
 from repro_torch.kernels import _build
 from repro_torch.kernels import event_loop as K0
 from torch_event_traces import overflow_trace, tie_trace
@@ -51,25 +53,47 @@ def test_cpu_run_goes_through_the_plain_loop():
     assert int(out["done"][0]) == 400
 
 
-def test_other_policy_kernels_keep_the_eager_loop():
-    """A subclass may override a hook: it has no device hooks, so it
-    runs the eager loop (and gets ESFF's results here, hooks unchanged)."""
-    class Mine(ESFFKernel):
+# one policy a built-in class: (class, constructor keywords)
+BUILT_IN = {"esff": (ESFFKernel, {}),
+            "sff": (CentralQueueKernel, dict(name="sff", order="sff")),
+            "faascache": (FaasCacheKernel, {}),
+            "openwhisk_v2": (OpenWhiskV2Kernel, {})}
+
+
+@pytest.mark.parametrize("policy", sorted(BUILT_IN))
+def test_other_policy_kernels_keep_the_eager_loop(policy):
+    """A subclass of a built-in policy class may override a hook: it has
+    no device hooks, so it runs the eager loop (and gets the built-in's
+    results here, hooks unchanged), while the built-in has device hooks."""
+    cls, ckw = BUILT_IN[policy]
+
+    class Mine(cls):
         pass
 
     args = _args([tie_trace()], [(0, 3, 1.0)], 3)
     kw = dict(n_fns=6, capacity=3, queue_cap=512)
-    assert K0.has_device_loop(KERNELS["esff"])
-    assert K0.has_device_loop(ESFFKernel("esff-b2", default_beta=2.0))
-    assert not K0.has_device_loop(Mine())
+    assert K0.has_device_loop(KERNELS[policy])
+    assert K0.has_device_loop(cls(**ckw))
+    assert not K0.has_device_loop(Mine(**ckw))
     before = _counts()
-    mine = E.simulate(*args, kernel=Mine(), **kw)
+    mine = E.simulate(*args, kernel=Mine(**ckw), **kw)
     assert _counts() == before
-    ref = E.simulate(*args, kernel=KERNELS["esff"], **kw)
+    ref = E.simulate(*args, kernel=KERNELS[policy], **kw)
+    assert _counts() == (before[0] + 1, before[1])
     for k, v in ref.items():
         assert torch.equal(mine[k], v), k
     with pytest.raises(ValueError, match="no device hooks"):
-        K0.event_loop(*args, kernel=Mine(), **kw)
+        K0.event_loop(*args, kernel=Mine(**ckw), **kw)
+
+
+def test_every_built_in_policy_has_a_variant():
+    got = {name: K0.variant_of(k) for name, k in KERNELS.items()}
+    assert got == {"esff": "esff", "esff_h": "esff_h", "sff": "sff",
+                   "openwhisk": "fifo", "faascache": "faascache",
+                   "openwhisk_v2": "openwhisk_v2"}
+    assert K0.variant_of(ESFFKernel("x", lru_victim=True)) == "esff_lru"
+    assert K0.variant_of(ESFFKernel("x", cold_aware=True)) == "esff_cold"
+    assert sorted(v["code"] for v in K0.VARIANTS.values()) == list(range(8))
 
 
 def _good():
@@ -102,24 +126,40 @@ def test_build_flags_and_sources():
     assert _build.EXTRA_FLAGS["event_loop"] == ("--fmad=false",)
 
 
-@pytest.mark.parametrize("F,C,shared", [(200, 32, True), (200, 48, True),
-                                        (2000, 16, True), (4400, 32, True),
-                                        (5000, 8, False),
-                                        (5000, 48, False)])
-def test_layout_plan(F, C, shared):
-    plan = K0.layout_plan(F, C)
+@pytest.mark.parametrize("variant", sorted(K0.VARIANTS))
+@pytest.mark.parametrize("F,C", [(200, 32), (200, 48), (2000, 16),
+                                 (4400, 32), (2600, 7), (5000, 8),
+                                 (5000, 48)])
+def test_layout_plan(F, C, variant):
+    v = K0.VARIANTS[variant]
+    plan = K0.layout_plan(F, C, variant)
+    # the slots' bytes, rounded up to 8 for the f64 arrays after them
+    slots = -(-v["slot_bytes"] * C // 8) * 8
+    assert slots % 8 == 0 and 0 <= slots - v["slot_bytes"] * C < 8
+    shared = slots + v["fn_bytes"] * F <= K0.SHARED_MAX
     assert plan["fn_in_shared"] is shared
     if shared:
-        assert plan["smem_bytes"] == K0.SLOT_BYTES * C + K0.FN_BYTES * F
-        assert plan["smem_bytes"] <= K0.SHARED_MAX
+        assert plan["smem_bytes"] == slots + v["fn_bytes"] * F
         assert plan["scratch_bytes"] == 0
     else:
-        assert plan["smem_bytes"] == K0.SLOT_BYTES * C
-        assert plan["scratch_bytes"] >= K0.FN_BYTES * F
+        assert plan["smem_bytes"] == slots
+        assert plan["scratch_bytes"] >= v["fn_bytes"] * F
         assert plan["scratch_bytes"] % 16 == 0
+    assert plan["smem_bytes"] <= K0.SHARED_MAX
+
+
+def test_layout_plan_fixed_points():
+    # ESFF's plan: 40 B a slot, 52 B a function
     assert K0.layout_plan(200, 32)["smem_bytes"] == 11680
+    assert K0.layout_plan(4400, 32)["fn_in_shared"]
+    assert not K0.layout_plan(5000, 8)["fn_in_shared"]
     # F = 2,000 (a card test's case) needs the >48 KB opt-in
     assert K0.layout_plan(2000, 16)["smem_bytes"] > 48 * 1024
+    # FaasCache's 52 B slots at an odd C: padded to 8
+    assert K0.layout_plan(10, 7, "faascache")["smem_bytes"] == 368 + 520
+    # OpenWhisk-v2's timer rail moves F = 2,800 to global scratch
+    assert not K0.layout_plan(2800, 16, "openwhisk_v2")["fn_in_shared"]
+    assert K0.layout_plan(2800, 16, "esff")["fn_in_shared"]
 
 
 def _c_source():
@@ -127,19 +167,33 @@ def _c_source():
 
 
 def test_layout_is_the_kernel_sources():
-    """The wrapper's sizes and result columns against the kernel's
-    source (the card checks the built library: test_torch_cuda.py)."""
+    """Every variant's code and sizes and the result columns against the
+    kernel's source, whose static_asserts hold each variant's bytes (the
+    card checks the built library: test_torch_cuda.py)."""
     src = _c_source()
-    for name, v in (("kSlotBytes", K0.SLOT_BYTES),
-                    ("kFnBytes", K0.FN_BYTES)):
-        assert re.search(rf"constexpr int {name} = {v};", src), name
+    codes = {alias: int(code)
+             for code, alias in re.findall(r"X\((\d+), (\w+)\)", src)}
+    # static_assert(<alias>::slot_bytes == S && <alias>::fn_bytes == B,
+    #               "<variant>")
+    asserts = re.findall(r"static_assert\((\w+)::slot_bytes == (\d+) &&"
+                         r"\s+\1::fn_bytes == (\d+),\s+\"(\w+)\"\)", src)
+    names = {name: alias for alias, _, _, name in asserts}
+    sizes = {alias: (int(a), int(b)) for alias, a, b, _ in asserts}
+    assert sorted(names) == sorted(K0.VARIANTS)
+    for variant, v in K0.VARIANTS.items():
+        alias = names[variant]
+        assert codes[alias] == v["code"], variant
+        assert sizes[alias] == (v["slot_bytes"], v["fn_bytes"]), variant
+        assert K0.layout(variant)[:3] == (v["slot_bytes"], v["fn_bytes"],
+                                          E.HIST_BINS)
     enums = re.findall(r"enum \{([^}]*)\}", src)
-    ctr, sums = ([w.strip() for w in e.split(",")] for e in enums[:2])
+    ctr, sums, pcs = ([w.strip() for w in e.split(",")] for e in enums[:3])
     assert ctr == [f"C_{k.upper()}" for k in K0.COUNTERS] + ["N_CTR"]
     assert sums == ["S_GSUM", "S_COLD_T", "S_EVICT_T", "S_RSUM", "S_SSUM",
                     "S_RMAX", "N_SUM"]
     assert len(sums) == len(K0.SUMS) + 1
-    assert K0.LAYOUT[:3] == (K0.SLOT_BYTES, K0.FN_BYTES, E.HIST_BINS)
+    assert pcs == ["P_FRP", "P_HEAD", "P_TIMER", "N_PC"]
+    assert len(pcs) == len(K0.POLICY_COUNTS) + 1
 
 
 def _jax_lane(a, F, C, beta, queue_cap):
