@@ -63,10 +63,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
                  must be bitwise ESFF's constants at N = 30,000.
-5. ``parity``    the Fig. 5 spec (six policies) at N = 2,000 on the card
-                 (K0) and on the CPU (the eager loop), bitwise on every
+   ``options``   the engine options: the Fig. 5 trace at C = 16, the six
+                 policies (one launch each), with the minute timeline
+                 (``tl_bins`` over the trace's minutes, 60 s bins) and a
+                 0.35 s deadline, bitwise the JAX package's constants
+                 (scripts/cluster_expected.json: counters, sums,
+                 histogram, ``tl_*``, ``deadline_miss``,
+                 ``slo_attainment``), a planted one-ulp fault in one
+                 ``tl_resp_sum`` bin rejected; again at ``window=4096``,
+                 bitwise the ``window=0`` run; a Fig. 8 row (ESFF over
+                 ``head(20000)`` at C = 16: the three panels' sums,
+                 bitwise its constants); each policy's K0 with the
+                 options on, timed on the Fig. 5 inputs beside main_path's
+                 times with them off, its outputs held bitwise to the
+                 runner's launch with those options over Fig. 5's
+                 capacities (whose C = 16 cell is the one held above).
+   ``static_cluster`` benchmarks/fig_cluster.py's static half: routers
+                 hash and round_robin at K = 1..32 nodes of 32 / K slots
+                 and K = 64 of one slot, ESFF and SFF, ``queue_cap``
+                 32768; every (entry, node) sub-stream a lane (ragged
+                 ``n_live``) of one launch a policy and spec; the merged
+                 metrics and ``node_done`` bitwise the JAX constants, a
+                 planted one-ulp fault in a merged ``resp_sum`` rejected;
+                 launches, wall s, req/s, each policy's K0 alone on the
+                 runner's own launch operands (`static_calls`; ms, us an
+                 event on the longest lane), its lanes merged as the
+                 runner merges them and held bitwise to its cells.
+5. ``parity``    the Fig. 5 spec (six policies), the options spec and the
+                 static cluster's two specs at N = 2,000 on the card (K0)
+                 and on the CPU (the eager loop), bitwise on every
                  metric; a planted one-ulp fault in ``resp_sum`` must be
-                 rejected.
+                 rejected. The CPU sides run in six worker processes (one
+                 thread each, one policy of a spec a job), started in this
+                 phase, after every phase whose times are reported.
 6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
                  zamba2-2.7b in f32 on the card, on weights and a prompt
                  made with numpy, through prefill and 8 greedy decode
@@ -108,10 +137,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import multiprocessing
 import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -128,6 +159,19 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the means as sum * (1 / N) (XLA's spelling of the ResultSet's sum / N)
 # and max_response, floats as their repr.
 EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
+# The JAX package's results for the options and static_cluster phases
+# (the engine options, a Fig. 8 row, fig_cluster's static half), made on
+# the CPU with (PYTHONPATH=src, JAX_PLATFORMS=cpu)
+#   python scripts/cluster_expected.py --n 60000 \
+#       --out scripts/cluster_expected.json
+# whose spec builders the phases share (the script imports JAX only in
+# its main).
+CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
+                                     "cluster_expected.json")
+# the card-vs-CPU parities' N; their CPU sides run in worker processes
+# while the card's phases run
+PARITY_N = 2000
+PARITY_WORKERS = 6
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
 CAPACITIES = (8, 12, 16, 20, 24, 28, 32)
@@ -774,17 +818,19 @@ def with_beta(torch, args, kernel):
 K0_KEYS = ("done", "n_events", "resp_sum", "slow_sum", "max_response",
            "resp_hist", "cold_starts", "cold_time", "evictions",
            "overflow", "stalled")
+# and those of the engine options (timeline, deadlines)
+OPTION_OUT = ("tl_count", "tl_resp_sum", "tl_exec_sum", "deadline_miss")
 
 
-def k0_differs(np, out, want, policy=None):
-    """The keys in which K0's raw outputs ``out`` differ at all from
+def k0_differs(np, out, want, policy=None, keys=K0_KEYS):
+    """The ``keys`` in which K0's raw outputs ``out`` differ at all from
     ``want``: another launch's outputs, or a ResultSet of the Fig. 5
     lanes (``policy``'s, trace 0, every capacity, beta 0)."""
     def lanes(v):
         if hasattr(v, "cpu"):
             return v.cpu().numpy()
         return v[want.coords["policy"].index(policy), 0, :, 0]
-    return [k for k in K0_KEYS
+    return [k for k in keys
             if not np.array_equal(lanes(out[k]), lanes(want[k]))]
 
 
@@ -793,7 +839,6 @@ def k0_timed(torch, K0, kernel, args, kw, reps=3):
     launches): the median time (ms), the last launch's outputs and its
     (L, 3) policy counts (FRP scans, head scans, timer events)."""
     ms = []
-    args = with_beta(torch, args, kernel)
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -926,7 +971,8 @@ def phase_main_path(torch, np, api, fs, K0, exp_all, n_requests):
     for p in POLICIES:
         kernel = KERNELS[p]
         v = K0.variant_of(kernel)
-        k0_ms, out, pc = k0_timed(torch, K0, kernel, args, kw)
+        k0_ms, out, pc = k0_timed(torch, K0, kernel,
+                                  with_beta(torch, args, kernel), kw)
         differs = k0_differs(np, out, rs, p)
         need(not differs and pc == counts[v],
              f"main_path: {p}: the timed K0 launches differ from the "
@@ -946,7 +992,9 @@ def phase_main_path(torch, np, api, fs, K0, exp_all, n_requests):
     # are bitwise the runner's at QUEUE_CAP
     args4, kw4 = fig5_inputs(torch, api, n_requests, torch.device("cuda"),
                              queue_cap=4096)
-    _, out4, _ = k0_timed(torch, K0, KERNELS["esff"], args4, kw4, reps=1)
+    _, out4, _ = k0_timed(torch, K0, KERNELS["esff"],
+                          with_beta(torch, args4, KERNELS["esff"]), kw4,
+                          reps=1)
     cap_differs = k0_differs(np, out4, rs, "esff")
     need(not cap_differs, f"main_path: ESFF at queue_cap 4096 differs from "
          f"{QUEUE_CAP} in {cap_differs}")
@@ -965,7 +1013,7 @@ def phase_main_path(torch, np, api, fs, K0, exp_all, n_requests):
          + "; ".join(mismatch))
     need(exp is None or bitwise,
          "main_path: within RTOL of the JAX package but not bitwise")
-    return res
+    return res, rs
 
 
 def phase_fig6(torch, api, fs, K0, exp_all, n_requests):
@@ -1053,39 +1101,360 @@ def phase_wide(torch, api, K0, exp_all):
 
 
 def parity_failures(np, card, cpu):
-    """Metrics in which two ResultSets differ at all (bitwise)."""
-    return [k for k in sorted(cpu.data)
-            if not np.array_equal(card[k], cpu[k])]
+    """Metrics in which two runs' metric dicts differ at all (bitwise),
+    or that only one of them has."""
+    return sorted(set(card) ^ set(cpu)) + [
+        k for k in sorted(set(card) & set(cpu))
+        if not np.array_equal(card[k], cpu[k])]
 
 
-def phase_parity(np, api, n_requests=2000):
-    """Every policy's Fig. 5 lanes at N = 2,000 on the card (K0) and on
-    the CPU (the eager loop), bitwise on every metric, and a planted
-    one-ulp fault that must be rejected. Returns each policy's largest
-    absolute difference."""
+def parity_specs(api, part, n_requests, device):
+    """The specs that a phase's card-vs-CPU parity runs at N = 2,000:
+    the Fig. 5 grid (``parity``), the options phase's, or the static
+    cluster's two."""
+    if part == "fig5":
+        return [fig5_spec(api, n_requests, device)]
+    CE = cluster_expected()
+    if part == "options":
+        return [CE.option_spec(api, n_requests, device=device)]
+    return CE.cluster_specs(api, n_requests, device=device)
+
+
+def cpu_results(part, n_requests, index, policy):
+    """The CPU side of a parity (the eager loop) for one policy of one of
+    the part's specs, as a metric dict, and the seconds it took. Runs in
+    a worker process (one thread) while the card's phases run."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch import api
+    spec = parity_specs(api, part, n_requests, "cpu")[index]
     t0 = time.perf_counter()
-    card = api.run_experiment(fig5_spec(api, n_requests, "cuda"))
-    t1 = time.perf_counter()
-    cpu = api.run_experiment(fig5_spec(api, n_requests, "cpu"))
-    t2 = time.perf_counter()
-    bad = parity_failures(np, card, cpu)
-    max_abs = {p: max(float(np.abs(card[k][pi].astype(np.float64)
-                                   - cpu[k][pi].astype(np.float64)).max())
-                      for k in cpu.data)
-               for pi, p in enumerate(card.coords["policy"])}
-    # a planted fault: one ulp off in one lane's resp_sum
-    card.data["resp_sum"] = card["resp_sum"].copy()
-    v = card.data["resp_sum"].reshape(-1)
-    v[3] = np.nextafter(v[3], np.inf)
-    fault = parity_failures(np, card, cpu)
-    emit(dict(phase="parity", n_requests=n_requests,
-              policies=card.coords["policy"], card_s=t1 - t0,
-              cpu_s=t2 - t1, metrics=sorted(cpu.data), failed=bad,
+    out = dict(api.run_experiment(replace(spec, policies=(policy,))).data)
+    return out, time.perf_counter() - t0
+
+
+PARITY_PARTS = ("fig5", "options", "static_cluster")
+
+
+def phase_parity(np, api):
+    """The three parities at N = 2,000: the Fig. 5 grid (six policies),
+    the options phase's spec and the static cluster's two specs, each on
+    the card (K0) against the CPU (the eager loop), bitwise on every
+    metric; a planted one-ulp fault in one Fig. 5 lane's ``resp_sum``
+    must be rejected. The CPU sides run in PARITY_WORKERS processes (one
+    thread each, one policy of a spec a job, the longest first), started
+    here, after every phase whose times the smoke reports. Returns each
+    part's largest absolute difference a policy."""
+    jobs = [(part, i, p) for part in reversed(PARITY_PARTS)
+            for i, spec in enumerate(parity_specs(api, part, PARITY_N,
+                                                  "cpu"))
+            for p in spec.policies]
+    with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
+        pending = {(part, i, p): pool.apply_async(
+            cpu_results, (part, PARITY_N, i, p)) for part, i, p in jobs}
+        return parity_checks(np, api, pending)
+
+
+def parity_checks(np, api, pending):
+    """Each parity's card side and its checks against the workers' CPU
+    results ``pending`` ({(part, spec index, policy): AsyncResult})."""
+    out, bad, max_abs = {}, [], {}
+    fault = None
+    for part in PARITY_PARTS:
+        t0 = time.perf_counter()
+        card = [api.run_experiment(s)
+                for s in parity_specs(api, part, PARITY_N, "cuda")]
+        card_s = time.perf_counter() - t0
+        cpu_s, errs = 0.0, {}
+        for i, rs in enumerate(card):
+            for p in rs.coords["policy"]:
+                cpu, sec = pending[(part, i, p)].get(timeout=1200)
+                cpu_s += sec
+                mine = rs.sel(policy=p).data
+                bad += [f"{part}[{i}] {p}: {k}"
+                        for k in parity_failures(np, mine, cpu)]
+                errs[p] = max([errs.get(p, 0.0)] + [
+                    float(np.abs(mine[k].astype(np.float64)
+                                 - cpu[k].astype(np.float64)).max())
+                    for k in cpu])
+                if part == "fig5" and fault is None:
+                    # a planted fault: one ulp off in one lane's resp_sum
+                    data = dict(mine, resp_sum=mine["resp_sum"].copy())
+                    v = data["resp_sum"].reshape(-1)
+                    v[3] = np.nextafter(v[3], np.inf)
+                    fault = parity_failures(np, data, cpu)
+        max_abs[part] = errs
+        out[part] = dict(card_s=card_s, cpu_s_total=cpu_s,
+                         metrics=sorted(card[0].data))
+    emit(dict(phase="parity", n_requests=PARITY_N, parts=out, failed=bad,
               max_abs_err=max_abs, planted_fault_caught=fault))
     need(not bad, f"parity: card and CPU differ in {bad}")
     need(fault == ["resp_sum"], f"parity: the planted one-ulp fault in "
          f"resp_sum was not rejected alone ({fault})")
     return max_abs
+
+
+# ------------------------------------------------ the engine options
+def cluster_expected():
+    """scripts/cluster_expected.py: the specs of the options and
+    static_cluster phases, shared with the script that made their JAX
+    constants (it imports JAX only in its main)."""
+    import importlib.util
+    path = os.path.join(HERE, "scripts", "cluster_expected.py")
+    spec = importlib.util.spec_from_file_location("cluster_expected", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_cluster_expected():
+    with open(CLUSTER_EXPECTED_FILE) as f:
+        return json.load(f)
+
+
+def cell_of(np, rs, keys, **which):
+    """One cell's metrics as Python numbers (lists for vector metrics),
+    as scripts/cluster_expected.py keeps them."""
+    out = {}
+    for k in keys:
+        v = rs.value(k, **which)
+        out[k] = np.asarray(v).tolist() if np.ndim(v) else v
+    return out
+
+
+def held_exact(exp, got):
+    """The keys of a cell in which ``got`` differs from the JAX constants
+    ``exp`` at all (bitwise), each with its first differing index."""
+    bad = []
+    for k, w in exp.items():
+        if k not in got:
+            continue
+        g = got[k]
+        if isinstance(w, list):
+            diff = [i for i, (a, b) in enumerate(zip(g, w)) if a != b]
+            if diff or len(g) != len(w):
+                bad.append(f"{k}[{diff[0] if diff else len(g)}]")
+        elif g != w:
+            bad.append(k)
+    return bad
+
+
+def check_launches(phase, launches, want):
+    need(launches["by_variant"] == want,
+         f"{phase}: event_loop launched {launches['by_variant']}, not "
+         f"{want}")
+    need(launches["frp_select"] == 0,
+         f"{phase}: frp_select_lanes launched {launches['frp_select']} "
+         "times: K1 runs inline in K0 on this path")
+    need(launches["plain_calls"] == 0,
+         f"{phase}: an option or static-tier run took the eager loop "
+         f"({launches['plain_calls']} calls)")
+
+
+def phase_options(torch, np, api, fs, K0, cexp, n_requests, main, main_rs):
+    """The engine options on the card: the Fig. 5 trace at C = 16 with the
+    minute timeline and a 0.35 s deadline, the six policies (one launch
+    each), bitwise the JAX constants; the same at window=4096, bitwise
+    the window=0 run; a Fig. 8 row; each policy's K0 with the options on,
+    timed on the Fig. 5 inputs (main_path timed it with them off). Its
+    card-vs-CPU parity at N = 2,000 is in the parity phase."""
+    from repro_torch.core.policies import KERNELS
+    CE = cluster_expected()
+    exp = cexp["options"].get(str(n_requests))
+    need(exp is not None, f"options: no JAX constants at N = {n_requests}")
+    spec = CE.option_spec(api, n_requests, device="cuda")
+    need(spec.tl_bins == exp["tl_bins"], f"options: {spec.tl_bins} bins, "
+         f"the constants have {exp['tl_bins']}")
+    rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+    rs.check()
+    check_launches("options", launches,
+                   {K0.variant_of(KERNELS[p]): 1 for p in POLICIES})
+    mismatch = []
+    got = {p: cell_of(np, rs, CE.OPTION_KEYS, policy=p) for p in POLICIES}
+    for p in POLICIES:
+        mismatch += [f"{p}: {m}" for m in held_exact(exp["policies"][p],
+                                                     got[p])]
+    # a planted one-ulp fault in the busiest minute's response sum
+    bad = dict(got["esff"])
+    i = int(np.argmax(bad["tl_count"]))
+    bad["tl_resp_sum"] = list(bad["tl_resp_sum"])
+    bad["tl_resp_sum"][i] = float(np.nextafter(bad["tl_resp_sum"][i],
+                                               np.inf))
+    fault = held_exact(exp["policies"]["esff"], bad)
+    # window=4096: bitwise the window=0 run, on the card, one launch a
+    # policy
+    rs_w, _, launches_w, _ = run_grid(torch, api, fs, K0, CE.option_spec(
+        api, n_requests, device="cuda", window=4096))
+    check_launches("options window=4096", launches_w,
+                   {K0.variant_of(KERNELS[p]): 1 for p in POLICIES})
+    window_differs = parity_failures(np, rs_w.data, rs.data)
+    # the Fig. 8 row: ESFF over head(20000) at C = 16
+    f8 = cexp["fig8"].get(str(n_requests))
+    need(f8 is not None, f"options: no Fig. 8 constants at N = {n_requests}")
+    rs8, wall8, launches8, _ = run_grid(torch, api, fs, K0,
+                                        CE.fig8_spec(api, n_requests,
+                                                     device="cuda"))
+    check_launches("options fig8", launches8, {"esff": 1})
+    got8 = cell_of(np, rs8, CE.FIG8_KEYS, policy="esff")
+    mismatch += [f"fig8: {m}" for m in held_exact(f8["esff"], got8)]
+    cnt = np.asarray(got8["tl_count"])
+    fig8 = dict(minutes=len(cnt), busy_minutes=int((cnt > 0).sum()),
+                tl_count_sum=int(cnt.sum()),
+                tl_exec_sum=float(np.sum(got8["tl_exec_sum"])),
+                tl_resp_sum=float(np.sum(got8["tl_resp_sum"])),
+                peak_minute_requests=int(cnt.max()),
+                peak_minute_mean_response=float(max(
+                    r / c for r, c in zip(got8["tl_resp_sum"], cnt) if c)),
+                wall_s=wall8, launches=launches8["event_loop"],
+                launches_by_variant=launches8["by_variant"])
+    # each policy's K0 with the options on, timed on the Fig. 5 inputs and
+    # held bitwise to the runner's launch with the same options over the
+    # same capacities, whose C = 16 lane is the cell held above
+    rs7 = api.run_experiment(replace(spec, capacities=CAPACITIES))
+    c16 = rs7.sel(capacity=exp["capacity"])
+    runner_differs = parity_failures(np, c16.data, rs.data)
+    args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
+    kw_on = dict(kw, tl_bins=exp["tl_bins"], tl_bucket=exp["tl_bucket"],
+                 deadlines=torch.full((kw["n_fns"],), exp["deadline"],
+                                      dtype=torch.float64, device="cuda"))
+    per = {}
+    for p in POLICIES:
+        k0_ms, out, _ = k0_timed(torch, K0, KERNELS[p],
+                                 with_beta(torch, args, KERNELS[p]), kw_on)
+        off = main["per_policy"][p]["k0_ms"]
+        per[p] = dict(k0_ms_options_on=k0_ms, k0_ms_options_off=off,
+                      overhead_pct=100.0 * (k0_ms - off) / off,
+                      differs_from_runner=k0_differs(
+                          np, out, rs7, p, K0_KEYS + OPTION_OUT),
+                      differs_from_fig5=k0_differs(np, out, main_rs, p))
+    res = dict(phase="options", n_requests=n_requests,
+               capacity=exp["capacity"], queue_cap=exp["queue_cap"],
+               tl_bins=exp["tl_bins"], tl_bucket=exp["tl_bucket"],
+               deadline=exp["deadline"], wall_s=wall, launches=launches,
+               window_4096_launches=launches_w,
+               window_4096_differs=window_differs,
+               runner_c16_differs=runner_differs,
+               mean_response={p: got[p]["mean_response"] for p in POLICIES},
+               slo_attainment={p: got[p]["slo_attainment"]
+                               for p in POLICIES},
+               per_policy=per, fig8=fig8, bitwise_vs_jax=not mismatch,
+               mismatch=mismatch, planted_fault_caught=fault)
+    emit(res)
+    need(not mismatch, "options: differs from the JAX package: "
+         + "; ".join(mismatch))
+    need(fault == [f"tl_resp_sum[{i}]"], f"options: the planted one-ulp "
+         f"fault in tl_resp_sum[{i}] was not rejected alone ({fault})")
+    need(not window_differs,
+         f"options: window=4096 differs from window=0 in {window_differs}")
+    need(not runner_differs, f"options: the runner's C = "
+         f"{exp['capacity']} lane over Fig. 5's capacities differs from "
+         f"its own run in {runner_differs}")
+    bad_k0 = {p: r["differs_from_runner"] + r["differs_from_fig5"]
+              for p, r in per.items()
+              if r["differs_from_runner"] or r["differs_from_fig5"]}
+    need(not bad_k0, f"options: K0 with the options on differs from the "
+         f"runner's launch or (in the options-off outputs) from the Fig. 5 "
+         f"run in {bad_k0}")
+    return res
+
+
+def phase_static_cluster(torch, np, api, fs, K0, cexp, n_requests):
+    """benchmarks/fig_cluster.py's static half on the card: routers hash
+    and round_robin at K = 1..32 (AGG = 32) and K = 64 (AGG = 64), ESFF
+    and SFF, every (entry, node) a lane of one launch a policy and spec;
+    the merged metrics and node_done bitwise the JAX constants; each
+    policy's K0 alone on the packed lanes by events. Its card-vs-CPU
+    parity at N = 2,000 is in the parity phase."""
+    from repro_torch.api.runner import _lower_grid
+    from repro_torch.cluster.static import merge_static_lanes, static_calls
+    from repro_torch.core.policies import KERNELS
+    CE = cluster_expected()
+    exp = cexp["static_cluster"].get(str(n_requests))
+    need(exp is not None,
+         f"static_cluster: no JAX constants at N = {n_requests}")
+    dev = torch.device("cuda")
+    specs, mismatch, fault = [], [], None
+    for spec in CE.cluster_specs(api, n_requests, device="cuda"):
+        rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+        rs.check()
+        lanes = sum(e.n_nodes for e in spec.cluster)
+        chunks = -(-lanes // rs.meta["lane_chunk"])
+        check_launches("static_cluster", launches,
+                       {K0.variant_of(KERNELS[p]): chunks
+                        for p in spec.policies})
+        for p in spec.policies:
+            for e in spec.cluster:
+                got = cell_of(np, rs, CE.CLUSTER_KEYS, policy=p,
+                              cluster=e.label)
+                want = exp["cells"][p][e.label]
+                mismatch += [f"{p} {e.label}: {m}"
+                             for m in held_exact(want, got)]
+                if fault is None and e.n_nodes == 4:
+                    # a planted one-ulp fault in a merged resp_sum
+                    bad = dict(got, resp_sum=float(np.nextafter(
+                        got["resp_sum"], np.inf)))
+                    fault = held_exact(want, bad)
+        # each policy's K0 alone on the runner's own launch operands
+        # (`static_calls`), by events, its lanes merged as the runner
+        # merges them and held bitwise to the runner's cells
+        _, stacked, F, N = _lower_grid(spec)
+        entries = list(spec.cluster)
+        kernels = {p: KERNELS[p] for p in spec.policies}
+        betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
+        calls, _, layout = static_calls(
+            spec, entries, stacked, F, kernels, betas, None, dev,
+            rs.meta["lane_chunk"])
+        need(len(calls) == len(spec.policies),
+             f"static_cluster: {len(calls)} engine calls for "
+             f"{len(spec.policies)} policies, not one lane chunk each")
+        per = {}
+        for p, _, _, cargs, ckw in calls:
+            ekw = {k: v for k, v in ckw.items()
+                   if k not in ("kernel", "keep_responses", "window")}
+            k0_ms, out, pc = k0_timed(torch, K0, KERNELS[p], cargs[:9],
+                                      dict(ekw, threshold=cargs[9]))
+            merged = merge_static_lanes(
+                spec, layout, {k: v.cpu().numpy() for k, v in out.items()},
+                N)
+            differs = []
+            for e, m in zip(entries, merged):
+                for k in CE.CLUSTER_KEYS + ("n_events",):
+                    # (T, KC, B, ...) -> the ResultSet's (P, T, KC, B,
+                    # cluster, ...), node_done padded to the widest entry
+                    got = np.expand_dims(m[k][None], 4)
+                    want = rs.sel(policy=p, cluster=e.label)[k]
+                    if k == "node_done":
+                        want = want[..., :e.n_nodes]
+                    if not np.array_equal(got, want):
+                        differs.append(f"{e.label} {k}")
+            need(not differs, f"static_cluster: {p}: the timed K0 launch "
+                 f"differs from the runner's in {differs}")
+            ev = out["n_events"].tolist()
+            b, by = k0_bound(N, F, len(ev), ev, pc, False)
+            per[p] = dict(k0_ms=k0_ms, lanes=len(ev), events_total=sum(ev),
+                          longest_lane_events=max(ev),
+                          k0_us_per_event=1e3 * k0_ms / max(ev),
+                          bound_ms=b, bound_by=by,
+                          held_to_runner=True)
+        specs.append(dict(agg=spec.capacities[0],
+                          entries=[e.label for e in spec.cluster],
+                          lanes=lanes, wall_s=wall, launches=launches,
+                          req_per_s=(len(spec.policies) * len(spec.cluster)
+                                     * n_requests / wall),
+                          per_policy=per))
+    res = dict(phase="static_cluster", n_requests=n_requests,
+               queue_cap=exp["queue_cap"], specs=specs,
+               wall_s=sum(x["wall_s"] for x in specs),
+               launches=sum(x["launches"]["event_loop"] for x in specs),
+               bitwise_vs_jax=not mismatch, mismatch=mismatch,
+               planted_fault_caught=fault)
+    emit(res)
+    need(not mismatch, "static_cluster: differs from the JAX package: "
+         + "; ".join(mismatch))
+    need(fault == ["resp_sum"], f"static_cluster: the planted one-ulp "
+         f"fault in a merged resp_sum was not rejected alone ({fault})")
+    return res
 
 
 def phase_profile(torch, api, n_requests):
@@ -2004,12 +2373,17 @@ def main(argv=None) -> int:
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
         srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
+        cexp = load_cluster_expected()
         exp = load_expected()
-        main = timed("main_path", phase_main_path, torch, np, api, fs, K0,
-                     exp, args.n_requests)
+        main, main_rs = timed("main_path", phase_main_path, torch, np, api,
+                              fs, K0, exp, args.n_requests)
         timed("fig6", phase_fig6, torch, api, fs, K0, exp, args.n_requests)
         eager = timed("eager_card", phase_eager_card, torch, np, api, K0)
         timed("wide", phase_wide, torch, api, K0, exp)
+        opts = timed("options", phase_options, torch, np, api, fs, K0, cexp,
+                     args.n_requests, main, main_rs)
+        static = timed("static_cluster", phase_static_cluster, torch, np,
+                       api, fs, K0, cexp, args.n_requests)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -2025,8 +2399,14 @@ def main(argv=None) -> int:
     lanes = kres["lanes"]
     report = _build.BUILD_INFO.get("event_loop", {}).get("ptxas", "")
     kernels = []
+    static_launches = {}
+    for x in static["specs"]:
+        for v, c in x["launches"]["by_variant"].items():
+            static_launches[v] = static_launches.get(v, 0) + c
     for p in POLICIES:
         m, e = main["per_policy"][p], eager[p]
+        v = m["variant"]
+        on = opts["per_policy"][p]
         kernels.append(dict(
             name=f"event_loop[{p}]", entry="event_loop", variant=m["variant"],
             route="cuda", source="src/repro_torch/csrc/event_loop.cu",
@@ -2036,7 +2416,20 @@ def main(argv=None) -> int:
             "of _simulate with this policy's hooks"
             + (", K1 inline" if m["variant"].startswith("esff") else ""),
             launches=main["launches"]["by_variant"][m["variant"]],
-            max_abs_err=parity_err[p], ms=m["k0_ms"],
+            launches_by_phase=dict(
+                main_path=main["launches"]["by_variant"][v],
+                options=opts["launches"]["by_variant"][v],
+                options_window_4096=opts["window_4096_launches"][
+                    "by_variant"].get(v, 0),
+                fig8=opts["fig8"]["launches_by_variant"].get(v, 0),
+                static_cluster=static_launches.get(v, 0)),
+            ms_options_on=on["k0_ms_options_on"],
+            options_overhead_pct=on["overhead_pct"],
+            static_cluster={f"AGG={x['agg']}": x["per_policy"][p]
+                            for x in static["specs"]
+                            if p in x["per_policy"]},
+            max_abs_err=max(e.get(p, 0.0) for e in parity_err.values()),
+            ms=m["k0_ms"],
             us_per_event=m["k0_us_per_event"],
             longest_lane_events=m["longest_lane_events"],
             plain_ms=e["plain_ms"], plain_n_requests=e["n_requests"],

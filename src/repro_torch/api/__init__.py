@@ -15,13 +15,16 @@ from repro_torch.api.registry import (available_policies, get_kernel,
 from repro_torch.api.results import ResultSet
 from repro_torch.api.runner import run, run_experiment
 from repro_torch.api.spec import (ArrayTrace, ExperimentSpec, HeadTrace,
-                                  ScaledTrace, SyntheticTrace, TraceSource,
-                                  as_trace_source)
+                                  NpzTrace, ScaledTrace, SyntheticTrace,
+                                  TraceSource, as_trace_source)
+from repro_torch.cluster import (ClusterSpec, register_router,
+                                 unregister_router)
 
 __all__ = [
     "ExperimentSpec", "TraceSource", "SyntheticTrace", "ArrayTrace",
-    "HeadTrace", "ScaledTrace",
+    "NpzTrace", "HeadTrace", "ScaledTrace",
     "as_trace_source", "ResultSet", "run", "run_experiment",
     "register_policy", "unregister_policy", "get_kernel",
-    "available_policies",
+    "available_policies", "ClusterSpec", "register_router",
+    "unregister_router",
 ]

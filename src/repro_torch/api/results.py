@@ -1,8 +1,11 @@
 """Labeled experiment results: the `ResultSet`.
 
-Counterpart of `repro.api.results` for single-node grids. Every metric
-array carries the grid axes ``(policy, trace, capacity, beta)`` in that
-order; metric-specific dims (histogram bins, per-request N) follow.
+Counterpart of `repro.api.results`. Every metric array carries the grid
+axes ``(policy, trace, capacity, beta)`` in that order, plus a trailing
+``cluster`` axis when the producing spec declared one (its coords are
+the `ClusterSpec` labels); metric-specific dims (histogram and timeline
+bins, per-function deadline misses, per-node counts, per-request N)
+follow.
 Selection (`sel` / `value`), tidy rows (`rows`), CSV (`to_csv`) and an
 npz round-trip (`save_npz` / `load_npz`) work as in the JAX package.
 """
@@ -17,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 DIMS = ("policy", "trace", "capacity", "beta")
+CLUSTER_DIM = "cluster"     # optional trailing axis of cluster runs
 
 # metrics that must be zero on every computed cell for a valid run
 HEALTH_METRICS = ("overflow", "stalled")
@@ -36,14 +40,21 @@ class ResultSet:
         if self.computed is None:
             self.computed = np.ones(shape, bool)
         for k, v in self.data.items():
-            if tuple(v.shape[:len(DIMS)]) != shape:
+            if tuple(v.shape[:len(shape)]) != shape:
                 raise ValueError(
                     f"ResultSet: metric {k!r} shape {v.shape} does not "
                     f"lead with the grid shape {shape}")
 
     @property
+    def dims(self):
+        """Grid axis names: the four core dims, plus ``cluster`` when the
+        producing spec declared a cluster axis."""
+        return (DIMS + (CLUSTER_DIM,) if CLUSTER_DIM in self.coords
+                else DIMS)
+
+    @property
     def grid_shape(self):
-        return tuple(len(self.coords[d]) for d in DIMS)
+        return tuple(len(self.coords[d]) for d in self.dims)
 
     @property
     def metrics(self) -> List[str]:
@@ -83,15 +94,16 @@ class ResultSet:
         """Subset by coordinate *value* (scalar or list per dim), e.g.
         ``rs.sel(policy="esff", capacity=[8, 16])``. Axes are retained
         (scalar selections become size-1); use `value` for one cell."""
-        unknown = set(which) - set(DIMS)
+        dims = self.dims
+        unknown = set(which) - set(dims)
         if unknown:
             raise KeyError(f"ResultSet.sel: unknown dim(s) "
-                           f"{sorted(unknown)}; dims are {DIMS}")
+                           f"{sorted(unknown)}; dims are {dims}")
         coords = dict(self.coords)
         data = dict(self.data)
         comp = self.computed
         for d, want in which.items():
-            ax = DIMS.index(d)
+            ax = dims.index(d)
             ids = self._axis_indices(d, want)
             coords[d] = [self.coords[d][i] for i in ids]
             data = {k: np.take(v, ids, axis=ax) for k, v in data.items()}
@@ -104,12 +116,13 @@ class ResultSet:
         scalar for scalar metrics, an ndarray for metrics with trailing
         dims (``resp_hist``, ``response``)."""
         sub = self.sel(**which) if which else self
-        if sub.grid_shape != (1,) * len(DIMS):
+        nd = len(sub.dims)
+        if sub.grid_shape != (1,) * nd:
             raise KeyError(
                 f"ResultSet.value({metric!r}): selection leaves grid "
-                f"{dict(zip(DIMS, sub.grid_shape))}, need exactly one "
+                f"{dict(zip(sub.dims, sub.grid_shape))}, need exactly one "
                 "cell -- add coords")
-        cell = sub[metric][(0,) * len(DIMS)]
+        cell = sub[metric][(0,) * nd]
         return cell.item() if np.ndim(cell) == 0 else np.asarray(cell)
 
     # ------------------------------------------------------- tidy rows
@@ -117,12 +130,13 @@ class ResultSet:
              ) -> Iterator[dict]:
         """One dict per computed grid cell with every coordinate and
         every scalar metric (vector metrics only when named)."""
+        dims = self.dims
         names = list(metrics) if metrics is not None else [
-            m for m in self.metrics if self.data[m].ndim == len(DIMS)]
+            m for m in self.metrics if self.data[m].ndim == len(dims)]
         for cell_ix in np.ndindex(*self.grid_shape):
             if not self.computed[cell_ix]:
                 continue
-            row = {d: self.coords[d][i] for d, i in zip(DIMS, cell_ix)}
+            row = {d: self.coords[d][i] for d, i in zip(dims, cell_ix)}
             for m in names:
                 cell = self.data[m][cell_ix]
                 row[m] = (cell.item() if np.ndim(cell) == 0
@@ -158,7 +172,7 @@ class ResultSet:
         cells = np.argwhere(bad)[:limit]
         named = "; ".join(
             ", ".join(f"{d}={self.coords[d][i]!r}"
-                      for d, i in zip(DIMS, c)) for c in cells)
+                      for d, i in zip(self.dims, c)) for c in cells)
         more = int(bad.sum()) - len(cells)
         return named + (f"; ... {more} more" if more > 0 else "")
 
@@ -199,7 +213,7 @@ class ResultSet:
 
     def __repr__(self):
         axes = ", ".join(f"{d}={n}"
-                         for d, n in zip(DIMS, self.grid_shape))
+                         for d, n in zip(self.dims, self.grid_shape))
         return (f"ResultSet({axes}; {int(self.computed.sum())}/"
                 f"{int(np.prod(self.grid_shape))} cells, "
                 f"metrics={self.metrics})")

@@ -18,7 +18,8 @@ import torch
 from repro_torch.api.registry import get_kernel
 from repro_torch.api.results import ResultSet
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.core.engine import lane_chunk_for, sweep_metrics
+from repro_torch.core.engine import (lane_chunk_for, slo_attainment,
+                                     sweep_metrics)
 from repro_torch.utils.device import resolve_device
 
 _BETA_DEFAULT = "default"
@@ -66,14 +67,46 @@ def _chunk_plan(spec: ExperimentSpec, T: int, chunk: int):
     return plan, K, B
 
 
+def result_meta(spec: ExperimentSpec, dev: torch.device, N: int, F: int,
+                chunk: int, kernels: dict, **extra) -> dict:
+    """The `ResultSet` meta of a run of ``spec`` on ``dev`` (``extra``
+    appended: the cluster tier's ``cluster``)."""
+    return dict(spec.meta,
+                n_requests=N, n_functions=F, queue_cap=spec.queue_cap,
+                stream=spec.stream, window=spec.window,
+                tl_bins=spec.tl_bins, tl_bucket=spec.tl_bucket,
+                prior=spec.prior, threshold=spec.threshold,
+                lane_chunk=chunk,
+                deadlines=(None if spec.deadlines is None else
+                           (spec.deadlines
+                            if isinstance(spec.deadlines, float)
+                            else list(spec.deadlines))),
+                seeds=(list(spec.seeds) if spec.seeds is not None
+                       else None),
+                device=str(dev),
+                device_name=(torch.cuda.get_device_name(dev)
+                             if dev.type == "cuda" else "cpu"),
+                default_betas={p: kernels[p].default_beta
+                               for p in spec.policies},
+                **extra)
+
+
 def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
     """Execute ``spec`` and return its labeled `ResultSet`.
 
     Runs on ``device`` (default ``spec.device``; CUDA unless it is
-    ``"cpu"``) and raises when CUDA is wanted but absent."""
+    ``"cpu"``) and raises when CUDA is wanted but absent. A spec with a
+    ``cluster`` axis goes to
+    `repro_torch.cluster.runner.run_cluster_experiment`, which stacks one
+    grid a topology into the ResultSet's trailing ``cluster`` axis."""
     spec.validate()
     dev = resolve_device(spec.device if device is None else device)
+    if spec.cluster is not None:
+        from repro_torch.cluster.runner import run_cluster_experiment
+        return run_cluster_experiment(spec, dev)
     sources, stacked, F, N = _lower_grid(spec)
+    dl = spec.deadline_ops(F)
+    dl_op = None if dl is None else torch.as_tensor(dl, device=dev)
     T = len(sources)
     C = max(spec.capacities)
     masks = np.stack([np.arange(C) < c for c in spec.capacities])
@@ -109,7 +142,9 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
             torch.as_tensor(beta_cols[policy][lo:hi], device=dev),
             spec.prior, spec.threshold, kernel=kernels[policy],
             n_fns=F, capacity=C, queue_cap=spec.queue_cap,
-            stream=spec.stream, keep_responses=spec.keep_per_request)
+            stream=spec.stream, keep_responses=spec.keep_per_request,
+            deadlines=dl_op, window=spec.window, tl_bins=spec.tl_bins,
+            tl_bucket=spec.tl_bucket)
         for k, v in out.items():
             v = v.cpu().numpy()
             if k not in flat:
@@ -118,22 +153,15 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
 
     data = {k: v.reshape((P, T, K, B) + v.shape[2:])
             for k, v in flat.items()}
+    if dl is not None:
+        data["slo_attainment"] = slo_attainment(data["deadline_miss"],
+                                                data["done"])
     coords = dict(policy=list(spec.policies),
                   trace=_unique_labels([s.label for s in sources]),
                   capacity=list(spec.capacities),
                   beta=(list(spec.betas) if spec.betas is not None
                         else [_BETA_DEFAULT]))
-    meta = dict(spec.meta,
-                n_requests=N, n_functions=F, queue_cap=spec.queue_cap,
-                stream=spec.stream, prior=spec.prior,
-                threshold=spec.threshold, lane_chunk=chunk,
-                seeds=(list(spec.seeds) if spec.seeds is not None
-                       else None),
-                device=str(dev),
-                device_name=(torch.cuda.get_device_name(dev)
-                             if dev.type == "cuda" else "cpu"),
-                default_betas={p: kernels[p].default_beta
-                               for p in spec.policies})
+    meta = result_meta(spec, dev, N, F, chunk, kernels)
     return ResultSet(data=data, coords=coords, meta=meta)
 
 

@@ -13,15 +13,20 @@ capacities x betas plus the engine knobs -- as one validated value;
 The spec keeps every field of the JAX package's spec so the two are
 built the same way, but only these are ported: ``traces``,
 ``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
-``keep_per_request``, ``queue_cap``, ``prior``, ``threshold``,
-``lane_chunk`` and ``meta``, plus the port's own ``device``. Any other
-field set away from its default fails validation with ValueError,
-naming the ROADMAP item that will port it; it is never ignored.
+``window``, ``tl_bins``, ``tl_bucket``, ``keep_per_request``,
+``deadlines``, ``queue_cap``, ``prior``, ``threshold``, ``lane_chunk``,
+``cluster`` (static routers) and ``meta``, plus the port's own
+``device``. Any other field set away from its default fails validation
+with ValueError, naming the ROADMAP item that will port it; it is never
+ignored. A cluster entry with a dynamic router validates and then
+raises NotImplementedError when the spec runs (ROADMAP Queue 1, item 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field, fields, replace
 from typing import Dict, Optional, Sequence, Tuple, Union
+
+import os
 
 import numpy as np
 
@@ -31,13 +36,11 @@ TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 
 # fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "window": "Queue 1, item 2", "tl_bins": "Queue 1, item 2",
-    "tl_bucket": "Queue 1, item 2", "deadlines": "Queue 1, item 2",
-    "fail_prob": "Queue 1, item 6", "timeouts": "Queue 1, item 6",
-    "retry": "Queue 1, item 6", "on_overflow": "Queue 1, item 6",
-    "fail_seed": "Queue 1, item 6", "devices": "Queue 1 (multi-device)",
-    "host_shard": "Queue 1 (multi-host)", "cluster": "Queue 1, items 3-4",
-    "trace_events": "Queue 1, item 7",
+    "fail_prob": "Queue 1, item 3", "timeouts": "Queue 1, item 3",
+    "retry": "Queue 1, item 3", "on_overflow": "Queue 1, item 3",
+    "fail_seed": "Queue 1, item 3", "devices": "Queue 1 (multi-device)",
+    "host_shard": "Queue 1 (multi-host)",
+    "trace_events": "Queue 1, item 4",
 }
 
 
@@ -142,6 +145,27 @@ class SyntheticTrace(TraceSource):
 
 
 @dataclass(frozen=True)
+class NpzTrace(TraceSource):
+    """A ``Trace.save_npz``-format file (the `TRACE_COLUMNS` arrays), e.g.
+    the real Azure-2021 slice that ``scripts/prepare_azure_trace.py``
+    produces."""
+
+    path: str = ""
+
+    @property
+    def label(self) -> str:
+        return f"npz[{os.path.basename(self.path) or self.path}]"
+
+    def _materialise(self):
+        if not self.path or not os.path.exists(self.path):
+            raise FileNotFoundError(
+                f"NpzTrace: no npz at {self.path!r} (see "
+                "docs/azure_trace.md for producing one)")
+        with np.load(self.path) as z:
+            return {k: z[k] for k in TRACE_COLUMNS}
+
+
+@dataclass(frozen=True)
 class ArrayTrace(TraceSource):
     """Inline columnar arrays (already in the engine layout)."""
 
@@ -221,21 +245,19 @@ class ScaledTrace(TraceSource):
 
 
 def as_trace_source(obj, name: str = "") -> TraceSource:
-    """Coerce a source, a `Trace` or a columnar array dict into a
-    `TraceSource`."""
+    """Coerce a source, a `Trace`, a columnar array dict or an npz path
+    into a `TraceSource`."""
     if isinstance(obj, TraceSource):
         return obj
     if isinstance(obj, Trace):
         return ArrayTrace.from_trace(obj, name)
     if isinstance(obj, dict):
         return ArrayTrace.from_arrays(obj, name or "arrays")
-    if isinstance(obj, str):
-        raise NotImplementedError(
-            f"npz trace path {obj!r}: NpzTrace is not ported yet; load "
-            "the columns and pass ArrayTrace.from_arrays(...)")
+    if isinstance(obj, (str, os.PathLike)):
+        return NpzTrace(path=os.fspath(obj))
     raise TypeError(
         f"cannot interpret {type(obj).__name__!r} as a trace source; "
-        "pass a TraceSource, Trace or columnar array dict")
+        "pass a TraceSource, Trace, columnar array dict, or npz path")
 
 
 @dataclass
@@ -243,8 +265,14 @@ class ExperimentSpec:
     """One declared experiment: the grid ``traces x policies x
     capacities x betas`` plus engine options (see the module docstring
     for which fields are ported). ``seeds`` expands each reseedable
-    source into one trace per seed. ``device`` is where the run goes:
-    CUDA unless it is ``"cpu"``."""
+    source into one trace per seed. ``tl_bins > 0`` adds the Fig. 8
+    timeline (``tl_bucket`` seconds a bin); ``deadlines`` (one scalar,
+    or one value per function) adds the per-function ``deadline_miss``
+    counts and the derived ``slo_attainment``; ``window`` changes no
+    result; ``cluster`` adds a trailing axis of
+    `repro_torch.cluster.ClusterSpec` topologies (``None`` entries are
+    the plain single-node run). ``device`` is where the run goes: CUDA
+    unless it is ``"cpu"``."""
 
     traces: Sequence = ()
     policies: Sequence[str] = ("esff",)
@@ -274,7 +302,7 @@ class ExperimentSpec:
     device: Optional[str] = None
 
     def __post_init__(self):
-        if isinstance(self.traces, (TraceSource, dict, Trace)):
+        if isinstance(self.traces, (TraceSource, dict, Trace, str)):
             self.traces = [self.traces]
         self.traces = tuple(as_trace_source(t) for t in self.traces)
         self.policies = tuple(self.policies)
@@ -284,6 +312,16 @@ class ExperimentSpec:
         if self.seeds is not None:
             self.seeds = tuple(int(s) for s in self.seeds)
         self.host_shard = tuple(int(x) for x in self.host_shard)
+        if self.deadlines is not None:
+            if np.isscalar(self.deadlines):
+                self.deadlines = float(self.deadlines)
+            else:
+                self.deadlines = tuple(float(d) for d in self.deadlines)
+        if self.cluster is not None:
+            from repro_torch.cluster.spec import ClusterSpec
+            if isinstance(self.cluster, ClusterSpec):
+                self.cluster = (self.cluster,)
+            self.cluster = tuple(self.cluster)
 
     def validate(self) -> "ExperimentSpec":
         """Raise on the first invalid or unported field; returns self."""
@@ -322,11 +360,65 @@ class ExperimentSpec:
                 t.with_seed(self.seeds[0])   # raises on non-reseedable
         if self.queue_cap <= 0:
             raise ValueError("ExperimentSpec: queue_cap must be > 0")
+        if self.window < 0 or self.tl_bins < 0:
+            raise ValueError("ExperimentSpec: window/tl_bins must be "
+                             ">= 0")
         if self.keep_per_request and self.stream:
             raise ValueError(
                 "ExperimentSpec: keep_per_request needs stream=False "
                 "(streaming folds per-request records away)")
+        if self.deadlines is not None:
+            vals = ([self.deadlines] if isinstance(self.deadlines, float)
+                    else list(self.deadlines))
+            if not vals:
+                raise ValueError(
+                    "ExperimentSpec: deadlines=() -- use None to disable "
+                    "SLO accounting")
+            for d in vals:
+                if not np.isfinite(d) or d <= 0:
+                    raise ValueError(
+                        f"ExperimentSpec: deadlines must be finite and "
+                        f"> 0, got {d}")
+        if self.cluster is not None:
+            from repro_torch.cluster.spec import ClusterSpec
+            if not self.cluster:
+                raise ValueError(
+                    "ExperimentSpec: cluster=() -- use None for plain "
+                    "single-node runs")
+            for entry in self.cluster:
+                if entry is None:
+                    continue
+                if not isinstance(entry, ClusterSpec):
+                    raise TypeError(
+                        f"ExperimentSpec: cluster entries must be "
+                        f"ClusterSpec or None, got "
+                        f"{type(entry).__name__}")
+                entry.validate()
+                if (entry.node_capacity is not None
+                        and len(self.capacities) != 1):
+                    raise ValueError(
+                        "ExperimentSpec: a ClusterSpec with "
+                        "node_capacity fixes per-node slots, so the "
+                        "capacity axis must have exactly one entry (the "
+                        f"aggregate label); got {self.capacities}")
         return self
+
+    def deadline_ops(self, n_fns: int) -> Optional[np.ndarray]:
+        """Lower ``deadlines`` to the engine's (F,) float64 operand (a
+        scalar broadcasts to every function), or ``None`` when SLO
+        accounting is off. Raises if a per-function sequence does not
+        match the catalogue size."""
+        if self.deadlines is None:
+            return None
+        if isinstance(self.deadlines, float):
+            return np.full((n_fns,), self.deadlines, np.float64)
+        if len(self.deadlines) != n_fns:
+            raise ValueError(
+                f"ExperimentSpec: deadlines has {len(self.deadlines)} "
+                f"entries but the trace catalogue declares {n_fns} "
+                "functions (pass one scalar or one deadline per "
+                "function)")
+        return np.asarray(self.deadlines, np.float64)
 
     def expanded_traces(self) -> Tuple[TraceSource, ...]:
         """The trace axis after seed expansion (seed-major per source)."""

@@ -1,0 +1,280 @@
+"""The static routing tier: pre-partition, simulate, merge exactly
+(counterpart of `repro.cluster.static`).
+
+A static router fixes each request's node from the trace alone, so a
+K-node cluster is exactly K independent single-node simulations over the
+per-node sub-streams of the arrival stream:
+
+1. ``build_node_streams`` asks the router for the (N,) node assignment
+   (checking that every request is routed exactly once), splits the
+   columnar trace into K arrival-ordered sub-streams, adds each node's
+   network delay to its arrivals (a constant shift keeps a sub-stream
+   sorted) and right-pads every sub-stream to the common length N
+   (``fn_id`` 0, ``arrival`` 1e30, ``exec_time`` 0). The engine's
+   ``n_live`` lane bound keeps the padding inert.
+2. ``run_static_entries`` lowers (policy x entry x trace x node x
+   capacity x beta) onto engine lanes: every (entry, trace, node)
+   sub-stream is one row of a shared operand, node slot counts become
+   per-lane capacity masks over the largest node, and one engine call
+   runs a lane chunk of every static entry of a spec (one launch of the
+   event-loop kernel a policy and lane chunk on a card, where the JAX
+   package calls its engine once a sub-stream). Lanes are independent,
+   so the packing changes no bit.
+3. ``merge_node_metrics`` folds the per-node metrics back into cluster
+   cells: counters and histograms are integer sums, the float sums are
+   taken in canonical (value-sorted) order over the node axis, in numpy
+   as the JAX package does (`_ordered_sum`), so that the merge is
+   bitwise invariant to node numbering, and the means and the quantile
+   are recomputed from the merged sums and histogram as the engine
+   computes them: a K = 1 cluster with zero delay is bitwise the plain
+   single-node run.
+
+A request routed to node k *arrives at the node* at ``t + delay_k``, and
+its response is measured from that node-local arrival.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.cluster.routers import DYNAMIC_NOT_PORTED
+from repro_torch.cluster.spec import ClusterSpec
+
+PAD_ARRIVAL = 1e30      # the engine's BIG: padding never arrives
+
+
+def build_node_streams(arrays: Dict[str, np.ndarray], cspec: ClusterSpec):
+    """Partition one columnar trace into per-node padded sub-streams.
+
+    Returns ``(assign, streams, n_live, index)``: the (N,) node
+    assignment, a dict of (K, N) padded ``fn_id``/``arrival``/
+    ``exec_time`` rows (node k's requests lead row k, arrival order
+    kept, delays applied), the (K,) live lengths and the K
+    original-request-id index arrays (for exact-mode reassembly)."""
+    router = cspec.get_router()
+    if router.dynamic:
+        raise NotImplementedError(
+            f"build_node_streams: router {cspec.router!r} is dynamic: "
+            f"{DYNAMIC_NOT_PORTED}")
+    fn_id = np.asarray(arrays["fn_id"])
+    arrival = np.asarray(arrays["arrival"])
+    N, K = len(fn_id), cspec.n_nodes
+    assign = np.asarray(router.assign(fn_id, arrival, cspec))
+    if assign.shape != (N,):
+        raise ValueError(
+            f"router {cspec.router!r} returned shape {assign.shape} for "
+            f"{N} requests: every request must be routed exactly once")
+    if N and (assign.min() < 0 or assign.max() >= K):
+        raise ValueError(
+            f"router {cspec.router!r} routed outside [0, {K}): range "
+            f"[{assign.min()}, {assign.max()}]")
+    delays = cspec.delays()
+    node_fn = np.zeros((K, N), np.int32)
+    node_arr = np.full((K, N), PAD_ARRIVAL, np.float64)
+    node_ex = np.zeros((K, N), np.float64)
+    n_live = np.zeros((K,), np.int32)
+    index: List[np.ndarray] = []
+    for k in range(K):
+        idx = np.flatnonzero(assign == k)
+        n = len(idx)
+        node_fn[k, :n] = fn_id[idx]
+        node_arr[k, :n] = arrival[idx] + delays[k]
+        node_ex[k, :n] = np.asarray(arrays["exec_time"])[idx]
+        n_live[k] = n
+        index.append(idx)
+    streams = dict(fn_id=node_fn, arrival=node_arr, exec_time=node_ex)
+    return assign, streams, n_live, index
+
+
+# ------------------------------------------------------------ exact merge
+# float metrics summed over nodes in canonical (value-sorted) order so
+# that the merged value is bitwise invariant to node numbering; integer
+# metrics sum in any order (n_events too: the port's results carry it);
+# the maximum is order-free
+_SUM_F = ("resp_sum", "slow_sum", "cold_time", "evict_time",
+          "tl_resp_sum", "tl_exec_sum")
+_SUM_I = ("cold_starts", "evictions", "overflow", "stalled", "done",
+          "n_events", "resp_hist", "deadline_miss", "tl_count")
+
+
+def _ordered_sum(a: np.ndarray, axis: int) -> np.ndarray:
+    """Sum over ``axis`` with the addends first sorted by value: numpy's
+    pairwise summation over a sorted axis, deterministic and
+    permutation-invariant."""
+    return np.sort(a, axis=axis).sum(axis=axis)
+
+
+def _mean(x: np.ndarray, n: int) -> np.ndarray:
+    """``x / n`` as the engine spells a constant denominator (XLA folds
+    the division into a reciprocal multiply; a plain numpy divide would
+    differ in the last ulp and break the K = 1 bitwise gate)."""
+    return x * (1.0 / max(int(n), 1))
+
+
+def merge_node_metrics(per_node: Dict[str, np.ndarray], node_axis: int,
+                       n_total: int) -> Dict[str, np.ndarray]:
+    """Fold per-node metric arrays (node axis ``node_axis``, >= 0) into
+    cluster-level metrics over ``n_total`` requests; the means and the
+    streamed p99 are recomputed from the merged sums and histogram the
+    way `engine.sweep_metrics` computes them."""
+    from repro_torch.core.engine import hist_quantile
+    out: Dict[str, np.ndarray] = {}
+    for m in _SUM_F:
+        if m in per_node:
+            out[m] = _ordered_sum(per_node[m], node_axis)
+    for m in _SUM_I:
+        if m in per_node:
+            out[m] = per_node[m].sum(axis=node_axis)
+    out["max_response"] = per_node["max_response"].max(axis=node_axis)
+    out["node_done"] = np.moveaxis(per_node["done"], node_axis, -1)
+    out["mean_response"] = _mean(out["resp_sum"], n_total)
+    out["mean_slowdown"] = _mean(out["slow_sum"], n_total)
+    out["p99_response"] = hist_quantile(
+        torch.from_numpy(out["resp_hist"]), 0.99, n_total,
+        torch.from_numpy(out["max_response"])).numpy()
+    return out
+
+
+def pack_static_lanes(spec, entries, stacked: Dict[str, np.ndarray]):
+    """The static tier's lanes for ``entries`` (static `ClusterSpec`s) of
+    ``spec``: every (entry, trace, node) sub-stream is a row of one
+    shared (R, N) operand, and the lanes run entry-major, then trace,
+    node, capacity, beta. Returns ``(rows, lanes, layout)``: the row
+    columns (numpy, engine layout), the lane columns ``trace_ix``,
+    ``cap_mask`` (over the largest node's slots), ``n_live`` and
+    ``beta_ix`` (into the beta axis), and per entry ``(K, n_live (T, K),
+    index[t][k])`` for the merge."""
+    T = stacked["fn_id"].shape[0]
+    B = 1 if spec.betas is None else len(spec.betas)
+    C = max(max(e.node_caps(c)) for e in entries for c in spec.capacities)
+    rows = {k: [] for k in ("fn_id", "arrival", "exec_time", "cold_start",
+                            "evict")}
+    tix, masks, n_live, bix = [], [], [], []
+    layout = []
+    for e in entries:
+        Kn = e.n_nodes
+        nl_rows = np.zeros((T, Kn), np.int64)
+        index = []
+        for t in range(T):
+            a = {k: stacked[k][t] for k in ("fn_id", "arrival",
+                                            "exec_time")}
+            _, streams, nl, idx = build_node_streams(a, e)
+            nl_rows[t] = nl
+            index.append(idx)
+            for k in range(Kn):
+                r = len(rows["fn_id"])
+                for key in ("fn_id", "arrival", "exec_time"):
+                    rows[key].append(streams[key][k])
+                rows["cold_start"].append(stacked["cold_start"][t])
+                rows["evict"].append(stacked["evict"][t])
+                for c in spec.capacities:
+                    for b in range(B):
+                        tix.append(r)
+                        masks.append(np.arange(C) < e.node_caps(c)[k])
+                        n_live.append(nl[k])
+                        bix.append(b)
+        layout.append((Kn, nl_rows, index))
+    lanes = dict(trace_ix=np.asarray(tix, np.int64),
+                 cap_mask=np.stack(masks),
+                 n_live=np.asarray(n_live, np.int64),
+                 beta_ix=np.asarray(bix, np.int64))
+    return {k: np.stack(v) for k, v in rows.items()}, lanes, layout
+
+
+def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
+                 kernels: dict, betas: Dict[str, np.ndarray], deadlines,
+                 device, chunk: int):
+    """The static tier's engine calls for ``entries`` of ``spec``: the
+    lanes of `pack_static_lanes`, ``chunk`` of them a call, policy-major.
+    Returns ``(calls, L, layout)``: ``calls`` a list of ``(policy, lo,
+    hi, args, kw)``, each one call ``sweep_metrics(*args, **kw)`` over
+    lanes [lo, hi) on ``device``; ``betas[policy]`` is the policy's (B,)
+    beta axis, ``deadlines`` the (F,) operand or None."""
+    rows, lanes, layout = pack_static_lanes(spec, entries, stacked)
+    C = lanes["cap_mask"].shape[1]
+    f64 = torch.float64
+    dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
+              cold_start=f64, evict=f64)
+    shared = [torch.as_tensor(rows[k], dtype=dt[k], device=device)
+              for k in ("fn_id", "arrival", "exec_time", "cold_start",
+                        "evict")]
+    L = len(lanes["trace_ix"])
+
+    def col(x, lo, hi):
+        return torch.as_tensor(x[lo:hi], device=device)
+
+    calls = []
+    for policy in spec.policies:
+        beta_l = np.asarray(betas[policy], np.float64)[lanes["beta_ix"]]
+        for lo in range(0, L, chunk):
+            hi = min(lo + chunk, L)
+            args = (*shared, col(lanes["trace_ix"], lo, hi),
+                    col(lanes["cap_mask"], lo, hi), col(beta_l, lo, hi),
+                    spec.prior, spec.threshold)
+            kw = dict(kernel=kernels[policy], n_fns=F, capacity=C,
+                      queue_cap=spec.queue_cap, stream=spec.stream,
+                      keep_responses=not spec.stream,
+                      n_live=col(lanes["n_live"], lo, hi),
+                      deadlines=deadlines, window=spec.window,
+                      tl_bins=spec.tl_bins, tl_bucket=spec.tl_bucket)
+            calls.append((policy, lo, hi, args, kw))
+    return calls, L, layout
+
+
+def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
+                       N: int) -> List[Dict[str, np.ndarray]]:
+    """One policy's per-lane metrics ``flat`` (lanes in `pack_static_lanes`
+    order, numpy) merged into one (T, KC, B)-shaped metric dict an entry
+    of ``layout``."""
+    KC = len(spec.capacities)
+    B = 1 if spec.betas is None else len(spec.betas)
+    out, lo = [], 0
+    for Kn, nl_rows, index in layout:
+        T = nl_rows.shape[0]
+        n_lanes = T * Kn * KC * B
+        # (T, K, KC, B, ...) -> (T, KC, B, K, ...)
+        pn = {m: np.moveaxis(v[lo:lo + n_lanes].reshape(
+                  (T, Kn, KC, B) + v.shape[1:]), 1, 3)
+              for m, v in flat.items()}
+        merged = merge_node_metrics(pn, node_axis=3, n_total=N)
+        if "response" in pn:
+            resp = np.zeros((T, KC, B, N), np.float64)
+            for t in range(T):
+                for k in range(Kn):
+                    nk = int(nl_rows[t, k])
+                    resp[t, :, :, index[t][k]] = np.moveaxis(
+                        pn["response"][t, :, :, k, :nk], -1, 0)
+            merged["p99_response"] = np.percentile(resp, 99.0, axis=-1)
+            if spec.keep_per_request:
+                merged["response"] = resp
+        out.append(merged)
+        lo += n_lanes
+    return out
+
+
+def run_static_entries(spec, entries, stacked: Dict[str, np.ndarray],
+                       F: int, N: int, kernels: dict,
+                       betas: Dict[str, np.ndarray], deadlines, device,
+                       chunk: int) -> List[Dict[str, np.ndarray]]:
+    """Run the static `ClusterSpec` ``entries`` of ``spec`` over its grid
+    on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
+    trailing dims: ``node_done`` (.., K), ``resp_hist`` (.., bins), ...).
+
+    The engine calls are `static_calls`'; ``betas[policy]`` is the
+    policy's (B,) beta axis, ``deadlines`` the (F,) operand or None."""
+    from repro_torch.core.engine import sweep_metrics
+    calls, L, layout = static_calls(spec, entries, stacked, F, kernels,
+                                    betas, deadlines, device, chunk)
+    flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
+    for policy, lo, hi, args, kw in calls:
+        for k, v in sweep_metrics(*args, **kw).items():
+            v = v.cpu().numpy()
+            if k not in flat[policy]:
+                flat[policy][k] = np.zeros((L,) + v.shape[1:], v.dtype)
+            flat[policy][k][lo:hi] = v
+    merged = [merge_static_lanes(spec, layout, flat[p], N)
+              for p in spec.policies]
+    return [{m: np.stack([per_entry[j][m] for per_entry in merged])
+             for m in merged[0][j]} for j in range(len(layout))]

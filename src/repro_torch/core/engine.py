@@ -36,7 +36,19 @@ indexes, int32 for counts, float64 for every time):
           named tensor each costs the same one op per update.)
   out:    ``hist`` (L, HIST_BINS), the log-spaced response histogram;
           in exact mode (``stream=False``) also start/completion
-          (L, N) per request.
+          (L, N) per request; with ``deadlines`` the per-function miss
+          counts ``dl_miss`` (L, F) i32; with ``tl_bins`` the arrival-
+          minute timeline ``tl_cnt`` (L, bins) i32, ``tl_resp`` and
+          ``tl_exec`` (L, bins) f64.
+
+Engine options (`simulate`): ``n_live`` (L,) makes each lane a ragged
+prefix of its trace row (the arrival candidate is BIG once ``next >=
+n_live``, and a lane is active while ``done < n_live``), so padded rows
+share one operand (the static cluster tier); ``deadlines`` (F,) counts
+each dispatch whose response exceeds its function's deadline; ``tl_bins``
+/ ``tl_bucket`` bin each dispatch by its arrival time. ``window`` is
+accepted and changes nothing: the JAX engine's results are bitwise
+window-invariant, and the port runs one window.
 
 Event arbitration is the reference's: one first-index argmin over the
 packed candidate times [BUSY slots | COLD slots | (original timers |
@@ -94,10 +106,8 @@ _COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
 _SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
 _NOT_PORTED = {
-    "window": "windows (ROADMAP Queue 1, item 2)",
-    "tl_bins": "the timeline fold (ROADMAP Queue 1, item 2)",
-    "n_live": "ragged n_live prefixes (ROADMAP Queue 1, item 2)",
-    "deadlines": "deadline accounting (ROADMAP Queue 1, item 2)",
+    "resil": "the resilience rails (ROADMAP Queue 1, item 3)",
+    "trace": "the telemetry event rail (ROADMAP Queue 1, item 4)",
 }
 
 
@@ -132,7 +142,8 @@ class EngineCtx:
 
     def __init__(self, *, fn_id, arrival, exec_time, t_cold_l, t_evict_l,
                  trace_ix, cap_mask, beta, prior, f, c, q, stream,
-                 threshold=0.1):
+                 threshold=0.1, n_live=None, deadlines=None, tl_bins=0,
+                 tl_bucket=60.0):
         N = fn_id.shape[1]
         dev = fn_id.device
         self.N, self.F, self.C, self.Q = N, f, c, q
@@ -152,10 +163,21 @@ class EngineCtx:
         self.beta = beta                 # (L,) f64
         self.prior = prior
         self.threshold = threshold       # timer delay (timer policies)
+        # (L,) live prefix of each lane's trace row
+        self.n_live = (torch.full((self.L,), N, dtype=torch.int64,
+                                  device=dev)
+                       if n_live is None else n_live)
+        self.deadlines = deadlines       # (F,) f64 or None
+        self.tl_bins = tl_bins           # timeline bins (0: off)
+        # an (L,) tensor, so that the bin is a true division on every
+        # device (CUDA multiplies by the reciprocal of a Python scalar)
+        self.tl_bucket = torch.full((self.L,), float(tl_bucket),
+                                    dtype=torch.float64, device=dev)
         self.lanes = torch.arange(self.L, device=dev)
         self.ar_c = torch.arange(c, device=dev)
         self.ar_f = torch.arange(f, device=dev)
         self.ar_h = torch.arange(HIST_BINS, device=dev)
+        self.ar_tl = torch.arange(tl_bins, device=dev)
 
     # ------------------------------------------------------ trace reads
     def _rid(self, rid):
@@ -370,15 +392,30 @@ def dispatch(ctx, s, slot, rid, t, on):
 
 def _fold_event(ctx, s):
     """End-of-event metric fold of the ``ev_*`` dispatch registers, in
-    event order: response and slowdown sums, maximum, histogram."""
+    event order: response and slowdown sums, maximum, histogram, then
+    (when on) the deadline misses (``resp > deadline``, strictly) and the
+    timeline bin of the request's arrival."""
     rid = s["ev_rid"]
     on = rid >= 0
-    resp = s["ev_comp"] - ctx.arrival_at(rid)
+    arr = ctx.arrival_at(rid)
+    resp = s["ev_comp"] - arr
     slow = resp / torch.clamp_min(s["ev_exec"], 1e-9)
     s["r_sum"] = s["r_sum"] + torch.where(on, resp, 0.0)
     s["s_sum"] = s["s_sum"] + torch.where(on, slow, 0.0)
     s["r_max"] = torch.maximum(s["r_max"], torch.where(on, resp, 0.0))
     s["hist"] = s["hist"] + _hit(on, hist_bin(resp), ctx.ar_h)
+    if ctx.deadlines is not None:
+        fnr = ctx.fn_at(rid)
+        dl = ctx.deadlines[fnr.clamp(0, ctx.F - 1)]
+        s["dl_miss"] = s["dl_miss"] + _hit(on & (resp > dl), fnr, ctx.ar_f)
+    if ctx.tl_bins:
+        tb = (arr / ctx.tl_bucket).to(torch.int32).clamp(0, ctx.tl_bins - 1)
+        m = _hit(on, tb, ctx.ar_tl)
+        s["tl_cnt"] = s["tl_cnt"] + m
+        s["tl_resp"] = torch.where(m, s["tl_resp"] + resp[:, None],
+                                   s["tl_resp"])
+        s["tl_exec"] = torch.where(m, s["tl_exec"] + s["ev_exec"][:, None],
+                                   s["tl_exec"])
 
 
 def start_cold(ctx, s, slot, fn, t, evict_fn, on):
@@ -419,10 +456,14 @@ def hist_bin(resp):
 
 def hist_quantile(hist, q, n, resp_max=None):
     """Upper edge of the bin holding the q-quantile of ``n`` folded
-    responses, clamped to ``resp_max`` (the top bin reports the
-    maximum itself); (L, HIST_BINS) -> (L,)."""
+    responses (an int, or an (L, 1) tensor of live counts), clamped to
+    ``resp_max`` (the top bin reports the maximum itself); (L,
+    HIST_BINS) -> (L,)."""
     cum = torch.cumsum(hist, dim=-1)
-    need = math.ceil(q * n)
+    if isinstance(n, torch.Tensor):
+        need = torch.ceil(q * n.to(torch.float64)).to(cum.dtype)
+    else:
+        need = math.ceil(q * n)
     b = torch.argmax((cum >= need).to(torch.uint8), dim=-1)
     edge = torch.as_tensor(hist_edges(), device=hist.device)[b + 1]
     if resp_max is None:
@@ -453,9 +494,26 @@ def percentile_linear(x, q: float):
     return a[:, lo] * (1.0 - hw) + a[:, hi] * hw
 
 
+def percentile_live(x, q: float, n_live):
+    """Row-wise percentile of each row's first ``n_live`` entries, in the
+    spelling of ``jnp.nanpercentile`` over the row with the rest NaN (the
+    count of live values sets the position); NaN for an empty row."""
+    live = torch.arange(x.shape[1], device=x.device) < n_live[:, None]
+    a = torch.sort(torch.where(live, x, math.nan), dim=1).values
+    cnt = n_live.to(torch.float64)[:, None]
+    pos = (q / 100.0) * (cnt - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    hw = pos - lo
+    top = torch.clamp_min(n_live[:, None] - 1, 0)
+    lo = torch.minimum(lo.clamp_min(0).to(torch.int64), top)
+    hi = torch.minimum(hi.clamp_min(0).to(torch.int64), top)
+    v = (a.gather(1, lo) * (1.0 - hw) + a.gather(1, hi) * hw)[:, 0]
+    return torch.where(n_live > 0, v, math.nan)
+
+
 # ------------------------------------------------------------ event loop
-def _init_state(kernel, L, C, F, N, stream, dev
-                ) -> Dict[str, torch.Tensor]:
+def _init_state(kernel, L, C, F, N, stream, dev, deadlines=False,
+                tl_bins=0) -> Dict[str, torch.Tensor]:
     i64, i32, f64 = torch.int64, torch.int32, torch.float64
     s = dict(
         slot_fn=torch.full((L, C), -1, dtype=i64, device=dev),
@@ -480,6 +538,12 @@ def _init_state(kernel, L, C, F, N, stream, dev
         s["start"] = torch.full((L, N + 1), -1.0, dtype=f64, device=dev)
         s["completion"] = torch.full((L, N + 1), -1.0, dtype=f64,
                                      device=dev)
+    if deadlines:
+        s["dl_miss"] = torch.zeros((L, F), dtype=i32, device=dev)
+    if tl_bins:
+        s["tl_cnt"] = torch.zeros((L, tl_bins), dtype=i32, device=dev)
+        s["tl_resp"] = torch.zeros((L, tl_bins), dtype=f64, device=dev)
+        s["tl_exec"] = torch.zeros((L, tl_bins), dtype=f64, device=dev)
     if kernel.has_timers:
         s["arr_cnt"] = torch.zeros((L, F), dtype=i32, device=dev)
         s["tmr_pos"] = torch.zeros((L, F), dtype=i32, device=dev)
@@ -501,7 +565,8 @@ def _event_step(ctx, kernel, s, max_iters):
     # ---- pick: first-index argmin over
     # [busy | cold | (original timers | re-arms) | arrival]
     na = s["next"]
-    t_arr = torch.where(na < N, ctx.arrival_at(na), BIG)
+    nl = ctx.n_live
+    t_arr = torch.where(na < nl, ctx.arrival_at(na), BIG)
     ready = torch.where(ctx.cap_mask, s["slot_ready"], BIG)
     st = s["slot_state"]
     blocks = [torch.where(st == BUSY, ready, BIG),
@@ -511,12 +576,12 @@ def _event_step(ctx, kernel, s, max_iters):
     cand = torch.cat(blocks + [t_arr[:, None]], dim=1)
     t_ev, ei = torch.min(cand, dim=1)   # first index of the minimum
 
-    active = (s["done"] < N) & (s["stall"] == 0)
+    active = (s["done"] < nl) & (s["stall"] == 0)
     live = active & (t_ev < BIG)
     ev_slot = live & (ei < 2 * C)
     is_cold = ei >= C
     slot = torch.where(is_cold, ei - C, ei).clamp(0, C - 1)
-    ev_arr = live & (ei == cand.shape[1] - 1) & (na < N)
+    ev_arr = live & (ei == cand.shape[1] - 1) & (na < nl)
 
     # ---- slot event: release, estimator, then the policy hooks
     cold_on = ev_slot & is_cold
@@ -583,7 +648,8 @@ def _event_step(ctx, kernel, s, max_iters):
 def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
              cap_mask, beta, prior, threshold=0.1, *, kernel, n_fns,
              capacity, queue_cap, stream=False, window=0, tl_bins=0,
-             n_live=None, deadlines=None) -> Dict[str, torch.Tensor]:
+             tl_bucket=60.0, n_live=None, deadlines=None, resil=None,
+             trace=False) -> Dict[str, torch.Tensor]:
     """Lane-batched engine (counterpart of `jax_engine._simulate`).
 
     Trace arrays are shared (T, ...) tensors; ``trace_ix`` (L,) int64,
@@ -594,37 +660,62 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     counters (int32), f64 sums and the histogram; in exact mode also
     start/completion (L, N).
 
+    Options (see the module docstring): ``n_live`` (L,) ints, ragged
+    prefixes; ``deadlines`` (F,) seconds, adds ``deadline_miss`` (L, F);
+    ``tl_bins`` > 0 with ``tl_bucket`` seconds a bin, adds ``tl_count``,
+    ``tl_resp_sum`` and ``tl_exec_sum`` (L, tl_bins); ``window`` >= 0 is
+    accepted and changes nothing. ``resil`` and ``trace`` are not ported
+    and raise.
+
     A built-in policy goes to the event-loop kernel (one launch a call
     on a CUDA device, its plain version `simulate_eager` on the CPU);
     any other `PolicyKernel` runs `simulate_eager`. The route is chosen
     by the policy's type, never by a failed build."""
-    _reject_unported(window=window, tl_bins=tl_bins, n_live=n_live,
-                     deadlines=deadlines)
+    _reject_unported(resil=resil, trace=trace)
+    if window < 0 or tl_bins < 0:
+        raise ValueError(f"simulate: window and tl_bins must be >= 0, got "
+                         f"{window} and {tl_bins}")
     from repro_torch.kernels import event_loop as K0
-    f64 = torch.float64
-    args = (fn_id.to(torch.int64).contiguous(),
+    f64, i64 = torch.float64, torch.int64
+    dev = fn_id.device
+    args = (fn_id.to(i64).contiguous(),
             arrival.to(f64).contiguous(), exec_time.to(f64).contiguous(),
             t_cold.to(f64).contiguous(), t_evict.to(f64).contiguous(),
-            trace_ix.to(torch.int64).contiguous(),
+            trace_ix.to(i64).contiguous(),
             cap_mask.to(torch.bool).contiguous(), beta.to(f64).contiguous(),
             float(prior))
+    if n_live is not None:
+        n_live = _as_tensor(n_live, i64, dev).contiguous()
     kw = dict(kernel=kernel, n_fns=n_fns, capacity=capacity,
               queue_cap=queue_cap, stream=stream,
-              threshold=float(threshold))
+              threshold=float(threshold), tl_bins=int(tl_bins),
+              tl_bucket=float(tl_bucket), n_live=n_live,
+              deadlines=(None if deadlines is None
+                         else _as_tensor(deadlines, f64, dev).contiguous()))
     if K0.has_device_loop(kernel):
-        return K0.event_loop(*args, **kw)
+        return K0.event_loop(*args, **kw)     # checks n_live itself
+    if n_live is not None:
+        check_n_live(n_live, fn_id.shape[1])
     return simulate_eager(*args, **kw)
+
+
+def check_n_live(n_live, n_requests: int) -> None:
+    """Raise unless every live count lies in [0, N] (one host read)."""
+    if bool(((n_live < 0) | (n_live > n_requests)).any()):
+        raise ValueError(f"n_live must lie in [0, N = {n_requests}]")
 
 
 def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                    cap_mask, beta, prior, *, kernel, n_fns, capacity,
-                   queue_cap, stream=False, threshold=0.1
+                   queue_cap, stream=False, threshold=0.1, n_live=None,
+                   deadlines=None, tl_bins=0, tl_bucket=60.0
                    ) -> Dict[str, torch.Tensor]:
     """The eager event loop: `_event_step` over every lane, SEG steps
     between host checks, the policy's hooks run gated for every lane on
-    every step. Inputs as `simulate` (int64 ``fn_id`` and ``trace_ix``,
-    f64 times and ``beta``, bool ``cap_mask``); the plain version of the
-    event-loop kernel and the route of every policy without one."""
+    every step. Inputs as `simulate` (int64 ``fn_id``, ``trace_ix`` and
+    ``n_live``, f64 times, ``beta`` and ``deadlines``, bool
+    ``cap_mask``); the plain version of the event-loop kernel and the
+    route of every policy without one."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
@@ -635,12 +726,14 @@ def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
         t_evict_l=t_evict[trace_ix].contiguous(),
         trace_ix=trace_ix, cap_mask=cap_mask, beta=beta,
         prior=float(prior), f=F, c=C, q=queue_cap, stream=stream,
-        threshold=float(threshold))
-    s = _init_state(kernel, L, C, F, N, stream, dev)
+        threshold=float(threshold), n_live=n_live, deadlines=deadlines,
+        tl_bins=tl_bins, tl_bucket=tl_bucket)
+    s = _init_state(kernel, L, C, F, N, stream, dev,
+                    deadlines=deadlines is not None, tl_bins=tl_bins)
     max_iters = max_events(N)
 
     def running():
-        return bool(((s["done"] < N) & (s["stall"] == 0)).any())
+        return bool(((s["done"] < ctx.n_live) & (s["stall"] == 0)).any())
 
     while running():   # one host sync per SEG events
         for _ in range(SEG):
@@ -653,6 +746,12 @@ def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                n_events=s["iters"].to(i32), done=s["done"].to(i32),
                resp_sum=s["r_sum"], slow_sum=s["s_sum"],
                max_response=s["r_max"], resp_hist=s["hist"].to(i32))
+    if tl_bins:
+        out["tl_count"] = s["tl_cnt"]
+        out["tl_resp_sum"] = s["tl_resp"]
+        out["tl_exec_sum"] = s["tl_exec"]
+    if deadlines is not None:
+        out["deadline_miss"] = s["dl_miss"]
     if not stream:
         out["start"] = s["start"][:, :N]
         out["completion"] = s["completion"][:, :N]
@@ -676,13 +775,14 @@ def simulate_policy(fn_id, arrival, exec_time, t_cold, t_evict, *,
                     queue_cap: int = 512, beta=None, prior: float = 0.1,
                     threshold: float = 0.1, cap_mask=None,
                     stream: bool = False, window: int = 0,
-                    tl_bins: int = 0, device=None
+                    tl_bins: int = 0, tl_bucket: float = 60.0, device=None
                     ) -> Dict[str, torch.Tensor]:
     """Run ``policy`` over one (arrival-sorted) request stream on
     ``device`` (CUDA unless ``device="cpu"``). Counterpart of
     `jax_engine.simulate_policy_jax`; inputs may be numpy arrays or
     tensors. Returns the counters, the streamed sums and the
-    histogram, plus per-request start/completion unless ``stream``."""
+    histogram, plus per-request start/completion unless ``stream``,
+    and the timeline (``tl_*``) when ``tl_bins`` > 0."""
     from repro_torch.api.registry import get_kernel
     dev = resolve_device(device)
     kernel = get_kernel(policy)
@@ -700,7 +800,7 @@ def simulate_policy(fn_id, arrival, exec_time, t_cold, t_evict, *,
                    torch.full((1,), float(beta), dtype=f64, device=dev),
                    prior, threshold, kernel=kernel, n_fns=n_fns,
                    capacity=capacity, queue_cap=queue_cap, stream=stream,
-                   window=window, tl_bins=tl_bins)
+                   window=window, tl_bins=tl_bins, tl_bucket=tl_bucket)
     return {k: v[0] for k, v in out.items()}
 
 
@@ -724,32 +824,45 @@ def simulate_policy_from_trace(trace: Trace, policy: str, capacity: int,
 
 def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                   threshold=0.1, *, kernel, n_fns, capacity, queue_cap,
-                  stream=True, keep_responses=False
+                  stream=True, keep_responses=False, n_live=None,
+                  deadlines=None, window=0, tl_bins=0, tl_bucket=60.0
                   ) -> Dict[str, torch.Tensor]:
     """Lane-batched run + metric reduction (counterpart of
     `jax_engine._sweep_metrics`). Means and slowdowns come from the
     streamed sums in both modes; p99 is exact in exact mode (linear
     interpolation, as ``jnp.percentile``) and one-bin-accurate from the
     histogram in streaming mode. ``keep_responses`` (exact mode only)
-    also returns the (L, N) per-request responses."""
+    also returns the (L, N) per-request responses. With ``n_live`` (L,)
+    the means and quantiles reduce over each lane's live prefix."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                    threshold, kernel=kernel, n_fns=n_fns,
-                   capacity=capacity, queue_cap=queue_cap, stream=stream)
+                   capacity=capacity, queue_cap=queue_cap, stream=stream,
+                   window=window, tl_bins=tl_bins, tl_bucket=tl_bucket,
+                   n_live=n_live, deadlines=deadlines)
     N = fn.shape[1]
-    # the reference's mean is XLA's a / N, which XLA folds into
-    # a * (1 / N); spelled out here so the CPU and CUDA (which also
-    # turns division by a Python scalar into a reciprocal multiply)
-    # both give the reference's bits
-    inv_n = 1.0 / N
+    if n_live is None:
+        # the reference's mean is XLA's a / N, which XLA folds into
+        # a * (1 / N); spelled out here so the CPU and CUDA (which also
+        # turns division by a Python scalar into a reciprocal multiply)
+        # both give the reference's bits
+        inv_n = 1.0 / N
+        means = (out["resp_sum"] * inv_n, out["slow_sum"] * inv_n)
+        nq = N
+    else:
+        # an array denominator: a plain IEEE division, as XLA's
+        nl = _as_tensor(n_live, torch.int64, fn.device)
+        den = torch.clamp_min(nl, 1).to(torch.float64)
+        means = (out["resp_sum"] / den, out["slow_sum"] / den)
+        nq = nl[:, None]
     if stream:
-        p99 = hist_quantile(out["resp_hist"], 0.99, N, out["max_response"])
+        p99 = hist_quantile(out["resp_hist"], 0.99, nq, out["max_response"])
     else:
         resp = out["completion"] - arr.to(torch.float64)[tix]
-        p99 = percentile_linear(resp, 99.0)
-    res = dict(mean_response=out["resp_sum"] * inv_n,
-               mean_slowdown=out["slow_sum"] * inv_n,
+        p99 = (percentile_linear(resp, 99.0) if n_live is None
+               else percentile_live(resp, 99.0, nl))
+    res = dict(mean_response=means[0], mean_slowdown=means[1],
                resp_sum=out["resp_sum"], slow_sum=out["slow_sum"],
                done=out["done"], p99_response=p99,
                max_response=out["max_response"],
@@ -757,9 +870,22 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                cold_starts=out["cold_starts"], cold_time=out["cold_time"],
                evictions=out["evictions"], overflow=out["overflow"],
                stalled=out["stalled"], n_events=out["n_events"])
+    for k in ("tl_count", "tl_resp_sum", "tl_exec_sum", "deadline_miss"):
+        if k in out:
+            res[k] = out[k]
     if keep_responses:
         res["response"] = resp
     return res
+
+
+def slo_attainment(deadline_miss, done):
+    """Fraction of completed requests that met their function's deadline:
+    ``1 - deadline_miss.sum(-1) / done``, in numpy outside the engine
+    (as `jax_engine.slo_attainment`), so that every tier derives it
+    alike."""
+    miss = np.asarray(deadline_miss)
+    d = np.maximum(np.asarray(done, dtype=np.float64), 1.0)
+    return 1.0 - miss.sum(axis=-1) / d
 
 
 def lane_chunk_for(setting: Optional[int], device: torch.device) -> int:

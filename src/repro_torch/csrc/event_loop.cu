@@ -46,10 +46,23 @@
 //   arrival the policy's hook (ESFF: FCP, Eq. 7, 8; the central queue:
 //           an idle own slot, else queue and scale up; OpenWhisk-v2: an
 //           idle own slot, else queue, and arm the arrival's timer)
-//   fold    response and slowdown sums, maximum, 64-bin log histogram
-// A lane stops when every request is done, with stall 1 when it is
+//   fold    response and slowdown sums, maximum, 64-bin log histogram;
+//           with the engine options on, the deadline miss of the request's
+//           function (resp > deadline) and its arrival's timeline bin
+//           (count, response and execution sums)
+// A lane stops when every live request is done, with stall 1 when it is
 // active and has no finite event (after a queue overflow), or stall 2 at
 // 256 N + 4096 events; each event raises `iters`, so the loop ends.
+//
+// Engine options (core/engine.py `simulate`). `n_live` (L,), when given,
+// makes a lane a ragged prefix of its padded trace row: it replaces N in
+// the loop bound and in the arrival gate, so padding never arrives (the
+// static cluster tier packs sub-streams of different live lengths into
+// one launch this way). `deadlines` (F,) and the timeline (`tl_bins`
+// bins of `tl_bucket` seconds, the bin a true division of the arrival)
+// fold into (L, F) and (L, tl_bins) arrays in global memory that thread
+// 0 alone updates, in event order. A null pointer (0 bins) turns an
+// option off: one test a fold.
 //
 // Layout. The lane's tallies (Tally: the counts and time sums that change
 // at most once an event) live in 72 B of static shared memory, touched by
@@ -182,6 +195,15 @@ struct Params {
   int64_t* pcounts;          // (L, N_PC): FRP scans, head scans, timers
   double* start;             // (L, N) or null (stream mode)
   double* completion;        // (L, N) or null
+  // the engine options, each null (0 bins) when off
+  const int64_t* n_live;     // (L,) live prefix of each lane's row
+  const double* deadlines;   // (F,)
+  int tl_bins;
+  double tl_bucket;          // seconds a timeline bin
+  int32_t* dl_miss;          // (L, F) zeroed by the wrapper
+  int32_t* tl_cnt;           // (L, tl_bins) zeroed by the wrapper
+  double* tl_resp;           // (L, tl_bins)
+  double* tl_exec;           // (L, tl_bins)
 };
 
 // The lane's tallies that change at most once an event and are read only
@@ -244,6 +266,7 @@ struct Lane {
   const Params& p;
   const int t;              // this thread's index in the warp
   const int lane, N, F, C, Q;
+  const int NL;             // the live prefix: N unless n_live is given
   const int64_t* fn_id;
   const double* arrival;
   const double* exec;
@@ -262,6 +285,8 @@ struct Lane {
   __device__ Lane(const Params& p_, unsigned char* smem)
       : p(p_), t(threadIdx.x), lane(blockIdx.x), N(p_.n_req),
         F(p_.n_fns), C(p_.n_slots), Q(p_.queue_cap),
+        NL(p_.n_live != nullptr ? static_cast<int>(p_.n_live[blockIdx.x])
+                                : p_.n_req),
         fn_id(p_.fn_id + p_.trace_ix[blockIdx.x] * p_.n_req),
         arrival(p_.arrival + p_.trace_ix[blockIdx.x] * p_.n_req),
         exec(p_.exec_time + p_.trace_ix[blockIdx.x] * p_.n_req),
@@ -803,6 +828,26 @@ struct Lane {
     if (t == (bin & 31)) {
       if (bin < 32) ++h_lo; else ++h_hi;
     }
+    if (t == 0) options_fold(resp);
+  }
+
+  // The engine options' part of the fold (thread 0, global memory); the
+  // arrival is read again here, so that it is not held live across the
+  // histogram's bin when the options are off.
+  __device__ __forceinline__ void options_fold(double resp) {
+    if (p.deadlines != nullptr) {
+      const long long fnr = fn_id[rc(ev_rid)];
+      if (fn_ok(fnr) && resp > p.deadlines[fnr])
+        p.dl_miss[static_cast<long long>(lane) * F + fnr] += 1;
+    }
+    if (p.tl_bins > 0) {
+      int tb = static_cast<int>(arrival[rc(ev_rid)] / p.tl_bucket);
+      tb = tb < 0 ? 0 : (tb > p.tl_bins - 1 ? p.tl_bins - 1 : tb);
+      const long long at = static_cast<long long>(lane) * p.tl_bins + tb;
+      p.tl_cnt[at] += 1;
+      p.tl_resp[at] = p.tl_resp[at] + resp;
+      p.tl_exec[at] = p.tl_exec[at] + ev_exec;
+    }
   }
 
   // The timer event at candidate `ei` (an original timer or a re-arm):
@@ -844,7 +889,7 @@ struct Lane {
     // the next arrival, loaded one event ahead
     double t_arr = N > 0 ? arrival[0] : kBig;
     long long fn_arr = N > 0 ? fn_id[0] : 0;
-    while (done < N && stall == 0) {
+    while (done < NL && stall == 0) {
       // pick: first-index argmin over
       // [busy | cold | (original timers | re-arms) | arrival]
       double w = INFINITY;
@@ -863,7 +908,7 @@ struct Lane {
       }
       frp::warp_first_min(w, ei);
       const long long na = next;
-      frp::keep_first_min(w, ei, na < N ? t_arr : kBig, n_arr);
+      frp::keep_first_min(w, ei, na < NL ? t_arr : kBig, n_arr);
       if (!(w < kBig)) {
         stall = 1;
         break;
@@ -873,7 +918,7 @@ struct Lane {
       const bool is_cold = ei >= C;
       const int slot = static_cast<int>(clampll(is_cold ? ei - C : ei, 0,
                                                 C - 1));
-      const bool ev_arr = ei == n_arr && na < N;
+      const bool ev_arr = ei == n_arr && na < NL;
       ev_rid = -1;
       ev_comp = 0.0;
       ev_exec = 0.0;
@@ -1004,7 +1049,8 @@ int layout(long long* out, int n) {
 
 // Plain C interface for ctypes: one block of one warp a lane,
 // `smem_bytes` of dynamic shared memory (slots, and the per-function
-// state when fn_in_shared), the variant chosen by `policy`. Returns
+// state when fn_in_shared), the variant chosen by `policy`; the engine
+// options as in Params (null pointers and tl_bins 0 when off). Returns
 // cudaGetLastError() right after the launch (0 = launched; -1 for an
 // unknown policy code); the launch is asynchronous on `stream`, and
 // nothing here allocates or synchronises.
@@ -1017,7 +1063,9 @@ extern "C" int event_loop_run(
     int queue_cap, int fn_in_shared, int smem_bytes, void* scratch,
     long long fn_stride, long long max_iters, int64_t* ctr, double* sums,
     int32_t* hist, int64_t* pcounts, double* start, double* completion,
-    void* stream) {
+    const int64_t* n_live, const double* deadlines, int tl_bins,
+    double tl_bucket, int32_t* dl_miss, int32_t* tl_cnt, double* tl_resp,
+    double* tl_exec, void* stream) {
   Params p;
   p.fn_id = fn_id;
   p.arrival = arrival;
@@ -1045,6 +1093,14 @@ extern "C" int event_loop_run(
   p.pcounts = pcounts;
   p.start = start;
   p.completion = completion;
+  p.n_live = n_live;
+  p.deadlines = deadlines;
+  p.tl_bins = tl_bins;
+  p.tl_bucket = tl_bucket;
+  p.dl_miss = dl_miss;
+  p.tl_cnt = tl_cnt;
+  p.tl_resp = tl_resp;
+  p.tl_exec = tl_exec;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (policy) {
 #define K0_LAUNCH(code, P) \

@@ -66,7 +66,7 @@ _I32_LIMIT = 2 ** 31 - 1
 _P = _build.PTR
 _I, _LL, _D = ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _ARGTYPES = ([_I] + [_P] * 10 + [_D, _D] + [_I] * 7 + [_P, _LL, _LL]
-             + [_P] * 7)
+             + [_P] * 6 + [_P, _P, _I, _D, _P, _P, _P, _P] + [_P])
 
 # the built-in kernel classes, each with its variants (`variant_of`)
 _BUILT_IN = (ESFFKernel, CentralQueueKernel, FaasCacheKernel,
@@ -153,14 +153,17 @@ def _check(name, x, dtype, shape, device):
 
 def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                cap_mask, beta, prior, *, kernel, n_fns, capacity, queue_cap,
-               stream=False, threshold=0.1):
+               stream=False, threshold=0.1, n_live=None, deadlines=None,
+               tl_bins=0, tl_bucket=60.0):
     """Run the engine over L lanes to completion under the built-in
     policy ``kernel``.
 
     ``fn_id`` (T, N) int64, ``arrival`` and ``exec_time`` (T, N) f64,
     ``t_cold`` and ``t_evict`` (T, F) f64, ``trace_ix`` (L,) int64,
     ``cap_mask`` (L, C) bool, ``beta`` (L,) f64, all contiguous on one
-    device; ``prior`` and ``threshold`` floats. Returns
+    device; ``prior`` and ``threshold`` floats. The engine options, each
+    off by default: ``n_live`` (L,) int64 in [0, N], ``deadlines`` (F,)
+    f64, ``tl_bins`` >= 0 bins of ``tl_bucket`` seconds. Returns
     `engine.simulate`'s dict. On a card, ``event_loop.last_scans``,
     ``last_head_scans`` and ``last_timers`` are then the launch's (L,)
     counts of inline FRP scans (one per completion in the ESFF
@@ -186,8 +189,17 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             ("cap_mask", cap_mask, torch.bool, (L, C)),
             ("beta", beta, f64, (L,))):
         _check(name, x, dt, shape, dev)
+    if n_live is not None:
+        _check("n_live", n_live, i64, (L,), dev)
+        E.check_n_live(n_live, N)
+    if deadlines is not None:
+        _check("deadlines", deadlines, f64, (F,), dev)
+    if tl_bins < 0 or tl_bins > _I32_LIMIT:
+        raise ValueError(f"event_loop: tl_bins must be in [0, 2^31), got "
+                         f"{tl_bins}")
     kw = dict(kernel=kernel, n_fns=F, capacity=C, queue_cap=queue_cap,
-              stream=stream, threshold=threshold)
+              stream=stream, threshold=threshold, n_live=n_live,
+              deadlines=deadlines, tl_bins=tl_bins, tl_bucket=tl_bucket)
     if dev.type == "cpu":
         event_loop.plain_calls += 1
         return E.simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict,
@@ -208,6 +220,13 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if not stream:
         start = torch.full((L, N), -1.0, dtype=f64, device=dev)
         comp = torch.full((L, N), -1.0, dtype=f64, device=dev)
+    i32 = torch.int32
+    dl_miss = (None if deadlines is None else
+               torch.zeros((L, F), dtype=i32, device=dev))
+    tl = ((None,) * 3 if not tl_bins else
+          (torch.zeros((L, tl_bins), dtype=i32, device=dev),
+           torch.zeros((L, tl_bins), dtype=f64, device=dev),
+           torch.zeros((L, tl_bins), dtype=f64, device=dev)))
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     rc = fn(VARIANTS[variant]["code"], fn_id.data_ptr(),
             arrival.data_ptr(), exec_time.data_ptr(), pos_rids.data_ptr(),
@@ -217,7 +236,9 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             int(plan["fn_in_shared"]), plan["smem_bytes"], ptr(scratch),
             plan["scratch_bytes"], E.max_events(N), ctr.data_ptr(),
             sums.data_ptr(), hist.data_ptr(), pcounts.data_ptr(),
-            ptr(start), ptr(comp), _build.stream_of(dev))
+            ptr(start), ptr(comp), ptr(n_live), ptr(deadlines),
+            int(tl_bins), float(tl_bucket), ptr(dl_miss), *map(ptr, tl),
+            _build.stream_of(dev))
     _build.launch_check(rc, f"event_loop_run ({variant})")
     event_loop.launches += 1
     event_loop.variant_launches[variant] = (
@@ -228,7 +249,6 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     event_loop.last_timers = pcounts[:, 2]
     col = {k: i for i, k in enumerate(COUNTERS)}
     col.update({k: i for i, k in enumerate(SUMS)})
-    i32 = torch.int32
     out = dict(cold_starts=ctr[:, col["cold"]].to(i32),
                cold_time=sums[:, col["cold_t"]],
                evictions=ctr[:, col["evict"]].to(i32),
@@ -239,6 +259,10 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                done=ctr[:, col["done"]].to(i32),
                resp_sum=sums[:, col["r_sum"]], slow_sum=sums[:, col["s_sum"]],
                max_response=sums[:, col["r_max"]], resp_hist=hist)
+    if tl_bins:
+        out["tl_count"], out["tl_resp_sum"], out["tl_exec_sum"] = tl
+    if deadlines is not None:
+        out["deadline_miss"] = dl_miss
     if not stream:
         out["start"] = start
         out["completion"] = comp

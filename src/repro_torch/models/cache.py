@@ -42,9 +42,9 @@ class CacheSpec:
 # the families the JAX package serves that the port does not, and the
 # ROADMAP item that ports each
 NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, item 9 (MoE)",
-    "encdec": "ROADMAP Queue 1, item 9 (encoder-decoder)",
-    "vlm": "ROADMAP Queue 1, item 9 (VLM)",
+    "moe": "ROADMAP Queue 1, item 6 (MoE)",
+    "encdec": "ROADMAP Queue 1, item 6 (encoder-decoder)",
+    "vlm": "ROADMAP Queue 1, item 6 (VLM)",
 }
 
 
@@ -54,7 +54,7 @@ def cache_spec(cfg, batch: int, max_len: int) -> CacheSpec:
     if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"cache of family {cfg.family!r}: not ported "
-            f"({NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 9')})")
+            f"({NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
     shapes, dtypes = {}, {}
     L = cfg.n_layers
     if cfg.family != "ssm":

@@ -28,7 +28,7 @@ def from_jax_params(cfg, tree) -> Dict[str, torch.Tensor]:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported ("
-            f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 9')})")
+            f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
     out: Dict[str, torch.Tensor] = {}
 
     def walk(prefix, node):

@@ -13,7 +13,7 @@ Where the TPU package has a kernel, the port calls its hand-written one:
 (`kernels.flash_attention`). Projections and the MLP are plain
 `torch.matmul`, as the JAX package leaves them to XLA. MoE, MLA,
 LayerNorm/GELU blocks and the shard_map tensor-parallel paths are not
-ported (ROADMAP Queue 1, item 9).
+ported (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 

@@ -130,11 +130,11 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported ("
-                f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 9')})")
+                f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
         if cfg.window is not None or cfg.mla or cfg.n_experts:
             raise NotImplementedError(
                 "sliding windows, MLA and MoE are not ported (ROADMAP "
-                "Queue 1, item 9)")
+                "Queue 1, item 6)")
         if cfg.family == "hybrid" and (cfg.attn_every < 1 or
                                        cfg.n_layers % cfg.attn_every):
             raise ValueError(f"hybrid serving needs n_layers "
@@ -282,7 +282,7 @@ class Model(nn.Module):
                     f"hybrid prompt of {S} tokens longer than the cache "
                     f"({cache['k'].shape[2]}): the JAX package's sliding-"
                     "window prefill is not ported (ROADMAP Queue 1, item "
-                    "9, hybrid prompts longer than the cache)")
+                    "6, hybrid prompts longer than the cache)")
             cos, sin = self._rope(torch.arange(S, device=h.device))
         h0 = h
 

@@ -172,3 +172,28 @@ def synth_azure_arrays(n_functions: int = 200,
                 exec_time=execs[order].astype(np.float64),
                 cold_start=np.asarray(cold, np.float64),
                 evict=np.asarray(evict, np.float64))
+
+
+def synth_azure_windows(n_functions: int = 200,
+                        n_requests: int = 60_000, *,
+                        window: int = 65_536, **kw):
+    """Windowed columnar emission: yield ``synth_azure_arrays`` output
+    in time-ordered slabs of ``window`` requests.
+
+    Each yielded dict carries the window's request columns (views into
+    the sorted arrays: ``fn_id`` / ``arrival`` / ``exec_time``), the
+    shared function catalogue (``cold_start`` / ``evict``) and the
+    window's first request id ``base``; concatenating the windows
+    reproduces ``synth_azure_arrays`` exactly. Consumers that stream a
+    trace window by window (npz shard writers, out-of-core pipelines)
+    get the same time-ordered id-range partitioning."""
+    a = synth_azure_arrays(n_functions, n_requests, **kw)
+    n = len(a["fn_id"])
+    for base in range(0, n, int(window)):
+        end = min(base + int(window), n)
+        yield dict(base=base,
+                   fn_id=a["fn_id"][base:end],
+                   arrival=a["arrival"][base:end],
+                   exec_time=a["exec_time"][base:end],
+                   cold_start=a["cold_start"],
+                   evict=a["evict"])

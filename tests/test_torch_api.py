@@ -4,11 +4,23 @@ floats rtol 1e-9), the trace generator is bitwise the JAX package's,
 and the ResultSet round-trips through npz."""
 import numpy as np
 import pytest
+import torch
 
 import repro.api as japi
 import repro_torch.api as tapi
 from repro.traces import synth_azure_arrays as j_synth
 from repro_torch.traces import synth_azure_arrays as t_synth
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The eager loop's ops are tiny: one intra-op thread a test process
+    keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TRACE = dict(n_functions=20, n_requests=250, seed=0, utilization=0.25)
 
@@ -86,7 +98,7 @@ def test_result_set_npz_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tl_bins", 4), ("window", 1024), ("deadlines", 1.0),
+    ("timeouts", 1.0), ("fail_seed", 3), ("retry", 2),
     ("fail_prob", 0.1), ("on_overflow", "shed"), ("devices", 2),
     ("host_shard", (0, 2)), ("trace_events", True)])
 def test_unported_spec_field_raises(field, value):

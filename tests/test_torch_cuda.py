@@ -252,6 +252,105 @@ def test_eager_loop_on_card_matches_kernel(cuda):
         assert torch.equal(card[k], v), k
 
 
+# -------------------------------------- the engine options in every variant
+def _static_rows(a, entries):
+    """The static tier's packing of one trace: every node of every entry
+    (a ClusterSpec) a padded row, with its slots and live length."""
+    from repro_torch.cluster.static import build_node_streams
+    rows, caps, n_live = [], [], []
+    for e in entries:
+        _, streams, nl, _ = build_node_streams(a, e)
+        for k in range(e.n_nodes):
+            rows.append(dict(a, **{c: streams[c][k] for c in
+                                   ("fn_id", "arrival", "exec_time")}))
+            caps.append(e.node_caps(0)[k])
+            n_live.append(int(nl[k]))
+    return rows, caps, n_live
+
+
+def _option_case(case):
+    """(traces, lane trace indices, capacities, F, n_live, deadlines,
+    tl_bins, tl_bucket) of an option case."""
+    from repro_torch.cluster import ClusterSpec
+    if case == "n_live":            # ragged lanes, one of them empty
+        return ([_azure(50, 400, 5)], [0] * 4, [8, 16, 8, 4], 50,
+                [400, 211, 0, 57], None, 0, 60.0)
+    if case == "timeline_deadlines":
+        return ([_azure(200, 1000, 2), _azure(200, 1000, 3)],
+                [0, 0, 1, 1], [8, 16, 8, 16], 200, None,
+                np.linspace(0.2, 2.0, 200), 9, 30.0)
+    a = _azure(50, 800, 6)          # the static tier's packing
+    rows, caps, n_live = _static_rows(a, [
+        ClusterSpec(n_nodes=1, router="hash", node_capacity=(8,)),
+        ClusterSpec(n_nodes=4, router="hash", node_capacity=(2,) * 4),
+        ClusterSpec(n_nodes=8, router="round_robin",
+                    node_capacity=(1,) * 8)])
+    return (rows, list(range(len(rows))), caps, 50, n_live,
+            np.full(50, 0.5), 12, 20.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("case", ["n_live", "timeline_deadlines",
+                                  "static_packing"])
+def test_event_loop_kernel_options_bitwise_eager(cuda, case, policy):
+    """Every variant with the engine options on, in one launch, bitwise
+    the eager loop (its plain version) on the same inputs."""
+    traces, tix, caps, F, n_live, dl, bins, bucket = _option_case(case)
+
+    def run(device):
+        t = {k: torch.tensor(np.stack([a[k] for a in traces]),
+                             device=device) for k in COLS}
+        C = max(caps)
+        masks = torch.tensor(np.stack([np.arange(C) < c for c in caps]),
+                             device=device)
+        beta = torch.full((len(tix),), POLICIES[policy].default_beta,
+                          dtype=torch.float64, device=device)
+        return E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
+                          t["cold_start"], t["evict"],
+                          torch.tensor(tix, device=device), masks, beta,
+                          0.1, kernel=POLICIES[policy], n_fns=F,
+                          capacity=C, queue_cap=4096, stream=True,
+                          n_live=n_live, deadlines=dl, tl_bins=bins,
+                          tl_bucket=bucket)
+
+    launches = K0.event_loop.launches
+    card = run(cuda)
+    torch.cuda.synchronize()
+    assert K0.event_loop.launches == launches + 1
+    cpu = run("cpu")
+    assert sorted(card) == sorted(cpu)
+    for k, v in cpu.items():
+        assert torch.equal(card[k].cpu(), v), (case, policy, k)
+    if n_live is not None:
+        assert cpu["done"].tolist() == list(n_live)
+    assert not cpu["stalled"].any()
+
+
+@pytest.mark.cuda
+def test_eager_loop_on_card_matches_kernel_with_options(cuda):
+    """The plain version on the card with every option on (the timeline
+    bin a true division there too) gives the kernel's bits."""
+    a = _azure(50, 300, 3)
+    t = {k: torch.tensor(a[k], dtype=torch.int64 if k == "fn_id"
+                         else torch.float64, device=cuda)[None]
+         for k in COLS}
+    args = (t["fn_id"], t["arrival"], t["exec_time"], t["cold_start"],
+            t["evict"], torch.zeros(2, dtype=torch.int64, device=cuda),
+            torch.ones(2, 8, dtype=torch.bool, device=cuda),
+            torch.ones(2, dtype=torch.float64, device=cuda), 0.1)
+    kw = dict(kernel=KERNELS["esff"], n_fns=50, capacity=8, queue_cap=512,
+              stream=False, tl_bins=7, tl_bucket=7.0,
+              n_live=torch.tensor([300, 123], device=cuda),
+              deadlines=torch.linspace(0.1, 1.0, 50, dtype=torch.float64,
+                                       device=cuda))
+    eager = E.simulate_eager(*args, **kw)
+    card = K0.event_loop(*args, **kw)
+    assert sorted(card) == sorted(eager)
+    for k, v in eager.items():
+        assert torch.equal(card[k], v), k
+
+
 # ------------------------------------------- the serving path's kernels
 def _bf16_or_f32(shape, dtype, seed, device):
     g = torch.Generator(device=device).manual_seed(seed)

@@ -15,6 +15,17 @@ from repro_torch.core import engine as E
 from repro_torch.core.policies import KERNELS
 from repro_torch.kernels import frp_select as fs
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The eager loop's ops are tiny: one intra-op thread a test process
+    keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 COUNTERS = ("cold_starts", "evictions", "overflow", "stalled", "done",
             "n_events")
 COLS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
@@ -112,12 +123,18 @@ def test_engine_frp_goes_through_frp_select_lanes():
     assert fs.frp_select_lanes.plain_calls > before
 
 
-@pytest.mark.parametrize("opt", [dict(window=4096), dict(tl_bins=8)])
+@pytest.mark.parametrize("opt", [dict(resil=object()), dict(trace=True)])
 def test_unported_engine_options_raise(opt):
     a = _trace(5, 20, 0)
+    t = {k: torch.as_tensor(a[k])[None] for k in COLS}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.simulate_policy(*(a[k] for k in COLS), n_fns=5, capacity=2,
-                          device="cpu", **opt)
+        E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
+                   t["cold_start"], t["evict"],
+                   torch.zeros(1, dtype=torch.int64),
+                   torch.ones(1, 2, dtype=torch.bool),
+                   torch.ones(1, dtype=torch.float64), 0.1,
+                   kernel=KERNELS["esff"], n_fns=5, capacity=2,
+                   queue_cap=64, **opt)
 
 
 def test_simulate_policy_from_trace_matches_jax():

@@ -21,6 +21,17 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import event_loop as K0
 from torch_event_traces import overflow_trace, tie_trace
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The eager loop's ops are tiny: one intra-op thread a test process
+    keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 COLS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 F64_KEYS = ("resp_sum", "slow_sum", "max_response", "cold_time",
             "evict_time")

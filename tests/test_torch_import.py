@@ -46,6 +46,30 @@ def test_import_loads_no_jax_and_no_repro():
     assert n_modules >= 46   # every submodule was imported
 
 
+_NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
+                   "repro_torch.cluster.spec", "repro_torch.cluster.static",
+                   "repro_torch.cluster.runner", "repro_torch.core.ssfs",
+                   "repro_torch.core.sim", "repro_torch.configs.paper_edge")
+
+
+def test_cluster_and_small_modules_load_no_jax():
+    """The static cluster tier, SSFS, the simulator facade and the
+    scenario config, each imported alone, leave JAX and the JAX package
+    out of sys.modules."""
+    probe = ("import importlib, sys\n"
+             f"for n in {_NEW_SUBMODULES!r}:\n"
+             "    importlib.import_module(n)\n"
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or "
+             "m.startswith('repro.'))\n"
+             "print(bad)\n"
+             "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_run_experiment_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = tapi.ExperimentSpec(

@@ -24,6 +24,17 @@ from repro_torch.core.policies import (KERNELS, FaasCacheKernel,
 from repro_torch.kernels import frp_select as fs
 from torch_event_traces import overflow_trace, tie_trace
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The eager loop's ops are tiny: one intra-op thread a test process
+    keeps parallel test workers from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
 COLS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
