@@ -58,7 +58,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
                  inputs, held bitwise to each other, for every policy:
-                 ESFF at N = 2,000, the others at N = 500.
+                 ESFF at N = 1,000, the others at N = 500.
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -89,12 +89,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  runner's own launch operands (`static_calls`; ms, us an
                  event on the longest lane), its lanes merged as the
                  runner merges them and held bitwise to its cells.
+   ``dynamic_cluster`` benchmarks/fig_cluster.py's dynamic half: routers
+                 jsq2 and cold_aware at K = 1..32 nodes of 32 / K slots
+                 and K = 64 of one slot, ESFF and SFF, ``queue_cap``
+                 32768, through the K-node variant of K0
+                 (`kernels.event_loop.cluster_loop`): every entry a lane
+                 (its own K, capacities, router, seed) of one launch a
+                 policy and spec; all 28 cells and ``node_done`` bitwise
+                 the JAX constants, a planted one-ulp fault in a cell's
+                 ``resp_sum`` rejected; the launches by variant; each
+                 policy's K-node launch alone on the runner's own operands
+                 (`dynamic_calls`; ms, us an event on the longest lane),
+                 held bitwise to the runner's cells; its K = 1 lanes
+                 bitwise the single-node K0 on the same trace and
+                 capacity; the eager K-node loop (its plain version) on
+                 the card at N = CLUSTER_EAGER_N beside the kernel, bitwise.
 5. ``parity``    the Fig. 5 spec (six policies), the options spec and the
-                 static cluster's two specs at N = 2,000 on the card (K0)
-                 and on the CPU (the eager loop), bitwise on every
-                 metric; a planted one-ulp fault in ``resp_sum`` must be
-                 rejected. The CPU sides run in six worker processes (one
-                 thread each, one policy of a spec a job), started in this
+                 static cluster's two specs at N = 2,000, the dynamic
+                 cluster's K = 4 entries (both routers, ESFF and SFF) at
+                 N = 1,000, on the card (K0 and its K-node variant) and
+                 on the CPU (the eager loops), bitwise on every metric; a
+                 planted one-ulp fault in ``resp_sum`` must be rejected.
+                 The CPU sides run in six worker processes (one thread
+                 each, one policy of a spec a job), started in this
                  phase, after every phase whose times are reported.
 6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
                  zamba2-2.7b in f32 on the card, on weights and a prompt
@@ -171,6 +188,12 @@ CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
 # the card-vs-CPU parities' N; their CPU sides run in worker processes
 # while the card's phases run
 PARITY_N = 2000
+# the dynamic cluster's parity: N = 1,000, K = 4 nodes of 8 slots under
+# both dynamic routers (the CPU side is the eager K-node loop)
+DYNAMIC_PARITY = dict(n_requests=1000, ks=(4,))
+# the K-node variant's plain version on the card: the eager K-node loop
+# at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel
+CLUSTER_EAGER_N = 100
 PARITY_WORKERS = 6
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
@@ -194,16 +217,22 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): ESFF at N = 2,000, the other
-# policies at a smaller N (a step costs ~5 ms there)
-EAGER_N = dict(esff=2000, default=500)
-# each policy's kernel instantiation: Policy<kind, lru, cold_aware, sff>
-# of csrc/event_loop.cu, and how its mangled name (ptxas) spells it
+# the eager loop on the card (eager_card): ESFF at N = 1,000, the other
+# policies at a smaller N (a step costs ~5-8 ms there; the smoke keeps
+# under 450 s)
+EAGER_N = dict(esff=1000, default=500)
+# each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
+# cold_aware, sff>, CL> of csrc/event_loop.cu (CL: the K-node variant),
+# and how its mangled name (ptxas) spells it
 POLICY_ARGS = {"esff": (0, 0, 0, 0), "esff_h": (0, 1, 1, 0),
                "sff": (1, 0, 0, 1), "openwhisk": (1, 0, 0, 0),
                "faascache": (2, 0, 0, 0), "openwhisk_v2": (3, 0, 0, 0)}
-PTXAS_NAME = {p: "PolicyILi{}ELb{}ELb{}ELb{}E".format(*a)
+PTXAS_NAME = {p: "PolicyILi{}ELb{}ELb{}ELb{}EEELb0E".format(*a)
               for p, a in POLICY_ARGS.items()}
+PTXAS_NAME_CLUSTER = {p: "PolicyILi{}ELb{}ELb{}ELb{}EEELb1E".format(*a)
+                      for p, a in POLICY_ARGS.items()}
+# the policies of benchmarks/fig_cluster.py (the static and dynamic halves)
+CLUSTER_POLICIES = ("esff", "sff")
 # the JAX policy kernel each variant carries out
 POLICY_SOURCE = {"esff": "src/repro/core/jax_policies.py:59",
                  "esff_h": "src/repro/core/jax_policies.py:59",
@@ -874,9 +903,10 @@ def k0_bound(n_requests, n_fns, lanes, n_events, counts, timers_pick):
 def reset_counts(fs, K0):
     fs.frp_select.launches = 0
     fs.frp_select_lanes.launches = 0
-    K0.event_loop.launches = 0
-    K0.event_loop.variant_launches = {}
-    K0.event_loop.last_by_variant = {}
+    for entry in (K0.event_loop, K0.cluster_loop):
+        entry.launches = 0
+        entry.variant_launches = {}
+        entry.last_by_variant = {}
 
 
 def check_counts(K0, phase, kernels, lanes, n_requests, got, counts):
@@ -912,7 +942,7 @@ def run_grid(torch, api, fs, K0, spec):
     for src in spec.expanded_traces():
         src.arrays()                      # trace generation is set-up
     reset_counts(fs, K0)
-    plain0 = K0.event_loop.plain_calls
+    plain0 = K0.event_loop.plain_calls + K0.cluster_loop.plain_calls
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rs = api.run_experiment(spec)
@@ -920,9 +950,14 @@ def run_grid(torch, api, fs, K0, spec):
     wall = time.perf_counter() - t0
     launches = dict(event_loop=K0.event_loop.launches,
                     by_variant=dict(K0.event_loop.variant_launches),
+                    cluster_loop=K0.cluster_loop.launches,
+                    cluster_by_variant=dict(K0.cluster_loop.variant_launches),
                     frp_select=fs.frp_select_lanes.launches,
-                    plain_calls=K0.event_loop.plain_calls - plain0)
+                    plain_calls=(K0.event_loop.plain_calls
+                                 + K0.cluster_loop.plain_calls - plain0))
     counts = {v: c.tolist() for v, c in K0.event_loop.last_by_variant.items()}
+    counts.update({f"cluster:{v}": c.tolist() for v, c in
+                   K0.cluster_loop.last_by_variant.items()})
     return rs, wall, launches, counts
 
 
@@ -1109,15 +1144,27 @@ def parity_failures(np, card, cpu):
 
 
 def parity_specs(api, part, n_requests, device):
-    """The specs that a phase's card-vs-CPU parity runs at N = 2,000:
-    the Fig. 5 grid (``parity``), the options phase's, or the static
-    cluster's two."""
+    """The specs that a phase's card-vs-CPU parity runs (at
+    `parity_n`): the Fig. 5 grid (``parity``), the options phase's, the
+    static cluster's two, or the dynamic cluster's K = 4 entries."""
     if part == "fig5":
         return [fig5_spec(api, n_requests, device)]
     CE = cluster_expected()
     if part == "options":
         return [CE.option_spec(api, n_requests, device=device)]
+    if part == "dynamic_cluster":
+        spec = CE.cluster_specs(api, n_requests,
+                                CE.CLUSTER["dynamic_routers"],
+                                device=device)[0]
+        return [replace(spec, cluster=CE.cluster_entries(
+            api, DYNAMIC_PARITY["ks"], CE.CLUSTER["agg"],
+            CE.CLUSTER["dynamic_routers"]))]
     return CE.cluster_specs(api, n_requests, device=device)
+
+
+def parity_n(part):
+    return (DYNAMIC_PARITY["n_requests"] if part == "dynamic_cluster"
+            else PARITY_N)
 
 
 def cpu_results(part, n_requests, index, policy):
@@ -1134,25 +1181,30 @@ def cpu_results(part, n_requests, index, policy):
     return out, time.perf_counter() - t0
 
 
-PARITY_PARTS = ("fig5", "options", "static_cluster")
+PARITY_PARTS = ("fig5", "options", "static_cluster", "dynamic_cluster")
 
 
 def phase_parity(np, api):
-    """The three parities at N = 2,000: the Fig. 5 grid (six policies),
-    the options phase's spec and the static cluster's two specs, each on
-    the card (K0) against the CPU (the eager loop), bitwise on every
-    metric; a planted one-ulp fault in one Fig. 5 lane's ``resp_sum``
-    must be rejected. The CPU sides run in PARITY_WORKERS processes (one
-    thread each, one policy of a spec a job, the longest first), started
-    here, after every phase whose times the smoke reports. Returns each
-    part's largest absolute difference a policy."""
-    jobs = [(part, i, p) for part in reversed(PARITY_PARTS)
-            for i, spec in enumerate(parity_specs(api, part, PARITY_N,
-                                                  "cpu"))
+    """The four parities: at N = 2,000 the Fig. 5 grid (six policies),
+    the options phase's spec and the static cluster's two specs, at N =
+    1,000 the dynamic cluster's K = 4 entries, each on the card (K0 and
+    its K-node variant) against the CPU (the eager loops), bitwise on
+    every metric; a planted one-ulp fault in one Fig. 5 lane's
+    ``resp_sum`` must be rejected. The CPU sides run in PARITY_WORKERS
+    processes (one thread each, one policy of a spec a job), started
+    here, after every phase whose times the smoke reports; the longest
+    job, Fig. 5's OpenWhisk-v2 (its timers), goes first, then the rest in
+    part order. Returns each part's largest absolute difference a
+    policy."""
+    jobs = [(part, i, p) for part in PARITY_PARTS
+            for i, spec in enumerate(parity_specs(api, part,
+                                                  parity_n(part), "cpu"))
             for p in spec.policies]
+    jobs.sort(key=lambda j: j[::2] != ("fig5", "openwhisk_v2"))
     with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
         pending = {(part, i, p): pool.apply_async(
-            cpu_results, (part, PARITY_N, i, p)) for part, i, p in jobs}
+            cpu_results, (part, parity_n(part), i, p))
+            for part, i, p in jobs}
         return parity_checks(np, api, pending)
 
 
@@ -1164,13 +1216,14 @@ def parity_checks(np, api, pending):
     for part in PARITY_PARTS:
         t0 = time.perf_counter()
         card = [api.run_experiment(s)
-                for s in parity_specs(api, part, PARITY_N, "cuda")]
+                for s in parity_specs(api, part, parity_n(part), "cuda")]
         card_s = time.perf_counter() - t0
-        cpu_s, errs = 0.0, {}
+        cpu_s, errs, job_s = 0.0, {}, {}
         for i, rs in enumerate(card):
             for p in rs.coords["policy"]:
                 cpu, sec = pending[(part, i, p)].get(timeout=1200)
                 cpu_s += sec
+                job_s[f"{i}:{p}"] = sec
                 mine = rs.sel(policy=p).data
                 bad += [f"{part}[{i}] {p}: {k}"
                         for k in parity_failures(np, mine, cpu)]
@@ -1185,7 +1238,8 @@ def parity_checks(np, api, pending):
                     v[3] = np.nextafter(v[3], np.inf)
                     fault = parity_failures(np, data, cpu)
         max_abs[part] = errs
-        out[part] = dict(card_s=card_s, cpu_s_total=cpu_s,
+        out[part] = dict(n_requests=parity_n(part), card_s=card_s,
+                         cpu_s_total=cpu_s, cpu_s_by_job=job_s,
                          metrics=sorted(card[0].data))
     emit(dict(phase="parity", n_requests=PARITY_N, parts=out, failed=bad,
               max_abs_err=max_abs, planted_fault_caught=fault))
@@ -1240,10 +1294,13 @@ def held_exact(exp, got):
     return bad
 
 
-def check_launches(phase, launches, want):
+def check_launches(phase, launches, want, cluster_want=None):
     need(launches["by_variant"] == want,
          f"{phase}: event_loop launched {launches['by_variant']}, not "
          f"{want}")
+    need(launches["cluster_by_variant"] == (cluster_want or {}),
+         f"{phase}: its K-node variant launched "
+         f"{launches['cluster_by_variant']}, not {cluster_want or {}}")
     need(launches["frp_select"] == 0,
          f"{phase}: frp_select_lanes launched {launches['frp_select']} "
          "times: K1 runs inline in K0 on this path")
@@ -1457,6 +1514,215 @@ def phase_static_cluster(torch, np, api, fs, K0, cexp, n_requests):
     return res
 
 
+def cluster_timed(torch, K0, args, kw, reps=3):
+    """The K-node variant alone on ``args`` by CUDA events: the median
+    time (ms), the last launch's outputs and its (L, 3) policy counts."""
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = K0.cluster_loop(*args, **kw)
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    variant = K0.variant_of(kw["kernel"])
+    return (sorted(ms)[reps // 2], out,
+            K0.cluster_loop.last_by_variant[variant].tolist())
+
+
+def cluster_bound(n_requests, n_fns, lanes, n_events, counts, route_ops):
+    """The K-node variant's least time on the card for this run's work:
+    the trace read once (fn_id, arrival, exec_time: 24 B a request;
+    t_cold, t_evict by function) and the results written once (counters,
+    sums, histogram, policy counts, node_done), against the f64
+    operations: `k0_bound`'s per scan and per event, plus the router's
+    (``route_ops``: its operations over every lane's arrivals)."""
+    n_bytes = (24 * n_requests + 16 * n_fns
+               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 3 * 8 + 64 * 4))
+    events = sum(n_events)
+    n_ops = (12 * n_fns * sum(c[0] for c in counts)
+             + 4 * n_fns * sum(c[1] for c in counts) + 20 * events
+             + route_ops)
+    return bound_ms(n_bytes, n_ops, "f64")
+
+
+def route_ops(entries, n_requests):
+    """The router's operations over every arrival of ``entries`` (one
+    lane each): cold_aware ~8 a slot and ~12 a node, JSQ(2) ~4 a slot of
+    its two draws and ~12 a draw; none at K = 1 (the pick is node 0)."""
+    ops = 0
+    for e in entries:
+        K, C = e.n_nodes, max(e.node_caps(0))
+        if K == 1:
+            continue
+        ops += n_requests * (K * (8 * C + 12) if e.router == "cold_aware"
+                             else 2 * (4 * C + 12))
+    return ops
+
+
+def phase_dynamic_cluster(torch, np, api, fs, K0, cexp, n_requests):
+    """benchmarks/fig_cluster.py's dynamic half on the card: routers jsq2
+    and cold_aware at K = 1..32 (AGG = 32) and K = 64 (AGG = 64), ESFF and
+    SFF, every entry a lane of one launch of the K-node variant a policy
+    and spec; every cell and node_done bitwise the JAX constants, a
+    planted one-ulp fault rejected; each policy's K-node launch alone on
+    the runner's own operands by events, held bitwise to the runner's;
+    its K = 1 lanes bitwise the single-node K0; and its plain version,
+    the eager K-node loop, on the card beside it at N = CLUSTER_EAGER_N.
+    Its card-vs-CPU parity is in the parity phase."""
+    from repro_torch.api.runner import _lower_grid
+    from repro_torch.cluster.runner import dynamic_calls, split_dynamic_lanes
+    from repro_torch.core.policies import KERNELS
+    CE = cluster_expected()
+    exp = cexp["dynamic_cluster"].get(str(n_requests))
+    need(exp is not None,
+         f"dynamic_cluster: no JAX constants at N = {n_requests}")
+    dev = torch.device("cuda")
+    routers = CE.CLUSTER["dynamic_routers"]
+    specs, mismatch, fault, k1_differs = [], [], None, []
+    for spec in CE.cluster_specs(api, n_requests, routers, device="cuda"):
+        rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+        rs.check()
+        lanes = len(spec.cluster)
+        chunks = -(-lanes // rs.meta["lane_chunk"])
+        check_launches("dynamic_cluster", launches, {},
+                       {K0.variant_of(KERNELS[p]): chunks
+                        for p in spec.policies})
+        for p in spec.policies:
+            for e in spec.cluster:
+                got = cell_of(np, rs, CE.CLUSTER_KEYS, policy=p,
+                              cluster=e.label)
+                want = exp["cells"][p][e.label]
+                mismatch += [f"{p} {e.label}: {m}"
+                             for m in held_exact(want, got)]
+                if fault is None and e.n_nodes == 4:
+                    # a planted one-ulp fault in a cell's resp_sum
+                    bad = dict(got, resp_sum=float(np.nextafter(
+                        got["resp_sum"], np.inf)))
+                    fault = held_exact(want, bad)
+        # each policy's K-node launch alone on the runner's own operands
+        # (`dynamic_calls`), by events, split into cells as the runner
+        # splits them and held bitwise to the runner's
+        _, stacked, F, N = _lower_grid(spec)
+        entries = list(spec.cluster)
+        kernels = {p: KERNELS[p] for p in spec.policies}
+        betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
+        calls, _ = dynamic_calls(spec, entries, stacked, F, kernels, betas,
+                                 None, dev, rs.meta["lane_chunk"])
+        need(len(calls) == len(spec.policies),
+             f"dynamic_cluster: {len(calls)} engine calls for "
+             f"{len(spec.policies)} policies, not one lane chunk each")
+        per = {}
+        for p, _, _, cargs, ckw in calls:
+            ekw = {k: v for k, v in ckw.items() if k != "keep_responses"}
+            ms, out, pc = cluster_timed(torch, K0, cargs[:9],
+                                        dict(ekw, threshold=cargs[9]))
+            split = split_dynamic_lanes(
+                spec, entries, {k: v.cpu().numpy() for k, v in out.items()},
+                1)
+            differs = []
+            for e, m in zip(entries, split):
+                for k in ("done", "n_events", "resp_sum", "slow_sum",
+                          "max_response", "resp_hist", "cold_starts",
+                          "cold_time", "evictions", "overflow", "stalled",
+                          "node_done"):
+                    got = np.expand_dims(m[k][None], 4)
+                    want = rs.sel(policy=p, cluster=e.label)[k]
+                    if k == "node_done":
+                        want = want[..., :e.n_nodes]
+                    if not np.array_equal(got, want):
+                        differs.append(f"{e.label} {k}")
+            need(not differs, f"dynamic_cluster: {p}: the timed K-node "
+                 f"launch differs from the runner's in {differs}")
+            # its K = 1 lanes against the single-node K0 on the same trace
+            # and capacity
+            one = [i for i, e in enumerate(entries) if e.n_nodes == 1]
+            if one:
+                C1 = entries[one[0]].node_caps(0)[0]
+                single = K0.event_loop(
+                    *cargs[:5], cargs[5][:1],
+                    torch.ones((1, C1), dtype=torch.bool, device=dev),
+                    cargs[7][:1], cargs[8], kernel=KERNELS[p], n_fns=F,
+                    capacity=C1, queue_cap=spec.queue_cap, stream=True,
+                    threshold=cargs[9])
+                for i in one:
+                    k1_differs += [f"{p} {entries[i].label}: {k}"
+                                   for k in K0_KEYS if not torch.equal(
+                                       out[k][i:i + 1], single[k])]
+            ev = out["n_events"].tolist()
+            longest = int(np.argmax(ev))
+            b, by = cluster_bound(N, F, len(ev), ev, pc,
+                                  route_ops(entries, N))
+            per[p] = dict(ms=ms, lanes=len(ev), events_total=sum(ev),
+                          longest_lane=entries[longest].label,
+                          longest_lane_events=max(ev),
+                          us_per_event=1e3 * ms / max(ev),
+                          bound_ms=b, bound_by=by, policy_counts=pc,
+                          held_to_runner=True)
+        specs.append(dict(agg=spec.capacities[0],
+                          entries=[e.label for e in spec.cluster],
+                          lanes=lanes, wall_s=wall, launches=launches,
+                          req_per_s=(len(spec.policies) * len(spec.cluster)
+                                     * n_requests / wall),
+                          per_policy=per))
+    eager = cluster_eager_card(torch, np, api, K0, CE)
+    res = dict(phase="dynamic_cluster", n_requests=n_requests,
+               queue_cap=exp["queue_cap"], specs=specs,
+               wall_s=sum(x["wall_s"] for x in specs),
+               launches=sum(x["launches"]["cluster_loop"] for x in specs),
+               eager_card=eager, bitwise_vs_jax=not mismatch,
+               mismatch=mismatch, planted_fault_caught=fault,
+               k1_differs_from_single_node=k1_differs)
+    emit(res)
+    need(not mismatch, "dynamic_cluster: differs from the JAX package: "
+         + "; ".join(mismatch))
+    need(fault == ["resp_sum"], f"dynamic_cluster: the planted one-ulp "
+         f"fault in a cell's resp_sum was not rejected alone ({fault})")
+    need(not k1_differs, f"dynamic_cluster: a K = 1 lane differs from the "
+         f"single-node K0 in {k1_differs}")
+    bad = {p: r["differs"] for p, r in eager.items() if r["differs"]}
+    need(not bad, f"dynamic_cluster: the eager K-node loop and the kernel "
+         f"differ on the card in {bad}")
+    return res
+
+
+def cluster_eager_card(torch, np, api, K0, CE):
+    """The K-node variant's plain version, the eager K-node loop, on the
+    card (every op its own launch) and the kernel on the same inputs: the
+    AGG = 32 spec's K = 4 entries of both routers at N = CLUSTER_EAGER_N,
+    each policy's whole run and ms an event step, held bitwise."""
+    from repro_torch.api.runner import _lower_grid
+    from repro_torch.cluster.engine import simulate_cluster_eager
+    from repro_torch.cluster.runner import dynamic_calls
+    from repro_torch.core import engine as E
+    from repro_torch.core.policies import KERNELS
+    spec = parity_specs(api, "dynamic_cluster", CLUSTER_EAGER_N, "cuda")[0]
+    _, stacked, F, _ = _lower_grid(spec)
+    kernels = {p: KERNELS[p] for p in spec.policies}
+    betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
+    calls, _ = dynamic_calls(spec, list(spec.cluster), stacked, F, kernels,
+                             betas, None, torch.device("cuda"), 256)
+    rows = {}
+    for p, _, _, cargs, ckw in calls:
+        kw = {k: v for k, v in ckw.items() if k != "keep_responses"}
+        kw["threshold"] = cargs[9]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = simulate_cluster_eager(*cargs[:9], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ms, out, _ = cluster_timed(torch, K0, cargs[:9], kw)
+        steps = -(-int(eager["n_events"].max()) // E.SEG) * E.SEG
+        rows[p] = dict(n_requests=CLUSTER_EAGER_N,
+                       entries=[e.label for e in spec.cluster],
+                       plain_ms=1e3 * wall, event_steps=steps,
+                       plain_ms_per_step=1e3 * wall / steps, ms=ms,
+                       differs=[k for k in eager
+                                if not torch.equal(eager[k], out[k])])
+    return rows
+
+
 def phase_profile(torch, api, n_requests):
     """K0's device time and the device busy share, from torch.profiler
     over the main path's run."""
@@ -1481,7 +1747,7 @@ def phase_profile(torch, api, n_requests):
     dev_us = sum(e.self_device_time_total for e in rows)
     # one row a K0 variant (a policy), named by its instantiation
     # (demangled, or not)
-    spell = {p: (PTXAS_NAME[p], "Policy<{}, {}, {}, {}>".format(
+    spell = {p: (PTXAS_NAME[p], "Policy<{}, {}, {}, {}>, false>".format(
         a[0], *("true" if x else "false" for x in a[1:])))
         for p, a in POLICY_ARGS.items()}
     k0 = {p: e.self_device_time_total / e.count / 1e3
@@ -2340,6 +2606,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import frp_select as fs
         from repro_torch.kernels import rmsnorm as RN
         from repro_torch.kernels import ssd_chunk as K5
+        from repro_torch.core.policies import KERNELS
     except ImportError as e:
         print(f"chip_smoke: cannot import the port ({e}); run it from a "
               "checkout of the repository", file=sys.stderr)
@@ -2384,6 +2651,8 @@ def main(argv=None) -> int:
                      args.n_requests, main, main_rs)
         static = timed("static_cluster", phase_static_cluster, torch, np,
                        api, fs, K0, cexp, args.n_requests)
+        dynamic = timed("dynamic_cluster", phase_dynamic_cluster, torch, np,
+                        api, fs, K0, cexp, args.n_requests)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -2454,6 +2723,46 @@ def main(argv=None) -> int:
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
         library_ms=None, check="passed",
         at="(7, 200) f64 lanes, with and without ESFF-H's coldK"))
+    dyn_launches = {}
+    for x in dynamic["specs"]:
+        for v, c in x["launches"]["cluster_by_variant"].items():
+            dyn_launches[v] = dyn_launches.get(v, 0) + c
+    for p in CLUSTER_POLICIES:
+        v = K0.variant_of(KERNELS[p])
+        big = dynamic["specs"][0]["per_policy"][p]
+        e = dynamic["eager_card"][p]
+        kernels.append(dict(
+            name=f"event_loop_cluster[{p}]", entry="cluster_loop",
+            variant=v, route="cuda",
+            source="src/repro_torch/csrc/event_loop.cu",
+            replaces="src/repro/cluster/engine.py:413",
+            policy_kernel=POLICY_SOURCE[p], pallas=False,
+            note="engine work with no Pallas twin: the K-node variant of K0 "
+            "(the XLA while_loop of _simulate_cluster with this policy's "
+            "hooks and the dynamic routers"
+            + (", K1 inline)" if v.startswith("esff") else ")"),
+            launches=dyn_launches.get(v, 0),
+            launches_by_spec={f"AGG={x['agg']}":
+                              x["launches"]["cluster_by_variant"].get(v, 0)
+                              for x in dynamic["specs"]},
+            max_abs_err=parity_err["dynamic_cluster"].get(p, 0.0),
+            ms=big["ms"], us_per_event=big["us_per_event"],
+            longest_lane=big["longest_lane"],
+            longest_lane_events=big["longest_lane_events"],
+            per_spec={f"AGG={x['agg']}": x["per_policy"][p]
+                      for x in dynamic["specs"]},
+            plain_ms=e["plain_ms"], plain_n_requests=e["n_requests"],
+            plain_ms_per_step=e["plain_ms_per_step"], ms_at_plain_n=e["ms"],
+            plain_note=f"the eager K-node loop's run at N = "
+            f"{e['n_requests']} over {e['entries']} (the main path's N "
+            f"would take hours); ms_at_plain_n is the kernel on those "
+            "same inputs",
+            bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+            library_ms=None,
+            ptxas=ptxas_lines(report, PTXAS_NAME_CLUSTER[p]),
+            check="passed",
+            at=f"({big['lanes']} lanes: {dynamic['specs'][0]['entries']}, "
+            f"N = {dynamic['n_requests']}, F = 200)"))
     for name, source, replaces, at in SERVING_KERNELS:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)

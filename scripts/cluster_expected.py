@@ -1,9 +1,9 @@
 """Make the JAX package's constants that ``chip_smoke.py`` holds the
-port's ``options`` and ``static_cluster`` phases against
-(``scripts/cluster_expected.json``).
+port's ``options``, ``static_cluster`` and ``dynamic_cluster`` phases
+against (``scripts/cluster_expected.json``).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/cluster_expected.py \
-        [--n 60000] [--part options fig8 static_cluster] \
+        [--n 60000] [--part options fig8 static_cluster dynamic_cluster] \
         [--out scripts/cluster_expected.json]
 
 Each part runs `repro.api.run_experiment` on the spec that the smoke's
@@ -26,6 +26,9 @@ bitwise the JAX package's):
   32 // K slots (AGG = 32) and at K = 64 of one slot (AGG = 64), ESFF and
   SFF, ``queue_cap`` 32768: each (policy, cluster label) cell's merged
   metrics and ``node_done``.
+* ``dynamic_cluster``: fig_cluster's dynamic half, the same two specs
+  with the routers ``jsq2`` and ``cold_aware`` (the K-node event loop):
+  each cell's metrics and ``node_done``.
 
 ``--out`` merges the parts into that JSON file under ``[part][str(n)]``.
 At N = 60,000 a part takes minutes of CPU.
@@ -46,7 +49,9 @@ TRACE_KW = dict(utilization=0.2, exec_median=0.1, exec_sigma=1.4,
                 burst_frac=0.3)
 OPTIONS = dict(capacity=16, queue_cap=8192, tl_bucket=60.0, deadline=0.35)
 FIG8 = dict(head=20000, capacity=16, queue_cap=4096, tl_bucket=60.0)
-CLUSTER = dict(routers=("hash", "round_robin"), ks=(1, 2, 4, 8, 16, 32),
+CLUSTER = dict(routers=("hash", "round_robin"),
+               dynamic_routers=("jsq2", "cold_aware"),
+               ks=(1, 2, 4, 8, 16, 32),
                agg=32, ks_fleet=(64,), agg_fleet=64,
                policies=("esff", "sff"), queue_cap=1 << 15)
 # the ResultSet's metrics that each part keeps (per cell)
@@ -57,6 +62,7 @@ OPTION_KEYS = KEYS + ("tl_count", "tl_resp_sum", "tl_exec_sum",
                       "deadline_miss", "slo_attainment")
 FIG8_KEYS = KEYS + ("tl_count", "tl_resp_sum", "tl_exec_sum")
 CLUSTER_KEYS = KEYS + ("node_done",)
+PARTS = ("options", "fig8", "static_cluster", "dynamic_cluster")
 
 
 def trace(api, n):
@@ -86,20 +92,21 @@ def fig8_spec(api, n, **kw):
         tl_bucket=FIG8["tl_bucket"], **kw)
 
 
-def cluster_entries(api, ks, agg):
+def cluster_entries(api, ks, agg, routers):
     return [api.ClusterSpec(n_nodes=k, router=r,
                             node_capacity=(agg // k,) * k)
-            for r in CLUSTER["routers"] for k in ks if agg % k == 0]
+            for r in routers for k in ks if agg % k == 0]
 
 
-def cluster_specs(api, n, **kw):
-    """The two specs of the static half of fig_cluster: AGG = 32 over
-    K = 1..32 and the K = 64 fleet at AGG = 64."""
+def cluster_specs(api, n, routers=CLUSTER["routers"], **kw):
+    """The two specs of one half of fig_cluster (the static routers by
+    default; ``CLUSTER["dynamic_routers"]`` for the dynamic half): AGG =
+    32 over K = 1..32 and the K = 64 fleet at AGG = 64."""
     src = trace(api, n)
     return [api.ExperimentSpec(
         traces=[src], policies=CLUSTER["policies"], capacities=(agg,),
         queue_cap=CLUSTER["queue_cap"],
-        cluster=cluster_entries(api, ks, agg), **kw)
+        cluster=cluster_entries(api, ks, agg, routers), **kw)
         for ks, agg in ((CLUSTER["ks"], CLUSTER["agg"]),
                         (CLUSTER["ks_fleet"], CLUSTER["agg_fleet"]))]
 
@@ -123,8 +130,10 @@ def run_part(api, part, n):
         rs = api.run_experiment(fig8_spec(api, n))
         return dict(tl_bins=rs.meta["tl_bins"], **FIG8,
                     esff=cell(rs, FIG8_KEYS, policy="esff"))
+    routers = CLUSTER["routers" if part == "static_cluster"
+                      else "dynamic_routers"]
     cells = {}
-    for spec in cluster_specs(api, n):
+    for spec in cluster_specs(api, n, routers):
         rs = api.run_experiment(spec)
         for e in spec.cluster:
             for p in spec.policies:
@@ -137,8 +146,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=60000)
     ap.add_argument("--part", nargs="+",
-                    choices=("options", "fig8", "static_cluster"),
-                    default=["options", "fig8", "static_cluster"])
+                    choices=PARTS, default=list(PARTS))
     ap.add_argument("--out", default=None,
                     help="JSON file to merge the constants into")
     a = ap.parse_args(argv)

@@ -15,11 +15,12 @@ built the same way, but only these are ported: ``traces``,
 ``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
 ``window``, ``tl_bins``, ``tl_bucket``, ``keep_per_request``,
 ``deadlines``, ``queue_cap``, ``prior``, ``threshold``, ``lane_chunk``,
-``cluster`` (static routers) and ``meta``, plus the port's own
-``device``. Any other field set away from its default fails validation
-with ValueError, naming the ROADMAP item that will port it; it is never
-ignored. A cluster entry with a dynamic router validates and then
-raises NotImplementedError when the spec runs (ROADMAP Queue 1, item 1).
+``cluster`` (static and dynamic routers, constant delays) and ``meta``,
+plus the port's own ``device``. Any other field set away from its
+default fails validation with ValueError, naming the ROADMAP item that
+will port it; it is never ignored. A cluster entry naming the
+``breaker`` router validates and then raises NotImplementedError when
+the spec runs (ROADMAP Queue 1, item 3).
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """Multi-node edge clusters (counterpart of `repro.cluster`): the
-`ClusterSpec` topology, the routers and the static routing tier, where
-a K-node cluster is K single-node engine runs over the per-node
-sub-streams, merged exactly. The dynamic tier is not ported (ROADMAP
-Queue 1, item 1)."""
-from repro_torch.cluster.routers import (Router, StaticRouter,
+`ClusterSpec` topology, the routers, the static routing tier (a K-node
+cluster as K single-node engine runs over the per-node sub-streams,
+merged exactly) and the dynamic tier (`repro_torch.cluster.engine`: K
+nodes in one event loop a lane, routed by live state: jsq2, cold_aware,
+slo_aware, with constant per-node network delays). Not ported: node
+churn and time-varying delay (ROADMAP Queue 1, item 2), the resilience
+layer and its ``breaker`` router (item 3)."""
+from repro_torch.cluster.routers import (ClusterView, DynamicRouter,
+                                         Router, StaticRouter,
                                          available_routers, get_router,
                                          register_router,
                                          unregister_router)
 from repro_torch.cluster.spec import ClusterSpec
 
-__all__ = ["ClusterSpec", "Router", "StaticRouter", "available_routers",
-           "get_router", "register_router", "unregister_router"]
+__all__ = ["ClusterSpec", "ClusterView", "DynamicRouter", "Router",
+           "StaticRouter", "available_routers", "get_router",
+           "register_router", "unregister_router"]

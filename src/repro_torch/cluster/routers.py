@@ -1,5 +1,5 @@
 """Request routers and the router registry (counterpart of
-`repro.cluster.routers`, its static tier).
+`repro.cluster.routers`).
 
 A router decides *which node* of a `repro_torch.cluster.ClusterSpec`
 serves each request; the node's own scheduling policy decides the rest.
@@ -8,10 +8,15 @@ serves each request; the node's own scheduling policy decides the rest.
   maps the whole arrival stream to node ids in one vectorised pass).
   These run on the static tier (`repro_torch.cluster.static`): per-node
   sub-streams through the single-node engine, metrics merged exactly.
-* `DynamicRouter`: the node depends on live cluster state, so it needs
-  the K-node event loop, which is not ported (ROADMAP Queue 1, item 1).
-  The JAX package's dynamic routers are registered by name so that a
-  spec naming one validates and then raises NotImplementedError.
+* `DynamicRouter`: the node depends on live cluster state (queue
+  depths, warm instances), so ``pick`` runs inside the K-node event
+  loop (`repro_torch.cluster.engine`) once an arrival, on a lane-batched
+  `ClusterView`. The built-ins ``jsq2`` (`JSQRouter`), ``cold_aware``
+  and ``slo_aware`` also run inside the event-loop kernel's K-node
+  variant (`ROUTER_CODES`); any other `DynamicRouter` runs on the eager
+  loop. ``breaker`` (the circuit breaker of the resilience layer) is
+  registered by name and raises NotImplementedError (ROADMAP Queue 1,
+  item 3).
 
 Randomised routers draw from the counter-based `mix32` hash of the
 request id, so a decision depends only on ``(rid, seed)`` and the port
@@ -22,13 +27,14 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 _M32 = 0xFFFFFFFF
 _GOLD = 0x9E3779B9          # seed spreader (golden-ratio constant)
 _MIX1, _MIX2 = 0x85EBCA6B, 0xC2B2AE35   # murmur3 fmix32 constants
 
-DYNAMIC_NOT_PORTED = ("the dynamic cluster tier (the K-node event loop) "
-                      "is not ported yet: ROADMAP Queue 1, item 1")
+BREAKER_NOT_PORTED = ("the circuit breaker and the resilience layer are "
+                      "not ported yet: ROADMAP Queue 1, item 3")
 
 
 def mix32_py(x: int, seed: int = 0) -> int:
@@ -55,8 +61,47 @@ def mix32_np(x, seed: int = 0) -> np.ndarray:
     return h.astype(np.int64)
 
 
+def _mul32(h, m: int):
+    """``(h * m) mod 2^32`` for int64 ``h`` in [0, 2^32) and a 32-bit
+    constant ``m``, in two 16-bit halves so that no product overflows
+    int64."""
+    lo = h * (m & 0xFFFF)
+    hi = ((h * (m >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def mix32_torch(x, seed):
+    """`mix32_py` on int64 tensors ``x`` (request ids) and ``seed``
+    (broadcast against ``x``), in int64 lanes on any device."""
+    h = (x & _M32) ^ _mul32(seed & _M32, _GOLD)
+    h = h ^ (h >> 16)
+    h = _mul32(h, _MIX1)
+    h = h ^ (h >> 13)
+    h = _mul32(h, _MIX2)
+    return h ^ (h >> 16)
+
+
+class ClusterView:
+    """What a `DynamicRouter.pick` reads, lane-batched (counterpart of
+    `repro.cluster.routers.ClusterView`, one lane of which it holds per
+    row): queue depths ``q_len`` (L, K, F) with the per-node totals
+    ``q_tot`` (L, K), slot rails ``slot_fn`` / ``slot_state`` and
+    ``cap_mask`` (L, K, C), per-node estimator state ``est_sum`` /
+    ``est_n`` (L, K, F) with node globals ``node_gn`` / ``node_gsum``
+    (L, K), the lane's function catalogue ``t_cold`` (L, F), the
+    estimator ``prior`` (float), the node count ``n_nodes`` (L,) with
+    ``node_ok`` (L, K) (False on the padding nodes of a lane with fewer
+    nodes than K), the hash ``seed`` (L,), and ``delay_now`` (L, K), the
+    constant network delays (zero rows on a lane without delay).
+    Node-axis reductions must skip the padding nodes; the engine clips a
+    pick to [0, n_nodes), as the JAX package clips to [0, K)."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
 class Router:
-    """Base class: subclass `StaticRouter` (or `DynamicRouter`)."""
+    """Base class: subclass `StaticRouter` or `DynamicRouter`."""
 
     name = "base"
     dynamic = False
@@ -72,17 +117,15 @@ class StaticRouter(Router):
 
 
 class DynamicRouter(Router):
-    """Node choice reads live cluster state at each arrival: the K-node
-    event loop it needs is not ported (ROADMAP Queue 1, item 1)."""
+    """Node choice reads live cluster state at each arrival."""
 
     dynamic = True
 
-    def __init__(self, name: str):
-        self.name = name
-
-    def pick(self, g, j, rid, t):
-        raise NotImplementedError(f"router {self.name!r}: "
-                                  f"{DYNAMIC_NOT_PORTED}")
+    def pick(self, g: ClusterView, j, rid, t):
+        """(L,) int64 node ids for the arriving requests ``rid`` (L,) of
+        functions ``j`` (L,) at times ``t`` (L,); ``g`` is the
+        lane-batched `ClusterView` of the state before the event."""
+        raise NotImplementedError
 
 
 # ------------------------------------------------------- static builtins
@@ -125,15 +168,133 @@ class WeightedRandomRouter(StaticRouter):
                           spec.n_nodes - 1).astype(np.int32)
 
 
+# ------------------------------------------------------ dynamic builtins
+def _busy(g):
+    """Busy usable slots a node, (L, K) int64."""
+    return ((g.slot_state == 2) & g.cap_mask).sum(-1)
+
+
+class JSQRouter(DynamicRouter):
+    """JSQ(d) / power-of-d-choices: hash-sample ``d`` distinct nodes (a
+    partial Fisher-Yates draw over the node ids: position i swaps with
+    ``i + mix32(rid, seed + i) % (K - i)``), send the request to the
+    least loaded (load = queued + running; ties keep the earliest
+    draw). At K = 1 every draw is node 0."""
+
+    def __init__(self, name: str = "jsq2", d: int = 2):
+        self.name = name
+        self.d = int(d)
+
+    def pick(self, g, j, rid, t):
+        L, Kx = g.q_tot.shape
+        K = g.n_nodes
+        load = g.q_tot.to(torch.int64) + _busy(g)
+        nodes = torch.arange(Kx, device=rid.device).expand(L, Kx).clone()
+        lanes = torch.arange(L, device=rid.device)
+        for i in range(min(self.d, Kx)):
+            on = i < K
+            span = torch.clamp_min(K - i, 1)
+            jd = torch.where(on, i + mix32_torch(rid, g.seed + i) % span, i)
+            ni, nj = nodes[:, i].clone(), nodes[lanes, jd]
+            nodes[:, i] = nj
+            nodes[lanes, jd] = ni
+        best = nodes[:, 0]
+        for i in range(1, min(self.d, Kx)):
+            cand = nodes[:, i]
+            better = (i < K) & (load[lanes, cand] < load[lanes, best])
+            best = torch.where(better, cand, best)
+        return best
+
+
+def startability_score(g, j):
+    """Per-node estimate of the time until a request of function ``j``
+    could start there, (L, K) f64, in the reference's order of
+    operations (`repro.cluster.routers._startability_score`): no cold
+    start when the node has an idle warm instance of ``j``, plus ``j``'s
+    backlog at the node's running mean of ``j`` (its global mean, then
+    the prior, as fallback), plus the node's whole backlog and busy
+    slots at its global mean."""
+    F = g.q_len.shape[2]
+    jc = j.clamp(0, F - 1)
+    gn = g.node_gn.to(torch.float64)
+    gmean = torch.where(g.node_gn > 0,
+                        g.node_gsum / torch.clamp_min(gn, 1), g.prior)
+    col = jc[:, None, None].expand(-1, g.q_len.shape[1], 1)
+    n_j = g.est_n.gather(2, col)[..., 0]
+    mean_j = torch.where(
+        n_j > 0,
+        g.est_sum.gather(2, col)[..., 0]
+        / torch.clamp_min(n_j.to(torch.float64), 1), gmean)
+    own = (g.slot_fn == jc[:, None, None]) & g.cap_mask
+    has_idle = (own & (g.slot_state == 1)).any(-1)
+    tc = g.t_cold.gather(1, jc[:, None])
+    q_j = g.q_len.gather(2, col)[..., 0].to(torch.float64)
+    backlog = (g.q_tot.to(torch.int64) + _busy(g)).to(torch.float64)
+    return (torch.where(has_idle, 0.0, tc) + mean_j * q_j) + gmean * backlog
+
+
+def _first_argmin(score, node_ok):
+    return torch.argmin(torch.where(node_ok, score, 1e30), dim=1)
+
+
+class ColdAwareRouter(DynamicRouter):
+    """Cold-start-aware routing: the node of least `startability_score`
+    (ties: the lowest node id)."""
+
+    name = "cold_aware"
+
+    def pick(self, g, j, rid, t):
+        return _first_argmin(startability_score(g, j), g.node_ok)
+
+
+class SLOAwareRouter(DynamicRouter):
+    """SLO-aware routing: the node of least ``delay_now + score`` (the
+    predicted response), ties to the lowest node id. Without delay it is
+    ``cold_aware``."""
+
+    name = "slo_aware"
+
+    def pick(self, g, j, rid, t):
+        return _first_argmin(startability_score(g, j) + g.delay_now,
+                             g.node_ok)
+
+
+class BreakerRouter(DynamicRouter):
+    """The circuit-breaker router of the resilience layer: registered so
+    that a spec naming it validates, and raises when it runs (ROADMAP
+    Queue 1, item 3)."""
+
+    def __init__(self, name: str = "breaker"):
+        self.name = name
+
+    def pick(self, g, j, rid, t):
+        raise NotImplementedError(f"router {self.name!r}: "
+                                  f"{BREAKER_NOT_PORTED}")
+
+
+# the dynamic routers that the event-loop kernel's K-node variant runs,
+# by their exact class: the code of its route, then JSQ's d
+ROUTER_CODES = {JSQRouter: 0, ColdAwareRouter: 1, SLOAwareRouter: 2}
+
+
+def router_code(router) -> tuple:
+    """``(code, d)`` of a dynamic router that the kernel runs; ValueError
+    for any other."""
+    code = ROUTER_CODES.get(type(router))
+    if code is None:
+        raise ValueError(f"router {router.name!r} "
+                         f"({type(router).__name__}) has no device route")
+    return code, (router.d if code == 0 else 0)
+
+
 ROUTERS: Dict[str, Router] = {
     "hash": HashRouter(),
     "round_robin": RoundRobinRouter(),
     "weighted_random": WeightedRandomRouter(),
-    # the JAX package's dynamic routers, by name only
-    "jsq2": DynamicRouter("jsq2"),
-    "cold_aware": DynamicRouter("cold_aware"),
-    "slo_aware": DynamicRouter("slo_aware"),
-    "breaker": DynamicRouter("breaker"),
+    "jsq2": JSQRouter("jsq2", d=2),
+    "cold_aware": ColdAwareRouter(),
+    "slo_aware": SLOAwareRouter(),
+    "breaker": BreakerRouter(),
 }
 
 
@@ -161,8 +322,8 @@ def register_router(name: str, router: Router, *,
         raise TypeError(
             f"register_router({name!r}): expected a Router *instance* "
             f"(got {type(router).__name__}); subclass "
-            "repro_torch.cluster.routers.StaticRouter and pass an "
-            "instance")
+            "repro_torch.cluster.routers.StaticRouter or DynamicRouter "
+            "and pass an instance")
     if not name or not isinstance(name, str):
         raise ValueError("register_router: name must be a non-empty "
                          "string")

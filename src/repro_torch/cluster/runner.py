@@ -1,5 +1,6 @@
 """Lower the `ExperimentSpec.cluster` axis onto the routing tiers
-(counterpart of `repro.cluster.runner`, its plain and static branches).
+(counterpart of `repro.cluster.runner`, without churn, time-varying
+delay and the resilience layer).
 
 `run_cluster_experiment` executes one spec whose ``cluster`` field
 declares a sequence of topologies and stacks the per-entry (P, T, K, B)
@@ -12,8 +13,12 @@ labeled by `ClusterSpec.label`:
 * static-router entries run the static tier
   (`repro_torch.cluster.static.run_static_entries`), all of them in one
   batch of lanes;
-* dynamic-router entries raise NotImplementedError (ROADMAP Queue 1,
-  item 1), before anything runs.
+* dynamic-router entries run the K-node event loop
+  (`repro_torch.cluster.engine.cluster_metrics`), all of them in one
+  batch of lanes: each lane (entry x trace x capacity x beta) carries
+  its own node count, node capacities, router, seed and delays, so one
+  engine call (one launch of the event-loop kernel's K-node variant on a
+  card) runs a lane chunk of every dynamic entry of a policy.
 
 Every entry contributes the same metric set (plain cells get a one-node
 ``node_done``), padded to the axis-wide largest node count.
@@ -26,7 +31,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.cluster.routers import DYNAMIC_NOT_PORTED
 from repro_torch.cluster.static import run_static_entries
 
 
@@ -36,6 +40,128 @@ def _pad_node_dim(a: np.ndarray, k_max: int) -> np.ndarray:
         return a
     pad = [(0, 0)] * (a.ndim - 1) + [(0, k_max - a.shape[-1])]
     return np.pad(a, pad)
+
+
+def pack_dynamic_lanes(spec, entries, T: int):
+    """The dynamic tier's lanes for ``entries`` (dynamic `ClusterSpec`s)
+    of ``spec`` over T traces: entry-major, then trace, capacity, beta.
+    Returns the routers (distinct, in entry order) and the lane columns
+    ``trace_ix``, ``cap_mask`` (L, K, C) over the widest entry and
+    largest node, ``n_nodes``, ``seeds``, ``delays`` (L, K), ``router_ix``
+    and ``beta_ix`` (into the beta axis), numpy."""
+    B = 1 if spec.betas is None else len(spec.betas)
+    Kx = max(e.n_nodes for e in entries)
+    C = max(max(e.node_caps(c)) for e in entries for c in spec.capacities)
+    routers = []
+    cols = {k: [] for k in ("trace_ix", "cap_mask", "n_nodes", "seeds",
+                            "delays", "router_ix", "beta_ix")}
+    for e in entries:
+        r = e.get_router()
+        if r not in routers:
+            routers.append(r)
+        delays = np.zeros((Kx,), np.float64)
+        delays[:e.n_nodes] = e.delays()
+        for t in range(T):
+            for c in spec.capacities:
+                mask = np.zeros((Kx, C), bool)
+                for k, nc in enumerate(e.node_caps(c)):
+                    mask[k, :nc] = True
+                for b in range(B):
+                    cols["trace_ix"].append(t)
+                    cols["cap_mask"].append(mask)
+                    cols["n_nodes"].append(e.n_nodes)
+                    cols["seeds"].append(e.seed)
+                    cols["delays"].append(delays)
+                    cols["router_ix"].append(routers.index(r))
+                    cols["beta_ix"].append(b)
+    lanes = {k: np.stack(v) if k in ("cap_mask", "delays")
+             else np.asarray(v, np.int64) for k, v in cols.items()}
+    return tuple(routers), lanes
+
+
+def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
+                  kernels: dict, betas: Dict[str, np.ndarray], deadlines,
+                  device, chunk: int):
+    """The dynamic tier's engine calls for ``entries`` of ``spec``: the
+    lanes of `pack_dynamic_lanes`, ``chunk`` of them a call,
+    policy-major. Returns ``(calls, L)``: each call ``(policy, lo, hi,
+    args, kw)`` is one ``cluster_metrics(*args, **kw)`` over lanes [lo,
+    hi) on ``device``."""
+    T = stacked["fn_id"].shape[0]
+    routers, lanes = pack_dynamic_lanes(spec, entries, T)
+    f64 = torch.float64
+    dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
+              cold_start=f64, evict=f64)
+    shared = [torch.as_tensor(stacked[k], dtype=dt[k], device=device)
+              for k in ("fn_id", "arrival", "exec_time", "cold_start",
+                        "evict")]
+    L = len(lanes["trace_ix"])
+
+    def col(x, lo, hi):
+        return torch.as_tensor(x[lo:hi], device=device)
+
+    calls = []
+    for policy in spec.policies:
+        beta_l = np.asarray(betas[policy], np.float64)[lanes["beta_ix"]]
+        for lo in range(0, L, chunk):
+            hi = min(lo + chunk, L)
+            args = (*shared, col(lanes["trace_ix"], lo, hi),
+                    col(lanes["cap_mask"], lo, hi), col(beta_l, lo, hi),
+                    spec.prior, spec.threshold)
+            kw = dict(kernel=kernels[policy], routers=routers,
+                      router_ix=col(lanes["router_ix"], lo, hi),
+                      n_nodes=col(lanes["n_nodes"], lo, hi),
+                      seeds=col(lanes["seeds"], lo, hi),
+                      delays=col(lanes["delays"], lo, hi), n_fns=F,
+                      capacity=lanes["cap_mask"].shape[2],
+                      queue_cap=spec.queue_cap, stream=spec.stream,
+                      keep_responses=spec.keep_per_request,
+                      deadlines=deadlines, tl_bins=spec.tl_bins,
+                      tl_bucket=spec.tl_bucket)
+            calls.append((policy, lo, hi, args, kw))
+    return calls, L
+
+
+def split_dynamic_lanes(spec, entries, flat: Dict[str, np.ndarray],
+                        T: int) -> List[Dict[str, np.ndarray]]:
+    """One policy's per-lane metrics ``flat`` (lanes in
+    `pack_dynamic_lanes` order, numpy) as one (T, KC, B)-shaped metric
+    dict an entry, ``node_done`` cut to the entry's nodes."""
+    KC = len(spec.capacities)
+    B = 1 if spec.betas is None else len(spec.betas)
+    n = T * KC * B
+    out = []
+    for i, e in enumerate(entries):
+        d = {m: v[i * n:(i + 1) * n].reshape((T, KC, B) + v.shape[1:])
+             for m, v in flat.items()}
+        d["node_done"] = d["node_done"][..., :e.n_nodes]
+        out.append(d)
+    return out
+
+
+def run_dynamic_entries(spec, entries, stacked: Dict[str, np.ndarray],
+                        F: int, kernels: dict, betas: Dict[str, np.ndarray],
+                        deadlines, device, chunk: int
+                        ) -> List[Dict[str, np.ndarray]]:
+    """Run the dynamic `ClusterSpec` ``entries`` of ``spec`` over its grid
+    on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
+    trailing dims: ``node_done`` (.., K), ``resp_hist`` (.., bins), ...).
+    The engine calls are `dynamic_calls`'."""
+    from repro_torch.cluster.engine import cluster_metrics
+    T = stacked["fn_id"].shape[0]
+    calls, L = dynamic_calls(spec, entries, stacked, F, kernels, betas,
+                             deadlines, device, chunk)
+    flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
+    for policy, lo, hi, args, kw in calls:
+        for k, v in cluster_metrics(*args, **kw).items():
+            v = v.cpu().numpy()
+            if k not in flat[policy]:
+                flat[policy][k] = np.zeros((L,) + v.shape[1:], v.dtype)
+            flat[policy][k][lo:hi] = v
+    split = [split_dynamic_lanes(spec, entries, flat[p], T)
+             for p in spec.policies]
+    return [{m: np.stack([per_entry[j][m] for per_entry in split])
+             for m in split[0][j]} for j in range(len(entries))]
 
 
 def run_cluster_experiment(spec, dev: torch.device):
@@ -48,11 +174,6 @@ def run_cluster_experiment(spec, dev: torch.device):
     from repro_torch.core.engine import lane_chunk_for, slo_attainment
 
     entries = list(spec.cluster)
-    for e in entries:
-        if e is not None and e.get_router().dynamic:
-            raise NotImplementedError(
-                f"cluster entry {e.label!r}: router {e.router!r} is "
-                f"dynamic: {DYNAMIC_NOT_PORTED}")
     sources, stacked, F, N = _lower_grid(spec)
     kernels = {p: get_kernel(p) for p in spec.policies}
     betas = {p: np.asarray([kernels[p].default_beta] if spec.betas is None
@@ -61,13 +182,24 @@ def run_cluster_experiment(spec, dev: torch.device):
     deadlines = spec.deadline_ops(F)
     k_max = max((e.n_nodes if e is not None else 1) for e in entries)
 
-    static = [e for e in entries if e is not None]
+    chunk = lane_chunk_for(spec.lane_chunk, dev)
+    static = [e for e in entries
+              if e is not None and not e.get_router().dynamic]
+    dynamic = [e for e in entries
+               if e is not None and e.get_router().dynamic]
     static_data = iter(run_static_entries(
-        spec, static, stacked, F, N, kernels, betas, deadlines, dev,
-        lane_chunk_for(spec.lane_chunk, dev)) if static else ())
+        spec, static, stacked, F, N, kernels, betas, deadlines, dev, chunk)
+        if static else ())
+    dl_op = (None if deadlines is None
+             else torch.as_tensor(deadlines, device=dev))
+    dynamic_data = iter(run_dynamic_entries(
+        spec, dynamic, stacked, F, kernels, betas, dl_op, dev, chunk)
+        if dynamic else ())
     entry_data: List[Dict[str, np.ndarray]] = []
     for entry in entries:
-        if entry is None:
+        if entry is not None and entry.get_router().dynamic:
+            d = next(dynamic_data)
+        elif entry is None:
             d = dict(run_experiment(replace(spec, cluster=None),
                                     device=dev).data)
             # recomputed below from the stacked counters, as for every
@@ -96,7 +228,7 @@ def run_cluster_experiment(spec, dev: torch.device):
                         else ["default"]),
                   cluster=labels)
     meta = result_meta(
-        spec, dev, N, F, lane_chunk_for(spec.lane_chunk, dev), kernels,
+        spec, dev, N, F, chunk, kernels,
         cluster=[None if e is None else dict(
             n_nodes=e.n_nodes, router=e.router,
             node_capacity=(list(e.node_capacity)

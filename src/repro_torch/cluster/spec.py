@@ -1,5 +1,6 @@
 """`ClusterSpec`: one declared multi-node edge cluster topology
-(counterpart of `repro.cluster.spec`, its static fields).
+(counterpart of `repro.cluster.spec`, without churn and delay
+schedules).
 
 The paper schedules functions on a *single* resource-limited edge
 server; real edge deployments are K small nodes behind a request
@@ -8,9 +9,12 @@ slot capacities, the router and its knobs) as one frozen value that
 rides the `repro_torch.api.ExperimentSpec` ``cluster`` axis.
 
 The port runs the static routers (``hash``, ``round_robin``,
-``weighted_random``) on the static tier (`repro_torch.cluster.static`).
-A dynamic router (ROADMAP Queue 1, item 1) and the ``churn`` and
-``delay_schedule`` fields (item 2) raise NotImplementedError.
+``weighted_random``) on the static tier (`repro_torch.cluster.static`)
+and the dynamic ones (``jsq2``, ``cold_aware``, ``slo_aware`` and any
+registered `DynamicRouter`) on the K-node event loop
+(`repro_torch.cluster.engine`). The ``churn`` and ``delay_schedule``
+fields (ROADMAP Queue 1, item 2) raise NotImplementedError, and so does
+the ``breaker`` router when it runs (item 3).
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ class ClusterSpec:
                       length-K tuple) added to each routed request's
                       arrival before it reaches its node; its response
                       is measured from that node-local arrival.
-    ``seed``          the hash seed of the randomised routers.
+    ``seed``          the hash seed of the randomised routers (JSQ's
+                      draws too).
     ``weights``       relative node weights for ``weighted_random``
                       (length K; uniform by default).
     ``churn``, ``delay_schedule``: not ported (ROADMAP Queue 1, item 2);

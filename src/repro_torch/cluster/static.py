@@ -39,7 +39,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.cluster.routers import DYNAMIC_NOT_PORTED
 from repro_torch.cluster.spec import ClusterSpec
 
 PAD_ARRIVAL = 1e30      # the engine's BIG: padding never arrives
@@ -55,9 +54,10 @@ def build_node_streams(arrays: Dict[str, np.ndarray], cspec: ClusterSpec):
     original-request-id index arrays (for exact-mode reassembly)."""
     router = cspec.get_router()
     if router.dynamic:
-        raise NotImplementedError(
-            f"build_node_streams: router {cspec.router!r} is dynamic: "
-            f"{DYNAMIC_NOT_PORTED}")
+        raise ValueError(
+            f"build_node_streams: router {cspec.router!r} is dynamic: it "
+            "routes inside the K-node event loop "
+            "(repro_torch.cluster.engine), not by a partition")
     fn_id = np.asarray(arrays["fn_id"])
     arrival = np.asarray(arrays["arrival"])
     N, K = len(fn_id), cspec.n_nodes

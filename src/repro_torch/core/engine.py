@@ -143,7 +143,7 @@ class EngineCtx:
     def __init__(self, *, fn_id, arrival, exec_time, t_cold_l, t_evict_l,
                  trace_ix, cap_mask, beta, prior, f, c, q, stream,
                  threshold=0.1, n_live=None, deadlines=None, tl_bins=0,
-                 tl_bucket=60.0):
+                 tl_bucket=60.0, positional=True):
         N = fn_id.shape[1]
         dev = fn_id.device
         self.N, self.F, self.C, self.Q = N, f, c, q
@@ -152,9 +152,10 @@ class EngineCtx:
         self._fn = fn_id.reshape(-1)
         self._arr = arrival.reshape(-1)
         self._ex = exec_time.reshape(-1)
-        pos, off = positional_layout(fn_id, f)
-        self._pos = pos.reshape(-1)
-        self._off = off.reshape(-1)
+        if positional:   # the cluster's link-rail queues need no layout
+            pos, off = positional_layout(fn_id, f)
+            self._pos = pos.reshape(-1)
+            self._off = off.reshape(-1)
         self.b_n = trace_ix * N          # per-lane base into (T, N)
         self.b_f1 = trace_ix * (f + 1)   # per-lane base into (T, F+1)
         self.t_cold = t_cold_l           # (L, F) this lane's row
@@ -250,6 +251,22 @@ class EngineCtx:
         s["q_len"] = s["q_len"] - m.to(torch.int32)
         return rid
 
+    def arm_timer(self, s, fn, rid, t, pushed, on):
+        """Account the original timer of the arrival ``rid`` of ``fn`` at
+        ``t``, the newest entry of ``fn``'s timer rail (its position
+        identifies the request). If the rail is idle (this arrival is its
+        head) a *pushed* arrival arms the head fire time, while one that
+        was not pushed is consumed silently; an arrival behind a busy
+        rail stays armed and later fires as a no-op (its is-head gate
+        fails)."""
+        rail_head = (self.row(s["tmr_pos"], fn, self.F)
+                     == self.row(s["arr_cnt"], fn, self.F) - 1)
+        m = _hit(on & rail_head & pushed, fn, self.ar_f)
+        s["tmr_next"] = torch.where(m, (t + self.threshold)[:, None],
+                                    s["tmr_next"])
+        s["tmr_pos"] = s["tmr_pos"] + _hit(on & rail_head & ~pushed, fn,
+                                           self.ar_f)
+
 
 class PolicyKernel:
     """Interface a policy implements over the engine state (counterpart
@@ -328,23 +345,6 @@ def q_head(ctx, s, fn):
     """Head request id of ``fn``'s queue, (L,) (garbage when empty:
     callers gate on ``q_len``)."""
     return ctx.row(s["q_head_rid"], fn, ctx.F)
-
-
-def arm_timer(ctx, s, fn, t, pushed, on):
-    """Account the original timer of an arrival of ``fn`` at ``t``, the
-    newest entry of ``fn``'s timer rail (its position identifies the
-    request). If the rail is idle (this arrival is
-    its head) a *pushed* arrival arms the head fire time, while one
-    that was not pushed is consumed silently; an arrival behind a busy
-    rail stays armed and later fires as a no-op (its is-head gate
-    fails)."""
-    rail_head = (ctx.row(s["tmr_pos"], fn, ctx.F)
-                 == ctx.row(s["arr_cnt"], fn, ctx.F) - 1)
-    m = _hit(on & rail_head & pushed, fn, ctx.ar_f)
-    s["tmr_next"] = torch.where(m, (t + ctx.threshold)[:, None],
-                                s["tmr_next"])
-    s["tmr_pos"] = s["tmr_pos"] + _hit(on & rail_head & ~pushed, fn,
-                                       ctx.ar_f)
 
 
 def rearm_timer(ctx, s, fn, rid, t_fire, on):
@@ -841,7 +841,17 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                    capacity=capacity, queue_cap=queue_cap, stream=stream,
                    window=window, tl_bins=tl_bins, tl_bucket=tl_bucket,
                    n_live=n_live, deadlines=deadlines)
-    N = fn.shape[1]
+    arr_l = None if stream else arr.to(torch.float64)[tix]
+    return reduce_metrics(out, arr_l, fn.shape[1], n_live, stream,
+                          keep_responses)
+
+
+def reduce_metrics(out, arr_l, N: int, n_live, stream: bool,
+                   keep_responses: bool) -> Dict[str, torch.Tensor]:
+    """`sweep_metrics`' reduction of a run's outputs ``out`` over ``N``
+    requests a lane (each lane's live prefix with ``n_live``); in exact
+    mode ``arr_l`` (L, N) holds the arrivals the responses are measured
+    from."""
     if n_live is None:
         # the reference's mean is XLA's a / N, which XLA folds into
         # a * (1 / N); spelled out here so the CPU and CUDA (which also
@@ -852,14 +862,14 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
         nq = N
     else:
         # an array denominator: a plain IEEE division, as XLA's
-        nl = _as_tensor(n_live, torch.int64, fn.device)
+        nl = _as_tensor(n_live, torch.int64, out["done"].device)
         den = torch.clamp_min(nl, 1).to(torch.float64)
         means = (out["resp_sum"] / den, out["slow_sum"] / den)
         nq = nl[:, None]
     if stream:
         p99 = hist_quantile(out["resp_hist"], 0.99, nq, out["max_response"])
     else:
-        resp = out["completion"] - arr.to(torch.float64)[tix]
+        resp = out["completion"] - arr_l
         p99 = (percentile_linear(resp, 99.0) if n_live is None
                else percentile_live(resp, 99.0, nl))
     res = dict(mean_response=means[0], mean_slowdown=means[1],

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.engine import (BIG, COLD, IDLE, PolicyKernel, _hit,
-                                     arm_timer, cold_counts, dispatch,
+                                     cold_counts, dispatch,
                                      k_counts, lex_argmin, pick_idle_own,
                                      q_head, rearm_timer, start_cold)
 from repro_torch.kernels.frp_select import frp_select_lanes
@@ -302,7 +302,7 @@ class OpenWhiskV2Kernel(PolicyKernel):
         ctx.q_consume_direct(s, j, direct)
         queued = on & ~direct
         pushed = ctx.q_push(s, j, rid, queued)
-        arm_timer(ctx, s, j, t, pushed, on)
+        ctx.arm_timer(s, j, rid, t, pushed, on)
 
     def on_timer(self, ctx, s, rid, t, on):
         j = ctx.fn_at(rid)

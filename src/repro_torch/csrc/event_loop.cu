@@ -17,7 +17,10 @@
 //                     the timer rail
 // Each variant is a template instantiation of `Lane`: the policy's
 // decisions are fixed at compile time (if constexpr), and the host entry
-// picks the instantiation from a policy code, once a launch. Its plain
+// picks the instantiation from a policy code, once a launch. `Lane`'s
+// second parameter is the topology: one node (the single-node engine) or
+// a cluster of K nodes behind a dynamic router (the K-node variant,
+// below). Its plain
 // version is the eager loop of src/repro_torch/core/engine.py
 // (`simulate_eager`, `_event_step`, the hooks of core/policies.py);
 // every result is bitwise that loop's, so every expression below keeps
@@ -84,6 +87,42 @@
 // / pos_off) stays in global memory, L2-resident (~32 B a request). The
 // histogram lives in registers: thread t holds bins t and t + 32.
 //
+// The K-node variant (event_loop_cluster_run) replaces the XLA while_loop
+// of src/repro/cluster/engine.py::_simulate_cluster (:413) without churn,
+// the resilience layer and time-varying delay; its plain version is
+// src/repro_torch/cluster/engine.py (`simulate_cluster_eager`). A lane
+// carries its own topology (Params::topo: K nodes of C slots, the router
+// code, JSQ's d and the hash seed; its delays and capacity mask). The
+// hooks above run unchanged on the event's node through base offsets:
+// enter_node(k) points the slot view at slots k*C.. and the per-function
+// view at k*F.. and loads the node's estimator globals (and FaasCache's
+// clock), leave_node() stores them back: JAX's per-event view and commit.
+// What differs is the queue and the timer rail (q_push, q_pop,
+// consume_direct, arm, timer_event): per-(node, function) FIFOs on the
+// link rail `nxt` (one int32 successor a request, in global memory, each
+// written once when its successor is pushed), the timer chain `tnx` over
+// node arrivals (la_rid, tmr_seq, tmr_rid), and, on a lane with delay,
+// the in-flight chain `dnx` a node. Per event:
+//   pick    first-index argmin over [BUSY K*C | COLD K*C | timers K*F |
+//           re-arms K*F (OpenWhisk-v2) | in-flight heads K (a lane with
+//           delay) | arrival], node-major in each class
+//   route   at an arrival, the lane's router on the state before the
+//           event (K > 1): JSQ(d) draws d distinct nodes by a partial
+//           Fisher-Yates over mix32(rid, seed + i) and keeps the least
+//           loaded (queued + busy; ties: the earliest draw);
+//           cold_aware takes the node of least startability score
+//           ((no idle own instance ? t_cold : 0) + mean_j * q_j + gmean
+//           * (q_tot + busy)), slo_aware adds the node's delay; each
+//           thread scores nodes t, t + 32, ...
+//   node    a raw arrival of a lane with delay joins its node's in-flight
+//           FIFO; the head lands at arrival + delay_k as a node arrival;
+//           the policy, the timers and the fold run on that node-local
+//           clock
+// The slots of a lane (K*C <= Params::slot_cap) and the node table live in
+// shared memory; the per-(node, function) state beside them when it fits,
+// else in global scratch. `node_done` counts completions a node; in exact
+// mode with a delay, `node_of` records each request's node.
+//
 // What bounds it on an H100: the trace read once and the results
 // written once is ~1.9 MB at N = 60,000 (~0.6 us at 3.35 TB/s); the
 // function scans are ~12 f64 operations a function a scan (~30 us for
@@ -137,7 +176,18 @@ struct Policy {
       4 * 8 + 2 * 4 + (slot_used ? 8 : 0) + (faas ? 8 + 4 : 0);
   static constexpr int fn_bytes =
       5 * 8 + 3 * 4 + (cold_aware ? 4 : 0) + (timers ? 3 * 8 + 2 * 4 : 0);
+  // the K-node variant: a lane's t_cold and t_evict rows (16 B a
+  // function), and a node's per-function state (est_sum, q_tail_rid,
+  // q_head_rid; q_len, est_n, K; the COLD count; the timer chain's
+  // tmr_next, rearm_t, rearm_rid, tmr_rid, la_rid and tmr_seq, arr_cnt)
+  static constexpr int node_fn_bytes =
+      3 * 8 + 3 * 4 + (cold_aware ? 4 : 0) + (timers ? 5 * 8 + 2 * 4 : 0);
 };
+// a node of the K-node variant: gn, g_sum, FaasCache's clock, the delay;
+// q_tot, the in-flight head, tail and length, node_done; 4 B of padding
+constexpr int kNodeBytes = 4 * 8 + 5 * 4 + 4;
+constexpr int kLaneFnBytes = 2 * 8;
+constexpr int kMaxJsqD = 8;   // JSQ(d) on the card: d <= 8
 
 // the variants, by the policy code of the entry (kernels/event_loop.py
 // VARIANTS): ESFF with its two flags, the central queue in both orders,
@@ -163,6 +213,11 @@ static_assert(FaasP::slot_bytes == 52 && FaasP::fn_bytes == 52,
               "faascache");
 static_assert(Owv2P::slot_bytes == 48 && Owv2P::fn_bytes == 84,
               "openwhisk_v2");
+// the K-node variant's bytes a (node, function), as the wrapper's
+// CLUSTER_FN_BYTES has them
+static_assert(EsffP::node_fn_bytes == 36 && EsffHP::node_fn_bytes == 40 &&
+                  FaasP::node_fn_bytes == 36 && Owv2P::node_fn_bytes == 84,
+              "node_fn_bytes");
 
 // the slots' bytes, rounded up to 8 so that the per-function arrays that
 // follow them in shared memory are aligned
@@ -204,6 +259,15 @@ struct Params {
   int32_t* tl_cnt;           // (L, tl_bins) zeroed by the wrapper
   double* tl_resp;           // (L, tl_bins)
   double* tl_exec;           // (L, tl_bins)
+  // the K-node variant (null in the single-node one); cap_mask is then
+  // (L, kmax, n_slots)
+  const int64_t* topo;       // (L, 5): K, C, router code, JSQ's d, seed
+  const double* delays;      // (L, kmax)
+  int kmax;
+  int slot_cap;              // the slots one block holds: max K * C
+  int32_t* links;            // (L, 3, N): nxt, tnx, dnx
+  int32_t* node_done;        // (L, kmax)
+  int32_t* node_of;          // (L, N) or null
 };
 
 // The lane's tallies that change at most once an event and are read only
@@ -224,12 +288,35 @@ struct Slots {
   int *state, *cap, *freq;
 };
 
-// coldk: ESFF-H's; tmr_*, rearm_*, arr_cnt: OpenWhisk-v2's
+// coldk: ESFF-H's; tmr_*, rearm_*, arr_cnt: OpenWhisk-v2's; in the K-node
+// variant q_tail_rid takes q_head_pos's place and tmr_pos counts the
+// consumed entries of the timer chain, whose head is tmr_rid and whose
+// last arrival is la_rid
 struct Fns {
   double *est_sum, *t_cold, *t_evict, *tmr_next, *rearm_t;
-  long long *q_head_pos, *q_head_rid, *rearm_rid;
+  long long *q_head_pos, *q_tail_rid, *q_head_rid, *rearm_rid, *tmr_rid,
+      *la_rid;
   int *q_len, *est_n, *k, *coldk, *tmr_pos, *arr_cnt;
 };
+
+// The node table of the K-node variant (gd: FaasCache's clock).
+struct Nodes {
+  long long* gn;
+  double *g_sum, *gd, *delay;
+  int *q_tot, *pend_head, *pend_tail, *pend_len, *done;
+};
+
+// murmur3's 32-bit finaliser over x ^ (seed * golden ratio), as
+// repro_torch.cluster.routers.mix32_py
+__device__ __forceinline__ unsigned mix32(unsigned x, unsigned seed) {
+  unsigned h = x ^ (seed * 0x9E3779B9u);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
 
 __device__ __forceinline__ long long clampll(long long x, long long lo,
                                              long long hi) {
@@ -259,13 +346,15 @@ __device__ __forceinline__ void warp_lex_min(double& p, long long& s,
   }
 }
 
-// The lane's event loop under policy P; one object a warp, every member
-// warp-uniform.
-template <class P>
+// The lane's event loop under policy P, on one node or (CL) on a cluster
+// of K; one object a warp, every member warp-uniform.
+template <class P, bool CL>
 struct Lane {
   const Params& p;
   const int t;              // this thread's index in the warp
-  const int lane, N, F, C, Q;
+  const int lane, N, F;
+  const int C;              // slots a node (CL: this lane's)
+  const int Q;
   const int NL;             // the live prefix: N unless n_live is given
   const int64_t* fn_id;
   const double* arrival;
@@ -273,8 +362,18 @@ struct Lane {
   const int64_t* pos_rids;
   const int64_t* pos_off;
   const double beta;
-  Slots sl;
-  Fns fs;
+  const int K;              // nodes (1 on the single-node topology)
+  Slots sl;                 // the event node's slots (CL: a view of sl_all)
+  Fns fs;                   // the event node's functions (CL: of fs_all)
+  // the K-node variant: every node's slots and functions, the node table,
+  // the link rails, the event's node and whether the lane has a delay
+  Slots sl_all;
+  Fns fs_all;
+  Nodes nd;
+  int32_t *nxt = nullptr, *tnx = nullptr, *dnx = nullptr;
+  int node = 0;
+  bool has_delay = false;
+  double delay_k = 0.0;     // the event node's delay (CL, has_delay)
   long long next = 0, done = 0, iters = 0, stall = 0, gn = 0;
   double g_sum = 0.0, r_sum = 0.0, s_sum = 0.0, r_max = 0.0;
   double gd_clock = 0.0;    // FaasCache's GREEDY-DUAL clock
@@ -284,7 +383,9 @@ struct Lane {
 
   __device__ Lane(const Params& p_, unsigned char* smem)
       : p(p_), t(threadIdx.x), lane(blockIdx.x), N(p_.n_req),
-        F(p_.n_fns), C(p_.n_slots), Q(p_.queue_cap),
+        F(p_.n_fns),
+        C(CL ? static_cast<int>(p_.topo[blockIdx.x * 5 + 1]) : p_.n_slots),
+        Q(p_.queue_cap),
         NL(p_.n_live != nullptr ? static_cast<int>(p_.n_live[blockIdx.x])
                                 : p_.n_req),
         fn_id(p_.fn_id + p_.trace_ix[blockIdx.x] * p_.n_req),
@@ -292,84 +393,212 @@ struct Lane {
         exec(p_.exec_time + p_.trace_ix[blockIdx.x] * p_.n_req),
         pos_rids(p_.pos_rids + p_.trace_ix[blockIdx.x] * p_.n_req),
         pos_off(p_.pos_off + p_.trace_ix[blockIdx.x] * (p_.n_fns + 1)),
-        beta(p_.beta[blockIdx.x]) {
-    // slots: the 8-byte arrays, then the 4-byte ones
+        beta(p_.beta[blockIdx.x]),
+        K(CL ? static_cast<int>(p_.topo[blockIdx.x * 5]) : 1) {
+    // slots, K * C of them: the 8-byte arrays, then the 4-byte ones
+    const int S = K * C;
     unsigned char* b = smem;
-    sl.fn = reinterpret_cast<long long*>(b); b += 8 * C;
-    sl.req = reinterpret_cast<long long*>(b); b += 8 * C;
-    sl.seq = reinterpret_cast<long long*>(b); b += 8 * C;
-    sl.ready = reinterpret_cast<double*>(b); b += 8 * C;
+    sl.fn = reinterpret_cast<long long*>(b); b += 8 * S;
+    sl.req = reinterpret_cast<long long*>(b); b += 8 * S;
+    sl.seq = reinterpret_cast<long long*>(b); b += 8 * S;
+    sl.ready = reinterpret_cast<double*>(b); b += 8 * S;
     if constexpr (P::slot_used) {
-      sl.used = reinterpret_cast<double*>(b); b += 8 * C;
+      sl.used = reinterpret_cast<double*>(b); b += 8 * S;
     }
     if constexpr (P::faas) {
-      sl.prio = reinterpret_cast<double*>(b); b += 8 * C;
+      sl.prio = reinterpret_cast<double*>(b); b += 8 * S;
     }
-    sl.state = reinterpret_cast<int*>(b); b += 4 * C;
-    sl.cap = reinterpret_cast<int*>(b); b += 4 * C;
+    sl.state = reinterpret_cast<int*>(b); b += 4 * S;
+    sl.cap = reinterpret_cast<int*>(b); b += 4 * S;
     if constexpr (P::faas) sl.freq = reinterpret_cast<int*>(b);
-    // functions: in shared memory after the slots, or in global scratch
-    b = p.fn_in_shared ? smem + slot_region(P::slot_bytes, C)
-                       : p.scratch + lane * p.fn_stride;
-    fs.est_sum = reinterpret_cast<double*>(b); b += 8 * F;
-    fs.t_cold = reinterpret_cast<double*>(b); b += 8 * F;
-    fs.t_evict = reinterpret_cast<double*>(b); b += 8 * F;
-    fs.q_head_pos = reinterpret_cast<long long*>(b); b += 8 * F;
-    fs.q_head_rid = reinterpret_cast<long long*>(b); b += 8 * F;
-    if constexpr (P::timers) {
-      fs.tmr_next = reinterpret_cast<double*>(b); b += 8 * F;
-      fs.rearm_t = reinterpret_cast<double*>(b); b += 8 * F;
-      fs.rearm_rid = reinterpret_cast<long long*>(b); b += 8 * F;
+    // CL: the node table after the block's slot region
+    const long long slots_end =
+        slot_region(P::slot_bytes, CL ? p.slot_cap : C);
+    if constexpr (CL) {
+      b = smem + slots_end;
+      nd.gn = reinterpret_cast<long long*>(b); b += 8 * p.kmax;
+      nd.g_sum = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.gd = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.delay = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.q_tot = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.pend_head = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.pend_tail = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.pend_len = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.done = reinterpret_cast<int*>(b);
+      int32_t* lk = p.links + static_cast<long long>(lane) * 3 * N;
+      nxt = lk;
+      tnx = lk + N;
+      dnx = lk + 2 * static_cast<long long>(N);
     }
-    fs.q_len = reinterpret_cast<int*>(b); b += 4 * F;
-    fs.est_n = reinterpret_cast<int*>(b); b += 4 * F;
+    // functions: in shared memory after the slots (and the node table),
+    // or in global scratch; CL: the lane's t_cold and t_evict rows, then
+    // the K * F per-(node, function) arrays
+    b = p.fn_in_shared
+            ? smem + slots_end +
+                  (CL ? (static_cast<long long>(kNodeBytes) * p.kmax + 7) /
+                            8 * 8
+                      : 0)
+            : p.scratch + lane * p.fn_stride;
+    const int KF = K * F;
+    if constexpr (CL) {
+      fs.t_cold = reinterpret_cast<double*>(b); b += 8 * F;
+      fs.t_evict = reinterpret_cast<double*>(b); b += 8 * F;
+      fs.est_sum = reinterpret_cast<double*>(b); b += 8 * KF;
+      fs.q_tail_rid = reinterpret_cast<long long*>(b); b += 8 * KF;
+    } else {
+      fs.est_sum = reinterpret_cast<double*>(b); b += 8 * F;
+      fs.t_cold = reinterpret_cast<double*>(b); b += 8 * F;
+      fs.t_evict = reinterpret_cast<double*>(b); b += 8 * F;
+      fs.q_head_pos = reinterpret_cast<long long*>(b); b += 8 * F;
+    }
+    fs.q_head_rid = reinterpret_cast<long long*>(b); b += 8 * KF;
+    if constexpr (P::timers) {
+      fs.tmr_next = reinterpret_cast<double*>(b); b += 8 * KF;
+      fs.rearm_t = reinterpret_cast<double*>(b); b += 8 * KF;
+      fs.rearm_rid = reinterpret_cast<long long*>(b); b += 8 * KF;
+      if constexpr (CL) {
+        fs.tmr_rid = reinterpret_cast<long long*>(b); b += 8 * KF;
+        fs.la_rid = reinterpret_cast<long long*>(b); b += 8 * KF;
+      }
+    }
+    fs.q_len = reinterpret_cast<int*>(b); b += 4 * KF;
+    fs.est_n = reinterpret_cast<int*>(b); b += 4 * KF;
     fs.k = reinterpret_cast<int*>(b);
     if constexpr (P::cold_aware) {
-      b += 4 * F;
+      b += 4 * KF;
       fs.coldk = reinterpret_cast<int*>(b);
     }
     if constexpr (P::timers) {
-      b += 4 * F;
-      fs.tmr_pos = reinterpret_cast<int*>(b); b += 4 * F;
+      b += 4 * KF;
+      fs.tmr_pos = reinterpret_cast<int*>(b); b += 4 * KF;
       fs.arr_cnt = reinterpret_cast<int*>(b);
     }
+    sl_all = sl;
+    fs_all = fs;
   }
 
   __device__ void init() {
     const long long tix = p.trace_ix[lane];
     if (t == 0) tally = Tally{0, 0, 0, 0, 0, 0, 0, 0.0, 0.0};
-    for (int c = t; c < C; c += 32) {
-      sl.fn[c] = -1;
-      sl.req[c] = -1;
-      sl.seq[c] = kI32Max;
-      sl.ready[c] = kBig;
-      sl.state[c] = kIdle;
-      sl.cap[c] = p.cap_mask[static_cast<long long>(lane) * C + c] != 0;
-      if constexpr (P::slot_used) sl.used[c] = 0.0;
+    for (int i = t; i < K * C; i += 32) {
+      sl.fn[i] = -1;
+      sl.req[i] = -1;
+      sl.seq[i] = kI32Max;
+      sl.ready[i] = kBig;
+      sl.state[i] = kIdle;
+      // cap_mask is (L, C) on one node, (L, kmax, n_slots) on K
+      const long long at =
+          CL ? (static_cast<long long>(lane) * p.kmax + i / C) * p.n_slots +
+                   i % C
+             : static_cast<long long>(lane) * C + i;
+      sl.cap[i] = p.cap_mask[at] != 0;
+      if constexpr (P::slot_used) sl.used[i] = 0.0;
       if constexpr (P::faas) {
-        sl.prio[c] = 0.0;
-        sl.freq[c] = 0;
+        sl.prio[i] = 0.0;
+        sl.freq[i] = 0;
       }
     }
     for (int f = t; f < F; f += 32) {
-      fs.est_sum[f] = 0.0;
       fs.t_cold[f] = p.t_cold[tix * F + f];
       fs.t_evict[f] = p.t_evict[tix * F + f];
-      fs.q_head_pos[f] = 0;
-      fs.q_head_rid[f] = -1;
-      fs.q_len[f] = 0;
-      fs.est_n[f] = 0;
-      fs.k[f] = 0;
-      if constexpr (P::cold_aware) fs.coldk[f] = 0;
+      if constexpr (!CL) fs.q_head_pos[f] = 0;
+    }
+    for (int i = t; i < K * F; i += 32) {
+      fs.est_sum[i] = 0.0;
+      fs.q_head_rid[i] = -1;
+      if constexpr (CL) fs.q_tail_rid[i] = -1;
+      fs.q_len[i] = 0;
+      fs.est_n[i] = 0;
+      fs.k[i] = 0;
+      if constexpr (P::cold_aware) fs.coldk[i] = 0;
       if constexpr (P::timers) {
-        fs.tmr_next[f] = kBig;
-        fs.rearm_t[f] = kBig;
-        fs.rearm_rid[f] = -1;
-        fs.tmr_pos[f] = 0;
-        fs.arr_cnt[f] = 0;
+        fs.tmr_next[i] = kBig;
+        fs.rearm_t[i] = kBig;
+        fs.rearm_rid[i] = -1;
+        fs.tmr_pos[i] = 0;
+        fs.arr_cnt[i] = 0;
+        if constexpr (CL) {
+          fs.tmr_rid[i] = -1;
+          fs.la_rid[i] = -1;
+        }
       }
     }
+    if constexpr (CL) {
+      bool delayed = false;
+      for (int k = t; k < K; k += 32) {
+        nd.gn[k] = 0;
+        nd.g_sum[k] = 0.0;
+        nd.gd[k] = 0.0;
+        nd.delay[k] = p.delays[static_cast<long long>(lane) * p.kmax + k];
+        delayed |= nd.delay[k] > 0.0;
+        nd.q_tot[k] = 0;
+        nd.pend_head[k] = -1;
+        nd.pend_tail[k] = -1;
+        nd.pend_len[k] = 0;
+        nd.done[k] = 0;
+      }
+      has_delay = __any_sync(kAll, delayed);
+    }
     __syncwarp();
+  }
+
+  // ------------------------------------------------- the event's node
+  // Point the views at node k (slots k*C.., functions k*F..) and load its
+  // estimator globals, FaasCache's clock and its delay.
+  __device__ __forceinline__ void enter_node(int k) {
+    node = k;
+    const int s0 = k * C;
+    sl.fn = sl_all.fn + s0;
+    sl.req = sl_all.req + s0;
+    sl.seq = sl_all.seq + s0;
+    sl.ready = sl_all.ready + s0;
+    if constexpr (P::slot_used) sl.used = sl_all.used + s0;
+    if constexpr (P::faas) {
+      sl.prio = sl_all.prio + s0;
+      sl.freq = sl_all.freq + s0;
+    }
+    sl.state = sl_all.state + s0;
+    sl.cap = sl_all.cap + s0;
+    const int f0 = k * F;
+    fs.est_sum = fs_all.est_sum + f0;
+    fs.q_tail_rid = fs_all.q_tail_rid + f0;
+    fs.q_head_rid = fs_all.q_head_rid + f0;
+    fs.q_len = fs_all.q_len + f0;
+    fs.est_n = fs_all.est_n + f0;
+    fs.k = fs_all.k + f0;
+    if constexpr (P::cold_aware) fs.coldk = fs_all.coldk + f0;
+    if constexpr (P::timers) {
+      fs.tmr_next = fs_all.tmr_next + f0;
+      fs.rearm_t = fs_all.rearm_t + f0;
+      fs.rearm_rid = fs_all.rearm_rid + f0;
+      fs.tmr_rid = fs_all.tmr_rid + f0;
+      fs.la_rid = fs_all.la_rid + f0;
+      fs.tmr_pos = fs_all.tmr_pos + f0;
+      fs.arr_cnt = fs_all.arr_cnt + f0;
+    }
+    gn = nd.gn[k];
+    g_sum = nd.g_sum[k];
+    if constexpr (P::faas) gd_clock = nd.gd[k];
+    delay_k = nd.delay[k];
+  }
+
+  // Store the event node's estimator globals and clock back.
+  __device__ __forceinline__ void leave_node() {
+    __syncwarp();
+    if (t == 0) {
+      nd.gn[node] = gn;
+      nd.g_sum[node] = g_sum;
+      if constexpr (P::faas) nd.gd[node] = gd_clock;
+    }
+    __syncwarp();
+  }
+
+  // The node-local arrival of rid: + the event node's delay on a lane with
+  // one (CL), the trace's arrival otherwise.
+  __device__ __forceinline__ double arrival_at(long long rid) const {
+    const double a = arrival[rc(rid)];
+    if constexpr (CL) return has_delay ? a + delay_k : a;
+    return a;
   }
 
   __device__ __forceinline__ bool fn_ok(long long f) const {
@@ -407,6 +636,9 @@ struct Lane {
         const long long at = static_cast<long long>(lane) * N + rid;
         p.start[at] = tm;
         p.completion[at] = comp;
+        if constexpr (CL) {
+          if (p.node_of != nullptr) p.node_of[at] = node;
+        }
       }
     }
     __syncwarp();
@@ -470,25 +702,35 @@ struct Lane {
   }
 
   // ------------------------------------------------------------ queues
-  // Consume the head of fn's queue and return its rid; the head cache
-  // moves to the successor (garbage when the queue empties).
+  // Consume the head of fn's queue and return its rid; the head moves to
+  // the successor: the next position of fn's arrivals (garbage when the
+  // queue empties), or (CL) the head's link on the rail (-1 then).
   __device__ long long q_pop(long long fn) {
     const int f = fc(fn);
     const long long rid = fs.q_head_rid[f];
-    const long long gi = pos_off[f] + (fs.q_head_pos[f] + 1);
-    const long long succ = pos_rids[clampll(gi, 0, N - 1)];
+    long long succ;
+    if constexpr (CL) {
+      succ = fs.q_len[f] > 1 ? nxt[rc(rid)] : -1;
+    } else {
+      const long long gi = pos_off[f] + (fs.q_head_pos[f] + 1);
+      succ = pos_rids[clampll(gi, 0, N - 1)];
+    }
     __syncwarp();
-    if (t == 0 && fn_ok(fn)) {
-      fs.q_head_rid[fn] = succ;
-      fs.q_head_pos[fn] += 1;
-      fs.q_len[fn] -= 1;
+    if (t == 0) {
+      if (fn_ok(fn)) {
+        fs.q_head_rid[fn] = succ;
+        if constexpr (!CL) fs.q_head_pos[fn] += 1;
+        fs.q_len[fn] -= 1;
+      }
+      if constexpr (CL) nd.q_tot[node] -= 1;
     }
     __syncwarp();
     return rid;
   }
 
-  // Append rid (the next arrival position of fn); a push onto a full
-  // backlog is dropped and counted in ovf. Returns whether it pushed.
+  // Append rid (the next arrival position of fn; CL: linked from the
+  // tail); a push onto a full backlog is dropped and counted in ovf.
+  // Returns whether it pushed.
   __device__ bool q_push(long long fn, long long rid) {
     const int q0 = fs.q_len[fc(fn)];
     if (q0 >= Q) {
@@ -496,12 +738,28 @@ struct Lane {
       return false;
     }
     __syncwarp();
-    if (t == 0 && fn_ok(fn)) {
-      if (q0 == 0) fs.q_head_rid[fn] = rid;
-      fs.q_len[fn] = q0 + 1;
+    if (t == 0) {
+      if (fn_ok(fn)) {
+        if (q0 == 0)
+          fs.q_head_rid[fn] = rid;
+        else if constexpr (CL)
+          nxt[rc(fs.q_tail_rid[fn])] = static_cast<int32_t>(rid);
+        if constexpr (CL) fs.q_tail_rid[fn] = rid;
+        fs.q_len[fn] = q0 + 1;
+      }
+      if constexpr (CL) nd.q_tot[node] += 1;
     }
     __syncwarp();
     return true;
+  }
+
+  // A directly dispatched arrival of fn: its (empty-queue) position is
+  // consumed; on the link rail (CL) it never enters the chain.
+  __device__ __forceinline__ void consume_direct(long long fn) {
+    if constexpr (!CL) {
+      if (t == 0 && fn_ok(fn)) fs.q_head_pos[fn] += 1;
+      __syncwarp();
+    }
   }
 
   // ------------------------------------------------------- slot scans
@@ -616,8 +874,7 @@ struct Lane {
     const double qj = static_cast<double>(fs.q_len[jc]);
     if (any_own && qj == 0.0) {
       dispatch(own, rid, tm);
-      if (t == 0 && fn_ok(j)) fs.q_head_pos[j] += 1;  // consumed directly
-      __syncwarp();
+      consume_direct(j);
       return;
     }
     const double g = global_mean();
@@ -719,8 +976,7 @@ struct Lane {
     const bool any_own = find_own(j, own);
     if (any_own && fs.q_len[fc(j)] == 0) {
       serve(own, rid, tm);
-      if (t == 0 && fn_ok(j)) fs.q_head_pos[j] += 1;  // consumed directly
-      __syncwarp();
+      consume_direct(j);
       return;
     }
     q_push(j, rid);
@@ -748,18 +1004,19 @@ struct Lane {
     bool pushed = false;
     if (any_own && fs.q_len[jc] == 0) {
       dispatch(own, rid, tm);
-      if (t == 0 && fn_ok(j)) fs.q_head_pos[j] += 1;  // consumed directly
-      __syncwarp();
+      consume_direct(j);
     } else {
       pushed = q_push(j, rid);
     }
     if (fs.tmr_pos[jc] == fs.arr_cnt[jc] - 1) {
       __syncwarp();
       if (t == 0 && fn_ok(j)) {
-        if (pushed)
+        if (pushed) {
           fs.tmr_next[j] = tm + p.threshold;
-        else
+          if constexpr (CL) fs.tmr_rid[j] = rid;  // the chain's head
+        } else {
           fs.tmr_pos[j] += 1;
+        }
       }
       __syncwarp();
     }
@@ -816,7 +1073,7 @@ struct Lane {
   // ------------------------------------------------------------- fold
   __device__ void fold() {
     if (ev_rid < 0) return;
-    const double resp = ev_comp - arrival[rc(ev_rid)];
+    const double resp = ev_comp - arrival_at(ev_rid);
     const double slow = resp / frp::clamp_lo(ev_exec, 1e-9);
     r_sum = r_sum + resp;
     s_sum = s_sum + slow;
@@ -841,7 +1098,7 @@ struct Lane {
         p.dl_miss[static_cast<long long>(lane) * F + fnr] += 1;
     }
     if (p.tl_bins > 0) {
-      int tb = static_cast<int>(arrival[rc(ev_rid)] / p.tl_bucket);
+      int tb = static_cast<int>(arrival_at(ev_rid) / p.tl_bucket);
       tb = tb < 0 ? 0 : (tb > p.tl_bins - 1 ? p.tl_bins - 1 : tb);
       const long long at = static_cast<long long>(lane) * p.tl_bins + tb;
       p.tl_cnt[at] += 1;
@@ -850,29 +1107,34 @@ struct Lane {
     }
   }
 
-  // The timer event at candidate `ei` (an original timer or a re-arm):
+  // The timer event of function f (an original timer, or a re-arm):
   // consume it, then the hook.
-  __device__ void timer_event(int ei, double tm) {
-    const int n0 = 2 * C;
+  __device__ void timer_event(bool orig, int f, double tm) {
     long long rid;
-    if (ei < n0 + F) {
-      // the next original timer of f: the arrival at position tmr_pos;
-      // the rail moves on to its successor, if it has arrived
-      const int f = ei - n0;
+    if (orig) {
+      // the next original timer of f: the arrival at position tmr_pos (CL:
+      // the chain's head); the rail moves on to its successor, if it has
+      // arrived
       const long long p_o = fs.tmr_pos[f];
-      const long long base = pos_off[f];
-      rid = pos_rids[clampll(base + p_o, 0, N - 1)];
-      const long long succ = pos_rids[clampll(base + (p_o + 1), 0, N - 1)];
-      const double nxt =
-          p_o + 1 < fs.arr_cnt[f] ? arrival[rc(succ)] + p.threshold : kBig;
+      long long succ;
+      if constexpr (CL) {
+        rid = fs.tmr_rid[f];
+        succ = tnx[rc(rid)];
+      } else {
+        const long long base = pos_off[f];
+        rid = pos_rids[clampll(base + p_o, 0, N - 1)];
+        succ = pos_rids[clampll(base + (p_o + 1), 0, N - 1)];
+      }
+      const bool more = p_o + 1 < fs.arr_cnt[f];
+      const double nxt_t = more ? arrival_at(succ) + p.threshold : kBig;
       __syncwarp();
       if (t == 0) {
         fs.tmr_pos[f] = static_cast<int>(p_o + 1);
-        fs.tmr_next[f] = nxt;
+        fs.tmr_next[f] = nxt_t;
+        if constexpr (CL) fs.tmr_rid[f] = more ? succ : -1;
       }
       __syncwarp();
     } else {
-      const int f = ei - n0 - F;
       rid = fs.rearm_rid[f];
       __syncwarp();
       if (t == 0) fs.rearm_t[f] = kBig;
@@ -950,7 +1212,8 @@ struct Lane {
         iters += 1;
       } else if (P::timers && ei < n_arr) {
         iters += 1;
-        timer_event(ei, t_ev);
+        const bool orig = ei < 2 * C + F;
+        timer_event(orig, orig ? ei - 2 * C : ei - 2 * C - F, t_ev);
       } else if (ev_arr) {
         next = na + 1;
         iters += 1;
@@ -967,6 +1230,236 @@ struct Lane {
         on_arrival(na, j, ta);
       }
       fold();
+      if (iters >= p.max_iters) stall = 2;
+    }
+  }
+
+  // ------------------------------------------------- the K-node loop
+  // Queued plus busy usable slots of node k, on every thread.
+  __device__ __forceinline__ long long node_load(int k) const {
+    int b = 0;
+    for (int c = t; c < C; c += 32) {
+      const int i = k * C + c;
+      b += sl_all.state[i] == kBusy && sl_all.cap[i];
+    }
+    return static_cast<long long>(nd.q_tot[k]) + __reduce_add_sync(kAll, b);
+  }
+
+  // The router's node for the arrival rid of function j, on the state
+  // before the event (every thread ends with the same node).
+  __device__ int route(long long rid, long long j) {
+    if (K == 1) return 0;
+    const int code = static_cast<int>(p.topo[lane * 5 + 2]);
+    const long long seed = p.topo[lane * 5 + 4];
+    if (code == 0) {
+      // JSQ(d): the first min(d, K) positions of a partial Fisher-Yates
+      // shuffle of the node ids; only the positions it touches are kept,
+      // as (position, node) writes, the latest of a position winning
+      const int d = min(static_cast<int>(p.topo[lane * 5 + 3]), K);
+      int pos[2 * kMaxJsqD], val[2 * kMaxJsqD];
+      int m = 0;
+      auto at = [&](int x) {
+        int v = x;
+        for (int q = 0; q < m; ++q)
+          if (pos[q] == x) v = val[q];
+        return v;
+      };
+      for (int i = 0; i < d; ++i) {
+        const unsigned h = mix32(static_cast<unsigned>(rid),
+                                 static_cast<unsigned>(seed + i));
+        const int jd = i + static_cast<int>(h % static_cast<unsigned>(K - i));
+        const int ni = at(i), nj = at(jd);
+        pos[m] = i;
+        val[m++] = nj;
+        pos[m] = jd;
+        val[m++] = ni;
+      }
+      int best = at(0);
+      long long bl = node_load(best);
+      for (int i = 1; i < d; ++i) {  // strict <: ties keep the earliest draw
+        const int c = at(i);
+        const long long l = node_load(c);
+        if (l < bl) {
+          best = c;
+          bl = l;
+        }
+      }
+      return best;
+    }
+    // cold_aware (1) and slo_aware (2): the first node of least
+    // startability score (+ its delay for slo_aware), in the reference's
+    // order of operations
+    const int jc = fc(j);
+    double bw = INFINITY;
+    int bi = INT_MAX;
+    for (int k = t; k < K; k += 32) {
+      bool idle = false;
+      int busy = 0;
+      for (int c = 0; c < C; ++c) {
+        const int i = k * C + c;
+        if (!sl_all.cap[i]) continue;
+        const int st = sl_all.state[i];
+        busy += st == kBusy;
+        idle |= st == kIdle && sl_all.fn[i] == jc;
+      }
+      const long long gnk = nd.gn[k];
+      const double gmean =
+          gnk > 0 ? nd.g_sum[k] / frp::clamp_lo(static_cast<double>(gnk), 1.0)
+                  : p.prior;
+      const int kf = k * F + jc;
+      const int n_j = fs_all.est_n[kf];
+      const double mean_j =
+          n_j > 0 ? fs_all.est_sum[kf] /
+                        frp::clamp_lo(static_cast<double>(n_j), 1.0)
+                  : gmean;
+      double score =
+          ((idle ? 0.0 : fs_all.t_cold[jc]) +
+           mean_j * static_cast<double>(fs_all.q_len[kf])) +
+          gmean * static_cast<double>(static_cast<long long>(nd.q_tot[k]) +
+                                      busy);
+      if (code == 2 && has_delay) score = score + nd.delay[k];
+      frp::keep_first_min(bw, bi, score, k);
+    }
+    frp::warp_first_min(bw, bi);
+    return bi;
+  }
+
+  // A node arrival of rid (function j) at node-local time tm: the timer
+  // chain of (node, j) (OpenWhisk-v2), then the policy's arrival hook.
+  __device__ void node_arrival(long long rid, long long j, double tm) {
+    if constexpr (P::timers) {
+      __syncwarp();
+      if (t == 0 && fn_ok(j)) {
+        const long long prev = fs.la_rid[j];
+        if (prev >= 0) tnx[rc(prev)] = static_cast<int32_t>(rid);
+        fs.la_rid[j] = rid;
+        fs.arr_cnt[j] += 1;
+      }
+      __syncwarp();
+    }
+    on_arrival(rid, j, tm);
+  }
+
+  __device__ void run_cluster() {
+    const int KC = K * C, KF = K * F;
+    const int p0 = 2 * KC + (P::timers ? 2 * KF : 0);  // in-flight heads
+    const int n_arr = p0 + (has_delay ? K : 0);
+    double t_arr = N > 0 ? arrival[0] : kBig;
+    long long fn_arr = N > 0 ? fn_id[0] : 0;
+    while (done < NL && stall == 0) {
+      __syncwarp();  // the router reads what thread 0 wrote last event
+      double w = INFINITY;
+      int ei = INT_MAX;
+      for (int i = t; i < KC; i += 32) {
+        const double r = sl_all.cap[i] ? sl_all.ready[i] : kBig;
+        const int st = sl_all.state[i];
+        frp::keep_first_min(w, ei, st == kBusy ? r : kBig, i);
+        frp::keep_first_min(w, ei, st == kCold ? r : kBig, KC + i);
+      }
+      if constexpr (P::timers) {
+        for (int i = t; i < KF; i += 32) {
+          frp::keep_first_min(w, ei, fs_all.tmr_next[i], 2 * KC + i);
+          frp::keep_first_min(w, ei, fs_all.rearm_t[i], 2 * KC + KF + i);
+        }
+      }
+      if (has_delay) {
+        for (int k = t; k < K; k += 32) {
+          const double land =
+              nd.pend_len[k] > 0 ? arrival[rc(nd.pend_head[k])] + nd.delay[k]
+                                 : kBig;
+          frp::keep_first_min(w, ei, land, p0 + k);
+        }
+      }
+      frp::warp_first_min(w, ei);
+      const long long na = next;
+      frp::keep_first_min(w, ei, na < NL ? t_arr : kBig, n_arr);
+      if (!(w < kBig)) {
+        stall = 1;
+        break;
+      }
+      const double t_ev = w;
+      ev_rid = -1;
+      ev_comp = 0.0;
+      ev_exec = 0.0;
+      if (ei < 2 * KC) {
+        // release, the node's estimator, then the policy hook
+        const bool is_cold = ei >= KC;
+        const int i = is_cold ? ei - KC : ei;
+        enter_node(i / C);
+        const int slot = i % C;
+        const long long rid_done = sl.req[slot];
+        const long long j_done = sl.fn[slot];
+        const double e_done = exec[rc(rid_done)];
+        __syncwarp();
+        if (t == 0) {
+          sl.state[slot] = kIdle;
+          sl.ready[slot] = kBig;
+          sl.req[slot] = -1;
+          if (!is_cold && fn_ok(j_done)) {
+            fs.est_sum[j_done] = fs.est_sum[j_done] + e_done;
+            fs.est_n[j_done] += 1;
+          }
+          if constexpr (P::cold_aware) {
+            if (is_cold && fn_ok(j_done)) fs.coldk[j_done] -= 1;
+          }
+          if (!is_cold) nd.done[node] += 1;
+        }
+        __syncwarp();
+        if (!is_cold) {
+          g_sum = g_sum + e_done;
+          gn += 1;
+          done += 1;
+        }
+        on_slot(is_cold, slot, t_ev);
+        iters += 1;
+      } else if (P::timers && ei < p0) {
+        const bool orig = ei < 2 * KC + KF;
+        const int kf = orig ? ei - 2 * KC : ei - 2 * KC - KF;
+        enter_node(kf / F);
+        iters += 1;
+        timer_event(orig, kf % F, t_ev);
+      } else if (ei < n_arr) {
+        // the head of node k's in-flight FIFO lands
+        enter_node(ei - p0);
+        const long long rid = nd.pend_head[node];
+        const long long succ = nd.pend_len[node] > 1 ? dnx[rc(rid)] : -1;
+        __syncwarp();
+        if (t == 0) {
+          nd.pend_head[node] = static_cast<int>(succ);
+          nd.pend_len[node] -= 1;
+        }
+        __syncwarp();
+        iters += 1;
+        node_arrival(rid, fn_id[rc(rid)], t_ev);
+      } else if (na < NL) {
+        const int k = route(na, fn_arr);
+        enter_node(k);
+        next = na + 1;
+        iters += 1;
+        const long long j = fn_arr;
+        const double ta = t_arr;
+        if (next < N) {
+          t_arr = arrival[next];
+          fn_arr = fn_id[next];
+        }
+        if (has_delay) {
+          // in flight to node k
+          __syncwarp();
+          if (t == 0) {
+            if (nd.pend_len[k] == 0)
+              nd.pend_head[k] = static_cast<int>(na);
+            else
+              dnx[nd.pend_tail[k]] = static_cast<int32_t>(na);
+            nd.pend_tail[k] = static_cast<int>(na);
+            nd.pend_len[k] += 1;
+          }
+          __syncwarp();
+        } else {
+          node_arrival(na, j, ta);
+        }
+      }
+      fold();
+      leave_node();
       if (iters >= p.max_iters) stall = 2;
     }
   }
@@ -998,31 +1491,41 @@ struct Lane {
     int32_t* h = p.hist + static_cast<long long>(lane) * kHistBins;
     h[t] = h_lo;
     h[t + 32] = h_hi;
+    if constexpr (CL) {
+      for (int k = t; k < p.kmax; k += 32)
+        p.node_done[static_cast<long long>(lane) * p.kmax + k] =
+            k < K ? nd.done[k] : 0;
+    }
   }
 };
 
 // `p` stays in the parameter space (__grid_constant__): the lane keeps a
 // reference to it, with no copy to local memory.
-template <class P>
+template <class P, bool CL>
 __global__ void __launch_bounds__(32)
     event_loop_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Lane<P> ln(p, smem);
+  Lane<P, CL> ln(p, smem);
   ln.init();
-  ln.run();
+  if constexpr (CL) {
+    ln.enter_node(0);
+    ln.run_cluster();
+  } else {
+    ln.run();
+  }
   ln.write_out();
 }
 
-template <class P>
+template <class P, bool CL>
 int launch(const Params& p, int n_lanes, int smem_bytes,
            cudaStream_t stream) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        event_loop_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        event_loop_kernel<P, CL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  event_loop_kernel<P><<<n_lanes, 32, smem_bytes, stream>>>(p);
+  event_loop_kernel<P, CL><<<n_lanes, 32, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1045,28 +1548,22 @@ int layout(long long* out, int n) {
   X(0, EsffP) X(1, EsffColdP) X(2, EsffLruP) X(3, EsffHP) X(4, FifoP)    \
   X(5, SffP) X(6, FaasP) X(7, Owv2P)
 
-}  // namespace
+#define K0_ARGS                                                              \
+  const int64_t *fn_id, const double *arrival, const double *exec_time,     \
+      const int64_t *pos_rids, const int64_t *pos_off, const double *t_cold, \
+      const double *t_evict, const int64_t *trace_ix,                       \
+      const uint8_t *cap_mask, const double *beta, double prior,            \
+      double threshold, int n_lanes, int n_req, int n_fns, int n_slots,     \
+      int queue_cap, int fn_in_shared, int smem_bytes, void *scratch,       \
+      long long fn_stride, long long max_iters, int64_t *ctr, double *sums, \
+      int32_t *hist, int64_t *pcounts, double *start, double *completion,   \
+      const int64_t *n_live, const double *deadlines, int tl_bins,          \
+      double tl_bucket, int32_t *dl_miss, int32_t *tl_cnt, double *tl_resp, \
+      double *tl_exec
 
-// Plain C interface for ctypes: one block of one warp a lane,
-// `smem_bytes` of dynamic shared memory (slots, and the per-function
-// state when fn_in_shared), the variant chosen by `policy`; the engine
-// options as in Params (null pointers and tl_bins 0 when off). Returns
-// cudaGetLastError() right after the launch (0 = launched; -1 for an
-// unknown policy code); the launch is asynchronous on `stream`, and
-// nothing here allocates or synchronises.
-extern "C" int event_loop_run(
-    int policy, const int64_t* fn_id, const double* arrival,
-    const double* exec_time, const int64_t* pos_rids, const int64_t* pos_off,
-    const double* t_cold, const double* t_evict, const int64_t* trace_ix,
-    const uint8_t* cap_mask, const double* beta, double prior,
-    double threshold, int n_lanes, int n_req, int n_fns, int n_slots,
-    int queue_cap, int fn_in_shared, int smem_bytes, void* scratch,
-    long long fn_stride, long long max_iters, int64_t* ctr, double* sums,
-    int32_t* hist, int64_t* pcounts, double* start, double* completion,
-    const int64_t* n_live, const double* deadlines, int tl_bins,
-    double tl_bucket, int32_t* dl_miss, int32_t* tl_cnt, double* tl_resp,
-    double* tl_exec, void* stream) {
-  Params p;
+// The Params of both entries' shared arguments (the cluster's null).
+Params params(K0_ARGS) {
+  Params p{};
   p.fn_id = fn_id;
   p.arrival = arrival;
   p.exec_time = exec_time;
@@ -1101,11 +1598,66 @@ extern "C" int event_loop_run(
   p.tl_cnt = tl_cnt;
   p.tl_resp = tl_resp;
   p.tl_exec = tl_exec;
+  (void)n_lanes;
+  (void)smem_bytes;
+  return p;
+}
+
+#define K0_PASS                                                             \
+  fn_id, arrival, exec_time, pos_rids, pos_off, t_cold, t_evict, trace_ix,  \
+      cap_mask, beta, prior, threshold, n_lanes, n_req, n_fns, n_slots,     \
+      queue_cap, fn_in_shared, smem_bytes, scratch, fn_stride, max_iters,   \
+      ctr, sums, hist, pcounts, start, completion, n_live, deadlines,       \
+      tl_bins, tl_bucket, dl_miss, tl_cnt, tl_resp, tl_exec
+
+}  // namespace
+
+// Plain C interface for ctypes: one block of one warp a lane,
+// `smem_bytes` of dynamic shared memory (slots, and the per-function
+// state when fn_in_shared), the variant chosen by `policy`; the engine
+// options as in Params (null pointers and tl_bins 0 when off). Returns
+// cudaGetLastError() right after the launch (0 = launched; -1 for an
+// unknown policy code); the launch is asynchronous on `stream`, and
+// nothing here allocates or synchronises.
+extern "C" int event_loop_run(int policy, K0_ARGS, void* stream) {
+  const Params p = params(K0_PASS);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (policy) {
 #define K0_LAUNCH(code, P) \
   case code:               \
-    return launch<P>(p, n_lanes, smem_bytes, st);
+    return launch<P, false>(p, n_lanes, smem_bytes, st);
+    K0_VARIANTS(K0_LAUNCH)
+#undef K0_LAUNCH
+  }
+  return -1;
+}
+
+// The K-node variant: as event_loop_run (pos_rids and pos_off unused,
+// cap_mask (L, kmax, n_slots), `smem_bytes` the slots of slot_cap, the
+// node table of kmax and the per-(node, function) state when
+// fn_in_shared), plus each lane's topology `topo` (L, 5: K, C, router
+// code, JSQ's d, seed) and `delays` (L, kmax), the link rails `links` (L,
+// 3, N) int32, the outputs node_done (L, kmax) and node_of (L, N; null
+// unless in exact mode with a delay).
+extern "C" int event_loop_cluster_run(int policy, K0_ARGS,
+                                      const int64_t* topo,
+                                      const double* delays, int kmax,
+                                      int slot_cap, int32_t* links,
+                                      int32_t* node_done, int32_t* node_of,
+                                      void* stream) {
+  Params p = params(K0_PASS);
+  p.topo = topo;
+  p.delays = delays;
+  p.kmax = kmax;
+  p.slot_cap = slot_cap;
+  p.links = links;
+  p.node_done = node_done;
+  p.node_of = node_of;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (policy) {
+#define K0_LAUNCH(code, P) \
+  case code:               \
+    return launch<P, true>(p, n_lanes, smem_bytes, st);
     K0_VARIANTS(K0_LAUNCH)
 #undef K0_LAUNCH
   }
@@ -1128,4 +1680,23 @@ extern "C" int event_loop_layout(int policy, long long* out, int n) {
 #undef K0_LAYOUT
   }
   return -1;
+}
+
+// The K-node variant's layout of `policy`: its bytes a (node, function),
+// a lane's function rows (t_cold, t_evict) a function, a node, and JSQ's
+// largest d. Returns 4, writing at most `n`; -1 for an unknown code.
+extern "C" int event_loop_cluster_layout(int policy, long long* out, int n) {
+  long long v[4] = {0, kLaneFnBytes, kNodeBytes, kMaxJsqD};
+  switch (policy) {
+#define K0_CL_LAYOUT(code, P) \
+  case code:                  \
+    v[0] = P::node_fn_bytes;  \
+    break;
+    K0_VARIANTS(K0_CL_LAYOUT)
+#undef K0_CL_LAYOUT
+    default:
+      return -1;
+  }
+  for (int i = 0; i < 4 && i < n; ++i) out[i] = v[i];
+  return 4;
 }

@@ -23,6 +23,13 @@ and ``last_timers`` (timer events, OpenWhisk-v2) hold its (L,) counts;
 ``variant_launches`` counts the launches of each variant and
 ``last_by_variant`` keeps each variant's last (L, 3) policy counts, so
 that a run over several policies can be read back policy by policy.
+
+`cluster_loop` is the K-node variant's wrapper (the dynamic cluster
+tier, `repro_torch.cluster.engine`): the same variants over lanes that
+each carry a cluster of K nodes behind a built-in dynamic router, with
+the eager K-node loop `simulate_cluster_eager` as its plain version. It
+keeps its own counts (``launches``, ``plain_calls``,
+``variant_launches``, ``last_by_variant``).
 """
 from __future__ import annotations
 
@@ -67,6 +74,18 @@ _P = _build.PTR
 _I, _LL, _D = ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _ARGTYPES = ([_I] + [_P] * 10 + [_D, _D] + [_I] * 7 + [_P, _LL, _LL]
              + [_P] * 6 + [_P, _P, _I, _D, _P, _P, _P, _P] + [_P])
+# the K-node entry: the same, then topo, delays, kmax, slot_cap, links,
+# node_done, node_of, before the stream
+_CLUSTER_ARGTYPES = _ARGTYPES[:-1] + [_P, _P, _I, _I, _P, _P, _P, _P]
+# the K-node variant's bytes a (node, function), by variant (its slots are
+# the single-node variant's), a lane's t_cold and t_evict rows a
+# function, a node, and JSQ's largest d on the card
+CLUSTER_FN_BYTES = {"esff": 36, "esff_cold": 40, "esff_lru": 36,
+                    "esff_h": 40, "fifo": 36, "sff": 36, "faascache": 36,
+                    "openwhisk_v2": 84}
+CLUSTER_LANE_FN_BYTES = 16
+CLUSTER_NODE_BYTES = 56
+CLUSTER_MAX_JSQ_D = 8
 
 # the built-in kernel classes, each with its variants (`variant_of`)
 _BUILT_IN = (ESFFKernel, CentralQueueKernel, FaasCacheKernel,
@@ -124,23 +143,60 @@ def layout_plan(n_fns: int, n_slots: int, variant: str = "esff") -> dict:
                 scratch_bytes=-(-fns // 16) * 16)
 
 
-_CHECKED = set()
+def cluster_layout(variant: str) -> tuple:
+    """What the library reports for ``variant``'s K-node form
+    (event_loop_cluster_layout): its bytes a (node, function), a lane's
+    function rows a function, a node, and JSQ's largest d."""
+    return (CLUSTER_FN_BYTES[variant], CLUSTER_LANE_FN_BYTES,
+            CLUSTER_NODE_BYTES, CLUSTER_MAX_JSQ_D)
 
 
-def _check_layout(variant: str) -> None:
-    """Raise unless the built library's layout of ``variant`` is
-    `layout` (checked once a variant)."""
-    if variant in _CHECKED:
+def cluster_layout_plan(n_fns: int, slot_cap: int, kmax: int,
+                        variant: str = "esff") -> dict:
+    """Where the K-node variant keeps a lane's state: ``slot_cap`` slots
+    (the largest K * C of a lane; bytes rounded up to 8) and the node
+    table of ``kmax`` nodes in shared memory; the per-function state (the
+    lane's rows, then K * F per-(node, function) entries, sized for
+    ``kmax``) beside them when all fit in one block's shared memory, else
+    in global scratch. Raises when the slots and nodes alone do not
+    fit."""
+    v = VARIANTS[variant]
+    fixed = (-(-v["slot_bytes"] * slot_cap // 8) * 8
+             + -(-CLUSTER_NODE_BYTES * kmax // 8) * 8)
+    fns = (CLUSTER_LANE_FN_BYTES * n_fns
+           + CLUSTER_FN_BYTES[variant] * kmax * n_fns)
+    if fixed > SHARED_MAX:
+        raise ValueError(f"cluster_loop: {slot_cap} slots and {kmax} nodes "
+                         f"need {fixed} B of shared memory, over "
+                         f"{SHARED_MAX}")
+    if fixed + fns <= SHARED_MAX:
+        return dict(fn_in_shared=True, smem_bytes=fixed + fns,
+                    scratch_bytes=0)
+    return dict(fn_in_shared=False, smem_bytes=fixed,
+                scratch_bytes=-(-fns // 16) * 16)
+
+
+_CHECKED = set()           # the variants whose layout was checked
+_CHECKED_CLUSTER = set()   # and whose K-node layout was
+
+
+def _check_layout(variant: str, cluster: bool = False) -> None:
+    """Raise unless the built library's layout of ``variant`` (its
+    K-node form with ``cluster``) is `layout` (`cluster_layout`), checked
+    once a variant and form."""
+    checked = _CHECKED_CLUSTER if cluster else _CHECKED
+    if variant in checked:
         return
-    f = _build.c_entry("event_loop", "event_loop_layout", [_I, _P, _I])
-    want = layout(variant)
+    entry = "event_loop_cluster_layout" if cluster else "event_loop_layout"
+    f = _build.c_entry("event_loop", entry, [_I, _P, _I])
+    want = cluster_layout(variant) if cluster else layout(variant)
     got = (ctypes.c_longlong * len(want))()
     n = f(VARIANTS[variant]["code"], got, len(want))
     if n != len(want) or tuple(got) != want:
-        raise RuntimeError(f"event_loop: the library's layout of "
+        raise RuntimeError(f"event_loop: the library's {entry} of "
                            f"{variant} {tuple(got)[:max(n, 0)]} is not "
                            f"the wrapper's {want}")
-    _CHECKED.add(variant)
+    checked.add(variant)
 
 
 def _check(name, x, dtype, shape, device):
@@ -169,6 +225,43 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     counts of inline FRP scans (one per completion in the ESFF
     variants), central-queue head scans and timer events."""
     variant = variant_of(kernel)
+    T, N, L, F, C = _check_inputs(
+        fn_id, arrival, exec_time, t_cold, t_evict, trace_ix, cap_mask, beta,
+        n_live, deadlines, tl_bins, n_fns, capacity, queue_cap)
+    dev = fn_id.device
+    kw = dict(kernel=kernel, n_fns=F, capacity=C, queue_cap=queue_cap,
+              stream=stream, threshold=threshold, n_live=n_live,
+              deadlines=deadlines, tl_bins=tl_bins, tl_bucket=tl_bucket)
+    if dev.type == "cpu":
+        event_loop.plain_calls += 1
+        return E.simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict,
+                                trace_ix, cap_mask, beta, prior, **kw)
+    fn = _build.c_entry("event_loop", "event_loop_run", _ARGTYPES)
+    _build.require_cuda("event_loop", dev)
+    _check_layout(variant)
+    pos_rids, pos_off = E.positional_layout(fn_id, F)
+    plan = layout_plan(F, C, variant)
+    res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
+    rc = fn(VARIANTS[variant]["code"],
+            *_shared_args(fn_id, arrival, exec_time, pos_rids.data_ptr(),
+                          pos_off.data_ptr(), t_cold, t_evict, trace_ix,
+                          cap_mask, beta, prior, threshold, L, N, F, C,
+                          queue_cap, plan, n_live, deadlines, tl_bins,
+                          tl_bucket, res),
+            _build.stream_of(dev))
+    _build.launch_check(rc, f"event_loop_run ({variant})")
+    _count(event_loop, variant, res.pcounts)
+    event_loop.last_scans = res.pcounts[:, 0]
+    event_loop.last_head_scans = res.pcounts[:, 1]
+    event_loop.last_timers = res.pcounts[:, 2]
+    return res.outputs(stream, deadlines, tl_bins)
+
+
+def _check_inputs(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
+                  cap_mask, beta, n_live, deadlines, tl_bins, n_fns,
+                  capacity, queue_cap, nodes=()):
+    """The checks both entries share (``cap_mask`` is (L, *nodes, C));
+    returns (T, N, L, F, C)."""
     if fn_id.dim() != 2 or trace_ix.dim() != 1:
         raise ValueError(f"event_loop: fn_id must be (T, N) and trace_ix "
                          f"(L,), got {tuple(fn_id.shape)} and "
@@ -186,7 +279,7 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             ("exec_time", exec_time, f64, (T, N)),
             ("t_cold", t_cold, f64, (T, F)), ("t_evict", t_evict, f64, (T, F)),
             ("trace_ix", trace_ix, i64, (L,)),
-            ("cap_mask", cap_mask, torch.bool, (L, C)),
+            ("cap_mask", cap_mask, torch.bool, (L, *nodes, C)),
             ("beta", beta, f64, (L,))):
         _check(name, x, dt, shape, dev)
     if n_live is not None:
@@ -197,56 +290,73 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if tl_bins < 0 or tl_bins > _I32_LIMIT:
         raise ValueError(f"event_loop: tl_bins must be in [0, 2^31), got "
                          f"{tl_bins}")
-    kw = dict(kernel=kernel, n_fns=F, capacity=C, queue_cap=queue_cap,
-              stream=stream, threshold=threshold, n_live=n_live,
-              deadlines=deadlines, tl_bins=tl_bins, tl_bucket=tl_bucket)
-    if dev.type == "cpu":
-        event_loop.plain_calls += 1
-        return E.simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict,
-                                trace_ix, cap_mask, beta, prior, **kw)
-    fn = _build.c_entry("event_loop", "event_loop_run", _ARGTYPES)
-    _build.require_cuda("event_loop", dev)
-    _check_layout(variant)
-    pos_rids, pos_off = E.positional_layout(fn_id, F)
-    plan = layout_plan(F, C, variant)
+    return T, N, L, F, C
+
+
+class _Results:
+    """A launch's output tensors (the counters, sums, histogram, policy
+    counts; start / completion in exact mode; the options' folds)."""
+
+    def __init__(self, L, N, F, stream, deadlines, tl_bins, dev):
+        f64, i64, i32 = torch.float64, torch.int64, torch.int32
+        self.ctr = torch.empty((L, len(COUNTERS)), dtype=i64, device=dev)
+        self.sums = torch.empty((L, len(SUMS)), dtype=f64, device=dev)
+        self.hist = torch.empty((L, E.HIST_BINS), dtype=i32, device=dev)
+        self.pcounts = torch.empty((L, len(POLICY_COUNTS)), dtype=i64,
+                                   device=dev)
+        self.start = self.comp = None
+        if not stream:
+            self.start = torch.full((L, N), -1.0, dtype=f64, device=dev)
+            self.comp = torch.full((L, N), -1.0, dtype=f64, device=dev)
+        self.dl_miss = (None if deadlines is None else
+                        torch.zeros((L, F), dtype=i32, device=dev))
+        self.tl = ((None,) * 3 if not tl_bins else
+                   (torch.zeros((L, tl_bins), dtype=i32, device=dev),
+                    torch.zeros((L, tl_bins), dtype=f64, device=dev),
+                    torch.zeros((L, tl_bins), dtype=f64, device=dev)))
+
+    def outputs(self, stream, deadlines, tl_bins) -> dict:
+        """`engine.simulate`'s dict of the launch's results."""
+        return _outputs(self.ctr, self.sums, self.hist, self.start,
+                        self.comp, stream, deadlines, tl_bins, self.tl,
+                        self.dl_miss)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _shared_args(fn_id, arrival, exec_time, pos_rids, pos_off, t_cold,
+                 t_evict, trace_ix, cap_mask, beta, prior, threshold, L, N,
+                 F, C, queue_cap, plan, n_live, deadlines, tl_bins,
+                 tl_bucket, res) -> tuple:
+    """The arguments both C entries share, after the policy code."""
     scratch = (None if plan["fn_in_shared"] else
                torch.empty((L, plan["scratch_bytes"]), dtype=torch.uint8,
-                           device=dev))
-    ctr = torch.empty((L, len(COUNTERS)), dtype=i64, device=dev)
-    sums = torch.empty((L, len(SUMS)), dtype=f64, device=dev)
-    hist = torch.empty((L, E.HIST_BINS), dtype=torch.int32, device=dev)
-    pcounts = torch.empty((L, len(POLICY_COUNTS)), dtype=i64, device=dev)
-    start = comp = None
-    if not stream:
-        start = torch.full((L, N), -1.0, dtype=f64, device=dev)
-        comp = torch.full((L, N), -1.0, dtype=f64, device=dev)
-    i32 = torch.int32
-    dl_miss = (None if deadlines is None else
-               torch.zeros((L, F), dtype=i32, device=dev))
-    tl = ((None,) * 3 if not tl_bins else
-          (torch.zeros((L, tl_bins), dtype=i32, device=dev),
-           torch.zeros((L, tl_bins), dtype=f64, device=dev),
-           torch.zeros((L, tl_bins), dtype=f64, device=dev)))
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    rc = fn(VARIANTS[variant]["code"], fn_id.data_ptr(),
-            arrival.data_ptr(), exec_time.data_ptr(), pos_rids.data_ptr(),
-            pos_off.data_ptr(), t_cold.data_ptr(), t_evict.data_ptr(),
+                           device=fn_id.device))
+    res.scratch = scratch   # kept alive until the launch's results are
+    return (fn_id.data_ptr(), arrival.data_ptr(), exec_time.data_ptr(),
+            pos_rids, pos_off, t_cold.data_ptr(), t_evict.data_ptr(),
             trace_ix.data_ptr(), cap_mask.data_ptr(), beta.data_ptr(),
             float(prior), float(threshold), L, N, F, C, queue_cap,
-            int(plan["fn_in_shared"]), plan["smem_bytes"], ptr(scratch),
-            plan["scratch_bytes"], E.max_events(N), ctr.data_ptr(),
-            sums.data_ptr(), hist.data_ptr(), pcounts.data_ptr(),
-            ptr(start), ptr(comp), ptr(n_live), ptr(deadlines),
-            int(tl_bins), float(tl_bucket), ptr(dl_miss), *map(ptr, tl),
-            _build.stream_of(dev))
-    _build.launch_check(rc, f"event_loop_run ({variant})")
-    event_loop.launches += 1
-    event_loop.variant_launches[variant] = (
-        event_loop.variant_launches.get(variant, 0) + 1)
-    event_loop.last_by_variant[variant] = pcounts
-    event_loop.last_scans = pcounts[:, 0]
-    event_loop.last_head_scans = pcounts[:, 1]
-    event_loop.last_timers = pcounts[:, 2]
+            int(plan["fn_in_shared"]), plan["smem_bytes"], _ptr(scratch),
+            plan["scratch_bytes"], E.max_events(N), res.ctr.data_ptr(),
+            res.sums.data_ptr(), res.hist.data_ptr(), res.pcounts.data_ptr(),
+            _ptr(res.start), _ptr(res.comp), _ptr(n_live), _ptr(deadlines),
+            int(tl_bins), float(tl_bucket), _ptr(res.dl_miss),
+            *map(_ptr, res.tl))
+
+
+def _count(entry, variant, pcounts) -> None:
+    entry.launches += 1
+    entry.variant_launches[variant] = (
+        entry.variant_launches.get(variant, 0) + 1)
+    entry.last_by_variant[variant] = pcounts
+
+
+def _outputs(ctr, sums, hist, start, comp, stream, deadlines, tl_bins, tl,
+             dl_miss) -> dict:
+    i32 = torch.int32
     col = {k: i for i, k in enumerate(COUNTERS)}
     col.update({k: i for i, k in enumerate(SUMS)})
     out = dict(cold_starts=ctr[:, col["cold"]].to(i32),
@@ -276,3 +386,99 @@ event_loop.last_by_variant = {}
 event_loop.last_scans = None
 event_loop.last_head_scans = None
 event_loop.last_timers = None
+
+
+
+def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
+                 cap_mask, beta, prior, *, kernel, routers, router_ix,
+                 n_nodes, seeds, delays, n_fns, capacity, queue_cap,
+                 stream=False, threshold=0.1, n_live=None, deadlines=None,
+                 tl_bins=0, tl_bucket=60.0):
+    """Run the K-node engine over L lanes to completion under the
+    built-in policy ``kernel`` and the built-in dynamic routers
+    ``routers`` (`repro_torch.cluster.routers.ROUTER_CODES`).
+
+    Inputs as `event_loop`, but ``cap_mask`` is (L, K, C) bool, and each
+    lane's topology: ``router_ix``, ``n_nodes`` and ``seeds`` (L,) int64
+    (``n_nodes`` in [1, K]), ``delays`` (L, K) f64 >= 0. Returns
+    `cluster.engine.simulate_cluster`'s dict (``node_done`` (L, K);
+    ``node_of`` (L, N) in exact mode when a lane has a delay). CPU
+    tensors take the plain version `simulate_cluster_eager`
+    (``cluster_loop.plain_calls``); CUDA tensors launch the K-node
+    variant of the policy's kernel (``launches``, ``variant_launches``,
+    ``last_by_variant``: each variant's last (L, 3) policy counts) or
+    raise."""
+    from repro_torch.cluster.engine import (check_topology,
+                                            simulate_cluster_eager)
+    from repro_torch.cluster.routers import router_code
+    variant = variant_of(kernel)
+    if cap_mask.dim() != 3:
+        raise ValueError(f"cluster_loop: cap_mask must be (L, K, C), got "
+                         f"{tuple(cap_mask.shape)}")
+    L, Kx = cap_mask.shape[:2]
+    T, N, L, F, C = _check_inputs(
+        fn_id, arrival, exec_time, t_cold, t_evict, trace_ix, cap_mask, beta,
+        n_live, deadlines, tl_bins, n_fns, capacity, queue_cap, (Kx,))
+    dev = fn_id.device
+    f64, i64 = torch.float64, torch.int64
+    for name, x, dt, shape in (
+            ("router_ix", router_ix, i64, (L,)), ("n_nodes", n_nodes, i64, (L,)),
+            ("seeds", seeds, i64, (L,)), ("delays", delays, f64, (L, Kx))):
+        _check(name, x, dt, shape, dev)
+    check_topology(n_nodes, router_ix, delays, len(routers))
+    codes = [router_code(r) for r in routers]
+    if any(d > CLUSTER_MAX_JSQ_D for c, d in codes if c == 0):
+        raise ValueError(f"cluster_loop: JSQ's d must be <= "
+                         f"{CLUSTER_MAX_JSQ_D} on the card, got "
+                         f"{[d for _, d in codes]}")
+    kw = dict(kernel=kernel, routers=routers, router_ix=router_ix,
+              n_nodes=n_nodes, seeds=seeds, delays=delays, n_fns=F,
+              capacity=C, queue_cap=queue_cap, stream=stream,
+              threshold=threshold, n_live=n_live, deadlines=deadlines,
+              tl_bins=tl_bins, tl_bucket=tl_bucket)
+    if dev.type == "cpu":
+        cluster_loop.plain_calls += 1
+        return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
+                                      t_evict, trace_ix, cap_mask, beta,
+                                      prior, **kw)
+    fn = _build.c_entry("event_loop", "event_loop_cluster_run",
+                        _CLUSTER_ARGTYPES)
+    _build.require_cuda("cluster_loop", dev)
+    _check_layout(variant, cluster=True)
+    # each lane's slots a node: its largest usable slot index + 1
+    ar = torch.arange(1, C + 1, device=dev)
+    lane_c = (cap_mask.any(1) * ar).amax(1).clamp_min(1)
+    code_t = torch.tensor(codes, dtype=i64, device=dev)[router_ix]
+    topo = torch.stack([n_nodes, lane_c, code_t[:, 0], code_t[:, 1], seeds],
+                       1).contiguous()
+    slot_cap = int((n_nodes * lane_c).max())
+    plan = cluster_layout_plan(F, slot_cap, Kx, variant)
+    res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
+    i32 = torch.int32
+    links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
+    node_done = torch.empty((L, Kx), dtype=i32, device=dev)
+    has_delay = (delays > 0).any(1)
+    node_of = None
+    if not stream and bool(has_delay.any()):
+        node_of = torch.zeros((L, N), dtype=i32, device=dev)
+    rc = fn(VARIANTS[variant]["code"],
+            *_shared_args(fn_id, arrival, exec_time, None, None, t_cold,
+                          t_evict, trace_ix, cap_mask, beta, prior,
+                          threshold, L, N, F, C, queue_cap, plan, n_live,
+                          deadlines, tl_bins, tl_bucket, res),
+            topo.data_ptr(), delays.data_ptr(), Kx, slot_cap,
+            links.data_ptr(), node_done.data_ptr(), _ptr(node_of),
+            _build.stream_of(dev))
+    _build.launch_check(rc, f"event_loop_cluster_run ({variant})")
+    _count(cluster_loop, variant, res.pcounts)
+    out = res.outputs(stream, deadlines, tl_bins)
+    out["node_done"] = node_done
+    if node_of is not None:
+        out["node_of"] = node_of
+    return out
+
+
+cluster_loop.launches = 0
+cluster_loop.plain_calls = 0
+cluster_loop.variant_launches = {}
+cluster_loop.last_by_variant = {}

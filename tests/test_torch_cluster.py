@@ -4,7 +4,8 @@ hash, the static routers' partition, the K = 1 bitwise gate, the merge's
 invariance to node order, mixed capacities and constant delays with the
 engine options on (integers exact, merged sums and means bitwise, the
 exact-mode p99 within rtol 1e-9), the cluster axis of the ResultSet, and
-what stays unported raising with its ROADMAP item."""
+what stays unported raising with its ROADMAP item (the dynamic tier is
+tests/test_torch_cluster_dynamic.py's)."""
 import numpy as np
 import pytest
 import torch
@@ -218,13 +219,14 @@ def test_resultset_cluster_axis_sel_rows_npz(tmp_path):
         np.testing.assert_array_equal(back[m], rs[m])
 
 
-@pytest.mark.parametrize("router", ("jsq2", "cold_aware", "slo_aware"))
-def test_dynamic_routers_raise_with_their_item(router):
+def test_breaker_router_raises_with_its_item():
+    """The circuit breaker belongs to the resilience layer: a spec naming
+    it validates, and running it raises with its ROADMAP item."""
     spec = tapi.ExperimentSpec(
-        traces=[_tsrc()], cluster=[ClusterSpec(n_nodes=2, router=router)],
+        traces=[_tsrc()], cluster=[ClusterSpec(n_nodes=2, router="breaker")],
         device="cpu", **GRID)
     spec.validate()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
         tapi.run_experiment(spec)
 
 

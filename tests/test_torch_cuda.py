@@ -1,5 +1,6 @@
 """Card-only checks of the port: each CUDA kernel against its plain
-PyTorch version (the event-loop kernel against the eager loop, bitwise),
+PyTorch version (the event-loop kernel and its K-node variant against
+the eager loops, bitwise),
 and the engine, the chunked SSD and the models (dense, ssm, hybrid) on
 the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
 kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
@@ -349,6 +350,133 @@ def test_eager_loop_on_card_matches_kernel_with_options(cuda):
     assert sorted(card) == sorted(eager)
     for k, v in eager.items():
         assert torch.equal(card[k], v), k
+
+
+# ---------------------------- the K-node variant (dynamic cluster tier)
+DELAYS4 = (0.0, 0.013, 0.027, 0.041)
+# ragged packed lanes: (K, node capacities, delays)
+CLUSTER_LANES = ((1, (8,), None), (4, (2,) * 4, None), (4, (2,) * 4, DELAYS4),
+                 (3, (3, 1, 2), None), (32, (1,) * 32, None))
+
+
+def _cluster_run(device, a, F, lanes, routers, router_ix, policy, stream,
+                 queue_cap=4096, **opt):
+    """Every (K, capacities, delays) lane of ``lanes`` over the trace
+    ``a`` in one call of `cluster.engine.simulate_cluster` on
+    ``device``."""
+    from repro_torch.cluster.engine import simulate_cluster
+    t = {k: torch.tensor(a[k], device=device)[None] for k in COLS}
+    Kx = max(x[0] for x in lanes)
+    C = max(max(x[1]) for x in lanes)
+    masks = np.zeros((len(lanes), Kx, C), bool)
+    delays = np.zeros((len(lanes), Kx))
+    for li, (k, caps, d) in enumerate(lanes):
+        for n, c in enumerate(caps):
+            masks[li, n, :c] = True
+        if d is not None:
+            delays[li, :k] = d
+    L = len(lanes)
+    return simulate_cluster(
+        t["fn_id"], t["arrival"], t["exec_time"], t["cold_start"],
+        t["evict"], torch.zeros(L, dtype=torch.int64, device=device),
+        torch.tensor(masks, device=device),
+        torch.full((L,), POLICIES[policy].default_beta, dtype=torch.float64,
+                   device=device), 0.1, kernel=POLICIES[policy],
+        routers=routers, router_ix=torch.tensor(router_ix, device=device),
+        n_nodes=torch.tensor([x[0] for x in lanes], device=device),
+        seeds=torch.tensor([7 * li for li in range(L)], device=device),
+        delays=torch.tensor(delays, device=device), n_fns=F, capacity=C,
+        queue_cap=queue_cap, stream=stream, **opt)
+
+
+def _assert_same(card, cpu, what):
+    assert sorted(card) == sorted(cpu), what
+    for k, v in cpu.items():
+        assert torch.equal(card[k].cpu(), v), (what, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+@pytest.mark.parametrize("router", ["jsq2", "cold_aware", "slo_aware"])
+def test_cluster_kernel_bitwise_eager(cuda, policy, router):
+    """The K-node variant of every policy under every built-in router, on
+    ragged packed lanes (K = 1, 3, 4 and 32 in one launch, one lane with a
+    delay), in exact mode, bitwise the eager K-node loop."""
+    from repro_torch.cluster.routers import get_router
+    a = _azure(20, 240, 4)
+    args = (a, 20, CLUSTER_LANES, (get_router(router),),
+            [0] * len(CLUSTER_LANES), policy, False)
+    launches = K0.cluster_loop.launches
+    card = _cluster_run(cuda, *args)
+    torch.cuda.synchronize()
+    assert K0.cluster_loop.launches == launches + 1
+    cpu = _cluster_run("cpu", *args)
+    _assert_same(card, cpu, (policy, router))
+    assert "node_of" in cpu and not cpu["stalled"].any()
+    assert cpu["node_done"].sum(1).tolist() == cpu["done"].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", [True, False])
+def test_cluster_kernel_mixed_routers_and_options(cuda, stream):
+    """Three routers side by side in one launch, with the engine options
+    on (ragged n_live, deadlines, the timeline) and a delay on two lanes:
+    bitwise the eager loop."""
+    from repro_torch.cluster.routers import get_router
+    lanes = CLUSTER_LANES + ((8, (2,) * 8, tuple(0.01 * k for k in range(8))),)
+    routers = tuple(get_router(r) for r in ("jsq2", "cold_aware",
+                                            "slo_aware"))
+    args = (_azure(30, 400, 9), 30, lanes, routers,
+            [i % 3 for i in range(len(lanes))], "esff", stream)
+    opt = dict(n_live=torch.tensor([400, 250, 400, 0, 399, 137]),
+               deadlines=torch.linspace(0.2, 2.0, 30, dtype=torch.float64),
+               tl_bins=6, tl_bucket=40.0)
+    card = _cluster_run(cuda, *args, **{
+        k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+        for k, v in opt.items()})
+    cpu = _cluster_run("cpu", *args, **opt)
+    _assert_same(card, cpu, stream)
+    assert cpu["done"].tolist() == opt["n_live"].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_cluster_kernel_one_node_is_the_single_node_kernel(cuda, policy):
+    """A K = 1 lane at zero delay is bitwise the single-node K0 on the same
+    trace and capacity (the timer rail's chain included)."""
+    from repro_torch.cluster.routers import get_router
+    a = _azure(50, 600, 2)
+    lanes = ((1, (4,), None), (1, (8,), None))
+    card = _cluster_run(cuda, a, 50, lanes, (get_router("cold_aware"),),
+                        [0, 0], policy, False)
+    single = _event_loop_run(cuda, [a], 50, (4, 8), (
+        POLICIES[policy].default_beta,), 4096, False, policy)
+    for k, v in single.items():
+        assert torch.equal(card[k], v), (policy, k)
+
+
+@pytest.mark.cuda
+def test_cluster_loop_library_layout_is_the_wrappers(cuda):
+    """The built library reports every variant's K-node sizes as the
+    wrapper plans them."""
+    K0._CHECKED_CLUSTER.clear()
+    for variant in K0.VARIANTS:
+        K0._check_layout(variant, cluster=True)
+    assert K0._CHECKED_CLUSTER == set(K0.VARIANTS)
+
+
+@pytest.mark.cuda
+def test_cluster_kernel_overflow_at_queue_cap(cuda):
+    """A backlog over queue_cap on one node: the drop is counted, the lane
+    stalls, and the kernel still gives the eager loop's bits."""
+    from repro_torch.cluster.routers import get_router
+    a = overflow_trace()
+    args = (a, 1, ((2, (1, 1), None),), (get_router("jsq2"),), [0],
+            "esff", False, 2)
+    card = _cluster_run(cuda, *args)
+    cpu = _cluster_run("cpu", *args)
+    _assert_same(card, cpu, "overflow")
+    assert int(cpu["overflow"][0]) > 0
 
 
 # ------------------------------------------- the serving path's kernels

@@ -1,6 +1,7 @@
 """The event-loop kernel's wrapper (`repro_torch.kernels.event_loop`) on
 the CPU: the routing of `engine.simulate`, the wrapper's checks, its
-build flags and layout plan, and its plain version against the JAX
+build flags and layout plan (the K-node variant's wrapper, `cluster_loop`,
+too), and its plain version against the JAX
 engine on traces with ties and on a batch of mixed lanes (counters and
 the histogram exact, f64 results within rtol 1e-9, the bar of
 tests/test_jax_engine.py). The kernel itself against the eager loop,
@@ -251,3 +252,51 @@ def test_plain_version_matches_jax_on_overflow():
                        queue_cap=2)
     assert int(pt["overflow"][0]) > 0 and int(pt["stalled"][0]) == 1
     _assert_lane_matches_jax(pt, 0, _jax_lane(a, 1, 1, 1.0, 2))
+
+
+def test_cluster_layout_plan_and_sizes():
+    """The K-node variant's plan: fig_cluster's widest lanes (K = 32 nodes
+    of F = 200 functions) put the per-(node, function) state in global
+    scratch, a small cluster keeps it in shared memory; its sizes are the
+    kernel source's static_assert."""
+    big = K0.cluster_layout_plan(200, 32, 32, "esff")
+    assert not big["fn_in_shared"]
+    assert big["scratch_bytes"] == -(-(16 * 200 + 36 * 32 * 200) // 16) * 16
+    assert big["smem_bytes"] == 40 * 32 + 56 * 32
+    assert K0.cluster_layout_plan(200, 32, 4, "esff")["fn_in_shared"]
+    with pytest.raises(ValueError, match="shared memory"):
+        K0.cluster_layout_plan(200, 10 ** 5, 64, "esff")
+    m = re.search(r"static_assert\(EsffP::node_fn_bytes == (\d+) && "
+                  r"EsffHP::node_fn_bytes == (\d+) &&\s+FaasP::node_fn_bytes"
+                  r" == (\d+) && Owv2P::node_fn_bytes == (\d+),", _c_source())
+    assert [int(x) for x in m.groups()] == [K0.CLUSTER_FN_BYTES[v] for v in (
+        "esff", "esff_h", "faascache", "openwhisk_v2")]
+
+
+@pytest.mark.parametrize("case", ["mask_2d", "n_nodes", "router_ix",
+                                  "delay", "jsq_d"])
+def test_cluster_wrapper_rejects_what_the_kernel_does_not_take(case):
+    from repro_torch.cluster.routers import JSQRouter, get_router
+    a = tie_trace(n=40)
+    t = [torch.tensor(a[k])[None] for k in COLS]
+    L, K, C = 2, 3, 2
+    kw = dict(kernel=KERNELS["esff"], routers=(get_router("jsq2"),),
+              router_ix=torch.zeros(L, dtype=torch.int64),
+              n_nodes=torch.full((L,), K), seeds=torch.zeros(L, dtype=torch.int64),
+              delays=torch.zeros((L, K), dtype=torch.float64), n_fns=6,
+              capacity=C, queue_cap=64)
+    mask = torch.ones((L, K, C), dtype=torch.bool)
+    if case == "mask_2d":
+        mask = mask[:, 0]
+    elif case == "n_nodes":
+        kw["n_nodes"] = torch.tensor([3, 4])
+    elif case == "router_ix":
+        kw["router_ix"] = torch.tensor([0, 1])
+    elif case == "delay":
+        kw["delays"] = torch.tensor([[0.0, -0.1, 0.0], [0.0, 0.0, 0.0]],
+                                    dtype=torch.float64)
+    else:
+        kw["routers"] = (JSQRouter("jsq9", d=9),)
+    with pytest.raises(ValueError):
+        K0.cluster_loop(*t, torch.zeros(L, dtype=torch.int64), mask,
+                        torch.ones(L, dtype=torch.float64), 0.1, **kw)

@@ -48,13 +48,14 @@ def test_import_loads_no_jax_and_no_repro():
 
 _NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
                    "repro_torch.cluster.spec", "repro_torch.cluster.static",
-                   "repro_torch.cluster.runner", "repro_torch.core.ssfs",
+                   "repro_torch.cluster.runner", "repro_torch.cluster.engine",
+                   "repro_torch.core.ssfs",
                    "repro_torch.core.sim", "repro_torch.configs.paper_edge")
 
 
 def test_cluster_and_small_modules_load_no_jax():
-    """The static cluster tier, SSFS, the simulator facade and the
-    scenario config, each imported alone, leave JAX and the JAX package
+    """The static and dynamic cluster tiers, SSFS, the simulator facade
+    and the scenario config, each imported alone, leave JAX and the JAX package
     out of sys.modules."""
     probe = ("import importlib, sys\n"
              f"for n in {_NEW_SUBMODULES!r}:\n"
