@@ -39,8 +39,8 @@ TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 _NOT_PORTED = {
     "fail_prob": "Queue 1, item 3", "timeouts": "Queue 1, item 3",
     "retry": "Queue 1, item 3", "on_overflow": "Queue 1, item 3",
-    "fail_seed": "Queue 1, item 3", "devices": "Queue 1 (multi-device)",
-    "host_shard": "Queue 1 (multi-host)",
+    "fail_seed": "Queue 1, item 3", "devices": "Queue 1, item 7",
+    "host_shard": "Queue 1, item 7",
     "trace_events": "Queue 1, item 4",
 }
 

@@ -109,6 +109,18 @@ def test_unported_spec_field_raises(field, value):
         tapi.run_experiment(spec, device="cpu")
 
 
+@pytest.mark.parametrize("field,value", [("devices", 2),
+                                         ("host_shard", (0, 2))])
+def test_scale_out_fields_name_their_item(field, value):
+    """``devices`` and ``host_shard`` are the experiment API's scale-out
+    (ROADMAP Queue 1, item 7): the message names that item."""
+    spec = tapi.ExperimentSpec(
+        traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
+        **{field: value})
+    with pytest.raises(ValueError, match=r"Queue 1, item 7"):
+        spec.validate()
+
+
 def test_unported_policy_raises():
     """Every policy of the JAX package is registered in the port, with
     the same default beta; a name the JAX package lacks raises."""
