@@ -57,8 +57,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  package's constants.
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
-                 inputs, held bitwise to each other, for every policy:
-                 ESFF at N = 1,000, the others at N = 500.
+                 inputs, held bitwise to each other, for every policy at
+                 N = 500.
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -104,12 +104,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bitwise the single-node K0 on the same trace and
                  capacity; the eager K-node loop (its plain version) on
                  the card at N = CLUSTER_EAGER_N beside the kernel, bitwise.
-5. ``parity``    the Fig. 5 spec (six policies), the options spec and the
-                 static cluster's two specs at N = 2,000, the dynamic
-                 cluster's K = 4 entries (both routers, ESFF and SFF) at
-                 N = 1,000, on the card (K0 and its K-node variant) and
-                 on the CPU (the eager loops), bitwise on every metric; a
-                 planted one-ulp fault in ``resp_sum`` must be rejected.
+   ``churn``     benchmarks/fig_churn.py at full size: routers jsq2,
+                 cold_aware and slo_aware x K = 2, 4, 8 nodes of 32 / K
+                 slots, nodes 1..K-1 on `PeriodicChurn` (60 s, duty 0.7,
+                 phases staggered), delays 0.004 i / (K - 1), a 0.35 s
+                 deadline, ``queue_cap`` 32768, ESFF and SFF; and the
+                 leo-delay spec (K = 4 nodes of 8 slots whose links 1..3
+                 follow a `DelaySchedule` swinging 5 ms <-> 80 ms every
+                 30 s: jsq2, slo_aware, and slo_aware with fig_churn's
+                 churn on top). Every entry a lane of one K-node launch a
+                 policy and spec (churn and the schedule are lane flags);
+                 every cell, node_done, deadline_miss and slo_attainment
+                 bitwise the JAX constants (`--part churn` of
+                 scripts/cluster_expected.py), a planted one-ulp fault
+                 rejected; done == N, no overflow or stall, node_done
+                 summing to N; every churn lane with toggles and
+                 re-routes; each policy's launch alone on the runner's
+                 operands (ms, us an event, each lane's events, toggles
+                 and re-routes, the bound with the drains' work), held
+                 bitwise to the runner's; the eager K-node loop on the
+                 card beside the kernel on two K = 4 churn lanes at N =
+                 CLUSTER_EAGER_N (explicit windows), bitwise.
+5. ``parity``    the Fig. 5 spec at N = 2,000 (OpenWhisk-v2 at 1,000),
+                 the options spec and the static cluster's two specs at
+                 N = 2,000, the dynamic cluster's K = 4 entries (both
+                 routers, ESFF and SFF) and the churn phase's two specs
+                 (cycles scaled to SPAN / 3) at N = 1,000, on the card
+                 (K0 and its K-node variant) and on the CPU (the eager
+                 loops), bitwise on every metric; a planted one-ulp fault
+                 in ``resp_sum`` must be rejected.
                  The CPU sides run in six worker processes (one thread
                  each, one policy of a spec a job), started in this
                  phase, after every phase whose times are reported.
@@ -176,9 +199,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the means as sum * (1 / N) (XLA's spelling of the ResultSet's sum / N)
 # and max_response, floats as their repr.
 EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
-# The JAX package's results for the options and static_cluster phases
-# (the engine options, a Fig. 8 row, fig_cluster's static half), made on
-# the CPU with (PYTHONPATH=src, JAX_PLATFORMS=cpu)
+# The JAX package's results for the options, static_cluster,
+# dynamic_cluster and churn phases (the engine options, a Fig. 8 row,
+# fig_cluster's two halves, fig_churn and leo-delay), made on the CPU with
+# (PYTHONPATH=src, JAX_PLATFORMS=cpu)
 #   python scripts/cluster_expected.py --n 60000 \
 #       --out scripts/cluster_expected.json
 # whose spec builders the phases share (the script imports JAX only in
@@ -188,9 +212,15 @@ CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
 # the card-vs-CPU parities' N; their CPU sides run in worker processes
 # while the card's phases run
 PARITY_N = 2000
+# Fig. 5's OpenWhisk-v2 parity job runs at N = 1,000: at 2,000 its timers
+# made it the parity phase's floor (123.3 s of CPU)
+PARITY_N_OWV2 = 1000
 # the dynamic cluster's parity: N = 1,000, K = 4 nodes of 8 slots under
 # both dynamic routers (the CPU side is the eager K-node loop)
 DYNAMIC_PARITY = dict(n_requests=1000, ks=(4,))
+# the churn parity: both churn specs at N = 1,000, their churn cycles and
+# delay swings SPAN / 3 of that trace's span, so that outages fall in it
+CHURN_PARITY_N = 1000
 # the K-node variant's plain version on the card: the eager K-node loop
 # at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel
 CLUSTER_EAGER_N = 100
@@ -217,10 +247,9 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): ESFF at N = 1,000, the other
-# policies at a smaller N (a step costs ~5-8 ms there; the smoke keeps
-# under 450 s)
-EAGER_N = dict(esff=1000, default=500)
+# the eager loop on the card (eager_card): every policy at N = 500 (a step
+# costs ~5-8 ms there; the smoke keeps under 450 s)
+EAGER_N = 500
 # each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
 # cold_aware, sff>, CL> of csrc/event_loop.cu (CL: the K-node variant),
 # and how its mangled name (ptxas) spells it
@@ -1080,7 +1109,7 @@ def phase_eager_card(torch, np, api, K0):
     from repro_torch.core.policies import KERNELS
     rows = {}
     for p in POLICIES:
-        n = EAGER_N.get(p, EAGER_N["default"])
+        n = EAGER_N
         kernel = KERNELS[p]
         args, kw = fig5_inputs(torch, api, n, torch.device("cuda"))
         args = with_beta(torch, args, kernel)
@@ -1143,31 +1172,36 @@ def parity_failures(np, card, cpu):
         if not np.array_equal(card[k], cpu[k])]
 
 
-def parity_specs(api, part, n_requests, device):
-    """The specs that a phase's card-vs-CPU parity runs (at
-    `parity_n`): the Fig. 5 grid (``parity``), the options phase's, the
-    static cluster's two, or the dynamic cluster's K = 4 entries."""
-    if part == "fig5":
-        return [fig5_spec(api, n_requests, device)]
+def parity_specs(api, part, device, n_requests=None):
+    """The specs that a phase's card-vs-CPU parity runs, each at its N
+    (``n_requests`` overrides it; Fig. 5's OpenWhisk-v2 spec keeps
+    PARITY_N_OWV2): the Fig. 5 grid (``fig5``: the five other policies,
+    then OpenWhisk-v2), the options phase's spec, the static cluster's
+    two specs, the dynamic cluster's K = 4 entries, or the churn phase's
+    two specs with their cycles scaled to the trace."""
     CE = cluster_expected()
+    if part == "fig5":
+        return [fig5_spec(api, n_requests or PARITY_N, device,
+                          policies=POLICIES[:-1]),
+                fig5_spec(api, PARITY_N_OWV2, device,
+                          policies=POLICIES[-1:])]
     if part == "options":
-        return [CE.option_spec(api, n_requests, device=device)]
+        return [CE.option_spec(api, n_requests or PARITY_N, device=device)]
     if part == "dynamic_cluster":
-        spec = CE.cluster_specs(api, n_requests,
-                                CE.CLUSTER["dynamic_routers"],
+        n = n_requests or DYNAMIC_PARITY["n_requests"]
+        spec = CE.cluster_specs(api, n, CE.CLUSTER["dynamic_routers"],
                                 device=device)[0]
         return [replace(spec, cluster=CE.cluster_entries(
             api, DYNAMIC_PARITY["ks"], CE.CLUSTER["agg"],
             CE.CLUSTER["dynamic_routers"]))]
-    return CE.cluster_specs(api, n_requests, device=device)
+    if part == "churn":
+        n = n_requests or CHURN_PARITY_N
+        span = float(CE.trace(api, n).arrays()["arrival"].max())
+        return CE.churn_specs(api, n, period=span / 3, device=device)
+    return CE.cluster_specs(api, n_requests or PARITY_N, device=device)
 
 
-def parity_n(part):
-    return (DYNAMIC_PARITY["n_requests"] if part == "dynamic_cluster"
-            else PARITY_N)
-
-
-def cpu_results(part, n_requests, index, policy):
+def cpu_results(part, index, policy):
     """The CPU side of a parity (the eager loop) for one policy of one of
     the part's specs, as a metric dict, and the seconds it took. Runs in
     a worker process (one thread) while the card's phases run."""
@@ -1175,36 +1209,35 @@ def cpu_results(part, n_requests, index, policy):
     import torch
     torch.set_num_threads(1)
     from repro_torch import api
-    spec = parity_specs(api, part, n_requests, "cpu")[index]
+    spec = parity_specs(api, part, "cpu")[index]
     t0 = time.perf_counter()
     out = dict(api.run_experiment(replace(spec, policies=(policy,))).data)
     return out, time.perf_counter() - t0
 
 
-PARITY_PARTS = ("fig5", "options", "static_cluster", "dynamic_cluster")
+PARITY_PARTS = ("fig5", "options", "static_cluster", "dynamic_cluster",
+                "churn")
 
 
 def phase_parity(np, api):
-    """The four parities: at N = 2,000 the Fig. 5 grid (six policies),
-    the options phase's spec and the static cluster's two specs, at N =
-    1,000 the dynamic cluster's K = 4 entries, each on the card (K0 and
-    its K-node variant) against the CPU (the eager loops), bitwise on
-    every metric; a planted one-ulp fault in one Fig. 5 lane's
-    ``resp_sum`` must be rejected. The CPU sides run in PARITY_WORKERS
-    processes (one thread each, one policy of a spec a job), started
-    here, after every phase whose times the smoke reports; the longest
-    job, Fig. 5's OpenWhisk-v2 (its timers), goes first, then the rest in
-    part order. Returns each part's largest absolute difference a
-    policy."""
+    """The five parities: at N = 2,000 the Fig. 5 grid (OpenWhisk-v2 at N
+    = 1,000), the options phase's spec and the static cluster's two
+    specs, at N = 1,000 the dynamic cluster's K = 4 entries and the churn
+    phase's two specs, each on the card (K0 and its K-node variant)
+    against the CPU (the eager loops), bitwise on every metric; a planted
+    one-ulp fault in one Fig. 5 lane's ``resp_sum`` must be rejected. The
+    CPU sides run in PARITY_WORKERS processes (one thread each, one
+    policy of a spec a job), started here, after every phase whose times
+    the smoke reports; Fig. 5's OpenWhisk-v2 job (its timers) goes first,
+    then the rest in part order. Returns each part's largest absolute
+    difference a policy."""
     jobs = [(part, i, p) for part in PARITY_PARTS
-            for i, spec in enumerate(parity_specs(api, part,
-                                                  parity_n(part), "cpu"))
+            for i, spec in enumerate(parity_specs(api, part, "cpu"))
             for p in spec.policies]
     jobs.sort(key=lambda j: j[::2] != ("fig5", "openwhisk_v2"))
     with multiprocessing.get_context("spawn").Pool(PARITY_WORKERS) as pool:
         pending = {(part, i, p): pool.apply_async(
-            cpu_results, (part, parity_n(part), i, p))
-            for part, i, p in jobs}
+            cpu_results, (part, i, p)) for part, i, p in jobs}
         return parity_checks(np, api, pending)
 
 
@@ -1216,7 +1249,7 @@ def parity_checks(np, api, pending):
     for part in PARITY_PARTS:
         t0 = time.perf_counter()
         card = [api.run_experiment(s)
-                for s in parity_specs(api, part, parity_n(part), "cuda")]
+                for s in parity_specs(api, part, "cuda")]
         card_s = time.perf_counter() - t0
         cpu_s, errs, job_s = 0.0, {}, {}
         for i, rs in enumerate(card):
@@ -1238,7 +1271,8 @@ def parity_checks(np, api, pending):
                     v[3] = np.nextafter(v[3], np.inf)
                     fault = parity_failures(np, data, cpu)
         max_abs[part] = errs
-        out[part] = dict(n_requests=parity_n(part), card_s=card_s,
+        out[part] = dict(n_requests=[rs.meta["n_requests"] for rs in card],
+                         card_s=card_s,
                          cpu_s_total=cpu_s, cpu_s_by_job=job_s,
                          metrics=sorted(card[0].data))
     emit(dict(phase="parity", n_requests=PARITY_N, parts=out, failed=bad,
@@ -1531,110 +1565,135 @@ def cluster_timed(torch, K0, args, kw, reps=3):
             K0.cluster_loop.last_by_variant[variant].tolist())
 
 
-def cluster_bound(n_requests, n_fns, lanes, n_events, counts, route_ops):
+def cluster_bound(n_requests, n_fns, lanes, n_events, counts, route_ops,
+                  extra_bytes=0, extra_ops=0):
     """The K-node variant's least time on the card for this run's work:
     the trace read once (fn_id, arrival, exec_time: 24 B a request;
     t_cold, t_evict by function) and the results written once (counters,
     sums, histogram, policy counts, node_done), against the f64
     operations: `k0_bound`'s per scan and per event, plus the router's
-    (``route_ops``: its operations over every lane's arrivals)."""
+    (``route_ops``: its operations over every lane's arrivals), plus
+    ``extra_bytes`` and ``extra_ops`` (churn's operands and drains)."""
     n_bytes = (24 * n_requests + 16 * n_fns
-               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 3 * 8 + 64 * 4))
+               + lanes * (9 * 8 + 6 * 8 + 64 * 4 + 3 * 8 + 64 * 4)
+               + extra_bytes)
     events = sum(n_events)
     n_ops = (12 * n_fns * sum(c[0] for c in counts)
              + 4 * n_fns * sum(c[1] for c in counts) + 20 * events
-             + route_ops)
+             + route_ops + extra_ops)
     return bound_ms(n_bytes, n_ops, "f64")
+
+
+def route_cost(e):
+    """One routing decision of entry ``e``: cold_aware and slo_aware ~8
+    operations a slot and ~12 a node, JSQ(2) ~4 a slot of its two draws
+    and ~12 a draw; none at K = 1 (the pick is node 0)."""
+    K, C = e.n_nodes, max(e.node_caps(0))
+    if K == 1:
+        return 0
+    return (K * (8 * C + 12) if e.router in ("cold_aware", "slo_aware")
+            else 2 * (4 * C + 12))
 
 
 def route_ops(entries, n_requests):
     """The router's operations over every arrival of ``entries`` (one
-    lane each): cold_aware ~8 a slot and ~12 a node, JSQ(2) ~4 a slot of
-    its two draws and ~12 a draw; none at K = 1 (the pick is node 0)."""
-    ops = 0
-    for e in entries:
-        K, C = e.n_nodes, max(e.node_caps(0))
-        if K == 1:
-            continue
-        ops += n_requests * (K * (8 * C + 12) if e.router == "cold_aware"
-                             else 2 * (4 * C + 12))
-    return ops
+    lane each)."""
+    return sum(n_requests * route_cost(e) for e in entries)
 
 
-def phase_dynamic_cluster(torch, np, api, fs, K0, cexp, n_requests):
-    """benchmarks/fig_cluster.py's dynamic half on the card: routers jsq2
-    and cold_aware at K = 1..32 (AGG = 32) and K = 64 (AGG = 64), ESFF and
-    SFF, every entry a lane of one launch of the K-node variant a policy
-    and spec; every cell and node_done bitwise the JAX constants, a
-    planted one-ulp fault rejected; each policy's K-node launch alone on
-    the runner's own operands by events, held bitwise to the runner's;
-    its K = 1 lanes bitwise the single-node K0; and its plain version,
-    the eager K-node loop, on the card beside it at N = CLUSTER_EAGER_N.
-    Its card-vs-CPU parity is in the parity phase."""
+# the metrics a timed K-node launch is held to the runner's in, by cell
+CLUSTER_SPLIT_KEYS = ("done", "n_events", "resp_sum", "slow_sum",
+                      "max_response", "resp_hist", "cold_starts",
+                      "cold_time", "evictions", "overflow", "stalled",
+                      "node_done")
+
+
+def cluster_calls(torch, spec, chunk):
+    """The runner's own K-node calls for ``spec`` (`dynamic_calls`, one a
+    policy when a chunk holds every lane) on the card, with the trace's
+    catalogue size F and length N."""
     from repro_torch.api.runner import _lower_grid
-    from repro_torch.cluster.runner import dynamic_calls, split_dynamic_lanes
+    from repro_torch.cluster.runner import dynamic_calls
     from repro_torch.core.policies import KERNELS
-    CE = cluster_expected()
-    exp = cexp["dynamic_cluster"].get(str(n_requests))
-    need(exp is not None,
-         f"dynamic_cluster: no JAX constants at N = {n_requests}")
+    _, stacked, F, N = _lower_grid(spec)
     dev = torch.device("cuda")
-    routers = CE.CLUSTER["dynamic_routers"]
-    specs, mismatch, fault, k1_differs = [], [], None, []
-    for spec in CE.cluster_specs(api, n_requests, routers, device="cuda"):
+    kernels = {p: KERNELS[p] for p in spec.policies}
+    betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
+    dl = spec.deadline_ops(F)
+    dl = None if dl is None else torch.as_tensor(dl, device=dev)
+    calls, _ = dynamic_calls(spec, list(spec.cluster), stacked, F, kernels,
+                             betas, dl, dev, chunk)
+    return calls, stacked, F, N
+
+
+def cluster_phase(torch, np, api, fs, K0, phase, named_specs, exp, keys,
+                  plant, eager):
+    """A grid of the dynamic tier on the card, ``named_specs`` ((name,
+    spec) pairs), every entry a lane of one launch of K0's K-node variant
+    a policy and spec: every cell's ``keys`` bitwise the JAX constants
+    ``exp``, a planted one-ulp fault (in the first cell whose entry
+    ``plant`` picks) rejected alone; every cell done == N without
+    overflow or stall, its node_done summing to N; each policy's launch
+    alone on the runner's own operands by events (ms, us an event on the
+    longest lane, each lane's events and, under churn, its toggles and
+    re-routes, both of which must be > 0), split into cells as the
+    runner splits them and held bitwise to the runner's; its K = 1 lanes
+    bitwise the single-node K0; and ``eager()`` (`eager_vs_kernel`'s
+    rows), the plain version beside the kernel on the card, bitwise."""
+    from repro_torch.cluster.runner import horizon_of, split_dynamic_lanes
+    from repro_torch.core.policies import KERNELS
+    dev = torch.device("cuda")
+    specs, mismatch, fault, unfit, k1_differs = [], [], None, [], []
+    for name, spec in named_specs:
         rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
         rs.check()
         lanes = len(spec.cluster)
         chunks = -(-lanes // rs.meta["lane_chunk"])
-        check_launches("dynamic_cluster", launches, {},
+        check_launches(phase, launches, {},
                        {K0.variant_of(KERNELS[p]): chunks
                         for p in spec.policies})
+        calls, stacked, F, N = cluster_calls(torch, spec,
+                                             rs.meta["lane_chunk"])
         for p in spec.policies:
             for e in spec.cluster:
-                got = cell_of(np, rs, CE.CLUSTER_KEYS, policy=p,
-                              cluster=e.label)
+                got = cell_of(np, rs, keys, policy=p, cluster=e.label)
                 want = exp["cells"][p][e.label]
                 mismatch += [f"{p} {e.label}: {m}"
                              for m in held_exact(want, got)]
-                if fault is None and e.n_nodes == 4:
-                    # a planted one-ulp fault in a cell's resp_sum
+                if (got["done"] != N or got["overflow"] or got["stalled"]
+                        or sum(got["node_done"]) != N):
+                    unfit.append(f"{p} {e.label}")
+                if fault is None and plant(e):
                     bad = dict(got, resp_sum=float(np.nextafter(
                         got["resp_sum"], np.inf)))
                     fault = held_exact(want, bad)
-        # each policy's K-node launch alone on the runner's own operands
-        # (`dynamic_calls`), by events, split into cells as the runner
-        # splits them and held bitwise to the runner's
-        _, stacked, F, N = _lower_grid(spec)
         entries = list(spec.cluster)
-        kernels = {p: KERNELS[p] for p in spec.policies}
-        betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
-        calls, _ = dynamic_calls(spec, entries, stacked, F, kernels, betas,
-                                 None, dev, rs.meta["lane_chunk"])
+        horizon = horizon_of(stacked)
+        churny = [e.churn_operand(horizon) is not None for e in entries]
         need(len(calls) == len(spec.policies),
-             f"dynamic_cluster: {len(calls)} engine calls for "
+             f"{phase}: {len(calls)} engine calls for "
              f"{len(spec.policies)} policies, not one lane chunk each")
+        split_keys = CLUSTER_SPLIT_KEYS + (
+            ("deadline_miss",) if spec.deadlines is not None else ())
         per = {}
         for p, _, _, cargs, ckw in calls:
             ekw = {k: v for k, v in ckw.items() if k != "keep_responses"}
             ms, out, pc = cluster_timed(torch, K0, cargs[:9],
                                         dict(ekw, threshold=cargs[9]))
             split = split_dynamic_lanes(
-                spec, entries, {k: v.cpu().numpy() for k, v in out.items()},
-                1)
+                spec, entries, {k: v.cpu().numpy() for k, v in out.items()
+                                if k not in ("toggles", "reroutes")}, 1)
             differs = []
             for e, m in zip(entries, split):
-                for k in ("done", "n_events", "resp_sum", "slow_sum",
-                          "max_response", "resp_hist", "cold_starts",
-                          "cold_time", "evictions", "overflow", "stalled",
-                          "node_done"):
+                for k in split_keys:
                     got = np.expand_dims(m[k][None], 4)
                     want = rs.sel(policy=p, cluster=e.label)[k]
                     if k == "node_done":
                         want = want[..., :e.n_nodes]
                     if not np.array_equal(got, want):
                         differs.append(f"{e.label} {k}")
-            need(not differs, f"dynamic_cluster: {p}: the timed K-node "
-                 f"launch differs from the runner's in {differs}")
+            need(not differs, f"{phase}: {p}: the timed K-node launch "
+                 f"differs from the runner's in {differs}")
             # its K = 1 lanes against the single-node K0 on the same trace
             # and capacity
             one = [i for i, e in enumerate(entries) if e.n_nodes == 1]
@@ -1650,59 +1709,77 @@ def phase_dynamic_cluster(torch, np, api, fs, K0, cexp, n_requests):
                     k1_differs += [f"{p} {entries[i].label}: {k}"
                                    for k in K0_KEYS if not torch.equal(
                                        out[k][i:i + 1], single[k])]
+            labels = [e.label for e in entries]
             ev = out["n_events"].tolist()
             longest = int(np.argmax(ev))
+            row = dict(ms=ms, lanes=len(ev), events_total=sum(ev),
+                       longest_lane=labels[longest],
+                       longest_lane_events=max(ev),
+                       us_per_event=1e3 * ms / max(ev),
+                       lane_events=dict(zip(labels, ev)))
+            extra_bytes = extra_ops = 0
+            if "toggles" in out:
+                tg = out["toggles"].tolist()
+                rr = out["reroutes"].tolist()
+                idle = [e.label for e, c, t, r in zip(entries, churny, tg, rr)
+                        if c and not (t > 0 and r > 0)]
+                need(not idle, f"{phase}: {p}: churn lanes without a toggle "
+                     f"or a re-route: {idle}")
+                extra_bytes = sum(
+                    x.numel() * x.element_size() for k, x in ekw.items()
+                    if k in ("churn_t", "dtimes", "dvals", "dper"))
+                extra_ops = churn_ops(entries, F, tg, rr)
+                row.update(toggles=dict(zip(labels, tg)),
+                           reroutes=dict(zip(labels, rr)))
             b, by = cluster_bound(N, F, len(ev), ev, pc,
-                                  route_ops(entries, N))
-            per[p] = dict(ms=ms, lanes=len(ev), events_total=sum(ev),
-                          longest_lane=entries[longest].label,
-                          longest_lane_events=max(ev),
-                          us_per_event=1e3 * ms / max(ev),
-                          bound_ms=b, bound_by=by, policy_counts=pc,
+                                  route_ops(entries, N), extra_bytes,
+                                  extra_ops)
+            per[p] = dict(row, bound_ms=b, bound_by=by, policy_counts=pc,
                           held_to_runner=True)
-        specs.append(dict(agg=spec.capacities[0],
-                          entries=[e.label for e in spec.cluster],
-                          lanes=lanes, wall_s=wall, launches=launches,
-                          req_per_s=(len(spec.policies) * len(spec.cluster)
-                                     * n_requests / wall),
-                          per_policy=per))
-    eager = cluster_eager_card(torch, np, api, K0, CE)
-    res = dict(phase="dynamic_cluster", n_requests=n_requests,
-               queue_cap=exp["queue_cap"], specs=specs,
-               wall_s=sum(x["wall_s"] for x in specs),
+        row = dict(spec=name, entries=[e.label for e in entries],
+                   lanes=lanes, wall_s=wall, launches=launches,
+                   req_per_s=len(spec.policies) * lanes * N / wall,
+                   per_policy=per)
+        if spec.deadlines is not None:
+            row["slo_attainment"] = {
+                p: {e.label: rs.value("slo_attainment", policy=p,
+                                      cluster=e.label) for e in entries}
+                for p in spec.policies}
+        specs.append(row)
+    rows = eager()
+    res = dict(phase=phase, n_requests=N, queue_cap=exp["queue_cap"],
+               specs=specs, wall_s=sum(x["wall_s"] for x in specs),
                launches=sum(x["launches"]["cluster_loop"] for x in specs),
-               eager_card=eager, bitwise_vs_jax=not mismatch,
+               eager_card=rows, bitwise_vs_jax=not mismatch,
                mismatch=mismatch, planted_fault_caught=fault,
-               k1_differs_from_single_node=k1_differs)
+               unfit_cells=unfit, k1_differs_from_single_node=k1_differs)
     emit(res)
-    need(not mismatch, "dynamic_cluster: differs from the JAX package: "
+    need(not mismatch, f"{phase}: differs from the JAX package: "
          + "; ".join(mismatch))
-    need(fault == ["resp_sum"], f"dynamic_cluster: the planted one-ulp "
-         f"fault in a cell's resp_sum was not rejected alone ({fault})")
-    need(not k1_differs, f"dynamic_cluster: a K = 1 lane differs from the "
+    need(fault == ["resp_sum"], f"{phase}: the planted one-ulp fault in a "
+         f"cell's resp_sum was not rejected alone ({fault})")
+    need(not unfit, f"{phase}: cells not done once each without overflow "
+         f"or stall: {unfit}")
+    need(not k1_differs, f"{phase}: a K = 1 lane differs from the "
          f"single-node K0 in {k1_differs}")
-    bad = {p: r["differs"] for p, r in eager.items() if r["differs"]}
-    need(not bad, f"dynamic_cluster: the eager K-node loop and the kernel "
-         f"differ on the card in {bad}")
+    bad = {p: r["differs"] for p, r in rows.items() if r["differs"]}
+    need(not bad, f"{phase}: the eager K-node loop and the kernel differ "
+         f"on the card in {bad}")
+    idle = {p: r["reroutes"] for p, r in rows.items()
+            if "reroutes" in r and not all(x > 0 for x in r["reroutes"])}
+    need(not idle, f"{phase}: eager-card lanes without a re-route: {idle}")
     return res
 
 
-def cluster_eager_card(torch, np, api, K0, CE):
+def eager_vs_kernel(torch, K0, spec):
     """The K-node variant's plain version, the eager K-node loop, on the
-    card (every op its own launch) and the kernel on the same inputs: the
-    AGG = 32 spec's K = 4 entries of both routers at N = CLUSTER_EAGER_N,
-    each policy's whole run and ms an event step, held bitwise."""
-    from repro_torch.api.runner import _lower_grid
+    card (every op its own launch) and the kernel on the runner's own
+    operands for ``spec``: each policy's whole run and ms an event step,
+    the two held bitwise (the same outputs, equal), and on churn lanes
+    their toggles and re-routes."""
     from repro_torch.cluster.engine import simulate_cluster_eager
-    from repro_torch.cluster.runner import dynamic_calls
     from repro_torch.core import engine as E
-    from repro_torch.core.policies import KERNELS
-    spec = parity_specs(api, "dynamic_cluster", CLUSTER_EAGER_N, "cuda")[0]
-    _, stacked, F, _ = _lower_grid(spec)
-    kernels = {p: KERNELS[p] for p in spec.policies}
-    betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
-    calls, _ = dynamic_calls(spec, list(spec.cluster), stacked, F, kernels,
-                             betas, None, torch.device("cuda"), 256)
+    calls, _, _, N = cluster_calls(torch, spec, 256)
     rows = {}
     for p, _, _, cargs, ckw in calls:
         kw = {k: v for k, v in ckw.items() if k != "keep_responses"}
@@ -1714,13 +1791,102 @@ def cluster_eager_card(torch, np, api, K0, CE):
         wall = time.perf_counter() - t0
         ms, out, _ = cluster_timed(torch, K0, cargs[:9], kw)
         steps = -(-int(eager["n_events"].max()) // E.SEG) * E.SEG
-        rows[p] = dict(n_requests=CLUSTER_EAGER_N,
-                       entries=[e.label for e in spec.cluster],
+        rows[p] = dict(n_requests=N, entries=[e.label for e in spec.cluster],
                        plain_ms=1e3 * wall, event_steps=steps,
                        plain_ms_per_step=1e3 * wall / steps, ms=ms,
-                       differs=[k for k in eager
-                                if not torch.equal(eager[k], out[k])])
+                       differs=sorted(set(eager) ^ set(out)) + [
+                           k for k in eager if k in out
+                           and not torch.equal(eager[k], out[k])])
+        if "toggles" in eager:
+            rows[p].update(toggles=eager["toggles"].tolist(),
+                           reroutes=eager["reroutes"].tolist())
     return rows
+
+
+def phase_dynamic_cluster(torch, np, api, fs, K0, cexp, n_requests):
+    """benchmarks/fig_cluster.py's dynamic half on the card: routers jsq2
+    and cold_aware at K = 1..32 (AGG = 32) and K = 64 (AGG = 64), ESFF and
+    SFF, held as `cluster_phase` holds a grid (the fault planted in a
+    K = 4 cell), with the eager K-node loop beside the kernel on the
+    AGG = 32 spec's K = 4 entries of both routers at N = CLUSTER_EAGER_N.
+    Its card-vs-CPU parity is in the parity phase."""
+    CE = cluster_expected()
+    exp = cexp["dynamic_cluster"].get(str(n_requests))
+    need(exp is not None,
+         f"dynamic_cluster: no JAX constants at N = {n_requests}")
+    specs = CE.cluster_specs(api, n_requests, CE.CLUSTER["dynamic_routers"],
+                             device="cuda")
+    eager = parity_specs(api, "dynamic_cluster", "cuda", CLUSTER_EAGER_N)[0]
+    return cluster_phase(
+        torch, np, api, fs, K0, "dynamic_cluster",
+        [(f"AGG={x.capacities[0]}", x) for x in specs], exp,
+        CE.CLUSTER_KEYS, lambda e: e.n_nodes == 4,
+        lambda: eager_vs_kernel(torch, K0, eager))
+
+
+def churn_ops(entries, n_fns, toggles, reroutes):
+    """Churn's work beyond `cluster_bound`'s per event: a drain or a
+    re-arm a toggle (each busy slot against every slot of its node, each
+    function's queue, the node's reset: ~C^2 + 2 F + C) and a routing
+    decision a re-route."""
+    ops = 0
+    for e, tg, rr in zip(entries, toggles, reroutes):
+        C = max(e.node_caps(0))
+        ops += tg * (C * C + 2 * n_fns + C) + rr * route_cost(e)
+    return ops
+
+
+def phase_churn(torch, np, api, fs, K0, cexp, n_requests):
+    """benchmarks/fig_churn.py at full size on the card (jsq2, cold_aware
+    and slo_aware x K = 2, 4, 8 nodes of 32 / K slots, nodes 1..K-1 on a
+    60 s cycle up 70 % of it, delays 0.004 i / (K - 1), a 0.35 s deadline,
+    ESFF and SFF) and the leo-delay spec (K = 4 nodes of 8 slots whose
+    links 1..3 swing 5 ms <-> 80 ms: jsq2 and slo_aware, and slo_aware
+    with fig_churn's churn on top), held as `cluster_phase` holds a grid
+    (deadline_miss and slo_attainment too, the fault planted in a churn
+    cell), with the eager K-node loop beside the kernel on
+    `churn_eager_spec`'s two lanes. Its card-vs-CPU parity is in the
+    parity phase."""
+    CE = cluster_expected()
+    exp = cexp.get("churn", {}).get(str(n_requests))
+    need(exp is not None, f"churn: no JAX constants at N = {n_requests}")
+    specs = CE.churn_specs(api, n_requests, device="cuda")
+    eager = churn_eager_spec(np, api, CE)
+    return cluster_phase(
+        torch, np, api, fs, K0, "churn",
+        list(zip(("fig_churn", "leo-delay"), specs)), exp, CE.CHURN_KEYS,
+        lambda e: e.has_churn(), lambda: eager_vs_kernel(torch, K0, eager))
+
+
+def churn_eager_spec(np, api, CE):
+    """Two K = 4 churn lanes at N = CLUSTER_EAGER_N, with explicit windows
+    so that an outage falls in so short a trace: every node down over the
+    30 % to 45 % quantiles of the arrivals under jsq2 with fig_churn's
+    delays (the arrivals inside park), and every node down from just
+    after the longest request of that stretch lands to the 60 % quantile
+    under slo_aware on leo-delay's swinging links (its node drains it);
+    ESFF and SFF. Both lanes must re-route."""
+    src = CE.trace(api, CLUSTER_EAGER_N)
+    arr = src.arrays()["arrival"]
+    span = float(arr.max())
+    q30, q45, q60 = (float(np.quantile(arr, x)) for x in (0.3, 0.45, 0.6))
+    mid = np.flatnonzero((arr >= q30) & (arr <= q45))
+    longest = mid[np.argmax(src.arrays()["exec_time"][mid])]
+    ds = api.DelaySchedule(times=(0.0, span / 6), values=CE.LEO["values"],
+                           period=span / 3)
+    caps = (CE.LEO["slots"],) * 4
+    entries = [api.ClusterSpec(
+        n_nodes=4, router="jsq2", node_capacity=caps,
+        net_delay=tuple(CE.CHURN["delay_step"] * i / 3 for i in range(4)),
+        churn=(((q30, q45),),) * 4),
+        api.ClusterSpec(n_nodes=4, router="slo_aware", node_capacity=caps,
+                        net_delay=CE.LEO["net_delay"],
+                        delay_schedule=(None, ds, ds, ds),
+                        churn=(((float(arr[longest]) + 0.02, q60),),) * 4)]
+    return api.ExperimentSpec(
+        traces=[src], policies=CE.CHURN["policies"],
+        capacities=(sum(caps),), queue_cap=CE.CHURN["queue_cap"],
+        deadlines=CE.CHURN["deadline"], cluster=entries, device="cuda")
 
 
 def phase_profile(torch, api, n_requests):
@@ -2653,6 +2819,8 @@ def main(argv=None) -> int:
                        api, fs, K0, cexp, args.n_requests)
         dynamic = timed("dynamic_cluster", phase_dynamic_cluster, torch, np,
                         api, fs, K0, cexp, args.n_requests)
+        churn = timed("churn", phase_churn, torch, np, api, fs, K0, cexp,
+                      args.n_requests)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -2723,14 +2891,17 @@ def main(argv=None) -> int:
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
         library_ms=None, check="passed",
         at="(7, 200) f64 lanes, with and without ESFF-H's coldK"))
-    dyn_launches = {}
-    for x in dynamic["specs"]:
-        for v, c in x["launches"]["cluster_by_variant"].items():
-            dyn_launches[v] = dyn_launches.get(v, 0) + c
+    dyn_launches, churn_launches = {}, {}
+    for phase, tally in ((dynamic, dyn_launches), (churn, churn_launches)):
+        for x in phase["specs"]:
+            for v, c in x["launches"]["cluster_by_variant"].items():
+                tally[v] = tally.get(v, 0) + c
     for p in CLUSTER_POLICIES:
         v = K0.variant_of(KERNELS[p])
         big = dynamic["specs"][0]["per_policy"][p]
         e = dynamic["eager_card"][p]
+        ce = churn["eager_card"][p]
+        fc = churn["specs"][0]["per_policy"][p]
         kernels.append(dict(
             name=f"event_loop_cluster[{p}]", entry="cluster_loop",
             variant=v, route="cuda",
@@ -2741,15 +2912,18 @@ def main(argv=None) -> int:
             "(the XLA while_loop of _simulate_cluster with this policy's "
             "hooks and the dynamic routers"
             + (", K1 inline)" if v.startswith("esff") else ")"),
-            launches=dyn_launches.get(v, 0),
-            launches_by_spec={f"AGG={x['agg']}":
+            launches=dyn_launches.get(v, 0) + churn_launches.get(v, 0),
+            launches_by_phase=dict(dynamic_cluster=dyn_launches.get(v, 0),
+                                   churn=churn_launches.get(v, 0)),
+            launches_by_spec={x["spec"]:
                               x["launches"]["cluster_by_variant"].get(v, 0)
                               for x in dynamic["specs"]},
-            max_abs_err=parity_err["dynamic_cluster"].get(p, 0.0),
+            max_abs_err=max(parity_err["dynamic_cluster"].get(p, 0.0),
+                            parity_err["churn"].get(p, 0.0)),
             ms=big["ms"], us_per_event=big["us_per_event"],
             longest_lane=big["longest_lane"],
             longest_lane_events=big["longest_lane_events"],
-            per_spec={f"AGG={x['agg']}": x["per_policy"][p]
+            per_spec={x["spec"]: x["per_policy"][p]
                       for x in dynamic["specs"]},
             plain_ms=e["plain_ms"], plain_n_requests=e["n_requests"],
             plain_ms_per_step=e["plain_ms_per_step"], ms_at_plain_n=e["ms"],
@@ -2758,6 +2932,19 @@ def main(argv=None) -> int:
             f"would take hours); ms_at_plain_n is the kernel on those "
             "same inputs",
             bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+            churn=dict(ms=fc["ms"], us_per_event=fc["us_per_event"],
+                       longest_lane=fc["longest_lane"],
+                       longest_lane_events=fc["longest_lane_events"],
+                       bound_ms=fc["bound_ms"], bound_by=fc["bound_by"],
+                       per_spec={x["spec"]: x["per_policy"][p]
+                                 for x in churn["specs"]},
+                       plain_ms=ce["plain_ms"],
+                       plain_n_requests=ce["n_requests"],
+                       plain_ms_per_step=ce["plain_ms_per_step"],
+                       ms_at_plain_n=ce["ms"],
+                       at=f"({fc['lanes']} lanes: "
+                       f"{churn['specs'][0]['entries']}, N = "
+                       f"{churn['n_requests']}, F = 200)"),
             library_ms=None,
             ptxas=ptxas_lines(report, PTXAS_NAME_CLUSTER[p]),
             check="passed",

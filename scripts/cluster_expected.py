@@ -29,9 +29,18 @@ bitwise the JAX package's):
 * ``dynamic_cluster``: fig_cluster's dynamic half, the same two specs
   with the routers ``jsq2`` and ``cold_aware`` (the K-node event loop):
   each cell's metrics and ``node_done``.
+* ``churn``: ``benchmarks/fig_churn.py`` at full size (routers ``jsq2``,
+  ``cold_aware`` and ``slo_aware`` x K = 2, 4, 8 nodes of 32 // K slots,
+  nodes 1..K-1 on ``PeriodicChurn(60 s, duty 0.7, phase i * 60 / K)``,
+  delays 0.004 i / (K - 1), a 0.35 s deadline, ``queue_cap`` 32768,
+  ESFF and SFF), and the ``leo-delay`` spec (K = 4 nodes of 8 slots,
+  delays 0, 4, 8, 12 ms, nodes 1..3 on ``DelaySchedule(times=(0, 30),
+  values=(5 ms, 80 ms), period=60)``: ``jsq2`` and ``slo_aware`` without
+  churn, ``slo_aware`` with fig_churn's K = 4 churn): each cell's metrics,
+  ``node_done``, ``deadline_miss`` and ``slo_attainment``.
 
 ``--out`` merges the parts into that JSON file under ``[part][str(n)]``.
-At N = 60,000 a part takes minutes of CPU.
+At N = 60,000 a part takes minutes of CPU (``churn``: ~6).
 """
 from __future__ import annotations
 
@@ -62,7 +71,18 @@ OPTION_KEYS = KEYS + ("tl_count", "tl_resp_sum", "tl_exec_sum",
                       "deadline_miss", "slo_attainment")
 FIG8_KEYS = KEYS + ("tl_count", "tl_resp_sum", "tl_exec_sum")
 CLUSTER_KEYS = KEYS + ("node_done",)
-PARTS = ("options", "fig8", "static_cluster", "dynamic_cluster")
+# benchmarks/fig_churn.py: one availability cycle of ``period`` seconds a
+# node, up for ``duty`` of it, phases staggered over the cycle; node 0
+# always up; delays ``delay_step`` * i / (K - 1)
+CHURN = dict(routers=("jsq2", "cold_aware", "slo_aware"), ks=(2, 4, 8),
+             agg=32, period=60.0, duty=0.7, delay_step=0.004,
+             deadline=0.35, policies=("esff", "sff"), queue_cap=1 << 15)
+# the leo-delay spec: K = 4 nodes of 8 slots whose links 1..3 swing
+# between 5 ms and 80 ms every half ``period`` (a LEO pass)
+LEO = dict(n_nodes=4, slots=8, net_delay=(0.0, 0.004, 0.008, 0.012),
+           values=(0.005, 0.08))
+CHURN_KEYS = CLUSTER_KEYS + ("deadline_miss", "slo_attainment")
+PARTS = ("options", "fig8", "static_cluster", "dynamic_cluster", "churn")
 
 
 def trace(api, n):
@@ -111,6 +131,54 @@ def cluster_specs(api, n, routers=CLUSTER["routers"], **kw):
                         (CLUSTER["ks_fleet"], CLUSTER["agg_fleet"]))]
 
 
+def churn_of(api, k, period=CHURN["period"]):
+    """fig_churn's availability of a K-node cluster: node 0 always up,
+    node i on a ``period`` cycle, up 70 % of it, phase i * period / K."""
+    return (None,) + tuple(
+        api.PeriodicChurn(period=period, duty=CHURN["duty"],
+                          phase=i * period / k) for i in range(1, k))
+
+
+def fig_churn_entries(api, period=CHURN["period"]):
+    """benchmarks/fig_churn.py's topologies (``_entries``): each router x
+    K of ``CHURN``, AGG // K slots a node."""
+    agg = CHURN["agg"]
+    return [api.ClusterSpec(
+        n_nodes=k, router=r, node_capacity=(agg // k,) * k,
+        net_delay=tuple(CHURN["delay_step"] * i / max(k - 1, 1)
+                        for i in range(k)),
+        churn=churn_of(api, k, period))
+        for r in CHURN["routers"] for k in CHURN["ks"] if agg % k == 0]
+
+
+def leo_entries(api, period=CHURN["period"]):
+    """The leo-delay spec's topologies: jsq2 and slo_aware on the swinging
+    links, then slo_aware with fig_churn's K = 4 churn on top."""
+    k = LEO["n_nodes"]
+    ds = api.DelaySchedule(times=(0.0, period / 2), values=LEO["values"],
+                           period=period)
+    base = dict(n_nodes=k, node_capacity=(LEO["slots"],) * k,
+                net_delay=LEO["net_delay"],
+                delay_schedule=(None,) + (ds,) * (k - 1))
+    return [api.ClusterSpec(router="jsq2", **base),
+            api.ClusterSpec(router="slo_aware", **base),
+            api.ClusterSpec(router="slo_aware", churn=churn_of(api, k, period),
+                            **base)]
+
+
+def churn_specs(api, n, period=CHURN["period"], **kw):
+    """The churn part's two specs over the trace of ``n`` requests:
+    fig_churn and leo-delay (``period`` scales every churn cycle and
+    delay swing; a short trace needs a short one to see an outage)."""
+    src = trace(api, n)
+    return [api.ExperimentSpec(
+        traces=[src], policies=CHURN["policies"], capacities=(CHURN["agg"],),
+        queue_cap=CHURN["queue_cap"], deadlines=CHURN["deadline"],
+        cluster=entries, **kw)
+        for entries in (fig_churn_entries(api, period),
+                        leo_entries(api, period))]
+
+
 def cell(rs, keys, **which):
     """One cell's metrics as Python numbers (lists for vector metrics)."""
     out = {}
@@ -130,16 +198,20 @@ def run_part(api, part, n):
         rs = api.run_experiment(fig8_spec(api, n))
         return dict(tl_bins=rs.meta["tl_bins"], **FIG8,
                     esff=cell(rs, FIG8_KEYS, policy="esff"))
-    routers = CLUSTER["routers" if part == "static_cluster"
-                      else "dynamic_routers"]
+    if part == "churn":
+        specs, keys = churn_specs(api, n), CHURN_KEYS
+    else:
+        routers = CLUSTER["routers" if part == "static_cluster"
+                          else "dynamic_routers"]
+        specs, keys = cluster_specs(api, n, routers), CLUSTER_KEYS
     cells = {}
-    for spec in cluster_specs(api, n, routers):
+    for spec in specs:
         rs = api.run_experiment(spec)
         for e in spec.cluster:
             for p in spec.policies:
                 cells.setdefault(p, {})[e.label] = cell(
-                    rs, CLUSTER_KEYS, policy=p, cluster=e.label)
-    return dict(queue_cap=CLUSTER["queue_cap"], cells=cells)
+                    rs, keys, policy=p, cluster=e.label)
+    return dict(queue_cap=specs[0].queue_cap, cells=cells)
 
 
 def main(argv=None) -> int:

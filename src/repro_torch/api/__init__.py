@@ -17,7 +17,8 @@ from repro_torch.api.runner import run, run_experiment
 from repro_torch.api.spec import (ArrayTrace, ExperimentSpec, HeadTrace,
                                   NpzTrace, ScaledTrace, SyntheticTrace,
                                   TraceSource, as_trace_source)
-from repro_torch.cluster import (ClusterSpec, register_router,
+from repro_torch.cluster import (ClusterSpec, DelaySchedule,
+                                 PeriodicChurn, register_router,
                                  unregister_router)
 
 __all__ = [
@@ -25,6 +26,6 @@ __all__ = [
     "NpzTrace", "HeadTrace", "ScaledTrace",
     "as_trace_source", "ResultSet", "run", "run_experiment",
     "register_policy", "unregister_policy", "get_kernel",
-    "available_policies", "ClusterSpec", "register_router",
-    "unregister_router",
+    "available_policies", "ClusterSpec", "PeriodicChurn",
+    "DelaySchedule", "register_router", "unregister_router",
 ]

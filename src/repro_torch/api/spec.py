@@ -15,7 +15,8 @@ built the same way, but only these are ported: ``traces``,
 ``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
 ``window``, ``tl_bins``, ``tl_bucket``, ``keep_per_request``,
 ``deadlines``, ``queue_cap``, ``prior``, ``threshold``, ``lane_chunk``,
-``cluster`` (static and dynamic routers, constant delays) and ``meta``,
+``cluster`` (static and dynamic routers, constant and time-varying
+delays, node churn) and ``meta``,
 plus the port's own ``device``. Any other field set away from its
 default fails validation with ValueError, naming the ROADMAP item that
 will port it; it is never ignored. A cluster entry naming the

@@ -3,16 +3,18 @@
 cluster as K single-node engine runs over the per-node sub-streams,
 merged exactly) and the dynamic tier (`repro_torch.cluster.engine`: K
 nodes in one event loop a lane, routed by live state: jsq2, cold_aware,
-slo_aware, with constant per-node network delays). Not ported: node
-churn and time-varying delay (ROADMAP Queue 1, item 2), the resilience
-layer and its ``breaker`` router (item 3)."""
+slo_aware, with constant or time-varying (`DelaySchedule`) per-node
+network delays and node churn (`PeriodicChurn` or explicit windows:
+drain, park and re-route). Not ported: the resilience layer and its
+``breaker`` router (ROADMAP Queue 1, item 3)."""
 from repro_torch.cluster.routers import (ClusterView, DynamicRouter,
                                          Router, StaticRouter,
                                          available_routers, get_router,
                                          register_router,
                                          unregister_router)
-from repro_torch.cluster.spec import ClusterSpec
+from repro_torch.cluster.spec import (ClusterSpec, DelaySchedule,
+                                      PeriodicChurn)
 
-__all__ = ["ClusterSpec", "ClusterView", "DynamicRouter", "Router",
+__all__ = ["ClusterSpec", "ClusterView", "DelaySchedule", "PeriodicChurn", "DynamicRouter", "Router",
            "StaticRouter", "available_routers", "get_router",
            "register_router", "unregister_router"]

@@ -1,6 +1,6 @@
 """The dynamic-routing cluster engine: K nodes in one event loop a lane
-(counterpart of `repro.cluster.engine`, its form without churn, the
-resilience layer or time-varying delay).
+(counterpart of `repro.cluster.engine`, its form without the resilience
+layer).
 
 A dynamic router reads live cluster state at every arrival, so the
 routing decision lives inside the event loop. The loop generalises the
@@ -9,10 +9,10 @@ lane:
 
 * **slots** are a (L, K, C) node-major rail, and the next event is the
   first-index argmin over [BUSY K·C | COLD K·C | timers K·F | re-arms K·F
-  (timer policies) | in-flight heads K (a lane with delay) | ARRIVAL], so
-  the same-time class order EXEC < COLD < TIMER < NODE_ARRIVAL < ARRIVAL
-  and the tie-break inside a class (node-major) extend the single-node
-  engine's;
+  (timer policies) | in-flight heads K (a lane with delay) | orphan 1 |
+  toggles K (a lane with churn) | ARRIVAL], so the same-time class order
+  EXEC < COLD < TIMER < NODE_ARRIVAL < REROUTE < CHURN < ARRIVAL and the
+  tie-break inside a class (node-major) extend the single-node engine's;
 * **queues** are per-(node, function) FIFOs on a link rail ``nxt`` (one
   successor rid a request): which arrivals of f_j reach node k depends on
   the state, so the single-node engine's positional cursors do not
@@ -28,9 +28,25 @@ lane:
   a direct dispatch, gate a no-op fire by the queue-head check);
 * **network delay** (a lane whose ``delays`` row is not all zero) rides a
   third chain ``dnx``: the router decides at the raw ARRIVAL, the request
-  joins its node's in-flight FIFO and arrives ``delay_k`` later as a
-  NODE_ARRIVAL event; the node's policy, timers and response accounting
-  run on the node-local clock (response from the delayed arrival);
+  joins its node's in-flight FIFO, stamped with its landing time
+  (``land_t``), and arrives ``delay_k`` later as a NODE_ARRIVAL event;
+  the node's policy, timers and response accounting run on the
+  node-local clock (response from the delayed arrival). A
+  `DelaySchedule` makes the delay a node's piecewise-constant function
+  of time (`sched_delay`), sampled at the raw arrival for the landing and
+  the response, and at the decision for slo_aware's delay term;
+* **churn** adds a toggle event a node off its row of ``churn_t`` (the
+  cursor ``ch_ix``, even: up). NODE_DOWN drains the node (its busy
+  slots' requests by ascending rid, then its queues function-major) onto
+  the lane's park FIFO, chained on ``nxt``, and resets its slots, queues
+  and policy state (its estimators survive); one REROUTE event a parked
+  request sends the park head through the router while a node is up.
+  Routers see the ``up`` mask and a pick of a down node is re-aimed at
+  the lowest-id up node; an arrival while every node is down parks, and
+  so does a request landing on a node that went down in flight. A churn
+  lane folds at EXEC_DONE (a drained dispatch never completes), measures
+  responses from the raw arrival, and under delay stamps a re-routed
+  orphan's ``land_t`` at its re-send (it pays its new node's delay then);
 * **estimators** are node-local: each node learns from its own
   completions only, with the node's global mean, then the prior, as
   fallback.
@@ -74,23 +90,53 @@ _COUNTERS = ("next", "done", "iters", "stall", "seq", "cold", "evict",
 _SUMS = ("cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
 
+def sched_delay(t, dt, dv, dp):
+    """Piecewise-constant `DelaySchedule` lookup elementwise over ``t``
+    (counterpart of `repro.cluster.engine._sched_delay`): the value of
+    the last step at or before ``t``, ``t`` taken modulo ``dp`` where
+    ``dp > 0``. ``dt`` / ``dv`` are the `BIG`-padded step times and
+    values, shaped ``t.shape + (D,)``; ``dp`` has ``t.shape``. The
+    modulo is ``fmod``, exact for positive operands and equal to
+    ``jnp.mod`` there."""
+    per = torch.where(dp > 0, dp, 1.0)
+    tt = torch.where(dp > 0, torch.fmod(t, per), t)
+    ix = ((tt[..., None] >= dt).sum(-1) - 1).clamp(0, dt.shape[-1] - 1)
+    return dv.gather(-1, ix[..., None])[..., 0]
+
+
 class ClusterNodeCtx(EngineCtx):
     """Single-node view ctx over the event's node of each lane
     (counterpart of `repro.cluster.engine.ClusterNodeCtx`). The engine
-    sets ``cap_mask`` (L, C) and ``delay`` (L,) to the event's node
-    before each event. Reads go to the full trace; `arrival_at` is the
-    node-local clock on a lane with delay; the queue and timer ops work
-    on the link rails ``nxt`` and ``tnx`` (L, N + 1) of the state, whose
-    last column takes the disabled writes."""
+    sets ``cap_mask`` (L, C), ``delay`` (L,) and, when a lane has a delay
+    schedule, ``dsched`` (the event node's step times, values and
+    period) before each event. Reads go to the full trace; `arrival_at`
+    is the node-local clock on a lane with delay and without churn (a
+    churn lane measures from the raw arrival); the queue and timer ops
+    work on the link rails ``nxt`` and ``tnx`` (L, N + 1) of the state,
+    whose last column takes the disabled writes."""
 
-    def __init__(self, *, lane_delay, **kw):
+    def __init__(self, *, lane_delay, lane_churn, lane_var, **kw):
         super().__init__(positional=False, **kw)
         self.lane_delay = lane_delay     # (L,) bool: the lane has delay
+        self.lane_var = lane_var         # (L,) bool: ... a schedule
+        # (L,) bool: responses from the node-local arrival
+        self.shift = lane_delay & ~lane_churn
+        if bool(lane_churn.any()):
+            self.fold_mask = ~lane_churn   # churn folds at EXEC_DONE
         self.delay = None                # (L,) f64, the event's node's
+        self.dsched = None               # its schedule rows, or None
+
+    def node_delay(self, t):
+        """The event node's delay at ``t`` (its schedule's on a lane
+        with one, its constant otherwise)."""
+        if self.dsched is None:
+            return self.delay
+        return torch.where(self.lane_var, sched_delay(t, *self.dsched),
+                           self.delay)
 
     def arrival_at(self, rid):
         a = super().arrival_at(rid)
-        return torch.where(self.lane_delay, a + self.delay, a)
+        return torch.where(self.shift, a + self.node_delay(a), a)
 
     def rail_at(self, rail, rid):
         """``rail[l, rid[l]]`` per lane, rid clipped to [0, N)."""
@@ -161,7 +207,50 @@ def has_cluster_loop(kernel, routers: Sequence) -> bool:
         type(r) in ROUTER_CODES for r in routers)
 
 
-def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, delay,
+class Topology:
+    """The lanes' clusters of one run, and the modes they switch on: each
+    lane's node count, capacity masks, router, seed and constant delays;
+    under churn its (K, E) toggle times (`BIG`-padded: a lane with none
+    keeps the plain loop), under a delay schedule its (K, D) steps, values
+    and periods (a lane with a second step is time-varying). A lane has
+    delay when a constant delay is not zero or its delay varies, as the
+    JAX package's ``has_delay``."""
+
+    def __init__(self, routers, router_ix, n_nodes, seeds, delays, cap_mask,
+                 churn_t=None, dtimes=None, dvals=None, dper=None):
+        self.routers, self.router_ix = routers, router_ix
+        self.n_nodes, self.seeds, self.delays = n_nodes, seeds, delays
+        self.cap_mask = cap_mask
+        L, Kx = cap_mask.shape[:2]
+        dev = cap_mask.device
+        self.node_ok = torch.arange(Kx, device=dev) < n_nodes[:, None]
+        self.churn_t = churn_t
+        self.lane_churn = (torch.zeros((L,), dtype=torch.bool, device=dev)
+                           if churn_t is None
+                           else (churn_t < BIG).flatten(1).any(1))
+        self.any_churn = bool(self.lane_churn.any())
+        self.dtimes, self.dvals, self.dper = dtimes, dvals, dper
+        self.lane_var = (torch.zeros((L,), dtype=torch.bool, device=dev)
+                         if dtimes is None
+                         else (dtimes[:, :, 1:] < BIG).flatten(1).any(1))
+        self.any_var = bool(self.lane_var.any())
+        self.lane_delay = (delays > 0).any(1) | self.lane_var
+        self.any_delay = bool(self.lane_delay.any())
+
+    def max_events(self, N: int):
+        """(L,) the events after which a lane stalls (code 2): the
+        single-node bound, plus (4 N + 64) K E on a churn lane (every
+        toggle may orphan a nodeful of requests), E its toggle columns as
+        the JAX package's operand has them (its most toggles + 1)."""
+        base = torch.full_like(self.n_nodes, E.max_events(N))
+        if not self.any_churn:
+            return base
+        width = (self.churn_t < BIG).sum(2).amax(1) + 1
+        return torch.where(self.lane_churn,
+                           base + (4 * N + 64) * self.n_nodes * width, base)
+
+
+def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, topo,
                 deadlines, tl_bins) -> Dict[str, torch.Tensor]:
     i64, i32, f64 = torch.int64, torch.int32, torch.float64
 
@@ -199,15 +288,29 @@ def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, delay,
         for k in ("tmr_next", "rearm_t"):
             s[k] = full((L, Kx, F), BIG, f64)
         s["tnx"] = full((L, N + 1), -1, i64)
-    if delay:
+    if topo.any_delay:
         s["pend_head"] = full((L, Kx), -1, i64)
         s["pend_tail"] = full((L, Kx), -1, i64)
         s["pend_len"] = full((L, Kx), 0, i32)
         s["dnx"] = full((L, N + 1), -1, i64)
+        # the landing time of each request in flight, stamped at its send
+        s["land_t"] = full((L, N + 1), 0.0, f64)
+    if topo.any_churn:
+        # the availability cursor (even: up) a node, and the lane's park
+        # FIFO of requests orphaned by a NODE_DOWN or arriving while
+        # every node is down (chained on ``nxt``; park_t is its head's
+        # eligibility time), and what the lane's churn did
+        s["ch_ix"] = full((L, Kx), 0, i64)
+        s["park_head"] = full((L,), -1, i64)
+        s["park_tail"] = full((L,), -1, i64)
+        s["park_len"] = full((L,), 0, i32)
+        s["park_t"] = full((L,), BIG, f64)
+        s["toggles"] = full((L,), 0, i64)
+        s["reroutes"] = full((L,), 0, i64)
     if not stream:
         for k in ("start", "completion"):
             s[k] = full((L, N + 1), -1.0, f64)
-        if delay:
+        if topo.any_delay:
             s["node_of"] = full((L, N + 1), 0, i32)
     if deadlines:
         s["dl_miss"] = full((L, F), 0, i32)
@@ -225,27 +328,94 @@ def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, delay,
     return s, tuple(extra)
 
 
-def _route(ctx, s, routers, router_ix, n_nodes, seeds, delays, node_ok,
-           cap_mask, rid, t):
-    """Each lane's router pick for the arrival ``rid`` at ``t`` on the
-    state before the event, clipped to the lane's nodes."""
+def _route(ctx, s, topo, rid, t, up):
+    """Each lane's router pick for the request ``rid`` at ``t`` on the
+    state before the event, clipped to the lane's nodes; under churn
+    (``up`` (L, K), False on a down node) re-aimed at the lowest-id up
+    node when the pick is down, as the JAX package does."""
+    delay_now = topo.delays
+    if topo.any_var:
+        Kx = topo.delays.shape[1]
+        at = sched_delay(t[:, None].expand(-1, Kx), topo.dtimes,
+                         topo.dvals, topo.dper)
+        delay_now = torch.where(topo.lane_var[:, None], at, delay_now)
     g = ClusterView(q_len=s["q_len"], q_tot=s["q_tot"],
                     slot_fn=s["slot_fn"], slot_state=s["slot_state"],
-                    cap_mask=cap_mask, est_sum=s["est_sum"],
+                    cap_mask=topo.cap_mask, est_sum=s["est_sum"],
                     est_n=s["est_n"], node_gn=s["gn"],
                     node_gsum=s["g_sum"], t_cold=ctx.t_cold,
-                    prior=ctx.prior, n_nodes=n_nodes, node_ok=node_ok,
-                    seed=seeds, delay_now=delays)
+                    prior=ctx.prior, n_nodes=topo.n_nodes,
+                    node_ok=topo.node_ok, seed=topo.seeds,
+                    delay_now=delay_now, up=up)
     j = ctx.fn_at(rid)
     k = None
-    for i, r in enumerate(routers):
+    for i, r in enumerate(topo.routers):
         pick = r.pick(g, j, rid, t).to(torch.int64)
-        k = pick if k is None else torch.where(router_ix == i, pick, k)
-    return torch.minimum(k.clamp_min(0), n_nodes - 1)
+        k = pick if k is None else torch.where(topo.router_ix == i, pick, k)
+    k = torch.minimum(k.clamp_min(0), topo.n_nodes - 1)
+    if up is not None:
+        k = torch.where(up[ctx.lanes, k], k,
+                        torch.argmax(up.to(torch.int32), dim=1))
+    return k
 
 
-def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
-                  seeds, delays, node_ok, cap_mask, any_delay, max_iters):
+def _drain(ctx, v, ev_down, t_ev, extra0):
+    """NODE_DOWN on the event's node (lanes ``ev_down``): its busy slots'
+    requests in ascending rid order, then its queues function-major, are
+    chained on ``nxt`` into the lane's park FIFO (empty at a NODE_DOWN:
+    the node was up, so every parked request re-routed first), eligible
+    at ``t_ev``; then the node's slots, queues and the policy's per-node
+    state start afresh. Its estimators survive the outage."""
+    N, F, C = ctx.N, ctx.F, ctx.C
+    lanes = ctx.lanes[:, None]
+    busy = (v["slot_state"] == BUSY) & ctx.cap_mask & ev_down[:, None]
+    rids_b = torch.sort(torch.where(busy, v["slot_req"], I32_MAX),
+                        dim=1).values
+    valid_b = rids_b < I32_MAX
+    n_busy = valid_b.sum(1)
+    succ_b = torch.cat([rids_b[:, 1:], torch.full_like(rids_b[:, :1],
+                                                       I32_MAX)], 1)
+    link_b = valid_b & (succ_b < I32_MAX)
+    v["nxt"][lanes, torch.where(link_b, rids_b, N)] = succ_b
+    # each non-empty queue links from the tail of the last non-empty one
+    # before it, else from the last busy rid
+    nonempty = v["q_len"] > 0
+    cmax = torch.cummax(torch.where(nonempty, ctx.ar_f, -1), dim=1).values
+    lnb = torch.cat([torch.full_like(cmax[:, :1], -1), cmax[:, :-1]], 1)
+    busy_last = torch.where(
+        n_busy > 0, rids_b.gather(1, (n_busy - 1).clamp(0, C - 1)[:, None])
+        [:, 0], -1)
+    tails = v["q_tail_rid"]
+    prev = torch.where(lnb >= 0, tails.gather(1, lnb.clamp(0, F - 1)),
+                       busy_last[:, None])
+    heads = v["q_head_rid"]
+    link_q = ev_down[:, None] & nonempty & (prev >= 0)
+    v["nxt"][lanes, torch.where(link_q, prev, N)] = heads
+    has_q = nonempty.any(1)
+    first = torch.argmax(nonempty.to(torch.int32), dim=1)
+    d_head = torch.where(n_busy > 0, rids_b[:, 0],
+                         torch.where(has_q, ctx.row(heads, first, F), -1))
+    d_tail = torch.where(has_q, ctx.row(tails, cmax[:, -1], F), busy_last)
+    n_drain = n_busy.to(torch.int32) + v["q_tot"]
+    parked = ev_down & (n_drain > 0)
+    v["park_head"] = torch.where(parked, d_head, v["park_head"])
+    v["park_tail"] = torch.where(parked, d_tail, v["park_tail"])
+    v["park_len"] = torch.where(parked, n_drain, v["park_len"])
+    v["park_t"] = torch.where(parked, t_ev, v["park_t"])
+    # the node starts afresh
+    dn = ev_down[:, None]
+    for key, val in (("slot_fn", -1), ("slot_state", IDLE),
+                     ("slot_ready", BIG), ("slot_req", -1),
+                     ("slot_used", 0.0), ("slot_seq", I32_MAX),
+                     ("q_len", 0), ("q_head_rid", -1), ("q_tail_rid", -1)):
+        v[key] = torch.where(dn, val, v[key])
+    v["q_tot"] = torch.where(ev_down, 0, v["q_tot"])
+    for key, val in extra0.items():
+        m = ev_down.reshape((-1,) + (1,) * (v[key].dim() - 1))
+        v[key] = torch.where(m, val, v[key])
+
+
+def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     """One event for every lane: pick, route, the event node's view, the
     hooks, write-back, fold."""
     N, C, F = ctx.N, ctx.C, ctx.F
@@ -253,8 +423,11 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
     KC, KF = Kx * C, Kx * F
     lanes = ctx.lanes
     timers = kernel.has_timers
+    cap_mask, delays = topo.cap_mask, topo.delays
+    churn = topo.any_churn
     # ---- pick: first-index argmin over [busy | cold | (timers | re-arms)
-    # | (in-flight heads) | arrival], node-major in each class
+    # | (in-flight heads) | (orphan | toggles) | arrival], node-major in
+    # each class
     na = s["next"]
     nl = ctx.n_live
     t_arr = torch.where(na < nl, E.EngineCtx.arrival_at(ctx, na), BIG)
@@ -264,10 +437,20 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
               torch.where(st == COLD, ready, BIG)]
     if timers:
         blocks += [s["tmr_next"].reshape(L, KF), s["rearm_t"].reshape(L, KF)]
-    if any_delay:
-        ph = s["pend_head"].clamp(0, N - 1)
-        land = ctx._arr[ctx.b_n[:, None] + ph] + delays
+    n_pend = sum(b.shape[1] for b in blocks)
+    if topo.any_delay:
+        land = s["land_t"].gather(1, s["pend_head"].clamp(0, N - 1))
         blocks.append(torch.where(s["pend_len"] > 0, land, BIG))
+    n_orph = sum(b.shape[1] for b in blocks)
+    up = None
+    if churn:
+        up = ((s["ch_ix"] & 1) == 0) & topo.node_ok
+        anyup = up.any(1)
+        blocks.append(torch.where((s["park_len"] > 0) & anyup, s["park_t"],
+                                  BIG)[:, None])
+        E_ = topo.churn_t.shape[2]
+        blocks.append(topo.churn_t.gather(
+            2, s["ch_ix"].clamp(0, E_ - 1)[..., None])[..., 0])
     cand = torch.cat(blocks + [t_arr[:, None]], dim=1)
     t_ev, ei = torch.min(cand, dim=1)
 
@@ -278,14 +461,22 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
     sflat = torch.where(is_cold, ei - KC, ei).clamp(0, KC - 1)
     slot = sflat % C
     ev_arr = live & (ei == cand.shape[1] - 1) & (na < nl)
+    no = torch.zeros_like(live)
+    ev_orph, ev_churn = no, no
+    rid_a = na.clamp(max=N - 1)
+    rid_rt, t_rt = rid_a, t_arr
+    if churn:
+        ev_orph = live & (ei == n_orph)
+        ev_churn = live & (ei > n_orph) & (ei <= n_orph + Kx)
+        # a re-routed orphan is the park head, decided at its event
+        rid_rt = torch.where(ev_orph, s["park_head"].clamp(0, N - 1), rid_a)
+        t_rt = torch.where(ev_orph, t_ev, t_arr)
 
     # ---- route (read-only, on the state before the event), then the
     # event's node
-    rid_a = na.clamp(max=N - 1)
     k_ev = torch.where(ev_slot, sflat // C,
-                       _route(ctx, s, routers, router_ix, n_nodes, seeds,
-                              delays, node_ok, cap_mask, rid_a, t_arr))
-    ev_timer = torch.zeros_like(live)
+                       _route(ctx, s, topo, rid_rt, t_rt, up))
+    ev_timer = no
     if timers:
         n0 = 2 * KC
         fire_orig = live & (ei >= n0) & (ei < n0 + KF)
@@ -294,16 +485,21 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
         kf_t = torch.where(fire_orig, ei - n0, ei - n0 - KF).clamp(0, KF - 1)
         f_t = kf_t % F
         k_ev = torch.where(ev_timer, kf_t // F, k_ev)
-    ev_pend = torch.zeros_like(live)
-    if any_delay:
-        p0 = 2 * KC + (2 * KF if timers else 0)
-        ev_pend = live & (ei >= p0) & (ei < p0 + Kx)
-        k_ev = torch.where(ev_pend, (ei - p0).clamp(0, Kx - 1), k_ev)
+    ev_pend = no
+    if topo.any_delay:
+        ev_pend = live & (ei >= n_pend) & (ei < n_pend + Kx)
+        k_ev = torch.where(ev_pend, (ei - n_pend).clamp(0, Kx - 1), k_ev)
+    if churn:
+        k_ev = torch.where(ev_churn, (ei - n_orph - 1).clamp(0, Kx - 1),
+                           k_ev)
     v = dict(s)
     for key in nodal:
         v[key] = s[key][lanes, k_ev]
     ctx.cap_mask = cap_mask[lanes, k_ev]
     ctx.delay = delays[lanes, k_ev]
+    if topo.any_var:
+        ctx.dsched = (topo.dtimes[lanes, k_ev], topo.dvals[lanes, k_ev],
+                      topo.dper[lanes, k_ev])
 
     # ---- slot event: release, the node's estimator, the policy hooks
     cold_on = ev_slot & is_cold
@@ -322,9 +518,12 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
     v["g_sum"] = v["g_sum"] + torch.where(exec_on, e_done, 0.0)
     v["gn"] = v["gn"] + exec_on
     v["done"] = v["done"] + exec_on
-    v["ev_rid"] = torch.full_like(na, -1)
-    v["ev_comp"] = torch.zeros_like(t_ev)
-    v["ev_exec"] = torch.zeros_like(t_ev)
+    # a churn lane folds each completion (the run that survived), not
+    # each dispatch (a drained one may never complete)
+    fold_done = exec_on & topo.lane_churn
+    v["ev_rid"] = torch.where(fold_done, rid_done, -1)
+    v["ev_comp"] = torch.where(fold_done, t_ev, 0.0)
+    v["ev_exec"] = torch.where(fold_done, e_done, 0.0)
     kernel.on_cold_done(ctx, v, slot, t_ev, cold_on)
     kernel.on_exec_done(ctx, v, slot, rid_done, t_ev, exec_on)
 
@@ -347,18 +546,45 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
         kernel.on_timer(ctx, v, torch.where(fire_orig, rid_o, rid_r), t_ev,
                         ev_timer)
 
-    # ---- node arrival: the in-flight head lands (a lane with delay), or
-    # the raw arrival arrives at once (a lane without)
-    rid_na, t_na, na_on = rid_a, t_arr, ev_arr & ~ctx.lane_delay
-    if any_delay:
+    # ---- churn: the node's toggle (NODE_DOWN drains it, NODE_UP re-arms
+    # the park FIFO), or the re-route of the park head
+    node_up = torch.ones_like(live)
+    if churn:
+        up0 = (v["ch_ix"] & 1) == 0
+        v["ch_ix"] = v["ch_ix"] + ev_churn
+        _drain(ctx, v, ev_churn & up0, t_ev, extra0)
+        v["park_t"] = torch.where(ev_churn & ~up0 & (v["park_len"] > 0),
+                                  t_ev, v["park_t"])
+        rid_o = v["park_head"]
+        plen = v["park_len"]
+        succ_o = torch.where(plen > 1, ctx.rail_at(v["nxt"], rid_o), -1)
+        v["park_head"] = torch.where(ev_orph, succ_o, rid_o)
+        v["park_tail"] = torch.where(ev_orph & (plen <= 1), -1,
+                                     v["park_tail"])
+        v["park_len"] = plen - ev_orph.to(torch.int32)
+        node_up = (v["ch_ix"] & 1) == 0
+        v["toggles"] = v["toggles"] + ev_churn
+        v["reroutes"] = v["reroutes"] + ev_orph
+
+    # ---- node arrival: the in-flight head lands (a lane with delay: on a
+    # down node it parks instead), or the raw arrival or the re-routed
+    # orphan arrives at once (a lane without)
+    at_once = ~ctx.lane_delay
+    rid_na, t_na = rid_a, t_arr
+    na_on = ev_arr & at_once
+    if churn:
+        rid_na = torch.where(ev_orph, rid_o, rid_a)
+        t_na = torch.where(ev_orph, t_ev, t_arr)
+        na_on = (na_on & anyup) | (ev_orph & at_once)
+    if topo.any_delay:
         plen0 = v["pend_len"]
         rid_p = v["pend_head"]
         succ_p = torch.where(plen0 > 1, ctx.rail_at(s["dnx"], rid_p), -1)
         v["pend_head"] = torch.where(ev_pend, succ_p, v["pend_head"])
         v["pend_len"] = plen0 - ev_pend.to(torch.int32)
-        rid_na = torch.where(ev_pend, rid_p, rid_a)
-        t_na = torch.where(ev_pend, t_ev, t_arr)
-        na_on = na_on | ev_pend
+        rid_na = torch.where(ev_pend, rid_p, rid_na)
+        t_na = torch.where(ev_pend, t_ev, t_na)
+        na_on = na_on | (ev_pend & node_up)
     if timers:
         # chain every node arrival onto its (node, fn) timer rail
         j_na = ctx.fn_at(rid_na)
@@ -368,20 +594,40 @@ def _cluster_step(ctx, kernel, s, nodal, routers, router_ix, n_nodes,
         v["la_rid"] = torch.where(mn, rid_na[:, None], v["la_rid"])
         v["arr_cnt"] = v["arr_cnt"] + mn
     v["next"] = na + ev_arr
-    v["iters"] = v["iters"] + (ev_slot | ev_timer | ev_arr | ev_pend)
+    v["iters"] = v["iters"] + (ev_slot | ev_timer | ev_arr | ev_pend
+                               | ev_orph | ev_churn)
     kernel.on_arrival(ctx, v, rid_na, t_na, na_on)
-    if any_delay:
-        # the raw arrival of a lane with delay goes in flight to the
-        # router's node
+    if topo.any_delay:
+        # a raw arrival (or a re-routed orphan) of a lane with delay goes
+        # in flight to the router's node and lands at the send time plus
+        # the node's delay then
         snd = ev_arr & ctx.lane_delay
+        rid_s = rid_a
+        if churn:
+            snd = (snd & anyup) | (ev_orph & ctx.lane_delay)
+            rid_s = torch.where(ev_orph, rid_o, rid_a)
+        ctx.link(v, "land_t", rid_s, t_ev + ctx.node_delay(t_ev), snd)
         pempty = v["pend_len"] == 0
-        ctx.link(v, "dnx", v["pend_tail"], rid_a, snd & ~pempty)
-        v["pend_head"] = torch.where(snd & pempty, rid_a, v["pend_head"])
-        v["pend_tail"] = torch.where(snd, rid_a, v["pend_tail"])
+        ctx.link(v, "dnx", v["pend_tail"], rid_s, snd & ~pempty)
+        v["pend_head"] = torch.where(snd & pempty, rid_s, v["pend_head"])
+        v["pend_tail"] = torch.where(snd, rid_s, v["pend_tail"])
         v["pend_len"] = v["pend_len"] + snd
         if "node_of" in v:
             ctx.link(v, "node_of", v["ev_rid"], k_ev.to(torch.int32),
-                     v["ev_rid"] >= 0)
+                     (v["ev_rid"] >= 0) & ~topo.lane_churn)
+    if churn:
+        # park: a fresh arrival while every node is down, or a landing on
+        # a node that went down in flight
+        park_in = (ev_arr & ~anyup) | (ev_pend & ~node_up)
+        rid_pk = torch.where(ev_pend, rid_p, rid_a) if topo.any_delay \
+            else rid_a
+        pk_empty = v["park_len"] == 0
+        ctx.link(v, "nxt", v["park_tail"], rid_pk, park_in & ~pk_empty)
+        v["park_head"] = torch.where(park_in & pk_empty, rid_pk,
+                                     v["park_head"])
+        v["park_tail"] = torch.where(park_in, rid_pk, v["park_tail"])
+        v["park_len"] = v["park_len"] + park_in
+        v["park_t"] = torch.where(park_in & pk_empty, t_ev, v["park_t"])
 
     _fold_event(ctx, v)
     v["stall"] = torch.where(
@@ -402,23 +648,30 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
                            routers, router_ix, n_nodes, seeds, delays, n_fns,
                            capacity, queue_cap, stream=False, threshold=0.1,
                            n_live=None, deadlines=None, tl_bins=0,
-                           tl_bucket=60.0) -> Dict[str, torch.Tensor]:
+                           tl_bucket=60.0, churn_t=None, dtimes=None,
+                           dvals=None, dper=None) -> Dict[str, torch.Tensor]:
     """The eager K-node loop (counterpart of
-    `repro.cluster.engine._simulate_cluster` without churn and the
-    resilience layer): `_cluster_step` over every lane, SEG steps between
-    host checks; the plain version of the event-loop kernel's K-node
-    variant and the route of every policy or router without one.
+    `repro.cluster.engine._simulate_cluster` without the resilience
+    layer): `_cluster_step` over every lane, SEG steps between host
+    checks; the plain version of the event-loop kernel's K-node variant
+    and the route of every policy or router without one.
 
     Inputs as `simulate_cluster`. Returns the single-node engine's
-    outputs plus ``node_done`` (L, K) and, in exact mode when a lane has
-    delay, ``node_of`` (L, N): the node that served each request."""
+    outputs plus ``node_done`` (L, K); in exact mode when a lane has
+    delay, ``node_of`` (L, N), the node that served each request (0 on a
+    churn lane); under churn ``toggles`` and ``reroutes`` (L,), the
+    lane's NODE_DOWN / NODE_UP events and park-head re-routes."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
     Kx = cap_mask.shape[1]
     dev = fn_id.device
-    lane_delay = (delays > 0).any(1)
-    any_delay = bool(lane_delay.any())
+    topo = Topology(routers, router_ix, n_nodes, seeds, delays, cap_mask,
+                    churn_t, dtimes, dvals, dper)
+    timers = kernel.has_timers
+    if timers and topo.any_churn:
+        raise ValueError("timer-rail kernels are not supported under churn "
+                         "(rejected at the runner)")
     ctx = ClusterNodeCtx(
         fn_id=fn_id, arrival=arrival, exec_time=exec_time,
         t_cold_l=t_cold[trace_ix].contiguous(),
@@ -426,23 +679,23 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
         cap_mask=cap_mask[:, 0], beta=beta, prior=float(prior), f=F, c=C,
         q=queue_cap, stream=stream, threshold=float(threshold),
         n_live=n_live, deadlines=deadlines, tl_bins=tl_bins,
-        tl_bucket=tl_bucket, lane_delay=lane_delay)
-    timers = kernel.has_timers
-    s, extra = _init_state(kernel, L, Kx, C, F, N, stream, dev, timers,
-                           any_delay, deadlines is not None, tl_bins)
+        tl_bucket=tl_bucket, lane_delay=topo.lane_delay,
+        lane_churn=topo.lane_churn, lane_var=topo.lane_var)
+    s, extra = _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, topo,
+                           deadlines is not None, tl_bins)
     nodal = (_NODAL + (_NODAL_TMR if timers else ())
-             + (_NODAL_PEND if any_delay else ()) + extra)
-    node_ok = torch.arange(Kx, device=dev) < n_nodes[:, None]
-    max_iters = E.max_events(N)
+             + (_NODAL_PEND if topo.any_delay else ())
+             + (("ch_ix",) if topo.any_churn else ()) + extra)
+    # each node's policy state as it starts, for a NODE_DOWN's reset
+    extra0 = {k: v[0].to(dev) for k, v in kernel.extra_state(1, C, F).items()}
+    max_iters = topo.max_events(N)
 
     def running():
         return bool(((s["done"] < ctx.n_live) & (s["stall"] == 0)).any())
 
     while running():   # one host sync per SEG events
         for _ in range(E.SEG):
-            _cluster_step(ctx, kernel, s, nodal, routers, router_ix,
-                          n_nodes, seeds, delays, node_ok, cap_mask,
-                          any_delay, max_iters)
+            _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0)
 
     i32 = torch.int32
     out = dict(cold_starts=s["cold"].to(i32), cold_time=s["cold_t"],
@@ -458,6 +711,9 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
         out["tl_exec_sum"] = s["tl_exec"]
     if deadlines is not None:
         out["deadline_miss"] = s["dl_miss"]
+    if topo.any_churn:
+        out["toggles"] = s["toggles"]
+        out["reroutes"] = s["reroutes"]
     if not stream:
         out["start"] = s["start"][:, :N]
         out["completion"] = s["completion"][:, :N]
@@ -470,22 +726,29 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                      cap_mask, beta, prior, threshold=0.1, *, kernel,
                      routers, router_ix, n_nodes, seeds, delays, n_fns,
                      capacity, queue_cap, stream=False, seg=0, n_live=None,
-                     deadlines=None, tl_bins=0, tl_bucket=60.0
+                     deadlines=None, tl_bins=0, tl_bucket=60.0,
+                     churn_t=None, dtimes=None, dvals=None, dper=None
                      ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node engine (counterpart of
-    `repro.cluster.engine._simulate_cluster` in its no-churn,
-    no-resilience, constant-delay form).
+    `repro.cluster.engine._simulate_cluster` without the resilience
+    layer).
 
     Trace arrays are shared (T, ...) tensors as for `engine.simulate`;
     each lane carries its topology: ``cap_mask`` (L, K, C) bool (node k's
     usable slots; a lane with fewer nodes masks the rest), ``n_nodes``
     (L,) ints, ``seeds`` (L,) ints (the routers' hash seed), ``delays``
-    (L, K) f64 seconds (the constant per-node network delay; a lane whose
-    row is all zero has no in-flight rail) and its router
-    ``routers[router_ix[l]]`` (`DynamicRouter` instances). ``seg`` is
-    accepted and changes nothing (the JAX package's segment length).
-    Options as `engine.simulate`: ``n_live``, ``deadlines``, ``tl_bins``
-    and ``tl_bucket``.
+    (L, K) f64 seconds (the constant per-node network delay) and its
+    router ``routers[router_ix[l]]`` (`DynamicRouter` instances). The
+    lowerings of `ClusterSpec` add, each ``None`` when no lane has it:
+    ``churn_t`` (L, K, E) f64, each node's toggle times (even index:
+    down, odd: up), `BIG`-padded (a lane whose row is all `BIG` runs the
+    plain loop, bitwise), and ``dtimes`` / ``dvals`` (L, K, D) f64 with
+    ``dper`` (L, K), each node's delay schedule (`ClusterSpec.delay_ops`;
+    a lane whose nodes all have one step keeps its constant ``delays``).
+    A lane has delay when a ``delays`` entry is not zero or its delay
+    varies. ``seg`` is accepted and changes nothing (the JAX package's
+    segment length). Options as `engine.simulate`: ``n_live``,
+    ``deadlines``, ``tl_bins`` and ``tl_bucket``.
 
     A built-in policy whose routers are all built-in goes to the
     event-loop kernel's K-node variant (one launch a call on a card, its
@@ -511,8 +774,23 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                 n_nodes=as_t(n_nodes, i64, dev).contiguous(),
                 seeds=as_t(seeds, i64, dev).contiguous(),
                 delays=as_t(delays, f64, dev).contiguous())
-    for name, shape in (("router_ix", (L,)), ("n_nodes", (L,)),
-                        ("seeds", (L,)), ("delays", (L, Kx))):
+    shapes = [("router_ix", (L,)), ("n_nodes", (L,)), ("seeds", (L,)),
+              ("delays", (L, Kx))]
+    if churn_t is not None:
+        topo["churn_t"] = as_t(churn_t, f64, dev).contiguous()
+        shapes.append(("churn_t", (L, Kx, topo["churn_t"].shape[-1])))
+    if (dtimes is None) != (dvals is None) or (dtimes is None) != (
+            dper is None):
+        raise ValueError("simulate_cluster: dtimes, dvals and dper go "
+                         "together")
+    if dtimes is not None:
+        for name, x in (("dtimes", dtimes), ("dvals", dvals),
+                        ("dper", dper)):
+            topo[name] = as_t(x, f64, dev).contiguous()
+        D = topo["dtimes"].shape[-1]
+        shapes += [("dtimes", (L, Kx, D)), ("dvals", (L, Kx, D)),
+                   ("dper", (L, Kx))]
+    for name, shape in shapes:
         if tuple(topo[name].shape) != shape:
             raise ValueError(f"simulate_cluster: {name} has shape "
                              f"{tuple(topo[name].shape)}, expected {shape}")
@@ -527,34 +805,42 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if has_cluster_loop(kernel, routers):
         return K0.cluster_loop(*args, **kw)   # checks its inputs itself
     check_topology(kw["n_nodes"], kw["router_ix"], kw["delays"],
-                   len(routers))
+                   len(routers), kw.get("dtimes"), kw.get("dper"))
     if n_live is not None:
         E.check_n_live(n_live, fn_id.shape[1])
     return simulate_cluster_eager(*args, **kw)
 
 
-def check_topology(n_nodes, router_ix, delays, n_routers: int) -> None:
+def check_topology(n_nodes, router_ix, delays, n_routers: int, dtimes=None,
+                   dper=None) -> None:
     """Raise unless every lane's node count lies in [1, K], its router
-    index in [0, n_routers) and its delays are >= 0 (one host read)."""
+    index in [0, n_routers), its delays are >= 0 and, with a delay
+    schedule, each node's first step is at 0 and its period >= 0 (one
+    host read)."""
     Kx = delays.shape[1]
     bad = ((n_nodes < 1) | (n_nodes > Kx) | (router_ix < 0)
            | (router_ix >= n_routers) | (delays < 0).any(1))
+    if dtimes is not None:
+        bad = bad | (dtimes[..., 0] != 0).any(1) | (dper < 0).any(1)
     if bool(bad.any()):
         raise ValueError(f"simulate_cluster: n_nodes must lie in [1, {Kx}], "
-                         f"router_ix in [0, {n_routers}) and delays be >= "
-                         "0")
+                         f"router_ix in [0, {n_routers}), delays be >= 0 "
+                         "and a delay schedule start at 0 with a period "
+                         ">= 0")
 
 
 def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                     threshold=0.1, *, kernel, routers, router_ix, n_nodes,
                     seeds, delays, n_fns, capacity, queue_cap, stream=True,
                     keep_responses=False, n_live=None, deadlines=None,
-                    seg=0, tl_bins=0, tl_bucket=60.0
+                    seg=0, tl_bins=0, tl_bucket=60.0, churn_t=None,
+                    dtimes=None, dvals=None, dper=None
                     ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node run + metric reduction (counterpart of
     `repro.cluster.engine._cluster_metrics`): `engine.sweep_metrics`'s
-    metrics plus ``node_done``. In exact mode a lane with delay measures
-    each response from the request's node-local (delayed) arrival."""
+    metrics plus ``node_done``. In exact mode a lane with delay and
+    without churn measures each response from the request's node-local
+    (delayed) arrival, a churn lane from the raw arrival."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate_cluster(
@@ -563,15 +849,32 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
         n_nodes=n_nodes, seeds=seeds, delays=delays, n_fns=n_fns,
         capacity=capacity, queue_cap=queue_cap, stream=stream, seg=seg,
         n_live=n_live, deadlines=deadlines, tl_bins=tl_bins,
-        tl_bucket=tl_bucket)
+        tl_bucket=tl_bucket, churn_t=churn_t, dtimes=dtimes, dvals=dvals,
+        dper=dper)
     arr_l = None
     if not stream:
         arr_l = arr.to(torch.float64)[tix]
         if "node_of" in out:
-            d = E._as_tensor(delays, torch.float64, arr.device)
-            shift = d.gather(1, out["node_of"].to(torch.int64))
-            arr_l = torch.where((d > 0).any(1)[:, None], arr_l + shift,
-                                arr_l)
+            dev = arr.device
+            topo = Topology(routers, E._as_tensor(router_ix, torch.int64,
+                                                  dev),
+                            E._as_tensor(n_nodes, torch.int64, dev),
+                            None, E._as_tensor(delays, torch.float64, dev),
+                            masks, *(None if x is None else E._as_tensor(
+                                x, torch.float64, dev)
+                                for x in (churn_t, dtimes, dvals, dper)))
+            nof = out["node_of"].to(torch.int64)
+            shift = topo.delays.gather(1, nof)
+            if topo.any_var:
+                def rows(x):
+                    return x.gather(1, nof[..., None].expand(
+                        -1, -1, x.shape[-1]))
+                shift = torch.where(
+                    topo.lane_var[:, None],
+                    sched_delay(arr_l, rows(topo.dtimes), rows(topo.dvals),
+                                topo.dper.gather(1, nof)), shift)
+            on = topo.lane_delay & ~topo.lane_churn
+            arr_l = torch.where(on[:, None], arr_l + shift, arr_l)
     res = E.reduce_metrics(out, arr_l, fn.shape[1], n_live, stream,
                            keep_responses)
     res["node_done"] = out["node_done"]

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+I32_MAX = 2 ** 31 - 1       # a down node's load
 _GOLD = 0x9E3779B9          # seed spreader (golden-ratio constant)
 _MIX1, _MIX2 = 0x85EBCA6B, 0xC2B2AE35   # murmur3 fmix32 constants
 
@@ -91,10 +92,13 @@ class ClusterView:
     (L, K), the lane's function catalogue ``t_cold`` (L, F), the
     estimator ``prior`` (float), the node count ``n_nodes`` (L,) with
     ``node_ok`` (L, K) (False on the padding nodes of a lane with fewer
-    nodes than K), the hash ``seed`` (L,), and ``delay_now`` (L, K), the
-    constant network delays (zero rows on a lane without delay).
-    Node-axis reductions must skip the padding nodes; the engine clips a
-    pick to [0, n_nodes), as the JAX package clips to [0, K)."""
+    nodes than K), the hash ``seed`` (L,), ``delay_now`` (L, K), each
+    node's network delay at the decision (zero rows on a lane without
+    delay), and ``up`` (L, K) bool, False on a node that is down (None
+    when no lane has churn). Node-axis reductions must skip the padding
+    nodes; the engine clips a pick to [0, n_nodes), as the JAX package
+    clips to [0, K), and re-aims a pick of a down node at the lowest-id
+    up node."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -189,6 +193,9 @@ class JSQRouter(DynamicRouter):
         L, Kx = g.q_tot.shape
         K = g.n_nodes
         load = g.q_tot.to(torch.int64) + _busy(g)
+        up = getattr(g, "up", None)
+        if up is not None:
+            load = torch.where(up, load, I32_MAX)
         nodes = torch.arange(Kx, device=rid.device).expand(L, Kx).clone()
         lanes = torch.arange(L, device=rid.device)
         for i in range(min(self.d, Kx)):
@@ -233,8 +240,14 @@ def startability_score(g, j):
     return (torch.where(has_idle, 0.0, tc) + mean_j * q_j) + gmean * backlog
 
 
-def _first_argmin(score, node_ok):
-    return torch.argmin(torch.where(node_ok, score, 1e30), dim=1)
+def _first_argmin(g, score):
+    """The first node of least ``score`` among the lane's nodes; a down
+    node scores `BIG` (1e30), as a padding node does."""
+    ok = g.node_ok
+    up = getattr(g, "up", None)
+    if up is not None:
+        ok = ok & up
+    return torch.argmin(torch.where(ok, score, 1e30), dim=1)
 
 
 class ColdAwareRouter(DynamicRouter):
@@ -244,19 +257,19 @@ class ColdAwareRouter(DynamicRouter):
     name = "cold_aware"
 
     def pick(self, g, j, rid, t):
-        return _first_argmin(startability_score(g, j), g.node_ok)
+        return _first_argmin(g, startability_score(g, j))
 
 
 class SLOAwareRouter(DynamicRouter):
     """SLO-aware routing: the node of least ``delay_now + score`` (the
     predicted response), ties to the lowest node id. Without delay it is
-    ``cold_aware``."""
+    ``cold_aware``; under a delay schedule it weighs each link as it is
+    at the decision."""
 
     name = "slo_aware"
 
     def pick(self, g, j, rid, t):
-        return _first_argmin(startability_score(g, j) + g.delay_now,
-                             g.node_ok)
+        return _first_argmin(g, startability_score(g, j) + g.delay_now)
 
 
 class BreakerRouter(DynamicRouter):

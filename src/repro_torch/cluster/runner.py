@@ -1,6 +1,5 @@
 """Lower the `ExperimentSpec.cluster` axis onto the routing tiers
-(counterpart of `repro.cluster.runner`, without churn, time-varying
-delay and the resilience layer).
+(counterpart of `repro.cluster.runner`, without the resilience layer).
 
 `run_cluster_experiment` executes one spec whose ``cluster`` field
 declares a sequence of topologies and stacks the per-entry (P, T, K, B)
@@ -16,9 +15,10 @@ labeled by `ClusterSpec.label`:
 * dynamic-router entries run the K-node event loop
   (`repro_torch.cluster.engine.cluster_metrics`), all of them in one
   batch of lanes: each lane (entry x trace x capacity x beta) carries
-  its own node count, node capacities, router, seed and delays, so one
-  engine call (one launch of the event-loop kernel's K-node variant on a
-  card) runs a lane chunk of every dynamic entry of a policy.
+  its own node count, node capacities, router, seed and delays, and its
+  entry's churn toggles and delay schedule over the traces' horizon, so
+  one engine call (one launch of the event-loop kernel's K-node variant
+  on a card) runs a lane chunk of every dynamic entry of a policy.
 
 Every entry contributes the same metric set (plain cells get a one-node
 ``node_done``), padded to the axis-wide largest node count.
@@ -42,25 +42,54 @@ def _pad_node_dim(a: np.ndarray, k_max: int) -> np.ndarray:
     return np.pad(a, pad)
 
 
-def pack_dynamic_lanes(spec, entries, T: int):
+def pack_dynamic_lanes(spec, entries, T: int, horizon: float):
     """The dynamic tier's lanes for ``entries`` (dynamic `ClusterSpec`s)
-    of ``spec`` over T traces: entry-major, then trace, capacity, beta.
-    Returns the routers (distinct, in entry order) and the lane columns
-    ``trace_ix``, ``cap_mask`` (L, K, C) over the widest entry and
-    largest node, ``n_nodes``, ``seeds``, ``delays`` (L, K), ``router_ix``
-    and ``beta_ix`` (into the beta axis), numpy."""
+    of ``spec`` over T traces of arrivals up to ``horizon``: entry-major,
+    then trace, capacity, beta. Returns the routers (distinct, in entry
+    order) and the lane columns ``trace_ix``, ``cap_mask`` (L, K, C) over
+    the widest entry and largest node, ``n_nodes``, ``seeds``, ``delays``
+    (L, K), ``router_ix`` and ``beta_ix`` (into the beta axis), numpy;
+    when an entry has churn, ``churn_t`` (L, K, E), and when one has a
+    delay schedule, ``dtimes`` / ``dvals`` (L, K, D) and ``dper`` (L, K),
+    each padded to the widest entry (`BIG` toggle times, `BIG` step
+    times, the last step's value); a lane without churn or a schedule
+    gets all-`BIG` toggles and one step holding its constant delays."""
+    from repro_torch.cluster.spec import BIG
     B = 1 if spec.betas is None else len(spec.betas)
     Kx = max(e.n_nodes for e in entries)
     C = max(max(e.node_caps(c)) for e in entries for c in spec.capacities)
+    # each entry's lowerings over [0, horizon], as the JAX runner makes
+    # them: the churn operand, the delay schedules, the constant delays
+    ops = [(e.churn_operand(horizon), e.delay_ops(), e.delays())
+           for e in entries]
+    E = max((c.shape[1] for c, _, _ in ops if c is not None), default=0)
+    D = max((d[0].shape[1] for _, d, _ in ops if d is not None), default=0)
     routers = []
     cols = {k: [] for k in ("trace_ix", "cap_mask", "n_nodes", "seeds",
-                            "delays", "router_ix", "beta_ix")}
-    for e in entries:
+                            "delays", "router_ix", "beta_ix", "churn_t",
+                            "dtimes", "dvals", "dper")}
+    for e, (churn, dops, consts) in zip(entries, ops):
         r = e.get_router()
         if r not in routers:
             routers.append(r)
+        K = e.n_nodes
         delays = np.zeros((Kx,), np.float64)
-        delays[:e.n_nodes] = e.delays()
+        delays[:K] = consts
+        churn_t = np.full((Kx, E), BIG, np.float64)
+        if churn is not None:
+            churn_t[:K, :churn.shape[1]] = churn
+        dtimes = np.full((Kx, D), BIG, np.float64)
+        dvals = np.zeros((Kx, D), np.float64)
+        dper = np.zeros((Kx,), np.float64)
+        if D:
+            dtimes[:, 0] = 0.0
+            dvals[:] = delays[:, None]
+        if dops is not None:
+            dt, dv, dp = dops
+            dtimes[:K, :dt.shape[1]] = dt
+            dvals[:K, :dv.shape[1]] = dv
+            dvals[:K, dv.shape[1]:] = dv[:, -1:]
+            dper[:K] = dp
         for t in range(T):
             for c in spec.capacities:
                 mask = np.zeros((Kx, C), bool)
@@ -74,9 +103,42 @@ def pack_dynamic_lanes(spec, entries, T: int):
                     cols["delays"].append(delays)
                     cols["router_ix"].append(routers.index(r))
                     cols["beta_ix"].append(b)
-    lanes = {k: np.stack(v) if k in ("cap_mask", "delays")
-             else np.asarray(v, np.int64) for k, v in cols.items()}
+                    cols["churn_t"].append(churn_t)
+                    cols["dtimes"].append(dtimes)
+                    cols["dvals"].append(dvals)
+                    cols["dper"].append(dper)
+    stacked = ("cap_mask", "delays", "churn_t", "dtimes", "dvals", "dper")
+    lanes = {k: np.stack(v) if k in stacked else np.asarray(v, np.int64)
+             for k, v in cols.items()}
+    if not E:
+        del lanes["churn_t"]
+    if not D:
+        for k in ("dtimes", "dvals", "dper"):
+            del lanes[k]
     return tuple(routers), lanes
+
+
+def horizon_of(stacked: Dict[str, np.ndarray]) -> float:
+    """The traces' last arrival, over which churn toggles expand (as the
+    JAX runner's ``horizon``)."""
+    arr = stacked["arrival"]
+    return float(arr.max()) if arr.size else 0.0
+
+
+def reject_timers_under_churn(spec, entries, kernels, horizon: float):
+    """The JAX runner's refusal of a timer policy on an entry whose nodes
+    toggle over the horizon: a drained timer would fire against a dead
+    node."""
+    timered = [p for p in spec.policies if kernels[p].has_timers]
+    if not timered:
+        return
+    for e in entries:
+        if e.churn_operand(horizon) is not None:
+            raise ValueError(
+                f"cluster entry {e.label!r} declares churn, but "
+                f"policies {timered} arm per-request timers — a "
+                "drained timer would fire against a dead node. Drop "
+                "the policy or the churn schedule")
 
 
 def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
@@ -86,9 +148,11 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
     lanes of `pack_dynamic_lanes`, ``chunk`` of them a call,
     policy-major. Returns ``(calls, L)``: each call ``(policy, lo, hi,
     args, kw)`` is one ``cluster_metrics(*args, **kw)`` over lanes [lo,
-    hi) on ``device``."""
+    hi) on ``device``. Raises on a timer policy under churn."""
     T = stacked["fn_id"].shape[0]
-    routers, lanes = pack_dynamic_lanes(spec, entries, T)
+    horizon = horizon_of(stacked)
+    reject_timers_under_churn(spec, entries, kernels, horizon)
+    routers, lanes = pack_dynamic_lanes(spec, entries, T, horizon)
     f64 = torch.float64
     dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
               cold_start=f64, evict=f64)
@@ -118,6 +182,9 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                       keep_responses=spec.keep_per_request,
                       deadlines=deadlines, tl_bins=spec.tl_bins,
                       tl_bucket=spec.tl_bucket)
+            for k in ("churn_t", "dtimes", "dvals", "dper"):
+                if k in lanes:
+                    kw[k] = col(lanes[k], lo, hi)
             calls.append((policy, lo, hi, args, kw))
     return calls, L
 
@@ -233,6 +300,7 @@ def run_cluster_experiment(spec, dev: torch.device):
             n_nodes=e.n_nodes, router=e.router,
             node_capacity=(list(e.node_capacity)
                            if e.node_capacity is not None else None),
-            net_delay=list(e.delays()), seed=e.seed)
+            net_delay=list(e.delays()), seed=e.seed,
+            has_churn=e.has_churn(), var_delay=e.delay_ops() is not None)
             for e in entries])
     return ResultSet(data=data, coords=coords, meta=meta)

@@ -58,6 +58,17 @@ def build_node_streams(arrays: Dict[str, np.ndarray], cspec: ClusterSpec):
             f"build_node_streams: router {cspec.router!r} is dynamic: it "
             "routes inside the K-node event loop "
             "(repro_torch.cluster.engine), not by a partition")
+    if cspec.has_churn():
+        raise ValueError(
+            f"cluster router {cspec.router!r} is static: a fixed "
+            "assignment cannot re-route around a down node. Churn "
+            "needs a dynamic router (jsq2, cold_aware, slo_aware)")
+    if cspec.delay_ops() is not None:
+        raise ValueError(
+            f"cluster router {cspec.router!r} is static: the "
+            "pre-partition fast path only supports constant "
+            "net_delay (a time-varying DelaySchedule would unsort "
+            "the per-node sub-streams); use a dynamic router")
     fn_id = np.asarray(arrays["fn_id"])
     arrival = np.asarray(arrays["arrival"])
     N, K = len(fn_id), cspec.n_nodes

@@ -169,6 +169,9 @@ class EngineCtx:
                                   device=dev)
                        if n_live is None else n_live)
         self.deadlines = deadlines       # (F,) f64 or None
+        # (L,) bool: the lanes whose dispatch records the event's fold
+        # (None: every lane); the cluster's churn lanes fold at EXEC_DONE
+        self.fold_mask = None
         self.tl_bins = tl_bins           # timeline bins (0: off)
         # an (L,) tensor, so that the bin is a true division on every
         # device (CUDA multiplies by the reciprocal of a Python scalar)
@@ -371,9 +374,11 @@ def dispatch(ctx, s, slot, rid, t, on):
 
     The metric fold happens once at the end of the event
     (`_fold_event`): the dispatch only records (rid, completion, exec)
-    in the per-event registers ``ev_*``. At most one dispatch happens
-    per event, so the registers never clobber a live record. Exact
-    mode also writes the per-request start/completion."""
+    in the per-event registers ``ev_*`` (on the lanes of
+    ``ctx.fold_mask`` when it is set). At most one dispatch happens per
+    event, so the registers never clobber a live record. Exact mode also
+    writes the per-request start/completion (the last dispatch of a
+    request wins)."""
     e = ctx.exec_at(rid)
     comp = t + e
     m = _hit(on, slot, ctx.ar_c)
@@ -381,9 +386,10 @@ def dispatch(ctx, s, slot, rid, t, on):
     s["slot_ready"] = torch.where(m, comp[:, None], s["slot_ready"])
     s["slot_req"] = torch.where(m, rid[:, None], s["slot_req"])
     s["slot_used"] = torch.where(m, t[:, None], s["slot_used"])
-    s["ev_rid"] = torch.where(on, rid, s["ev_rid"])
-    s["ev_comp"] = torch.where(on, comp, s["ev_comp"])
-    s["ev_exec"] = torch.where(on, e, s["ev_exec"])
+    fold = on if ctx.fold_mask is None else on & ctx.fold_mask
+    s["ev_rid"] = torch.where(fold, rid, s["ev_rid"])
+    s["ev_comp"] = torch.where(fold, comp, s["ev_comp"])
+    s["ev_exec"] = torch.where(fold, e, s["ev_exec"])
     if not ctx.stream:
         col = torch.where(on, rid, ctx.N)[:, None]   # column N: dropped
         s["start"].scatter_(1, col, t[:, None])

@@ -68,7 +68,7 @@
 // option off: one test a fold.
 //
 // Layout. The lane's tallies (Tally: the counts and time sums that change
-// at most once an event) live in 72 B of static shared memory, touched by
+// at most once an event) live in 88 B of static shared memory, touched by
 // thread 0 alone. Slots live in (dynamic) shared memory: fn, req, seq, ready (8 B each),
 // state and the capacity mask (4 B), and per variant the last dispatch
 // time `used` (f64, for an LRU victim: ESFF-H, the central queue,
@@ -88,9 +88,9 @@
 // histogram lives in registers: thread t holds bins t and t + 32.
 //
 // The K-node variant (event_loop_cluster_run) replaces the XLA while_loop
-// of src/repro/cluster/engine.py::_simulate_cluster (:413) without churn,
-// the resilience layer and time-varying delay; its plain version is
-// src/repro_torch/cluster/engine.py (`simulate_cluster_eager`). A lane
+// of src/repro/cluster/engine.py::_simulate_cluster (:413) without the
+// resilience layer; its plain version is src/repro_torch/cluster/engine.py
+// (`simulate_cluster_eager`). A lane
 // carries its own topology (Params::topo: K nodes of C slots, the router
 // code, JSQ's d and the hash seed; its delays and capacity mask). The
 // hooks above run unchanged on the event's node through base offsets:
@@ -105,7 +105,8 @@
 // the in-flight chain `dnx` a node. Per event:
 //   pick    first-index argmin over [BUSY K*C | COLD K*C | timers K*F |
 //           re-arms K*F (OpenWhisk-v2) | in-flight heads K (a lane with
-//           delay) | arrival], node-major in each class
+//           delay) | orphan 1 | toggles K (a lane with churn) | arrival],
+//           node-major in each class
 //   route   at an arrival, the lane's router on the state before the
 //           event (K > 1): JSQ(d) draws d distinct nodes by a partial
 //           Fisher-Yates over mix32(rid, seed + i) and keeps the least
@@ -115,13 +116,35 @@
 //           * (q_tot + busy)), slo_aware adds the node's delay; each
 //           thread scores nodes t, t + 32, ...
 //   node    a raw arrival of a lane with delay joins its node's in-flight
-//           FIFO; the head lands at arrival + delay_k as a node arrival;
-//           the policy, the timers and the fold run on that node-local
-//           clock
+//           FIFO, stamped with its landing time arrival + delay_k (land_t);
+//           the head lands then as a node arrival; the policy, the timers
+//           and the fold run on that node-local clock. With a delay
+//           schedule (a lane flag, `var`) delay_k is the node's
+//           piecewise-constant value at the arrival (fmod for a periodic
+//           one, exact as jnp.mod on positive operands)
+//   churn   (a lane flag, `direct`: some node toggles) a toggle event a
+//           node off its row of churn_t, the cursor ch_ix (even: up).
+//           NODE_DOWN drains the node onto the lane's park FIFO (chained
+//           on nxt): its busy slots' requests by ascending rid (each
+//           thread links its slots' rids to the next larger busy rid, no
+//           sort), then its queues function-major (thread 0); then the
+//           node's slots, queues, |K^j| and COLD counts and FaasCache's
+//           clock start afresh (the estimators survive). NODE_UP re-arms
+//           the park FIFO. A REROUTE event sends the park head through
+//           the router while a node is up; routers skip down nodes and a
+//           pick of a down node goes to the lowest-id up node. An arrival
+//           while every node is down parks, and so does a landing on a
+//           node that went down in flight. Such a lane folds a
+//           completion at its EXEC_DONE, from the raw arrival; under
+//           delay a re-routed orphan is stamped at its re-send, so that
+//           it pays its new node's delay then
 // The slots of a lane (K*C <= Params::slot_cap) and the node table live in
 // shared memory; the per-(node, function) state beside them when it fits,
-// else in global scratch. `node_done` counts completions a node; in exact
-// mode with a delay, `node_of` records each request's node.
+// else in global scratch. The node table caches the landing time of each
+// in-flight head and each node's next toggle. `node_done` counts
+// completions a node; in exact mode with a delay and without churn,
+// `node_of` records each request's node; `churn_counts` a lane's toggles
+// and re-routes.
 //
 // What bounds it on an H100: the trace read once and the results
 // written once is ~1.9 MB at N = 60,000 (~0.6 us at 3.35 TB/s); the
@@ -183,9 +206,10 @@ struct Policy {
   static constexpr int node_fn_bytes =
       3 * 8 + 3 * 4 + (cold_aware ? 4 : 0) + (timers ? 5 * 8 + 2 * 4 : 0);
 };
-// a node of the K-node variant: gn, g_sum, FaasCache's clock, the delay;
-// q_tot, the in-flight head, tail and length, node_done; 4 B of padding
-constexpr int kNodeBytes = 4 * 8 + 5 * 4 + 4;
+// a node of the K-node variant: gn, g_sum, FaasCache's clock, the delay,
+// the landing time of its in-flight head, its next toggle; q_tot, the
+// in-flight head, tail and length, node_done, the toggle cursor
+constexpr int kNodeBytes = 6 * 8 + 6 * 4;
 constexpr int kLaneFnBytes = 2 * 8;
 constexpr int kMaxJsqD = 8;   // JSQ(d) on the card: d <= 8
 
@@ -268,6 +292,16 @@ struct Params {
   int32_t* links;            // (L, 3, N): nxt, tnx, dnx
   int32_t* node_done;        // (L, kmax)
   int32_t* node_of;          // (L, N) or null
+  // churn and time-varying delay: null (and 0 columns) when no lane has
+  // them; a lane with none has all-BIG toggles and one step a node
+  const double* churn_t;     // (L, kmax, n_toggle_cols) toggle times
+  int n_toggle_cols;
+  const double* dtimes;      // (L, kmax, n_steps) step times, BIG-padded
+  const double* dvals;       // (L, kmax, n_steps) step values
+  const double* dper;        // (L, kmax) periods (0: not periodic)
+  int n_steps;
+  double* land_t;            // (L, N) landing times, or null
+  int64_t* churn_counts;     // (L, 2): toggles, re-routes
 };
 
 // The lane's tallies that change at most once an event and are read only
@@ -276,7 +310,8 @@ struct Params {
 // the slot's creation sequence from `seq`). Every sum is still taken in
 // event order.
 struct Tally {
-  long long seq, cold, evict, ovf, scans, head_scans, timers;
+  long long seq, cold, evict, ovf, scans, head_scans, timers, toggles,
+      reroutes;
   double cold_t, evict_t;
 };
 __shared__ Tally tally;
@@ -299,11 +334,12 @@ struct Fns {
   int *q_len, *est_n, *k, *coldk, *tmr_pos, *arr_cnt;
 };
 
-// The node table of the K-node variant (gd: FaasCache's clock).
+// The node table of the K-node variant (gd: FaasCache's clock; land: the
+// in-flight head's landing time; ch_t: the next toggle, at cursor ch_ix).
 struct Nodes {
   long long* gn;
-  double *g_sum, *gd, *delay;
-  int *q_tot, *pend_head, *pend_tail, *pend_len, *done;
+  double *g_sum, *gd, *delay, *land, *ch_t;
+  int *q_tot, *pend_head, *pend_tail, *pend_len, *done, *ch_ix;
 };
 
 // murmur3's 32-bit finaliser over x ^ (seed * golden ratio), as
@@ -373,7 +409,15 @@ struct Lane {
   int32_t *nxt = nullptr, *tnx = nullptr, *dnx = nullptr;
   int node = 0;
   bool has_delay = false;
+  bool var = false;         // a node's delay follows a schedule
+  bool direct = false;      // churn: some node toggles
+  bool shift = false;       // responses from the node-local arrival
   double delay_k = 0.0;     // the event node's delay (CL, has_delay)
+  // churn: the park FIFO (head, tail, length, the head's eligibility) and
+  // the nodes up
+  int park_head = -1, park_tail = -1, park_len = 0, n_up = 0;
+  double park_t = kBig;
+  long long max_iters = 0;  // the stall bound
   long long next = 0, done = 0, iters = 0, stall = 0, gn = 0;
   double g_sum = 0.0, r_sum = 0.0, s_sum = 0.0, r_max = 0.0;
   double gd_clock = 0.0;    // FaasCache's GREEDY-DUAL clock
@@ -420,11 +464,14 @@ struct Lane {
       nd.g_sum = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.gd = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.delay = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.land = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.ch_t = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.q_tot = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_head = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_tail = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_len = reinterpret_cast<int*>(b); b += 4 * p.kmax;
-      nd.done = reinterpret_cast<int*>(b);
+      nd.done = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.ch_ix = reinterpret_cast<int*>(b);
       int32_t* lk = p.links + static_cast<long long>(lane) * 3 * N;
       nxt = lk;
       tnx = lk + N;
@@ -479,7 +526,7 @@ struct Lane {
 
   __device__ void init() {
     const long long tix = p.trace_ix[lane];
-    if (t == 0) tally = Tally{0, 0, 0, 0, 0, 0, 0, 0.0, 0.0};
+    if (t == 0) tally = Tally{0, 0, 0, 0, 0, 0, 0, 0, 0, 0.0, 0.0};
     for (int i = t; i < K * C; i += 32) {
       sl.fn[i] = -1;
       sl.req[i] = -1;
@@ -524,20 +571,45 @@ struct Lane {
       }
     }
     if constexpr (CL) {
-      bool delayed = false;
+      bool delayed = false, varied = false, toggles = false;
+      int width = 0;  // the lane's most toggles a node
       for (int k = t; k < K; k += 32) {
+        const long long nk = static_cast<long long>(lane) * p.kmax + k;
         nd.gn[k] = 0;
         nd.g_sum[k] = 0.0;
         nd.gd[k] = 0.0;
-        nd.delay[k] = p.delays[static_cast<long long>(lane) * p.kmax + k];
+        nd.delay[k] = p.delays[nk];
         delayed |= nd.delay[k] > 0.0;
+        varied |= p.n_steps > 1 && p.dtimes[nk * p.n_steps + 1] < kBig;
+        nd.land[k] = kBig;
+        nd.ch_t[k] = kBig;
+        if (p.n_toggle_cols > 0) {
+          const double* row = p.churn_t + nk * p.n_toggle_cols;
+          nd.ch_t[k] = row[0];
+          int n = 0;
+          for (int e = 0; e < p.n_toggle_cols; ++e) n += row[e] < kBig;
+          toggles |= n > 0;
+          width = max(width, n);
+        }
         nd.q_tot[k] = 0;
         nd.pend_head[k] = -1;
         nd.pend_tail[k] = -1;
         nd.pend_len[k] = 0;
         nd.done[k] = 0;
+        nd.ch_ix[k] = 0;
       }
-      has_delay = __any_sync(kAll, delayed);
+      var = __any_sync(kAll, varied);
+      has_delay = __any_sync(kAll, delayed) || var;
+      direct = __any_sync(kAll, toggles);
+      shift = has_delay && !direct;
+      n_up = K;
+      // the JAX package's stall guard: + (4 N + 64) K E under churn, E
+      // its toggle columns (the most toggles of a node + 1)
+      width = __reduce_max_sync(kAll, width);
+      max_iters = p.max_iters +
+                  (direct ? (4LL * N + 64) * K * (width + 1) : 0LL);
+    } else {
+      max_iters = p.max_iters;
     }
     __syncwarp();
   }
@@ -593,11 +665,30 @@ struct Lane {
     __syncwarp();
   }
 
-  // The node-local arrival of rid: + the event node's delay on a lane with
-  // one (CL), the trace's arrival otherwise.
+  // Node k's delay at time tm: its schedule's value on a lane with one
+  // (the last step at or before tm, tm taken modulo a positive period, as
+  // repro.cluster.engine._sched_delay counts it), its constant otherwise.
+  __device__ double delay_at(int k, double tm) const {
+    if (!var) return nd.delay[k];
+    const long long nk = static_cast<long long>(lane) * p.kmax + k;
+    const double per = p.dper[nk];
+    const double tt = per > 0.0 ? fmod(tm, per) : tm;
+    const double* dt = p.dtimes + nk * p.n_steps;
+    int n = 0;
+    for (int i = 0; i < p.n_steps; ++i) n += tt >= dt[i];
+    const int ix = n < 1 ? 0 : (n > p.n_steps ? p.n_steps - 1 : n - 1);
+    return p.dvals[nk * p.n_steps + ix];
+  }
+
+  // The node-local arrival of rid: + the event node's delay at the arrival
+  // on a lane with one and without churn (CL), the trace's arrival
+  // otherwise (a churn lane measures from it).
   __device__ __forceinline__ double arrival_at(long long rid) const {
     const double a = arrival[rc(rid)];
-    if constexpr (CL) return has_delay ? a + delay_k : a;
+    if constexpr (CL) {
+      if (!shift) return a;
+      return a + (var ? delay_at(node, a) : delay_k);
+    }
     return a;
   }
 
@@ -637,11 +728,12 @@ struct Lane {
         p.start[at] = tm;
         p.completion[at] = comp;
         if constexpr (CL) {
-          if (p.node_of != nullptr) p.node_of[at] = node;
+          if (p.node_of != nullptr && !direct) p.node_of[at] = node;
         }
       }
     }
     __syncwarp();
+    if (CL && direct) return;  // churn folds the completion instead
     ev_rid = rid;
     ev_comp = comp;
     ev_exec = e;
@@ -1235,19 +1327,38 @@ struct Lane {
   }
 
   // ------------------------------------------------- the K-node loop
-  // Queued plus busy usable slots of node k, on every thread.
+  // Whether node k is up (always, on a lane without churn).
+  __device__ __forceinline__ bool is_up(int k) const {
+    return !direct || (nd.ch_ix[k] & 1) == 0;
+  }
+
+  // Queued plus busy usable slots of node k, on every thread (I32_MAX for
+  // a down node).
   __device__ __forceinline__ long long node_load(int k) const {
     int b = 0;
     for (int c = t; c < C; c += 32) {
       const int i = k * C + c;
       b += sl_all.state[i] == kBusy && sl_all.cap[i];
     }
-    return static_cast<long long>(nd.q_tot[k]) + __reduce_add_sync(kAll, b);
+    const long long l =
+        static_cast<long long>(nd.q_tot[k]) + __reduce_add_sync(kAll, b);
+    return is_up(k) ? l : kI32Max;
   }
 
-  // The router's node for the arrival rid of function j, on the state
-  // before the event (every thread ends with the same node).
-  __device__ int route(long long rid, long long j) {
+  // The router's node for the request rid of function j at time tm, on
+  // the state before the event (every thread ends with the same node); a
+  // down pick goes to the lowest-id up node (0 when none is up).
+  __device__ int route(long long rid, long long j, double tm) {
+    const int k = pick_node(rid, j, tm);
+    if (!direct || is_up(k)) return k;
+    int first = INT_MAX;
+    for (int q = t; q < K; q += 32)
+      if (is_up(q)) first = min(first, q);
+    first = __reduce_min_sync(kAll, first);
+    return first == INT_MAX ? 0 : first;
+  }
+
+  __device__ int pick_node(long long rid, long long j, double tm) {
     if (K == 1) return 0;
     const int code = static_cast<int>(p.topo[lane * 5 + 2]);
     const long long seed = p.topo[lane * 5 + 4];
@@ -1317,8 +1428,8 @@ struct Lane {
            mean_j * static_cast<double>(fs_all.q_len[kf])) +
           gmean * static_cast<double>(static_cast<long long>(nd.q_tot[k]) +
                                       busy);
-      if (code == 2 && has_delay) score = score + nd.delay[k];
-      frp::keep_first_min(bw, bi, score, k);
+      if (code == 2 && has_delay) score = score + delay_at(k, tm);
+      frp::keep_first_min(bw, bi, is_up(k) ? score : kBig, k);
     }
     frp::warp_first_min(bw, bi);
     return bi;
@@ -1340,10 +1451,147 @@ struct Lane {
     on_arrival(rid, j, tm);
   }
 
+  // The landing time of rid in flight: stamped at its send.
+  __device__ __forceinline__ double landing(long long rid) const {
+    return p.land_t[static_cast<long long>(lane) * N + rc(rid)];
+  }
+
+  // Send rid to node k at time tm: it joins k's in-flight FIFO and lands
+  // at tm + k's delay then (a raw arrival's tm is its arrival).
+  __device__ void send(int k, long long rid, double tm) {
+    const double land = tm + delay_at(k, tm);
+    __syncwarp();
+    if (t == 0) {
+      p.land_t[static_cast<long long>(lane) * N + rid] = land;
+      if (nd.pend_len[k] == 0) {
+        nd.pend_head[k] = static_cast<int>(rid);
+        nd.land[k] = land;
+      } else {
+        dnx[nd.pend_tail[k]] = static_cast<int32_t>(rid);
+      }
+      nd.pend_tail[k] = static_cast<int>(rid);
+      nd.pend_len[k] += 1;
+    }
+    __syncwarp();
+  }
+
+  // Append rid to the lane's park FIFO; an empty one becomes eligible at
+  // tm.
+  __device__ void park(long long rid, double tm) {
+    __syncwarp();
+    if (t == 0 && park_len > 0) nxt[park_tail] = static_cast<int32_t>(rid);
+    __syncwarp();
+    if (park_len == 0) {
+      park_head = static_cast<int>(rid);
+      park_t = tm;
+    }
+    park_tail = static_cast<int>(rid);
+    park_len += 1;
+  }
+
+  // NODE_DOWN on the event node at tm: its busy slots' requests, by
+  // ascending rid, then its queues function-major, become the park FIFO
+  // (empty now: the node was up, so every parked request re-routed
+  // first), eligible at tm; then its slots, queues, the counts |K^j| and
+  // COLD and FaasCache's clock start afresh. Its estimators survive.
+  __device__ void drain(double tm) {
+    // each busy rid links to the next larger one: no sort
+    int nb = 0, lo = INT_MAX, hi = -1;
+    for (int c = t; c < C; c += 32) {
+      if (!(sl.state[c] == kBusy && sl.cap[c])) continue;
+      const int r = static_cast<int>(sl.req[c]);
+      ++nb;
+      lo = min(lo, r);
+      hi = max(hi, r);
+      int succ = INT_MAX;
+      for (int c2 = 0; c2 < C; ++c2) {
+        const int r2 = static_cast<int>(sl.req[c2]);
+        if (sl.state[c2] == kBusy && sl.cap[c2] && r2 > r && r2 < succ)
+          succ = r2;
+      }
+      if (succ != INT_MAX) nxt[r] = succ;
+    }
+    nb = __reduce_add_sync(kAll, nb);
+    lo = __reduce_min_sync(kAll, lo);
+    hi = __reduce_max_sync(kAll, hi);
+    // the queues: each non-empty one links from the tail of the last one
+    // before it, else from the largest busy rid
+    int head = nb > 0 ? lo : -1, tail = nb > 0 ? hi : -1;
+    __syncwarp();
+    if (t == 0) {
+      for (int f = 0; f < F; ++f) {
+        if (fs.q_len[f] <= 0) continue;
+        if (tail >= 0)
+          nxt[tail] = static_cast<int32_t>(fs.q_head_rid[f]);
+        else
+          head = static_cast<int>(fs.q_head_rid[f]);
+        tail = static_cast<int>(fs.q_tail_rid[f]);
+      }
+    }
+    head = __shfl_sync(kAll, head, 0);
+    tail = __shfl_sync(kAll, tail, 0);
+    const int n_drain = nb + nd.q_tot[node];
+    if (n_drain > 0) {
+      park_head = head;
+      park_tail = tail;
+      park_len = n_drain;
+      park_t = tm;
+    }
+    __syncwarp();
+    for (int c = t; c < C; c += 32) {
+      sl.fn[c] = -1;
+      sl.state[c] = kIdle;
+      sl.ready[c] = kBig;
+      sl.req[c] = -1;
+      sl.seq[c] = kI32Max;
+      if constexpr (P::slot_used) sl.used[c] = 0.0;
+      if constexpr (P::faas) {
+        sl.prio[c] = 0.0;
+        sl.freq[c] = 0;
+      }
+    }
+    for (int f = t; f < F; f += 32) {
+      fs.q_len[f] = 0;
+      fs.q_head_rid[f] = -1;
+      fs.q_tail_rid[f] = -1;
+      fs.k[f] = 0;
+      if constexpr (P::cold_aware) fs.coldk[f] = 0;
+    }
+    if (t == 0) nd.q_tot[node] = 0;
+    if constexpr (P::faas) gd_clock = 0.0;
+    __syncwarp();
+  }
+
+  // The event node's toggle at tm: down (drain it) or up (the park FIFO
+  // becomes eligible now).
+  __device__ void toggle(double tm) {
+    const int ci = nd.ch_ix[node];
+    const bool was_up = (ci & 1) == 0;
+    const long long nk = static_cast<long long>(lane) * p.kmax + node;
+    const double next_t =
+        p.churn_t[nk * p.n_toggle_cols + min(ci + 1, p.n_toggle_cols - 1)];
+    __syncwarp();
+    if (t == 0) {
+      nd.ch_ix[node] = ci + 1;
+      nd.ch_t[node] = next_t;
+      tally.toggles += 1;
+    }
+    __syncwarp();
+    n_up += was_up ? -1 : 1;
+    if constexpr (!P::timers) {  // the runner keeps timers off churn
+      if (was_up)
+        drain(tm);
+      else if (park_len > 0)
+        park_t = tm;
+    }
+  }
+
   __device__ void run_cluster() {
     const int KC = K * C, KF = K * F;
     const int p0 = 2 * KC + (P::timers ? 2 * KF : 0);  // in-flight heads
-    const int n_arr = p0 + (has_delay ? K : 0);
+    const int o0 = p0 + (has_delay ? K : 0);           // the park head
+    const int c0 = o0 + (direct ? 1 : 0);              // the toggles
+    const int n_arr = c0 + (direct ? K : 0);
     double t_arr = N > 0 ? arrival[0] : kBig;
     long long fn_arr = N > 0 ? fn_id[0] : 0;
     while (done < NL && stall == 0) {
@@ -1363,14 +1611,18 @@ struct Lane {
         }
       }
       if (has_delay) {
-        for (int k = t; k < K; k += 32) {
-          const double land =
-              nd.pend_len[k] > 0 ? arrival[rc(nd.pend_head[k])] + nd.delay[k]
-                                 : kBig;
-          frp::keep_first_min(w, ei, land, p0 + k);
-        }
+        for (int k = t; k < K; k += 32)
+          frp::keep_first_min(w, ei, nd.pend_len[k] > 0 ? nd.land[k] : kBig,
+                              p0 + k);
+      }
+      if (direct) {
+        for (int k = t; k < K; k += 32)
+          frp::keep_first_min(w, ei, nd.ch_t[k], c0 + k);
       }
       frp::warp_first_min(w, ei);
+      if (direct)
+        frp::keep_first_min(w, ei,
+                            park_len > 0 && n_up > 0 ? park_t : kBig, o0);
       const long long na = next;
       frp::keep_first_min(w, ei, na < NL ? t_arr : kBig, n_arr);
       if (!(w < kBig)) {
@@ -1409,6 +1661,11 @@ struct Lane {
           g_sum = g_sum + e_done;
           gn += 1;
           done += 1;
+          if (direct) {  // churn folds the completion
+            ev_rid = rid_done;
+            ev_comp = t_ev;
+            ev_exec = e_done;
+          }
         }
         on_slot(is_cold, slot, t_ev);
         iters += 1;
@@ -1418,22 +1675,45 @@ struct Lane {
         enter_node(kf / F);
         iters += 1;
         timer_event(orig, kf % F, t_ev);
-      } else if (ei < n_arr) {
-        // the head of node k's in-flight FIFO lands
+      } else if (ei < o0) {
+        // the head of node k's in-flight FIFO lands (and parks if the node
+        // went down in flight)
         enter_node(ei - p0);
         const long long rid = nd.pend_head[node];
         const long long succ = nd.pend_len[node] > 1 ? dnx[rc(rid)] : -1;
+        const double succ_land = succ >= 0 ? landing(succ) : kBig;
         __syncwarp();
         if (t == 0) {
           nd.pend_head[node] = static_cast<int>(succ);
           nd.pend_len[node] -= 1;
+          nd.land[node] = succ_land;
         }
         __syncwarp();
         iters += 1;
-        node_arrival(rid, fn_id[rc(rid)], t_ev);
-      } else if (na < NL) {
-        const int k = route(na, fn_arr);
+        if (is_up(node))
+          node_arrival(rid, fn_id[rc(rid)], t_ev);
+        else
+          park(rid, t_ev);
+      } else if (ei < c0) {
+        // re-route the park head, decided now
+        const long long rid = park_head;
+        const int k = route(rid, fn_id[rc(rid)], t_ev);
         enter_node(k);
+        const int succ = park_len > 1 ? nxt[rc(rid)] : -1;
+        park_head = succ;
+        if (park_len <= 1) park_tail = -1;
+        park_len -= 1;
+        iters += 1;
+        if (t == 0) tally.reroutes += 1;
+        if (has_delay)
+          send(k, rid, t_ev);
+        else
+          node_arrival(rid, fn_id[rc(rid)], t_ev);
+      } else if (ei < n_arr) {
+        enter_node(ei - c0);
+        iters += 1;
+        toggle(t_ev);
+      } else if (na < NL) {
         next = na + 1;
         iters += 1;
         const long long j = fn_arr;
@@ -1442,25 +1722,20 @@ struct Lane {
           t_arr = arrival[next];
           fn_arr = fn_id[next];
         }
-        if (has_delay) {
-          // in flight to node k
-          __syncwarp();
-          if (t == 0) {
-            if (nd.pend_len[k] == 0)
-              nd.pend_head[k] = static_cast<int>(na);
-            else
-              dnx[nd.pend_tail[k]] = static_cast<int32_t>(na);
-            nd.pend_tail[k] = static_cast<int>(na);
-            nd.pend_len[k] += 1;
-          }
-          __syncwarp();
+        if (direct && n_up == 0) {
+          park(na, ta);  // every node is down
         } else {
-          node_arrival(na, j, ta);
+          const int k = route(na, j, ta);
+          enter_node(k);
+          if (has_delay)
+            send(k, na, ta);  // in flight to node k
+          else
+            node_arrival(na, j, ta);
         }
       }
       fold();
       leave_node();
-      if (iters >= p.max_iters) stall = 2;
+      if (iters >= max_iters) stall = 2;
     }
   }
 
@@ -1495,6 +1770,10 @@ struct Lane {
       for (int k = t; k < p.kmax; k += 32)
         p.node_done[static_cast<long long>(lane) * p.kmax + k] =
             k < K ? nd.done[k] : 0;
+      if (t == 0) {
+        p.churn_counts[2 * static_cast<long long>(lane)] = tally.toggles;
+        p.churn_counts[2 * static_cast<long long>(lane) + 1] = tally.reroutes;
+      }
     }
   }
 };
@@ -1638,13 +1917,17 @@ extern "C" int event_loop_run(int policy, K0_ARGS, void* stream) {
 // fn_in_shared), plus each lane's topology `topo` (L, 5: K, C, router
 // code, JSQ's d, seed) and `delays` (L, kmax), the link rails `links` (L,
 // 3, N) int32, the outputs node_done (L, kmax) and node_of (L, N; null
-// unless in exact mode with a delay).
-extern "C" int event_loop_cluster_run(int policy, K0_ARGS,
-                                      const int64_t* topo,
-                                      const double* delays, int kmax,
-                                      int slot_cap, int32_t* links,
-                                      int32_t* node_done, int32_t* node_of,
-                                      void* stream) {
+// unless in exact mode with a delay); churn's toggle times `churn_t` (L,
+// kmax, n_toggle_cols) and the delay schedules `dtimes`, `dvals` (L, kmax,
+// n_steps) and `dper` (L, kmax), each null (0 columns) when no lane has
+// them, `land_t` (L, N) f64 (null unless a lane has a delay) and
+// the output churn_counts (L, 2): each lane's toggles and re-routes.
+extern "C" int event_loop_cluster_run(
+    int policy, K0_ARGS, const int64_t* topo, const double* delays,
+    int kmax, int slot_cap, int32_t* links, int32_t* node_done,
+    int32_t* node_of, const double* churn_t, int n_toggle_cols,
+    const double* dtimes, const double* dvals, const double* dper,
+    int n_steps, double* land_t, int64_t* churn_counts, void* stream) {
   Params p = params(K0_PASS);
   p.topo = topo;
   p.delays = delays;
@@ -1653,6 +1936,14 @@ extern "C" int event_loop_cluster_run(int policy, K0_ARGS,
   p.links = links;
   p.node_done = node_done;
   p.node_of = node_of;
+  p.churn_t = churn_t;
+  p.n_toggle_cols = n_toggle_cols;
+  p.dtimes = dtimes;
+  p.dvals = dvals;
+  p.dper = dper;
+  p.n_steps = n_steps;
+  p.land_t = land_t;
+  p.churn_counts = churn_counts;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (policy) {
 #define K0_LAUNCH(code, P) \

@@ -26,10 +26,11 @@ that a run over several policies can be read back policy by policy.
 
 `cluster_loop` is the K-node variant's wrapper (the dynamic cluster
 tier, `repro_torch.cluster.engine`): the same variants over lanes that
-each carry a cluster of K nodes behind a built-in dynamic router, with
-the eager K-node loop `simulate_cluster_eager` as its plain version. It
-keeps its own counts (``launches``, ``plain_calls``,
-``variant_launches``, ``last_by_variant``).
+each carry a cluster of K nodes behind a built-in dynamic router (with
+node churn and delay schedules as lane flags), with the eager K-node
+loop `simulate_cluster_eager` as its plain version. It keeps its own
+counts (``launches``, ``plain_calls``, ``variant_launches``,
+``last_by_variant``).
 """
 from __future__ import annotations
 
@@ -75,8 +76,10 @@ _I, _LL, _D = ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _ARGTYPES = ([_I] + [_P] * 10 + [_D, _D] + [_I] * 7 + [_P, _LL, _LL]
              + [_P] * 6 + [_P, _P, _I, _D, _P, _P, _P, _P] + [_P])
 # the K-node entry: the same, then topo, delays, kmax, slot_cap, links,
-# node_done, node_of, before the stream
-_CLUSTER_ARGTYPES = _ARGTYPES[:-1] + [_P, _P, _I, _I, _P, _P, _P, _P]
+# node_done, node_of, churn_t, its columns, dtimes, dvals, dper, their
+# steps, land_t, churn_counts, before the stream
+_CLUSTER_ARGTYPES = (_ARGTYPES[:-1] + [_P, _P, _I, _I, _P, _P, _P]
+                     + [_P, _I, _P, _P, _P, _I, _P, _P] + [_P])
 # the K-node variant's bytes a (node, function), by variant (its slots are
 # the single-node variant's), a lane's t_cold and t_evict rows a
 # function, a node, and JSQ's largest d on the card
@@ -84,7 +87,7 @@ CLUSTER_FN_BYTES = {"esff": 36, "esff_cold": 40, "esff_lru": 36,
                     "esff_h": 40, "fifo": 36, "sff": 36, "faascache": 36,
                     "openwhisk_v2": 84}
 CLUSTER_LANE_FN_BYTES = 16
-CLUSTER_NODE_BYTES = 56
+CLUSTER_NODE_BYTES = 72
 CLUSTER_MAX_JSQ_D = 8
 
 # the built-in kernel classes, each with its variants (`variant_of`)
@@ -393,22 +396,26 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                  cap_mask, beta, prior, *, kernel, routers, router_ix,
                  n_nodes, seeds, delays, n_fns, capacity, queue_cap,
                  stream=False, threshold=0.1, n_live=None, deadlines=None,
-                 tl_bins=0, tl_bucket=60.0):
+                 tl_bins=0, tl_bucket=60.0, churn_t=None, dtimes=None,
+                 dvals=None, dper=None):
     """Run the K-node engine over L lanes to completion under the
     built-in policy ``kernel`` and the built-in dynamic routers
     ``routers`` (`repro_torch.cluster.routers.ROUTER_CODES`).
 
     Inputs as `event_loop`, but ``cap_mask`` is (L, K, C) bool, and each
     lane's topology: ``router_ix``, ``n_nodes`` and ``seeds`` (L,) int64
-    (``n_nodes`` in [1, K]), ``delays`` (L, K) f64 >= 0. Returns
-    `cluster.engine.simulate_cluster`'s dict (``node_done`` (L, K);
-    ``node_of`` (L, N) in exact mode when a lane has a delay). CPU
-    tensors take the plain version `simulate_cluster_eager`
+    (``n_nodes`` in [1, K]), ``delays`` (L, K) f64 >= 0, and, each None
+    when no lane has it, ``churn_t`` (L, K, E) f64 and ``dtimes`` /
+    ``dvals`` (L, K, D) f64 with ``dper`` (L, K) (as `simulate_cluster`).
+    Returns `cluster.engine.simulate_cluster`'s dict (``node_done`` (L,
+    K); ``node_of`` (L, N) in exact mode when a lane has a delay; under
+    churn ``toggles`` and ``reroutes`` (L,)). CPU tensors take the plain
+    version `simulate_cluster_eager`
     (``cluster_loop.plain_calls``); CUDA tensors launch the K-node
     variant of the policy's kernel (``launches``, ``variant_launches``,
     ``last_by_variant``: each variant's last (L, 3) policy counts) or
     raise."""
-    from repro_torch.cluster.engine import (check_topology,
+    from repro_torch.cluster.engine import (Topology, check_topology,
                                             simulate_cluster_eager)
     from repro_torch.cluster.routers import router_code
     variant = variant_of(kernel)
@@ -425,7 +432,30 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             ("router_ix", router_ix, i64, (L,)), ("n_nodes", n_nodes, i64, (L,)),
             ("seeds", seeds, i64, (L,)), ("delays", delays, f64, (L, Kx))):
         _check(name, x, dt, shape, dev)
-    check_topology(n_nodes, router_ix, delays, len(routers))
+    extra = {}
+    if churn_t is not None:
+        if churn_t.dim() != 3 or churn_t.shape[2] < 1:
+            raise ValueError(f"cluster_loop: churn_t must be (L, K, E), got "
+                             f"{tuple(churn_t.shape)}")
+        extra["churn_t"] = (churn_t, (L, Kx, churn_t.shape[2]))
+    if (dtimes is None) != (dvals is None) or (dtimes is None) != (
+            dper is None):
+        raise ValueError("cluster_loop: dtimes, dvals and dper go together")
+    if dtimes is not None:
+        if dtimes.dim() != 3 or dtimes.shape[2] < 1:
+            raise ValueError(f"cluster_loop: dtimes must be (L, K, D), got "
+                             f"{tuple(dtimes.shape)}")
+        D = dtimes.shape[2]
+        extra.update(dtimes=(dtimes, (L, Kx, D)), dvals=(dvals, (L, Kx, D)),
+                     dper=(dper, (L, Kx)))
+    for name, (x, shape) in extra.items():
+        _check(name, x, f64, shape, dev)
+    check_topology(n_nodes, router_ix, delays, len(routers), dtimes, dper)
+    lanes = Topology(routers, router_ix, n_nodes, seeds, delays, cap_mask,
+                     churn_t, dtimes, dvals, dper)
+    if kernel.has_timers and lanes.any_churn:
+        raise ValueError("cluster_loop: timer-rail kernels are not "
+                         "supported under churn (rejected at the runner)")
     codes = [router_code(r) for r in routers]
     if any(d > CLUSTER_MAX_JSQ_D for c, d in codes if c == 0):
         raise ValueError(f"cluster_loop: JSQ's d must be <= "
@@ -435,7 +465,8 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               n_nodes=n_nodes, seeds=seeds, delays=delays, n_fns=F,
               capacity=C, queue_cap=queue_cap, stream=stream,
               threshold=threshold, n_live=n_live, deadlines=deadlines,
-              tl_bins=tl_bins, tl_bucket=tl_bucket)
+              tl_bins=tl_bins, tl_bucket=tl_bucket, churn_t=churn_t,
+              dtimes=dtimes, dvals=dvals, dper=dper)
     if dev.type == "cpu":
         cluster_loop.plain_calls += 1
         return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
@@ -457,10 +488,12 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     i32 = torch.int32
     links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
     node_done = torch.empty((L, Kx), dtype=i32, device=dev)
-    has_delay = (delays > 0).any(1)
-    node_of = None
-    if not stream and bool(has_delay.any()):
+    churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
+    node_of = land_t = None
+    if not stream and lanes.any_delay:
         node_of = torch.zeros((L, N), dtype=i32, device=dev)
+    if lanes.any_delay:
+        land_t = torch.zeros((L, N), dtype=f64, device=dev)
     rc = fn(VARIANTS[variant]["code"],
             *_shared_args(fn_id, arrival, exec_time, None, None, t_cold,
                           t_evict, trace_ix, cap_mask, beta, prior,
@@ -468,11 +501,17 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                           deadlines, tl_bins, tl_bucket, res),
             topo.data_ptr(), delays.data_ptr(), Kx, slot_cap,
             links.data_ptr(), node_done.data_ptr(), _ptr(node_of),
-            _build.stream_of(dev))
+            _ptr(churn_t), 0 if churn_t is None else churn_t.shape[2],
+            _ptr(dtimes), _ptr(dvals), _ptr(dper),
+            0 if dtimes is None else dtimes.shape[2], _ptr(land_t),
+            churn_counts.data_ptr(), _build.stream_of(dev))
     _build.launch_check(rc, f"event_loop_cluster_run ({variant})")
     _count(cluster_loop, variant, res.pcounts)
     out = res.outputs(stream, deadlines, tl_bins)
     out["node_done"] = node_done
+    if lanes.any_churn:
+        out["toggles"] = churn_counts[:, 0]
+        out["reroutes"] = churn_counts[:, 1]
     if node_of is not None:
         out["node_of"] = node_of
     return out

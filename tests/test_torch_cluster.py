@@ -232,11 +232,19 @@ def test_breaker_router_raises_with_its_item():
 
 @pytest.mark.parametrize("field", ("churn", "delay_schedule"))
 def test_churn_and_delay_schedules_raise_with_their_item(field):
+    """Churn and time-varying delay (ROADMAP Queue 1, item 2) run on the
+    dynamic tier only: the spec validates, and on a static router the run
+    raises, as the JAX package's does."""
+    value = {"churn": (((0.5, 1.0),), None),
+             "delay_schedule": tapi.DelaySchedule(times=(0.0, 1.0),
+                                                  values=(0.01, 0.02))}
     spec = tapi.ExperimentSpec(
         traces=[_tsrc()], device="cpu",
-        cluster=[ClusterSpec(n_nodes=2, router="hash", **{field: 1.0})])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        spec.validate()
+        cluster=[ClusterSpec(n_nodes=2, router="hash",
+                             **{field: value[field]})], **GRID)
+    spec.validate()
+    with pytest.raises(ValueError, match="static"):
+        tapi.run_experiment(spec)
 
 
 def test_cluster_spec_validation_errors():

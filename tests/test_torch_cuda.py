@@ -479,6 +479,131 @@ def test_cluster_kernel_overflow_at_queue_cap(cuda):
     assert int(cpu["overflow"][0]) > 0
 
 
+# ------------------- churn and time-varying delay on the K-node variant
+def _churn_entries(span, router):
+    """One lane a case, every case in one launch: K = 4 periodic churn
+    (nodes 1..3, staggered), churn with constant delays, churn on top of
+    a delay schedule, an all-down window at K = 2, and a lane of each
+    without churn (a schedule alone; nothing) beside them."""
+    from repro_torch.cluster import ClusterSpec, DelaySchedule, PeriodicChurn
+    per = span / 3
+
+    def periodic(k):
+        return (None,) + tuple(PeriodicChurn(per, duty=0.7, phase=i * per / k)
+                               for i in range(1, k))
+    ds = DelaySchedule(times=(0.0, per / 2), values=(0.005, 0.08), period=per)
+    win = ((0.3 * span, 0.45 * span),)
+    return [ClusterSpec(n_nodes=4, router=router, churn=periodic(4)),
+            ClusterSpec(n_nodes=3, router=router,
+                        net_delay=(0.0, 0.013, 0.027),
+                        churn=(None, ((0.3 * span, 0.6 * span),), None)),
+            ClusterSpec(n_nodes=4, router=router,
+                        net_delay=(0.0, 0.004, 0.008, 0.012),
+                        delay_schedule=(None, ds, ds, ds), churn=periodic(4)),
+            ClusterSpec(n_nodes=2, router=router, churn=(win, win)),
+            ClusterSpec(n_nodes=3, router=router, net_delay=(0.0, 0.01, 0.0),
+                        delay_schedule=(None, None, ds)),
+            ClusterSpec(n_nodes=4, router=router)]
+
+
+def _spec_run(device, a, F, entries, policy, stream, cap=8, **opt):
+    """The K-node engine over ``entries`` (port `ClusterSpec`s, one lane
+    each, ``cap`` slots a node) on the trace ``a``, lowered as the runner
+    lowers them (`pack_dynamic_lanes`), on ``device``."""
+    from types import SimpleNamespace
+    from repro_torch.cluster.engine import simulate_cluster
+    from repro_torch.cluster.runner import pack_dynamic_lanes
+    span = float(np.max(a["arrival"]))
+    routers, lanes = pack_dynamic_lanes(
+        SimpleNamespace(betas=None, capacities=(cap,)), entries, 1, span)
+    t = {k: torch.tensor(a[k], device=device)[None] for k in COLS}
+    L = len(lanes["trace_ix"])
+    col = {k: torch.tensor(v, device=device) for k, v in lanes.items()}
+    extra = {k: col[k] for k in ("churn_t", "dtimes", "dvals", "dper")
+             if k in col}
+    return simulate_cluster(
+        t["fn_id"], t["arrival"], t["exec_time"], t["cold_start"],
+        t["evict"], col["trace_ix"], col["cap_mask"],
+        torch.full((L,), POLICIES[policy].default_beta, dtype=torch.float64,
+                   device=device), 0.1, kernel=POLICIES[policy],
+        routers=routers, router_ix=col["router_ix"], n_nodes=col["n_nodes"],
+        seeds=col["seeds"], delays=col["delays"], n_fns=F,
+        capacity=lanes["cap_mask"].shape[2], queue_cap=4096, stream=stream,
+        **extra, **opt)
+
+
+CHURN_POLICIES = sorted(p for p in POLICIES if not POLICIES[p].has_timers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+@pytest.mark.parametrize("router", ["jsq2", "cold_aware", "slo_aware"])
+def test_churn_kernel_bitwise_eager(cuda, policy, router):
+    """Churn (periodic, mid-flight windows, all-down), churn with constant
+    and scheduled delays, a schedule alone and a plain lane, every
+    non-timer policy under every built-in router, in one launch: exact
+    mode, bitwise the eager K-node loop; every churn lane toggles and
+    re-routes."""
+    a = _azure(20, 300, 4)
+    entries = _churn_entries(float(a["arrival"].max()), router)
+    launches = K0.cluster_loop.launches
+    card = _spec_run(cuda, a, 20, entries, policy, False)
+    torch.cuda.synchronize()
+    assert K0.cluster_loop.launches == launches + 1
+    cpu = _spec_run("cpu", a, 20, entries, policy, False)
+    _assert_same(card, cpu, (policy, router))
+    assert (cpu["done"] == 300).all() and not cpu["stalled"].any()
+    assert cpu["node_done"].sum(1).tolist() == cpu["done"].tolist()
+    assert (cpu["toggles"][:4] > 0).all() and (cpu["reroutes"][:4] > 0).all()
+    assert (cpu["toggles"][4:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["openwhisk_v2", "esff"])
+@pytest.mark.parametrize("stream", [True, False])
+def test_delay_schedule_kernel_bitwise_eager(cuda, policy, stream):
+    """Delay schedules without churn (the timer rail on the node-local
+    clock too), jsq2 and slo_aware side by side, with the engine options:
+    bitwise the eager K-node loop."""
+    from repro_torch.cluster import ClusterSpec, DelaySchedule
+    a = _azure(20, 300, 5)
+    span = float(a["arrival"].max())
+    ds = DelaySchedule(times=(0.0, span / 8), values=(0.005, 0.08),
+                       period=span / 4)
+    entries = [ClusterSpec(n_nodes=3, router=r, net_delay=(0.0, 0.01, 0.0),
+                           delay_schedule=(None, ds, ds))
+               for r in ("jsq2", "slo_aware")]
+    opt = dict(deadlines=torch.full((20,), 0.35, dtype=torch.float64),
+               tl_bins=4, tl_bucket=span / 4)
+    card = _spec_run(cuda, a, 20, entries, policy, stream, **{
+        k: v.to(cuda) if isinstance(v, torch.Tensor) else v
+        for k, v in opt.items()})
+    cpu = _spec_run("cpu", a, 20, entries, policy, stream, **opt)
+    _assert_same(card, cpu, (policy, stream))
+    assert (cpu["done"] == 300).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["esff", "sff"])
+def test_churn_without_toggles_is_the_plain_kernel(cuda, policy):
+    """A lane whose toggle row is all BIG (no toggle over the trace) and a
+    one-step schedule run the plain K-node loop: bitwise the launch
+    without those operands, K = 1 and K = 4."""
+    from repro_torch.cluster import ClusterSpec
+    a = _azure(20, 300, 6)
+    entries = [ClusterSpec(n_nodes=1, router="jsq2"),
+               ClusterSpec(n_nodes=4, router="cold_aware")]
+    plain = _spec_run(cuda, a, 20, entries, policy, False)
+    L, K = 2, 4
+    big = torch.full((L, K, 3), E.BIG, dtype=torch.float64, device=cuda)
+    steps = torch.zeros((L, K, 1), dtype=torch.float64, device=cuda)
+    with_ops = _spec_run(cuda, a, 20, entries, policy, False, churn_t=big,
+                         dtimes=steps, dvals=steps.clone(),
+                         dper=torch.zeros((L, K), dtype=torch.float64,
+                                          device=cuda))
+    _assert_same(with_ops, {k: v.cpu() for k, v in plain.items()}, policy)
+
+
 # ------------------------------------------- the serving path's kernels
 def _bf16_or_f32(shape, dtype, seed, device):
     g = torch.Generator(device=device).manual_seed(seed)
