@@ -58,7 +58,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
                  inputs, held bitwise to each other, for every policy at
-                 N = 500.
+                 N = EAGER_N (150).
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -125,14 +125,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bitwise to the runner's; the eager K-node loop on the
                  card beside the kernel on two K = 4 churn lanes at N =
                  CLUSTER_EAGER_N (explicit windows), bitwise.
-5. ``parity``    the Fig. 5 spec at N = 2,000 (OpenWhisk-v2 at 1,000),
-                 the options spec and the static cluster's two specs at
-                 N = 2,000, the dynamic cluster's K = 4 entries (both
-                 routers, ESFF and SFF) and the churn phase's two specs
-                 (cycles scaled to SPAN / 3) at N = 1,000, on the card
-                 (K0 and its K-node variant) and on the CPU (the eager
-                 loops), bitwise on every metric; a planted one-ulp fault
-                 in ``resp_sum`` must be rejected.
+   ``resilience`` the resilience layer (failure injection, timeouts,
+                 retries with backoff, shedding, the circuit breaker; a
+                 launch flag of the K-node variant, which also runs the
+                 single node and the static tier's sub-streams as K = 1
+                 lanes): benchmarks/fig_resilience.py at full size (ESFF,
+                 jsq2 at K = 1, 4, 8 nodes of 32 / K slots, fail_prob 0,
+                 0.05, 0.15, 0.3 x no_retry, retry3, retry3_jitter,
+                 shedding at queue_cap 32768, a 0.35 s deadline: twelve
+                 specs, one launch each), its breaker row (K = 4 x 8,
+                 retry3) at fail_prob 0.15 and 0.6, and resil-tiers (the
+                 five policies without timers at C = 32 under fail_prob
+                 0.2, timeouts 2 s, RetryPolicy(3, 0.05, 1, 0.3) and
+                 shed_oldest at queue_cap 64: the single node, hash K =
+                 4 x 8, slo_aware with delays, cold_aware with
+                 fig_churn's churn: three launches a policy). Every cell
+                 bitwise `--part resilience` of
+                 scripts/cluster_expected.py, conserving its requests
+                 (done + shed + failed_exhausted == N) without a stall,
+                 the counters each spec must show above 0, a planted
+                 one-ulp fault rejected; each launch's lanes (events,
+                 retries, sheds, trips) and wall, and the heaviest
+                 fig_resilience spec's, the breaker's and resil-tiers'
+                 dynamic launches alone on the runner's operands by
+                 events (ms, us an event), held bitwise to the runner's;
+                 the eager K-node loop on the card beside the kernel (a
+                 K = 1 lane and a K = 4 lane with an all-down window
+                 under resil-tiers' faults, a K = 4 breaker lane at
+                 fail_prob 0.6; N = RESIL_EAGER_N), bitwise.
+5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 500), the options
+                 spec, the static cluster's two specs and the dynamic
+                 cluster's K = 4 entries (both routers, ESFF and SFF) at
+                 N = 1,000, the churn phase's
+                 two specs (cycles scaled to SPAN / 3) and resil-tiers
+                 (ESFF and SFF, its cycle scaled alike) at N = 500, on
+                 the card (K0 and its K-node variant) and on the CPU (the
+                 eager loops), bitwise on every metric; a planted one-ulp
+                 fault in ``resp_sum`` must be rejected.
                  The CPU sides run in six worker processes (one thread
                  each, one policy of a spec a job), started in this
                  phase, after every phase whose times are reported.
@@ -200,8 +229,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # and max_response, floats as their repr.
 EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
 # The JAX package's results for the options, static_cluster,
-# dynamic_cluster and churn phases (the engine options, a Fig. 8 row,
-# fig_cluster's two halves, fig_churn and leo-delay), made on the CPU with
+# dynamic_cluster, churn and resilience phases (the engine options, a Fig.
+# 8 row, fig_cluster's two halves, fig_churn and leo-delay,
+# fig_resilience and resil-tiers), made on the CPU with
 # (PYTHONPATH=src, JAX_PLATFORMS=cpu)
 #   python scripts/cluster_expected.py --n 60000 \
 #       --out scripts/cluster_expected.json
@@ -209,21 +239,43 @@ EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
 # its main).
 CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
                                      "cluster_expected.json")
-# the card-vs-CPU parities' N; their CPU sides run in worker processes
-# while the card's phases run
-PARITY_N = 2000
-# Fig. 5's OpenWhisk-v2 parity job runs at N = 1,000: at 2,000 its timers
-# made it the parity phase's floor (123.3 s of CPU)
-PARITY_N_OWV2 = 1000
+# the card-vs-CPU parities' N (Fig. 5's and the options'; 2,000 until the
+# resilience phase needed the room); their CPU sides run in worker
+# processes after the card's timed phases
+PARITY_N = 1000
+# Fig. 5's OpenWhisk-v2 parity job runs at N = 500: at 2,000 its timers
+# made it the parity phase's floor (123.3 s of CPU), at 1,000 it still took
+# 54 s of the smoke's run
+PARITY_N_OWV2 = 500
 # the dynamic cluster's parity: N = 1,000, K = 4 nodes of 8 slots under
 # both dynamic routers (the CPU side is the eager K-node loop)
 DYNAMIC_PARITY = dict(n_requests=1000, ks=(4,))
-# the churn parity: both churn specs at N = 1,000, their churn cycles and
-# delay swings SPAN / 3 of that trace's span, so that outages fall in it
-CHURN_PARITY_N = 1000
+# the churn parity: both churn specs at N = 500 (1,000 until the
+# resilience phase needed the room: its jobs took ~40 s of CPU each),
+# their churn cycles and delay swings SPAN / 3 of that trace's span, so
+# that outages fall in it
+CHURN_PARITY_N = 500
+# the static cluster's parity at N = 1,000 (2,000 until the resilience
+# phase needed the room: its jobs took ~46 s of CPU each)
+STATIC_PARITY_N = PARITY_N
+# the resilience parity: resil-tiers (ESFF and SFF) at N = 500, its churn
+# cycle SPAN / 3 of that trace's span
+RESIL_PARITY_N = 500
 # the K-node variant's plain version on the card: the eager K-node loop
-# at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel
-CLUSTER_EAGER_N = 100
+# at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel (100
+# until the resilience phase needed the room)
+CLUSTER_EAGER_N = 60
+# ... and in the resilience phase at this N (ESFF and SFF), and for the
+# K-node variants that only that phase runs (ESFF-H, OpenWhisk,
+# FaasCache) at RESIL_EAGER_N_OTHERS
+RESIL_EAGER_N = 30
+RESIL_EAGER_N_OTHERS = 15
+# the resilience specs whose launches are also timed alone by events
+# (each policy's): the heaviest fig_resilience spec, both breaker specs
+# and resil-tiers; every other spec's launch is timed by the host clock
+# around the runner (one launch a spec)
+RESIL_TIMED = ("fp0.3/retry3", "breaker/fp0.15", "breaker/fp0.6",
+               "resil-tiers")
 PARITY_WORKERS = 6
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
@@ -247,12 +299,13 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): every policy at N = 500 (a step
-# costs ~5-8 ms there; the smoke keeps under 450 s)
-EAGER_N = 500
+# the eager loop on the card (eager_card): every policy at N = 150 (a step
+# costs ~8-12 ms there; the smoke keeps under 450 s)
+EAGER_N = 150
 # each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
-# cold_aware, sff>, CL> of csrc/event_loop.cu (CL: the K-node variant),
-# and how its mangled name (ptxas) spells it
+# cold_aware, sff>, false> of csrc/event_loop.cu, and its K-node variant
+# event_loop_cluster_kernel<..., true>, and how their mangled names
+# (ptxas) spell them
 POLICY_ARGS = {"esff": (0, 0, 0, 0), "esff_h": (0, 1, 1, 0),
                "sff": (1, 0, 0, 1), "openwhisk": (1, 0, 0, 0),
                "faascache": (2, 0, 0, 0), "openwhisk_v2": (3, 0, 0, 0)}
@@ -1177,8 +1230,9 @@ def parity_specs(api, part, device, n_requests=None):
     (``n_requests`` overrides it; Fig. 5's OpenWhisk-v2 spec keeps
     PARITY_N_OWV2): the Fig. 5 grid (``fig5``: the five other policies,
     then OpenWhisk-v2), the options phase's spec, the static cluster's
-    two specs, the dynamic cluster's K = 4 entries, or the churn phase's
-    two specs with their cycles scaled to the trace."""
+    two specs, the dynamic cluster's K = 4 entries, the churn phase's two
+    specs with their cycles scaled to the trace, or resil-tiers (ESFF and
+    SFF) with its cycle scaled alike."""
     CE = cluster_expected()
     if part == "fig5":
         return [fig5_spec(api, n_requests or PARITY_N, device,
@@ -1198,7 +1252,14 @@ def parity_specs(api, part, device, n_requests=None):
         n = n_requests or CHURN_PARITY_N
         span = float(CE.trace(api, n).arrays()["arrival"].max())
         return CE.churn_specs(api, n, period=span / 3, device=device)
-    return CE.cluster_specs(api, n_requests or PARITY_N, device=device)
+    if part == "resilience":
+        n = n_requests or RESIL_PARITY_N
+        span = float(CE.trace(api, n).arrays()["arrival"].max())
+        tiers = dict(CE.resilience_specs(api, n, period=span / 3,
+                                         device=device))["resil-tiers"]
+        return [replace(tiers, policies=CLUSTER_POLICIES)]
+    return CE.cluster_specs(api, n_requests or STATIC_PARITY_N,
+                            device=device)
 
 
 def cpu_results(part, index, policy):
@@ -1216,14 +1277,15 @@ def cpu_results(part, index, policy):
 
 
 PARITY_PARTS = ("fig5", "options", "static_cluster", "dynamic_cluster",
-                "churn")
+                "churn", "resilience")
 
 
 def phase_parity(np, api):
-    """The five parities: at N = 2,000 the Fig. 5 grid (OpenWhisk-v2 at N
-    = 1,000), the options phase's spec and the static cluster's two
-    specs, at N = 1,000 the dynamic cluster's K = 4 entries and the churn
-    phase's two specs, each on the card (K0 and its K-node variant)
+    """The six parities: at N = 1,000 the Fig. 5 grid (OpenWhisk-v2 at N
+    = 500), the options phase's spec, the static cluster's two specs and
+    the dynamic cluster's K = 4 entries, at N = 500 the churn phase's two
+    specs and resil-tiers (ESFF and SFF), each
+    on the card (K0 and its K-node variant)
     against the CPU (the eager loops), bitwise on every metric; a planted
     one-ulp fault in one Fig. 5 lane's ``resp_sum`` must be rejected. The
     CPU sides run in PARITY_WORKERS processes (one thread each, one
@@ -1349,7 +1411,7 @@ def phase_options(torch, np, api, fs, K0, cexp, n_requests, main, main_rs):
     each), bitwise the JAX constants; the same at window=4096, bitwise
     the window=0 run; a Fig. 8 row; each policy's K0 with the options on,
     timed on the Fig. 5 inputs (main_path timed it with them off). Its
-    card-vs-CPU parity at N = 2,000 is in the parity phase."""
+    card-vs-CPU parity at N = PARITY_N is in the parity phase."""
     from repro_torch.core.policies import KERNELS
     CE = cluster_expected()
     exp = cexp["options"].get(str(n_requests))
@@ -1456,7 +1518,7 @@ def phase_static_cluster(torch, np, api, fs, K0, cexp, n_requests):
     and SFF, every (entry, node) a lane of one launch a policy and spec;
     the merged metrics and node_done bitwise the JAX constants; each
     policy's K0 alone on the packed lanes by events. Its card-vs-CPU
-    parity at N = 2,000 is in the parity phase."""
+    parity at N = STATIC_PARITY_N is in the parity phase."""
     from repro_torch.api.runner import _lower_grid
     from repro_torch.cluster.static import merge_static_lanes, static_calls
     from repro_torch.core.policies import KERNELS
@@ -1608,21 +1670,28 @@ CLUSTER_SPLIT_KEYS = ("done", "n_events", "resp_sum", "slow_sum",
                       "node_done")
 
 
-def cluster_calls(torch, spec, chunk):
-    """The runner's own K-node calls for ``spec`` (`dynamic_calls`, one a
-    policy when a chunk holds every lane) on the card, with the trace's
-    catalogue size F and length N."""
+def cluster_calls(torch, spec, chunk, entries=None):
+    """The runner's own K-node calls for ``spec``'s dynamic ``entries``
+    (all of its entries by default; `dynamic_calls`, one a policy when a
+    chunk holds every lane, with the resilience operands when the spec
+    has faults) on the card, with the trace's catalogue size F and
+    length N."""
     from repro_torch.api.runner import _lower_grid
     from repro_torch.cluster.runner import dynamic_calls
     from repro_torch.core.policies import KERNELS
     _, stacked, F, N = _lower_grid(spec)
+    rs = ()
+    if hasattr(spec, "resilience_ops"):   # a checkout with the layer
+        from repro_torch.api.runner import lower_resilience
+        stacked, rs = lower_resilience(spec, stacked, F)
+        rs = (rs,)
     dev = torch.device("cuda")
     kernels = {p: KERNELS[p] for p in spec.policies}
     betas = {p: [KERNELS[p].default_beta] for p in spec.policies}
     dl = spec.deadline_ops(F)
     dl = None if dl is None else torch.as_tensor(dl, device=dev)
-    calls, _ = dynamic_calls(spec, list(spec.cluster), stacked, F, kernels,
-                             betas, dl, dev, chunk)
+    calls, _ = dynamic_calls(spec, list(entries or spec.cluster), stacked,
+                             F, kernels, betas, dl, dev, chunk, *rs)
     return calls, stacked, F, N
 
 
@@ -1794,12 +1863,16 @@ def eager_vs_kernel(torch, K0, spec):
         rows[p] = dict(n_requests=N, entries=[e.label for e in spec.cluster],
                        plain_ms=1e3 * wall, event_steps=steps,
                        plain_ms_per_step=1e3 * wall / steps, ms=ms,
+                       max_abs_err=max(
+                           float((eager[k].double() - out[k].double()).abs()
+                                 .max()) for k in eager if k in out),
                        differs=sorted(set(eager) ^ set(out)) + [
                            k for k in eager if k in out
                            and not torch.equal(eager[k], out[k])])
-        if "toggles" in eager:
-            rows[p].update(toggles=eager["toggles"].tolist(),
-                           reroutes=eager["reroutes"].tolist())
+        for k in ("toggles", "reroutes", "retried", "shed",
+                  "breaker_trips"):
+            if k in eager:
+                rows[p][k] = eager[k].tolist()
     return rows
 
 
@@ -1887,6 +1960,214 @@ def churn_eager_spec(np, api, CE):
         traces=[src], policies=CE.CHURN["policies"],
         capacities=(sum(caps),), queue_cap=CE.CHURN["queue_cap"],
         deadlines=CE.CHURN["deadline"], cluster=entries, device="cuda")
+
+
+def resil_ops(entries, retried, completions):
+    """The resilience layer's work beyond `cluster_bound`'s per event: a
+    backoff (~10 operations) and a routing decision a retry, and the
+    outcome test and breaker window (~8) a completion."""
+    return sum(r * (10 + route_cost(e)) + 8 * c
+               for e, r, c in zip(entries, retried, completions))
+
+
+# the resilience layer's counters a cell must carry under faults
+RESIL_COUNTERS = ("done", "failed", "timed_out", "retried", "shed",
+                  "failed_exhausted")
+
+
+def resil_required(name, spec, sums):
+    """What each resilience spec must show summed over its lanes (a
+    policy's): fig_resilience with faults fails and exhausts requests
+    (and retries them under a retry policy), resil-tiers sheds, times
+    out and retries, a breaker trips."""
+    want = []
+    if name.startswith("fp") and spec.fail_prob > 0:
+        want += ["failed", "failed_exhausted"]
+        if spec.retry.max_attempts > 1:
+            want.append("retried")
+    if name == "resil-tiers":
+        want += ["shed", "timed_out", "retried"]
+    if name.startswith("breaker"):
+        want.append("breaker_trips")
+    return [k for k in want if not sums.get(k, 0) > 0]
+
+
+def tier_launches(spec):
+    """The K-node launches of one policy of ``spec`` (its lanes fit one
+    chunk): one for the single node (K = 1 lanes), one for the static
+    tier's sub-streams, one for the dynamic entries."""
+    kinds = {"none" if e is None else
+             ("dynamic" if e.get_router().dynamic else "static")
+             for e in spec.cluster}
+    return len(kinds)
+
+
+def phase_resilience(torch, np, api, fs, K0, cexp, n_requests):
+    """The resilience layer on the card (`--part resilience` of
+    scripts/cluster_expected.py): benchmarks/fig_resilience.py at full
+    size (ESFF, jsq2 at K = 1, 4, 8 nodes of 32 / K slots, fail_prob 0 to
+    0.3 x three retry policies, shedding; twelve specs of one K-node
+    launch), its breaker row at fail_prob 0.15 and 0.6, and resil-tiers
+    (the five policies that admit the layer under one set of faults, with
+    timeouts and shed_oldest, on the single node, the static tier, and
+    the dynamic tier with delay and with churn: three K-node launches a
+    policy, the single node and the static sub-streams as K = 1 lanes).
+    Every cell bitwise the JAX constants, conserving its requests
+    without a stall, each spec's counters above 0 where `resil_required`
+    says, a planted one-ulp fault rejected; each launch's lanes (events,
+    retries, sheds, trips) and bound from the runner's results, its time
+    by the runner's wall, and for RESIL_TIMED's specs each dynamic launch
+    alone on the runner's operands by events (ms, us an event), held
+    bitwise to the runner's cells; and the eager K-node loop beside the
+    kernel on the card (`resil_eager_specs`), bitwise."""
+    from repro_torch.cluster.runner import split_dynamic_lanes
+    from repro_torch.core.policies import KERNELS
+    CE = cluster_expected()
+    exp = cexp.get("resilience", {}).get(str(n_requests))
+    need(exp is not None, f"resilience: no JAX constants at N = "
+         f"{n_requests}")
+    specs, mismatch, fault, unfit, missing = [], [], None, [], []
+    for name, spec in CE.resilience_specs(api, n_requests, device="cuda"):
+        rs, wall, launches, counts = run_grid(torch, api, fs, K0, spec)
+        rs.check()
+        labels = rs.coords["cluster"]
+        check_launches("resilience", launches, {},
+                       {K0.variant_of(KERNELS[p]): tier_launches(spec)
+                        for p in spec.policies})
+        want_all = exp["cells"][name]
+        sums = {}
+        for p in spec.policies:
+            for lab in labels:
+                want = want_all[p][lab]
+                got = cell_of(np, rs, list(want), policy=p, cluster=lab)
+                mismatch += [f"{name} {p} {lab}: {m}"
+                             for m in held_exact(want, got)]
+                if (got["done"] + got["shed"] + got["failed_exhausted"]
+                        != n_requests or got["stalled"]):
+                    unfit.append(f"{name} {p} {lab}")
+                for k in RESIL_COUNTERS + ("breaker_trips",):
+                    if k in got:
+                        sums.setdefault(p, {})[k] = (
+                            sums.get(p, {}).get(k, 0) + got[k])
+                if fault is None:
+                    bad = dict(got, resp_sum=float(np.nextafter(
+                        got["resp_sum"], np.inf)))
+                    fault = held_exact(want, bad)
+            missing += [f"{name} {p}: {k}"
+                        for k in resil_required(name, spec, sums[p])]
+        dyn = [e for e in spec.cluster
+               if e is not None and e.get_router().dynamic]
+        lab = [e.label for e in dyn]
+        per = {}
+        for p in spec.policies:
+            # the dynamic launch's lanes as the runner left them
+            ev = [int(rs.value("n_events", policy=p, cluster=x))
+                  for x in lab]
+            per[p] = dict(lanes=len(ev), events_total=sum(ev),
+                          longest_lane=lab[int(np.argmax(ev))],
+                          longest_lane_events=max(ev),
+                          lane_events=dict(zip(lab, ev)),
+                          **{k: {x: int(rs.value(k, policy=p, cluster=x))
+                                 for x in lab}
+                             for k in ("done", "retried", "shed",
+                                       "breaker_trips") if k in rs.data})
+            if name not in RESIL_TIMED:
+                # the spec's one launch: its wall and policy counts are
+                # the runner's
+                per[p].update(wall_ms=1e3 * wall,
+                              us_per_event_wall=1e6 * wall / max(ev),
+                              policy_counts=counts[
+                                  f"cluster:{K0.variant_of(KERNELS[p])}"])
+        calls = (cluster_calls(torch, spec, rs.meta["lane_chunk"], dyn)[0]
+                 if name in RESIL_TIMED else ())
+        for p, _, _, cargs, ckw in calls:
+            ekw = {k: v for k, v in ckw.items() if k != "keep_responses"}
+            ms, out, pc = cluster_timed(torch, K0, cargs[:9],
+                                        dict(ekw, threshold=cargs[9]), reps=1)
+            split = split_dynamic_lanes(
+                replace(spec, cluster=tuple(dyn)), dyn,
+                {k: v.cpu().numpy() for k, v in out.items()}, 1)
+            differs = []
+            for e, m in zip(dyn, split):
+                for k in CLUSTER_SPLIT_KEYS + RESIL_COUNTERS[1:] + (
+                        "deadline_miss",):
+                    got = np.expand_dims(m[k][None], 4)
+                    want = rs.sel(policy=p, cluster=e.label)[k]
+                    if k == "node_done":
+                        want = want[..., :e.n_nodes]
+                    if not np.array_equal(got, want):
+                        differs.append(f"{e.label} {k}")
+            need(not differs, f"resilience: {name} {p}: the timed K-node "
+                 f"launch differs from the runner's in {differs}")
+            per[p].update(ms=ms, us_per_event=1e3 * ms / max(
+                out["n_events"].tolist()), policy_counts=pc,
+                held_to_runner=True)
+        for p, r in per.items():
+            b, by = cluster_bound(
+                n_requests, rs.meta["n_functions"], r["lanes"],
+                list(r["lane_events"].values()), r["policy_counts"],
+                route_ops(dyn, n_requests), 9 * n_requests,
+                resil_ops(dyn, list(r["retried"].values()),
+                          list(r["done"].values())))
+            r.update(bound_ms=b, bound_by=by)
+        specs.append(dict(spec=name, entries=labels, wall_s=wall,
+                          launches=launches, per_policy=per,
+                          sums=sums, goodput={
+                              p: {lab: rs.value("goodput", policy=p,
+                                                cluster=lab)
+                                  for lab in labels}
+                              for p in spec.policies}))
+    rows = {}
+    for eager in resil_eager_specs(np, api, CE):
+        for p, r in eager_vs_kernel(torch, K0, eager).items():
+            rows.setdefault(p, []).append(r)
+    res = dict(phase="resilience", n_requests=n_requests, specs=specs,
+               wall_s=sum(x["wall_s"] for x in specs),
+               launches=sum(x["launches"]["cluster_loop"] for x in specs),
+               eager_card=rows, bitwise_vs_jax=not mismatch,
+               mismatch=mismatch, planted_fault_caught=fault,
+               unfit_cells=unfit, counters_missing=missing)
+    emit(res)
+    need(not mismatch, "resilience: differs from the JAX package: "
+         + "; ".join(mismatch[:20]))
+    need(fault == ["resp_sum"], f"resilience: the planted one-ulp fault in "
+         f"a cell's resp_sum was not rejected alone ({fault})")
+    need(not unfit, f"resilience: cells not conserving their requests or "
+         f"stalled: {unfit}")
+    need(not missing, f"resilience: counters that must be > 0 are not: "
+         f"{missing}")
+    bad = {p: [r["differs"] for r in x if r["differs"]]
+           for p, x in rows.items()}
+    need(not any(bad.values()), f"resilience: the eager K-node loop and the "
+         f"kernel differ on the card in {bad}")
+    return res
+
+
+def resil_eager_specs(np, api, CE):
+    """The eager K-node loop's specs beside the kernel: resil-tiers'
+    faults on a K = 1 lane (the single node) and a K = 4 jsq2 lane with
+    every node down over the 30 % to 45 % quantiles of the arrivals, ESFF
+    and SFF at N = RESIL_EAGER_N and resil-tiers' three other policies at
+    N = RESIL_EAGER_N_OTHERS; and a K = 4 breaker lane at fail_prob 0.6,
+    ESFF and SFF at N = RESIL_EAGER_N."""
+    def lanes(n, policies):
+        arr = CE.trace(api, n).arrays()["arrival"]
+        q30, q45 = (float(np.quantile(arr, x)) for x in (0.3, 0.45))
+        tiers = dict(CE.resilience_specs(api, n, device="cuda"))[
+            "resil-tiers"]
+        k = CE.TIERS["n_nodes"]
+        return replace(tiers, policies=policies, cluster=(
+            api.ClusterSpec(n_nodes=1, router="jsq2"),
+            api.ClusterSpec(n_nodes=k, router="jsq2",
+                            node_capacity=(CE.TIERS["slots"],) * k,
+                            churn=(((q30, q45),),) * k)))
+    brk = dict(CE.resilience_specs(api, RESIL_EAGER_N, device="cuda"))[
+        "breaker/fp0.6"]
+    others = tuple(p for p in CE.TIERS["policies"]
+                   if p not in CLUSTER_POLICIES)
+    return [lanes(RESIL_EAGER_N, CLUSTER_POLICIES),
+            lanes(RESIL_EAGER_N_OTHERS, others),
+            replace(brk, policies=CLUSTER_POLICIES)]
 
 
 def phase_profile(torch, api, n_requests):
@@ -2821,6 +3102,8 @@ def main(argv=None) -> int:
                         api, fs, K0, cexp, args.n_requests)
         churn = timed("churn", phase_churn, torch, np, api, fs, K0, cexp,
                       args.n_requests)
+        resil = timed("resilience", phase_resilience, torch, np, api, fs, K0,
+                      cexp, args.n_requests)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -2834,7 +3117,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     lanes = kres["lanes"]
-    report = _build.BUILD_INFO.get("event_loop", {}).get("ptxas", "")
+    report = "\n".join(_build.BUILD_INFO.get(s, {}).get("ptxas", "")
+                       for s in ("event_loop",) + _build.CLUSTER_UNITS)
     kernels = []
     static_launches = {}
     for x in static["specs"]:
@@ -2891,11 +3175,13 @@ def main(argv=None) -> int:
         bound_ms=lanes["bound_ms"], bound_by=lanes["bound_by"],
         library_ms=None, check="passed",
         at="(7, 200) f64 lanes, with and without ESFF-H's coldK"))
-    dyn_launches, churn_launches = {}, {}
-    for phase, tally in ((dynamic, dyn_launches), (churn, churn_launches)):
+    dyn_launches, churn_launches, resil_launches = {}, {}, {}
+    for phase, tally in ((dynamic, dyn_launches), (churn, churn_launches),
+                         (resil, resil_launches)):
         for x in phase["specs"]:
             for v, c in x["launches"]["cluster_by_variant"].items():
                 tally[v] = tally.get(v, 0) + c
+    tiers = next(x for x in resil["specs"] if x["spec"] == "resil-tiers")
     for p in CLUSTER_POLICIES:
         v = K0.variant_of(KERNELS[p])
         big = dynamic["specs"][0]["per_policy"][p]
@@ -2912,14 +3198,17 @@ def main(argv=None) -> int:
             "(the XLA while_loop of _simulate_cluster with this policy's "
             "hooks and the dynamic routers"
             + (", K1 inline)" if v.startswith("esff") else ")"),
-            launches=dyn_launches.get(v, 0) + churn_launches.get(v, 0),
+            launches=(dyn_launches.get(v, 0) + churn_launches.get(v, 0)
+                      + resil_launches.get(v, 0)),
             launches_by_phase=dict(dynamic_cluster=dyn_launches.get(v, 0),
-                                   churn=churn_launches.get(v, 0)),
+                                   churn=churn_launches.get(v, 0),
+                                   resilience=resil_launches.get(v, 0)),
             launches_by_spec={x["spec"]:
                               x["launches"]["cluster_by_variant"].get(v, 0)
                               for x in dynamic["specs"]},
             max_abs_err=max(parity_err["dynamic_cluster"].get(p, 0.0),
-                            parity_err["churn"].get(p, 0.0)),
+                            parity_err["churn"].get(p, 0.0),
+                            parity_err["resilience"].get(p, 0.0)),
             ms=big["ms"], us_per_event=big["us_per_event"],
             longest_lane=big["longest_lane"],
             longest_lane_events=big["longest_lane_events"],
@@ -2945,11 +3234,48 @@ def main(argv=None) -> int:
                        at=f"({fc['lanes']} lanes: "
                        f"{churn['specs'][0]['entries']}, N = "
                        f"{churn['n_requests']}, F = 200)"),
+            resilience=dict(per_spec={x["spec"]: x["per_policy"][p]
+                                      for x in resil["specs"]
+                                      if p in x["per_policy"]},
+                            eager_card=resil["eager_card"][p]),
             library_ms=None,
             ptxas=ptxas_lines(report, PTXAS_NAME_CLUSTER[p]),
             check="passed",
             at=f"({big['lanes']} lanes: {dynamic['specs'][0]['entries']}, "
             f"N = {dynamic['n_requests']}, F = 200)"))
+    # the K-node variants that only the resilience phase runs (resil-tiers'
+    # three other policies): timed on its dynamic launch, their plain
+    # version the eager K-node loop beside them at N = RESIL_EAGER_N_OTHERS
+    for p in tiers["per_policy"]:
+        if p in CLUSTER_POLICIES:
+            continue
+        v = K0.variant_of(KERNELS[p])
+        r, e = tiers["per_policy"][p], resil["eager_card"][p][0]
+        kernels.append(dict(
+            name=f"event_loop_cluster[{p}]", entry="cluster_loop",
+            variant=v, route="cuda",
+            source="src/repro_torch/csrc/event_loop.cu",
+            replaces="src/repro/cluster/engine.py:413",
+            policy_kernel=POLICY_SOURCE[p], pallas=False,
+            note="engine work with no Pallas twin: the K-node variant of K0 "
+            "under the resilience layer (its single node and static tier "
+            "as K = 1 lanes)" + (", K1 inline" if v.startswith("esff")
+                                 else ""),
+            launches=resil_launches.get(v, 0),
+            launches_by_phase=dict(resilience=resil_launches.get(v, 0)),
+            max_abs_err=e["max_abs_err"], ms=r["ms"],
+            us_per_event=r["us_per_event"], longest_lane=r["longest_lane"],
+            longest_lane_events=r["longest_lane_events"],
+            plain_ms=e["plain_ms"], plain_n_requests=e["n_requests"],
+            plain_ms_per_step=e["plain_ms_per_step"], ms_at_plain_n=e["ms"],
+            plain_note=f"the eager K-node loop's run at N = "
+            f"{e['n_requests']} over {e['entries']}; ms_at_plain_n is the "
+            "kernel on those same inputs; max_abs_err is theirs",
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            ptxas=ptxas_lines(report, PTXAS_NAME_CLUSTER[p]),
+            check="passed",
+            at=f"(resil-tiers' dynamic launch, {r['lanes']} lanes, N = "
+            f"{resil['n_requests']}, F = 200)"))
     for name, source, replaces, at in SERVING_KERNELS:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)

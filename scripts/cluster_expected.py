@@ -1,10 +1,10 @@
 """Make the JAX package's constants that ``chip_smoke.py`` holds the
-port's ``options``, ``static_cluster`` and ``dynamic_cluster`` phases
-against (``scripts/cluster_expected.json``).
+port's ``options``, ``static_cluster``, ``dynamic_cluster``, ``churn``
+and ``resilience`` phases against (``scripts/cluster_expected.json``).
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/cluster_expected.py \
-        [--n 60000] [--part options fig8 static_cluster dynamic_cluster] \
-        [--out scripts/cluster_expected.json]
+        [--n 60000] [--part options fig8 static_cluster dynamic_cluster \
+        churn resilience] [--out scripts/cluster_expected.json]
 
 Each part runs `repro.api.run_experiment` on the spec that the smoke's
 phase runs through the port, and prints one JSON line a part with the
@@ -38,9 +38,23 @@ bitwise the JAX package's):
   values=(5 ms, 80 ms), period=60)``: ``jsq2`` and ``slo_aware`` without
   churn, ``slo_aware`` with fig_churn's K = 4 churn): each cell's metrics,
   ``node_done``, ``deadline_miss`` and ``slo_attainment``.
+* ``resilience``: ``benchmarks/fig_resilience.py`` at full size (ESFF,
+  ``jsq2`` at K = 1, 4, 8 nodes of 32 // K slots, fail_prob 0, 0.05,
+  0.15, 0.3 x the retry policies no_retry, retry3 and retry3_jitter,
+  ``on_overflow="shed"``, ``queue_cap`` 32768, a 0.35 s deadline,
+  fail_seed 99), its breaker row (K = 4 x 8, retry3) at fail_prob 0.15
+  and 0.6, and ``resil-tiers`` (the five policies without timers at C =
+  32, fail_prob 0.2, timeouts 2 s, ``RetryPolicy(3, 0.05, 1.0, 0.3)``,
+  ``shed_oldest`` at ``queue_cap`` 64, a 0.35 s deadline; the single
+  node, ``hash`` K = 4 x 8, ``slo_aware`` K = 4 x 8 with delays and
+  ``cold_aware`` K = 4 x 8 under fig_churn's K = 4 churn and delays):
+  each spec's cells (``[spec name][policy][cluster label]``) with
+  ``CHURN_KEYS``, the resilience counters, ``goodput`` and, on a breaker
+  entry, ``breaker_trips``.
 
 ``--out`` merges the parts into that JSON file under ``[part][str(n)]``.
-At N = 60,000 a part takes minutes of CPU (``churn``: ~6).
+At N = 60,000 a part takes minutes of CPU (``churn``: ~6; ``resilience``:
+1,657 s of wall time by its printed ``seconds``, JAX using ~2 cores).
 """
 from __future__ import annotations
 
@@ -82,7 +96,33 @@ CHURN = dict(routers=("jsq2", "cold_aware", "slo_aware"), ks=(2, 4, 8),
 LEO = dict(n_nodes=4, slots=8, net_delay=(0.0, 0.004, 0.008, 0.012),
            values=(0.005, 0.08))
 CHURN_KEYS = CLUSTER_KEYS + ("deadline_miss", "slo_attainment")
-PARTS = ("options", "fig8", "static_cluster", "dynamic_cluster", "churn")
+# benchmarks/fig_resilience.py: jsq2 at K = 1, 4, 8 nodes of AGG // K
+# slots, ESFF, one spec a (fail_prob, retry policy), shedding the arrival
+# on a full queue; retry policies as (max_attempts, base, cap, jitter).
+# Its timed breaker row (K = 4, retry3) at fail_prob 0.15, and again at
+# 0.6, where the breaker trips and re-closes many times
+RESIL = dict(router="jsq2", ks=(1, 4, 8), agg=32,
+             fail_probs=(0.0, 0.05, 0.15, 0.3),
+             retries=(("no_retry", (1, 1.0, 30.0, 0.0)),
+                      ("retry3", (3, 0.05, 1.0, 0.0)),
+                      ("retry3_jitter", (3, 0.05, 1.0, 0.3))),
+             deadline=0.35, queue_cap=1 << 15, on_overflow="shed",
+             fail_seed=99, policies=("esff",), breaker_k=4,
+             breaker_fail_probs=(0.15, 0.6))
+# every tier and non-timer policy under one set of faults: the single
+# node, the static tier (hash), slo_aware with delay and cold_aware under
+# fig_churn's K = 4 churn and delays; timeouts 2 s (49 requests of the
+# trace run longer), shedding the queue's oldest request
+TIERS = dict(policies=("esff", "esff_h", "sff", "openwhisk", "faascache"),
+             capacity=32, n_nodes=4, slots=8, queue_cap=64,
+             on_overflow="shed_oldest", deadline=0.35, fail_prob=0.2,
+             timeouts=2.0, retry=(3, 0.05, 1.0, 0.3), fail_seed=99,
+             slo_delay=(0.0, 0.002, 0.004, 0.006))
+RESIL_COUNTERS = ("failed", "timed_out", "retried", "shed",
+                  "failed_exhausted", "goodput", "breaker_trips")
+RESIL_KEYS = CHURN_KEYS + RESIL_COUNTERS
+PARTS = ("options", "fig8", "static_cluster", "dynamic_cluster", "churn",
+         "resilience")
 
 
 def trace(api, n):
@@ -179,6 +219,55 @@ def churn_specs(api, n, period=CHURN["period"], **kw):
                         leo_entries(api, period))]
 
 
+def retry_of(api, rp):
+    return api.RetryPolicy(max_attempts=rp[0], base=rp[1], cap=rp[2],
+                           jitter=rp[3])
+
+
+def resilience_specs(api, n, period=CHURN["period"], **kw):
+    """The resilience part's specs over the trace of ``n`` requests, as
+    (name, spec) pairs: fig_resilience's twelve (``fp<p>/<retry>``), the
+    two breaker specs (``breaker/fp<p>``) and ``resil-tiers`` (``period``
+    scales its churn cycle, as `churn_specs`)."""
+    src = trace(api, n)
+    R, T = RESIL, TIERS
+    common = dict(traces=[src], policies=R["policies"],
+                  capacities=(R["agg"],), queue_cap=R["queue_cap"],
+                  deadlines=R["deadline"], on_overflow=R["on_overflow"],
+                  fail_seed=R["fail_seed"], **kw)
+    out = []
+    entries = cluster_entries(api, R["ks"], R["agg"], (R["router"],))
+    for fp in R["fail_probs"]:
+        for name, rp in R["retries"]:
+            out.append((f"fp{fp}/{name}", api.ExperimentSpec(
+                cluster=entries, fail_prob=fp, retry=retry_of(api, rp),
+                **common)))
+    k = R["breaker_k"]
+    brk = [api.ClusterSpec(n_nodes=k, router="breaker",
+                           node_capacity=(R["agg"] // k,) * k)]
+    for fp in R["breaker_fail_probs"]:
+        out.append((f"breaker/fp{fp}", api.ExperimentSpec(
+            cluster=brk, fail_prob=fp,
+            retry=retry_of(api, R["retries"][1][1]), **common)))
+    k, caps = T["n_nodes"], (T["slots"],) * T["n_nodes"]
+    tiers = [None,
+             api.ClusterSpec(n_nodes=k, router="hash", node_capacity=caps),
+             api.ClusterSpec(n_nodes=k, router="slo_aware",
+                             node_capacity=caps, net_delay=T["slo_delay"]),
+             api.ClusterSpec(
+                 n_nodes=k, router="cold_aware", node_capacity=caps,
+                 net_delay=tuple(CHURN["delay_step"] * i / (k - 1)
+                                 for i in range(k)),
+                 churn=churn_of(api, k, period))]
+    out.append(("resil-tiers", api.ExperimentSpec(
+        traces=[src], policies=T["policies"], capacities=(T["capacity"],),
+        queue_cap=T["queue_cap"], deadlines=T["deadline"],
+        on_overflow=T["on_overflow"], fail_prob=T["fail_prob"],
+        timeouts=T["timeouts"], retry=retry_of(api, T["retry"]),
+        fail_seed=T["fail_seed"], cluster=tiers, **kw)))
+    return out
+
+
 def cell(rs, keys, **which):
     """One cell's metrics as Python numbers (lists for vector metrics)."""
     out = {}
@@ -198,6 +287,16 @@ def run_part(api, part, n):
         rs = api.run_experiment(fig8_spec(api, n))
         return dict(tl_bins=rs.meta["tl_bins"], **FIG8,
                     esff=cell(rs, FIG8_KEYS, policy="esff"))
+    if part == "resilience":
+        cells = {}
+        for name, spec in resilience_specs(api, n):
+            rs = api.run_experiment(spec).check()
+            keys = [k for k in RESIL_KEYS if k in rs.data]
+            labels = rs.coords["cluster"]
+            cells[name] = {p: {lab: cell(rs, keys, policy=p, cluster=lab)
+                               for lab in labels}
+                           for p in spec.policies}
+        return dict(cells=cells)
     if part == "churn":
         specs, keys = churn_specs(api, n), CHURN_KEYS
     else:

@@ -20,6 +20,7 @@ from repro_torch.api.spec import (ArrayTrace, ExperimentSpec, HeadTrace,
 from repro_torch.cluster import (ClusterSpec, DelaySchedule,
                                  PeriodicChurn, register_router,
                                  unregister_router)
+from repro_torch.core.resilience import RetryPolicy
 
 __all__ = [
     "ExperimentSpec", "TraceSource", "SyntheticTrace", "ArrayTrace",
@@ -27,5 +28,6 @@ __all__ = [
     "as_trace_source", "ResultSet", "run", "run_experiment",
     "register_policy", "unregister_policy", "get_kernel",
     "available_policies", "ClusterSpec", "PeriodicChurn",
-    "DelaySchedule", "register_router", "unregister_router",
+    "DelaySchedule", "RetryPolicy", "register_router",
+    "unregister_router",
 ]

@@ -177,18 +177,45 @@ class ResultSet:
         return named + (f"; ... {more} more" if more > 0 else "")
 
     def check(self) -> "ResultSet":
-        """Raise if any computed cell has nonzero ``overflow`` (a queue
-        overran: requests were dropped) or ``stalled`` (the event loop
-        ran out of events or iterations before draining); returns
-        self."""
+        """Raise if any computed cell is invalid; returns self.
+
+        Invalid is: nonzero ``overflow`` (a queue overran with shedding
+        disabled: requests were dropped; a shed under
+        ``on_overflow="shed"`` / ``"shed_oldest"`` is counted in ``shed``
+        by design), nonzero ``stalled`` (the event loop ran out of events
+        or iterations before draining) or, on a run with faults, a broken
+        conservation ``done + shed + failed_exhausted != n_requests``.
+        Each error names the cells by their coordinates."""
         for m in HEALTH_METRICS:
             if m not in self.data:
                 continue
             bad = (self.data[m] != 0) & self.computed
+            if not bad.any():
+                continue
+            if m == "overflow":
+                hint = ("queue overran with shedding disabled -- requests "
+                        "were dropped. Raise queue_cap, or opt into load "
+                        "shedding with ExperimentSpec(on_overflow=\"shed\" "
+                        "/ \"shed_oldest\") to count drops as `shed` by "
+                        "design")
+            else:
+                hint = ("event loop hit its iteration cap or ran out of "
+                        "events before draining -- engine invariant "
+                        "violation")
+            raise RuntimeError(
+                f"ResultSet.check: {int(bad.sum())} cell(s) with nonzero "
+                f"{m!r} ({hint}): {self._bad_cells(bad)}")
+        need = ("done", "shed", "failed_exhausted")
+        if (self.meta.get("resilience") and "n_requests" in self.meta
+                and all(k in self.data for k in need)):
+            n = int(self.meta["n_requests"])
+            tot = sum(self.data[k].astype(np.int64) for k in need)
+            bad = (tot != n) & self.computed
             if bad.any():
                 raise RuntimeError(
-                    f"ResultSet.check: {int(bad.sum())} cell(s) with "
-                    f"nonzero {m!r}: {self._bad_cells(bad)}")
+                    f"ResultSet.check: {int(bad.sum())} cell(s) break "
+                    f"conservation (done + shed + failed_exhausted != "
+                    f"n_requests={n}): {self._bad_cells(bad)}")
         return self
 
     # -------------------------------------------------------- npz io

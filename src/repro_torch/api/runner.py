@@ -18,8 +18,8 @@ import torch
 from repro_torch.api.registry import get_kernel
 from repro_torch.api.results import ResultSet
 from repro_torch.api.spec import ExperimentSpec
-from repro_torch.core.engine import (lane_chunk_for, slo_attainment,
-                                     sweep_metrics)
+from repro_torch.core.engine import (goodput, lane_chunk_for,
+                                     slo_attainment, sweep_metrics)
 from repro_torch.utils.device import resolve_device
 
 _BETA_DEFAULT = "default"
@@ -56,6 +56,29 @@ def _lower_grid(spec: ExperimentSpec):
     return sources, stacked, F, N
 
 
+def lower_resilience(spec: ExperimentSpec, stacked: Dict[str, np.ndarray],
+                     F: int):
+    """``(stacked, rs)``: the trace columns with the attempts'
+    (timeout-clipped) times in place of ``exec_time``, and
+    `ExperimentSpec.resilience_ops`; ``(stacked, None)`` when the layer
+    is off."""
+    rs = spec.resilience_ops(stacked, F)
+    if rs is None:
+        return stacked, None
+    return dict(stacked, exec_time=rs[0]), rs
+
+
+def resil_kwargs(rs, dev) -> dict:
+    """The engine keywords of the resilience operands ``rs`` on ``dev``
+    (none when ``rs`` is None): the (T, N) outcome rows and the tuple."""
+    if rs is None:
+        return {}
+    _, nfail, tmo, key, resil = rs
+    return dict(rs_nfail=torch.tensor(nfail, device=dev),
+                rs_tmo=torch.tensor(tmo, device=dev),
+                rs_key=torch.tensor(key, device=dev), resil=resil)
+
+
 def _chunk_plan(spec: ExperimentSpec, T: int, chunk: int):
     """The chunk list [(policy_index, lane_lo, lane_hi)] (policy-major;
     lanes trace-major, then capacity, then beta)."""
@@ -83,6 +106,7 @@ def result_meta(spec: ExperimentSpec, dev: torch.device, N: int, F: int,
                             else list(spec.deadlines))),
                 seeds=(list(spec.seeds) if spec.seeds is not None
                        else None),
+                resilience=spec.resilience_meta(),
                 device=str(dev),
                 device_name=(torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu"),
@@ -107,6 +131,8 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
     sources, stacked, F, N = _lower_grid(spec)
     dl = spec.deadline_ops(F)
     dl_op = None if dl is None else torch.as_tensor(dl, device=dev)
+    stacked, rs = lower_resilience(spec, stacked, F)
+    rs_kw = resil_kwargs(rs, dev)
     T = len(sources)
     C = max(spec.capacities)
     masks = np.stack([np.arange(C) < c for c in spec.capacities])
@@ -144,7 +170,7 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
             n_fns=F, capacity=C, queue_cap=spec.queue_cap,
             stream=spec.stream, keep_responses=spec.keep_per_request,
             deadlines=dl_op, window=spec.window, tl_bins=spec.tl_bins,
-            tl_bucket=spec.tl_bucket)
+            tl_bucket=spec.tl_bucket, **rs_kw)
         for k, v in out.items():
             v = v.cpu().numpy()
             if k not in flat:
@@ -156,6 +182,8 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
     if dl is not None:
         data["slo_attainment"] = slo_attainment(data["deadline_miss"],
                                                 data["done"])
+    if rs is not None:
+        data["goodput"] = goodput(data["done"], N)
     coords = dict(policy=list(spec.policies),
                   trace=_unique_labels([s.label for s in sources]),
                   capacity=list(spec.capacities),

@@ -15,13 +15,12 @@ built the same way, but only these are ported: ``traces``,
 ``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
 ``window``, ``tl_bins``, ``tl_bucket``, ``keep_per_request``,
 ``deadlines``, ``queue_cap``, ``prior``, ``threshold``, ``lane_chunk``,
-``cluster`` (static and dynamic routers, constant and time-varying
-delays, node churn) and ``meta``,
-plus the port's own ``device``. Any other field set away from its
-default fails validation with ValueError, naming the ROADMAP item that
-will port it; it is never ignored. A cluster entry naming the
-``breaker`` router validates and then raises NotImplementedError when
-the spec runs (ROADMAP Queue 1, item 3).
+``cluster`` (static and dynamic routers, the circuit breaker, constant
+and time-varying delays, node churn), the resilience layer
+(``fail_prob``, ``timeouts``, ``retry``, ``on_overflow``,
+``fail_seed``) and ``meta``, plus the port's own ``device``. Any other
+field set away from its default fails validation with ValueError,
+naming the ROADMAP item that will port it; it is never ignored.
 """
 from __future__ import annotations
 
@@ -38,10 +37,7 @@ TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 
 # fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
 _NOT_PORTED = {
-    "fail_prob": "Queue 1, item 3", "timeouts": "Queue 1, item 3",
-    "retry": "Queue 1, item 3", "on_overflow": "Queue 1, item 3",
-    "fail_seed": "Queue 1, item 3", "devices": "Queue 1, item 7",
-    "host_shard": "Queue 1, item 7",
+    "devices": "Queue 1, item 7", "host_shard": "Queue 1, item 7",
     "trace_events": "Queue 1, item 4",
 }
 
@@ -274,7 +270,18 @@ class ExperimentSpec:
     result; ``cluster`` adds a trailing axis of
     `repro_torch.cluster.ClusterSpec` topologies (``None`` entries are
     the plain single-node run). ``device`` is where the run goes: CUDA
-    unless it is ``"cpu"``."""
+    unless it is ``"cpu"``.
+
+    Resilience: ``fail_prob`` (a scalar or one value a function) fails
+    requests by a counter hash of ``fail_seed``, ``timeouts`` (seconds, a
+    scalar or one a function) kills attempts that run longer, ``retry``
+    (a `RetryPolicy`, ``RetryPolicy()`` when faults are on and it is
+    None) re-enters a failed attempt after capped exponential backoff,
+    and ``on_overflow`` is what a full queue does: ``"error"`` (drop and
+    count ``overflow``; `ResultSet.check` fails), ``"shed"`` (drop the
+    arriving request, counted in ``shed``) or ``"shed_oldest"`` (drop the
+    queue's head). With every knob at its default the layer is off and a
+    run is bitwise the run without it."""
 
     traces: Sequence = ()
     policies: Sequence[str] = ("esff",)
@@ -324,6 +331,11 @@ class ExperimentSpec:
             if isinstance(self.cluster, ClusterSpec):
                 self.cluster = (self.cluster,)
             self.cluster = tuple(self.cluster)
+        if not np.isscalar(self.fail_prob):
+            self.fail_prob = tuple(float(p) for p in self.fail_prob)
+        if self.timeouts is not None and not np.isscalar(self.timeouts):
+            self.timeouts = tuple(float(b) for b in self.timeouts)
+        self.fail_seed = int(self.fail_seed)
 
     def validate(self) -> "ExperimentSpec":
         """Raise on the first invalid or unported field; returns self."""
@@ -381,6 +393,42 @@ class ExperimentSpec:
                     raise ValueError(
                         f"ExperimentSpec: deadlines must be finite and "
                         f"> 0, got {d}")
+        from repro_torch.core.resilience import SHED_MODES, RetryPolicy
+        if self.on_overflow not in SHED_MODES:
+            raise ValueError(
+                f"ExperimentSpec: on_overflow must be one of "
+                f"{sorted(SHED_MODES)}, got {self.on_overflow!r}")
+        fp = np.atleast_1d(np.asarray(self.fail_prob, np.float64))
+        if np.any((fp < 0) | (fp > 1)) or not np.all(np.isfinite(fp)):
+            raise ValueError(
+                f"ExperimentSpec: fail_prob must be in [0, 1], got "
+                f"{self.fail_prob}")
+        if self.timeouts is not None:
+            to = np.atleast_1d(np.asarray(self.timeouts, np.float64))
+            if np.any(to <= 0) or not np.all(np.isfinite(to)):
+                raise ValueError(
+                    "ExperimentSpec: timeouts must be finite and > 0, "
+                    f"got {self.timeouts}")
+        if self.retry is not None and not isinstance(self.retry,
+                                                     RetryPolicy):
+            raise TypeError(
+                "ExperimentSpec: retry must be a RetryPolicy or None, "
+                f"got {type(self.retry).__name__}")
+        if self.resilience_active():
+            timered = [p for p in self.policies
+                       if get_kernel(p).has_timers]
+            if timered:
+                raise ValueError(
+                    f"ExperimentSpec: policies {timered} arm per-request "
+                    "timers, which the resilience layer does not support "
+                    "(a killed or retried request would leave a timer "
+                    "aimed at a stale attempt); drop the policy or the "
+                    "fail_prob/timeouts/on_overflow settings")
+        elif self.retry is not None:
+            raise ValueError(
+                "ExperimentSpec: retry= without fail_prob/timeouts/"
+                "on_overflow does nothing -- remove it or switch a fault "
+                "knob on")
         if self.cluster is not None:
             from repro_torch.cluster.spec import ClusterSpec
             if not self.cluster:
@@ -421,6 +469,65 @@ class ExperimentSpec:
                 "functions (pass one scalar or one deadline per "
                 "function)")
         return np.asarray(self.deadlines, np.float64)
+
+    # ------------------------------------------------------- resilience
+    def resilience_active(self) -> bool:
+        """Whether a fault knob leaves its default: the engines then run
+        the resilience layer; otherwise a run is bitwise the run without
+        it."""
+        fp = np.atleast_1d(np.asarray(self.fail_prob, np.float64))
+        return (bool(np.any(fp > 0)) or self.timeouts is not None
+                or self.on_overflow != "error")
+
+    def retry_policy(self):
+        """The `RetryPolicy` in force (the default one when faults are on
+        and ``retry`` is None), or None when the layer is off."""
+        from repro_torch.core.resilience import RetryPolicy
+        if not self.resilience_active():
+            return None
+        return self.retry if self.retry is not None else RetryPolicy()
+
+    def resilience_ops(self, stacked: Dict[str, np.ndarray], n_fns: int):
+        """The fault knobs lowered to the engines' operands, or None when
+        the layer is off: ``(eff_exec, n_fail, is_tmo, rid_key, resil)``,
+        the (T, N) attempt times (``min(exec, timeout)``, in place of the
+        exec operand), leading-failure counts, timeout flags and original
+        request ids (the jitter's hash key; `plan_outcomes`), and the
+        tuple ``resil`` = (max_attempts, shed mode, base, cap, jitter,
+        fail_seed)."""
+        from repro_torch.core.resilience import SHED_MODES, plan_outcomes
+        rp = self.retry_policy()
+        if rp is None:
+            return None
+        fn_id = np.asarray(stacked["fn_id"])
+        ex = np.asarray(stacked["exec_time"])
+        T, N = fn_id.shape
+        eff = np.empty((T, N), np.float64)
+        nfail = np.empty((T, N), np.int32)
+        tmo = np.empty((T, N), bool)
+        for t in range(T):
+            eff[t], nfail[t], tmo[t] = plan_outcomes(
+                fn_id[t], ex[t], fail_prob=self.fail_prob,
+                timeouts=self.timeouts, max_attempts=rp.max_attempts,
+                n_fns=n_fns, seed=self.fail_seed)
+        key = np.broadcast_to(np.arange(N, dtype=np.int32), (T, N))
+        resil = (int(rp.max_attempts), SHED_MODES[self.on_overflow],
+                 float(rp.base), float(rp.cap), float(rp.jitter),
+                 self.fail_seed)
+        return eff, nfail, tmo, np.ascontiguousarray(key), resil
+
+    def resilience_meta(self):
+        """The fault knobs as JSON-friendly values for `ResultSet.meta`
+        (None when the layer is off)."""
+        rp = self.retry_policy()
+        if rp is None:
+            return None
+        tolist = lambda v: (list(v) if isinstance(v, tuple)  # noqa: E731
+                            else v)
+        return dict(fail_prob=tolist(self.fail_prob),
+                    timeouts=tolist(self.timeouts),
+                    on_overflow=self.on_overflow, retry=list(rp.as_tuple()),
+                    fail_seed=self.fail_seed)
 
     def expanded_traces(self) -> Tuple[TraceSource, ...]:
         """The trace axis after seed expansion (seed-major per source)."""

@@ -5,16 +5,18 @@ merged exactly) and the dynamic tier (`repro_torch.cluster.engine`: K
 nodes in one event loop a lane, routed by live state: jsq2, cold_aware,
 slo_aware, with constant or time-varying (`DelaySchedule`) per-node
 network delays and node churn (`PeriodicChurn` or explicit windows:
-drain, park and re-route). Not ported: the resilience layer and its
-``breaker`` router (ROADMAP Queue 1, item 3)."""
-from repro_torch.cluster.routers import (ClusterView, DynamicRouter,
-                                         Router, StaticRouter,
+drain, park and re-route), and the resilience layer's circuit breaker
+(`BreakerRouter`, registered as ``breaker``)."""
+from repro_torch.cluster.routers import (BreakerRouter, ClusterView,
+                                         DynamicRouter, Router,
+                                         StaticRouter,
                                          available_routers, get_router,
                                          register_router,
                                          unregister_router)
 from repro_torch.cluster.spec import (ClusterSpec, DelaySchedule,
                                       PeriodicChurn)
 
-__all__ = ["ClusterSpec", "ClusterView", "DelaySchedule", "PeriodicChurn", "DynamicRouter", "Router",
-           "StaticRouter", "available_routers", "get_router",
-           "register_router", "unregister_router"]
+__all__ = ["BreakerRouter", "ClusterSpec", "ClusterView", "DelaySchedule",
+           "PeriodicChurn", "DynamicRouter", "Router", "StaticRouter",
+           "available_routers", "get_router", "register_router",
+           "unregister_router"]

@@ -1,6 +1,5 @@
 """The dynamic-routing cluster engine: K nodes in one event loop a lane
-(counterpart of `repro.cluster.engine`, its form without the resilience
-layer).
+(counterpart of `repro.cluster.engine`).
 
 A dynamic router reads live cluster state at every arrival, so the
 routing decision lives inside the event loop. The loop generalises the
@@ -47,6 +46,24 @@ lane:
   lane folds at EXEC_DONE (a drained dispatch never completes), measures
   responses from the raw arrival, and under delay stamps a re-routed
   orphan's ``land_t`` at its re-send (it pays its new node's delay then);
+* **resilience** (a call with ``resil``: failure injection, timeouts,
+  retries, shedding; `repro_torch.core.resilience`) reads each request's
+  pre-planned outcome (``rs_nfail``, ``rs_tmo``, ``rs_key``) at its
+  EXEC_DONE: the attempt counter ``att`` rises at each dispatch, and an
+  attempt succeeds iff ``att > n_fail``. Only successes count ``done``,
+  fold and count ``node_done``; a failed attempt either exhausts its
+  budget or joins the lane's retry FIFO (chained on ``nxt``, eligible
+  ``backoff`` later, never overtaking), whose head is a RETRY event
+  routed like an arrival (parked while every node is down). A push onto
+  a full queue is counted in ``ovf``, sheds the arrival, or sheds the
+  queue's head (``shed_oldest``). A lane then ends when every request is
+  terminal (``term``: done, exhausted or shed). Every lane of such a
+  call folds at EXEC_DONE and measures from the raw arrival, as a churn
+  lane does, and a drained attempt gives its attempt back;
+* **the circuit breaker** (a lane whose router is a `BreakerRouter`)
+  keeps a tumbling window of completed attempts a node (``cbr_n``,
+  ``cbr_f``) and its reopen time ``cbr_until``, updated at the node's
+  EXEC_DONE and read by the router;
 * **estimators** are node-local: each node learns from its own
   completions only, with the node's global mean, then the prior, as
   fallback.
@@ -58,7 +75,9 @@ before the event), the hooks run on it through `ClusterNodeCtx`, and the
 view is written back. A lane may have fewer nodes than the call's K (its
 ``n_nodes``): its padding nodes have no usable slot and never hold an
 event, and routers skip them. With one node and zero delay a lane is
-bitwise the single-node engine, timer policies included.
+bitwise the single-node engine, timer policies included, and under resilience
+the single-node engine's resilient run (which `engine.simulate` lowers
+onto K = 1 lanes here).
 
 `simulate_cluster` sends a built-in policy with a built-in router to the
 event-loop kernel's K-node variant (`repro_torch.kernels.event_loop.
@@ -71,10 +90,12 @@ from typing import Dict, Sequence
 
 import torch
 
-from repro_torch.cluster.routers import ClusterView, ROUTER_CODES
+from repro_torch.cluster.routers import (BreakerRouter, ClusterView,
+                                         has_device_route)
 from repro_torch.core import engine as E
 from repro_torch.core.engine import (BIG, BUSY, COLD, HIST_BINS, I32_MAX,
                                      IDLE, EngineCtx, _fold_event, _hit)
+from repro_torch.core.resilience import backoff_torch
 
 # per-node state, sliced to the event's node before the hooks run (the
 # timer and in-flight keys and the policy's extra state are added when
@@ -87,6 +108,12 @@ _NODAL_TMR = ("arr_cnt", "tmr_seq", "tmr_rid", "tmr_next", "rearm_t",
 _NODAL_PEND = ("pend_head", "pend_tail", "pend_len")
 _COUNTERS = ("next", "done", "iters", "stall", "seq", "cold", "evict",
              "ovf")
+# the resilience layer's tallies: terminal requests (done, exhausted or
+# shed), failed and timed-out attempts, retries, sheds, exhausted ones
+_RESIL_COUNTERS = ("term", "failed", "tmo", "retried", "shed", "exh")
+_RESIL_OUT = (("failed", "failed"), ("timed_out", "tmo"),
+              ("retried", "retried"), ("shed", "shed"),
+              ("failed_exhausted", "exh"))
 _SUMS = ("cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
 
@@ -110,21 +137,39 @@ class ClusterNodeCtx(EngineCtx):
     sets ``cap_mask`` (L, C), ``delay`` (L,) and, when a lane has a delay
     schedule, ``dsched`` (the event node's step times, values and
     period) before each event. Reads go to the full trace; `arrival_at`
-    is the node-local clock on a lane with delay and without churn (a
-    churn lane measures from the raw arrival); the queue and timer ops
-    work on the link rails ``nxt`` and ``tnx`` (L, N + 1) of the state,
-    whose last column takes the disabled writes."""
+    is the node-local clock on a lane with delay that is not in direct
+    mode (a churn lane, or any lane under resilience, measures from the
+    raw arrival); the queue and timer ops work on the link rails ``nxt``
+    and ``tnx`` (L, N + 1) of the state, whose last column takes the
+    disabled writes. Under resilience (``resil``, with the (T, N) outcome
+    operands ``rs``) the queue push takes the shed mode, and the trace's
+    outcome rows are read as the trace's columns are."""
 
-    def __init__(self, *, lane_delay, lane_churn, lane_var, **kw):
+    def __init__(self, *, lane_delay, lane_direct, lane_var, resil=None,
+                 rs=None, **kw):
         super().__init__(positional=False, **kw)
         self.lane_delay = lane_delay     # (L,) bool: the lane has delay
         self.lane_var = lane_var         # (L,) bool: ... a schedule
         # (L,) bool: responses from the node-local arrival
-        self.shift = lane_delay & ~lane_churn
-        if bool(lane_churn.any()):
-            self.fold_mask = ~lane_churn   # churn folds at EXEC_DONE
+        self.shift = lane_delay & ~lane_direct
+        if bool(lane_direct.any()):
+            self.fold_mask = ~lane_direct  # direct lanes fold at EXEC_DONE
         self.delay = None                # (L,) f64, the event's node's
         self.dsched = None               # its schedule rows, or None
+        self.has_resil = resil is not None
+        self.defer_completion = self.has_resil   # completion on success
+        self.shed_mode = 0 if resil is None else resil[1]
+        if rs is not None:
+            self._nf, self._tm, self._ky = (x.reshape(-1) for x in rs)
+
+    def nfail_at(self, rid):
+        return self._nf[self._rid(rid)]
+
+    def tmo_at(self, rid):
+        return self._tm[self._rid(rid)]
+
+    def key_at(self, rid):
+        return self._ky[self._rid(rid)]
 
     def node_delay(self, t):
         """The event node's delay at ``t`` (its schedule's on a lane
@@ -149,12 +194,32 @@ class ClusterNodeCtx(EngineCtx):
     def q_push(self, s, fn, rid, on):
         """Append ``rid`` to ``fn``'s queue: the link from the old tail,
         the tail, the head when the queue was empty, the length and the
-        node's total; a push onto a full backlog is dropped and counted
-        in ``ovf``. Returns whether it pushed."""
+        node's total. A push onto a full backlog is dropped and counted in
+        ``ovf``, or under resilience as the shed mode says: ``shed`` drops
+        the arrival, ``shed_oldest`` the queue's head to admit it (each
+        shed request is terminal). Returns whether it pushed."""
         q0 = self.row(s["q_len"], fn, self.F)
         full = q0 >= self.Q
-        do = on & ~full
-        was_empty = q0 == 0
+        if self.shed_mode == 2:
+            evict = on & full
+            hsucc = self.rail_at(s["nxt"], self.row(s["q_head_rid"], fn,
+                                                    self.F))
+            m = _hit(evict, fn, self.ar_f)
+            s["q_head_rid"] = torch.where(m, hsucc[:, None], s["q_head_rid"])
+            s["q_len"] = s["q_len"] - m.to(torch.int32)
+            s["q_tot"] = s["q_tot"] - evict.to(torch.int32)
+            s["shed"] = s["shed"] + evict
+            s["term"] = s["term"] + evict
+            do = on
+            was_empty = (q0 - evict.to(torch.int32)) == 0
+        else:
+            do = on & ~full
+            was_empty = q0 == 0
+            if self.shed_mode == 1:
+                s["shed"] = s["shed"] + (on & full)
+                s["term"] = s["term"] + (on & full)
+            else:
+                s["ovf"] = s["ovf"] + (on & full)
         self.link(s, "nxt", self.row(s["q_tail_rid"], fn, self.F), rid,
                   do & ~was_empty)
         s["q_head_rid"] = torch.where(_hit(do & was_empty, fn, self.ar_f),
@@ -163,7 +228,6 @@ class ClusterNodeCtx(EngineCtx):
                                       s["q_tail_rid"])
         s["q_len"] = s["q_len"] + _hit(do, fn, self.ar_f)
         s["q_tot"] = s["q_tot"] + do
-        s["ovf"] = s["ovf"] + (on & full)
         return do
 
     def q_consume_direct(self, s, fn, on):
@@ -204,7 +268,7 @@ def has_cluster_loop(kernel, routers: Sequence) -> bool:
     built-in router classes, by exact type."""
     from repro_torch.kernels import event_loop as K0
     return K0.has_device_loop(kernel) and all(
-        type(r) in ROUTER_CODES for r in routers)
+        has_device_route(r) for r in routers)
 
 
 class Topology:
@@ -214,10 +278,14 @@ class Topology:
     keeps the plain loop), under a delay schedule its (K, D) steps, values
     and periods (a lane with a second step is time-varying). A lane has
     delay when a constant delay is not zero or its delay varies, as the
-    JAX package's ``has_delay``."""
+    JAX package's ``has_delay``. A lane is in direct mode (folds at
+    EXEC_DONE, measures from the raw arrival) under churn and, in a call
+    with ``resil``, always; a lane whose router is a `BreakerRouter` keeps
+    its breaker's volume, trip point and cooldown."""
 
     def __init__(self, routers, router_ix, n_nodes, seeds, delays, cap_mask,
-                 churn_t=None, dtimes=None, dvals=None, dper=None):
+                 churn_t=None, dtimes=None, dvals=None, dper=None,
+                 resil=None):
         self.routers, self.router_ix = routers, router_ix
         self.n_nodes, self.seeds, self.delays = n_nodes, seeds, delays
         self.cap_mask = cap_mask
@@ -236,18 +304,37 @@ class Topology:
         self.any_var = bool(self.lane_var.any())
         self.lane_delay = (delays > 0).any(1) | self.lane_var
         self.any_delay = bool(self.lane_delay.any())
+        self.resil = resil
+        self.lane_direct = self.lane_churn | (resil is not None)
+        brk = [type(r) is BreakerRouter for r in routers]
+        self.any_brk = any(brk)
+        if self.any_brk:
+            def per_lane(vals, dt):
+                return torch.tensor(vals, dtype=dt, device=dev)[router_ix]
+            self.lane_brk = per_lane(brk, torch.bool)
+            self.brk_volume = per_lane(
+                [getattr(r, "volume", 1) for r in routers], torch.int64)
+            self.brk_trip_at = per_lane(
+                [getattr(r, "trip_at", 1) for r in routers], torch.int64)
+            self.brk_cooldown = per_lane(
+                [getattr(r, "cooldown", 0.0) for r in routers],
+                torch.float64)
 
     def max_events(self, N: int):
         """(L,) the events after which a lane stalls (code 2): the
         single-node bound, plus (4 N + 64) K E on a churn lane (every
         toggle may orphan a nodeful of requests), E its toggle columns as
-        the JAX package's operand has them (its most toggles + 1)."""
-        base = torch.full_like(self.n_nodes, E.max_events(N))
-        if not self.any_churn:
-            return base
-        width = (self.churn_t < BIG).sum(2).amax(1) + 1
-        return torch.where(self.lane_churn,
-                           base + (4 * N + 64) * self.n_nodes * width, base)
+        the JAX package's operand has them (its most toggles + 1); times
+        ``max_attempts`` under resilience (each request may run and
+        re-enter that often)."""
+        out = torch.full_like(self.n_nodes, E.max_events(N))
+        if self.any_churn:
+            width = (self.churn_t < BIG).sum(2).amax(1) + 1
+            out = torch.where(self.lane_churn,
+                              out + (4 * N + 64) * self.n_nodes * width, out)
+        if self.resil is not None:
+            out = out * self.resil[0]
+        return out
 
 
 def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, topo,
@@ -307,6 +394,24 @@ def _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, topo,
         s["park_t"] = full((L,), BIG, f64)
         s["toggles"] = full((L,), 0, i64)
         s["reroutes"] = full((L,), 0, i64)
+    if topo.resil is not None:
+        # the attempts started a request, its retry's eligibility, and the
+        # lane's retry FIFO (chained on ``nxt``; r_fire its head's time)
+        s["att"] = full((L, N + 1), 0, i64)
+        s["rt_t"] = full((L, N + 1), 0.0, f64)
+        s["r_head"] = full((L,), -1, i64)
+        s["r_tail"] = full((L,), -1, i64)
+        s["r_len"] = full((L,), 0, i32)
+        s["r_fire"] = full((L,), BIG, f64)
+        for k in _RESIL_COUNTERS:
+            s[k] = full((L,), 0, i64)
+    if topo.any_brk:
+        # each node's breaker: the window's attempts and failures, and its
+        # reopen time (0: closed)
+        s["cbr_n"] = full((L, Kx), 0, i64)
+        s["cbr_f"] = full((L, Kx), 0, i64)
+        s["cbr_until"] = full((L, Kx), 0.0, f64)
+        s["trips"] = full((L,), 0, i64)
     if not stream:
         for k in ("start", "completion"):
             s[k] = full((L, N + 1), -1.0, f64)
@@ -346,7 +451,8 @@ def _route(ctx, s, topo, rid, t, up):
                     node_gsum=s["g_sum"], t_cold=ctx.t_cold,
                     prior=ctx.prior, n_nodes=topo.n_nodes,
                     node_ok=topo.node_ok, seed=topo.seeds,
-                    delay_now=delay_now, up=up)
+                    delay_now=delay_now, up=up,
+                    brk_until=s.get("cbr_until"))
     j = ctx.fn_at(rid)
     k = None
     for i, r in enumerate(topo.routers):
@@ -377,6 +483,10 @@ def _drain(ctx, v, ev_down, t_ev, extra0):
                                                        I32_MAX)], 1)
     link_b = valid_b & (succ_b < I32_MAX)
     v["nxt"][lanes, torch.where(link_b, rids_b, N)] = succ_b
+    if ctx.has_resil:
+        # a drained attempt never completes: it gives its attempt back
+        at = torch.where(valid_b, rids_b, N)
+        v["att"][lanes, at] = v["att"][lanes, at] - valid_b.to(torch.int64)
     # each non-empty queue links from the tail of the last non-empty one
     # before it, else from the last busy rid
     nonempty = v["q_len"] > 0
@@ -415,6 +525,68 @@ def _drain(ctx, v, ev_down, t_ev, extra0):
         v[key] = torch.where(m, val, v[key])
 
 
+def _terminal(s, resil: bool):
+    """Each lane's requests at their end: ``done``, or under resilience
+    ``term`` (done, exhausted or shed)."""
+    return s["term"] if resil else s["done"]
+
+
+def _resil_exec_done(ctx, v, topo, rid_done, t_ev, exec_on):
+    """EXEC_DONE under resilience: the attempt succeeds iff its count
+    exceeds the request's planned failures; a failure exhausts the budget
+    or joins the lane's retry FIFO, eligible its backoff later (only an
+    empty FIFO arms the fire time). Returns the successes and the
+    failures."""
+    max_att, _, base, cap, jit, seed = topo.resil
+    att = ctx.rail_at(v["att"], rid_done)
+    ok = exec_on & (att > ctx.nfail_at(rid_done))
+    fail = exec_on & ~ok
+    exh = fail & (att >= max_att)
+    retry = fail & ~exh
+    tmo = ctx.tmo_at(rid_done)
+    v["done"] = v["done"] + ok
+    v["term"] = v["term"] + (ok | exh)
+    v["failed"] = v["failed"] + (fail & ~tmo)
+    v["tmo"] = v["tmo"] + (fail & tmo)
+    v["retried"] = v["retried"] + retry
+    v["exh"] = v["exh"] + exh
+    if not ctx.stream:
+        # an exhausted or shed request keeps completion -1
+        ctx.link(v, "completion", rid_done, t_ev, ok)
+    elig = t_ev + backoff_torch(att, ctx.key_at(rid_done), base, cap, jit,
+                                seed)
+    ctx.link(v, "rt_t", rid_done, elig, retry)
+    r_empty = v["r_len"] == 0
+    ctx.link(v, "nxt", v["r_tail"], rid_done, retry & ~r_empty)
+    v["r_head"] = torch.where(retry & r_empty, rid_done, v["r_head"])
+    v["r_tail"] = torch.where(retry, rid_done, v["r_tail"])
+    v["r_fire"] = torch.where(retry & r_empty, elig, v["r_fire"])
+    v["r_len"] = v["r_len"] + retry
+    return ok, fail
+
+
+def _breaker(v, topo, t_ev, exec_on, fail):
+    """The event node's circuit breaker at an EXEC_DONE (breaker lanes):
+    closed, it counts the attempt into its window and trips when a full
+    window's failures reach the trip point; half-open, the first attempt
+    decides (success closes, failure trips again); open, a completion is
+    a straggler and ignored."""
+    on = exec_on & topo.lane_brk
+    until0 = v["cbr_until"]
+    half = on & (until0 > 0.0) & (until0 <= t_ev)
+    closed = on & (until0 == 0.0)
+    n1 = v["cbr_n"] + closed
+    f1 = v["cbr_f"] + (closed & fail)
+    boundary = closed & (n1 >= topo.brk_volume)
+    trip = (boundary & (f1 >= topo.brk_trip_at)) | (half & fail)
+    v["cbr_until"] = torch.where(trip, t_ev + topo.brk_cooldown,
+                                 torch.where(half, 0.0, until0))
+    reset = boundary | half
+    v["cbr_n"] = torch.where(reset, 0, n1)
+    v["cbr_f"] = torch.where(reset, 0, f1)
+    v["trips"] = v["trips"] + trip
+
+
 def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     """One event for every lane: pick, route, the event node's view, the
     hooks, write-back, fold."""
@@ -425,9 +597,11 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     timers = kernel.has_timers
     cap_mask, delays = topo.cap_mask, topo.delays
     churn = topo.any_churn
+    resil = topo.resil is not None
+    direct = topo.lane_direct
     # ---- pick: first-index argmin over [busy | cold | (timers | re-arms)
-    # | (in-flight heads) | (orphan | toggles) | arrival], node-major in
-    # each class
+    # | (in-flight heads) | (orphan | toggles) | (retry) | arrival],
+    # node-major in each class
     na = s["next"]
     nl = ctx.n_live
     t_arr = torch.where(na < nl, E.EngineCtx.arrival_at(ctx, na), BIG)
@@ -451,10 +625,13 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         E_ = topo.churn_t.shape[2]
         blocks.append(topo.churn_t.gather(
             2, s["ch_ix"].clamp(0, E_ - 1)[..., None])[..., 0])
+    n_rtry = sum(b.shape[1] for b in blocks)
+    if resil:
+        blocks.append(s["r_fire"][:, None])
     cand = torch.cat(blocks + [t_arr[:, None]], dim=1)
     t_ev, ei = torch.min(cand, dim=1)
 
-    active = (s["done"] < nl) & (s["stall"] == 0)
+    active = (_terminal(s, resil) < nl) & (s["stall"] == 0)
     live = active & (t_ev < BIG)
     ev_slot = live & (ei < 2 * KC)
     is_cold = ei >= KC
@@ -462,7 +639,7 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     slot = sflat % C
     ev_arr = live & (ei == cand.shape[1] - 1) & (na < nl)
     no = torch.zeros_like(live)
-    ev_orph, ev_churn = no, no
+    ev_orph, ev_churn, ev_rtry = no, no, no
     rid_a = na.clamp(max=N - 1)
     rid_rt, t_rt = rid_a, t_arr
     if churn:
@@ -471,6 +648,11 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         # a re-routed orphan is the park head, decided at its event
         rid_rt = torch.where(ev_orph, s["park_head"].clamp(0, N - 1), rid_a)
         t_rt = torch.where(ev_orph, t_ev, t_arr)
+    if resil:
+        # ... and a retry the retry FIFO's head, at its fire time
+        ev_rtry = live & (ei == n_rtry)
+        rid_rt = torch.where(ev_rtry, s["r_head"].clamp(0, N - 1), rid_rt)
+        t_rt = torch.where(ev_rtry, t_ev, t_rt)
 
     # ---- route (read-only, on the state before the event), then the
     # event's node
@@ -501,7 +683,8 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         ctx.dsched = (topo.dtimes[lanes, k_ev], topo.dvals[lanes, k_ev],
                       topo.dper[lanes, k_ev])
 
-    # ---- slot event: release, the node's estimator, the policy hooks
+    # ---- slot event: release, the node's estimator, under resilience the
+    # attempt's outcome (and the breaker), the policy hooks
     cold_on = ev_slot & is_cold
     exec_on = ev_slot & ~is_cold
     rid_done = ctx.row(v["slot_req"], slot, C)
@@ -517,10 +700,17 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     v["est_n"] = v["est_n"] + mj
     v["g_sum"] = v["g_sum"] + torch.where(exec_on, e_done, 0.0)
     v["gn"] = v["gn"] + exec_on
-    v["done"] = v["done"] + exec_on
-    # a churn lane folds each completion (the run that survived), not
-    # each dispatch (a drained one may never complete)
-    fold_done = exec_on & topo.lane_churn
+    if resil:
+        ok_on, fail_on = _resil_exec_done(ctx, v, topo, rid_done, t_ev,
+                                          exec_on)
+    else:
+        ok_on, fail_on = exec_on, no
+        v["done"] = v["done"] + exec_on
+    if topo.any_brk:
+        _breaker(v, topo, t_ev, exec_on, fail_on)
+    # a direct lane folds each successful completion (the run that
+    # survived), not each dispatch (a drained one may never complete)
+    fold_done = ok_on & direct
     v["ev_rid"] = torch.where(fold_done, rid_done, -1)
     v["ev_comp"] = torch.where(fold_done, t_ev, 0.0)
     v["ev_exec"] = torch.where(fold_done, e_done, 0.0)
@@ -549,7 +739,9 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     # ---- churn: the node's toggle (NODE_DOWN drains it, NODE_UP re-arms
     # the park FIFO), or the re-route of the park head
     node_up = torch.ones_like(live)
+    anyup_r = torch.ones_like(live)
     if churn:
+        anyup_r = anyup
         up0 = (v["ch_ix"] & 1) == 0
         v["ch_ix"] = v["ch_ix"] + ev_churn
         _drain(ctx, v, ev_churn & up0, t_ev, extra0)
@@ -566,9 +758,22 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         v["toggles"] = v["toggles"] + ev_churn
         v["reroutes"] = v["reroutes"] + ev_orph
 
+    # ---- retry: pop the retry FIFO's head; its successor fires no
+    # earlier than now (a retry never overtakes)
+    if resil:
+        rlen0 = v["r_len"]
+        rid_y = v["r_head"]
+        succ_y = ctx.rail_at(v["nxt"], rid_y)
+        v["r_head"] = torch.where(ev_rtry, succ_y, rid_y)
+        v["r_tail"] = torch.where(ev_rtry & (rlen0 <= 1), -1, v["r_tail"])
+        v["r_len"] = rlen0 - ev_rtry.to(torch.int32)
+        nfire = torch.maximum(ctx.rail_at(v["rt_t"], succ_y), t_ev)
+        v["r_fire"] = torch.where(ev_rtry, torch.where(rlen0 > 1, nfire, BIG),
+                                  v["r_fire"])
+
     # ---- node arrival: the in-flight head lands (a lane with delay: on a
-    # down node it parks instead), or the raw arrival or the re-routed
-    # orphan arrives at once (a lane without)
+    # down node it parks instead), or the raw arrival, the re-routed
+    # orphan or the retry arrives at once (a lane without)
     at_once = ~ctx.lane_delay
     rid_na, t_na = rid_a, t_arr
     na_on = ev_arr & at_once
@@ -576,6 +781,10 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         rid_na = torch.where(ev_orph, rid_o, rid_a)
         t_na = torch.where(ev_orph, t_ev, t_arr)
         na_on = (na_on & anyup) | (ev_orph & at_once)
+    if resil:
+        rid_na = torch.where(ev_rtry, rid_y, rid_na)
+        t_na = torch.where(ev_rtry, t_ev, t_na)
+        na_on = na_on | (ev_rtry & at_once & anyup_r)
     if topo.any_delay:
         plen0 = v["pend_len"]
         rid_p = v["pend_head"]
@@ -595,17 +804,20 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         v["arr_cnt"] = v["arr_cnt"] + mn
     v["next"] = na + ev_arr
     v["iters"] = v["iters"] + (ev_slot | ev_timer | ev_arr | ev_pend
-                               | ev_orph | ev_churn)
+                               | ev_orph | ev_churn | ev_rtry)
     kernel.on_arrival(ctx, v, rid_na, t_na, na_on)
     if topo.any_delay:
-        # a raw arrival (or a re-routed orphan) of a lane with delay goes
-        # in flight to the router's node and lands at the send time plus
-        # the node's delay then
+        # a raw arrival (or a re-routed orphan, or a retry) of a lane with
+        # delay goes in flight to the router's node and lands at the send
+        # time plus the node's delay then
         snd = ev_arr & ctx.lane_delay
         rid_s = rid_a
         if churn:
             snd = (snd & anyup) | (ev_orph & ctx.lane_delay)
             rid_s = torch.where(ev_orph, rid_o, rid_a)
+        if resil:
+            snd = snd | (ev_rtry & ctx.lane_delay & anyup_r)
+            rid_s = torch.where(ev_rtry, rid_y, rid_s)
         ctx.link(v, "land_t", rid_s, t_ev + ctx.node_delay(t_ev), snd)
         pempty = v["pend_len"] == 0
         ctx.link(v, "dnx", v["pend_tail"], rid_s, snd & ~pempty)
@@ -614,13 +826,16 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         v["pend_len"] = v["pend_len"] + snd
         if "node_of" in v:
             ctx.link(v, "node_of", v["ev_rid"], k_ev.to(torch.int32),
-                     (v["ev_rid"] >= 0) & ~topo.lane_churn)
+                     (v["ev_rid"] >= 0) & ~direct)
     if churn:
-        # park: a fresh arrival while every node is down, or a landing on
-        # a node that went down in flight
+        # park: a fresh arrival (or a retry) while every node is down, or
+        # a landing on a node that went down in flight
         park_in = (ev_arr & ~anyup) | (ev_pend & ~node_up)
         rid_pk = torch.where(ev_pend, rid_p, rid_a) if topo.any_delay \
             else rid_a
+        if resil:
+            park_in = park_in | (ev_rtry & ~anyup)
+            rid_pk = torch.where(ev_rtry, rid_y, rid_pk)
         pk_empty = v["park_len"] == 0
         ctx.link(v, "nxt", v["park_tail"], rid_pk, park_in & ~pk_empty)
         v["park_head"] = torch.where(park_in & pk_empty, rid_pk,
@@ -636,7 +851,7 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     for key in nodal:
         s[key][lanes, k_ev] = v[key]
         v[key] = s[key]
-    v["node_done"] = v["node_done"] + _hit(exec_on, k_ev,
+    v["node_done"] = v["node_done"] + _hit(ok_on, k_ev,
                                            torch.arange(Kx, device=na.device))
     for key in ("ev_rid", "ev_comp", "ev_exec"):
         del v[key]
@@ -649,29 +864,37 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
                            capacity, queue_cap, stream=False, threshold=0.1,
                            n_live=None, deadlines=None, tl_bins=0,
                            tl_bucket=60.0, churn_t=None, dtimes=None,
-                           dvals=None, dper=None) -> Dict[str, torch.Tensor]:
+                           dvals=None, dper=None, rs_nfail=None, rs_tmo=None,
+                           rs_key=None, resil=None
+                           ) -> Dict[str, torch.Tensor]:
     """The eager K-node loop (counterpart of
-    `repro.cluster.engine._simulate_cluster` without the resilience
-    layer): `_cluster_step` over every lane, SEG steps between host
-    checks; the plain version of the event-loop kernel's K-node variant
-    and the route of every policy or router without one.
+    `repro.cluster.engine._simulate_cluster`): `_cluster_step` over every
+    lane, SEG steps between host checks; the plain version of the
+    event-loop kernel's K-node variant and the route of every policy or
+    router without one.
 
     Inputs as `simulate_cluster`. Returns the single-node engine's
     outputs plus ``node_done`` (L, K); in exact mode when a lane has
     delay, ``node_of`` (L, N), the node that served each request (0 on a
-    churn lane); under churn ``toggles`` and ``reroutes`` (L,), the
-    lane's NODE_DOWN / NODE_UP events and park-head re-routes."""
+    lane in direct mode); under churn ``toggles`` and ``reroutes`` (L,),
+    the lane's NODE_DOWN / NODE_UP events and park-head re-routes; under
+    resilience ``failed``, ``timed_out``, ``retried``, ``shed`` and
+    ``failed_exhausted`` (L,); with a `BreakerRouter` ``breaker_trips``
+    (L,)."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
     Kx = cap_mask.shape[1]
     dev = fn_id.device
     topo = Topology(routers, router_ix, n_nodes, seeds, delays, cap_mask,
-                    churn_t, dtimes, dvals, dper)
+                    churn_t, dtimes, dvals, dper, resil)
     timers = kernel.has_timers
     if timers and topo.any_churn:
         raise ValueError("timer-rail kernels are not supported under churn "
                          "(rejected at the runner)")
+    if timers and resil is not None:
+        raise ValueError("timer-rail kernels are not supported under the "
+                         "resilience layer (rejected at the runner)")
     ctx = ClusterNodeCtx(
         fn_id=fn_id, arrival=arrival, exec_time=exec_time,
         t_cold_l=t_cold[trace_ix].contiguous(),
@@ -680,18 +903,23 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
         q=queue_cap, stream=stream, threshold=float(threshold),
         n_live=n_live, deadlines=deadlines, tl_bins=tl_bins,
         tl_bucket=tl_bucket, lane_delay=topo.lane_delay,
-        lane_churn=topo.lane_churn, lane_var=topo.lane_var)
+        lane_direct=topo.lane_direct, lane_var=topo.lane_var, resil=resil,
+        rs=None if resil is None else (rs_nfail, rs_tmo, rs_key))
     s, extra = _init_state(kernel, L, Kx, C, F, N, stream, dev, timers, topo,
                            deadlines is not None, tl_bins)
     nodal = (_NODAL + (_NODAL_TMR if timers else ())
              + (_NODAL_PEND if topo.any_delay else ())
-             + (("ch_ix",) if topo.any_churn else ()) + extra)
+             + (("ch_ix",) if topo.any_churn else ())
+             + (("cbr_n", "cbr_f", "cbr_until") if topo.any_brk else ())
+             + extra)
     # each node's policy state as it starts, for a NODE_DOWN's reset
     extra0 = {k: v[0].to(dev) for k, v in kernel.extra_state(1, C, F).items()}
     max_iters = topo.max_events(N)
+    has_resil = resil is not None
 
     def running():
-        return bool(((s["done"] < ctx.n_live) & (s["stall"] == 0)).any())
+        return bool(((_terminal(s, has_resil) < ctx.n_live)
+                     & (s["stall"] == 0)).any())
 
     while running():   # one host sync per SEG events
         for _ in range(E.SEG):
@@ -714,6 +942,11 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
     if topo.any_churn:
         out["toggles"] = s["toggles"]
         out["reroutes"] = s["reroutes"]
+    if has_resil:
+        for name, key in _RESIL_OUT:
+            out[name] = s[key].to(i32)
+    if topo.any_brk:
+        out["breaker_trips"] = s["trips"].to(i32)
     if not stream:
         out["start"] = s["start"][:, :N]
         out["completion"] = s["completion"][:, :N]
@@ -727,11 +960,11 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                      routers, router_ix, n_nodes, seeds, delays, n_fns,
                      capacity, queue_cap, stream=False, seg=0, n_live=None,
                      deadlines=None, tl_bins=0, tl_bucket=60.0,
-                     churn_t=None, dtimes=None, dvals=None, dper=None
+                     churn_t=None, dtimes=None, dvals=None, dper=None,
+                     rs_nfail=None, rs_tmo=None, rs_key=None, resil=None
                      ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node engine (counterpart of
-    `repro.cluster.engine._simulate_cluster` without the resilience
-    layer).
+    `repro.cluster.engine._simulate_cluster`).
 
     Trace arrays are shared (T, ...) tensors as for `engine.simulate`;
     each lane carries its topology: ``cap_mask`` (L, K, C) bool (node k's
@@ -748,13 +981,19 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     A lane has delay when a ``delays`` entry is not zero or its delay
     varies. ``seg`` is accepted and changes nothing (the JAX package's
     segment length). Options as `engine.simulate`: ``n_live``,
-    ``deadlines``, ``tl_bins`` and ``tl_bucket``.
+    ``deadlines``, ``tl_bins`` and ``tl_bucket``. The resilience layer
+    (`ExperimentSpec.resilience_ops`): the (T, N) operands ``rs_nfail``
+    (leading failed attempts), ``rs_tmo`` (bool: the failures are
+    timeouts) and ``rs_key`` (each request's original trace id), and the
+    tuple ``resil`` = (max_attempts, shed mode, base, cap, jitter,
+    fail_seed), for every lane of the call; ``exec_time`` is then the
+    attempts' time, ``min(exec, timeout)``.
 
-    A built-in policy whose routers are all built-in goes to the
-    event-loop kernel's K-node variant (one launch a call on a card, its
-    plain version `simulate_cluster_eager` on the CPU); any other runs
-    `simulate_cluster_eager`. The route is chosen by type, never by a
-    failed build."""
+    A built-in policy whose routers are all built-in (or breakers around
+    built-ins) goes to the event-loop kernel's K-node variant (one launch
+    a call on a card, its plain version `simulate_cluster_eager` on the
+    CPU); any other runs `simulate_cluster_eager`. The route is chosen by
+    type, never by a failed build."""
     if seg < 0 or tl_bins < 0:
         raise ValueError(f"simulate_cluster: seg and tl_bins must be >= 0, "
                          f"got {seg} and {tl_bins}")
@@ -794,6 +1033,8 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
         if tuple(topo[name].shape) != shape:
             raise ValueError(f"simulate_cluster: {name} has shape "
                              f"{tuple(topo[name].shape)}, expected {shape}")
+    topo.update(resil_operands(rs_nfail, rs_tmo, rs_key, resil,
+                               tuple(fn_id.shape), dev))
     if n_live is not None:
         n_live = as_t(n_live, i64, dev).contiguous()
     kw = dict(kernel=kernel, n_fns=n_fns, capacity=capacity,
@@ -809,6 +1050,47 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if n_live is not None:
         E.check_n_live(n_live, fn_id.shape[1])
     return simulate_cluster_eager(*args, **kw)
+
+
+def resil_operands(rs_nfail, rs_tmo, rs_key, resil, shape, dev) -> dict:
+    """The resilience layer's keywords of `simulate_cluster_eager` and
+    `cluster_loop`, on ``dev``: the (T, N) = ``shape`` outcome operands
+    as int32, bool and int32, and the ``resil`` tuple; an empty dict
+    when ``resil`` is None. Raises when the operands are missing or
+    misshapen, or the tuple is not one the layer makes."""
+    ops = (rs_nfail, rs_tmo, rs_key)
+    if any((x is None) != (resil is None) for x in ops):
+        raise ValueError("simulate_cluster: resil and rs_nfail, rs_tmo, "
+                         "rs_key go together")
+    if resil is None:
+        return {}
+    check_resil(resil)
+    max_att, mode, base, cap, jit, seed = resil
+    out = dict(resil=(int(max_att), int(mode), float(base), float(cap),
+                      float(jit), int(seed)))
+    for name, x, dt in (("rs_nfail", rs_nfail, torch.int32),
+                        ("rs_tmo", rs_tmo, torch.bool),
+                        ("rs_key", rs_key, torch.int32)):
+        x = E._as_tensor(x, dt, dev).contiguous()
+        if tuple(x.shape) != shape:
+            raise ValueError(f"simulate_cluster: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        out[name] = x
+    return out
+
+
+def check_resil(resil) -> None:
+    """Raise unless ``resil`` is a tuple the layer makes: (max_attempts
+    in [1, 16], shed mode 0-2, base >= 0, cap >= 0, jitter in [0, 1),
+    fail_seed)."""
+    from repro_torch.core.resilience import MAX_ATTEMPTS, SHED_MODES
+    max_att, mode, base, cap, jit, _ = resil
+    if not (1 <= int(max_att) <= MAX_ATTEMPTS
+            and int(mode) in SHED_MODES.values() and base >= 0
+            and cap >= 0 and 0.0 <= jit < 1.0):
+        raise ValueError(f"simulate_cluster: resil {resil!r} is not "
+                         "(max_attempts in [1, 16], shed mode 0-2, base "
+                         ">= 0, cap >= 0, jitter in [0, 1), fail_seed)")
 
 
 def check_topology(n_nodes, router_ix, delays, n_routers: int, dtimes=None,
@@ -834,13 +1116,15 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                     seeds, delays, n_fns, capacity, queue_cap, stream=True,
                     keep_responses=False, n_live=None, deadlines=None,
                     seg=0, tl_bins=0, tl_bucket=60.0, churn_t=None,
-                    dtimes=None, dvals=None, dper=None
+                    dtimes=None, dvals=None, dper=None, rs_nfail=None,
+                    rs_tmo=None, rs_key=None, resil=None
                     ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node run + metric reduction (counterpart of
     `repro.cluster.engine._cluster_metrics`): `engine.sweep_metrics`'s
-    metrics plus ``node_done``. In exact mode a lane with delay and
-    without churn measures each response from the request's node-local
-    (delayed) arrival, a churn lane from the raw arrival."""
+    metrics plus ``node_done`` (and ``breaker_trips`` with a breaker). In
+    exact mode a lane with delay measures each response from the
+    request's node-local (delayed) arrival, a lane in direct mode (churn,
+    resilience) from the raw arrival."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate_cluster(
@@ -850,11 +1134,12 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
         capacity=capacity, queue_cap=queue_cap, stream=stream, seg=seg,
         n_live=n_live, deadlines=deadlines, tl_bins=tl_bins,
         tl_bucket=tl_bucket, churn_t=churn_t, dtimes=dtimes, dvals=dvals,
-        dper=dper)
+        dper=dper, rs_nfail=rs_nfail, rs_tmo=rs_tmo, rs_key=rs_key,
+        resil=resil)
     arr_l = None
     if not stream:
         arr_l = arr.to(torch.float64)[tix]
-        if "node_of" in out:
+        if "node_of" in out and resil is None:
             dev = arr.device
             topo = Topology(routers, E._as_tensor(router_ix, torch.int64,
                                                   dev),
@@ -873,9 +1158,11 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                     topo.lane_var[:, None],
                     sched_delay(arr_l, rows(topo.dtimes), rows(topo.dvals),
                                 topo.dper.gather(1, nof)), shift)
-            on = topo.lane_delay & ~topo.lane_churn
+            on = topo.lane_delay & ~topo.lane_direct
             arr_l = torch.where(on[:, None], arr_l + shift, arr_l)
     res = E.reduce_metrics(out, arr_l, fn.shape[1], n_live, stream,
-                           keep_responses)
+                           keep_responses, resil=resil is not None)
     res["node_done"] = out["node_done"]
+    if "breaker_trips" in out:
+        res["breaker_trips"] = out["breaker_trips"]
     return res

@@ -13,10 +13,9 @@ serves each request; the node's own scheduling policy decides the rest.
   loop (`repro_torch.cluster.engine`) once an arrival, on a lane-batched
   `ClusterView`. The built-ins ``jsq2`` (`JSQRouter`), ``cold_aware``
   and ``slo_aware`` also run inside the event-loop kernel's K-node
-  variant (`ROUTER_CODES`); any other `DynamicRouter` runs on the eager
-  loop. ``breaker`` (the circuit breaker of the resilience layer) is
-  registered by name and raises NotImplementedError (ROADMAP Queue 1,
-  item 3).
+  variant (`ROUTER_CODES`), and so does ``breaker``, the circuit
+  breaker of the resilience layer (`BreakerRouter`) around one of them;
+  any other `DynamicRouter` runs on the eager loop.
 
 Randomised routers draw from the counter-based `mix32` hash of the
 request id, so a decision depends only on ``(rid, seed)`` and the port
@@ -26,6 +25,8 @@ from __future__ import annotations
 
 from typing import Dict, List
 
+import math
+
 import numpy as np
 import torch
 
@@ -33,10 +34,6 @@ _M32 = 0xFFFFFFFF
 I32_MAX = 2 ** 31 - 1       # a down node's load
 _GOLD = 0x9E3779B9          # seed spreader (golden-ratio constant)
 _MIX1, _MIX2 = 0x85EBCA6B, 0xC2B2AE35   # murmur3 fmix32 constants
-
-BREAKER_NOT_PORTED = ("the circuit breaker and the resilience layer are "
-                      "not ported yet: ROADMAP Queue 1, item 3")
-
 
 def mix32_py(x: int, seed: int = 0) -> int:
     """murmur3-style finaliser over ``x ^ spread(seed)`` on Python ints:
@@ -94,8 +91,10 @@ class ClusterView:
     ``node_ok`` (L, K) (False on the padding nodes of a lane with fewer
     nodes than K), the hash ``seed`` (L,), ``delay_now`` (L, K), each
     node's network delay at the decision (zero rows on a lane without
-    delay), and ``up`` (L, K) bool, False on a node that is down (None
-    when no lane has churn). Node-axis reductions must skip the padding
+    delay), ``up`` (L, K) bool, False on a node that is down (None
+    when no lane has churn), and ``brk_until`` (L, K) f64, each node's
+    circuit-breaker reopen time (0: closed; None unless a lane's router
+    is a `BreakerRouter`). Node-axis reductions must skip the padding
     nodes; the engine clips a pick to [0, n_nodes), as the JAX package
     clips to [0, K), and re-aims a pick of a down node at the lowest-id
     up node."""
@@ -273,31 +272,74 @@ class SLOAwareRouter(DynamicRouter):
 
 
 class BreakerRouter(DynamicRouter):
-    """The circuit-breaker router of the resilience layer: registered so
-    that a spec naming it validates, and raises when it runs (ROADMAP
-    Queue 1, item 3)."""
+    """Circuit breaker around another dynamic router (counterpart of
+    `repro.cluster.routers.BreakerRouter`).
 
-    def __init__(self, name: str = "breaker"):
+    Per node, completed attempts count in tumbling windows of ``volume``;
+    when a full window's failures and timeouts reach ``trip_at = max(1,
+    ceil(volume * threshold))`` the breaker trips and the node gets no
+    routed request for ``cooldown`` seconds. Then it is half-open: it is
+    routable, and the first attempt that completes there decides (a
+    success closes the breaker, a failure trips it again). When every
+    candidate node is tripped the breaker fails open (routes as if it
+    were not there). The engine keeps the state (``brk_until``: 0 when
+    closed, the reopen time while open). Without a failure source it
+    never trips and routes as ``inner``."""
+
+    def __init__(self, inner: "DynamicRouter", name: str = "breaker", *,
+                 threshold: float = 0.5, volume: int = 20,
+                 cooldown: float = 30.0):
+        if not isinstance(inner, DynamicRouter):
+            raise TypeError(
+                "BreakerRouter wraps a DynamicRouter instance, got "
+                f"{type(inner).__name__}")
+        if not (0.0 < threshold <= 1.0):
+            raise ValueError("BreakerRouter threshold must be in (0, 1]")
+        if volume < 1 or cooldown <= 0:
+            raise ValueError(
+                "BreakerRouter needs volume >= 1 and cooldown > 0")
+        self.inner = inner
         self.name = name
+        self.threshold = float(threshold)
+        self.volume = int(volume)
+        self.cooldown = float(cooldown)
+        # a full window trips iff its failures reach trip_at
+        self.trip_at = max(1, int(math.ceil(self.volume * self.threshold)))
 
     def pick(self, g, j, rid, t):
-        raise NotImplementedError(f"router {self.name!r}: "
-                                  f"{BREAKER_NOT_PORTED}")
+        base_up = g.node_ok if getattr(g, "up", None) is None else g.up
+        eff = base_up & (g.brk_until <= t[:, None])
+        eff = torch.where(eff.any(1, keepdim=True), eff, base_up)
+        return self.inner.pick(ClusterView(**{**g.__dict__, "up": eff}),
+                               j, rid, t)
 
 
 # the dynamic routers that the event-loop kernel's K-node variant runs,
 # by their exact class: the code of its route, then JSQ's d
 ROUTER_CODES = {JSQRouter: 0, ColdAwareRouter: 1, SLOAwareRouter: 2}
+# a breaker's code: its inner router's, with this bit set
+BREAKER_BIT = 4
+
+
+def has_device_route(router) -> bool:
+    """Whether the K-node variant runs ``router``: a built-in dynamic
+    router, or a `BreakerRouter` around one (by exact class)."""
+    if type(router) is BreakerRouter:
+        router = router.inner
+    return type(router) in ROUTER_CODES
 
 
 def router_code(router) -> tuple:
-    """``(code, d)`` of a dynamic router that the kernel runs; ValueError
-    for any other."""
-    code = ROUTER_CODES.get(type(router))
+    """``(code, d)`` of a dynamic router that the kernel runs (a breaker:
+    its inner router's code with `BREAKER_BIT` set); ValueError for any
+    other."""
+    brk = type(router) is BreakerRouter
+    inner = router.inner if brk else router
+    code = ROUTER_CODES.get(type(inner))
     if code is None:
         raise ValueError(f"router {router.name!r} "
                          f"({type(router).__name__}) has no device route")
-    return code, (router.d if code == 0 else 0)
+    return code | (BREAKER_BIT if brk else 0), (inner.d if code == 0 else 0)
 
 
 ROUTERS: Dict[str, Router] = {
@@ -307,7 +349,7 @@ ROUTERS: Dict[str, Router] = {
     "jsq2": JSQRouter("jsq2", d=2),
     "cold_aware": ColdAwareRouter(),
     "slo_aware": SLOAwareRouter(),
-    "breaker": BreakerRouter(),
+    "breaker": BreakerRouter(JSQRouter("jsq2", d=2)),
 }
 
 

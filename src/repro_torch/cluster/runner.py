@@ -1,5 +1,5 @@
 """Lower the `ExperimentSpec.cluster` axis onto the routing tiers
-(counterpart of `repro.cluster.runner`, without the resilience layer).
+(counterpart of `repro.cluster.runner`).
 
 `run_cluster_experiment` executes one spec whose ``cluster`` field
 declares a sequence of topologies and stacks the per-entry (P, T, K, B)
@@ -21,7 +21,11 @@ labeled by `ClusterSpec.label`:
   on a card) runs a lane chunk of every dynamic entry of a policy.
 
 Every entry contributes the same metric set (plain cells get a one-node
-``node_done``), padded to the axis-wide largest node count.
+``node_done``), padded to the axis-wide largest node count; when an entry
+routes through a circuit breaker, the others get an all-zero
+``breaker_trips``. Under resilience every tier reads the same planned
+outcomes (`ExperimentSpec.resilience_ops`), and ``goodput`` is derived
+from the stacked counters.
 """
 from __future__ import annotations
 
@@ -143,12 +147,16 @@ def reject_timers_under_churn(spec, entries, kernels, horizon: float):
 
 def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                   kernels: dict, betas: Dict[str, np.ndarray], deadlines,
-                  device, chunk: int):
+                  device, chunk: int, rs=None):
     """The dynamic tier's engine calls for ``entries`` of ``spec``: the
     lanes of `pack_dynamic_lanes`, ``chunk`` of them a call,
     policy-major. Returns ``(calls, L)``: each call ``(policy, lo, hi,
     args, kw)`` is one ``cluster_metrics(*args, **kw)`` over lanes [lo,
-    hi) on ``device``. Raises on a timer policy under churn."""
+    hi) on ``device``; under resilience (``rs`` of
+    `ExperimentSpec.resilience_ops`, ``stacked``'s exec times its
+    attempts' times) each call carries the (T, N) outcome operands.
+    Raises on a timer policy under churn."""
+    from repro_torch.api.runner import resil_kwargs
     T = stacked["fn_id"].shape[0]
     horizon = horizon_of(stacked)
     reject_timers_under_churn(spec, entries, kernels, horizon)
@@ -160,6 +168,7 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
               for k in ("fn_id", "arrival", "exec_time", "cold_start",
                         "evict")]
     L = len(lanes["trace_ix"])
+    rs_kw = resil_kwargs(rs, device)
 
     def col(x, lo, hi):
         return torch.as_tensor(x[lo:hi], device=device)
@@ -172,7 +181,7 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
             args = (*shared, col(lanes["trace_ix"], lo, hi),
                     col(lanes["cap_mask"], lo, hi), col(beta_l, lo, hi),
                     spec.prior, spec.threshold)
-            kw = dict(kernel=kernels[policy], routers=routers,
+            kw = dict(rs_kw, kernel=kernels[policy], routers=routers,
                       router_ix=col(lanes["router_ix"], lo, hi),
                       n_nodes=col(lanes["n_nodes"], lo, hi),
                       seeds=col(lanes["seeds"], lo, hi),
@@ -208,7 +217,7 @@ def split_dynamic_lanes(spec, entries, flat: Dict[str, np.ndarray],
 
 def run_dynamic_entries(spec, entries, stacked: Dict[str, np.ndarray],
                         F: int, kernels: dict, betas: Dict[str, np.ndarray],
-                        deadlines, device, chunk: int
+                        deadlines, device, chunk: int, rs=None
                         ) -> List[Dict[str, np.ndarray]]:
     """Run the dynamic `ClusterSpec` ``entries`` of ``spec`` over its grid
     on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
@@ -217,7 +226,7 @@ def run_dynamic_entries(spec, entries, stacked: Dict[str, np.ndarray],
     from repro_torch.cluster.engine import cluster_metrics
     T = stacked["fn_id"].shape[0]
     calls, L = dynamic_calls(spec, entries, stacked, F, kernels, betas,
-                             deadlines, device, chunk)
+                             deadlines, device, chunk, rs)
     flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
     for policy, lo, hi, args, kw in calls:
         for k, v in cluster_metrics(*args, **kw).items():
@@ -237,11 +246,14 @@ def run_cluster_experiment(spec, dev: torch.device):
     from repro_torch.api.registry import get_kernel
     from repro_torch.api.results import ResultSet
     from repro_torch.api.runner import (_lower_grid, _unique_labels,
-                                        result_meta, run_experiment)
-    from repro_torch.core.engine import lane_chunk_for, slo_attainment
+                                        lower_resilience, result_meta,
+                                        run_experiment)
+    from repro_torch.core.engine import (goodput, lane_chunk_for,
+                                         slo_attainment)
 
     entries = list(spec.cluster)
     sources, stacked, F, N = _lower_grid(spec)
+    stacked, rs = lower_resilience(spec, stacked, F)
     kernels = {p: get_kernel(p) for p in spec.policies}
     betas = {p: np.asarray([kernels[p].default_beta] if spec.betas is None
                            else list(spec.betas), np.float64)
@@ -255,12 +267,12 @@ def run_cluster_experiment(spec, dev: torch.device):
     dynamic = [e for e in entries
                if e is not None and e.get_router().dynamic]
     static_data = iter(run_static_entries(
-        spec, static, stacked, F, N, kernels, betas, deadlines, dev, chunk)
-        if static else ())
+        spec, static, stacked, F, N, kernels, betas, deadlines, dev, chunk,
+        rs) if static else ())
     dl_op = (None if deadlines is None
              else torch.as_tensor(deadlines, device=dev))
     dynamic_data = iter(run_dynamic_entries(
-        spec, dynamic, stacked, F, kernels, betas, dl_op, dev, chunk)
+        spec, dynamic, stacked, F, kernels, betas, dl_op, dev, chunk, rs)
         if dynamic else ())
     entry_data: List[Dict[str, np.ndarray]] = []
     for entry in entries:
@@ -272,11 +284,16 @@ def run_cluster_experiment(spec, dev: torch.device):
             # recomputed below from the stacked counters, as for every
             # entry
             d.pop("slo_attainment", None)
+            d.pop("goodput", None)
             d["node_done"] = d["done"][..., None].astype(np.int32)
         else:
             d = next(static_data)
         d["node_done"] = _pad_node_dim(d["node_done"], k_max)
         entry_data.append(d)
+    # only breaker-routed entries count trips; the others count none
+    if any("breaker_trips" in d for d in entry_data):
+        for d in entry_data:
+            d.setdefault("breaker_trips", np.zeros_like(d["done"], np.int64))
     keys = set(entry_data[0])
     for d in entry_data[1:]:
         if set(d) != keys:
@@ -286,6 +303,8 @@ def run_cluster_experiment(spec, dev: torch.device):
     if deadlines is not None:
         data["slo_attainment"] = slo_attainment(data["deadline_miss"],
                                                 data["done"])
+    if rs is not None:
+        data["goodput"] = goodput(data["done"], N)
     labels = _unique_labels([(e.label if e is not None else "none")
                              for e in entries])
     coords = dict(policy=list(spec.policies),

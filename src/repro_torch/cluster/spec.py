@@ -9,10 +9,9 @@ rides the `repro_torch.api.ExperimentSpec` ``cluster`` axis.
 
 The port runs the static routers (``hash``, ``round_robin``,
 ``weighted_random``) on the static tier (`repro_torch.cluster.static`)
-and the dynamic ones (``jsq2``, ``cold_aware``, ``slo_aware`` and any
-registered `DynamicRouter`) on the K-node event loop
-(`repro_torch.cluster.engine`). The ``breaker`` router raises
-NotImplementedError when it runs (ROADMAP Queue 1, item 3).
+and the dynamic ones (``jsq2``, ``cold_aware``, ``slo_aware``, the
+circuit breaker ``breaker`` and any registered `DynamicRouter`) on the
+K-node event loop (`repro_torch.cluster.engine`).
 
 Robustness axis: a spec may declare per-node *churn* (availability
 windows: explicit ``(down_at, up_at)`` lists or a `PeriodicChurn`

@@ -29,6 +29,12 @@ per-node sub-streams of the arrival stream:
    computes them: a K = 1 cluster with zero delay is bitwise the plain
    single-node run.
 
+Under resilience each sub-stream carries its requests' pre-planned
+outcome rows, sliced by the same partition, with their *original*
+request ids as the jitter keys (a request backs off alike on every node
+and tier), and the merged means and quantiles reduce over the merged
+successes (``done``).
+
 A request routed to node k *arrives at the node* at ``t + delay_k``, and
 its response is measured from that node-local arrival.
 """
@@ -107,7 +113,8 @@ def build_node_streams(arrays: Dict[str, np.ndarray], cspec: ClusterSpec):
 _SUM_F = ("resp_sum", "slow_sum", "cold_time", "evict_time",
           "tl_resp_sum", "tl_exec_sum")
 _SUM_I = ("cold_starts", "evictions", "overflow", "stalled", "done",
-          "n_events", "resp_hist", "deadline_miss", "tl_count")
+          "n_events", "resp_hist", "deadline_miss", "tl_count", "failed",
+          "timed_out", "retried", "shed", "failed_exhausted")
 
 
 def _ordered_sum(a: np.ndarray, axis: int) -> np.ndarray:
@@ -125,11 +132,13 @@ def _mean(x: np.ndarray, n: int) -> np.ndarray:
 
 
 def merge_node_metrics(per_node: Dict[str, np.ndarray], node_axis: int,
-                       n_total: int) -> Dict[str, np.ndarray]:
+                       n_total: int, resil: bool = False
+                       ) -> Dict[str, np.ndarray]:
     """Fold per-node metric arrays (node axis ``node_axis``, >= 0) into
     cluster-level metrics over ``n_total`` requests; the means and the
     streamed p99 are recomputed from the merged sums and histogram the
-    way `engine.sweep_metrics` computes them."""
+    way `engine.sweep_metrics` computes them (under ``resil`` over the
+    merged ``done``: an array denominator, a plain division)."""
     from repro_torch.core.engine import hist_quantile
     out: Dict[str, np.ndarray] = {}
     for m in _SUM_F:
@@ -140,28 +149,42 @@ def merge_node_metrics(per_node: Dict[str, np.ndarray], node_axis: int,
             out[m] = per_node[m].sum(axis=node_axis)
     out["max_response"] = per_node["max_response"].max(axis=node_axis)
     out["node_done"] = np.moveaxis(per_node["done"], node_axis, -1)
-    out["mean_response"] = _mean(out["resp_sum"], n_total)
-    out["mean_slowdown"] = _mean(out["slow_sum"], n_total)
+    if resil:
+        den = np.maximum(out["done"], 1).astype(np.float64)
+        out["mean_response"] = out["resp_sum"] / den
+        out["mean_slowdown"] = out["slow_sum"] / den
+        nq = torch.from_numpy(out["done"][..., None])
+    else:
+        out["mean_response"] = _mean(out["resp_sum"], n_total)
+        out["mean_slowdown"] = _mean(out["slow_sum"], n_total)
+        nq = n_total
     out["p99_response"] = hist_quantile(
-        torch.from_numpy(out["resp_hist"]), 0.99, n_total,
+        torch.from_numpy(out["resp_hist"]), 0.99, nq,
         torch.from_numpy(out["max_response"])).numpy()
     return out
 
 
-def pack_static_lanes(spec, entries, stacked: Dict[str, np.ndarray]):
+def pack_static_lanes(spec, entries, stacked: Dict[str, np.ndarray],
+                      rs=None):
     """The static tier's lanes for ``entries`` (static `ClusterSpec`s) of
     ``spec``: every (entry, trace, node) sub-stream is a row of one
     shared (R, N) operand, and the lanes run entry-major, then trace,
     node, capacity, beta. Returns ``(rows, lanes, layout)``: the row
-    columns (numpy, engine layout), the lane columns ``trace_ix``,
-    ``cap_mask`` (over the largest node's slots), ``n_live`` and
-    ``beta_ix`` (into the beta axis), and per entry ``(K, n_live (T, K),
-    index[t][k])`` for the merge."""
+    columns (numpy, engine layout; under resilience, ``rs`` of
+    `ExperimentSpec.resilience_ops` with ``stacked``'s exec times already
+    its attempts' times, also ``rs_nfail``, ``rs_tmo`` and ``rs_key``,
+    each request's outcome row and original id, zero on the padding),
+    the lane columns ``trace_ix``, ``cap_mask`` (over the largest node's
+    slots), ``n_live`` and ``beta_ix`` (into the beta axis), and per
+    entry ``(K, n_live (T, K), index[t][k])`` for the merge."""
     T = stacked["fn_id"].shape[0]
     B = 1 if spec.betas is None else len(spec.betas)
     C = max(max(e.node_caps(c)) for e in entries for c in spec.capacities)
     rows = {k: [] for k in ("fn_id", "arrival", "exec_time", "cold_start",
                             "evict")}
+    if rs is not None:
+        for k in ("rs_nfail", "rs_tmo", "rs_key"):
+            rows[k] = []
     tix, masks, n_live, bix = [], [], [], []
     layout = []
     for e in entries:
@@ -178,6 +201,15 @@ def pack_static_lanes(spec, entries, stacked: Dict[str, np.ndarray]):
                 r = len(rows["fn_id"])
                 for key in ("fn_id", "arrival", "exec_time"):
                     rows[key].append(streams[key][k])
+                if rs is not None:
+                    i = idx[k]
+                    n = len(rs[1][t])
+                    for key, full, dt in (("rs_nfail", rs[1][t], np.int32),
+                                          ("rs_tmo", rs[2][t], bool),
+                                          ("rs_key", np.arange(n), np.int32)):
+                        row = np.zeros(n, dt)
+                        row[:len(i)] = full[i]
+                        rows[key].append(row)
                 rows["cold_start"].append(stacked["cold_start"][t])
                 rows["evict"].append(stacked["evict"][t])
                 for c in spec.capacities:
@@ -196,14 +228,15 @@ def pack_static_lanes(spec, entries, stacked: Dict[str, np.ndarray]):
 
 def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                  kernels: dict, betas: Dict[str, np.ndarray], deadlines,
-                 device, chunk: int):
+                 device, chunk: int, rs=None):
     """The static tier's engine calls for ``entries`` of ``spec``: the
     lanes of `pack_static_lanes`, ``chunk`` of them a call, policy-major.
     Returns ``(calls, L, layout)``: ``calls`` a list of ``(policy, lo,
     hi, args, kw)``, each one call ``sweep_metrics(*args, **kw)`` over
     lanes [lo, hi) on ``device``; ``betas[policy]`` is the policy's (B,)
-    beta axis, ``deadlines`` the (F,) operand or None."""
-    rows, lanes, layout = pack_static_lanes(spec, entries, stacked)
+    beta axis, ``deadlines`` the (F,) operand or None, ``rs`` the
+    resilience operands (`pack_static_lanes`) or None."""
+    rows, lanes, layout = pack_static_lanes(spec, entries, stacked, rs)
     C = lanes["cap_mask"].shape[1]
     f64 = torch.float64
     dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
@@ -212,6 +245,11 @@ def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
               for k in ("fn_id", "arrival", "exec_time", "cold_start",
                         "evict")]
     L = len(lanes["trace_ix"])
+    rs_kw = {}
+    if rs is not None:
+        rs_kw = {k: torch.as_tensor(rows[k], device=device)
+                 for k in ("rs_nfail", "rs_tmo", "rs_key")}
+        rs_kw["resil"] = rs[4]
 
     def col(x, lo, hi):
         return torch.as_tensor(x[lo:hi], device=device)
@@ -229,16 +267,19 @@ def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                       keep_responses=not spec.stream,
                       n_live=col(lanes["n_live"], lo, hi),
                       deadlines=deadlines, window=spec.window,
-                      tl_bins=spec.tl_bins, tl_bucket=spec.tl_bucket)
+                      tl_bins=spec.tl_bins, tl_bucket=spec.tl_bucket,
+                      **rs_kw)
             calls.append((policy, lo, hi, args, kw))
     return calls, L, layout
 
 
 def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
-                       N: int) -> List[Dict[str, np.ndarray]]:
+                       N: int, resil: bool = False
+                       ) -> List[Dict[str, np.ndarray]]:
     """One policy's per-lane metrics ``flat`` (lanes in `pack_static_lanes`
     order, numpy) merged into one (T, KC, B)-shaped metric dict an entry
-    of ``layout``."""
+    of ``layout`` (under ``resil`` over the successes: a shed or
+    exhausted request's response is NaN)."""
     KC = len(spec.capacities)
     B = 1 if spec.betas is None else len(spec.betas)
     out, lo = [], 0
@@ -249,7 +290,7 @@ def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
         pn = {m: np.moveaxis(v[lo:lo + n_lanes].reshape(
                   (T, Kn, KC, B) + v.shape[1:]), 1, 3)
               for m, v in flat.items()}
-        merged = merge_node_metrics(pn, node_axis=3, n_total=N)
+        merged = merge_node_metrics(pn, node_axis=3, n_total=N, resil=resil)
         if "response" in pn:
             resp = np.zeros((T, KC, B, N), np.float64)
             for t in range(T):
@@ -257,7 +298,9 @@ def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
                     nk = int(nl_rows[t, k])
                     resp[t, :, :, index[t][k]] = np.moveaxis(
                         pn["response"][t, :, :, k, :nk], -1, 0)
-            merged["p99_response"] = np.percentile(resp, 99.0, axis=-1)
+            merged["p99_response"] = (
+                np.nanpercentile(resp, 99.0, axis=-1) if resil
+                else np.percentile(resp, 99.0, axis=-1))
             if spec.keep_per_request:
                 merged["response"] = resp
         out.append(merged)
@@ -268,16 +311,17 @@ def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
 def run_static_entries(spec, entries, stacked: Dict[str, np.ndarray],
                        F: int, N: int, kernels: dict,
                        betas: Dict[str, np.ndarray], deadlines, device,
-                       chunk: int) -> List[Dict[str, np.ndarray]]:
+                       chunk: int, rs=None) -> List[Dict[str, np.ndarray]]:
     """Run the static `ClusterSpec` ``entries`` of ``spec`` over its grid
     on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
     trailing dims: ``node_done`` (.., K), ``resp_hist`` (.., bins), ...).
 
     The engine calls are `static_calls`'; ``betas[policy]`` is the
-    policy's (B,) beta axis, ``deadlines`` the (F,) operand or None."""
+    policy's (B,) beta axis, ``deadlines`` the (F,) operand or None,
+    ``rs`` the resilience operands or None."""
     from repro_torch.core.engine import sweep_metrics
     calls, L, layout = static_calls(spec, entries, stacked, F, kernels,
-                                    betas, deadlines, device, chunk)
+                                    betas, deadlines, device, chunk, rs)
     flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
     for policy, lo, hi, args, kw in calls:
         for k, v in sweep_metrics(*args, **kw).items():
@@ -285,7 +329,7 @@ def run_static_entries(spec, entries, stacked: Dict[str, np.ndarray],
             if k not in flat[policy]:
                 flat[policy][k] = np.zeros((L,) + v.shape[1:], v.dtype)
             flat[policy][k][lo:hi] = v
-    merged = [merge_static_lanes(spec, layout, flat[p], N)
+    merged = [merge_static_lanes(spec, layout, flat[p], N, rs is not None)
               for p in spec.policies]
     return [{m: np.stack([per_entry[j][m] for per_entry in merged])
              for m in merged[0][j]} for j in range(len(layout))]

@@ -106,7 +106,6 @@ _COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
 _SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
 _NOT_PORTED = {
-    "resil": "the resilience rails (ROADMAP Queue 1, item 3)",
     "trace": "the telemetry event rail (ROADMAP Queue 1, item 4)",
 }
 
@@ -170,8 +169,12 @@ class EngineCtx:
                        if n_live is None else n_live)
         self.deadlines = deadlines       # (F,) f64 or None
         # (L,) bool: the lanes whose dispatch records the event's fold
-        # (None: every lane); the cluster's churn lanes fold at EXEC_DONE
+        # (None: every lane); the cluster's direct lanes fold at EXEC_DONE
         self.fold_mask = None
+        # the resilience layer (the K-node loop's ctx): a dispatch counts
+        # an attempt, and the completion is recorded on success only
+        self.has_resil = False
+        self.defer_completion = False
         self.tl_bins = tl_bins           # timeline bins (0: off)
         # an (L,) tensor, so that the bin is a true division on every
         # device (CUDA multiplies by the reciprocal of a Python scalar)
@@ -378,7 +381,9 @@ def dispatch(ctx, s, slot, rid, t, on):
     ``ctx.fold_mask`` when it is set). At most one dispatch happens per
     event, so the registers never clobber a live record. Exact mode also
     writes the per-request start/completion (the last dispatch of a
-    request wins)."""
+    request wins; under resilience the completion is written at a
+    successful EXEC_DONE instead, and each dispatch counts an attempt in
+    ``att``)."""
     e = ctx.exec_at(rid)
     comp = t + e
     m = _hit(on, slot, ctx.ar_c)
@@ -390,10 +395,14 @@ def dispatch(ctx, s, slot, rid, t, on):
     s["ev_rid"] = torch.where(fold, rid, s["ev_rid"])
     s["ev_comp"] = torch.where(fold, comp, s["ev_comp"])
     s["ev_exec"] = torch.where(fold, e, s["ev_exec"])
-    if not ctx.stream:
+    if ctx.has_resil or not ctx.stream:
         col = torch.where(on, rid, ctx.N)[:, None]   # column N: dropped
-        s["start"].scatter_(1, col, t[:, None])
-        s["completion"].scatter_(1, col, comp[:, None])
+        if ctx.has_resil:
+            s["att"].scatter_add_(1, col, on[:, None].to(torch.int64))
+        if not ctx.stream:
+            s["start"].scatter_(1, col, t[:, None])
+            if not ctx.defer_completion:
+                s["completion"].scatter_(1, col, comp[:, None])
 
 
 def _fold_event(ctx, s):
@@ -500,21 +509,28 @@ def percentile_linear(x, q: float):
     return a[:, lo] * (1.0 - hw) + a[:, hi] * hw
 
 
-def percentile_live(x, q: float, n_live):
-    """Row-wise percentile of each row's first ``n_live`` entries, in the
-    spelling of ``jnp.nanpercentile`` over the row with the rest NaN (the
-    count of live values sets the position); NaN for an empty row."""
-    live = torch.arange(x.shape[1], device=x.device) < n_live[:, None]
-    a = torch.sort(torch.where(live, x, math.nan), dim=1).values
-    cnt = n_live.to(torch.float64)[:, None]
-    pos = (q / 100.0) * (cnt - 1.0)
+def percentile_nan(x, q: float):
+    """Row-wise percentile over each row's values that are not NaN, in the
+    spelling of ``jnp.nanpercentile`` (sorted, NaN last; the count of
+    values sets the position); NaN for a row of NaN."""
+    a = torch.sort(x, dim=1).values
+    n = (~torch.isnan(x)).sum(1)
+    pos = (q / 100.0) * (n.to(torch.float64)[:, None] - 1.0)
     lo, hi = torch.floor(pos), torch.ceil(pos)
     hw = pos - lo
-    top = torch.clamp_min(n_live[:, None] - 1, 0)
+    top = torch.clamp_min(n[:, None] - 1, 0)
     lo = torch.minimum(lo.clamp_min(0).to(torch.int64), top)
     hi = torch.minimum(hi.clamp_min(0).to(torch.int64), top)
     v = (a.gather(1, lo) * (1.0 - hw) + a.gather(1, hi) * hw)[:, 0]
-    return torch.where(n_live > 0, v, math.nan)
+    return torch.where(n > 0, v, math.nan)
+
+
+def percentile_live(x, q: float, n_live):
+    """Row-wise percentile of each row's first ``n_live`` entries, in the
+    spelling of ``jnp.nanpercentile`` over the row with the rest NaN; NaN
+    for an empty row."""
+    live = torch.arange(x.shape[1], device=x.device) < n_live[:, None]
+    return percentile_nan(torch.where(live, x, math.nan), q)
 
 
 # ------------------------------------------------------------ event loop
@@ -654,7 +670,8 @@ def _event_step(ctx, kernel, s, max_iters):
 def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
              cap_mask, beta, prior, threshold=0.1, *, kernel, n_fns,
              capacity, queue_cap, stream=False, window=0, tl_bins=0,
-             tl_bucket=60.0, n_live=None, deadlines=None, resil=None,
+             tl_bucket=60.0, n_live=None, deadlines=None, rs_nfail=None,
+             rs_tmo=None, rs_key=None, resil=None,
              trace=False) -> Dict[str, torch.Tensor]:
     """Lane-batched engine (counterpart of `jax_engine._simulate`).
 
@@ -670,17 +687,31 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     prefixes; ``deadlines`` (F,) seconds, adds ``deadline_miss`` (L, F);
     ``tl_bins`` > 0 with ``tl_bucket`` seconds a bin, adds ``tl_count``,
     ``tl_resp_sum`` and ``tl_exec_sum`` (L, tl_bins); ``window`` >= 0 is
-    accepted and changes nothing. ``resil`` and ``trace`` are not ported
-    and raise.
+    accepted and changes nothing. ``trace`` is not ported and raises.
 
-    A built-in policy goes to the event-loop kernel (one launch a call
-    on a CUDA device, its plain version `simulate_eager` on the CPU);
-    any other `PolicyKernel` runs `simulate_eager`. The route is chosen
-    by the policy's type, never by a failed build."""
-    _reject_unported(resil=resil, trace=trace)
+    The resilience layer (``resil`` with its (T, N) outcome operands
+    ``rs_nfail``, ``rs_tmo``, ``rs_key``; see
+    `repro_torch.cluster.engine.simulate_cluster`) runs each lane as a
+    one-node lane of the K-node engine, whose results are the JAX
+    single-node engine's bitwise; it adds ``failed``, ``timed_out``,
+    ``retried``, ``shed`` and ``failed_exhausted`` (L,).
+
+    Otherwise a built-in policy goes to the event-loop kernel (one launch
+    a call on a CUDA device, its plain version `simulate_eager` on the
+    CPU); any other `PolicyKernel` runs `simulate_eager`. The route is
+    chosen by the policy's type, never by a failed build."""
+    _reject_unported(trace=trace)
     if window < 0 or tl_bins < 0:
         raise ValueError(f"simulate: window and tl_bins must be >= 0, got "
                          f"{window} and {tl_bins}")
+    if resil is not None:
+        return _simulate_one_node(
+            fn_id, arrival, exec_time, t_cold, t_evict, trace_ix, cap_mask,
+            beta, prior, threshold, kernel=kernel, n_fns=n_fns,
+            capacity=capacity, queue_cap=queue_cap, stream=stream,
+            tl_bins=tl_bins, tl_bucket=tl_bucket, n_live=n_live,
+            deadlines=deadlines, rs_nfail=rs_nfail, rs_tmo=rs_tmo,
+            rs_key=rs_key, resil=resil)
     from repro_torch.kernels import event_loop as K0
     f64, i64 = torch.float64, torch.int64
     dev = fn_id.device
@@ -703,6 +734,28 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if n_live is not None:
         check_n_live(n_live, fn_id.shape[1])
     return simulate_eager(*args, **kw)
+
+
+def _simulate_one_node(fn_id, arrival, exec_time, t_cold, t_evict,
+                       trace_ix, cap_mask, beta, prior, threshold, *,
+                       kernel, rs_nfail, rs_tmo, rs_key, resil, **kw):
+    """`simulate` under resilience: every lane a one-node cluster (no
+    delay, the router never asked) of `cluster.engine.simulate_cluster`,
+    on the event-loop kernel's K-node variant on a card."""
+    from repro_torch.cluster.engine import simulate_cluster
+    from repro_torch.cluster.routers import get_router
+    dev = fn_id.device
+    L = trace_ix.shape[0]
+    ones = torch.ones((L,), dtype=torch.int64, device=dev)
+    out = simulate_cluster(
+        fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
+        _as_tensor(cap_mask, torch.bool, dev)[:, None], beta, prior,
+        threshold, kernel=kernel, routers=(get_router("jsq2"),),
+        router_ix=ones - 1, n_nodes=ones, seeds=ones - 1,
+        delays=torch.zeros((L, 1), dtype=torch.float64, device=dev),
+        rs_nfail=rs_nfail, rs_tmo=rs_tmo, rs_key=rs_key, resil=resil, **kw)
+    del out["node_done"]
+    return out
 
 
 def check_n_live(n_live, n_requests: int) -> None:
@@ -831,7 +884,8 @@ def simulate_policy_from_trace(trace: Trace, policy: str, capacity: int,
 def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                   threshold=0.1, *, kernel, n_fns, capacity, queue_cap,
                   stream=True, keep_responses=False, n_live=None,
-                  deadlines=None, window=0, tl_bins=0, tl_bucket=60.0
+                  deadlines=None, window=0, tl_bins=0, tl_bucket=60.0,
+                  rs_nfail=None, rs_tmo=None, rs_key=None, resil=None
                   ) -> Dict[str, torch.Tensor]:
     """Lane-batched run + metric reduction (counterpart of
     `jax_engine._sweep_metrics`). Means and slowdowns come from the
@@ -839,26 +893,37 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
     interpolation, as ``jnp.percentile``) and one-bin-accurate from the
     histogram in streaming mode. ``keep_responses`` (exact mode only)
     also returns the (L, N) per-request responses. With ``n_live`` (L,)
-    the means and quantiles reduce over each lane's live prefix."""
+    the means and quantiles reduce over each lane's live prefix; under
+    resilience (``resil`` and its operands, as `simulate`) over the
+    successes."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                    threshold, kernel=kernel, n_fns=n_fns,
                    capacity=capacity, queue_cap=queue_cap, stream=stream,
                    window=window, tl_bins=tl_bins, tl_bucket=tl_bucket,
-                   n_live=n_live, deadlines=deadlines)
+                   n_live=n_live, deadlines=deadlines, rs_nfail=rs_nfail,
+                   rs_tmo=rs_tmo, rs_key=rs_key, resil=resil)
     arr_l = None if stream else arr.to(torch.float64)[tix]
     return reduce_metrics(out, arr_l, fn.shape[1], n_live, stream,
-                          keep_responses)
+                          keep_responses, resil=resil is not None)
 
 
 def reduce_metrics(out, arr_l, N: int, n_live, stream: bool,
-                   keep_responses: bool) -> Dict[str, torch.Tensor]:
+                   keep_responses: bool, resil: bool = False
+                   ) -> Dict[str, torch.Tensor]:
     """`sweep_metrics`' reduction of a run's outputs ``out`` over ``N``
     requests a lane (each lane's live prefix with ``n_live``); in exact
     mode ``arr_l`` (L, N) holds the arrivals the responses are measured
-    from."""
-    if n_live is None:
+    from. Under resilience (``resil``) the means and quantiles reduce over
+    the successful completions (``done``; a shed or exhausted request's
+    completion stays -1, its response NaN), and the layer's counters are
+    kept."""
+    if resil:
+        den = torch.clamp_min(out["done"], 1).to(torch.float64)
+        means = (out["resp_sum"] / den, out["slow_sum"] / den)
+        nq = out["done"][:, None]
+    elif n_live is None:
         # the reference's mean is XLA's a / N, which XLA folds into
         # a * (1 / N); spelled out here so the CPU and CUDA (which also
         # turns division by a Python scalar into a reciprocal multiply)
@@ -876,8 +941,13 @@ def reduce_metrics(out, arr_l, N: int, n_live, stream: bool,
         p99 = hist_quantile(out["resp_hist"], 0.99, nq, out["max_response"])
     else:
         resp = out["completion"] - arr_l
-        p99 = (percentile_linear(resp, 99.0) if n_live is None
-               else percentile_live(resp, 99.0, nl))
+        if resil:
+            resp = torch.where(out["completion"] >= 0, resp, math.nan)
+            p99 = percentile_nan(resp, 99.0)
+        elif n_live is None:
+            p99 = percentile_linear(resp, 99.0)
+        else:
+            p99 = percentile_live(resp, 99.0, nl)
     res = dict(mean_response=means[0], mean_slowdown=means[1],
                resp_sum=out["resp_sum"], slow_sum=out["slow_sum"],
                done=out["done"], p99_response=p99,
@@ -886,12 +956,21 @@ def reduce_metrics(out, arr_l, N: int, n_live, stream: bool,
                cold_starts=out["cold_starts"], cold_time=out["cold_time"],
                evictions=out["evictions"], overflow=out["overflow"],
                stalled=out["stalled"], n_events=out["n_events"])
-    for k in ("tl_count", "tl_resp_sum", "tl_exec_sum", "deadline_miss"):
+    for k in ("tl_count", "tl_resp_sum", "tl_exec_sum", "deadline_miss",
+              "failed", "timed_out", "retried", "shed", "failed_exhausted"):
         if k in out:
             res[k] = out[k]
     if keep_responses:
         res["response"] = resp
     return res
+
+
+def goodput(done, n):
+    """Fraction of the offered requests that completed successfully,
+    ``done / n``, in numpy outside the engine (as `jax_engine.goodput`),
+    so that every tier derives it alike."""
+    return (np.asarray(done, np.float64)
+            / np.maximum(np.asarray(n, np.float64), 1.0))
 
 
 def slo_attainment(deadline_miss, done):

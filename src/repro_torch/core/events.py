@@ -17,9 +17,8 @@ the router, and ``CHURN`` is a node availability toggle (NODE_DOWN /
 NODE_UP, see docs/cluster.md); orphans re-route before any same-time
 churn toggle or fresh arrival, and churn resolves before the router
 sees a same-time arrival. ``RETRY`` re-injects a failed/timed-out
-request after its backoff delay (the JAX package's
-`repro.core.resilience` plans retries; the port has no counterpart yet); it
-resolves after churn (a same-time toggle settles availability first)
+request after its backoff delay (`repro_torch.core.resilience` plans
+the retries); it resolves after churn (a same-time toggle settles availability first)
 but before fresh arrivals (the retried request is older). ``seq``
 breaks remaining ties FIFO, keeping runs fully deterministic.
 """

@@ -88,9 +88,9 @@
 // histogram lives in registers: thread t holds bins t and t + 32.
 //
 // The K-node variant (event_loop_cluster_run) replaces the XLA while_loop
-// of src/repro/cluster/engine.py::_simulate_cluster (:413) without the
-// resilience layer; its plain version is src/repro_torch/cluster/engine.py
-// (`simulate_cluster_eager`). A lane
+// of src/repro/cluster/engine.py::_simulate_cluster (:413); its plain
+// version is src/repro_torch/cluster/engine.py (`simulate_cluster_eager`).
+// A lane
 // carries its own topology (Params::topo: K nodes of C slots, the router
 // code, JSQ's d and the hash seed; its delays and capacity mask). The
 // hooks above run unchanged on the event's node through base offsets:
@@ -122,7 +122,7 @@
 //           schedule (a lane flag, `var`) delay_k is the node's
 //           piecewise-constant value at the arrival (fmod for a periodic
 //           one, exact as jnp.mod on positive operands)
-//   churn   (a lane flag, `direct`: some node toggles) a toggle event a
+//   churn   (a lane flag, `churn`: some node toggles) a toggle event a
 //           node off its row of churn_t, the cursor ch_ix (even: up).
 //           NODE_DOWN drains the node onto the lane's park FIFO (chained
 //           on nxt): its busy slots' requests by ascending rid (each
@@ -138,8 +138,33 @@
 //           completion at its EXEC_DONE, from the raw arrival; under
 //           delay a re-routed orphan is stamped at its re-send, so that
 //           it pays its new node's delay then
-// The slots of a lane (K*C <= Params::slot_cap) and the node table live in
-// shared memory; the per-(node, function) state beside them when it fits,
+//   resil   (a launch flag, Params::resil: failure injection, timeouts,
+//           retries, shedding; src/repro/cluster/engine.py
+//           ClusterResilCtx, :329) a dispatch counts an attempt (att, L x
+//           N in global memory); at EXEC_DONE the attempt succeeds iff
+//           att > n_fail (the planned outcome rows rs_nfail, rs_tmo,
+//           rs_key), and only a success counts done and node_done, folds
+//           and (exact mode) records its completion; a failure exhausts
+//           the budget or joins the lane's retry FIFO (chained on nxt,
+//           eligible rt_t = t + backoff, the power of two an integer
+//           shift, the jitter mix32 of (key << 4 | att - 1)), whose head
+//           is a RETRY event after the toggles, routed like an arrival
+//           (parked while every node is down); its successor fires no
+//           earlier than it. A push onto a full queue counts ovf, sheds
+//           the arrival, or sheds the queue's head (shed_mode 0, 1, 2).
+//           The lane ends when every request is terminal (done,
+//           exhausted or shed), folds at EXEC_DONE from the raw arrival
+//           (as churn: `direct`), and a drained attempt is given back.
+//           The FIFO's scalars and the tallies are in static shared
+//           memory (Resil), touched by thread 0
+//   breaker (a lane whose router code has kBreakerBit) each node keeps a
+//           tumbling window of completed attempts and failures and a
+//           reopen time (node table), updated at its EXEC_DONE; the
+//           router skips tripped nodes unless every up node is tripped
+// The single-node form (Lane<P, false>) has none of churn, delay or
+// resilience: the engine runs a resilient single node as a K = 1 lane of
+// this variant. The slots of a lane (K*C <= Params::slot_cap) and the node
+// table live in shared memory; the per-(node, function) state beside them when it fits,
 // else in global scratch. The node table caches the landing time of each
 // in-flight head and each node's next toggle. `node_done` counts
 // completions a node; in exact mode with a delay and without churn,
@@ -207,11 +232,15 @@ struct Policy {
       3 * 8 + 3 * 4 + (cold_aware ? 4 : 0) + (timers ? 5 * 8 + 2 * 4 : 0);
 };
 // a node of the K-node variant: gn, g_sum, FaasCache's clock, the delay,
-// the landing time of its in-flight head, its next toggle; q_tot, the
-// in-flight head, tail and length, node_done, the toggle cursor
-constexpr int kNodeBytes = 6 * 8 + 6 * 4;
+// the landing time of its in-flight head, its next toggle, the breaker's
+// reopen time; q_tot, the in-flight head, tail and length, node_done, the
+// toggle cursor, the breaker's window of attempts and failures
+constexpr int kNodeBytes = 7 * 8 + 8 * 4;
 constexpr int kLaneFnBytes = 2 * 8;
 constexpr int kMaxJsqD = 8;   // JSQ(d) on the card: d <= 8
+constexpr int kBreakerBit = 4;  // a router code's circuit-breaker flag
+// the columns of the resilience layer's (L, N_RS) counts
+enum { R_FAILED, R_TMO, R_RETRIED, R_SHED, R_EXH, R_TRIPS, N_RS };
 
 // the variants, by the policy code of the entry (kernels/event_loop.py
 // VARIANTS): ESFF with its two flags, the central queue in both orders,
@@ -302,6 +331,19 @@ struct Params {
   int n_steps;
   double* land_t;            // (L, N) landing times, or null
   int64_t* churn_counts;     // (L, 2): toggles, re-routes
+  // the resilience layer (resil 0: off, every pointer null); the planned
+  // outcomes and the jitter keys are (T, N) rows, as the trace
+  int resil;
+  const int32_t* rs_nfail;   // (T, N) leading failed attempts
+  const uint8_t* rs_tmo;     // (T, N) the failures are timeouts
+  const int32_t* rs_key;     // (T, N) original request ids
+  int32_t* att;              // (L, N) attempts started, zeroed
+  double* rt_t;              // (L, N) retry eligibility times
+  int max_att, shed_mode;
+  double rt_base, rt_cap, rt_jit;
+  unsigned rt_seed;          // (fail_seed ^ JITTER_SALT) mod 2^32
+  const double* brk;         // (L, 3) volume, trip point, cooldown, or null
+  int64_t* resil_counts;     // (L, N_RS)
 };
 
 // The lane's tallies that change at most once an event and are read only
@@ -315,6 +357,17 @@ struct Tally {
   double cold_t, evict_t;
 };
 __shared__ Tally tally;
+
+// The resilience layer's lane state (the K-node variant only, so that the
+// single-node form's shared memory is unchanged): the retry FIFO's head,
+// tail, length and head fire time, the terminal requests (done, exhausted
+// or shed) and the counts of N_RS; thread 0 writes them.
+struct Resil {
+  long long term, n[N_RS];
+  double r_fire;
+  int r_head, r_tail, r_len;
+};
+__shared__ Resil rs;
 
 // used: only the variants with P::slot_used; prio, freq: FaasCache's
 struct Slots {
@@ -338,8 +391,9 @@ struct Fns {
 // in-flight head's landing time; ch_t: the next toggle, at cursor ch_ix).
 struct Nodes {
   long long* gn;
-  double *g_sum, *gd, *delay, *land, *ch_t;
-  int *q_tot, *pend_head, *pend_tail, *pend_len, *done, *ch_ix;
+  double *g_sum, *gd, *delay, *land, *ch_t, *cbr_until;
+  int *q_tot, *pend_head, *pend_tail, *pend_len, *done, *ch_ix, *cbr_n,
+      *cbr_f;
 };
 
 // murmur3's 32-bit finaliser over x ^ (seed * golden ratio), as
@@ -410,7 +464,8 @@ struct Lane {
   int node = 0;
   bool has_delay = false;
   bool var = false;         // a node's delay follows a schedule
-  bool direct = false;      // churn: some node toggles
+  bool churn = false;       // some node toggles
+  bool direct = false;      // churn or resilience: fold at EXEC_DONE
   bool shift = false;       // responses from the node-local arrival
   double delay_k = 0.0;     // the event node's delay (CL, has_delay)
   // churn: the park FIFO (head, tail, length, the head's eligibility) and
@@ -466,12 +521,15 @@ struct Lane {
       nd.delay = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.land = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.ch_t = reinterpret_cast<double*>(b); b += 8 * p.kmax;
+      nd.cbr_until = reinterpret_cast<double*>(b); b += 8 * p.kmax;
       nd.q_tot = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_head = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_tail = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.pend_len = reinterpret_cast<int*>(b); b += 4 * p.kmax;
       nd.done = reinterpret_cast<int*>(b); b += 4 * p.kmax;
-      nd.ch_ix = reinterpret_cast<int*>(b);
+      nd.ch_ix = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.cbr_n = reinterpret_cast<int*>(b); b += 4 * p.kmax;
+      nd.cbr_f = reinterpret_cast<int*>(b);
       int32_t* lk = p.links + static_cast<long long>(lane) * 3 * N;
       nxt = lk;
       tnx = lk + N;
@@ -597,17 +655,31 @@ struct Lane {
         nd.pend_len[k] = 0;
         nd.done[k] = 0;
         nd.ch_ix[k] = 0;
+        nd.cbr_until[k] = 0.0;
+        nd.cbr_n[k] = 0;
+        nd.cbr_f[k] = 0;
+      }
+      if (t == 0) {
+        rs.term = 0;
+        for (int i = 0; i < N_RS; ++i) rs.n[i] = 0;
+        rs.r_fire = kBig;
+        rs.r_head = -1;
+        rs.r_tail = -1;
+        rs.r_len = 0;
       }
       var = __any_sync(kAll, varied);
       has_delay = __any_sync(kAll, delayed) || var;
-      direct = __any_sync(kAll, toggles);
+      churn = __any_sync(kAll, toggles);
+      direct = churn || p.resil != 0;
       shift = has_delay && !direct;
       n_up = K;
       // the JAX package's stall guard: + (4 N + 64) K E under churn, E
-      // its toggle columns (the most toggles of a node + 1)
+      // its toggle columns (the most toggles of a node + 1), times the
+      // attempts a request may take under resilience
       width = __reduce_max_sync(kAll, width);
       max_iters = p.max_iters +
-                  (direct ? (4LL * N + 64) * K * (width + 1) : 0LL);
+                  (churn ? (4LL * N + 64) * K * (width + 1) : 0LL);
+      if (p.resil) max_iters *= p.max_att;
     } else {
       max_iters = p.max_iters;
     }
@@ -726,14 +798,18 @@ struct Lane {
       if (p.start != nullptr && rid >= 0 && rid < N) {
         const long long at = static_cast<long long>(lane) * N + rid;
         p.start[at] = tm;
-        p.completion[at] = comp;
+        if (!CL || !p.resil) p.completion[at] = comp;  // resil: on success
         if constexpr (CL) {
           if (p.node_of != nullptr && !direct) p.node_of[at] = node;
         }
       }
+      if constexpr (CL) {
+        if (p.resil && rid >= 0 && rid < N)
+          p.att[static_cast<long long>(lane) * N + rid] += 1;
+      }
     }
     __syncwarp();
-    if (CL && direct) return;  // churn folds the completion instead
+    if (CL && direct) return;  // churn and resil fold the completion
     ev_rid = rid;
     ev_comp = comp;
     ev_exec = e;
@@ -821,23 +897,49 @@ struct Lane {
   }
 
   // Append rid (the next arrival position of fn; CL: linked from the
-  // tail); a push onto a full backlog is dropped and counted in ovf.
-  // Returns whether it pushed.
+  // tail); a push onto a full backlog is dropped and counted in ovf, or
+  // (CL, resil) by the shed mode: shed the arrival (1), or shed the
+  // queue's head and admit the arrival (2). Returns whether it pushed.
   __device__ bool q_push(long long fn, long long rid) {
     const int q0 = fs.q_len[fc(fn)];
-    if (q0 >= Q) {
-      if (t == 0) tally.ovf += 1;
+    const int mode = CL ? p.shed_mode : 0;
+    if (q0 >= Q && mode != 2) {
+      if (t == 0) {
+        if constexpr (CL) {
+          if (mode == 1) {
+            rs.n[R_SHED] += 1;
+            rs.term += 1;
+          } else {
+            tally.ovf += 1;
+          }
+        } else {
+          tally.ovf += 1;
+        }
+      }
       return false;
     }
     __syncwarp();
     if (t == 0) {
+      int q1 = q0;  // the length before the push
+      if constexpr (CL) {
+        if (q0 >= Q) {  // shed_oldest: the head leaves, terminal
+          const long long hsucc = nxt[rc(fs.q_head_rid[fc(fn)])];
+          if (fn_ok(fn)) {
+            fs.q_head_rid[fn] = hsucc;
+            q1 = q0 - 1;
+          }
+          nd.q_tot[node] -= 1;
+          rs.n[R_SHED] += 1;
+          rs.term += 1;
+        }
+      }
       if (fn_ok(fn)) {
-        if (q0 == 0)
+        if (q1 == 0)
           fs.q_head_rid[fn] = rid;
         else if constexpr (CL)
           nxt[rc(fs.q_tail_rid[fn])] = static_cast<int32_t>(rid);
         if constexpr (CL) fs.q_tail_rid[fn] = rid;
-        fs.q_len[fn] = q0 + 1;
+        fs.q_len[fn] = q1 + 1;
       }
       if constexpr (CL) nd.q_tot[node] += 1;
     }
@@ -1329,12 +1431,19 @@ struct Lane {
   // ------------------------------------------------- the K-node loop
   // Whether node k is up (always, on a lane without churn).
   __device__ __forceinline__ bool is_up(int k) const {
-    return !direct || (nd.ch_ix[k] & 1) == 0;
+    return !churn || (nd.ch_ix[k] & 1) == 0;
+  }
+
+  // Whether the router may pick node k at tm: up and, on a breaker lane
+  // (`open_only`), not tripped (cbr_until <= tm).
+  __device__ __forceinline__ bool usable(int k, double tm,
+                                         bool open_only) const {
+    return is_up(k) && (!open_only || nd.cbr_until[k] <= tm);
   }
 
   // Queued plus busy usable slots of node k, on every thread (I32_MAX for
-  // a down node).
-  __device__ __forceinline__ long long node_load(int k) const {
+  // a node the router may not pick).
+  __device__ __forceinline__ long long node_load(int k, bool ok) const {
     int b = 0;
     for (int c = t; c < C; c += 32) {
       const int i = k * C + c;
@@ -1342,7 +1451,7 @@ struct Lane {
     }
     const long long l =
         static_cast<long long>(nd.q_tot[k]) + __reduce_add_sync(kAll, b);
-    return is_up(k) ? l : kI32Max;
+    return ok ? l : kI32Max;
   }
 
   // The router's node for the request rid of function j at time tm, on
@@ -1350,7 +1459,7 @@ struct Lane {
   // down pick goes to the lowest-id up node (0 when none is up).
   __device__ int route(long long rid, long long j, double tm) {
     const int k = pick_node(rid, j, tm);
-    if (!direct || is_up(k)) return k;
+    if (!churn || is_up(k)) return k;
     int first = INT_MAX;
     for (int q = t; q < K; q += 32)
       if (is_up(q)) first = min(first, q);
@@ -1360,8 +1469,16 @@ struct Lane {
 
   __device__ int pick_node(long long rid, long long j, double tm) {
     if (K == 1) return 0;
-    const int code = static_cast<int>(p.topo[lane * 5 + 2]);
+    const int code = static_cast<int>(p.topo[lane * 5 + 2]) & ~kBreakerBit;
     const long long seed = p.topo[lane * 5 + 4];
+    // a breaker lane skips its tripped nodes, unless every up node is
+    // tripped (it fails open)
+    bool open_only = false;
+    if (p.topo[lane * 5 + 2] & kBreakerBit) {
+      bool any = false;
+      for (int q = t; q < K; q += 32) any |= usable(q, tm, true);
+      open_only = __any_sync(kAll, any);
+    }
     if (code == 0) {
       // JSQ(d): the first min(d, K) positions of a partial Fisher-Yates
       // shuffle of the node ids; only the positions it touches are kept,
@@ -1386,10 +1503,10 @@ struct Lane {
         val[m++] = ni;
       }
       int best = at(0);
-      long long bl = node_load(best);
+      long long bl = node_load(best, usable(best, tm, open_only));
       for (int i = 1; i < d; ++i) {  // strict <: ties keep the earliest draw
         const int c = at(i);
-        const long long l = node_load(c);
+        const long long l = node_load(c, usable(c, tm, open_only));
         if (l < bl) {
           best = c;
           bl = l;
@@ -1429,7 +1546,8 @@ struct Lane {
           gmean * static_cast<double>(static_cast<long long>(nd.q_tot[k]) +
                                       busy);
       if (code == 2 && has_delay) score = score + delay_at(k, tm);
-      frp::keep_first_min(bw, bi, is_up(k) ? score : kBig, k);
+      frp::keep_first_min(bw, bi, usable(k, tm, open_only) ? score : kBig,
+                          k);
     }
     frp::warp_first_min(bw, bi);
     return bi;
@@ -1503,6 +1621,8 @@ struct Lane {
       ++nb;
       lo = min(lo, r);
       hi = max(hi, r);
+      // a drained attempt never completes: it gives its attempt back
+      if (p.resil) p.att[static_cast<long long>(lane) * N + r] -= 1;
       int succ = INT_MAX;
       for (int c2 = 0; c2 < C; ++c2) {
         const int r2 = static_cast<int>(sl.req[c2]);
@@ -1586,15 +1706,124 @@ struct Lane {
     }
   }
 
+  // Backoff after the failed attempt att of the request with original id
+  // key: min(base * 2^(att - 1), cap) (an integer shift) times the jitter
+  // factor 1 + jitter * (2u - 1), u = mix32 of (key << 4 | att - 1) / 2^32
+  // (repro.core.resilience.backoff_jax).
+  __device__ __forceinline__ double backoff(int att, long long key) const {
+    const double x =
+        p.rt_base * static_cast<double>(1LL << (att - 1));
+    const double d = x < p.rt_cap ? x : p.rt_cap;
+    const unsigned h = mix32((static_cast<unsigned>(key) << 4) |
+                                 (static_cast<unsigned>(att - 1) & 15u),
+                             p.rt_seed);
+    const double u = static_cast<double>(h) / 4294967296.0;
+    return d * (1.0 + p.rt_jit * (2.0 * u - 1.0));
+  }
+
+  // EXEC_DONE under resilience of rid's attempt on the event node at tm:
+  // success iff its attempts exceed its planned failures; a failure
+  // exhausts the budget or joins the retry FIFO. Thread 0 writes; returns
+  // whether it succeeded.
+  __device__ bool attempt_done(long long rid, double tm) {
+    const long long at = static_cast<long long>(lane) * N + rc(rid);
+    const long long row = (exec - p.exec_time) + rc(rid);  // its trace row
+    const int att = p.att[at];
+    const bool ok = att > p.rs_nfail[row];
+    const bool exh = !ok && att >= p.max_att;
+    const bool retry = !ok && !exh;
+    const double elig = retry ? tm + backoff(att, p.rs_key[row]) : kBig;
+    __syncwarp();
+    if (t == 0) {
+      rs.term += ok || exh;
+      if (!ok) rs.n[p.rs_tmo[row] ? R_TMO : R_FAILED] += 1;
+      rs.n[R_RETRIED] += retry;
+      rs.n[R_EXH] += exh;
+      if (ok && p.completion != nullptr) p.completion[at] = tm;
+      if (retry) {
+        p.rt_t[at] = elig;
+        if (rs.r_len == 0) {
+          rs.r_head = static_cast<int>(rid);
+          rs.r_fire = elig;
+        } else {
+          nxt[rs.r_tail] = static_cast<int32_t>(rid);
+        }
+        rs.r_tail = static_cast<int>(rid);
+        rs.r_len += 1;
+      }
+    }
+    __syncwarp();
+    return ok;
+  }
+
+  // The event node's circuit breaker at an EXEC_DONE at tm (thread 0):
+  // closed (reopen time 0), the attempt joins the window, and a full
+  // window trips it when its failures reach the trip point; half-open
+  // (reopen time in (0, tm]), the attempt decides: success closes it,
+  // failure trips it again; open, the completion is ignored.
+  __device__ void breaker(double tm, bool fail) {
+    if (t == 0) {
+      const double* b = p.brk + 3 * static_cast<long long>(lane);
+      const double until0 = nd.cbr_until[node];
+      const bool half = until0 > 0.0 && until0 <= tm;
+      const bool closed = until0 == 0.0;
+      const int n1 = nd.cbr_n[node] + closed;
+      const int f1 = nd.cbr_f[node] + (closed && fail);
+      const bool boundary = closed && n1 >= b[0];
+      const bool trip = (boundary && f1 >= b[1]) || (half && fail);
+      nd.cbr_until[node] = trip ? tm + b[2] : (half ? 0.0 : until0);
+      nd.cbr_n[node] = boundary || half ? 0 : n1;
+      nd.cbr_f[node] = boundary || half ? 0 : f1;
+      rs.n[R_TRIPS] += trip;
+    }
+  }
+
+  // The retry FIFO's head re-enters at tm, routed now (parked while every
+  // node is down); its successor fires no earlier than now.
+  __device__ void retry_event(double tm) {
+    const long long rid = rs.r_head;
+    const int rlen0 = rs.r_len;
+    const long long succ = nxt[rc(rid)];
+    const double sf = p.rt_t[static_cast<long long>(lane) * N + rc(succ)];
+    const double nfire = rlen0 > 1 ? (sf > tm ? sf : tm) : kBig;
+    const long long j = fn_id[rc(rid)];
+    const bool parks = churn && n_up == 0;
+    const int k = parks ? 0 : route(rid, j, tm);
+    __syncwarp();
+    if (t == 0) {
+      rs.r_head = static_cast<int>(succ);
+      if (rlen0 <= 1) rs.r_tail = -1;
+      rs.r_len = rlen0 - 1;
+      rs.r_fire = nfire;
+    }
+    __syncwarp();
+    if (parks) {
+      park(rid, tm);
+    } else {
+      enter_node(k);
+      if (has_delay)
+        send(k, rid, tm);
+      else
+        node_arrival(rid, j, tm);
+    }
+  }
+
+  // Every request at its end: done, or under resilience terminal.
+  __device__ __forceinline__ long long ended() const {
+    return p.resil ? rs.term : done;
+  }
+
   __device__ void run_cluster() {
     const int KC = K * C, KF = K * F;
     const int p0 = 2 * KC + (P::timers ? 2 * KF : 0);  // in-flight heads
     const int o0 = p0 + (has_delay ? K : 0);           // the park head
-    const int c0 = o0 + (direct ? 1 : 0);              // the toggles
-    const int n_arr = c0 + (direct ? K : 0);
+    const int c0 = o0 + (churn ? 1 : 0);               // the toggles
+    const int r0 = c0 + (churn ? K : 0);               // the retry head
+    const int n_arr = r0 + (p.resil ? 1 : 0);
+    const bool brk = p.topo[lane * 5 + 2] & kBreakerBit;
     double t_arr = N > 0 ? arrival[0] : kBig;
     long long fn_arr = N > 0 ? fn_id[0] : 0;
-    while (done < NL && stall == 0) {
+    while (ended() < NL && stall == 0) {
       __syncwarp();  // the router reads what thread 0 wrote last event
       double w = INFINITY;
       int ei = INT_MAX;
@@ -1615,14 +1844,15 @@ struct Lane {
           frp::keep_first_min(w, ei, nd.pend_len[k] > 0 ? nd.land[k] : kBig,
                               p0 + k);
       }
-      if (direct) {
+      if (churn) {
         for (int k = t; k < K; k += 32)
           frp::keep_first_min(w, ei, nd.ch_t[k], c0 + k);
       }
       frp::warp_first_min(w, ei);
-      if (direct)
+      if (churn)
         frp::keep_first_min(w, ei,
                             park_len > 0 && n_up > 0 ? park_t : kBig, o0);
+      if (p.resil) frp::keep_first_min(w, ei, rs.r_fire, r0);
       const long long na = next;
       frp::keep_first_min(w, ei, na < NL ? t_arr : kBig, n_arr);
       if (!(w < kBig)) {
@@ -1642,6 +1872,8 @@ struct Lane {
         const long long rid_done = sl.req[slot];
         const long long j_done = sl.fn[slot];
         const double e_done = exec[rc(rid_done)];
+        // the attempt's outcome (always a success without resilience)
+        const bool ok = is_cold || !p.resil || attempt_done(rid_done, t_ev);
         __syncwarp();
         if (t == 0) {
           sl.state[slot] = kIdle;
@@ -1654,17 +1886,20 @@ struct Lane {
           if constexpr (P::cold_aware) {
             if (is_cold && fn_ok(j_done)) fs.coldk[j_done] -= 1;
           }
-          if (!is_cold) nd.done[node] += 1;
+          if (!is_cold && ok) nd.done[node] += 1;
         }
+        if (!is_cold && brk) breaker(t_ev, !ok);
         __syncwarp();
         if (!is_cold) {
           g_sum = g_sum + e_done;
           gn += 1;
-          done += 1;
-          if (direct) {  // churn folds the completion
-            ev_rid = rid_done;
-            ev_comp = t_ev;
-            ev_exec = e_done;
+          if (ok) {
+            done += 1;
+            if (direct) {  // churn and resil fold the completion
+              ev_rid = rid_done;
+              ev_comp = t_ev;
+              ev_exec = e_done;
+            }
           }
         }
         on_slot(is_cold, slot, t_ev);
@@ -1709,10 +1944,13 @@ struct Lane {
           send(k, rid, t_ev);
         else
           node_arrival(rid, fn_id[rc(rid)], t_ev);
-      } else if (ei < n_arr) {
+      } else if (ei < r0) {
         enter_node(ei - c0);
         iters += 1;
         toggle(t_ev);
+      } else if (ei < n_arr) {
+        iters += 1;
+        retry_event(t_ev);
       } else if (na < NL) {
         next = na + 1;
         iters += 1;
@@ -1722,7 +1960,7 @@ struct Lane {
           t_arr = arrival[next];
           fn_arr = fn_id[next];
         }
-        if (direct && n_up == 0) {
+        if (churn && n_up == 0) {
           park(na, ta);  // every node is down
         } else {
           const int k = route(na, j, ta);
@@ -1773,38 +2011,63 @@ struct Lane {
       if (t == 0) {
         p.churn_counts[2 * static_cast<long long>(lane)] = tally.toggles;
         p.churn_counts[2 * static_cast<long long>(lane) + 1] = tally.reroutes;
+        for (int i = 0; i < N_RS; ++i)
+          p.resil_counts[static_cast<long long>(lane) * N_RS + i] = rs.n[i];
       }
     }
   }
 };
 
 // `p` stays in the parameter space (__grid_constant__): the lane keeps a
-// reference to it, with no copy to local memory.
+// reference to it, with no copy to local memory. The single-node form
+// (CL = false only).
 template <class P, bool CL>
 __global__ void __launch_bounds__(32)
     event_loop_kernel(const __grid_constant__ Params p) {
+  static_assert(!CL, "the K-node form is event_loop_cluster_kernel");
   extern __shared__ __align__(16) unsigned char smem[];
   Lane<P, CL> ln(p, smem);
   ln.init();
-  if constexpr (CL) {
-    ln.enter_node(0);
-    ln.run_cluster();
-  } else {
-    ln.run();
-  }
+  ln.run();
+  ln.write_out();
+}
+
+// The K-node form (CL = true only), bounded to at least one block an SM so
+// that ptxas may give a thread up to 255 registers: under the single-node
+// form's bound it caps the K-node lane at 168 registers and spills 24-316
+// B a variant (PERF.md, the kernel table's K0 cluster row).
+template <class P, bool CL>
+__global__ void __launch_bounds__(32, 1)
+    event_loop_cluster_kernel(const __grid_constant__ Params p) {
+  static_assert(CL, "the single-node form is event_loop_kernel");
+  extern __shared__ __align__(16) unsigned char smem[];
+  Lane<P, CL> ln(p, smem);
+  ln.init();
+  ln.enter_node(0);
+  ln.run_cluster();
   ln.write_out();
 }
 
 template <class P, bool CL>
 int launch(const Params& p, int n_lanes, int smem_bytes,
            cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        event_loop_kernel<P, CL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = cudaSuccess;
+  if constexpr (CL) {
+    if (smem_bytes > 48 * 1024)
+      e = cudaFuncSetAttribute(event_loop_cluster_kernel<P, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
+    event_loop_cluster_kernel<P, true><<<n_lanes, 32, smem_bytes, stream>>>(
+        p);
+  } else {
+    if (smem_bytes > 48 * 1024)
+      e = cudaFuncSetAttribute(event_loop_kernel<P, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    event_loop_kernel<P, false><<<n_lanes, 32, smem_bytes, stream>>>(p);
   }
-  event_loop_kernel<P, CL><<<n_lanes, 32, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1891,6 +2154,15 @@ Params params(K0_ARGS) {
 
 }  // namespace
 
+// The entries of this translation unit. Built alone (event_loop.cu), the
+// single-node form's: event_loop_run and event_loop_layout. Included by
+// csrc/event_loop_cluster_*.cu with K0_CLUSTER_VARIANTS defined (a part
+// of K0_VARIANTS), the K-node form's of those variants:
+// event_loop_cluster_run and event_loop_cluster_layout, so that nvcc
+// builds the forms and halves in parallel processes (kernels/_build.py
+// SOURCES; the wrapper loads each variant's K-node entry from its
+// library, kernels/event_loop.py CLUSTER_SOURCE).
+#ifndef K0_CLUSTER_VARIANTS
 // Plain C interface for ctypes: one block of one warp a lane,
 // `smem_bytes` of dynamic shared memory (slots, and the per-function
 // state when fn_in_shared), the variant chosen by `policy`; the engine
@@ -1905,50 +2177,6 @@ extern "C" int event_loop_run(int policy, K0_ARGS, void* stream) {
 #define K0_LAUNCH(code, P) \
   case code:               \
     return launch<P, false>(p, n_lanes, smem_bytes, st);
-    K0_VARIANTS(K0_LAUNCH)
-#undef K0_LAUNCH
-  }
-  return -1;
-}
-
-// The K-node variant: as event_loop_run (pos_rids and pos_off unused,
-// cap_mask (L, kmax, n_slots), `smem_bytes` the slots of slot_cap, the
-// node table of kmax and the per-(node, function) state when
-// fn_in_shared), plus each lane's topology `topo` (L, 5: K, C, router
-// code, JSQ's d, seed) and `delays` (L, kmax), the link rails `links` (L,
-// 3, N) int32, the outputs node_done (L, kmax) and node_of (L, N; null
-// unless in exact mode with a delay); churn's toggle times `churn_t` (L,
-// kmax, n_toggle_cols) and the delay schedules `dtimes`, `dvals` (L, kmax,
-// n_steps) and `dper` (L, kmax), each null (0 columns) when no lane has
-// them, `land_t` (L, N) f64 (null unless a lane has a delay) and
-// the output churn_counts (L, 2): each lane's toggles and re-routes.
-extern "C" int event_loop_cluster_run(
-    int policy, K0_ARGS, const int64_t* topo, const double* delays,
-    int kmax, int slot_cap, int32_t* links, int32_t* node_done,
-    int32_t* node_of, const double* churn_t, int n_toggle_cols,
-    const double* dtimes, const double* dvals, const double* dper,
-    int n_steps, double* land_t, int64_t* churn_counts, void* stream) {
-  Params p = params(K0_PASS);
-  p.topo = topo;
-  p.delays = delays;
-  p.kmax = kmax;
-  p.slot_cap = slot_cap;
-  p.links = links;
-  p.node_done = node_done;
-  p.node_of = node_of;
-  p.churn_t = churn_t;
-  p.n_toggle_cols = n_toggle_cols;
-  p.dtimes = dtimes;
-  p.dvals = dvals;
-  p.dper = dper;
-  p.n_steps = n_steps;
-  p.land_t = land_t;
-  p.churn_counts = churn_counts;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (policy) {
-#define K0_LAUNCH(code, P) \
-  case code:               \
-    return launch<P, true>(p, n_lanes, smem_bytes, st);
     K0_VARIANTS(K0_LAUNCH)
 #undef K0_LAUNCH
   }
@@ -1973,11 +2201,84 @@ extern "C" int event_loop_layout(int policy, long long* out, int n) {
   return -1;
 }
 
+#else
+// The K-node variant: as event_loop_run (pos_rids and pos_off unused,
+// cap_mask (L, kmax, n_slots), `smem_bytes` the slots of slot_cap, the
+// node table of kmax and the per-(node, function) state when
+// fn_in_shared), plus each lane's topology `topo` (L, 5: K, C, router
+// code, JSQ's d, seed) and `delays` (L, kmax), the link rails `links` (L,
+// 3, N) int32, the outputs node_done (L, kmax) and node_of (L, N; null
+// unless in exact mode with a delay); churn's toggle times `churn_t` (L,
+// kmax, n_toggle_cols) and the delay schedules `dtimes`, `dvals` (L, kmax,
+// n_steps) and `dper` (L, kmax), each null (0 columns) when no lane has
+// them, `land_t` (L, N) f64 (null unless a lane has a delay) and
+// the output churn_counts (L, 2): each lane's toggles and re-routes; the
+// resilience layer (`resil` 1: the (T, N) rows rs_nfail int32, rs_tmo
+// uint8 and rs_key int32, the zeroed (L, N) int32 att and (L, N) f64
+// rt_t, max_att, shed_mode, the backoff's base, cap, jitter and seed term;
+// 0: every pointer null), the breaker lanes' (L, 3) f64 `brk` (volume,
+// trip point, cooldown; null when no lane has kBreakerBit) and the output
+// resil_counts (L, N_RS).
+extern "C" int event_loop_cluster_run(
+    int policy, K0_ARGS, const int64_t* topo, const double* delays,
+    int kmax, int slot_cap, int32_t* links, int32_t* node_done,
+    int32_t* node_of, const double* churn_t, int n_toggle_cols,
+    const double* dtimes, const double* dvals, const double* dper,
+    int n_steps, double* land_t, int64_t* churn_counts, int resil,
+    const int32_t* rs_nfail, const uint8_t* rs_tmo, const int32_t* rs_key,
+    int32_t* att, double* rt_t, int max_att, int shed_mode, double rt_base,
+    double rt_cap, double rt_jit, long long rt_seed, const double* brk,
+    int64_t* resil_counts, void* stream) {
+  Params p = params(K0_PASS);
+  p.topo = topo;
+  p.delays = delays;
+  p.kmax = kmax;
+  p.slot_cap = slot_cap;
+  p.links = links;
+  p.node_done = node_done;
+  p.node_of = node_of;
+  p.churn_t = churn_t;
+  p.n_toggle_cols = n_toggle_cols;
+  p.dtimes = dtimes;
+  p.dvals = dvals;
+  p.dper = dper;
+  p.n_steps = n_steps;
+  p.land_t = land_t;
+  p.churn_counts = churn_counts;
+  p.resil = resil;
+  p.rs_nfail = rs_nfail;
+  p.rs_tmo = rs_tmo;
+  p.rs_key = rs_key;
+  p.att = att;
+  p.rt_t = rt_t;
+  p.max_att = max_att;
+  p.shed_mode = shed_mode;
+  p.rt_base = rt_base;
+  p.rt_cap = rt_cap;
+  p.rt_jit = rt_jit;
+  p.rt_seed = static_cast<unsigned>(rt_seed);
+  p.brk = brk;
+  p.resil_counts = resil_counts;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (policy) {
+#define K0_LAUNCH(code, P) \
+  case code:               \
+    return launch<P, true>(p, n_lanes, smem_bytes, st);
+    K0_CLUSTER_VARIANTS(K0_LAUNCH)
+#undef K0_LAUNCH
+  }
+  return -1;
+}
+
 // The K-node variant's layout of `policy`: its bytes a (node, function),
-// a lane's function rows (t_cold, t_evict) a function, a node, and JSQ's
-// largest d. Returns 4, writing at most `n`; -1 for an unknown code.
+// a lane's function rows (t_cold, t_evict) a function, a node, JSQ's
+// largest d, the breaker bit of a router code and the columns of the
+// resilience counts (R_FAILED .. R_TRIPS, N_RS). Returns 12, writing at
+// most `n`; -1 for an unknown code.
 extern "C" int event_loop_cluster_layout(int policy, long long* out, int n) {
-  long long v[4] = {0, kLaneFnBytes, kNodeBytes, kMaxJsqD};
+  long long v[12] = {0,         kLaneFnBytes, kNodeBytes, kMaxJsqD,
+                     kBreakerBit, R_FAILED,   R_TMO,      R_RETRIED,
+                     R_SHED,    R_EXH,        R_TRIPS,    N_RS};
   switch (policy) {
 #define K0_CL_LAYOUT(code, P) \
   case code:                  \
@@ -1988,6 +2289,7 @@ extern "C" int event_loop_cluster_layout(int policy, long long* out, int n) {
     default:
       return -1;
   }
-  for (int i = 0; i < 4 && i < n; ++i) out[i] = v[i];
-  return 4;
+  for (int i = 0; i < 12 && i < n; ++i) out[i] = v[i];
+  return 12;
 }
+#endif  // K0_CLUSTER_VARIANTS

@@ -40,10 +40,17 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # and the event loop, which inlines it) must be bitwise the reference,
 # so no multiply-add is contracted there; the attention, norm and SSD
 # kernels hold a tolerance
+# the event-loop kernel's K-node units: each builds event_loop.cu's K-node
+# form of two variants (csrc/event_loop_cluster_*.cu), beside the others
+CLUSTER_UNITS = ("event_loop_cluster_esff", "event_loop_cluster_esff_lru",
+                 "event_loop_cluster_queue", "event_loop_cluster_faas")
 EXTRA_FLAGS = {"frp_select": ("--fmad=false",),
-               "event_loop": ("--fmad=false",)}
-SOURCES = ("event_loop", "frp_select", "rmsnorm", "decode_attention",
-           "flash_attention", "ssd_chunk")
+               "event_loop": ("--fmad=false",),
+               **{u: ("--fmad=false",) for u in CLUSTER_UNITS}}
+SOURCES = ("event_loop", *CLUSTER_UNITS, "frp_select", "rmsnorm",
+           "decode_attention", "flash_attention", "ssd_chunk")
+# the sources another one includes (beside the shared headers)
+INCLUDES = {u: ("event_loop.cu",) for u in CLUSTER_UNITS}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -69,9 +76,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    # the source, every shared header it may include, and the flags
+    # the source, every shared header it may include, the sources it
+    # includes, and the flags
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))) + b"".join(
+        (CSRC / f).read_bytes() for f in INCLUDES.get(name, ()))
     digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -26,8 +26,9 @@ that a run over several policies can be read back policy by policy.
 
 `cluster_loop` is the K-node variant's wrapper (the dynamic cluster
 tier, `repro_torch.cluster.engine`): the same variants over lanes that
-each carry a cluster of K nodes behind a built-in dynamic router (with
-node churn and delay schedules as lane flags), with the eager K-node
+each carry a cluster of K nodes behind a built-in dynamic router or a
+circuit breaker around one (with node churn and delay schedules as lane
+flags, and the resilience layer as a launch flag), with the eager K-node
 loop `simulate_cluster_eager` as its plain version. It keeps its own
 counts (``launches``, ``plain_calls``, ``variant_launches``,
 ``last_by_variant``).
@@ -69,6 +70,9 @@ POLICY_COUNTS = ("frp_scans", "head_scans", "timers")
 # room for the kernel's static shared memory (its lane tallies, 72 B;
 # ptxas reports 80)
 SHARED_MAX = 232448 - 128
+# the same for the K-node variant, whose static shared memory also holds
+# the resilience layer's lane state (80 B)
+CLUSTER_SHARED_MAX = 232448 - 256
 _I32_LIMIT = 2 ** 31 - 1
 
 _P = _build.PTR
@@ -77,18 +81,32 @@ _ARGTYPES = ([_I] + [_P] * 10 + [_D, _D] + [_I] * 7 + [_P, _LL, _LL]
              + [_P] * 6 + [_P, _P, _I, _D, _P, _P, _P, _P] + [_P])
 # the K-node entry: the same, then topo, delays, kmax, slot_cap, links,
 # node_done, node_of, churn_t, its columns, dtimes, dvals, dper, their
-# steps, land_t, churn_counts, before the stream
+# steps, land_t, churn_counts; the resilience layer's flag, rs_nfail,
+# rs_tmo, rs_key, att, rt_t, max_att, shed_mode, base, cap, jitter, the
+# seed term, brk, resil_counts; before the stream
 _CLUSTER_ARGTYPES = (_ARGTYPES[:-1] + [_P, _P, _I, _I, _P, _P, _P]
-                     + [_P, _I, _P, _P, _P, _I, _P, _P] + [_P])
+                     + [_P, _I, _P, _P, _P, _I, _P, _P]
+                     + [_I, _P, _P, _P, _P, _P, _I, _I, _D, _D, _D, _LL,
+                        _P, _P] + [_P])
 # the K-node variant's bytes a (node, function), by variant (its slots are
 # the single-node variant's), a lane's t_cold and t_evict rows a
-# function, a node, and JSQ's largest d on the card
+# function, a node (its breaker's window and reopen time among them), and
+# JSQ's largest d on the card
 CLUSTER_FN_BYTES = {"esff": 36, "esff_cold": 40, "esff_lru": 36,
                     "esff_h": 40, "fifo": 36, "sff": 36, "faascache": 36,
                     "openwhisk_v2": 84}
 CLUSTER_LANE_FN_BYTES = 16
-CLUSTER_NODE_BYTES = 72
+CLUSTER_NODE_BYTES = 88
 CLUSTER_MAX_JSQ_D = 8
+# the columns of the K-node variant's (L, 6) resilience counts, and the
+# `simulate_cluster` output each one is
+RESIL_COUNTS = ("failed", "timed_out", "retried", "shed",
+                "failed_exhausted", "breaker_trips")
+
+# the library (csrc/<source>.cu) that builds each variant's K-node form,
+# two variants a unit, so that they build in parallel
+CLUSTER_SOURCE = {v: _build.CLUSTER_UNITS[c["code"] // 2]
+                  for v, c in VARIANTS.items()}
 
 # the built-in kernel classes, each with its variants (`variant_of`)
 _BUILT_IN = (ESFFKernel, CentralQueueKernel, FaasCacheKernel,
@@ -149,9 +167,13 @@ def layout_plan(n_fns: int, n_slots: int, variant: str = "esff") -> dict:
 def cluster_layout(variant: str) -> tuple:
     """What the library reports for ``variant``'s K-node form
     (event_loop_cluster_layout): its bytes a (node, function), a lane's
-    function rows a function, a node, and JSQ's largest d."""
+    function rows a function, a node, JSQ's largest d, a breaker's bit in
+    the router code, and the column of each resilience count, then their
+    width."""
+    from repro_torch.cluster.routers import BREAKER_BIT
     return (CLUSTER_FN_BYTES[variant], CLUSTER_LANE_FN_BYTES,
-            CLUSTER_NODE_BYTES, CLUSTER_MAX_JSQ_D)
+            CLUSTER_NODE_BYTES, CLUSTER_MAX_JSQ_D, BREAKER_BIT,
+            *range(len(RESIL_COUNTS)), len(RESIL_COUNTS))
 
 
 def cluster_layout_plan(n_fns: int, slot_cap: int, kmax: int,
@@ -168,11 +190,11 @@ def cluster_layout_plan(n_fns: int, slot_cap: int, kmax: int,
              + -(-CLUSTER_NODE_BYTES * kmax // 8) * 8)
     fns = (CLUSTER_LANE_FN_BYTES * n_fns
            + CLUSTER_FN_BYTES[variant] * kmax * n_fns)
-    if fixed > SHARED_MAX:
+    if fixed > CLUSTER_SHARED_MAX:
         raise ValueError(f"cluster_loop: {slot_cap} slots and {kmax} nodes "
                          f"need {fixed} B of shared memory, over "
-                         f"{SHARED_MAX}")
-    if fixed + fns <= SHARED_MAX:
+                         f"{CLUSTER_SHARED_MAX}")
+    if fixed + fns <= CLUSTER_SHARED_MAX:
         return dict(fn_in_shared=True, smem_bytes=fixed + fns,
                     scratch_bytes=0)
     return dict(fn_in_shared=False, smem_bytes=fixed,
@@ -191,7 +213,8 @@ def _check_layout(variant: str, cluster: bool = False) -> None:
     if variant in checked:
         return
     entry = "event_loop_cluster_layout" if cluster else "event_loop_layout"
-    f = _build.c_entry("event_loop", entry, [_I, _P, _I])
+    f = _build.c_entry(CLUSTER_SOURCE[variant] if cluster else "event_loop",
+                       entry, [_I, _P, _I])
     want = cluster_layout(variant) if cluster else layout(variant)
     got = (ctypes.c_longlong * len(want))()
     n = f(VARIANTS[variant]["code"], got, len(want))
@@ -397,27 +420,32 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                  n_nodes, seeds, delays, n_fns, capacity, queue_cap,
                  stream=False, threshold=0.1, n_live=None, deadlines=None,
                  tl_bins=0, tl_bucket=60.0, churn_t=None, dtimes=None,
-                 dvals=None, dper=None):
+                 dvals=None, dper=None, rs_nfail=None, rs_tmo=None,
+                 rs_key=None, resil=None):
     """Run the K-node engine over L lanes to completion under the
-    built-in policy ``kernel`` and the built-in dynamic routers
-    ``routers`` (`repro_torch.cluster.routers.ROUTER_CODES`).
+    built-in policy ``kernel`` and the dynamic routers ``routers``, each
+    built-in (`repro_torch.cluster.routers.ROUTER_CODES`) or a
+    `BreakerRouter` around one.
 
     Inputs as `event_loop`, but ``cap_mask`` is (L, K, C) bool, and each
     lane's topology: ``router_ix``, ``n_nodes`` and ``seeds`` (L,) int64
     (``n_nodes`` in [1, K]), ``delays`` (L, K) f64 >= 0, and, each None
     when no lane has it, ``churn_t`` (L, K, E) f64 and ``dtimes`` /
-    ``dvals`` (L, K, D) f64 with ``dper`` (L, K) (as `simulate_cluster`).
-    Returns `cluster.engine.simulate_cluster`'s dict (``node_done`` (L,
-    K); ``node_of`` (L, N) in exact mode when a lane has a delay; under
-    churn ``toggles`` and ``reroutes`` (L,)). CPU tensors take the plain
-    version `simulate_cluster_eager`
-    (``cluster_loop.plain_calls``); CUDA tensors launch the K-node
-    variant of the policy's kernel (``launches``, ``variant_launches``,
-    ``last_by_variant``: each variant's last (L, 3) policy counts) or
-    raise."""
-    from repro_torch.cluster.engine import (Topology, check_topology,
+    ``dvals`` (L, K, D) f64 with ``dper`` (L, K); under resilience
+    ``rs_nfail`` (T, N) int32, ``rs_tmo`` (T, N) bool, ``rs_key`` (T, N)
+    int32 and the tuple ``resil`` (as `simulate_cluster`). Returns
+    `cluster.engine.simulate_cluster`'s dict (``node_done`` (L, K);
+    ``node_of`` (L, N) in exact mode when a lane has a delay; under churn
+    ``toggles`` and ``reroutes`` (L,); under resilience its counts, with
+    a breaker ``breaker_trips``). CPU tensors take the plain version
+    `simulate_cluster_eager` (``cluster_loop.plain_calls``); CUDA tensors
+    launch the K-node variant of the policy's kernel (``launches``,
+    ``variant_launches``, ``last_by_variant``: each variant's last (L,
+    3) policy counts) or raise."""
+    from repro_torch.cluster.engine import (Topology, check_resil,
+                                            check_topology,
                                             simulate_cluster_eager)
-    from repro_torch.cluster.routers import router_code
+    from repro_torch.cluster.routers import BreakerRouter, router_code
     variant = variant_of(kernel)
     if cap_mask.dim() != 3:
         raise ValueError(f"cluster_loop: cap_mask must be (L, K, C), got "
@@ -427,7 +455,7 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
         fn_id, arrival, exec_time, t_cold, t_evict, trace_ix, cap_mask, beta,
         n_live, deadlines, tl_bins, n_fns, capacity, queue_cap, (Kx,))
     dev = fn_id.device
-    f64, i64 = torch.float64, torch.int64
+    f64, i64, i32 = torch.float64, torch.int64, torch.int32
     for name, x, dt, shape in (
             ("router_ix", router_ix, i64, (L,)), ("n_nodes", n_nodes, i64, (L,)),
             ("seeds", seeds, i64, (L,)), ("delays", delays, f64, (L, Kx))):
@@ -450,14 +478,28 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                      dper=(dper, (L, Kx)))
     for name, (x, shape) in extra.items():
         _check(name, x, f64, shape, dev)
+    if any((x is None) != (resil is None) for x in (rs_nfail, rs_tmo,
+                                                     rs_key)):
+        raise ValueError("cluster_loop: resil and rs_nfail, rs_tmo, rs_key "
+                         "go together")
+    if resil is not None:
+        check_resil(resil)
+        for name, x, dt in (("rs_nfail", rs_nfail, i32),
+                            ("rs_tmo", rs_tmo, torch.bool),
+                            ("rs_key", rs_key, i32)):
+            _check(name, x, dt, (T, N), dev)
+        if kernel.has_timers:
+            raise ValueError("cluster_loop: timer-rail kernels are not "
+                             "supported under the resilience layer "
+                             "(rejected at the runner)")
     check_topology(n_nodes, router_ix, delays, len(routers), dtimes, dper)
     lanes = Topology(routers, router_ix, n_nodes, seeds, delays, cap_mask,
-                     churn_t, dtimes, dvals, dper)
+                     churn_t, dtimes, dvals, dper, resil)
     if kernel.has_timers and lanes.any_churn:
         raise ValueError("cluster_loop: timer-rail kernels are not "
                          "supported under churn (rejected at the runner)")
     codes = [router_code(r) for r in routers]
-    if any(d > CLUSTER_MAX_JSQ_D for c, d in codes if c == 0):
+    if any(d > CLUSTER_MAX_JSQ_D for c, d in codes if c % 4 == 0):
         raise ValueError(f"cluster_loop: JSQ's d must be <= "
                          f"{CLUSTER_MAX_JSQ_D} on the card, got "
                          f"{[d for _, d in codes]}")
@@ -466,13 +508,14 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               capacity=C, queue_cap=queue_cap, stream=stream,
               threshold=threshold, n_live=n_live, deadlines=deadlines,
               tl_bins=tl_bins, tl_bucket=tl_bucket, churn_t=churn_t,
-              dtimes=dtimes, dvals=dvals, dper=dper)
+              dtimes=dtimes, dvals=dvals, dper=dper, rs_nfail=rs_nfail,
+              rs_tmo=rs_tmo, rs_key=rs_key, resil=resil)
     if dev.type == "cpu":
         cluster_loop.plain_calls += 1
         return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
                                       t_evict, trace_ix, cap_mask, beta,
                                       prior, **kw)
-    fn = _build.c_entry("event_loop", "event_loop_cluster_run",
+    fn = _build.c_entry(CLUSTER_SOURCE[variant], "event_loop_cluster_run",
                         _CLUSTER_ARGTYPES)
     _build.require_cuda("cluster_loop", dev)
     _check_layout(variant, cluster=True)
@@ -485,15 +528,28 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     slot_cap = int((n_nodes * lane_c).max())
     plan = cluster_layout_plan(F, slot_cap, Kx, variant)
     res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
-    i32 = torch.int32
     links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
     node_done = torch.empty((L, Kx), dtype=i32, device=dev)
     churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
-    node_of = land_t = None
+    resil_counts = torch.zeros((L, len(RESIL_COUNTS)), dtype=i64, device=dev)
+    node_of = land_t = att = rt_t = brk = None
     if not stream and lanes.any_delay:
         node_of = torch.zeros((L, N), dtype=i32, device=dev)
     if lanes.any_delay:
         land_t = torch.zeros((L, N), dtype=f64, device=dev)
+    rk = (0, 0, 0.0, 0.0, 0.0, 0)
+    if resil is not None:
+        from repro_torch.core.resilience import JITTER_SALT
+        att = torch.zeros((L, N), dtype=i32, device=dev)
+        rt_t = torch.zeros((L, N), dtype=f64, device=dev)
+        max_att, mode, base, cap, jit, seed = resil
+        rk = (int(max_att), int(mode), float(base), float(cap), float(jit),
+              (int(seed) ^ JITTER_SALT) & 0xFFFFFFFF)
+    if lanes.any_brk:
+        brk = torch.tensor([[r.volume, r.trip_at, r.cooldown]
+                            if isinstance(r, BreakerRouter) else [0.0] * 3
+                            for r in routers], dtype=f64,
+                           device=dev)[router_ix].contiguous()
     rc = fn(VARIANTS[variant]["code"],
             *_shared_args(fn_id, arrival, exec_time, None, None, t_cold,
                           t_evict, trace_ix, cap_mask, beta, prior,
@@ -504,7 +560,9 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             _ptr(churn_t), 0 if churn_t is None else churn_t.shape[2],
             _ptr(dtimes), _ptr(dvals), _ptr(dper),
             0 if dtimes is None else dtimes.shape[2], _ptr(land_t),
-            churn_counts.data_ptr(), _build.stream_of(dev))
+            churn_counts.data_ptr(), int(resil is not None), _ptr(rs_nfail),
+            _ptr(rs_tmo), _ptr(rs_key), _ptr(att), _ptr(rt_t), *rk,
+            _ptr(brk), resil_counts.data_ptr(), _build.stream_of(dev))
     _build.launch_check(rc, f"event_loop_cluster_run ({variant})")
     _count(cluster_loop, variant, res.pcounts)
     out = res.outputs(stream, deadlines, tl_bins)
@@ -512,6 +570,11 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     if lanes.any_churn:
         out["toggles"] = churn_counts[:, 0]
         out["reroutes"] = churn_counts[:, 1]
+    if resil is not None:
+        for i, k in enumerate(RESIL_COUNTS[:-1]):
+            out[k] = resil_counts[:, i].to(i32)
+    if lanes.any_brk:
+        out["breaker_trips"] = resil_counts[:, -1].to(i32)
     if node_of is not None:
         out["node_of"] = node_of
     return out

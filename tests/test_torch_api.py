@@ -98,15 +98,28 @@ def test_result_set_npz_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("timeouts", 1.0), ("fail_seed", 3), ("retry", 2),
+    ("timeouts", 1.0), ("fail_seed", 3), ("retry", tapi.RetryPolicy(2)),
     ("fail_prob", 0.1), ("on_overflow", "shed"), ("devices", 2),
     ("host_shard", (0, 2)), ("trace_events", True)])
 def test_unported_spec_field_raises(field, value):
+    """A field not ported raises, naming it; the resilience layer's fields
+    (ported) run, and a run with faults conserves its requests."""
+    kw = {field: value}
+    if field == "retry":        # a retry policy needs a fault to act on
+        kw["fail_prob"] = 0.1
     spec = tapi.ExperimentSpec(
         traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
-        **{field: value})
-    with pytest.raises(ValueError, match="not ported"):
-        tapi.run_experiment(spec, device="cpu")
+        capacities=(2,), **kw)
+    if field in ("devices", "host_shard", "trace_events"):
+        with pytest.raises(ValueError, match="not ported"):
+            tapi.run_experiment(spec, device="cpu")
+        return
+    rs = tapi.run_experiment(spec, device="cpu").check()
+    if spec.resilience_active():
+        tot = rs["done"] + rs["shed"] + rs["failed_exhausted"]
+        assert (tot == 10).all() and "goodput" in rs.data
+    else:
+        assert int(rs.value("done")) == 10 and "shed" not in rs.data
 
 
 @pytest.mark.parametrize("field,value", [("devices", 2),

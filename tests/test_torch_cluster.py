@@ -6,6 +6,8 @@ engine options on (integers exact, merged sums and means bitwise, the
 exact-mode p99 within rtol 1e-9), the cluster axis of the ResultSet, and
 what stays unported raising with its ROADMAP item (the dynamic tier is
 tests/test_torch_cluster_dynamic.py's)."""
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -220,14 +222,22 @@ def test_resultset_cluster_axis_sel_rows_npz(tmp_path):
 
 
 def test_breaker_router_raises_with_its_item():
-    """The circuit breaker belongs to the resilience layer: a spec naming
-    it validates, and running it raises with its ROADMAP item."""
+    """The circuit breaker of the resilience layer (ported) runs: without
+    faults it never trips and routes as jsq2, and a run with faults
+    conserves its requests."""
     spec = tapi.ExperimentSpec(
-        traces=[_tsrc()], cluster=[ClusterSpec(n_nodes=2, router="breaker")],
+        traces=[_tsrc()], cluster=[ClusterSpec(n_nodes=2, router="breaker"),
+                                   ClusterSpec(n_nodes=2, router="jsq2")],
         device="cpu", **GRID)
-    spec.validate()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tapi.run_experiment(spec)
+    rs = tapi.run_experiment(spec.validate()).check()
+    assert not rs["breaker_trips"].any()
+    for k in ("done", "resp_sum", "node_done", "resp_hist"):
+        np.testing.assert_array_equal(rs[k][:, :, :, :, 0],
+                                      rs[k][:, :, :, :, 1])
+    faulty = tapi.run_experiment(replace(
+        spec, fail_prob=0.5, on_overflow="shed")).check()
+    tot = faulty["done"] + faulty["shed"] + faulty["failed_exhausted"]
+    assert (tot == faulty.meta["n_requests"]).all()
 
 
 @pytest.mark.parametrize("field", ("churn", "delay_schedule"))

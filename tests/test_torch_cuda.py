@@ -506,7 +506,8 @@ def _churn_entries(span, router):
             ClusterSpec(n_nodes=4, router=router)]
 
 
-def _spec_run(device, a, F, entries, policy, stream, cap=8, **opt):
+def _spec_run(device, a, F, entries, policy, stream, cap=8, queue_cap=4096,
+              **opt):
     """The K-node engine over ``entries`` (port `ClusterSpec`s, one lane
     each, ``cap`` slots a node) on the trace ``a``, lowered as the runner
     lowers them (`pack_dynamic_lanes`), on ``device``."""
@@ -528,8 +529,8 @@ def _spec_run(device, a, F, entries, policy, stream, cap=8, **opt):
                    device=device), 0.1, kernel=POLICIES[policy],
         routers=routers, router_ix=col["router_ix"], n_nodes=col["n_nodes"],
         seeds=col["seeds"], delays=col["delays"], n_fns=F,
-        capacity=lanes["cap_mask"].shape[2], queue_cap=4096, stream=stream,
-        **extra, **opt)
+        capacity=lanes["cap_mask"].shape[2], queue_cap=queue_cap,
+        stream=stream, **extra, **opt)
 
 
 CHURN_POLICIES = sorted(p for p in POLICIES if not POLICIES[p].has_timers)
@@ -602,6 +603,160 @@ def test_churn_without_toggles_is_the_plain_kernel(cuda, policy):
                          dper=torch.zeros((L, K), dtype=torch.float64,
                                           device=cuda))
     _assert_same(with_ops, {k: v.cpu() for k, v in plain.items()}, policy)
+
+
+# -------------------------------- the resilience layer on the K-node variant
+def _resil_ops(device, a, F, fail_prob=0.2, timeouts=8.0, attempts=3,
+               mode=1, jitter=0.3):
+    """The resilience keywords of `simulate_cluster` for the trace ``a``
+    (as `ExperimentSpec.resilience_ops` lowers them) on ``device``, and
+    the attempts' times in place of its exec times."""
+    from repro_torch.core.resilience import plan_outcomes
+    eff, nfail, tmo = plan_outcomes(a["fn_id"], a["exec_time"],
+                                    fail_prob=fail_prob, timeouts=timeouts,
+                                    max_attempts=attempts, n_fns=F, seed=99)
+    n = len(a["fn_id"])
+    kw = dict(rs_nfail=torch.tensor(nfail, device=device)[None],
+              rs_tmo=torch.tensor(tmo, device=device)[None],
+              rs_key=torch.arange(n, dtype=torch.int32, device=device)[None],
+              resil=(attempts, mode, 0.05, 1.0, jitter, 99))
+    return dict(a, exec_time=eff), kw
+
+
+def _resil_spec_run(device, a, F, entries, policy, stream, mode=1,
+                    fail_prob=0.2, cap=3, queue_cap=8):
+    """`_spec_run` under tests/test_resilience.py's faults (``mode``: the
+    shed mode), ``cap`` slots a node and ``queue_cap``."""
+    b, kw = _resil_ops(device, a, F, fail_prob=fail_prob, mode=mode)
+    return _spec_run(device, b, F, entries, policy, stream, cap=cap,
+                     queue_cap=queue_cap, **kw)
+
+
+def _assert_conserves(out, n):
+    tot = out["done"] + out["shed"] + out["failed_exhausted"]
+    assert (tot == n).all() and not out["stalled"].any()
+    assert out["node_done"].sum(1).tolist() == out["done"].tolist()
+
+
+# the registered policies that the resilience layer admits
+RESIL_POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", RESIL_POLICIES)
+@pytest.mark.parametrize("on_overflow", ["shed", "shed_oldest"])
+def test_resil_single_node_and_static_tier_bitwise_eager(cuda, policy,
+                                                         on_overflow):
+    """The single node and the static tier (hash K = 2, round_robin K = 3
+    with a delay) under faults, both shed modes, every policy the layer
+    admits: their K = 1 lanes of the K-node variant, bitwise the eager
+    K-node loop, exact mode."""
+    import repro_torch.api as tapi
+    from repro_torch.core.resilience import RetryPolicy
+    spec = tapi.ExperimentSpec(
+        traces=[tapi.ArrayTrace.from_arrays(_azure(12, 300, 3))],
+        policies=(policy,), capacities=(3,), queue_cap=8, stream=False,
+        keep_per_request=True, fail_prob=0.2, timeouts=8.0,
+        retry=RetryPolicy(3, 0.05, 1.0, 0.3), on_overflow=on_overflow,
+        fail_seed=99, cluster=(
+            None, tapi.ClusterSpec(n_nodes=2, router="hash"),
+            tapi.ClusterSpec(n_nodes=3, router="round_robin",
+                             net_delay=0.003)))
+    launches = K0.cluster_loop.launches
+    card = tapi.run_experiment(spec, device="cuda").check()
+    torch.cuda.synchronize()
+    assert K0.cluster_loop.launches == launches + 2
+    cpu = tapi.run_experiment(spec, device="cpu").check()
+    assert sorted(card.data) == sorted(cpu.data)
+    for k in cpu.data:
+        np.testing.assert_array_equal(card[k], cpu[k], err_msg=k)
+    assert int(cpu["shed"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+def test_resil_dynamic_kernel_bitwise_eager(cuda, policy):
+    """jsq2, cold_aware and slo_aware with a delay a node, and jsq2 over
+    mixed capacities, under faults in one launch: exact mode, bitwise the
+    eager K-node loop, conserving every lane's requests."""
+    from repro_torch.cluster import ClusterSpec
+    a = _azure(12, 300, 4)
+    entries = [ClusterSpec(n_nodes=4, router="jsq2"),
+               ClusterSpec(n_nodes=4, router="cold_aware"),
+               ClusterSpec(n_nodes=4, router="slo_aware",
+                           net_delay=(0.0, 0.013, 0.027, 0.041)),
+               ClusterSpec(n_nodes=4, router="jsq2",
+                           node_capacity=(3, 1, 2, 1))]
+    card = _resil_spec_run(cuda, a, 12, entries, policy, False,
+                           queue_cap=3)
+    cpu = _resil_spec_run("cpu", a, 12, entries, policy, False, queue_cap=3)
+    _assert_same(card, cpu, policy)
+    _assert_conserves(cpu, 300)
+    assert int(cpu["retried"].sum()) > 0 and int(cpu["shed"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["esff", "sff"])
+@pytest.mark.parametrize("mode", [1, 2])
+def test_resil_churn_kernel_bitwise_eager(cuda, policy, mode):
+    """Churn (periodic, mid-flight, with delays and schedules, an all-down
+    window) under faults and both shed modes: bitwise the eager K-node
+    loop; drained attempts are given back."""
+    a = _azure(12, 300, 5)
+    entries = _churn_entries(float(a["arrival"].max()), "jsq2")
+    card = _resil_spec_run(cuda, a, 12, entries, policy, True, mode=mode)
+    cpu = _resil_spec_run("cpu", a, 12, entries, policy, True, mode=mode)
+    _assert_same(card, cpu, (policy, mode))
+    _assert_conserves(cpu, 300)
+    assert (cpu["reroutes"][:4] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inner", ["jsq2", "cold_aware"])
+def test_resil_breaker_kernel_bitwise_eager(cuda, inner):
+    """The circuit breaker around jsq2 or cold_aware at fail_prob 0.6
+    beside the plain router: it trips, and the launch is bitwise the
+    eager K-node loop."""
+    from repro_torch.cluster import ClusterSpec
+    from repro_torch.cluster.routers import (BreakerRouter, get_router,
+                                             register_router,
+                                             unregister_router)
+    name = f"breaker_{inner}"
+    register_router(name, BreakerRouter(get_router(inner), name, volume=10),
+                    replace=True)
+    try:
+        a = _azure(12, 400, 6)
+        entries = [ClusterSpec(n_nodes=4, router=name),
+                   ClusterSpec(n_nodes=4, router=inner)]
+        card = _resil_spec_run(cuda, a, 12, entries, "esff", False,
+                               fail_prob=0.6, queue_cap=64)
+        cpu = _resil_spec_run("cpu", a, 12, entries, "esff", False,
+                              fail_prob=0.6, queue_cap=64)
+    finally:
+        unregister_router(name)
+    _assert_same(card, cpu, inner)
+    _assert_conserves(cpu, 400)
+    assert int(cpu["breaker_trips"][0]) > 0
+    assert int(cpu["breaker_trips"][1]) == 0
+
+
+@pytest.mark.cuda
+def test_resil_node_table_layout(cuda):
+    """The library's node table (88 B a node: the breaker's window and
+    reopen time) and resilience columns are the wrapper's, and
+    fig_resilience's widest lane (K = 8 nodes of 4 slots, F = 200) keeps
+    its per-(node, function) state in shared memory."""
+    import ctypes
+    from repro_torch.kernels import _build
+    for variant, v in K0.VARIANTS.items():
+        f = _build.c_entry(K0.CLUSTER_SOURCE[variant],
+                           "event_loop_cluster_layout",
+                           [ctypes.c_int, _build.PTR, ctypes.c_int])
+        got = (ctypes.c_longlong * 12)()
+        assert f(v["code"], got, 12) == 12
+        assert tuple(got) == K0.cluster_layout(variant)
+    assert K0.CLUSTER_NODE_BYTES == 88
+    assert K0.cluster_layout_plan(200, 32, 8, "esff")["fn_in_shared"]
 
 
 # ------------------------------------------- the serving path's kernels

@@ -123,18 +123,36 @@ def test_engine_frp_goes_through_frp_select_lanes():
     assert fs.frp_select_lanes.plain_calls > before
 
 
-@pytest.mark.parametrize("opt", [dict(resil=object()), dict(trace=True)])
+@pytest.mark.parametrize("opt", ["resil", "trace"])
 def test_unported_engine_options_raise(opt):
+    """``trace`` is not ported and raises, naming its ROADMAP item; the
+    resilience layer (ported) runs and conserves the requests."""
     a = _trace(5, 20, 0)
     t = {k: torch.as_tensor(a[k])[None] for k in COLS}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
-                   t["cold_start"], t["evict"],
-                   torch.zeros(1, dtype=torch.int64),
-                   torch.ones(1, 2, dtype=torch.bool),
-                   torch.ones(1, dtype=torch.float64), 0.1,
-                   kernel=KERNELS["esff"], n_fns=5, capacity=2,
-                   queue_cap=64, **opt)
+
+    def run(**kw):
+        return E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
+                          t["cold_start"], t["evict"],
+                          torch.zeros(1, dtype=torch.int64),
+                          torch.ones(1, 2, dtype=torch.bool),
+                          torch.ones(1, dtype=torch.float64), 0.1,
+                          kernel=KERNELS["esff"], n_fns=5, capacity=2,
+                          queue_cap=2, **kw)
+    if opt == "trace":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run(trace=True)
+        return
+    from repro_torch.core.resilience import plan_outcomes
+    eff, nfail, tmo = plan_outcomes(a["fn_id"], a["exec_time"], fail_prob=0.3,
+                                    timeouts=None, max_attempts=2, n_fns=5,
+                                    seed=1)
+    out = run(rs_nfail=torch.as_tensor(nfail)[None],
+              rs_tmo=torch.as_tensor(tmo)[None],
+              rs_key=torch.arange(20, dtype=torch.int32)[None],
+              resil=(2, 1, 0.05, 1.0, 0.0, 1))
+    assert int(out["failed"][0]) > 0
+    assert int(out["done"][0] + out["shed"][0]
+               + out["failed_exhausted"][0]) == 20
 
 
 def test_simulate_policy_from_trace_matches_jax():

@@ -262,7 +262,7 @@ def test_cluster_layout_plan_and_sizes():
     big = K0.cluster_layout_plan(200, 32, 32, "esff")
     assert not big["fn_in_shared"]
     assert big["scratch_bytes"] == -(-(16 * 200 + 36 * 32 * 200) // 16) * 16
-    assert big["smem_bytes"] == 40 * 32 + 72 * 32
+    assert big["smem_bytes"] == 40 * 32 + 88 * 32
     assert K0.cluster_layout_plan(200, 32, 4, "esff")["fn_in_shared"]
     with pytest.raises(ValueError, match="shared memory"):
         K0.cluster_layout_plan(200, 10 ** 5, 64, "esff")

@@ -182,14 +182,23 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
-    assert set(_build.SOURCES) == {"event_loop", "frp_select", "rmsnorm",
-                                   "decode_attention", "flash_attention",
-                                   "ssd_chunk"}
+    assert set(_build.SOURCES) == {"event_loop", "event_loop_cluster_esff",
+                                   "event_loop_cluster_esff_lru",
+                                   "event_loop_cluster_queue",
+                                   "event_loop_cluster_faas", "frp_select",
+                                   "rmsnorm", "decode_attention",
+                                   "flash_attention", "ssd_chunk"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine bodies need contraction off (bitwise parity)
     assert "--fmad=false" in _build.nvcc_flags("frp_select")
-    assert "--fmad=false" in _build.nvcc_flags("event_loop")
+    for name in ("event_loop",) + _build.CLUSTER_UNITS:
+        assert "--fmad=false" in _build.nvcc_flags(name)
+    # the K-node units include event_loop.cu: it is in their key
+    monkeypatch.setattr(_build, "INCLUDES", {})
+    b = _build._lib_path("event_loop_cluster_esff")
+    monkeypatch.undo()
+    assert _build._lib_path("event_loop_cluster_esff") != b
     assert "--fmad=false" not in _build.nvcc_flags("flash_attention")
     a = _build._lib_path("rmsnorm")
     monkeypatch.setitem(_build.EXTRA_FLAGS, "rmsnorm", ("--fmad=false",))
