@@ -153,6 +153,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  K = 1 lane and a K = 4 lane with an all-down window
                  under resil-tiers' faults, a K = 4 breaker lane at
                  fail_prob 0.6; N = RESIL_EAGER_N), bitwise.
+   ``telemetry`` the trace rail (ExperimentSpec(trace_events=True)):
+                 the five cases of scripts/telemetry_expected.py
+                 (tests/test_telemetry.py's K = 4 churn + retry spec; the
+                 single node, six policies; the static tier, hash K = 3;
+                 slo_aware K = 4 with delays; SFF's bulk re-routes under
+                 periodic churn) through the traced forms of
+                 K0 (csrc/event_loop_traced.cu,
+                 csrc/event_loop_cluster_traced_*.cu), with the counts
+                 set to 0 just before and read just after: every cell's
+                 stream bitwise the JAX package's (record count, kinds,
+                 SHA-256 of its columns), the results bitwise the
+                 untraced run's; each case cut to TELEMETRY_EAGER_N
+                 through the traced eager loops on the card beside the
+                 traced kernels, bitwise; Fig. 5's ESFF and SFF lanes
+                 traced at full size (records = n_events, ARRIVAL = N,
+                 completing EXEC = done, COLD = cold starts, the span
+                 responses' sum = mean response x N within 1e-9, results
+                 bitwise the main path's), traced and untraced launches
+                 timed, relaunches counted; the churn case's Perfetto
+                 export validated; a planted fault in one record of a
+                 copy of its stream rejected.
 5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 500), the options
                  spec, the static cluster's two specs and the dynamic
                  cluster's K = 4 entries (both routers, ESFF and SFF) at
@@ -277,6 +298,19 @@ RESIL_EAGER_N_OTHERS = 15
 RESIL_TIMED = ("fp0.3/retry3", "breaker/fp0.15", "breaker/fp0.6",
                "resil-tiers")
 PARITY_WORKERS = 6
+# The JAX package's traced runs (event counts by kind, record counts and
+# the SHA-256 of each cell's int32 and f64 columns) for the telemetry
+# phase's cases, made on the CPU with (PYTHONPATH=src, JAX_PLATFORMS=cpu)
+#   python scripts/telemetry_expected.py
+# whose spec builder the phase shares (the script imports JAX only in its
+# main).
+TELEMETRY_EXPECTED_FILE = os.path.join(HERE, "scripts",
+                                       "telemetry_expected.json")
+# the telemetry phase: the traced eager loops on the card beside the traced
+# kernels on each case cut to this N, and the Fig. 5 lanes traced at full
+# size for these policies
+TELEMETRY_EAGER_N = 40
+TELEMETRY_FULL = ("esff", "sff")
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
 CAPACITIES = (8, 12, 16, 20, 24, 28, 32)
@@ -988,6 +1022,7 @@ def reset_counts(fs, K0):
     for entry in (K0.event_loop, K0.cluster_loop):
         entry.launches = 0
         entry.variant_launches = {}
+        entry.traced_launches = {}
         entry.last_by_variant = {}
 
 
@@ -2170,6 +2205,320 @@ def resil_eager_specs(np, api, CE):
             replace(brk, policies=CLUSTER_POLICIES)]
 
 
+# ------------------------------------------------ the telemetry phase
+def telemetry_module():
+    """scripts/telemetry_expected.py: the telemetry phase's specs and the
+    digest of a stream, shared with the script that made their JAX
+    constants (it imports JAX only in its main)."""
+    import importlib.util
+    path = os.path.join(HERE, "scripts", "telemetry_expected.py")
+    spec = importlib.util.spec_from_file_location("telemetry_expected", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def digests_differ(exp, got):
+    """The cells of a case whose digest differs from the JAX constants."""
+    return sorted(k for k in set(exp) | set(got) if exp.get(k) != got.get(k))
+
+
+def same_streams(np, a, b):
+    """The (cell, field) pairs in which two TraceRuns' streams differ."""
+    bad = [(k, "cell") for k in set(a.cells) ^ set(b.cells)]
+    for k in set(a.cells) & set(b.cells):
+        bad += [(k, f) for f in a.cells[k]
+                if not np.array_equal(a.cells[k][f], b.cells[k][f])]
+    return bad
+
+
+def same_data(np, a, b):
+    return sorted(m for m in set(a.data) | set(b.data)
+                  if m not in a.data or m not in b.data
+                  or not np.array_equal(a.data[m], b.data[m],
+                                        equal_nan=True))
+
+
+def max_abs_err(np, a, b):
+    """The largest absolute difference between two traced runs: their
+    streams' ``t`` and ``dt`` columns and every result metric (the
+    integer columns are held equal apart)."""
+    errs = [0.0]
+    for k in set(a.trace.cells) & set(b.trace.cells):
+        for f in ("t", "dt"):
+            x, y = a.trace.cells[k][f], b.trace.cells[k][f]
+            if x.shape == y.shape and x.size:
+                errs.append(float(np.max(np.abs(x - y))))
+    for m in set(a.data) & set(b.data):
+        x = np.asarray(a.data[m], dtype=np.float64)
+        y = np.asarray(b.data[m], dtype=np.float64)
+        fin = np.isfinite(x) & np.isfinite(y)
+        if x.shape == y.shape and fin.any():
+            errs.append(float(np.max(np.abs(x[fin] - y[fin]))))
+    return max(errs)
+
+
+def traced_launches(K0):
+    return dict(single=dict(K0.event_loop.traced_launches),
+                cluster=dict(K0.cluster_loop.traced_launches),
+                untraced=(K0.event_loop.launches + K0.cluster_loop.launches
+                          - sum(K0.event_loop.traced_launches.values())
+                          - sum(K0.cluster_loop.traced_launches.values())))
+
+
+def response_sum(np, ev, TraceKind):
+    """The sum of the span responses of a stream (each completing EXEC's
+    time less its request's ARRIVAL), vectorised: what
+    `assemble_spans` sums over a Fig. 5 lane's 60,000 spans."""
+    kind, rid, aux = ev["kind"], ev["rid"], ev["aux"]
+    arr = np.full(int(rid.max()) + 1, np.nan)
+    am = kind == TraceKind.ARRIVAL
+    arr[rid[am]] = ev["t"][am]
+    ok = (kind == TraceKind.EXEC) & ((aux & 3) == 0)
+    return float(np.sum(ev["t"][ok] - arr[rid[ok]]))
+
+
+def phase_telemetry(torch, np, api, fs, K0, exp_all, n_requests, main_rs):
+    """The trace rail on the card: the five cases of
+    scripts/telemetry_expected.py through the traced forms of K0 (the
+    path, with the counts set to 0 just before and read just after),
+    every cell's stream bitwise the JAX constants and the results bitwise
+    the untraced run's; the traced eager loops on the card beside the
+    traced kernels on each case cut to TELEMETRY_EAGER_N, bitwise; Fig.
+    5's lanes of TELEMETRY_FULL traced at full size (records = n_events,
+    ARRIVAL = N, completing EXEC = done, COLD = cold starts, span
+    responses = mean response x N within 1e-9, results bitwise the main
+    path's), traced and untraced launches timed; the Perfetto export of
+    the churn case validated, and a planted fault in a copy of its stream
+    rejected."""
+    from repro_torch.core.policies import KERNELS
+    from repro_torch.telemetry import (TraceKind, assemble_spans,
+                                       call_breakdown, events_to_trace,
+                                       rail, validate_trace)
+    tm = telemetry_module()
+    with open(TELEMETRY_EXPECTED_FILE) as f:
+        texp = json.load(f)["cases"]
+    specs = {c: tm.build_spec(api, c) for c in tm.CASES}
+    for spec in specs.values():
+        for src in spec.expanded_traces():
+            src.arrays()
+    # the path: every case traced on the card
+    reset_counts(fs, K0)
+    plain0 = K0.event_loop.plain_calls + K0.cluster_loop.plain_calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traced = {c: api.run_experiment(spec, device="cuda")
+              for c, spec in specs.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = traced_launches(K0)
+    launches["plain_calls"] = (K0.event_loop.plain_calls
+                               + K0.cluster_loop.plain_calls - plain0)
+    need(launches["untraced"] == 0 and launches["plain_calls"] == 0,
+         f"telemetry: a traced case took an untraced launch or the eager "
+         f"loop ({launches})")
+    cases = {}
+    for c, rs in traced.items():
+        got = tm.case_digests(rs.trace)
+        bad = digests_differ(texp[c], got)
+        need(not bad, f"telemetry: {c}: cells {bad} differ from the JAX "
+             "package's traced run")
+        plain = api.run_experiment(replace(specs[c], trace_events=False),
+                                   device="cuda")
+        differs = same_data(np, rs, plain)
+        need(not differs and plain.trace is None,
+             f"telemetry: {c}: tracing changed {differs}")
+        cases[c] = dict(cells=len(got),
+                        records=sum(d["records"] for d in got.values()),
+                        kinds=[sum(d["kinds"][i] for d in got.values())
+                               for i in range(8)])
+    # a planted fault: one record of a copy of the churn case's stream
+    ev = traced["churn_retry_k4"].trace.events()
+    bad_ev = {k: v.copy() for k, v in ev.items()}
+    bad_ev["aux"][len(bad_ev["aux"]) // 2] ^= 2
+    need(tm.digest(bad_ev) != texp["churn_retry_k4"]["0,0,0,0,0"],
+         "telemetry: a planted fault in one record was not rejected")
+    n_trace_events = validate_trace(events_to_trace(ev))
+    spans = assemble_spans(ev)
+    need(sum(s.completion >= 0 for s in spans.values())
+         == int(traced["churn_retry_k4"].value("done")),
+         "telemetry: the churn case's spans do not complete done requests")
+    # the traced eager loops on the card beside the traced kernels, each
+    # case cut to TELEMETRY_EAGER_N; each (case, policy) alone, so that
+    # each variant's kernel and plain version are timed apart
+    eager = {}
+    orig = K0.has_device_loop
+    for c in tm.CASES:
+        for p in specs[c].policies:
+            cut = replace(tm.build_spec(api, c, TELEMETRY_EAGER_N),
+                          policies=(p,))
+            for src in cut.expanded_traces():
+                src.arrays()
+            t0 = time.perf_counter()
+            card = api.run_experiment(cut, device="cuda")
+            torch.cuda.synchronize()
+            k_ms = (time.perf_counter() - t0) * 1e3
+            K0.has_device_loop = lambda kernel: False
+            try:
+                t0 = time.perf_counter()
+                ref = api.run_experiment(cut, device="cuda")
+                torch.cuda.synchronize()
+                e_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                K0.has_device_loop = orig
+            bad = same_streams(np, card.trace, ref.trace)
+            differs = same_data(np, card, ref)
+            need(not bad and not differs,
+                 f"telemetry: {c}/{p} at N = {TELEMETRY_EAGER_N}: the "
+                 f"traced kernel differs from the traced eager loop "
+                 f"({bad[:3]}, {differs})")
+            eager[f"{c}/{p}"] = dict(plain_ms=e_ms, ms=k_ms,
+                                     records=card.trace.n_events,
+                                     max_abs_err=max_abs_err(np, card, ref))
+    # each (case, policy)'s traced launches timed at the case's size
+    per_case = {}
+    for c in tm.CASES:
+        for p in specs[c].policies:
+            one = replace(specs[c], policies=(p,))
+            api.run_experiment(one, device="cuda")   # warm
+            reset_counts(fs, K0)
+            br = call_breakdown(api.run_experiment, one, device="cuda")
+            pi = specs[c].policies.index(p)
+            per_case[f"{c}/{p}"] = dict(
+                launch_ms=br["launch_s"] * 1e3, copy_ms=br["copy_s"] * 1e3,
+                pack_ms=br["pack_s"] * 1e3, total_ms=br["total_s"] * 1e3,
+                launches=traced_launches(K0),
+                records=sum(len(ev["kind"]) for key, ev
+                            in traced[c].trace.cells.items()
+                            if key[0] == pi))
+    # Fig. 5's lanes traced at full size, beside their untraced launch
+    args, kw = fig5_inputs(torch, api, n_requests, torch.device("cuda"))
+    exp = exp_all["fig5"].get(str(n_requests))
+    full = {}
+    for p in TELEMETRY_FULL:
+        kernel = KERNELS[p]
+        a = with_beta(torch, args, kernel)
+        un_ms, _, _ = k0_timed(torch, K0, kernel, a, kw, reps=3)
+        with rail.collect() as sink:
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = K0.event_loop(*a, kernel=kernel, trace=True, **kw)
+            e1.record()
+            e1.synchronize()
+        tr_ms = e0.elapsed_time(e1)
+        last = dict(K0.event_loop.last_trace)
+        br = call_breakdown(K0.event_loop, *a, kernel=kernel, trace=True,
+                            **kw)
+        differs = k0_differs(np, out, main_rs, p)
+        need(not differs, f"telemetry: {p}: the traced Fig. 5 launch "
+             f"differs from the main path's in {differs}")
+        pi = main_rs.coords["policy"].index(p)
+        lanes = []
+        for j in range(len(CAPACITIES)):
+            ev = sink.lane_events(j)
+            kind = ev["kind"]
+            done = int(main_rs["done"][pi, 0, j, 0])
+            cold = int(main_rs["cold_starts"][pi, 0, j, 0])
+            mean = float(main_rs["mean_response"][pi, 0, j, 0])
+            n_ev = (exp[p]["n_events"][j] if exp is not None
+                    else int(out["n_events"][j]))
+            rsum = response_sum(np, ev, TraceKind)
+            ok = (len(kind) == n_ev
+                  and int((kind == TraceKind.ARRIVAL).sum()) == n_requests
+                  and int(((kind == TraceKind.EXEC)
+                           & ((ev["aux"] & 3) == 0)).sum()) == done
+                  and int((kind == TraceKind.COLD).sum()) == cold
+                  and math.isclose(rsum, mean * n_requests, rel_tol=1e-9))
+            need(ok, f"telemetry: {p} C={CAPACITIES[j]}: the traced lane "
+                 f"does not conserve ({len(kind)} records, n_events "
+                 f"{n_ev}; response sum {rsum!r} vs {mean * n_requests!r})")
+            lanes.append(dict(records=len(kind), n_events=n_ev))
+        events = sum(x["records"] for x in lanes)
+        full[p] = dict(traced_ms=tr_ms, untraced_ms=un_ms,
+                       traced_over_untraced=tr_ms / un_ms,
+                       launch_ms=br["launch_s"] * 1e3,
+                       copy_ms=br["copy_s"] * 1e3,
+                       relaunches=last["relaunches"],
+                       capacity=last["capacity"], records=events,
+                       record_mb=events * 52 / 1e6,
+                       longest_lane_events=max(x["records"] for x in lanes))
+    res = dict(phase="telemetry", wall_s=wall, launches=launches,
+               case_n=tm.TRACE["n_requests"],
+               cases=cases, eager_card=eager, per_case=per_case,
+               fig5_full=full, eager_n=TELEMETRY_EAGER_N,
+               perfetto_events=n_trace_events, planted_fault="rejected",
+               bitwise_vs_jax=True)
+    emit(res)
+    return res
+
+
+def traced_kernel_rows(K0, KERNELS, tele, n_requests):
+    """The ``kernels`` line's rows of the traced forms of K0 that the
+    telemetry phase's path launched: launches from that path, ms from
+    each variant's traced launch (Fig. 5's full-size lanes for
+    TELEMETRY_FULL on one node, else its case's), the plain version the
+    traced eager loop on the card at TELEMETRY_EAGER_N, max_abs_err the
+    largest difference from it over the cases that launched the variant
+    (their streams' t and dt, their metrics), the bound from the records
+    written (52 B each) and ~20 f64 operations an event."""
+    from repro_torch.kernels import _build
+    report = "\n".join(_build.BUILD_INFO.get(s, {}).get("ptxas", "")
+                       for s in _build.TRACED_UNITS
+                       + _build.CLUSTER_TRACED_UNITS)
+    rows = []
+    for form in ("single", "cluster"):
+        for v, n in sorted(tele["launches"][form].items()):
+            p = next(q for q in POLICIES
+                     if K0.variant_of(KERNELS[q]) == v)
+            runs = {k: r for k, r in tele["per_case"].items()
+                    if r["launches"][form].get(v)}
+            case, r = next(iter(runs.items()))
+            ms = r["launch_ms"] / r["launches"][form][v]
+            records = r["records"]
+            n_req = tele["case_n"]
+            at = f"({case}, N = {n_req})"
+            if form == "single" and p in tele["fig5_full"]:
+                full = tele["fig5_full"][p]
+                ms, records = full["traced_ms"], full["records"]
+                n_req = n_requests
+                at = (f"(Fig. 5's {len(CAPACITIES)} lanes traced, N = "
+                      f"{n_requests}, F = 200)")
+            e = tele["eager_card"][case]
+            b, by = bound_ms(52 * records + 32 * n_req, 20 * records,
+                             "f64")
+            cl = form == "cluster"
+            unit = (K0.CLUSTER_TRACED_SOURCE[v] if cl
+                    else K0.TRACED_SOURCE)
+            rows.append(dict(
+                name=f"event_loop{'_cluster' if cl else ''}_traced[{p}]",
+                entry="cluster_loop" if cl else "event_loop",
+                trace=True, variant=v, route="cuda",
+                source=f"src/repro_torch/csrc/{unit}.cu",
+                replaces=("src/repro/cluster/engine.py:413" if cl
+                          else "src/repro/core/jax_engine.py:1001"),
+                policy_kernel=POLICY_SOURCE[p], pallas=False,
+                note="engine work with no Pallas twin: K0's traced form "
+                "(the trace rail of "
+                + ("cluster/engine.py:1278-1345" if cl
+                   else "jax_engine.py:1432-1478") + " compiled in)",
+                launches=n,
+                max_abs_err=max(tele["eager_card"][k]["max_abs_err"]
+                                for k in runs),
+                ms=ms,
+                plain_ms=e["plain_ms"], plain_n_requests=TELEMETRY_EAGER_N,
+                ms_at_plain_n=e["ms"],
+                plain_note="the traced eager loop's run (the runner's "
+                "wall) at N = TELEMETRY_EAGER_N of the same case; "
+                "ms_at_plain_n is the traced kernel's run there",
+                bound_ms=b, bound_by=by, library_ms=None,
+                ptxas=ptxas_lines(report, (PTXAS_NAME_CLUSTER if cl
+                                           else PTXAS_NAME)[p]),
+                check="passed", at=at))
+    return rows
+
+
 def phase_profile(torch, api, n_requests):
     """K0's device time and the device busy share, from torch.profiler
     over the main path's run."""
@@ -3104,6 +3453,8 @@ def main(argv=None) -> int:
                       args.n_requests)
         resil = timed("resilience", phase_resilience, torch, np, api, fs, K0,
                       cexp, args.n_requests)
+        tele = timed("telemetry", phase_telemetry, torch, np, api, fs, K0,
+                     exp, args.n_requests, main_rs)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -3276,6 +3627,7 @@ def main(argv=None) -> int:
             check="passed",
             at=f"(resil-tiers' dynamic launch, {r['lanes']} lanes, N = "
             f"{resil['n_requests']}, F = 200)"))
+    kernels += traced_kernel_rows(K0, KERNELS, tele, main["n_requests"])
     for name, source, replaces, at in SERVING_KERNELS:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)

@@ -8,8 +8,10 @@ spec (fail_prob 0.3, retry3) and its breaker row at fail_prob 0.6, on the
 smoke's trace (F = 200, seed 0) at N = 60,000. One launch a policy and
 spec on the runner's own operands, timed by CUDA events (median of 5,
 after a warm-up), with each lane's events and resp_sum (to hold two
-checkouts' results equal), and ptxas's registers and spills of the
-event-loop library.
+checkouts' results equal), and ptxas's registers and spills of each
+event-loop library (unit). Where the checkout has the trace rail, Fig.
+5's ESFF lanes are also timed traced (the traced single-node form of K0,
+its records copied back), with the records a launch and the relaunches.
 
     python scripts/cluster_lane_timing.py [--src DIR/src] [--n-requests N]
 
@@ -89,8 +91,8 @@ def main(argv=None) -> int:
         _build.build(units)
         emit(dict(build_s={s: _build.BUILD_INFO[s]["seconds"]
                            for s in units},
-                  ptxas=ptxas("\n".join(_build.BUILD_INFO[s]["ptxas"]
-                                         for s in units))))
+                  ptxas={s: ptxas(_build.BUILD_INFO[s]["ptxas"])
+                         for s in units}))
         fargs, kw = cs.fig5_inputs(torch, api, args.n_requests, "cuda")
         kernel = KERNELS["esff"]
         fargs = cs.with_beta(torch, fargs, kernel)
@@ -98,6 +100,17 @@ def main(argv=None) -> int:
         ms, out, _ = cs.k0_timed(torch, K0, kernel, fargs, kw, reps=5)
         emit(dict(spec="fig5", policy="esff", ms=ms,
                   resp_sum=out["resp_sum"].tolist()))
+        if hasattr(K0, "TRACED_SOURCE"):
+            from repro_torch.telemetry import rail
+            tkw = dict(kw, trace=True)
+            with rail.collect():
+                K0.event_loop(*fargs, kernel=kernel, **tkw)
+                ms, tout, _ = cs.k0_timed(torch, K0, kernel, fargs, tkw,
+                                          reps=5)
+            emit(dict(spec="fig5 traced", policy="esff", ms=ms,
+                      records=int(tout["n_events"].sum()),
+                      relaunches=K0.event_loop.last_trace["relaunches"],
+                      resp_sum=tout["resp_sum"].tolist()))
         for name, spec in specs(api, CE, args.n_requests):
             calls, _, _, _ = cs.cluster_calls(torch, spec, 256)
             for p, _, _, cargs, ckw in calls:

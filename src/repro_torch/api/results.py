@@ -7,7 +7,10 @@ the `ClusterSpec` labels); metric-specific dims (histogram and timeline
 bins, per-function deadline misses, per-node counts, per-request N)
 follow.
 Selection (`sel` / `value`), tidy rows (`rows`), CSV (`to_csv`) and an
-npz round-trip (`save_npz` / `load_npz`) work as in the JAX package.
+npz round-trip (`save_npz` / `load_npz`) work as in the JAX package. A run
+with ``trace_events`` attaches its per-cell event streams (``trace``, a
+`repro_torch.telemetry.TraceRun`, exported on its own with
+``trace.save_npz``) and `timeline` bins one cell's stream.
 """
 from __future__ import annotations
 
@@ -34,6 +37,10 @@ class ResultSet:
     coords: Dict[str, list]
     computed: Optional[np.ndarray] = None    # (P, T, K, B) bool
     meta: dict = field(default_factory=dict)
+    # per-cell event streams of a trace_events=True run
+    # (`repro_torch.telemetry.TraceRun`); not part of the npz payload --
+    # export separately with `trace.save_npz`
+    trace: Optional[object] = None
 
     def __post_init__(self):
         shape = self.grid_shape
@@ -124,6 +131,37 @@ class ResultSet:
                 "cell -- add coords")
         cell = sub[metric][(0,) * nd]
         return cell.item() if np.ndim(cell) == 0 else np.asarray(cell)
+
+    # -------------------------------------------------------- telemetry
+    def timeline(self, bucket: float = 60.0, *, deadlines=None,
+                 **sel) -> Dict[str, np.ndarray]:
+        """Streaming per-bin time series of one traced grid cell.
+
+        Requires a run with ``trace_events=True`` (the attached
+        `repro_torch.telemetry.TraceRun`). ``sel`` selects one cell
+        exactly like `value` (axes of length one resolve implicitly);
+        returns the `repro_torch.telemetry.metrics.timeline` dict --
+        per-node queue depth, warm occupancy, utilization, throughput,
+        goodput and SLO attainment per ``bucket``-second bin.
+        ``deadlines`` defaults to the producing spec's (from ``meta``)."""
+        if self.trace is None:
+            raise ValueError(
+                "ResultSet.timeline: no event streams attached -- run "
+                "with ExperimentSpec(trace_events=True)")
+        from repro_torch.telemetry import metrics as _tmet
+        ev = self.trace.events(**sel)
+        key = self.trace._cell_key(**sel)
+        tr_coords = self.trace.coords
+        cap = None
+        if "capacity" in tr_coords:
+            c = tr_coords["capacity"][
+                key[list(tr_coords).index("capacity")]]
+            if isinstance(c, (int, np.integer)):
+                cap = int(c)
+        if deadlines is None:
+            deadlines = self.meta.get("deadlines")
+        return _tmet.timeline(ev, bucket=bucket, capacity=cap,
+                              deadlines=deadlines)
 
     # ------------------------------------------------------- tidy rows
     def rows(self, metrics: Optional[Sequence[str]] = None

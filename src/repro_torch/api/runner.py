@@ -20,6 +20,7 @@ from repro_torch.api.results import ResultSet
 from repro_torch.api.spec import ExperimentSpec
 from repro_torch.core.engine import (goodput, lane_chunk_for,
                                      slo_attainment, sweep_metrics)
+from repro_torch.telemetry import profiling, rail
 from repro_torch.utils.device import resolve_device
 
 _BETA_DEFAULT = "default"
@@ -79,6 +80,24 @@ def resil_kwargs(rs, dev) -> dict:
                 rs_key=torch.tensor(key, device=dev), resil=resil)
 
 
+def traced_call(call, traced: bool, n_lanes: int):
+    """``call()``, and under ``traced`` inside its own `rail.collect`
+    scope (traced calls run one after another); returns the call's
+    result and each of its ``n_lanes`` lanes' event streams (None when
+    not traced)."""
+    if not traced:
+        return call(), None
+    with rail.collect() as sink:
+        out = call()
+    return out, [sink.lane_events(j) for j in range(n_lanes)]
+
+
+def to_numpy(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A call's result tensors copied back to the host."""
+    with profiling.phase("copy"):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def _chunk_plan(spec: ExperimentSpec, T: int, chunk: int):
     """The chunk list [(policy_index, lane_lo, lane_hi)] (policy-major;
     lanes trace-major, then capacity, then beta)."""
@@ -107,6 +126,7 @@ def result_meta(spec: ExperimentSpec, dev: torch.device, N: int, F: int,
                 seeds=(list(spec.seeds) if spec.seeds is not None
                        else None),
                 resilience=spec.resilience_meta(),
+                trace_events=spec.trace_events,
                 device=str(dev),
                 device_name=(torch.cuda.get_device_name(dev)
                              if dev.type == "cuda" else "cpu"),
@@ -122,7 +142,13 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
     ``"cpu"``) and raises when CUDA is wanted but absent. A spec with a
     ``cluster`` axis goes to
     `repro_torch.cluster.runner.run_cluster_experiment`, which stacks one
-    grid a topology into the ResultSet's trailing ``cluster`` axis."""
+    grid a topology into the ResultSet's trailing ``cluster`` axis.
+
+    Under ``trace_events`` the lane chunks run one after another, each in
+    its own `repro_torch.telemetry.collect` scope, and the ResultSet
+    carries their event streams as a `repro_torch.telemetry.TraceRun`
+    over its coordinates (``rs.trace``); its metrics are the untraced
+    run's, bitwise."""
     spec.validate()
     dev = resolve_device(spec.device if device is None else device)
     if spec.cluster is not None:
@@ -142,8 +168,9 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
     f64 = torch.float64
     dtypes = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
                   cold_start=f64, evict=f64)
-    shared = {k: torch.as_tensor(v, dtype=dtypes[k], device=dev)
-              for k, v in stacked.items()}
+    with profiling.phase("pack"):
+        shared = {k: torch.as_tensor(v, dtype=dtypes[k], device=dev)
+                  for k, v in stacked.items()}
     kernels = {p: get_kernel(p) for p in spec.policies}
     tix_col = np.repeat(np.arange(T, dtype=np.int64), K * B)
     mask_col = np.tile(np.repeat(masks, B, axis=0), (T, 1))
@@ -158,9 +185,10 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
 
     P = len(spec.policies)
     flat: Dict[str, np.ndarray] = {}
+    cells: Dict[tuple, dict] = {}
     for pi, lo, hi in plan:
         policy = spec.policies[pi]
-        out = sweep_metrics(
+        out, events = traced_call(lambda: to_numpy(sweep_metrics(
             shared["fn_id"], shared["arrival"], shared["exec_time"],
             shared["cold_start"], shared["evict"],
             torch.as_tensor(tix_col[lo:hi], device=dev),
@@ -170,9 +198,12 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
             n_fns=F, capacity=C, queue_cap=spec.queue_cap,
             stream=spec.stream, keep_responses=spec.keep_per_request,
             deadlines=dl_op, window=spec.window, tl_bins=spec.tl_bins,
-            tl_bucket=spec.tl_bucket, **rs_kw)
+            tl_bucket=spec.tl_bucket, trace=spec.trace_events, **rs_kw)),
+            spec.trace_events, hi - lo)
+        for j, ev in enumerate(events or ()):
+            t_i, rest = divmod(lo + j, K * B)
+            cells[(pi, t_i) + divmod(rest, B)] = ev
         for k, v in out.items():
-            v = v.cpu().numpy()
             if k not in flat:
                 flat[k] = np.zeros((P, T * K * B) + v.shape[1:], v.dtype)
             flat[k][pi, lo:hi] = v
@@ -190,7 +221,17 @@ def run_experiment(spec: ExperimentSpec, *, device=None) -> ResultSet:
                   beta=(list(spec.betas) if spec.betas is not None
                         else [_BETA_DEFAULT]))
     meta = result_meta(spec, dev, N, F, chunk, kernels)
-    return ResultSet(data=data, coords=coords, meta=meta)
+    return ResultSet(data=data, coords=coords, meta=meta,
+                     trace=trace_run(spec, coords, cells))
+
+
+def trace_run(spec: ExperimentSpec, coords, cells):
+    """The `TraceRun` of a traced run's ``cells`` over ``coords``, None
+    when ``spec`` does not trace events."""
+    if not spec.trace_events:
+        return None
+    from repro_torch.telemetry.spans import TraceRun
+    return TraceRun(coords, cells)
 
 
 # short alias -- `from repro_torch.api import run`

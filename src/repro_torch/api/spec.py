@@ -18,9 +18,10 @@ built the same way, but only these are ported: ``traces``,
 ``cluster`` (static and dynamic routers, the circuit breaker, constant
 and time-varying delays, node churn), the resilience layer
 (``fail_prob``, ``timeouts``, ``retry``, ``on_overflow``,
-``fail_seed``) and ``meta``, plus the port's own ``device``. Any other
-field set away from its default fails validation with ValueError,
-naming the ROADMAP item that will port it; it is never ignored.
+``fail_seed``), ``trace_events`` and ``meta``, plus the port's own
+``device``. Any other field set away from its default fails validation
+with ValueError, naming the ROADMAP item that will port it; it is never
+ignored.
 """
 from __future__ import annotations
 
@@ -38,7 +39,6 @@ TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
 # fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
 _NOT_PORTED = {
     "devices": "Queue 1, item 7", "host_shard": "Queue 1, item 7",
-    "trace_events": "Queue 1, item 4",
 }
 
 
@@ -340,6 +340,18 @@ class ExperimentSpec:
     def validate(self) -> "ExperimentSpec":
         """Raise on the first invalid or unported field; returns self."""
         from repro_torch.api.registry import get_kernel
+        if self.trace_events:
+            # the JAX package's rule, ahead of the refusal of the fields
+            # themselves: a traced run keeps every lane on one device
+            if self.host_shard != (0, 1):
+                raise ValueError(
+                    "ExperimentSpec: trace_events needs every lane "
+                    "on this host; host_shard must stay (0, 1)")
+            if self.devices not in (None, 1):
+                raise ValueError(
+                    "ExperimentSpec: traced runs execute serially on "
+                    "the default device; devices must be None or 1, "
+                    f"got {self.devices}")
         defaults = {f.name: f.default for f in fields(self)
                     if f.name in _NOT_PORTED}
         for name, item in _NOT_PORTED.items():

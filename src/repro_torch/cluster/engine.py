@@ -96,6 +96,7 @@ from repro_torch.core import engine as E
 from repro_torch.core.engine import (BIG, BUSY, COLD, HIST_BINS, I32_MAX,
                                      IDLE, EngineCtx, _fold_event, _hit)
 from repro_torch.core.resilience import backoff_torch
+from repro_torch.telemetry.rail import TraceKind
 
 # per-node state, sliced to the event's node before the hooks run (the
 # timer and in-flight keys and the policy's extra state are added when
@@ -587,9 +588,12 @@ def _breaker(v, topo, t_ev, exec_on, fail):
     v["trips"] = v["trips"] + trip
 
 
-def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
+def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0, rec=None,
+                  trace_node=True):
     """One event for every lane: pick, route, the event node's view, the
-    hooks, write-back, fold."""
+    hooks, write-back, fold. With ``rec`` (a list), also appends the
+    step's trace records (`engine._trace_record`; node -1 unless
+    ``trace_node``)."""
     N, C, F = ctx.N, ctx.C, ctx.F
     L, Kx = s["q_tot"].shape
     KC, KF = Kx * C, Kx * F
@@ -682,6 +686,8 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
     if topo.any_var:
         ctx.dsched = (topo.dtimes[lanes, k_ev], topo.dvals[lanes, k_ev],
                       topo.dper[lanes, k_ev])
+    if rec is not None:
+        pre = E._trace_pre(v, v["q_tot"])
 
     # ---- slot event: release, the node's estimator, under resilience the
     # attempt's outcome (and the breaker), the policy hooks
@@ -733,8 +739,8 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         rid_r = ctx.row(v["rearm_rid"], f_t, F)
         v["rearm_t"] = torch.where(_hit(fire_re, f_t, ctx.ar_f), BIG,
                                    v["rearm_t"])
-        kernel.on_timer(ctx, v, torch.where(fire_orig, rid_o, rid_r), t_ev,
-                        ev_timer)
+        rid_t = torch.where(fire_orig, rid_o, rid_r)
+        kernel.on_timer(ctx, v, rid_t, t_ev, ev_timer)
 
     # ---- churn: the node's toggle (NODE_DOWN drains it, NODE_UP re-arms
     # the park FIFO), or the re-route of the park head
@@ -845,6 +851,29 @@ def _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0):
         v["park_t"] = torch.where(park_in & pk_empty, t_ev, v["park_t"])
 
     _fold_event(ctx, v)
+    if rec is not None:
+        kind = torch.where(exec_on, TraceKind.EXEC,
+                           torch.where(cold_on, TraceKind.COLD, -1))
+        rid = torch.where(ev_slot, rid_done, -1)
+        if timers:
+            kind = torch.where(ev_timer, TraceKind.TIMER, kind)
+            rid = torch.where(ev_timer, rid_t, rid)
+        if churn:
+            kind = torch.where(ev_churn, TraceKind.CHURN,
+                               torch.where(ev_orph, TraceKind.REROUTE, kind))
+            rid = torch.where(ev_orph, rid_o, rid)
+        if resil:
+            kind = torch.where(ev_rtry, TraceKind.RETRY, kind)
+            rid = torch.where(ev_rtry, rid_y, rid)
+        if topo.any_delay:
+            kind = torch.where(ev_pend, TraceKind.NODE_ARRIVAL, kind)
+            rid = torch.where(ev_pend, rid_p, rid)
+        kind = torch.where(ev_arr, TraceKind.ARRIVAL, kind)
+        rid = torch.where(ev_arr, rid_a, rid)
+        rec.append(E._trace_record(
+            ctx, v, pre, kind, rid, j_done, ev_slot, exec_on, t_ev, e_done,
+            k_ev if trace_node else torch.full_like(k_ev, -1), v["q_tot"],
+            ctx.cap_mask, churn=(ev_churn, node_up) if churn else None))
     v["stall"] = torch.where(
         active & ~live, 1,
         torch.where(active & (v["iters"] >= max_iters), 2, v["stall"]))
@@ -865,8 +894,8 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
                            n_live=None, deadlines=None, tl_bins=0,
                            tl_bucket=60.0, churn_t=None, dtimes=None,
                            dvals=None, dper=None, rs_nfail=None, rs_tmo=None,
-                           rs_key=None, resil=None
-                           ) -> Dict[str, torch.Tensor]:
+                           rs_key=None, resil=None, trace=False,
+                           trace_node=True) -> Dict[str, torch.Tensor]:
     """The eager K-node loop (counterpart of
     `repro.cluster.engine._simulate_cluster`): `_cluster_step` over every
     lane, SEG steps between host checks; the plain version of the
@@ -880,7 +909,8 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
     the lane's NODE_DOWN / NODE_UP events and park-head re-routes; under
     resilience ``failed``, ``timed_out``, ``retried``, ``shed`` and
     ``failed_exhausted`` (L,); with a `BreakerRouter` ``breaker_trips``
-    (L,)."""
+    (L,). With ``trace`` each segment's trace records go to the active
+    sink (`engine.flush_trace`)."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
@@ -921,9 +951,13 @@ def simulate_cluster_eager(fn_id, arrival, exec_time, t_cold, t_evict,
         return bool(((_terminal(s, has_resil) < ctx.n_live)
                      & (s["stall"] == 0)).any())
 
+    rec = [] if trace else None
     while running():   # one host sync per SEG events
         for _ in range(E.SEG):
-            _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0)
+            _cluster_step(ctx, kernel, s, nodal, topo, max_iters, extra0,
+                          rec, trace_node)
+        if trace:
+            E.flush_trace(rec)
 
     i32 = torch.int32
     out = dict(cold_starts=s["cold"].to(i32), cold_time=s["cold_t"],
@@ -961,7 +995,8 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                      capacity, queue_cap, stream=False, seg=0, n_live=None,
                      deadlines=None, tl_bins=0, tl_bucket=60.0,
                      churn_t=None, dtimes=None, dvals=None, dper=None,
-                     rs_nfail=None, rs_tmo=None, rs_key=None, resil=None
+                     rs_nfail=None, rs_tmo=None, rs_key=None, resil=None,
+                     trace=False, trace_node=True
                      ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node engine (counterpart of
     `repro.cluster.engine._simulate_cluster`).
@@ -987,7 +1022,10 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     timeouts) and ``rs_key`` (each request's original trace id), and the
     tuple ``resil`` = (max_attempts, shed mode, base, cap, jitter,
     fail_seed), for every lane of the call; ``exec_time`` is then the
-    attempts' time, ``min(exec, timeout)``.
+    attempts' time, ``min(exec, timeout)``. ``trace`` writes each lane's
+    trace records to the active sink, as `engine.simulate`'s does, with
+    each event's node (-1 without ``trace_node``: `engine.simulate`'s
+    single node under resilience).
 
     A built-in policy whose routers are all built-in (or breakers around
     built-ins) goes to the event-loop kernel's K-node variant (one launch
@@ -1042,7 +1080,7 @@ def simulate_cluster(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               n_live=n_live, tl_bins=int(tl_bins), tl_bucket=float(tl_bucket),
               deadlines=(None if deadlines is None
                          else as_t(deadlines, f64, dev).contiguous()),
-              **topo)
+              trace=bool(trace), trace_node=bool(trace_node), **topo)
     if has_cluster_loop(kernel, routers):
         return K0.cluster_loop(*args, **kw)   # checks its inputs itself
     check_topology(kw["n_nodes"], kw["router_ix"], kw["delays"],
@@ -1117,14 +1155,14 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                     keep_responses=False, n_live=None, deadlines=None,
                     seg=0, tl_bins=0, tl_bucket=60.0, churn_t=None,
                     dtimes=None, dvals=None, dper=None, rs_nfail=None,
-                    rs_tmo=None, rs_key=None, resil=None
+                    rs_tmo=None, rs_key=None, resil=None, trace=False
                     ) -> Dict[str, torch.Tensor]:
     """Lane-batched K-node run + metric reduction (counterpart of
     `repro.cluster.engine._cluster_metrics`): `engine.sweep_metrics`'s
     metrics plus ``node_done`` (and ``breaker_trips`` with a breaker). In
     exact mode a lane with delay measures each response from the
     request's node-local (delayed) arrival, a lane in direct mode (churn,
-    resilience) from the raw arrival."""
+    resilience) from the raw arrival. ``trace`` as `simulate_cluster`'s."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate_cluster(
@@ -1135,7 +1173,7 @@ def cluster_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
         n_live=n_live, deadlines=deadlines, tl_bins=tl_bins,
         tl_bucket=tl_bucket, churn_t=churn_t, dtimes=dtimes, dvals=dvals,
         dper=dper, rs_nfail=rs_nfail, rs_tmo=rs_tmo, rs_key=rs_key,
-        resil=resil)
+        resil=resil, trace=trace)
     arr_l = None
     if not stream:
         arr_l = arr.to(torch.float64)[tix]

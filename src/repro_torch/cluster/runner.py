@@ -190,7 +190,7 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                       queue_cap=spec.queue_cap, stream=spec.stream,
                       keep_responses=spec.keep_per_request,
                       deadlines=deadlines, tl_bins=spec.tl_bins,
-                      tl_bucket=spec.tl_bucket)
+                      tl_bucket=spec.tl_bucket, trace=spec.trace_events)
             for k in ("churn_t", "dtimes", "dvals", "dper"):
                 if k in lanes:
                     kw[k] = col(lanes[k], lo, hi)
@@ -217,20 +217,36 @@ def split_dynamic_lanes(spec, entries, flat: Dict[str, np.ndarray],
 
 def run_dynamic_entries(spec, entries, stacked: Dict[str, np.ndarray],
                         F: int, kernels: dict, betas: Dict[str, np.ndarray],
-                        deadlines, device, chunk: int, rs=None
-                        ) -> List[Dict[str, np.ndarray]]:
+                        deadlines, device, chunk: int, rs=None,
+                        trace_cells=None) -> List[Dict[str, np.ndarray]]:
     """Run the dynamic `ClusterSpec` ``entries`` of ``spec`` over its grid
     on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
     trailing dims: ``node_done`` (.., K), ``resp_hist`` (.., bins), ...).
-    The engine calls are `dynamic_calls`'."""
+    The engine calls are `dynamic_calls`'. Under ``spec.trace_events``
+    each call runs in its own collection scope and ``trace_cells`` (a
+    list) gets one dict of cell streams an entry, keyed (pi, t, kc, b)."""
+    from repro_torch.api.runner import to_numpy, traced_call
     from repro_torch.cluster.engine import cluster_metrics
     T = stacked["fn_id"].shape[0]
     calls, L = dynamic_calls(spec, entries, stacked, F, kernels, betas,
                              deadlines, device, chunk, rs)
+    KC = len(spec.capacities)
+    B = 1 if spec.betas is None else len(spec.betas)
+    if spec.trace_events and trace_cells is not None:
+        trace_cells[:] = [{} for _ in entries]
     flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
     for policy, lo, hi, args, kw in calls:
-        for k, v in cluster_metrics(*args, **kw).items():
-            v = v.cpu().numpy()
+        out, events = traced_call(
+            lambda: to_numpy(cluster_metrics(*args, **kw)),
+            spec.trace_events, hi - lo)
+        if events is not None and trace_cells is not None:
+            pi = spec.policies.index(policy)
+            for j, ev in enumerate(events):
+                # lanes entry-major, then trace, capacity, beta
+                e, rest = divmod(lo + j, T * KC * B)
+                t, rest = divmod(rest, KC * B)
+                trace_cells[e][(pi, t) + divmod(rest, B)] = ev
+        for k, v in out.items():
             if k not in flat[policy]:
                 flat[policy][k] = np.zeros((L,) + v.shape[1:], v.dtype)
             flat[policy][k][lo:hi] = v
@@ -247,7 +263,7 @@ def run_cluster_experiment(spec, dev: torch.device):
     from repro_torch.api.results import ResultSet
     from repro_torch.api.runner import (_lower_grid, _unique_labels,
                                         lower_resilience, result_meta,
-                                        run_experiment)
+                                        run_experiment, trace_run)
     from repro_torch.core.engine import (goodput, lane_chunk_for,
                                          slo_attainment)
 
@@ -266,21 +282,27 @@ def run_cluster_experiment(spec, dev: torch.device):
               if e is not None and not e.get_router().dynamic]
     dynamic = [e for e in entries
                if e is not None and e.get_router().dynamic]
+    static_cells: List[dict] = []
+    dynamic_cells: List[dict] = []
     static_data = iter(run_static_entries(
         spec, static, stacked, F, N, kernels, betas, deadlines, dev, chunk,
-        rs) if static else ())
+        rs, static_cells) if static else ())
     dl_op = (None if deadlines is None
              else torch.as_tensor(deadlines, device=dev))
     dynamic_data = iter(run_dynamic_entries(
-        spec, dynamic, stacked, F, kernels, betas, dl_op, dev, chunk, rs)
-        if dynamic else ())
+        spec, dynamic, stacked, F, kernels, betas, dl_op, dev, chunk, rs,
+        dynamic_cells) if dynamic else ())
+    static_cells, dynamic_cells = iter(static_cells), iter(dynamic_cells)
     entry_data: List[Dict[str, np.ndarray]] = []
+    entry_cells: List[dict] = []
     for entry in entries:
         if entry is not None and entry.get_router().dynamic:
             d = next(dynamic_data)
+            cells = next(dynamic_cells, {})
         elif entry is None:
-            d = dict(run_experiment(replace(spec, cluster=None),
-                                    device=dev).data)
+            plain = run_experiment(replace(spec, cluster=None), device=dev)
+            d = dict(plain.data)
+            cells = plain.trace.cells if plain.trace is not None else {}
             # recomputed below from the stacked counters, as for every
             # entry
             d.pop("slo_attainment", None)
@@ -288,8 +310,10 @@ def run_cluster_experiment(spec, dev: torch.device):
             d["node_done"] = d["done"][..., None].astype(np.int32)
         else:
             d = next(static_data)
+            cells = next(static_cells, {})
         d["node_done"] = _pad_node_dim(d["node_done"], k_max)
         entry_data.append(d)
+        entry_cells.append(cells)
     # only breaker-routed entries count trips; the others count none
     if any("breaker_trips" in d for d in entry_data):
         for d in entry_data:
@@ -322,4 +346,8 @@ def run_cluster_experiment(spec, dev: torch.device):
             net_delay=list(e.delays()), seed=e.seed,
             has_churn=e.has_churn(), var_delay=e.delay_ops() is not None)
             for e in entries])
-    return ResultSet(data=data, coords=coords, meta=meta)
+    return ResultSet(data=data, coords=coords, meta=meta,
+                     trace=trace_run(spec, coords, {
+                         key + (ei,): ev
+                         for ei, cells in enumerate(entry_cells)
+                         for key, ev in cells.items()}))

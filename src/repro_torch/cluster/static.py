@@ -268,7 +268,7 @@ def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
                       n_live=col(lanes["n_live"], lo, hi),
                       deadlines=deadlines, window=spec.window,
                       tl_bins=spec.tl_bins, tl_bucket=spec.tl_bucket,
-                      **rs_kw)
+                      trace=spec.trace_events, **rs_kw)
             calls.append((policy, lo, hi, args, kw))
     return calls, L, layout
 
@@ -308,27 +308,76 @@ def merge_static_lanes(spec, layout, flat: Dict[str, np.ndarray],
     return out
 
 
+def static_trace_cells(spec, layout, lane_events: Dict[int, dict],
+                       pi: int, cells: List[Dict[tuple, dict]]) -> None:
+    """Policy ``pi``'s per-lane event streams ``lane_events`` (lanes in
+    `pack_static_lanes` order) as one stream a cell, into ``cells`` (one
+    dict an entry of ``layout``, keyed (pi, t, kc, b)): each sub-stream's
+    local request ids mapped back to the global ids through the
+    partition index, its node patched in (the single-node engine records
+    -1), and a cell's K streams merged in time order
+    (`repro_torch.telemetry.rail.merge_events`), as the JAX package's
+    static tier does."""
+    from repro_torch.telemetry.rail import merge_events
+    KC = len(spec.capacities)
+    B = 1 if spec.betas is None else len(spec.betas)
+    lo = 0
+    for j, (Kn, nl_rows, index) in enumerate(layout):
+        T = nl_rows.shape[0]
+        for t in range(T):
+            for kc in range(KC):
+                for b in range(B):
+                    evs = []
+                    for k in range(Kn):
+                        ev = dict(lane_events[
+                            lo + ((t * Kn + k) * KC + kc) * B + b])
+                        ev["node"] = np.full_like(ev["node"], k)
+                        idxk, r = index[t][k], ev["rid"]
+                        if len(idxk):
+                            gl = idxk[np.clip(r, 0, len(idxk) - 1)]
+                            ev["rid"] = np.where(r >= 0, gl,
+                                                 -1).astype(np.int32)
+                        evs.append(ev)
+                    cells[j][(pi, t, kc, b)] = merge_events(evs)
+        lo += T * Kn * KC * B
+
+
 def run_static_entries(spec, entries, stacked: Dict[str, np.ndarray],
                        F: int, N: int, kernels: dict,
                        betas: Dict[str, np.ndarray], deadlines, device,
-                       chunk: int, rs=None) -> List[Dict[str, np.ndarray]]:
+                       chunk: int, rs=None, trace_cells=None
+                       ) -> List[Dict[str, np.ndarray]]:
     """Run the static `ClusterSpec` ``entries`` of ``spec`` over its grid
     on ``device``; one (P, T, KC, B)-shaped metric dict an entry (plus
     trailing dims: ``node_done`` (.., K), ``resp_hist`` (.., bins), ...).
 
     The engine calls are `static_calls`'; ``betas[policy]`` is the
     policy's (B,) beta axis, ``deadlines`` the (F,) operand or None,
-    ``rs`` the resilience operands or None."""
+    ``rs`` the resilience operands or None. Under ``spec.trace_events``
+    each call runs in its own collection scope and ``trace_cells`` (a
+    list) gets one dict of cell streams an entry (`static_trace_cells`)."""
+    from repro_torch.api.runner import to_numpy, traced_call
     from repro_torch.core.engine import sweep_metrics
     calls, L, layout = static_calls(spec, entries, stacked, F, kernels,
                                     betas, deadlines, device, chunk, rs)
     flat: Dict[str, Dict[str, np.ndarray]] = {p: {} for p in spec.policies}
+    lane_events: Dict[str, Dict[int, dict]] = {p: {}
+                                               for p in spec.policies}
     for policy, lo, hi, args, kw in calls:
-        for k, v in sweep_metrics(*args, **kw).items():
-            v = v.cpu().numpy()
+        out, events = traced_call(
+            lambda: to_numpy(sweep_metrics(*args, **kw)),
+            spec.trace_events, hi - lo)
+        for j, ev in enumerate(events or ()):
+            lane_events[policy][lo + j] = ev
+        for k, v in out.items():
             if k not in flat[policy]:
                 flat[policy][k] = np.zeros((L,) + v.shape[1:], v.dtype)
             flat[policy][k][lo:hi] = v
+    if spec.trace_events and trace_cells is not None:
+        trace_cells[:] = [{} for _ in layout]
+        for pi, p in enumerate(spec.policies):
+            static_trace_cells(spec, layout, lane_events[p], pi,
+                               trace_cells)
     merged = [merge_static_lanes(spec, layout, flat[p], N, rs is not None)
               for p in spec.policies]
     return [{m: np.stack([per_entry[j][m] for per_entry in merged])

@@ -82,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.request import Trace
+from repro_torch.telemetry.rail import TraceKind
 from repro_torch.utils.device import resolve_device
 
 BIG = 1e30
@@ -105,16 +106,8 @@ _COUNTERS = ("next", "done", "iters", "stall", "seq", "gn", "cold",
              "evict", "ovf")
 _SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
-_NOT_PORTED = {
-    "trace": "the telemetry event rail (ROADMAP Queue 1, item 4)",
-}
-
-
-def _reject_unported(**opts) -> None:
-    for name, val in opts.items():
-        if val:
-            raise NotImplementedError(
-                f"{name}={val!r}: {_NOT_PORTED[name]} is not ported yet")
+# the counters whose change in an event sets its record's TR_AUX bits
+_TRACE_CTRS = ("cold", "ovf", "shed", "failed", "tmo", "exh")
 
 
 def positional_layout(fn_id, f):
@@ -580,10 +573,13 @@ def _init_state(kernel, L, C, F, N, stream, dev, deadlines=False,
     return s
 
 
-def _event_step(ctx, kernel, s, max_iters):
-    """One event for every lane: pick, handle, fold."""
+def _event_step(ctx, kernel, s, max_iters, rec=None):
+    """One event for every lane: pick, handle, fold. With ``rec`` (a
+    list), also appends the step's trace records (`_trace_record`)."""
     N, C, F = ctx.N, ctx.C, ctx.F
     timers = kernel.has_timers
+    if rec is not None:
+        pre = _trace_pre(s, s["q_len"].sum(1))
     # ---- pick: first-index argmin over
     # [busy | cold | (original timers | re-arms) | arrival]
     na = s["next"]
@@ -649,8 +645,8 @@ def _event_step(ctx, kernel, s, max_iters):
         rid_r = ctx.row(s["rearm_rid"], f_r, F)
         s["rearm_t"] = torch.where(_hit(fire_re, f_r, ctx.ar_f), BIG,
                                    s["rearm_t"])
-        kernel.on_timer(ctx, s, torch.where(fire_orig, rid_o, rid_r), t_ev,
-                        ev_timer)
+        rid_t = torch.where(fire_orig, rid_o, rid_r)
+        kernel.on_timer(ctx, s, rid_t, t_ev, ev_timer)
 
     # ---- arrival
     rid_a = na.clamp(max=N - 1)
@@ -662,9 +658,78 @@ def _event_step(ctx, kernel, s, max_iters):
     kernel.on_arrival(ctx, s, rid_a, t_arr, ev_arr)
 
     _fold_event(ctx, s)
+    if rec is not None:
+        kind = torch.where(exec_on, TraceKind.EXEC, torch.where(
+            cold_on, TraceKind.COLD, torch.where(
+                ev_timer, TraceKind.TIMER,
+                torch.where(ev_arr, TraceKind.ARRIVAL, -1))))
+        rid = torch.where(ev_slot, rid_done, torch.where(ev_arr, rid_a, -1))
+        if timers:
+            rid = torch.where(ev_timer, rid_t, rid)
+        rec.append(_trace_record(
+            ctx, s, pre, kind, rid, j_done, ev_slot, exec_on, t_ev, e_done,
+            torch.full_like(na, -1), s["q_len"].sum(1), ctx.cap_mask))
     s["stall"] = torch.where(
         active & ~live, 1,
         torch.where(active & (s["iters"] >= max_iters), 2, s["stall"]))
+
+
+def _trace_pre(s, q0):
+    """What an event's trace record compares with after the event: the
+    counters of `_TRACE_CTRS` that ``s`` has, and ``q0``, the event
+    node's queue total before it."""
+    pre = {k: s[k].clone() for k in _TRACE_CTRS if k in s}
+    pre["q0"] = q0.clone()
+    return pre
+
+
+def _trace_record(ctx, s, pre, kind, rid, j_done, ev_slot, exec_on, t_ev,
+                  e_done, node, qlen, capm, churn=None):
+    """One step's trace records, (L, TR_RI) int32 and (L, TR_RF) f64, as
+    the JAX engines stage them (`repro_torch.telemetry.rail`): ``kind``
+    (-1 on a lane that made no progress), ``rid`` and the function (the
+    slot's on a slot event, else the request's), the event's ``node``,
+    TR_AUX from the counter changes against ``pre`` (`_trace_pre`; on an
+    EXEC the attempt's outcome, else the arrival-class bits; ``churn`` =
+    (ev_churn, node_up) overrides it with the toggle's direction), the
+    event node's queue total ``qlen`` and its busy and warm slots among
+    ``capm`` in ``s`` after the event, the lane's ``iters``, the event's
+    time and, on an EXEC, its execution time."""
+    def up(k):
+        return (s[k] - pre[k]) > 0 if k in pre else torch.zeros_like(ev_slot)
+
+    fn = torch.where(ev_slot, j_done,
+                     torch.where(rid >= 0, ctx.fn_at(rid), -1))
+    aux_ex = (torch.where(up("exh"), 2,
+                          torch.where(up("failed") | up("tmo"), 1, 0))
+              + torch.where(up("tmo"), 4, 0))
+    aux = (torch.where(up("cold"), 1, 0)
+           + torch.where(qlen > pre["q0"], 2, 0)
+           + torch.where(up("shed"), 4, 0) + torch.where(up("ovf"), 8, 0))
+    aux = torch.where(exec_on, aux_ex, aux)
+    if churn is not None:
+        aux = torch.where(churn[0], churn[1].to(aux.dtype), aux)
+    st = s["slot_state"]
+    busy = ((st == BUSY) & capm).sum(1)
+    warm = ((st == IDLE) & (s["slot_fn"] >= 0) & capm).sum(1)
+    rec_i = torch.stack([kind, rid, fn, node.to(kind.dtype), aux,
+                         qlen.to(kind.dtype), busy, warm, s["iters"]],
+                        1).to(torch.int32)
+    rec_f = torch.stack([t_ev, torch.where(exec_on, e_done, 0.0)], 1)
+    return rec_i, rec_f
+
+
+def flush_trace(rec) -> None:
+    """Hand one segment's records (`_event_step`'s list of per-step
+    pairs) to the active sink as a (L, SEG, ·) block (one copy back)."""
+    from repro_torch.telemetry import profiling
+    from repro_torch.telemetry.rail import active_sink
+    sink = active_sink()
+    if sink is not None and rec:
+        with profiling.phase("copy"):
+            sink.append(torch.stack([r[0] for r in rec], 1).cpu().numpy(),
+                        torch.stack([r[1] for r in rec], 1).cpu().numpy())
+    rec.clear()
 
 
 def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
@@ -687,7 +752,11 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     prefixes; ``deadlines`` (F,) seconds, adds ``deadline_miss`` (L, F);
     ``tl_bins`` > 0 with ``tl_bucket`` seconds a bin, adds ``tl_count``,
     ``tl_resp_sum`` and ``tl_exec_sum`` (L, tl_bins); ``window`` >= 0 is
-    accepted and changes nothing. ``trace`` is not ported and raises.
+    accepted and changes nothing. ``trace`` (bool) also writes each
+    lane's trace records (`repro_torch.telemetry.rail`) to the active
+    sink of a `repro_torch.telemetry.collect` scope, through the traced
+    variant of the route below; the results are those of the untraced
+    run, bitwise.
 
     The resilience layer (``resil`` with its (T, N) outcome operands
     ``rs_nfail``, ``rs_tmo``, ``rs_key``; see
@@ -700,7 +769,6 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     a call on a CUDA device, its plain version `simulate_eager` on the
     CPU); any other `PolicyKernel` runs `simulate_eager`. The route is
     chosen by the policy's type, never by a failed build."""
-    _reject_unported(trace=trace)
     if window < 0 or tl_bins < 0:
         raise ValueError(f"simulate: window and tl_bins must be >= 0, got "
                          f"{window} and {tl_bins}")
@@ -711,7 +779,7 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
             capacity=capacity, queue_cap=queue_cap, stream=stream,
             tl_bins=tl_bins, tl_bucket=tl_bucket, n_live=n_live,
             deadlines=deadlines, rs_nfail=rs_nfail, rs_tmo=rs_tmo,
-            rs_key=rs_key, resil=resil)
+            rs_key=rs_key, resil=resil, trace=trace)
     from repro_torch.kernels import event_loop as K0
     f64, i64 = torch.float64, torch.int64
     dev = fn_id.device
@@ -728,7 +796,8 @@ def simulate(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               threshold=float(threshold), tl_bins=int(tl_bins),
               tl_bucket=float(tl_bucket), n_live=n_live,
               deadlines=(None if deadlines is None
-                         else _as_tensor(deadlines, f64, dev).contiguous()))
+                         else _as_tensor(deadlines, f64, dev).contiguous()),
+              trace=bool(trace))
     if K0.has_device_loop(kernel):
         return K0.event_loop(*args, **kw)     # checks n_live itself
     if n_live is not None:
@@ -741,7 +810,8 @@ def _simulate_one_node(fn_id, arrival, exec_time, t_cold, t_evict,
                        kernel, rs_nfail, rs_tmo, rs_key, resil, **kw):
     """`simulate` under resilience: every lane a one-node cluster (no
     delay, the router never asked) of `cluster.engine.simulate_cluster`,
-    on the event-loop kernel's K-node variant on a card."""
+    on the event-loop kernel's K-node variant on a card; its trace
+    records carry node -1, as the single-node engine's."""
     from repro_torch.cluster.engine import simulate_cluster
     from repro_torch.cluster.routers import get_router
     dev = fn_id.device
@@ -753,7 +823,8 @@ def _simulate_one_node(fn_id, arrival, exec_time, t_cold, t_evict,
         threshold, kernel=kernel, routers=(get_router("jsq2"),),
         router_ix=ones - 1, n_nodes=ones, seeds=ones - 1,
         delays=torch.zeros((L, 1), dtype=torch.float64, device=dev),
-        rs_nfail=rs_nfail, rs_tmo=rs_tmo, rs_key=rs_key, resil=resil, **kw)
+        rs_nfail=rs_nfail, rs_tmo=rs_tmo, rs_key=rs_key, resil=resil,
+        trace_node=False, **kw)
     del out["node_done"]
     return out
 
@@ -767,14 +838,15 @@ def check_n_live(n_live, n_requests: int) -> None:
 def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                    cap_mask, beta, prior, *, kernel, n_fns, capacity,
                    queue_cap, stream=False, threshold=0.1, n_live=None,
-                   deadlines=None, tl_bins=0, tl_bucket=60.0
+                   deadlines=None, tl_bins=0, tl_bucket=60.0, trace=False
                    ) -> Dict[str, torch.Tensor]:
     """The eager event loop: `_event_step` over every lane, SEG steps
     between host checks, the policy's hooks run gated for every lane on
     every step. Inputs as `simulate` (int64 ``fn_id``, ``trace_ix`` and
     ``n_live``, f64 times, ``beta`` and ``deadlines``, bool
     ``cap_mask``); the plain version of the event-loop kernel and the
-    route of every policy without one."""
+    route of every policy without one. With ``trace`` each segment's
+    records go to the active sink (`flush_trace`)."""
     L = trace_ix.shape[0]
     N = fn_id.shape[1]
     F, C = n_fns, capacity
@@ -794,9 +866,12 @@ def simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     def running():
         return bool(((s["done"] < ctx.n_live) & (s["stall"] == 0)).any())
 
+    rec = [] if trace else None
     while running():   # one host sync per SEG events
         for _ in range(SEG):
-            _event_step(ctx, kernel, s, max_iters)
+            _event_step(ctx, kernel, s, max_iters, rec)
+        if trace:
+            flush_trace(rec)
 
     i32 = torch.int32
     out = dict(cold_starts=s["cold"].to(i32), cold_time=s["cold_t"],
@@ -885,8 +960,8 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                   threshold=0.1, *, kernel, n_fns, capacity, queue_cap,
                   stream=True, keep_responses=False, n_live=None,
                   deadlines=None, window=0, tl_bins=0, tl_bucket=60.0,
-                  rs_nfail=None, rs_tmo=None, rs_key=None, resil=None
-                  ) -> Dict[str, torch.Tensor]:
+                  rs_nfail=None, rs_tmo=None, rs_key=None, resil=None,
+                  trace=False) -> Dict[str, torch.Tensor]:
     """Lane-batched run + metric reduction (counterpart of
     `jax_engine._sweep_metrics`). Means and slowdowns come from the
     streamed sums in both modes; p99 is exact in exact mode (linear
@@ -895,7 +970,7 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
     also returns the (L, N) per-request responses. With ``n_live`` (L,)
     the means and quantiles reduce over each lane's live prefix; under
     resilience (``resil`` and its operands, as `simulate`) over the
-    successes."""
+    successes. ``trace`` as `simulate`'s."""
     if keep_responses and stream:
         raise ValueError("keep_responses requires stream=False")
     out = simulate(fn, arr, ex, cold, ev, tix, masks, betas, prior,
@@ -903,7 +978,7 @@ def sweep_metrics(fn, arr, ex, cold, ev, tix, masks, betas, prior,
                    capacity=capacity, queue_cap=queue_cap, stream=stream,
                    window=window, tl_bins=tl_bins, tl_bucket=tl_bucket,
                    n_live=n_live, deadlines=deadlines, rs_nfail=rs_nfail,
-                   rs_tmo=rs_tmo, rs_key=rs_key, resil=resil)
+                   rs_tmo=rs_tmo, rs_key=rs_key, resil=resil, trace=trace)
     arr_l = None if stream else arr.to(torch.float64)[tix]
     return reduce_metrics(out, arr_l, fn.shape[1], n_live, stream,
                           keep_responses, resil=resil is not None)

@@ -171,6 +171,25 @@
 // `node_of` records each request's node; `churn_counts` a lane's toggles
 // and re-routes.
 //
+// The trace rail (telemetry; src/repro/core/jax_engine.py :1432-1478 and
+// src/repro/cluster/engine.py :1278-1345) is a compile-time flag,
+// K0_TRACED, set by the traced units (csrc/event_loop_traced.cu, the
+// single-node form; csrc/event_loop_cluster_traced_*.cu, the K-node form),
+// so that the untraced forms compile as they did. A traced lane writes one
+// record a processed event, at row tr_off[lane] + iters - 1 of the record
+// buffers (tr_i: kind, rid, fn, node, aux, qlen, busy, warm, seq as
+// int32; tr_f: time and execution time as f64; 52 B), while it fits below
+// tr_off[lane + 1]: the wrapper launches with a capacity a lane and again
+// with exact counts (the lane's iters) when a lane had more. TR_AUX comes
+// from the change of the counters over the event (cold starts, overflows,
+// sheds, failures, timeouts, exhaustions) and of the event node's queue
+// total; busy and warm are a warp reduction over the event node's slots,
+// qlen its queue total (the single-node form keeps the lane's in a
+// register).
+// Thread 0 writes the record after the event's fold. A park (every node
+// down) is recorded on node 0, the node the reference's router falls back
+// to; tr_no_node writes node -1 (the single-node engine's K = 1 lanes).
+//
 // What bounds it on an H100: the trace read once and the results
 // written once is ~1.9 MB at N = 60,000 (~0.6 us at 3.35 TB/s); the
 // function scans are ~12 f64 operations a function a scan (~30 us for
@@ -188,6 +207,7 @@
 
 namespace {
 
+
 constexpr double kBig = 1e30;
 constexpr int kCold = 0, kIdle = 1, kBusy = 2;
 constexpr long long kI32Max = 2147483647LL;
@@ -204,6 +224,17 @@ enum { C_NEXT, C_DONE, C_ITERS, C_STALL, C_SEQ, C_GN, C_COLD, C_EVICT,
        C_OVF, N_CTR };
 enum { S_GSUM, S_COLD_T, S_EVICT_T, S_RSUM, S_SSUM, S_RMAX, N_SUM };
 enum { P_FRP, P_HEAD, P_TIMER, N_PC };
+
+#ifdef K0_TRACED
+constexpr bool kTraced = true;
+#else
+constexpr bool kTraced = false;
+#endif
+// the trace rail's event kinds (repro_torch/telemetry/rail.py TraceKind)
+// and record widths
+enum { TK_ARRIVAL, TK_EXEC, TK_COLD, TK_TIMER, TK_RETRY, TK_NODE_ARRIVAL,
+       TK_REROUTE, TK_CHURN };
+constexpr int kTrI = 9, kTrF = 2;
 
 // The policy of a variant, fixed at compile time.
 enum Kind { kEsffKind, kCentralKind, kFaasKind, kOwv2Kind };
@@ -344,6 +375,14 @@ struct Params {
   unsigned rt_seed;          // (fail_seed ^ JITTER_SALT) mod 2^32
   const double* brk;         // (L, 3) volume, trip point, cooldown, or null
   int64_t* resil_counts;     // (L, N_RS)
+  // the trace rail (the traced units only): lane l's records at rows
+  // [tr_off[l], tr_off[l + 1]) of tr_i (R, kTrI) and tr_f (R, kTrF), and
+  // whether a record's node is -1 (the K-node form's K = 1 lanes of the
+  // single-node engine)
+  int32_t* tr_i;
+  double* tr_f;
+  const int64_t* tr_off;
+  int tr_no_node;
 };
 
 // The lane's tallies that change at most once an event and are read only
@@ -479,6 +518,8 @@ struct Lane {
   long long ev_rid = -1;    // the event's dispatch, folded at its end
   double ev_comp = 0.0, ev_exec = 0.0;
   int h_lo = 0, h_hi = 0;   // histogram bins t and t + 32
+  int tr_q0 = 0;            // traced: the event node's queue total before
+  int tr_q = 0;             // traced, one node: the lane's queue total
 
   __device__ Lane(const Params& p_, unsigned char* smem)
       : p(p_), t(threadIdx.x), lane(blockIdx.x), N(p_.n_req),
@@ -724,6 +765,7 @@ struct Lane {
     g_sum = nd.g_sum[k];
     if constexpr (P::faas) gd_clock = nd.gd[k];
     delay_k = nd.delay[k];
+    if constexpr (kTraced) tr_q0 = nd.q_tot[k];
   }
 
   // Store the event node's estimator globals and clock back.
@@ -892,6 +934,7 @@ struct Lane {
       }
       if constexpr (CL) nd.q_tot[node] -= 1;
     }
+    if constexpr (kTraced && !CL) tr_q -= fn_ok(fn);
     __syncwarp();
     return rid;
   }
@@ -943,6 +986,7 @@ struct Lane {
       }
       if constexpr (CL) nd.q_tot[node] += 1;
     }
+    if constexpr (kTraced && !CL) tr_q += fn_ok(fn);
     __syncwarp();
     return true;
   }
@@ -1338,6 +1382,104 @@ struct Lane {
     owv2_timer(rid, tm);
   }
 
+  // ---------------------------------------------------- the trace rail
+  // An event's record, as the branch that handled it knows it: kind, rid,
+  // the slot's function (a slot event; else the request's is read) and
+  // the execution time (EXEC).
+  struct TraceEv {
+    int kind;
+    long long rid, fn;
+    double dt;
+  };
+  // What a record compares with after the event: the counters whose
+  // change sets TR_AUX (read by thread 0, which writes them).
+  struct TracePre {
+    long long cold, ovf, shed, failed, tmo, exh;
+  };
+
+  __device__ __forceinline__ TracePre trace_pre() const {
+    TracePre pre{tally.cold, tally.ovf, 0, 0, 0, 0};
+    if constexpr (CL) {
+      pre.shed = rs.n[R_SHED];
+      pre.failed = rs.n[R_FAILED];
+      pre.tmo = rs.n[R_TMO];
+      pre.exh = rs.n[R_EXH];
+    }
+    return pre;
+  }
+
+  // The event node's queue total, on every thread: the node table's (CL),
+  // else the lane's, kept by q_push and q_pop (the sum of q_len, as the
+  // reference's q_len.sum()).
+  __device__ __forceinline__ int queued_total() const {
+    if constexpr (CL) {
+      return nd.q_tot[node];
+    } else {
+      return tr_q;
+    }
+  }
+
+  // The request of f's timer event (an original or a re-arm), read before
+  // timer_event consumes it.
+  __device__ __forceinline__ long long timer_rid(bool orig, int f) const {
+    if (!orig) return fs.rearm_rid[f];
+    if constexpr (CL) {
+      return fs.tmr_rid[f];
+    } else {
+      return pos_rids[clampll(pos_off[f] + fs.tmr_pos[f], 0, N - 1)];
+    }
+  }
+
+  // The event's record, after its fold: busy and warm over the event
+  // node's usable slots (a warp reduction), its queue total, TR_AUX from
+  // the counters against `pre` and the queue total against tr_q0; thread 0
+  // writes it at row iters - 1 of the lane's window, if it fits.
+  __device__ void record(const TraceEv& ev, double tm, const TracePre& pre) {
+    __syncwarp();
+    int busy = 0, warm = 0;
+    for (int c = t; c < C; c += 32) {
+      if (!sl.cap[c]) continue;
+      const int st = sl.state[c];
+      busy += st == kBusy;
+      warm += st == kIdle && sl.fn[c] >= 0;
+    }
+    busy = __reduce_add_sync(kAll, busy);
+    warm = __reduce_add_sync(kAll, warm);
+    const int q = queued_total();
+    if (t != 0) return;
+    const long long at = p.tr_off[lane] + (iters - 1);
+    if (at >= p.tr_off[lane + 1]) return;
+    int aux = 0;
+    if (ev.kind == TK_EXEC) {
+      if constexpr (CL) {
+        const bool tmo = rs.n[R_TMO] > pre.tmo;
+        const bool fail = rs.n[R_FAILED] > pre.failed || tmo;
+        aux = (rs.n[R_EXH] > pre.exh ? 2 : (fail ? 1 : 0)) + (tmo ? 4 : 0);
+      }
+    } else if (ev.kind == TK_CHURN) {
+      aux = is_up(node) ? 1 : 0;
+    } else {
+      aux = (tally.cold > pre.cold ? 1 : 0) + (q > tr_q0 ? 2 : 0) +
+            (tally.ovf > pre.ovf ? 8 : 0);
+      if constexpr (CL) aux += rs.n[R_SHED] > pre.shed ? 4 : 0;
+    }
+    const bool slot_ev = ev.kind == TK_EXEC || ev.kind == TK_COLD;
+    const long long fn =
+        slot_ev ? ev.fn : (ev.rid >= 0 ? fn_id[rc(ev.rid)] : -1);
+    int32_t* r = p.tr_i + at * kTrI;
+    r[0] = ev.kind;
+    r[1] = static_cast<int32_t>(ev.rid);
+    r[2] = static_cast<int32_t>(fn);
+    r[3] = CL && !p.tr_no_node ? node : -1;
+    r[4] = aux;
+    r[5] = q;
+    r[6] = busy;
+    r[7] = warm;
+    r[8] = static_cast<int32_t>(iters);
+    p.tr_f[at * kTrF] = tm;
+    p.tr_f[at * kTrF + 1] = ev.dt;
+  }
+
   // ------------------------------------------------------------- loop
   __device__ void run() {
     // the arrival's candidate index: after the slots (and the timers)
@@ -1346,6 +1488,12 @@ struct Lane {
     double t_arr = N > 0 ? arrival[0] : kBig;
     long long fn_arr = N > 0 ? fn_id[0] : 0;
     while (done < NL && stall == 0) {
+      [[maybe_unused]] TracePre pre;
+      [[maybe_unused]] TraceEv tv{-1, -1, -1, 0.0};
+      if constexpr (kTraced) {
+        pre = trace_pre();
+        tr_q0 = queued_total();
+      }
       // pick: first-index argmin over
       // [busy | cold | (original timers | re-arms) | arrival]
       double w = INFINITY;
@@ -1402,12 +1550,17 @@ struct Lane {
           gn += 1;
           done += 1;
         }
+        if constexpr (kTraced)
+          tv = TraceEv{is_cold ? TK_COLD : TK_EXEC, rid_done, j_done,
+                       is_cold ? 0.0 : e_done};
         on_slot(is_cold, slot, t_ev);
         iters += 1;
       } else if (P::timers && ei < n_arr) {
         iters += 1;
         const bool orig = ei < 2 * C + F;
-        timer_event(orig, orig ? ei - 2 * C : ei - 2 * C - F, t_ev);
+        const int f = orig ? ei - 2 * C : ei - 2 * C - F;
+        if constexpr (kTraced) tv = TraceEv{TK_TIMER, timer_rid(orig, f), -1};
+        timer_event(orig, f, t_ev);
       } else if (ev_arr) {
         next = na + 1;
         iters += 1;
@@ -1421,9 +1574,11 @@ struct Lane {
           if (t == 0 && fn_ok(j)) fs.arr_cnt[j] += 1;
           __syncwarp();
         }
+        if constexpr (kTraced) tv = TraceEv{TK_ARRIVAL, na, -1};
         on_arrival(na, j, ta);
       }
       fold();
+      if constexpr (kTraced) record(tv, t_ev, pre);
       if (iters >= p.max_iters) stall = 2;
     }
   }
@@ -1798,6 +1953,7 @@ struct Lane {
     }
     __syncwarp();
     if (parks) {
+      if constexpr (kTraced) enter_node(0);  // recorded on node 0
       park(rid, tm);
     } else {
       enter_node(k);
@@ -1825,6 +1981,9 @@ struct Lane {
     long long fn_arr = N > 0 ? fn_id[0] : 0;
     while (ended() < NL && stall == 0) {
       __syncwarp();  // the router reads what thread 0 wrote last event
+      [[maybe_unused]] TracePre pre;
+      [[maybe_unused]] TraceEv tv{-1, -1, -1, 0.0};
+      if constexpr (kTraced) pre = trace_pre();
       double w = INFINITY;
       int ei = INT_MAX;
       for (int i = t; i < KC; i += 32) {
@@ -1902,6 +2061,9 @@ struct Lane {
             }
           }
         }
+        if constexpr (kTraced)
+          tv = TraceEv{is_cold ? TK_COLD : TK_EXEC, rid_done, j_done,
+                       is_cold ? 0.0 : e_done};
         on_slot(is_cold, slot, t_ev);
         iters += 1;
       } else if (P::timers && ei < p0) {
@@ -1909,6 +2071,8 @@ struct Lane {
         const int kf = orig ? ei - 2 * KC : ei - 2 * KC - KF;
         enter_node(kf / F);
         iters += 1;
+        if constexpr (kTraced)
+          tv = TraceEv{TK_TIMER, timer_rid(orig, kf % F), -1};
         timer_event(orig, kf % F, t_ev);
       } else if (ei < o0) {
         // the head of node k's in-flight FIFO lands (and parks if the node
@@ -1925,6 +2089,7 @@ struct Lane {
         }
         __syncwarp();
         iters += 1;
+        if constexpr (kTraced) tv = TraceEv{TK_NODE_ARRIVAL, rid, -1};
         if (is_up(node))
           node_arrival(rid, fn_id[rc(rid)], t_ev);
         else
@@ -1940,6 +2105,7 @@ struct Lane {
         park_len -= 1;
         iters += 1;
         if (t == 0) tally.reroutes += 1;
+        if constexpr (kTraced) tv = TraceEv{TK_REROUTE, rid, -1};
         if (has_delay)
           send(k, rid, t_ev);
         else
@@ -1947,9 +2113,11 @@ struct Lane {
       } else if (ei < r0) {
         enter_node(ei - c0);
         iters += 1;
+        if constexpr (kTraced) tv = TraceEv{TK_CHURN, -1, -1};
         toggle(t_ev);
       } else if (ei < n_arr) {
         iters += 1;
+        if constexpr (kTraced) tv = TraceEv{TK_RETRY, rs.r_head, -1};
         retry_event(t_ev);
       } else if (na < NL) {
         next = na + 1;
@@ -1960,8 +2128,12 @@ struct Lane {
           t_arr = arrival[next];
           fn_arr = fn_id[next];
         }
+        if constexpr (kTraced) tv = TraceEv{TK_ARRIVAL, na, -1};
         if (churn && n_up == 0) {
-          park(na, ta);  // every node is down
+          // every node is down (a traced lane records it on node 0, the
+          // reference router's fallback)
+          if constexpr (kTraced) enter_node(0);
+          park(na, ta);
         } else {
           const int k = route(na, j, ta);
           enter_node(k);
@@ -1972,6 +2144,7 @@ struct Lane {
         }
       }
       fold();
+      if constexpr (kTraced) record(tv, t_ev, pre);
       leave_node();
       if (iters >= max_iters) stall = 2;
     }
@@ -2145,6 +2318,26 @@ Params params(K0_ARGS) {
   return p;
 }
 
+// The traced units' entries take the record buffers (and, K-node form,
+// tr_no_node) after the engine's arguments, under their own names.
+#ifdef K0_TRACED
+#define K0_SINGLE_ENTRY event_loop_traced_run
+#define K0_CLUSTER_ENTRY event_loop_cluster_traced_run
+#define K0_TRACE_PARAMS \
+  , int32_t *tr_i, double *tr_f, const int64_t *tr_off
+#define K0_CLUSTER_TRACE_PARAMS K0_TRACE_PARAMS, int tr_no_node
+#define K0_SET_TRACE(p) \
+  (p).tr_i = tr_i;      \
+  (p).tr_f = tr_f;      \
+  (p).tr_off = tr_off
+#else
+#define K0_SINGLE_ENTRY event_loop_run
+#define K0_CLUSTER_ENTRY event_loop_cluster_run
+#define K0_TRACE_PARAMS
+#define K0_CLUSTER_TRACE_PARAMS
+#define K0_SET_TRACE(p) (void)(p)
+#endif
+
 #define K0_PASS                                                             \
   fn_id, arrival, exec_time, pos_rids, pos_off, t_cold, t_evict, trace_ix,  \
       cap_mask, beta, prior, threshold, n_lanes, n_req, n_fns, n_slots,     \
@@ -2170,8 +2363,10 @@ Params params(K0_ARGS) {
 // cudaGetLastError() right after the launch (0 = launched; -1 for an
 // unknown policy code); the launch is asynchronous on `stream`, and
 // nothing here allocates or synchronises.
-extern "C" int event_loop_run(int policy, K0_ARGS, void* stream) {
-  const Params p = params(K0_PASS);
+extern "C" int K0_SINGLE_ENTRY(int policy, K0_ARGS K0_TRACE_PARAMS,
+                               void* stream) {
+  Params p = params(K0_PASS);
+  K0_SET_TRACE(p);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (policy) {
 #define K0_LAUNCH(code, P) \
@@ -2219,7 +2414,7 @@ extern "C" int event_loop_layout(int policy, long long* out, int n) {
 // 0: every pointer null), the breaker lanes' (L, 3) f64 `brk` (volume,
 // trip point, cooldown; null when no lane has kBreakerBit) and the output
 // resil_counts (L, N_RS).
-extern "C" int event_loop_cluster_run(
+extern "C" int K0_CLUSTER_ENTRY(
     int policy, K0_ARGS, const int64_t* topo, const double* delays,
     int kmax, int slot_cap, int32_t* links, int32_t* node_done,
     int32_t* node_of, const double* churn_t, int n_toggle_cols,
@@ -2228,8 +2423,12 @@ extern "C" int event_loop_cluster_run(
     const int32_t* rs_nfail, const uint8_t* rs_tmo, const int32_t* rs_key,
     int32_t* att, double* rt_t, int max_att, int shed_mode, double rt_base,
     double rt_cap, double rt_jit, long long rt_seed, const double* brk,
-    int64_t* resil_counts, void* stream) {
+    int64_t* resil_counts K0_CLUSTER_TRACE_PARAMS, void* stream) {
   Params p = params(K0_PASS);
+  K0_SET_TRACE(p);
+#ifdef K0_TRACED
+  p.tr_no_node = tr_no_node;
+#endif
   p.topo = topo;
   p.delays = delays;
   p.kmax = kmax;

@@ -1,0 +1,8 @@
+// The traced K-node form of the event-loop kernel (K0) for the policy codes 4
+// and 5: the central queue in both orders (OpenWhisk, SFF). As
+// event_loop_cluster_queue.cu, with the trace rail compiled in (K0_TRACED:
+// one record a processed event into a per-lane window of the record buffers;
+// event_loop.cu's header), so that the untraced units compile as they did.
+#define K0_TRACED 1
+#define K0_CLUSTER_VARIANTS(X) X(4, FifoP) X(5, SffP)
+#include "event_loop.cu"

@@ -44,13 +44,20 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # form of two variants (csrc/event_loop_cluster_*.cu), beside the others
 CLUSTER_UNITS = ("event_loop_cluster_esff", "event_loop_cluster_esff_lru",
                  "event_loop_cluster_queue", "event_loop_cluster_faas")
+# the traced forms of the event-loop kernel (the trace rail a compile-time
+# flag, K0_TRACED): the single-node form in one unit, the K-node form in
+# four units as above, so that the untraced units compile as before
+TRACED_UNITS = ("event_loop_traced",)
+CLUSTER_TRACED_UNITS = tuple(u.replace("cluster", "cluster_traced")
+                             for u in CLUSTER_UNITS)
+EVENT_LOOP_UNITS = (("event_loop",) + CLUSTER_UNITS + TRACED_UNITS
+                    + CLUSTER_TRACED_UNITS)
 EXTRA_FLAGS = {"frp_select": ("--fmad=false",),
-               "event_loop": ("--fmad=false",),
-               **{u: ("--fmad=false",) for u in CLUSTER_UNITS}}
-SOURCES = ("event_loop", *CLUSTER_UNITS, "frp_select", "rmsnorm",
-           "decode_attention", "flash_attention", "ssd_chunk")
+               **{u: ("--fmad=false",) for u in EVENT_LOOP_UNITS}}
+SOURCES = (*EVENT_LOOP_UNITS, "frp_select", "rmsnorm", "decode_attention",
+           "flash_attention", "ssd_chunk")
 # the sources another one includes (beside the shared headers)
-INCLUDES = {u: ("event_loop.cu",) for u in CLUSTER_UNITS}
+INCLUDES = {u: ("event_loop.cu",) for u in EVENT_LOOP_UNITS[1:]}
 
 
 def nvcc_flags(name: str) -> tuple:
@@ -58,7 +65,8 @@ def nvcc_flags(name: str) -> tuple:
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # per source: seconds the build took (0.0 when an existing library was
-# reused) and what ptxas reported (registers, shared memory, spills)
+# reused) and what ptxas reported (registers, shared memory, spills; for a
+# reused library, its build's report, kept beside it as lib*.ptxas)
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -94,7 +102,10 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     todo = [n for n in names if not paths[n].exists()]
     for n in names:
         if n not in todo:
-            BUILD_INFO.setdefault(n, dict(seconds=0.0, ptxas=""))
+            # a reused library: its build's ptxas report, kept beside it
+            rep = paths[n].with_suffix(".ptxas")
+            BUILD_INFO.setdefault(n, dict(
+                seconds=0.0, ptxas=rep.read_text() if rep.exists() else ""))
     if not todo:
         return paths
     nvcc = _nvcc()
@@ -112,6 +123,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"{n}.cu:\n{out}")
             continue
+        paths[n].with_suffix(".ptxas").write_text(out)
         os.replace(tmp, paths[n])   # atomic: no half-written library
         BUILD_INFO[n] = dict(seconds=time.perf_counter() - t0, ptxas=out)
     if failed:

@@ -43,6 +43,7 @@ from repro_torch.core import engine as E
 from repro_torch.core.policies import (CentralQueueKernel, ESFFKernel,
                                        FaasCacheKernel, OpenWhiskV2Kernel)
 from repro_torch.kernels import _build
+from repro_torch.telemetry.rail import TR_RF, TR_RI
 
 # The kernel's variants: the policy code of the C entry, the bytes of
 # one slot and of one function's state. ESFF's two flags add the last
@@ -104,9 +105,19 @@ RESIL_COUNTS = ("failed", "timed_out", "retried", "shed",
                 "failed_exhausted", "breaker_trips")
 
 # the library (csrc/<source>.cu) that builds each variant's K-node form,
-# two variants a unit, so that they build in parallel
+# two variants a unit, so that they build in parallel; and the traced
+# forms' libraries (the trace rail is a compile-time flag, so the untraced
+# forms are built as they were)
 CLUSTER_SOURCE = {v: _build.CLUSTER_UNITS[c["code"] // 2]
                   for v, c in VARIANTS.items()}
+TRACED_SOURCE = "event_loop_traced"
+CLUSTER_TRACED_SOURCE = {v: _build.CLUSTER_TRACED_UNITS[c["code"] // 2]
+                         for v, c in VARIANTS.items()}
+# a traced launch's extra arguments: the (R, TR_RI) int32 and (R, TR_RF)
+# f64 records and the (L + 1) int64 lane offsets (the K-node entry adds
+# whether a record's node is -1, the single-node engine's), then stream
+_TRACED_ARGTYPES = _ARGTYPES[:-1] + [_P, _P, _P] + [_P]
+_CLUSTER_TRACED_ARGTYPES = _CLUSTER_ARGTYPES[:-1] + [_P, _P, _P, _I] + [_P]
 
 # the built-in kernel classes, each with its variants (`variant_of`)
 _BUILT_IN = (ESFFKernel, CentralQueueKernel, FaasCacheKernel,
@@ -201,20 +212,24 @@ def cluster_layout_plan(n_fns: int, slot_cap: int, kmax: int,
                 scratch_bytes=-(-fns // 16) * 16)
 
 
-_CHECKED = set()           # the variants whose layout was checked
-_CHECKED_CLUSTER = set()   # and whose K-node layout was
+_CHECKED = set()   # the (variant, cluster, traced) forms already checked
 
 
-def _check_layout(variant: str, cluster: bool = False) -> None:
+def _check_layout(variant: str, cluster: bool = False,
+                  traced: bool = False) -> None:
     """Raise unless the built library's layout of ``variant`` (its
-    K-node form with ``cluster``) is `layout` (`cluster_layout`), checked
-    once a variant and form."""
-    checked = _CHECKED_CLUSTER if cluster else _CHECKED
-    if variant in checked:
+    K-node form with ``cluster``, its traced form with ``traced``) is
+    `layout` (`cluster_layout`), checked once a variant and form."""
+    form = (variant, cluster, traced)
+    if form in _CHECKED:
         return
     entry = "event_loop_cluster_layout" if cluster else "event_loop_layout"
-    f = _build.c_entry(CLUSTER_SOURCE[variant] if cluster else "event_loop",
-                       entry, [_I, _P, _I])
+    if cluster:
+        source = (CLUSTER_TRACED_SOURCE if traced else CLUSTER_SOURCE)[
+            variant]
+    else:
+        source = TRACED_SOURCE if traced else "event_loop"
+    f = _build.c_entry(source, entry, [_I, _P, _I])
     want = cluster_layout(variant) if cluster else layout(variant)
     got = (ctypes.c_longlong * len(want))()
     n = f(VARIANTS[variant]["code"], got, len(want))
@@ -222,7 +237,109 @@ def _check_layout(variant: str, cluster: bool = False) -> None:
         raise RuntimeError(f"event_loop: the library's {entry} of "
                            f"{variant} {tuple(got)[:max(n, 0)]} is not "
                            f"the wrapper's {want}")
-    checked.add(variant)
+    _CHECKED.add(form)
+
+
+def trace_capacity(n_requests, delay=0, churn=0, retries=0, toggles=0):
+    """Records a lane in a traced launch's first try: an arrival, a
+    completion and a cold start a request; with ``delay`` (0 or 1) a
+    landing a send; under ``churn`` (0 or 1) a re-route, its landing and
+    its cold start a request, and ``toggles`` CHURN records; each of
+    ``retries`` a RETRY record and its attempt's completion, cold start
+    and landing. Ints, or (L,) int64 tensors for per-lane capacities.
+    Timers (OpenWhisk-v2's) are not counted: a lane with more records
+    costs one exact relaunch."""
+    per_send = 3 + delay
+    return (per_send * n_requests + (per_send - 1) * churn * n_requests
+            + per_send * retries + toggles + 64)
+
+
+class _TraceBuffers:
+    """A traced launch's record buffers: lane l's records at rows
+    [off[l], off[l + 1]) of (R, TR_RI) int32 and (R, TR_RF) f64 tensors,
+    ``off`` from a per-lane capacity (an int) or exact counts (L,)."""
+
+    def __init__(self, L, cap, dev):
+        if isinstance(cap, int):
+            self.off = torch.arange(L + 1, dtype=torch.int64,
+                                    device=dev) * cap
+        else:
+            self.off = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                              device=dev),
+                                  torch.cumsum(cap.to(torch.int64), 0)])
+        R = int(self.off[-1])
+        self.tr_i = torch.empty((R, TR_RI), dtype=torch.int32, device=dev)
+        self.tr_f = torch.empty((R, TR_RF), dtype=torch.float64, device=dev)
+
+    def args(self):
+        return (self.tr_i.data_ptr(), self.tr_f.data_ptr(),
+                self.off.data_ptr())
+
+    def fits(self, counts) -> bool:
+        return bool((counts <= self.off[1:] - self.off[:-1]).all())
+
+    def flush(self, counts) -> None:
+        """Hand each lane's first ``counts`` records to the active sink
+        (one copy back of the used rows)."""
+        from repro_torch.telemetry import profiling
+        from repro_torch.telemetry.rail import active_sink
+        sink = active_sink()
+        if sink is None:
+            return
+        with profiling.phase("copy"):
+            L = counts.shape[0]
+            row = torch.arange(self.tr_i.shape[0], device=counts.device)
+            lane = torch.searchsorted(self.off[1:L + 1], row, right=True)
+            keep = row - self.off[lane.clamp(max=L - 1)] < counts[
+                lane.clamp(max=L - 1)]
+            off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+            sink.append_lanes(self.tr_i[keep].cpu().numpy(),
+                              self.tr_f[keep].cpu().numpy(),
+                              off.cpu().numpy())
+
+
+def lane_trace_capacity(lanes, N, trace_ix, rs_nfail=None):
+    """`trace_capacity` of each lane of a K-node call (`Topology`
+    ``lanes``): its delay, churn and toggles, and under resilience the
+    retries its trace's outcome plan (``rs_nfail`` (T, N)) makes."""
+    retries = toggles = 0
+    if lanes.resil is not None:
+        retries = rs_nfail.to(torch.int64).clamp(
+            max=int(lanes.resil[0]) - 1).sum(1)[trace_ix]
+    if lanes.churn_t is not None:
+        toggles = (lanes.churn_t < E.BIG).flatten(1).sum(1)
+    return trace_capacity(N, lanes.lane_delay.to(torch.int64),
+                          lanes.lane_churn.to(torch.int64), retries, toggles)
+
+
+def _traced(launch, L, capacity, dev, entry) -> "_Results":
+    """Run ``launch(buffers)`` (one traced launch) with ``capacity``
+    records a lane (`trace_capacity`: an int, or (L,) per lane); when a
+    lane had more events, launch again with each lane's exact count (the
+    run is deterministic: the same stream). Hands the records to the
+    active sink; ``entry.last_trace`` keeps the largest first capacity, the
+    relaunches and the records."""
+    from repro_torch.telemetry import profiling
+    with profiling.phase("pack"):
+        buf = _TraceBuffers(L, capacity, dev)
+    res = launch(buf)
+    counts = res.ctr[:, COUNTERS.index("iters")]
+    relaunches = 0
+    if not buf.fits(counts):
+        with profiling.phase("pack"):
+            buf = _TraceBuffers(L, counts, dev)
+        res = launch(buf)
+        counts = res.ctr[:, COUNTERS.index("iters")]
+        relaunches = 1
+        if not buf.fits(counts):
+            raise RuntimeError(f"{entry.__name__}: the relaunch's events "
+                               "differ from the first launch's")
+    buf.flush(counts)
+    entry.last_trace = dict(capacity=(capacity if isinstance(capacity, int)
+                                      else int(capacity.max())),
+                            relaunches=relaunches,
+                            records=int(counts.sum()))
+    return res
 
 
 def _check(name, x, dtype, shape, device):
@@ -236,7 +353,7 @@ def _check(name, x, dtype, shape, device):
 def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                cap_mask, beta, prior, *, kernel, n_fns, capacity, queue_cap,
                stream=False, threshold=0.1, n_live=None, deadlines=None,
-               tl_bins=0, tl_bucket=60.0):
+               tl_bins=0, tl_bucket=60.0, trace=False):
     """Run the engine over L lanes to completion under the built-in
     policy ``kernel``.
 
@@ -249,7 +366,15 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     `engine.simulate`'s dict. On a card, ``event_loop.last_scans``,
     ``last_head_scans`` and ``last_timers`` are then the launch's (L,)
     counts of inline FRP scans (one per completion in the ESFF
-    variants), central-queue head scans and timer events."""
+    variants), central-queue head scans and timer events.
+
+    With ``trace`` the run also writes each lane's trace records
+    (`repro_torch.telemetry.rail`) to the active sink: on a card through
+    the kernel's traced form (``csrc/event_loop_traced.cu``; counted in
+    ``traced_launches`` beside ``launches``), `trace_capacity` records
+    a lane at first, launched again with exact counts when a lane had
+    more (``last_trace``)."""
+    from repro_torch.telemetry import profiling
     variant = variant_of(kernel)
     T, N, L, F, C = _check_inputs(
         fn_id, arrival, exec_time, t_cold, t_evict, trace_ix, cap_mask, beta,
@@ -260,23 +385,40 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               deadlines=deadlines, tl_bins=tl_bins, tl_bucket=tl_bucket)
     if dev.type == "cpu":
         event_loop.plain_calls += 1
-        return E.simulate_eager(fn_id, arrival, exec_time, t_cold, t_evict,
-                                trace_ix, cap_mask, beta, prior, **kw)
-    fn = _build.c_entry("event_loop", "event_loop_run", _ARGTYPES)
+        with profiling.phase("launch"):
+            return E.simulate_eager(fn_id, arrival, exec_time, t_cold,
+                                    t_evict, trace_ix, cap_mask, beta,
+                                    prior, trace=trace, **kw)
+    with profiling.phase("build"):
+        fn = (_build.c_entry(TRACED_SOURCE, "event_loop_traced_run",
+                             _TRACED_ARGTYPES) if trace else
+              _build.c_entry("event_loop", "event_loop_run", _ARGTYPES))
     _build.require_cuda("event_loop", dev)
-    _check_layout(variant)
-    pos_rids, pos_off = E.positional_layout(fn_id, F)
-    plan = layout_plan(F, C, variant)
-    res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
-    rc = fn(VARIANTS[variant]["code"],
-            *_shared_args(fn_id, arrival, exec_time, pos_rids.data_ptr(),
-                          pos_off.data_ptr(), t_cold, t_evict, trace_ix,
-                          cap_mask, beta, prior, threshold, L, N, F, C,
-                          queue_cap, plan, n_live, deadlines, tl_bins,
-                          tl_bucket, res),
-            _build.stream_of(dev))
-    _build.launch_check(rc, f"event_loop_run ({variant})")
-    _count(event_loop, variant, res.pcounts)
+    _check_layout(variant, traced=trace)
+    with profiling.phase("pack"):
+        pos_rids, pos_off = E.positional_layout(fn_id, F)
+        plan = layout_plan(F, C, variant)
+
+    def launch(buf):
+        with profiling.phase("pack"):
+            res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
+            args = _shared_args(fn_id, arrival, exec_time,
+                                pos_rids.data_ptr(), pos_off.data_ptr(),
+                                t_cold, t_evict, trace_ix, cap_mask, beta,
+                                prior, threshold, L, N, F, C, queue_cap,
+                                plan, n_live, deadlines, tl_bins, tl_bucket,
+                                res)
+        with profiling.phase("launch", dev):
+            rc = fn(VARIANTS[variant]["code"], *args,
+                    *(buf.args() if buf is not None else ()),
+                    _build.stream_of(dev))
+            _build.launch_check(rc, f"event_loop_run ({variant}"
+                                + (", traced)" if trace else ")"))
+            _count(event_loop, variant, res.pcounts, trace)
+        return res
+
+    res = (_traced(launch, L, trace_capacity(N), dev, event_loop) if trace
+           else launch(None))
     event_loop.last_scans = res.pcounts[:, 0]
     event_loop.last_head_scans = res.pcounts[:, 1]
     event_loop.last_timers = res.pcounts[:, 2]
@@ -373,11 +515,14 @@ def _shared_args(fn_id, arrival, exec_time, pos_rids, pos_off, t_cold,
             *map(_ptr, res.tl))
 
 
-def _count(entry, variant, pcounts) -> None:
+def _count(entry, variant, pcounts, traced=False) -> None:
     entry.launches += 1
     entry.variant_launches[variant] = (
         entry.variant_launches.get(variant, 0) + 1)
     entry.last_by_variant[variant] = pcounts
+    if traced:
+        entry.traced_launches[variant] = (
+            entry.traced_launches.get(variant, 0) + 1)
 
 
 def _outputs(ctr, sums, hist, start, comp, stream, deadlines, tl_bins, tl,
@@ -408,10 +553,12 @@ def _outputs(ctr, sums, hist, start, comp, stream, deadlines, tl_bins, tl,
 event_loop.launches = 0
 event_loop.plain_calls = 0
 event_loop.variant_launches = {}
+event_loop.traced_launches = {}
 event_loop.last_by_variant = {}
 event_loop.last_scans = None
 event_loop.last_head_scans = None
 event_loop.last_timers = None
+event_loop.last_trace = None
 
 
 
@@ -421,7 +568,7 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                  stream=False, threshold=0.1, n_live=None, deadlines=None,
                  tl_bins=0, tl_bucket=60.0, churn_t=None, dtimes=None,
                  dvals=None, dper=None, rs_nfail=None, rs_tmo=None,
-                 rs_key=None, resil=None):
+                 rs_key=None, resil=None, trace=False, trace_node=True):
     """Run the K-node engine over L lanes to completion under the
     built-in policy ``kernel`` and the dynamic routers ``routers``, each
     built-in (`repro_torch.cluster.routers.ROUTER_CODES`) or a
@@ -441,7 +588,10 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
     `simulate_cluster_eager` (``cluster_loop.plain_calls``); CUDA tensors
     launch the K-node variant of the policy's kernel (``launches``,
     ``variant_launches``, ``last_by_variant``: each variant's last (L,
-    3) policy counts) or raise."""
+    3) policy counts) or raise. ``trace`` as `event_loop`'s, through the
+    K-node form's traced units (``csrc/event_loop_cluster_traced_*.cu``),
+    each record with its event's node (-1 without ``trace_node``)."""
+    from repro_torch.telemetry import profiling
     from repro_torch.cluster.engine import (Topology, check_resil,
                                             check_topology,
                                             simulate_cluster_eager)
@@ -512,59 +662,88 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               rs_tmo=rs_tmo, rs_key=rs_key, resil=resil)
     if dev.type == "cpu":
         cluster_loop.plain_calls += 1
-        return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
-                                      t_evict, trace_ix, cap_mask, beta,
-                                      prior, **kw)
-    fn = _build.c_entry(CLUSTER_SOURCE[variant], "event_loop_cluster_run",
-                        _CLUSTER_ARGTYPES)
+        with profiling.phase("launch"):
+            return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
+                                          t_evict, trace_ix, cap_mask, beta,
+                                          prior, trace=trace,
+                                          trace_node=trace_node, **kw)
+    with profiling.phase("build"):
+        fn = (_build.c_entry(CLUSTER_TRACED_SOURCE[variant],
+                             "event_loop_cluster_traced_run",
+                             _CLUSTER_TRACED_ARGTYPES) if trace else
+              _build.c_entry(CLUSTER_SOURCE[variant],
+                             "event_loop_cluster_run", _CLUSTER_ARGTYPES))
     _build.require_cuda("cluster_loop", dev)
-    _check_layout(variant, cluster=True)
-    # each lane's slots a node: its largest usable slot index + 1
-    ar = torch.arange(1, C + 1, device=dev)
-    lane_c = (cap_mask.any(1) * ar).amax(1).clamp_min(1)
-    code_t = torch.tensor(codes, dtype=i64, device=dev)[router_ix]
-    topo = torch.stack([n_nodes, lane_c, code_t[:, 0], code_t[:, 1], seeds],
-                       1).contiguous()
-    slot_cap = int((n_nodes * lane_c).max())
-    plan = cluster_layout_plan(F, slot_cap, Kx, variant)
-    res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
-    links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
-    node_done = torch.empty((L, Kx), dtype=i32, device=dev)
-    churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
-    resil_counts = torch.zeros((L, len(RESIL_COUNTS)), dtype=i64, device=dev)
-    node_of = land_t = att = rt_t = brk = None
-    if not stream and lanes.any_delay:
-        node_of = torch.zeros((L, N), dtype=i32, device=dev)
-    if lanes.any_delay:
-        land_t = torch.zeros((L, N), dtype=f64, device=dev)
-    rk = (0, 0, 0.0, 0.0, 0.0, 0)
-    if resil is not None:
-        from repro_torch.core.resilience import JITTER_SALT
-        att = torch.zeros((L, N), dtype=i32, device=dev)
-        rt_t = torch.zeros((L, N), dtype=f64, device=dev)
-        max_att, mode, base, cap, jit, seed = resil
-        rk = (int(max_att), int(mode), float(base), float(cap), float(jit),
-              (int(seed) ^ JITTER_SALT) & 0xFFFFFFFF)
-    if lanes.any_brk:
-        brk = torch.tensor([[r.volume, r.trip_at, r.cooldown]
-                            if isinstance(r, BreakerRouter) else [0.0] * 3
-                            for r in routers], dtype=f64,
-                           device=dev)[router_ix].contiguous()
-    rc = fn(VARIANTS[variant]["code"],
-            *_shared_args(fn_id, arrival, exec_time, None, None, t_cold,
-                          t_evict, trace_ix, cap_mask, beta, prior,
-                          threshold, L, N, F, C, queue_cap, plan, n_live,
-                          deadlines, tl_bins, tl_bucket, res),
-            topo.data_ptr(), delays.data_ptr(), Kx, slot_cap,
-            links.data_ptr(), node_done.data_ptr(), _ptr(node_of),
-            _ptr(churn_t), 0 if churn_t is None else churn_t.shape[2],
-            _ptr(dtimes), _ptr(dvals), _ptr(dper),
-            0 if dtimes is None else dtimes.shape[2], _ptr(land_t),
-            churn_counts.data_ptr(), int(resil is not None), _ptr(rs_nfail),
-            _ptr(rs_tmo), _ptr(rs_key), _ptr(att), _ptr(rt_t), *rk,
-            _ptr(brk), resil_counts.data_ptr(), _build.stream_of(dev))
-    _build.launch_check(rc, f"event_loop_cluster_run ({variant})")
-    _count(cluster_loop, variant, res.pcounts)
+    _check_layout(variant, cluster=True, traced=trace)
+    with profiling.phase("pack"):
+        # each lane's slots a node: its largest usable slot index + 1
+        ar = torch.arange(1, C + 1, device=dev)
+        lane_c = (cap_mask.any(1) * ar).amax(1).clamp_min(1)
+        code_t = torch.tensor(codes, dtype=i64, device=dev)[router_ix]
+        topo = torch.stack([n_nodes, lane_c, code_t[:, 0], code_t[:, 1],
+                            seeds], 1).contiguous()
+        slot_cap = int((n_nodes * lane_c).max())
+        plan = cluster_layout_plan(F, slot_cap, Kx, variant)
+        rk = (0, 0, 0.0, 0.0, 0.0, 0)
+        if resil is not None:
+            from repro_torch.core.resilience import JITTER_SALT
+            max_att, mode, base, cap, jit, seed = resil
+            rk = (int(max_att), int(mode), float(base), float(cap),
+                  float(jit), (int(seed) ^ JITTER_SALT) & 0xFFFFFFFF)
+        brk = None
+        if lanes.any_brk:
+            brk = torch.tensor([[r.volume, r.trip_at, r.cooldown]
+                                if isinstance(r, BreakerRouter) else [0.0] * 3
+                                for r in routers], dtype=f64,
+                               device=dev)[router_ix].contiguous()
+
+    def launch(buf):
+        with profiling.phase("pack"):
+            res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
+            res.links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
+            res.node_done = torch.empty((L, Kx), dtype=i32, device=dev)
+            res.churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
+            res.resil_counts = torch.zeros((L, len(RESIL_COUNTS)), dtype=i64,
+                                           device=dev)
+            res.node_of = land_t = att = rt_t = None
+            if not stream and lanes.any_delay:
+                res.node_of = torch.zeros((L, N), dtype=i32, device=dev)
+            if lanes.any_delay:
+                land_t = torch.zeros((L, N), dtype=f64, device=dev)
+            if resil is not None:
+                att = torch.zeros((L, N), dtype=i32, device=dev)
+                rt_t = torch.zeros((L, N), dtype=f64, device=dev)
+            res.keep = (land_t, att, rt_t)   # alive until the launch ends
+            args = _shared_args(fn_id, arrival, exec_time, None, None,
+                                t_cold, t_evict, trace_ix, cap_mask, beta,
+                                prior, threshold, L, N, F, C, queue_cap,
+                                plan, n_live, deadlines, tl_bins, tl_bucket,
+                                res)
+        with profiling.phase("launch", dev):
+            rc = fn(VARIANTS[variant]["code"], *args,
+                    topo.data_ptr(), delays.data_ptr(), Kx, slot_cap,
+                    res.links.data_ptr(), res.node_done.data_ptr(),
+                    _ptr(res.node_of), _ptr(churn_t),
+                    0 if churn_t is None else churn_t.shape[2],
+                    _ptr(dtimes), _ptr(dvals), _ptr(dper),
+                    0 if dtimes is None else dtimes.shape[2], _ptr(land_t),
+                    res.churn_counts.data_ptr(), int(resil is not None),
+                    _ptr(rs_nfail), _ptr(rs_tmo), _ptr(rs_key), _ptr(att),
+                    _ptr(rt_t), *rk, _ptr(brk), res.resil_counts.data_ptr(),
+                    *(buf.args() + (int(not trace_node),) if buf is not None
+                      else ()),
+                    _build.stream_of(dev))
+            _build.launch_check(rc, f"event_loop_cluster_run ({variant}"
+                                + (", traced)" if trace else ")"))
+            _count(cluster_loop, variant, res.pcounts, trace)
+        return res
+
+    res = (_traced(launch, L, lane_trace_capacity(lanes, N, trace_ix,
+                                                  rs_nfail), dev,
+                   cluster_loop) if trace
+           else launch(None))
+    node_done, churn_counts = res.node_done, res.churn_counts
+    resil_counts, node_of = res.resil_counts, res.node_of
     out = res.outputs(stream, deadlines, tl_bins)
     out["node_done"] = node_done
     if lanes.any_churn:
@@ -583,4 +762,6 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 cluster_loop.launches = 0
 cluster_loop.plain_calls = 0
 cluster_loop.variant_launches = {}
+cluster_loop.traced_launches = {}
 cluster_loop.last_by_variant = {}
+cluster_loop.last_trace = None

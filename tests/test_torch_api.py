@@ -103,18 +103,29 @@ def test_result_set_npz_round_trip(tmp_path):
     ("host_shard", (0, 2)), ("trace_events", True)])
 def test_unported_spec_field_raises(field, value):
     """A field not ported raises, naming it; the resilience layer's fields
-    (ported) run, and a run with faults conserves its requests."""
+    (ported) run, and a run with faults conserves its requests; a traced
+    run (ported) attaches its event streams, its metrics the untraced
+    run's."""
     kw = {field: value}
     if field == "retry":        # a retry policy needs a fault to act on
         kw["fail_prob"] = 0.1
     spec = tapi.ExperimentSpec(
         traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
         capacities=(2,), **kw)
-    if field in ("devices", "host_shard", "trace_events"):
+    if field in ("devices", "host_shard"):
         with pytest.raises(ValueError, match="not ported"):
             tapi.run_experiment(spec, device="cpu")
         return
     rs = tapi.run_experiment(spec, device="cpu").check()
+    if field == "trace_events":
+        from dataclasses import replace
+        plain = tapi.run_experiment(replace(spec, trace_events=False),
+                                    device="cpu")
+        assert plain.trace is None and rs.trace is not None
+        assert sorted(rs.data) == sorted(plain.data)
+        for k in plain.data:
+            np.testing.assert_array_equal(rs[k], plain[k], err_msg=k)
+        assert rs.trace.n_events == int(rs["n_events"].sum())
     if spec.resilience_active():
         tot = rs["done"] + rs["shed"] + rs["failed_exhausted"]
         assert (tot == 10).all() and "goodput" in rs.data

@@ -154,22 +154,29 @@ EVENT_LOOP_CASES = {
 }
 
 
-def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream,
-                    policy="esff"):
-    """Every trace x capacity x beta as one lane batch on ``device``."""
+def _event_loop_inputs(device, traces, caps, betas):
+    """Every trace x capacity x beta as one lane batch on ``device``:
+    `engine.simulate`'s operands, in the dtypes of `simulate_eager`."""
+    f64 = torch.float64
     t = {k: torch.tensor(np.stack([a[k] for a in traces]), device=device)
          for k in COLS}
     lanes = [(ti, c, b) for ti in range(len(traces)) for c in caps
              for b in betas]
     C = max(caps)
-    tix = torch.tensor([x[0] for x in lanes], device=device)
-    masks = torch.tensor(np.stack([np.arange(C) < x[1] for x in lanes]),
-                         device=device)
-    beta = torch.tensor([x[2] for x in lanes], dtype=torch.float64,
-                        device=device)
-    return E.simulate(t["fn_id"], t["arrival"], t["exec_time"],
-                      t["cold_start"], t["evict"], tix, masks, beta, 0.1,
-                      kernel=POLICIES[policy], n_fns=F, capacity=C,
+    return (t["fn_id"].to(torch.int64), t["arrival"].to(f64),
+            t["exec_time"].to(f64), t["cold_start"].to(f64),
+            t["evict"].to(f64),
+            torch.tensor([x[0] for x in lanes], device=device),
+            torch.tensor(np.stack([np.arange(C) < x[1] for x in lanes]),
+                         device=device),
+            torch.tensor([x[2] for x in lanes], dtype=f64, device=device))
+
+
+def _event_loop_run(device, traces, F, caps, betas, queue_cap, stream,
+                    policy="esff"):
+    """Every trace x capacity x beta as one lane batch on ``device``."""
+    return E.simulate(*_event_loop_inputs(device, traces, caps, betas), 0.1,
+                      kernel=POLICIES[policy], n_fns=F, capacity=max(caps),
                       queue_cap=queue_cap, stream=stream)
 
 
@@ -228,7 +235,7 @@ def test_event_loop_library_layout_is_the_wrappers(cuda):
     K0._CHECKED.clear()
     for variant in K0.VARIANTS:
         K0._check_layout(variant)
-    assert K0._CHECKED == set(K0.VARIANTS)
+    assert K0._CHECKED == {(v, False, False) for v in K0.VARIANTS}
 
 
 @pytest.mark.cuda
@@ -459,10 +466,10 @@ def test_cluster_kernel_one_node_is_the_single_node_kernel(cuda, policy):
 def test_cluster_loop_library_layout_is_the_wrappers(cuda):
     """The built library reports every variant's K-node sizes as the
     wrapper plans them."""
-    K0._CHECKED_CLUSTER.clear()
+    K0._CHECKED.clear()
     for variant in K0.VARIANTS:
         K0._check_layout(variant, cluster=True)
-    assert K0._CHECKED_CLUSTER == set(K0.VARIANTS)
+    assert K0._CHECKED == {(v, True, False) for v in K0.VARIANTS}
 
 
 @pytest.mark.cuda
@@ -624,12 +631,13 @@ def _resil_ops(device, a, F, fail_prob=0.2, timeouts=8.0, attempts=3,
 
 
 def _resil_spec_run(device, a, F, entries, policy, stream, mode=1,
-                    fail_prob=0.2, cap=3, queue_cap=8):
+                    fail_prob=0.2, cap=3, queue_cap=8, **opt):
     """`_spec_run` under tests/test_resilience.py's faults (``mode``: the
-    shed mode), ``cap`` slots a node and ``queue_cap``."""
+    shed mode), ``cap`` slots a node and ``queue_cap`` (``opt``: its other
+    keywords)."""
     b, kw = _resil_ops(device, a, F, fail_prob=fail_prob, mode=mode)
     return _spec_run(device, b, F, entries, policy, stream, cap=cap,
-                     queue_cap=queue_cap, **kw)
+                     queue_cap=queue_cap, **kw, **opt)
 
 
 def _assert_conserves(out, n):
@@ -757,6 +765,182 @@ def test_resil_node_table_layout(cuda):
         assert tuple(got) == K0.cluster_layout(variant)
     assert K0.CLUSTER_NODE_BYTES == 88
     assert K0.cluster_layout_plan(200, 32, 8, "esff")["fn_in_shared"]
+
+
+# ------------------------------------- the traced forms of K0 (telemetry)
+def _traced(fn, n_lanes):
+    """``fn()`` inside a collection scope: its result and each lane's
+    event stream."""
+    from repro_torch.telemetry import rail
+    with rail.collect() as sink:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [sink.lane_events(j) for j in range(n_lanes)]
+
+
+def _assert_same_events(got, want, what):
+    assert len(got) == len(want), what
+    for lane, (g, w) in enumerate(zip(got, want)):
+        assert sorted(g) == sorted(w), what
+        for f in w:
+            np.testing.assert_array_equal(g[f], w[f],
+                                          err_msg=f"{what} lane {lane} {f}")
+
+
+def _eager_single(device, traces, F, caps, betas, queue_cap, stream, policy):
+    """`_event_loop_run`'s lanes through the eager loop itself (K0's plain
+    version) on ``device``, traced."""
+    return E.simulate_eager(
+        *_event_loop_inputs(device, traces, caps, betas), 0.1,
+        kernel=POLICIES[policy], n_fns=F, capacity=max(caps),
+        queue_cap=queue_cap, stream=stream, trace=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", sorted(POLICIES))
+def test_traced_kernel_bitwise_traced_eager(cuda, policy):
+    """The traced single-node form of every variant (three capacities, a
+    queue small enough to overflow on one lane): its event
+    streams bitwise the traced eager loop's on the card, one record a
+    processed event (the last one's seq the lane's n_events), and its
+    results bitwise the untraced launch's."""
+    traces = [_azure(20, 100, 2)]
+    args = (traces, 20, (2, 3, 5), (1.0,), 6, False)
+    launches = dict(K0.event_loop.traced_launches)
+    plain = _event_loop_run(cuda, *args, policy)
+    card, ev = _traced(lambda: E.simulate(
+        *_event_loop_inputs(cuda, traces, (2, 3, 5), (1.0,)), 0.1,
+        kernel=POLICIES[policy], n_fns=20, capacity=5, queue_cap=6,
+        stream=False, trace=True), 3)
+    variant = K0.variant_of(POLICIES[policy])
+    # OpenWhisk-v2's timers overrun the first capacity: one relaunch
+    assert (K0.event_loop.traced_launches.get(variant, 0)
+            == launches.get(variant, 0) + 1
+            + K0.event_loop.last_trace["relaunches"])
+    eager, ev_e = _traced(lambda: _eager_single(cuda, *args, policy), 3)
+    _assert_same(card, {k: v.cpu() for k, v in plain.items()}, policy)
+    _assert_same(card, {k: v.cpu() for k, v in eager.items()}, policy)
+    _assert_same_events(ev, ev_e, policy)
+    for lane, e in enumerate(ev):
+        assert len(e["kind"]) == int(plain["n_events"][lane])
+        assert e["seq"].tolist() == list(range(1, len(e["kind"]) + 1))
+        assert (e["node"] == -1).all()
+
+
+@pytest.mark.cuda
+def test_traced_kernel_relaunch_with_small_capacity(cuda, monkeypatch):
+    """A first capacity of 16 records a lane: every lane overruns it, the
+    wrapper launches again with exact counts and hands over the same
+    streams as a launch whose capacity fits."""
+    traces = [_azure(20, 150, 2)]
+    inputs = _event_loop_inputs(cuda, traces, (2, 4), (1.0,))
+    kw = dict(kernel=POLICIES["esff"], n_fns=20, capacity=4, queue_cap=64,
+              stream=True, trace=True)
+    fit, ev_fit = _traced(lambda: K0.event_loop(*inputs, 0.1, **kw), 2)
+    assert K0.event_loop.last_trace["relaunches"] == 0
+    monkeypatch.setattr(K0, "trace_capacity", lambda n, *lane: 16)
+    small, ev_small = _traced(lambda: K0.event_loop(*inputs, 0.1, **kw), 2)
+    assert K0.event_loop.last_trace["relaunches"] == 1
+    _assert_same(small, {k: v.cpu() for k, v in fit.items()}, "relaunch")
+    _assert_same_events(ev_small, ev_fit, "relaunch")
+
+
+def _traced_cluster_pair(device_fn, n_lanes):
+    """A K-node call through the kernel (``device_fn(False)``) and through
+    the eager K-node loop on the card (``device_fn(True)``), both traced,
+    and the kernel's untraced launch."""
+    from repro_torch.cluster import engine as CE
+    card, ev = _traced(lambda: device_fn(False, True), n_lanes)
+    plain = device_fn(False, False)
+    orig = CE.has_cluster_loop
+    CE.has_cluster_loop = lambda kernel, routers: False
+    try:
+        eager, ev_e = _traced(lambda: device_fn(True, True), n_lanes)
+    finally:
+        CE.has_cluster_loop = orig
+    return card, ev, plain, eager, ev_e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", CHURN_POLICIES)
+def test_traced_cluster_kernel_bitwise_traced_eager(cuda, policy):
+    """The traced K-node form of every non-timer variant on churn (with
+    delays, schedules and an all-down window) under faults, in one
+    launch: event streams (CHURN, REROUTE, NODE_ARRIVAL, RETRY, parks on
+    node 0) bitwise the traced eager K-node loop on the card, results
+    bitwise the untraced launch."""
+    a = _azure(12, 80, 5)
+    entries = _churn_entries(float(a["arrival"].max()), "jsq2")
+
+    def run(eager, trace):
+        return _resil_spec_run(cuda, a, 12, entries, policy, True,
+                               trace=trace)
+    card, ev, plain, eager, ev_e = _traced_cluster_pair(run, len(entries))
+    _assert_same(card, {k: v.cpu() for k, v in plain.items()}, policy)
+    _assert_same(card, {k: v.cpu() for k, v in eager.items()}, policy)
+    _assert_same_events(ev, ev_e, policy)
+    # the per-lane first window holds every record: no relaunch
+    assert K0.cluster_loop.last_trace["relaunches"] == 0
+    kinds = set(np.concatenate([e["kind"] for e in ev]).tolist())
+    assert {5, 6, 7}.issubset(kinds), kinds   # NODE_ARRIVAL, REROUTE, CHURN
+    for lane, e in enumerate(ev):
+        assert len(e["kind"]) == int(plain["n_events"][lane])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("router", ["jsq2", "cold_aware", "slo_aware"])
+def test_traced_cluster_kernel_timers_and_routers(cuda, router):
+    """OpenWhisk-v2's timer rail and ESFF under each router, with delays
+    and a schedule, traced: bitwise the traced eager K-node loop."""
+    from repro_torch.cluster import ClusterSpec, DelaySchedule
+    a = _azure(12, 80, 6)
+    span = float(a["arrival"].max())
+    ds = DelaySchedule(times=(0.0, span / 8), values=(0.005, 0.08),
+                       period=span / 4)
+    entries = [ClusterSpec(n_nodes=3, router=router,
+                           net_delay=(0.0, 0.01, 0.0),
+                           delay_schedule=(None, ds, None)),
+               ClusterSpec(n_nodes=4, router=router)]
+    for policy in ("openwhisk_v2", "esff"):
+        def run(eager, trace):
+            return _spec_run(cuda, a, 12, entries, policy, False, cap=3,
+                             queue_cap=16, trace=trace)
+        card, ev, plain, eager, ev_e = _traced_cluster_pair(run, 2)
+        _assert_same(card, {k: v.cpu() for k, v in plain.items()}, policy)
+        _assert_same(card, {k: v.cpu() for k, v in eager.items()}, policy)
+        _assert_same_events(ev, ev_e, (router, policy))
+
+
+@pytest.mark.cuda
+def test_traced_single_node_under_faults_writes_node_minus_one(cuda):
+    """`engine.simulate` under resilience runs K = 1 lanes of the traced
+    K-node form: records carry node -1, as the single-node engine's, and
+    match the traced eager K-node loop."""
+    traces = [_azure(12, 100, 3)]
+    b, kw = _resil_ops(cuda, traces[0], 12)
+    inputs = _event_loop_inputs(cuda, [b], (2, 3), (1.0,))
+
+    def run(eager, trace):
+        return E.simulate(*inputs, 0.1, kernel=POLICIES["esff"], n_fns=12,
+                          capacity=3, queue_cap=4, stream=True,
+                          trace=trace, **kw)
+    card, ev, plain, eager, ev_e = _traced_cluster_pair(run, 2)
+    _assert_same(card, {k: v.cpu() for k, v in plain.items()}, "faults")
+    _assert_same(card, {k: v.cpu() for k, v in eager.items()}, "faults")
+    _assert_same_events(ev, ev_e, "faults")
+    assert all((e["node"] == -1).all() for e in ev)
+    assert any((e["kind"] == 4).any() for e in ev)   # RETRY
+
+
+@pytest.mark.cuda
+def test_traced_layouts_are_the_wrappers(cuda):
+    """The traced libraries report the untraced forms' layouts."""
+    K0._CHECKED.clear()
+    for variant in K0.VARIANTS:
+        K0._check_layout(variant, traced=True)
+        K0._check_layout(variant, cluster=True, traced=True)
+    assert K0._CHECKED == {(v, c, True) for v in K0.VARIANTS
+                           for c in (False, True)}
 
 
 # ------------------------------------------- the serving path's kernels

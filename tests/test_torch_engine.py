@@ -125,8 +125,9 @@ def test_engine_frp_goes_through_frp_select_lanes():
 
 @pytest.mark.parametrize("opt", ["resil", "trace"])
 def test_unported_engine_options_raise(opt):
-    """``trace`` is not ported and raises, naming its ROADMAP item; the
-    resilience layer (ported) runs and conserves the requests."""
+    """Both options are ported: ``trace`` leaves every output bitwise and
+    writes one record a processed event; the resilience layer runs and
+    conserves the requests."""
     a = _trace(5, 20, 0)
     t = {k: torch.as_tensor(a[k])[None] for k in COLS}
 
@@ -139,8 +140,18 @@ def test_unported_engine_options_raise(opt):
                           kernel=KERNELS["esff"], n_fns=5, capacity=2,
                           queue_cap=2, **kw)
     if opt == "trace":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run(trace=True)
+        from repro_torch.telemetry import rail
+        plain = run()
+        with rail.collect() as sink:
+            traced = run(trace=True)
+        assert sorted(traced) == sorted(plain)
+        for k, v in plain.items():
+            assert torch.equal(traced[k], v), k
+        ev = sink.lane_events(0)
+        n = int(plain["n_events"][0])
+        assert len(ev["kind"]) == n
+        assert ev["seq"].tolist() == list(range(1, n + 1))
+        assert int((ev["kind"] == rail.TraceKind.ARRIVAL).sum()) == 20
         return
     from repro_torch.core.resilience import plan_outcomes
     eff, nfail, tmo = plan_outcomes(a["fn_id"], a["exec_time"], fail_prob=0.3,

@@ -50,13 +50,19 @@ _NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
                    "repro_torch.cluster.spec", "repro_torch.cluster.static",
                    "repro_torch.cluster.runner", "repro_torch.cluster.engine",
                    "repro_torch.core.ssfs",
-                   "repro_torch.core.sim", "repro_torch.configs.paper_edge")
+                   "repro_torch.core.sim", "repro_torch.configs.paper_edge",
+                   "repro_torch.telemetry", "repro_torch.telemetry.rail",
+                   "repro_torch.telemetry.spans",
+                   "repro_torch.telemetry.perfetto",
+                   "repro_torch.telemetry.metrics",
+                   "repro_torch.telemetry.profiling")
 
 
 def test_cluster_and_small_modules_load_no_jax():
-    """The static and dynamic cluster tiers, SSFS, the simulator facade
-    and the scenario config, each imported alone, leave JAX and the JAX package
-    out of sys.modules."""
+    """The static and dynamic cluster tiers, SSFS, the simulator facade,
+    the scenario config and the telemetry package with each of its
+    submodules, imported, leave JAX and the JAX package out of
+    sys.modules."""
     probe = ("import importlib, sys\n"
              f"for n in {_NEW_SUBMODULES!r}:\n"
              "    importlib.import_module(n)\n"
@@ -156,6 +162,13 @@ NEW_WRAPPERS = {
         _meta(1, 4, dtype=torch.float64), _meta(2, dtype=torch.int64),
         _meta(2, 3, dtype=torch.bool), _meta(2, dtype=torch.float64), 0.1,
         kernel=ESFFKernel(), n_fns=4, capacity=3, queue_cap=16)),
+    "event_loop_traced": (K0.event_loop, lambda: K0.event_loop(
+        _meta(1, 8, dtype=torch.int64), _meta(1, 8, dtype=torch.float64),
+        _meta(1, 8, dtype=torch.float64), _meta(1, 4, dtype=torch.float64),
+        _meta(1, 4, dtype=torch.float64), _meta(2, dtype=torch.int64),
+        _meta(2, 3, dtype=torch.bool), _meta(2, dtype=torch.float64), 0.1,
+        kernel=ESFFKernel(), n_fns=4, capacity=3, queue_cap=16,
+        trace=True)),
     "ssd_chunk": (K5.ssd_chunk, lambda: K5.ssd_chunk(
         _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16), _meta(1, 2, 32, 4),
         _meta(1, 2, 32, 4), _meta(1, 2, 32, 1, 16),
@@ -185,14 +198,20 @@ def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
     assert set(_build.SOURCES) == {"event_loop", "event_loop_cluster_esff",
                                    "event_loop_cluster_esff_lru",
                                    "event_loop_cluster_queue",
-                                   "event_loop_cluster_faas", "frp_select",
-                                   "rmsnorm", "decode_attention",
-                                   "flash_attention", "ssd_chunk"}
+                                   "event_loop_cluster_faas",
+                                   "event_loop_traced",
+                                   "event_loop_cluster_traced_esff",
+                                   "event_loop_cluster_traced_esff_lru",
+                                   "event_loop_cluster_traced_queue",
+                                   "event_loop_cluster_traced_faas",
+                                   "frp_select", "rmsnorm",
+                                   "decode_attention", "flash_attention",
+                                   "ssd_chunk"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine bodies need contraction off (bitwise parity)
     assert "--fmad=false" in _build.nvcc_flags("frp_select")
-    for name in ("event_loop",) + _build.CLUSTER_UNITS:
+    for name in _build.EVENT_LOOP_UNITS:
         assert "--fmad=false" in _build.nvcc_flags(name)
     # the K-node units include event_loop.cu: it is in their key
     monkeypatch.setattr(_build, "INCLUDES", {})
