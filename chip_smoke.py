@@ -174,6 +174,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  timed, relaunches counted; the churn case's Perfetto
                  export validated; a planted fault in one record of a
                  copy of its stream rejected.
+   ``scale_out`` the experiment API's scale-out: the Fig. 6 grid as
+                 three host shards (``host_shard=(i, 3)``, one launch a
+                 chunk a shard keeps), their computed masks disjoint,
+                 merged (`ResultSet.merge`) bitwise fig6's ResultSet;
+                 ``devices=1`` bitwise too; ``devices`` beyond the host's
+                 cards refused (a one-card host cannot run two devices:
+                 ``devices >= 2`` is not verified there); each shard's wall.
+   ``reference`` K0 on the card against the port's Python reference
+                 cluster on the host (`repro_torch.cluster.
+                 simulate_cluster_reference`), request for request at
+                 tests/test_churn.py's bar (responses within 1e-9,
+                 cold starts, node_done and the fault counters exact):
+                 jsq2 under periodic churn, slo_aware under a delay
+                 schedule, the breaker under faults (the K-node variant),
+                 the static tier (hash, mixed capacities and delays),
+                 F = 12, N = 400; a planted 1e-6 fault in a response
+                 rejected.
+   ``audit``     every gate of `repro_torch.analysis` on the card: the
+                 carry budget and dtypes of the eager loops' state and
+                 K0's buffers, the f32 scan of each event-loop unit's
+                 machine code (``cuobjdump -sass``, counts by unit), the
+                 grid's launches and forms, K4a/K4b's pinned geometries,
+                 the rail's absence from the untraced units, the lint; a
+                 failing gate fails the run.
 5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 500), the options
                  spec, the static cluster's two specs and the dynamic
                  cluster's K = 4 entries (both routers, ESFF and SFF) at
@@ -1186,7 +1210,7 @@ def phase_fig6(torch, api, fs, K0, exp_all, n_requests):
     need(not mismatch, "fig6: differs from the JAX package: "
          + "; ".join(mismatch))
     need(bitwise, "fig6: within RTOL of the JAX package but not bitwise")
-    return res
+    return res, rs
 
 
 def phase_eager_card(torch, np, api, K0):
@@ -2519,6 +2543,227 @@ def traced_kernel_rows(K0, KERNELS, tele, n_requests):
     return rows
 
 
+def same_results(np, a, b):
+    """`same_data`, and ``computed`` when the computed masks differ."""
+    return same_data(np, a, b) + (
+        ["computed"] if not np.array_equal(a.computed, b.computed) else [])
+
+
+def phase_scale_out(torch, np, api, fs, K0, n_requests, fig6_rs):
+    """The experiment API's scale-out on the card: the Fig. 6 grid as
+    three host shards (``host_shard=(i, 3)``), each with the launch counts
+    set to 0 just before and read just after (one launch a chunk it
+    keeps), their computed masks disjoint, merged bitwise the ResultSet of
+    the fig6 phase; ``devices=1`` bitwise too; ``devices`` beyond the
+    host's cards raises."""
+    spec = fig6_spec(api, n_requests, "cuda")
+    parts, shards = [], []
+    for i in range(3):
+        rs, wall, launches, _ = run_grid(torch, api, fs, K0,
+                                         replace(spec, host_shard=(i, 3)))
+        chunks = int(rs.computed.sum()) // len(RATIOS)   # one a policy
+        need(launches["event_loop"] == chunks and launches["plain_calls"]
+             == 0, f"scale_out: shard {i} launched "
+             f"{launches['by_variant']} for {chunks} chunks")
+        need(rs.meta["host_shard"] == [i, 3] and rs.meta["n_devices"] == 1,
+             f"scale_out: shard {i}'s meta {rs.meta['host_shard']}, "
+             f"{rs.meta['n_devices']} devices")
+        parts.append(rs)
+        shards.append(dict(host_shard=[i, 3], wall_s=wall,
+                           cells=int(rs.computed.sum()),
+                           launches=launches["by_variant"]))
+    overlap = [(a, b) for a in range(3) for b in range(a + 1, 3)
+               if (parts[a].computed & parts[b].computed).any()]
+    need(not overlap, f"scale_out: shards {overlap} computed a cell twice")
+    merged = parts[0].merge(*parts[1:])
+    differs = same_results(np, merged, fig6_rs)
+    need(not differs, f"scale_out: the merged shards differ from fig6's "
+         f"ResultSet in {differs}")
+    one, wall1, launches1, _ = run_grid(torch, api, fs, K0,
+                                        replace(spec, devices=1))
+    need(one.meta["n_devices"] == 1 and not same_results(np, one, fig6_rs),
+         "scale_out: devices=1 differs from fig6's ResultSet in "
+         f"{same_results(np, one, fig6_rs)}")
+    n_cards = torch.cuda.device_count()
+    try:
+        api.run_experiment(replace(spec, devices=n_cards + 1))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    need(refused is not None and "local device" in refused,
+         f"scale_out: devices={n_cards + 1} on a host of {n_cards} card(s) "
+         "did not raise")
+    res = dict(phase="scale_out", n_requests=n_requests,
+               grid="fig6 (ratios 0.6..1.4 x six policies at C = 16)",
+               shards=shards, merged_bitwise_fig6=True,
+               devices_1=dict(wall_s=wall1, n_devices=one.meta["n_devices"],
+                              bitwise_fig6=True,
+                              launches=launches1["by_variant"]),
+               n_devices_present=n_cards,
+               devices_refused=dict(devices=n_cards + 1, message=refused),
+               devices_2_verified=False if n_cards < 2 else None,
+               launches=sum(sum(x["launches"].values()) for x in shards))
+    emit(res)
+    return res
+
+
+REFERENCE_TRACE = dict(n_functions=12, n_requests=400, seed=3,
+                       utilization=0.25)
+REFERENCE_FAULTS = dict(fail_prob=0.6, timeouts=8.0, on_overflow="shed",
+                        fail_seed=99)
+REFERENCE_RETRY = dict(max_attempts=3, base=0.05, cap=1.0, jitter=0.3)
+
+
+def reference_cases(api):
+    """The reference phase's clusters, tests/test_torch_reference.py's:
+    (name, policy, ClusterSpec, fault knobs or None), over the F = 12,
+    N = 400 trace."""
+    arr = api.SyntheticTrace.make(**REFERENCE_TRACE).arrays()["arrival"]
+    span = float(arr.max())
+    churn = (None, api.PeriodicChurn(span / 3, duty=0.7),
+             api.PeriodicChurn(span / 3, duty=0.7, phase=span / 9),
+             api.PeriodicChurn(span / 3, duty=0.7, phase=2 * span / 9))
+    sched = api.DelaySchedule(times=(0.0, span / 4), values=(0.005, 0.08),
+                              period=span / 2)
+    return [
+        ("jsq2-churn", "esff",
+         api.ClusterSpec(n_nodes=4, router="jsq2", churn=churn), None),
+        ("slo_aware-schedule", "esff",
+         api.ClusterSpec(n_nodes=3, router="slo_aware",
+                         net_delay=(0.0, 0.01, 0.0),
+                         delay_schedule=(None, None, sched)), None),
+        ("breaker-faults", "esff",
+         api.ClusterSpec(n_nodes=4, router="breaker"), REFERENCE_FAULTS),
+        ("hash-static", "sff",
+         api.ClusterSpec(n_nodes=3, router="hash", node_capacity=(4, 2, 3),
+                         net_delay=(0.0, 0.05, 0.1)), None),
+    ]
+
+
+def reference_mismatch(np, resp, cold, node_done, ref, counts=None):
+    """tests/test_churn.py's bar against the reference's ``ref``:
+    responses within rtol 1e-9 and atol 1e-9 (NaNs equal), cold starts,
+    each node's completions and the fault counters ``counts`` exact."""
+    bad = []
+    if not np.allclose(resp, ref["response"], rtol=1e-9, atol=1e-9,
+                       equal_nan=True):
+        d = np.abs(np.nan_to_num(resp) - np.nan_to_num(ref["response"]))
+        bad.append(f"response (largest difference {float(d.max())!r})")
+    if cold != ref["cold_starts"]:
+        bad.append(f"cold_starts {cold} != {ref['cold_starts']}")
+    if not np.array_equal(node_done, ref["node_done"]):
+        bad.append(f"node_done {list(node_done)} != "
+                   f"{list(ref['node_done'])}")
+    for k, v in (counts or {}).items():
+        if v != int(ref[k]):
+            bad.append(f"{k} {v} != {int(ref[k])}")
+    return bad
+
+
+def phase_reference(torch, np, api, fs, K0):
+    """K0 on the card against the port's Python reference cluster on the
+    host (`repro_torch.cluster.simulate_cluster_reference`), request for
+    request: jsq2 under periodic churn, slo_aware under a delay schedule,
+    the breaker under faults (K0's K-node variant) and the static tier
+    (hash, mixed capacities and delays: K0's single-node form), exact
+    mode, each run with the counts set to 0 just before and read just
+    after; a planted fault in one response must be rejected."""
+    from repro_torch.cluster import simulate_cluster_reference
+    from repro_torch.core.resilience import RetryPolicy
+    src = api.SyntheticTrace.make(**REFERENCE_TRACE)
+    rows, fault_seen = [], None
+    for name, policy, cs, faults in reference_cases(api):
+        kw = {}
+        if faults:
+            kw = dict(faults, retry=RetryPolicy(**REFERENCE_RETRY))
+        spec = api.ExperimentSpec(
+            traces=[src], policies=(policy,), capacities=(3,),
+            queue_cap=64 if faults else 256, stream=False,
+            keep_per_request=True, cluster=[cs], device="cuda", **kw)
+        rs, wall, launches, _ = run_grid(torch, api, fs, K0, spec)
+        rs.check()
+        dynamic = cs.get_router().dynamic
+        need(launches["plain_calls"] == 0
+             and launches["cluster_loop" if dynamic else "event_loop"] == 1
+             and launches["event_loop" if dynamic else "cluster_loop"] == 0,
+             f"reference: {name}: launches {launches}, not one launch of "
+             f"K0's {'K-node' if dynamic else 'single-node'} form")
+        t0 = time.perf_counter()
+        ref = simulate_cluster_reference(
+            src.to_trace(), policy, cs, capacity=3,
+            **(dict(kw, queue_cap=64) if faults else {}))
+        ref_s = time.perf_counter() - t0
+        resp = np.asarray(rs.value("response", policy=policy))
+        cold = int(rs.value("cold_starts", policy=policy))
+        nd = np.asarray(rs.value("node_done", policy=policy))
+        counts = ({k: int(rs.value(k, policy=policy))
+                   for k in ("done", "failed", "timed_out", "retried", "shed",
+                             "failed_exhausted", "breaker_trips")}
+                  if faults else None)
+        bad = reference_mismatch(np, resp, cold, nd, ref, counts)
+        need(not bad, f"reference: {name}: K0 differs from the reference "
+             f"in {bad}")
+        if faults:
+            need(counts["breaker_trips"] > 0,
+                 f"reference: {name}: the breaker never tripped")
+        if fault_seen is None:
+            planted = resp.copy()
+            i = int(np.flatnonzero(np.isfinite(planted))[0])
+            planted[i] *= 1 + 1e-6
+            fault_seen = reference_mismatch(np, planted, cold, nd, ref)
+            need(fault_seen, "reference: a response off by 1e-6 was not "
+                 "rejected")
+        finite = np.isfinite(resp)
+        rows.append(dict(case=name, policy=policy, router=cs.router,
+                         form="K-node" if dynamic else "single-node",
+                         launches=(launches["cluster_by_variant"] if dynamic
+                                   else launches["by_variant"]),
+                         card_s=wall, reference_s=ref_s,
+                         max_abs_err=float(np.abs(
+                             resp[finite] - ref["response"][finite]).max()),
+                         done=int(rs.value("done", policy=policy)),
+                         counts=counts))
+    res = dict(phase="reference", n_requests=REFERENCE_TRACE["n_requests"],
+               n_functions=REFERENCE_TRACE["n_functions"], cases=rows,
+               tolerance=dict(rtol=1e-9, atol=1e-9),
+               planted_fault_rejected=fault_seen)
+    emit(res)
+    return res
+
+
+def phase_audit(torch):
+    """Every gate of `repro_torch.analysis` on the card, the SASS scan of
+    each event-loop unit among them; a failing gate fails the run."""
+    from repro_torch.analysis import run_gates
+    rep = run_gates(device=torch.device("cuda"))
+    gates = rep["gates"]
+    sass = gates["f32_sass"]["entries"][0]
+    grid = next(e for e in gates["recompilation"]["entries"]
+                if e["entry"] == "experiment_grid")
+    plans = next(e for e in gates["recompilation"]["entries"]
+                 if e["entry"] == "rmsnorm_plans")
+    res = dict(phase="audit", passed=rep["passed"], wall_s=rep["wall_s"],
+               gates={g: v["passed"] for g, v in gates.items()},
+               gate_s={g: v.get("wall_s") for g, v in gates.items()},
+               sass_dump_s=sass.get("dump_s"),
+               problems={g: v["problems"][:5] for g, v in gates.items()
+                         if v["problems"]},
+               sass_run=sass.get("run"), cuobjdump=sass.get("cuobjdump"),
+               f32_by_unit=sass.get("f32_by_unit"),
+               div_sites_by_unit={u: {k: v["div_sites"] for k, v in ks.items()}
+                                  for u, ks in (sass.get("by_unit")
+                                                or {}).items()},
+               grid_launches=grid["calls"], grid_forms=grid["forms"],
+               rmsnorm_plans=plans["plans"],
+               not_applicable=sorted(rep["not_applicable"]))
+    emit(res)
+    need(rep["passed"], "audit: gates failed: "
+         + "; ".join(f"{g}: {v['problems'][:3]}" for g, v in gates.items()
+                     if not v["passed"]))
+    need(sass.get("run") is True, "audit: the SASS scan did not run")
+    return res
+
+
 def phase_profile(torch, api, n_requests):
     """K0's device time and the device busy share, from torch.profiler
     over the main path's run."""
@@ -3440,7 +3685,8 @@ def main(argv=None) -> int:
         exp = load_expected()
         main, main_rs = timed("main_path", phase_main_path, torch, np, api,
                               fs, K0, exp, args.n_requests)
-        timed("fig6", phase_fig6, torch, api, fs, K0, exp, args.n_requests)
+        _, fig6_rs = timed("fig6", phase_fig6, torch, api, fs, K0, exp,
+                           args.n_requests)
         eager = timed("eager_card", phase_eager_card, torch, np, api, K0)
         timed("wide", phase_wide, torch, api, K0, exp)
         opts = timed("options", phase_options, torch, np, api, fs, K0, cexp,
@@ -3455,6 +3701,10 @@ def main(argv=None) -> int:
                       cexp, args.n_requests)
         tele = timed("telemetry", phase_telemetry, torch, np, api, fs, K0,
                      exp, args.n_requests, main_rs)
+        scale = timed("scale_out", phase_scale_out, torch, np, api, fs, K0,
+                      args.n_requests, fig6_rs)
+        refc = timed("reference", phase_reference, torch, np, api, fs, K0)
+        audit = timed("audit", phase_audit, torch)
         parity_err = timed("parity", phase_parity, np, api)
         timed("model_parity", phase_model_parity, torch, np)
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
@@ -3494,7 +3744,12 @@ def main(argv=None) -> int:
                 options_window_4096=opts["window_4096_launches"][
                     "by_variant"].get(v, 0),
                 fig8=opts["fig8"]["launches_by_variant"].get(v, 0),
-                static_cluster=static_launches.get(v, 0)),
+                static_cluster=static_launches.get(v, 0),
+                scale_out=sum(x["launches"].get(v, 0)
+                              for x in scale["shards"])
+                + scale["devices_1"]["launches"].get(v, 0),
+                reference=sum(r["launches"].get(v, 0) for r in refc["cases"]
+                              if r["form"] == "single-node")),
             ms_options_on=on["k0_ms_options_on"],
             options_overhead_pct=on["overhead_pct"],
             static_cluster={f"AGG={x['agg']}": x["per_policy"][p]
@@ -3551,9 +3806,12 @@ def main(argv=None) -> int:
             + (", K1 inline)" if v.startswith("esff") else ")"),
             launches=(dyn_launches.get(v, 0) + churn_launches.get(v, 0)
                       + resil_launches.get(v, 0)),
-            launches_by_phase=dict(dynamic_cluster=dyn_launches.get(v, 0),
-                                   churn=churn_launches.get(v, 0),
-                                   resilience=resil_launches.get(v, 0)),
+            launches_by_phase=dict(
+                dynamic_cluster=dyn_launches.get(v, 0),
+                churn=churn_launches.get(v, 0),
+                resilience=resil_launches.get(v, 0),
+                reference=sum(r["launches"].get(v, 0) for r in refc["cases"]
+                              if r["form"] == "K-node")),
             launches_by_spec={x["spec"]:
                               x["launches"]["cluster_by_variant"].get(v, 0)
                               for x in dynamic["specs"]},
@@ -3653,7 +3911,7 @@ def main(argv=None) -> int:
             fault_ratio_min=min(r["fault_ratio"] for r in mine),
             check="passed", at=at))
     emit(dict(phase="done", total_s=time.perf_counter() - t_start,
-              phase_s=phase_s))
+              phase_s=phase_s, audit_passed=audit["passed"]))
     print(smi, flush=True)
     emit(dict(kernels=kernels))
     emit(dict(ok=True, device=dict(platform="gpu", kind=kind,

@@ -6,8 +6,11 @@ axes ``(policy, trace, capacity, beta)`` in that order, plus a trailing
 the `ClusterSpec` labels); metric-specific dims (histogram and timeline
 bins, per-function deadline misses, per-node counts, per-request N)
 follow.
-Selection (`sel` / `value`), tidy rows (`rows`), CSV (`to_csv`) and an
-npz round-trip (`save_npz` / `load_npz`) work as in the JAX package. A run
+Selection (`sel` / `value`), tidy rows (`rows`), CSV (`to_csv`), an npz
+round-trip (`save_npz` / `load_npz`) and the join of host shards
+(`merge`) work as in the JAX package: a run with ``host_shard`` computes
+part of the grid, ``computed`` marks that part, and every reader but
+`merge` skips or refuses the rest. A run
 with ``trace_events`` attaches its per-cell event streams (``trace``, a
 `repro_torch.telemetry.TraceRun`, exported on its own with
 ``trace.save_npz``) and `timeline` bins one cell's stream.
@@ -129,6 +132,10 @@ class ResultSet:
                 f"ResultSet.value({metric!r}): selection leaves grid "
                 f"{dict(zip(sub.dims, sub.grid_shape))}, need exactly one "
                 "cell -- add coords")
+        if not sub.computed.reshape(-1)[0]:
+            raise ValueError(
+                f"ResultSet.value({metric!r}): cell not computed (this "
+                "is a host shard -- merge() the other shards first)")
         cell = sub[metric][(0,) * nd]
         return cell.item() if np.ndim(cell) == 0 else np.asarray(cell)
 
@@ -275,6 +282,35 @@ class ResultSet:
             computed = np.asarray(z["computed"], bool)
         return ResultSet(data=data, coords=coords, computed=computed,
                          meta=meta)
+
+    # ----------------------------------------------------------- merge
+    def merge(self, *others: "ResultSet") -> "ResultSet":
+        """Join host-sharded parts of one grid: the parts must share
+        coords and metric sets, and each cell must be computed by at most
+        one of them (``host_shard`` partitions the chunks so). Returns a
+        new ResultSet whose ``computed`` mask is the union."""
+        merged = ResultSet(
+            data={k: v.copy() for k, v in self.data.items()},
+            coords={k: list(v) for k, v in self.coords.items()},
+            computed=self.computed.copy(), meta=dict(self.meta))
+        for o in others:
+            if o.coords != merged.coords:
+                raise ValueError("ResultSet.merge: coords differ -- "
+                                 "shards must come from the same spec")
+            if set(o.data) != set(merged.data):
+                raise ValueError(
+                    f"ResultSet.merge: metric sets differ "
+                    f"({sorted(set(o.data) ^ set(merged.data))})")
+            overlap = merged.computed & o.computed
+            if overlap.any():
+                raise ValueError(
+                    f"ResultSet.merge: {int(overlap.sum())} cell(s) "
+                    "computed by more than one shard")
+            take = o.computed
+            for k in merged.data:
+                merged.data[k][take] = o.data[k][take]
+            merged.computed |= take
+        return merged
 
     def __repr__(self):
         axes = ", ".join(f"{d}={n}"

@@ -10,22 +10,16 @@ slice and re-intensify the shared trace. An
 capacities x betas plus the engine knobs -- as one validated value;
 `repro_torch.api.run_experiment` lowers it onto the engine's lanes.
 
-The spec keeps every field of the JAX package's spec so the two are
-built the same way, but only these are ported: ``traces``,
-``policies``, ``capacities``, ``betas``, ``seeds``, ``stream``,
-``window``, ``tl_bins``, ``tl_bucket``, ``keep_per_request``,
-``deadlines``, ``queue_cap``, ``prior``, ``threshold``, ``lane_chunk``,
-``cluster`` (static and dynamic routers, the circuit breaker, constant
-and time-varying delays, node churn), the resilience layer
-(``fail_prob``, ``timeouts``, ``retry``, ``on_overflow``,
-``fail_seed``), ``trace_events`` and ``meta``, plus the port's own
-``device``. Any other field set away from its default fails validation
-with ValueError, naming the ROADMAP item that will port it; it is never
-ignored.
+The spec keeps every field of the JAX package's spec, with its
+validation, so the two are built the same way, plus the port's own
+``device``. The scale-out fields are the JAX package's: ``devices`` caps
+the CUDA devices a run spreads its lane chunks over, and
+``host_shard=(i, n)`` keeps lane chunks ``i, i + n, ...``, so that n
+hosts each run one part of a grid and `ResultSet.merge` joins the parts.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import os
@@ -35,12 +29,6 @@ import numpy as np
 from repro_torch.core.request import Trace
 
 TRACE_COLUMNS = ("fn_id", "arrival", "exec_time", "cold_start", "evict")
-
-# fields of `repro.api.ExperimentSpec` not ported yet -> ROADMAP item
-_NOT_PORTED = {
-    "devices": "Queue 1, item 7", "host_shard": "Queue 1, item 7",
-}
-
 
 class TraceSource:
     """Declarative origin of one request stream.
@@ -65,6 +53,11 @@ class TraceSource:
                 v.setflags(write=False)
             object.__setattr__(self, "_cache", cached)
         return dict(cached)
+
+    def to_trace(self) -> Trace:
+        """Materialise `repro_torch.core.request.Trace` objects (the
+        Python event engine's representation; avoid for large N)."""
+        return Trace.from_arrays(self.arrays(), {"source": self.label})
 
     def head(self, n: int) -> "TraceSource":
         """First ``n`` requests (arrival order), same catalogue."""
@@ -261,8 +254,7 @@ def as_trace_source(obj, name: str = "") -> TraceSource:
 @dataclass
 class ExperimentSpec:
     """One declared experiment: the grid ``traces x policies x
-    capacities x betas`` plus engine options (see the module docstring
-    for which fields are ported). ``seeds`` expands each reseedable
+    capacities x betas`` plus engine options. ``seeds`` expands each reseedable
     source into one trace per seed. ``tl_bins > 0`` adds the Fig. 8
     timeline (``tl_bucket`` seconds a bin); ``deadlines`` (one scalar,
     or one value per function) adds the per-function ``deadline_miss``
@@ -270,7 +262,11 @@ class ExperimentSpec:
     result; ``cluster`` adds a trailing axis of
     `repro_torch.cluster.ClusterSpec` topologies (``None`` entries are
     the plain single-node run). ``device`` is where the run goes: CUDA
-    unless it is ``"cpu"``.
+    unless it is ``"cpu"``. ``devices`` caps the CUDA devices that the
+    lane chunks go round over (None: every device; the CPU is one
+    device), and ``host_shard=(i, n)`` runs only lane chunks ``i, i + n,
+    ...``: the `ResultSet` marks the others not computed, and
+    `ResultSet.merge` joins the n hosts' parts.
 
     Resilience: ``fail_prob`` (a scalar or one value a function) fails
     requests by a counter hash of ``fail_seed``, ``timeouts`` (seconds, a
@@ -338,11 +334,10 @@ class ExperimentSpec:
         self.fail_seed = int(self.fail_seed)
 
     def validate(self) -> "ExperimentSpec":
-        """Raise on the first invalid or unported field; returns self."""
+        """Raise on the first invalid field; returns self."""
         from repro_torch.api.registry import get_kernel
         if self.trace_events:
-            # the JAX package's rule, ahead of the refusal of the fields
-            # themselves: a traced run keeps every lane on one device
+            # a traced run keeps every lane on one device
             if self.host_shard != (0, 1):
                 raise ValueError(
                     "ExperimentSpec: trace_events needs every lane "
@@ -352,14 +347,14 @@ class ExperimentSpec:
                     "ExperimentSpec: traced runs execute serially on "
                     "the default device; devices must be None or 1, "
                     f"got {self.devices}")
-        defaults = {f.name: f.default for f in fields(self)
-                    if f.name in _NOT_PORTED}
-        for name, item in _NOT_PORTED.items():
-            if getattr(self, name) != defaults[name]:
-                raise ValueError(
-                    f"ExperimentSpec: {name}={getattr(self, name)!r} is "
-                    f"not ported yet (ROADMAP {item}); leave it at "
-                    f"{defaults[name]!r}")
+        i, n = self.host_shard
+        if n < 1 or not (0 <= i < n):
+            raise ValueError(
+                f"ExperimentSpec: host_shard must be (i, n) with "
+                f"0 <= i < n, got {self.host_shard}")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError("ExperimentSpec: devices must be >= 1 "
+                             "(None = all local devices)")
         if not self.traces:
             raise ValueError("ExperimentSpec: no trace sources")
         if not self.policies:
@@ -463,6 +458,15 @@ class ExperimentSpec:
                         "node_capacity fixes per-node slots, so the "
                         "capacity axis must have exactly one entry (the "
                         f"aggregate label); got {self.capacities}")
+            if self.host_shard != (0, 1):
+                raise ValueError(
+                    "ExperimentSpec: cluster runs do not support "
+                    "host_shard yet")
+            if self.devices not in (None, 1):
+                raise ValueError(
+                    "ExperimentSpec: cluster runs execute on the "
+                    "default device; devices must be None or 1, got "
+                    f"{self.devices}")
         return self
 
     def deadline_ops(self, n_fns: int) -> Optional[np.ndarray]:

@@ -117,6 +117,40 @@ _RESIL_OUT = (("failed", "failed"), ("timed_out", "tmo"),
               ("failed_exhausted", "exh"))
 _SUMS = ("cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 
+# The state that scales with the trace length N, by name, with the reason
+# it may: of the eager K-node loop (`_init_state`, (L, N + 1) rails whose
+# last column takes disabled writes) and of the event-loop kernel's
+# K-node launches (`kernels.event_loop._ClusterResults`, `_TraceBuffers`,
+# (L, N) rails). Every other tensor of either is O(K (F + C) + HIST_BINS)
+# a lane. Metadata: no loop reads it; `repro_torch.analysis` holds the
+# allocations to it in both directions.
+CARRY_RAILS = {
+    "nxt": "the per-(node, function) FIFO successor rid (also the park "
+           "and retry FIFOs): a router decides at run time which node "
+           "queues a request, so the single-node positional cursors do "
+           "not apply and the queue is a chain of one link a request.",
+    "tnx": "OpenWhisk-v2's timer chain over node arrivals, one link a "
+           "request (the same argument as `nxt`).",
+    "dnx": "the in-flight chain of a lane with network delay: requests "
+           "sent to a node and not yet landed, one link a request.",
+    "links": "the kernel's three chains `nxt`, `tnx` and `dnx` as one "
+             "(L, 3, N) int32 tensor (each lane's chains in its own "
+             "rows).",
+    "land_t": "the landing time of each request in flight (a lane with "
+              "delay), stamped at its send and at a churn re-send.",
+    "att": "the resilience layer's attempts started a request.",
+    "rt_t": "the resilience layer's retry eligibility time a request "
+            "(its backoff target).",
+    "node_of": "exact mode with delay records each request's node: an "
+               "output record, not loop bookkeeping.",
+    "start": "exact mode's per-request dispatch time (an output).",
+    "completion": "exact mode's per-request completion time (an output).",
+    "tr_i": "the K-node kernel's traced window: the same contract as "
+            "`repro_torch.core.engine.CARRY_RAILS['tr_i']`, sized a lane "
+            "by `lane_trace_capacity`.",
+    "tr_f": "the traced window's float64 half.",
+}
+
 
 def sched_delay(t, dt, dv, dp):
     """Piecewise-constant `DelaySchedule` lookup elementwise over ``t``

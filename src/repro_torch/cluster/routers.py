@@ -188,6 +188,15 @@ class JSQRouter(DynamicRouter):
         self.name = name
         self.d = int(d)
 
+    @staticmethod
+    def sample(rid, seed: int, K: int, d: int, mix=mix32_py):
+        """The (i, j) swaps of the first min(d, K) positions of a partial
+        Fisher-Yates shuffle of range(K): position i swaps with ``i +
+        mix(rid, seed + i) % (K - i)``. `pick` and the Python reference
+        cluster replay the same swaps, so their candidates match."""
+        return [(i, i + int(mix(rid, seed + i) % (K - i)))
+                for i in range(min(d, K))]
+
     def pick(self, g, j, rid, t):
         L, Kx = g.q_tot.shape
         K = g.n_nodes

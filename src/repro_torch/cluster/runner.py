@@ -156,17 +156,12 @@ def dynamic_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
     `ExperimentSpec.resilience_ops`, ``stacked``'s exec times its
     attempts' times) each call carries the (T, N) outcome operands.
     Raises on a timer policy under churn."""
-    from repro_torch.api.runner import resil_kwargs
+    from repro_torch.api.runner import resil_kwargs, trace_operands
     T = stacked["fn_id"].shape[0]
     horizon = horizon_of(stacked)
     reject_timers_under_churn(spec, entries, kernels, horizon)
     routers, lanes = pack_dynamic_lanes(spec, entries, T, horizon)
-    f64 = torch.float64
-    dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
-              cold_start=f64, evict=f64)
-    shared = [torch.as_tensor(stacked[k], dtype=dt[k], device=device)
-              for k in ("fn_id", "arrival", "exec_time", "cold_start",
-                        "evict")]
+    shared = list(trace_operands(stacked, device).values())
     L = len(lanes["trace_ix"])
     rs_kw = resil_kwargs(rs, device)
 

@@ -236,14 +236,10 @@ def static_calls(spec, entries, stacked: Dict[str, np.ndarray], F: int,
     lanes [lo, hi) on ``device``; ``betas[policy]`` is the policy's (B,)
     beta axis, ``deadlines`` the (F,) operand or None, ``rs`` the
     resilience operands (`pack_static_lanes`) or None."""
+    from repro_torch.api.runner import trace_operands
     rows, lanes, layout = pack_static_lanes(spec, entries, stacked, rs)
     C = lanes["cap_mask"].shape[1]
-    f64 = torch.float64
-    dt = dict(fn_id=torch.int64, arrival=f64, exec_time=f64,
-              cold_start=f64, evict=f64)
-    shared = [torch.as_tensor(rows[k], dtype=dt[k], device=device)
-              for k in ("fn_id", "arrival", "exec_time", "cold_start",
-                        "evict")]
+    shared = list(trace_operands(rows, device).values())
     L = len(lanes["trace_ix"])
     rs_kw = {}
     if rs is not None:

@@ -109,6 +109,31 @@ _SUMS = ("g_sum", "cold_t", "evict_t", "r_sum", "s_sum", "r_max")
 # the counters whose change in an event sets its record's TR_AUX bits
 _TRACE_CTRS = ("cold", "ovf", "shed", "failed", "tmo", "exh")
 
+# The state that scales with the trace length N, by name, with the reason
+# it may: of the eager loop (`_init_state`) and of the event-loop
+# kernel's single-node launches (`kernels.event_loop._Results`,
+# `_TraceBuffers`). Every other tensor of either is O(F + C + HIST_BINS)
+# a lane. Metadata: no loop reads it; `repro_torch.analysis` holds the
+# allocations to it in both directions.
+CARRY_RAILS = {
+    "start": "exact mode's per-request dispatch time: the (L, N) record "
+             "is the requested output, not loop bookkeeping (streaming "
+             "mode folds it away); the eager loop keeps one spare column "
+             "for disabled writes, (L, N + 1).",
+    "completion": "exact mode's per-request completion time; the same "
+                  "contract as `start`.",
+    "tr_i": "the event-loop kernel's traced window (traced launches "
+            "only): one int32 record an event in a per-lane window of "
+            "`trace_capacity(N)` rows, copied back once a launch. It "
+            "scales with N where the JAX package's (L, SEG) overlay does "
+            "not, because a kernel cannot hand records to the host in the "
+            "middle of a launch: the window holds the lane's whole stream "
+            "(an exact relaunch when a lane overruns it). The eager loop "
+            "keeps O(SEG) records and flushes them a segment.",
+    "tr_f": "the traced window's float64 half (event time, execution "
+            "time); the same contract as `tr_i`.",
+}
+
 
 def positional_layout(fn_id, f):
     """The positional queue layout of (T, N) int64 ``fn_id``: request

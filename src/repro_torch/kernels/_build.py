@@ -25,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -64,6 +65,9 @@ def nvcc_flags(name: str) -> tuple:
     return COMMON_FLAGS + EXTRA_FLAGS.get(name, ())
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# held while a library is built or loaded: a run over several devices
+# calls the wrappers from a host thread a device
+_LOAD_LOCK = threading.Lock()
 # per source: seconds the build took (0.0 when an existing library was
 # reused) and what ptxas reported (registers, shared memory, spills; for a
 # reused library, its build's report, kept beside it as lib*.ptxas)
@@ -135,8 +139,11 @@ def load_library(name: str) -> ctypes.CDLL:
     """The ctypes handle of ``csrc/<name>.cu``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build((name,))[name]))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = ctypes.CDLL(str(build((name,))[name]))
+                _LIBS[name] = lib
     return lib
 
 

@@ -36,6 +36,7 @@ counts (``launches``, ``plain_calls``, ``variant_launches``,
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -263,13 +264,19 @@ class _TraceBuffers:
         if isinstance(cap, int):
             self.off = torch.arange(L + 1, dtype=torch.int64,
                                     device=dev) * cap
+            R = L * cap
         else:
             self.off = torch.cat([torch.zeros(1, dtype=torch.int64,
                                               device=dev),
                                   torch.cumsum(cap.to(torch.int64), 0)])
-        R = int(self.off[-1])
+            R = int(self.off[-1])
         self.tr_i = torch.empty((R, TR_RI), dtype=torch.int32, device=dev)
         self.tr_f = torch.empty((R, TR_RF), dtype=torch.float64, device=dev)
+
+    def buffers(self) -> dict:
+        """The device buffers by name (`repro_torch.analysis` reads
+        them)."""
+        return dict(tr_i=self.tr_i, tr_f=self.tr_f, tr_off=self.off)
 
     def args(self):
         return (self.tr_i.data_ptr(), self.tr_f.data_ptr(),
@@ -384,7 +391,7 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               stream=stream, threshold=threshold, n_live=n_live,
               deadlines=deadlines, tl_bins=tl_bins, tl_bucket=tl_bucket)
     if dev.type == "cpu":
-        event_loop.plain_calls += 1
+        _count_plain(event_loop, variant)
         with profiling.phase("launch"):
             return E.simulate_eager(fn_id, arrival, exec_time, t_cold,
                                     t_evict, trace_ix, cap_mask, beta,
@@ -401,7 +408,7 @@ def event_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
     def launch(buf):
         with profiling.phase("pack"):
-            res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
+            res = _Results(L, N, F, stream, deadlines, tl_bins, dev, plan)
             args = _shared_args(fn_id, arrival, exec_time,
                                 pos_rids.data_ptr(), pos_off.data_ptr(),
                                 t_cold, t_evict, trace_ix, cap_mask, beta,
@@ -462,11 +469,20 @@ def _check_inputs(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
 
 class _Results:
-    """A launch's output tensors (the counters, sums, histogram, policy
-    counts; start / completion in exact mode; the options' folds)."""
+    """The device buffers a launch allocates: its outputs (the counters,
+    sums, histogram, policy counts; start / completion in exact mode; the
+    options' folds) and the per-function scratch that ``plan``
+    (`layout_plan`) puts in global memory. Every buffer the kernel writes
+    is allocated here or, traced, in `_TraceBuffers`; the launch's other
+    tensors are read-only operands derived from its inputs (the
+    positional layout, the topology). So `buffers` is the state of a
+    launch (`repro_torch.analysis` reads it at small shapes)."""
 
-    def __init__(self, L, N, F, stream, deadlines, tl_bins, dev):
+    def __init__(self, L, N, F, stream, deadlines, tl_bins, dev, plan):
         f64, i64, i32 = torch.float64, torch.int64, torch.int32
+        self.scratch = (None if plan["fn_in_shared"] else
+                        torch.empty((L, plan["scratch_bytes"]),
+                                    dtype=torch.uint8, device=dev))
         self.ctr = torch.empty((L, len(COUNTERS)), dtype=i64, device=dev)
         self.sums = torch.empty((L, len(SUMS)), dtype=f64, device=dev)
         self.hist = torch.empty((L, E.HIST_BINS), dtype=i32, device=dev)
@@ -483,11 +499,54 @@ class _Results:
                     torch.zeros((L, tl_bins), dtype=f64, device=dev),
                     torch.zeros((L, tl_bins), dtype=f64, device=dev)))
 
+    def buffers(self) -> dict:
+        """The allocated device buffers by name."""
+        named = dict(ctr=self.ctr, sums=self.sums, hist=self.hist,
+                     pcounts=self.pcounts, start=self.start,
+                     completion=self.comp, dl_miss=self.dl_miss,
+                     tl_cnt=self.tl[0], tl_resp=self.tl[1],
+                     tl_exec=self.tl[2], scratch=self.scratch)
+        return {k: v for k, v in named.items() if v is not None}
+
     def outputs(self, stream, deadlines, tl_bins) -> dict:
         """`engine.simulate`'s dict of the launch's results."""
         return _outputs(self.ctr, self.sums, self.hist, self.start,
                         self.comp, stream, deadlines, tl_bins, self.tl,
                         self.dl_miss)
+
+
+class _ClusterResults(_Results):
+    """A K-node launch's device buffers: `_Results`', and the rid-chain
+    links (``nxt``, ``tnx``, ``dnx`` as one (L, 3, N) tensor), each
+    node's completions, the churn and resilience tallies, and the
+    per-request rails a flag needs: ``node_of`` (exact mode with a
+    delay), ``land_t`` (a delay), ``att`` and ``rt_t`` (resilience)."""
+
+    def __init__(self, L, N, F, Kx, stream, deadlines, tl_bins, dev, plan,
+                 any_delay, resil):
+        super().__init__(L, N, F, stream, deadlines, tl_bins, dev, plan)
+        f64, i64, i32 = torch.float64, torch.int64, torch.int32
+        self.links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
+        self.node_done = torch.empty((L, Kx), dtype=i32, device=dev)
+        self.churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
+        self.resil_counts = torch.zeros((L, len(RESIL_COUNTS)), dtype=i64,
+                                        device=dev)
+        self.node_of = self.land_t = self.att = self.rt_t = None
+        if not stream and any_delay:
+            self.node_of = torch.zeros((L, N), dtype=i32, device=dev)
+        if any_delay:
+            self.land_t = torch.zeros((L, N), dtype=f64, device=dev)
+        if resil is not None:
+            self.att = torch.zeros((L, N), dtype=i32, device=dev)
+            self.rt_t = torch.zeros((L, N), dtype=f64, device=dev)
+
+    def buffers(self) -> dict:
+        named = dict(super().buffers(), links=self.links,
+                     node_done=self.node_done,
+                     churn_counts=self.churn_counts,
+                     resil_counts=self.resil_counts, node_of=self.node_of,
+                     land_t=self.land_t, att=self.att, rt_t=self.rt_t)
+        return {k: v for k, v in named.items() if v is not None}
 
 
 def _ptr(x):
@@ -499,10 +558,7 @@ def _shared_args(fn_id, arrival, exec_time, pos_rids, pos_off, t_cold,
                  F, C, queue_cap, plan, n_live, deadlines, tl_bins,
                  tl_bucket, res) -> tuple:
     """The arguments both C entries share, after the policy code."""
-    scratch = (None if plan["fn_in_shared"] else
-               torch.empty((L, plan["scratch_bytes"]), dtype=torch.uint8,
-                           device=fn_id.device))
-    res.scratch = scratch   # kept alive until the launch's results are
+    scratch = res.scratch
     return (fn_id.data_ptr(), arrival.data_ptr(), exec_time.data_ptr(),
             pos_rids, pos_off, t_cold.data_ptr(), t_evict.data_ptr(),
             trace_ix.data_ptr(), cap_mask.data_ptr(), beta.data_ptr(),
@@ -515,14 +571,29 @@ def _shared_args(fn_id, arrival, exec_time, pos_rids, pos_off, t_cold,
             *map(_ptr, res.tl))
 
 
+# held while a launch is counted: a run over several devices launches
+# from a host thread a device
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_plain(entry, variant) -> None:
+    """A call of ``entry``'s plain version (a CPU tensor): counted in
+    ``plain_calls`` and, by variant, in ``plain_by_variant``."""
+    with _COUNT_LOCK:
+        entry.plain_calls += 1
+        entry.plain_by_variant[variant] = (
+            entry.plain_by_variant.get(variant, 0) + 1)
+
+
 def _count(entry, variant, pcounts, traced=False) -> None:
-    entry.launches += 1
-    entry.variant_launches[variant] = (
-        entry.variant_launches.get(variant, 0) + 1)
-    entry.last_by_variant[variant] = pcounts
-    if traced:
-        entry.traced_launches[variant] = (
-            entry.traced_launches.get(variant, 0) + 1)
+    with _COUNT_LOCK:
+        entry.launches += 1
+        entry.variant_launches[variant] = (
+            entry.variant_launches.get(variant, 0) + 1)
+        entry.last_by_variant[variant] = pcounts
+        if traced:
+            entry.traced_launches[variant] = (
+                entry.traced_launches.get(variant, 0) + 1)
 
 
 def _outputs(ctr, sums, hist, start, comp, stream, deadlines, tl_bins, tl,
@@ -552,6 +623,7 @@ def _outputs(ctr, sums, hist, start, comp, stream, deadlines, tl_bins, tl,
 
 event_loop.launches = 0
 event_loop.plain_calls = 0
+event_loop.plain_by_variant = {}
 event_loop.variant_launches = {}
 event_loop.traced_launches = {}
 event_loop.last_by_variant = {}
@@ -661,7 +733,7 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
               dtimes=dtimes, dvals=dvals, dper=dper, rs_nfail=rs_nfail,
               rs_tmo=rs_tmo, rs_key=rs_key, resil=resil)
     if dev.type == "cpu":
-        cluster_loop.plain_calls += 1
+        _count_plain(cluster_loop, variant)
         with profiling.phase("launch"):
             return simulate_cluster_eager(fn_id, arrival, exec_time, t_cold,
                                           t_evict, trace_ix, cap_mask, beta,
@@ -699,21 +771,8 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
     def launch(buf):
         with profiling.phase("pack"):
-            res = _Results(L, N, F, stream, deadlines, tl_bins, dev)
-            res.links = torch.full((L, 3, N), -1, dtype=i32, device=dev)
-            res.node_done = torch.empty((L, Kx), dtype=i32, device=dev)
-            res.churn_counts = torch.zeros((L, 2), dtype=i64, device=dev)
-            res.resil_counts = torch.zeros((L, len(RESIL_COUNTS)), dtype=i64,
-                                           device=dev)
-            res.node_of = land_t = att = rt_t = None
-            if not stream and lanes.any_delay:
-                res.node_of = torch.zeros((L, N), dtype=i32, device=dev)
-            if lanes.any_delay:
-                land_t = torch.zeros((L, N), dtype=f64, device=dev)
-            if resil is not None:
-                att = torch.zeros((L, N), dtype=i32, device=dev)
-                rt_t = torch.zeros((L, N), dtype=f64, device=dev)
-            res.keep = (land_t, att, rt_t)   # alive until the launch ends
+            res = _ClusterResults(L, N, F, Kx, stream, deadlines, tl_bins,
+                                  dev, plan, lanes.any_delay, resil)
             args = _shared_args(fn_id, arrival, exec_time, None, None,
                                 t_cold, t_evict, trace_ix, cap_mask, beta,
                                 prior, threshold, L, N, F, C, queue_cap,
@@ -726,10 +785,11 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
                     _ptr(res.node_of), _ptr(churn_t),
                     0 if churn_t is None else churn_t.shape[2],
                     _ptr(dtimes), _ptr(dvals), _ptr(dper),
-                    0 if dtimes is None else dtimes.shape[2], _ptr(land_t),
-                    res.churn_counts.data_ptr(), int(resil is not None),
-                    _ptr(rs_nfail), _ptr(rs_tmo), _ptr(rs_key), _ptr(att),
-                    _ptr(rt_t), *rk, _ptr(brk), res.resil_counts.data_ptr(),
+                    0 if dtimes is None else dtimes.shape[2],
+                    _ptr(res.land_t), res.churn_counts.data_ptr(),
+                    int(resil is not None), _ptr(rs_nfail), _ptr(rs_tmo),
+                    _ptr(rs_key), _ptr(res.att), _ptr(res.rt_t), *rk,
+                    _ptr(brk), res.resil_counts.data_ptr(),
                     *(buf.args() + (int(not trace_node),) if buf is not None
                       else ()),
                     _build.stream_of(dev))
@@ -761,6 +821,7 @@ def cluster_loop(fn_id, arrival, exec_time, t_cold, t_evict, trace_ix,
 
 cluster_loop.launches = 0
 cluster_loop.plain_calls = 0
+cluster_loop.plain_by_variant = {}
 cluster_loop.variant_launches = {}
 cluster_loop.traced_launches = {}
 cluster_loop.last_by_variant = {}

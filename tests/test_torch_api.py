@@ -2,6 +2,8 @@
 the same spec fields give equal coords and equal metrics (ints exact,
 floats rtol 1e-9), the trace generator is bitwise the JAX package's,
 and the ResultSet round-trips through npz."""
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -102,21 +104,24 @@ def test_result_set_npz_round_trip(tmp_path):
     ("fail_prob", 0.1), ("on_overflow", "shed"), ("devices", 2),
     ("host_shard", (0, 2)), ("trace_events", True)])
 def test_unported_spec_field_raises(field, value):
-    """A field not ported raises, naming it; the resilience layer's fields
-    (ported) run, and a run with faults conserves its requests; a traced
-    run (ported) attaches its event streams, its metrics the untraced
-    run's."""
+    """Every field of the JAX package's spec is ported and acts as there:
+    the resilience layer's fields run, and a run with faults conserves
+    its requests; a traced run attaches its event streams, its metrics the
+    untraced run's; ``devices=2`` raises on the CPU (one device), and
+    ``host_shard=(0, 2)`` runs the grid's one chunk on host 0."""
     kw = {field: value}
     if field == "retry":        # a retry policy needs a fault to act on
         kw["fail_prob"] = 0.1
     spec = tapi.ExperimentSpec(
         traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
         capacities=(2,), **kw)
-    if field in ("devices", "host_shard"):
-        with pytest.raises(ValueError, match="not ported"):
+    if field == "devices":
+        with pytest.raises(ValueError, match="only 1 local device"):
             tapi.run_experiment(spec, device="cpu")
         return
     rs = tapi.run_experiment(spec, device="cpu").check()
+    if field == "host_shard":
+        assert rs.computed.all() and rs.meta["host_shard"] == [0, 2]
     if field == "trace_events":
         from dataclasses import replace
         plain = tapi.run_experiment(replace(spec, trace_events=False),
@@ -136,13 +141,22 @@ def test_unported_spec_field_raises(field, value):
 @pytest.mark.parametrize("field,value", [("devices", 2),
                                          ("host_shard", (0, 2))])
 def test_scale_out_fields_name_their_item(field, value):
-    """``devices`` and ``host_shard`` are the experiment API's scale-out
-    (ROADMAP Queue 1, item 7): the message names that item."""
+    """``devices`` and ``host_shard`` are the experiment API's scale-out:
+    the spec takes them as the JAX package's does, and a run refuses
+    what the host cannot give (a second device on the CPU; a shard of a
+    one-chunk grid that gets no chunk), with the JAX package's words."""
     spec = tapi.ExperimentSpec(
         traces=[tapi.SyntheticTrace.make(n_functions=4, n_requests=10)],
         **{field: value})
-    with pytest.raises(ValueError, match=r"Queue 1, item 7"):
-        spec.validate()
+    spec.validate()
+    japi.ExperimentSpec(
+        traces=[japi.SyntheticTrace.make(n_functions=4, n_requests=10)],
+        **{field: value}).validate()
+    shard = dict(devices="local device", host_shard="no chunks")
+    with pytest.raises(ValueError, match=shard[field]):
+        tapi.run_experiment(replace(spec, host_shard=(1, 2))
+                            if field == "host_shard" else spec,
+                            device="cpu")
 
 
 def test_unported_policy_raises():

@@ -43,7 +43,7 @@ def test_import_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 46   # every submodule was imported
+    assert n_modules >= 79   # every submodule was imported
 
 
 _NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
@@ -55,14 +55,25 @@ _NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
                    "repro_torch.telemetry.spans",
                    "repro_torch.telemetry.perfetto",
                    "repro_torch.telemetry.metrics",
-                   "repro_torch.telemetry.profiling")
+                   "repro_torch.telemetry.profiling",
+                   "repro_torch.cluster.reference", "repro_torch.analysis",
+                   "repro_torch.analysis.__main__",
+                   "repro_torch.analysis.buffers",
+                   "repro_torch.analysis.carries",
+                   "repro_torch.analysis.dtypes",
+                   "repro_torch.analysis.lint",
+                   "repro_torch.analysis.markers",
+                   "repro_torch.analysis.recompile",
+                   "repro_torch.analysis.report",
+                   "repro_torch.analysis.sass",
+                   "repro_torch.analysis.telemetry_gate")
 
 
 def test_cluster_and_small_modules_load_no_jax():
-    """The static and dynamic cluster tiers, SSFS, the simulator facade,
-    the scenario config and the telemetry package with each of its
-    submodules, imported, leave JAX and the JAX package out of
-    sys.modules."""
+    """The static and dynamic cluster tiers, the reference cluster, SSFS,
+    the simulator facade, the scenario config, the telemetry package and
+    the audit, each with its submodules, imported, leave JAX and the JAX
+    package out of sys.modules."""
     probe = ("import importlib, sys\n"
              f"for n in {_NEW_SUBMODULES!r}:\n"
              "    importlib.import_module(n)\n"
