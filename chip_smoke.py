@@ -32,7 +32,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  and with B and C in f32 (x bf16 or f32: its CUDA-core
                  body), within its own limit, each case with two
                  planted faults, the body that ran each case and the
-                 ptxas report of both bodies.
+                 ptxas report of both bodies. The backward kernels
+                 (training): K2's (flash_attention_bwd.cu) at Qwen3-4B's
+                 shapes at B = 4, S = 1024 and a ragged S = 1000 in bf16
+                 and at D = 32 in f32, K4a's and K4b's (rmsnorm_bwd.cu)
+                 at (4096, 2560) and the qk-norm's (131072, 128) rows,
+                 with and without the residual's gradient, and in f32:
+                 each against the plain backward within its limit, a
+                 planted fault rejected, two runs bitwise equal; K2's
+                 forward log-sum-exp against torch.logsumexp; times
+                 beside the autograd backward of SDPA / F.rms_norm (a
+                 yardstick) and the bound.
 4. ``main_path`` `repro_torch.api.run_experiment` on the paper's Fig. 5
                  grid (F = 200 functions, the paper's N = 60,000
                  Azure-like requests, the six policies x C = 8..32: 42
@@ -58,7 +68,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
                  inputs, held bitwise to each other, for every policy at
-                 N = EAGER_N (150).
+                 N = EAGER_N (100).
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -232,7 +242,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a prefill of the run, every time through its wgmma
                  body, K2 and K3 (head_dim 80) once a shared-block
                  application.
-9. ``profile``   (``--profile`` only) torch.profiler over the Fig. 5
+9. ``train``     the dense family's training (TRAIN_FULL and the notes
+                 above it): (a) the qwen3-4b smoke config in f32 on numpy
+                 weights, 5 steps of `repro_torch.launch.train`, each
+                 step's loss and grad norm against the JAX package's
+                 (scripts/train_expected.json); (b) Qwen3-4B at full
+                 width cut to 2 layers, bf16, B = 2, S = 1024: one loss
+                 and backward through K2, K4a, K4b and their backward
+                 kernels against the plain path, and its launches against
+                 the count from the code; (c) Qwen3-4B at full width (36
+                 layers), bf16, f32 moments, global batch 4, S = 1024, 10
+                 steps: losses finite and falling by at least 0.5, s a
+                 step, tokens/s, peak memory, the model-FLOPs share
+                 (``mfu``) and each kernel's launches a step against the
+                 count from the code, set to 0 just before the run and
+                 read after each step; (d) crash (``fail_at``) after a
+                 checkpoint and restart at (b)'s size, the resumed run's
+                 parameters bitwise the uninterrupted run's.
+10. ``profile``  (``--profile`` only) torch.profiler over the Fig. 5
                  run (each policy's K0 device time a launch, the device
                  busy share)
                  and over one served request of each function of both
@@ -249,6 +276,7 @@ The script imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import multiprocessing
@@ -357,9 +385,10 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): every policy at N = 150 (a step
-# costs ~8-12 ms there; the smoke keeps under 450 s)
-EAGER_N = 150
+# the eager loop on the card (eager_card): every policy at N = 100 (a step
+# costs ~8-12 ms there; cut from 150 to make room for the train phase:
+# the smoke keeps under 450 s)
+EAGER_N = 100
 # each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
 # cold_aware, sff>, false> of csrc/event_loop.cu, and its K-node variant
 # event_loop_cluster_kernel<..., true>, and how their mangled names
@@ -433,12 +462,28 @@ SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
 #   same limit: its products are exact and its weights carry ~24 bits
 #   (three bf16 parts); it uses 0.06-0.19 of the limit on y and ~0.01
 #   on the states at the same shapes.
+# The backward kernels (training), bf16, against the plain backward on
+# f32 copies of the same inputs, each output rounded once by the kernel
+# (half a bf16 ulp: rtol 1e-2) after f32 sums in another order (atol):
+# - flash_attention_backward also reads the forward's output o, rounded
+#   to bf16 (2^-9 of it), in Dl = rowsum(do * o); its limit adds 2^-9
+#   times what that can move dq and dk (``o_round``,
+#   `kernels.flash_attention.backward_o_terms`); dv does not read o;
+# - rmsnorm_backward, rmsnorm_residual_backward: one f32 sum of squares
+#   and one of g w s a row, dw a two-stage f32 sum over the rows.
+# In f32 all three are held to F32_GRAD_TOL (tests/test_kernels.py's f32
+# TOL).
 KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                       p_round=2.0 ** -8),
               "decode_attention": dict(rtol=1e-2, atol=1e-3),
               "rmsnorm": dict(rtol=1e-2, atol=1e-3),
               "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3),
-              "ssd_chunk": dict(rtol=1e-5, atol=3e-5)}
+              "ssd_chunk": dict(rtol=1e-5, atol=3e-5),
+              "flash_attention_backward": dict(rtol=1e-2, atol=1e-3,
+                                               o_round=2.0 ** -9),
+              "rmsnorm_backward": dict(rtol=1e-2, atol=1e-3),
+              "rmsnorm_residual_backward": dict(rtol=1e-2, atol=1e-3)}
+F32_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 # the planted faults: attention without one tile of 64 kv positions (or,
 # with a single valid position, with one position too many); RMSNorm
 # with the last eighth of each row left out of the sum of squares
@@ -449,7 +494,14 @@ FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
           "rmsnorm_residual": "last D/8 of the row left out of the sum "
                               "of squares",
           "ssd_chunk": "y: the diagonal term s = t left out; states: the "
-                       "last position t = c - 1 left out"}
+                       "last position t = c - 1 left out",
+          "flash_attention_backward": "the gradient of attention without "
+                                      "the kv tile [S/2, S/2 + 64)",
+          "rmsnorm_backward": "the gradient of RMSNorm with the last D/8 "
+                              "of the row left out of the sum of squares",
+          "rmsnorm_residual_backward": "the gradient of RMSNorm with the "
+                                       "last D/8 of the row left out of "
+                                       "the sum of squares"}
 
 # the serving kernels in the `kernels` line: (name, the TPU kernel it
 # replaces, the kernel-phase case whose times the line carries: the
@@ -466,6 +518,47 @@ SERVING_KERNELS = (
     ("ssd_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:54",
      "mamba2-780m S=2048 bf16"),
 )
+# the backward kernels in the `kernels` line: (name, source, what they
+# replace: the JAX package has no backward Pallas kernel, and jax.grad
+# differentiates the plain attention and norm of its model; the
+# kernel-phase case whose times the line carries: the train phase's
+# full-width shapes)
+TRAINING_KERNELS = (
+    ("flash_attention_backward", "flash_attention_bwd.cu",
+     "src/repro/models/layers.py:251", "jax.grad of chunked_attention",
+     "bf16 B=4 S=1024"),
+    ("rmsnorm_backward", "rmsnorm_bwd.cu", "src/repro/models/layers.py:70",
+     "jax.grad of rms_norm", "(4096, 2560)"),
+    ("rmsnorm_residual_backward", "rmsnorm_bwd.cu",
+     "src/repro/models/layers.py:70",
+     "jax.grad of rms_norm after the residual add", "(4096, 2560) gres"),
+)
+# The train phase. (a) the qwen3-4b smoke config in f32 on
+# `parity_weights`, held step by step to the JAX package's losses and
+# grad norms (scripts/train_expected.json, made by
+# scripts/train_expected.py, which also holds the run's settings): the
+# first loss within TRAIN_RTOL_FIRST, every later number within
+# TRAIN_RTOL. (b) TRAIN_CUT: Qwen3-4B at full width cut to 2 layers, bf16,
+# B = 2, S = 1024, one loss and backward through the kernels against the
+# same with the kernels swapped for their plain versions (autograd through
+# them: the plain backwards), the loss and each gradient's norm-wise
+# relative error within the bf16 rtol of KERNEL_TOL. (c) TRAIN_FULL: Qwen3-4B
+# at full width (36 layers), bf16, f32 moments, `launch.train` for
+# ``steps`` steps; the losses finite and falling by TRAIN_LOSS_DROP
+# (tests/test_train.py::test_loss_decreases' bar). (d) crash and restart
+# at TRAIN_CUT's size: ``fail_at`` after a checkpoint at ``ckpt_every``,
+# resumed, bitwise the uninterrupted run; its moments in bf16 (AdamW's
+# ``moment_dtype``), which halves the bytes a checkpoint of its ~1 B
+# parameters writes (the vocabulary's two 389 M-entry tables dominate).
+TRAIN_EXPECTED_FILE = os.path.join(HERE, "scripts", "train_expected.json")
+TRAIN_RTOL_FIRST = 1e-5
+TRAIN_RTOL = 1e-3
+TRAIN_CUT = dict(n_layers=2, global_batch=2, seq_len=1024)
+TRAIN_FULL = dict(arch="qwen3-4b", steps=10, global_batch=4, seq_len=1024,
+                  lr=3e-4, seed=0)
+TRAIN_LOSS_DROP = 0.5
+TRAIN_RESTART = dict(steps=4, ckpt_every=2, fail_at=3, seed=5,
+                     moment_dtype="bfloat16")
 
 # model_parity: the smoke() configs of qwen3-4b, mamba2-780m and
 # zamba2-2.7b in f32, weights and prompt from numpy (`parity_weights`,
@@ -3128,6 +3221,196 @@ def phase_serving_kernels(torch, FA, DA, RN):
     return rows
 
 
+# --------------------------------------- phase 3d: the backward kernels
+def _grads_close(torch, name, case, gots, wants, faults, extras, tol):
+    """Hold each output of a backward kernel (``gots``) within ``tol`` of
+    the plain backward's (``wants``), the limit atol + rtol |want| plus
+    ``extras`` (None or a tensor, already scaled), and make sure the same
+    limit rejects the planted fault (``faults``) in at least one output.
+    Returns the numbers the kernel row carries."""
+    uses, caught, errs = [], [], []
+    for g, w, f, x in zip(gots, wants, faults, extras):
+        g, w, f = g.float(), w.float(), f.float()
+        need(bool(torch.isfinite(g).all()), f"{name} {case}: non-finite "
+             "output")
+        lim = tol["atol"] + tol["rtol"] * w.abs()
+        if x is not None:
+            lim = lim + x
+        uses.append(((g - w).abs() / lim).max().item())
+        caught.append(((f - w).abs() / lim).max().item())
+        errs.append((g - w).abs().max().item())
+    need(max(uses) <= 1.0, f"{name} {case}: max |kernel - plain| = "
+         f"{max(errs)} beyond {tol} ({max(uses):.3g} of the limit)")
+    need(max(caught) > 1.0, f"{name} {case}: the limit {tol} does not "
+         f"reject the planted fault ({FAULTS[name]}): {max(caught):.3g}")
+    return dict(max_abs_err=max(errs), tol_use=max(uses),
+                fault_ratio=max(caught),
+                typical_abs=[w.float().abs().mean().item() for w in wants])
+
+
+def phase_training_kernels(torch, FA, RN):
+    """The backward kernels against their plain backwards on the card, at
+    the train phase's full-width shapes (Qwen3-4B: B = 4, S = 1024, H =
+    32, KVH = 8, D = 128; the norms' rows (4096, 2560) and the qk-norm's
+    (4096 x 32, 128)), bf16, and in f32 at small shapes: each within its
+    limit, a planted fault rejected, two runs bitwise equal; K2's forward
+    log-sum-exp against torch.logsumexp, the forward timed with and
+    without it; the kernel's, the plain backward's and one PyTorch call's
+    times (the autograd backward of F.scaled_dot_product_attention or
+    F.rms_norm: a yardstick the port never calls) and the bound."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(1)
+    timing = dict(reps=10, trials=5)
+    rows = []
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def grads_of(fn, inputs, g):
+        """autograd of fn(*inputs) for the output gradient g, on f32
+        copies."""
+        xs = [x.detach().float().requires_grad_() for x in inputs]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*xs), xs, g.float())
+
+    def timed_row(name, case, check, call, plain, library, n_bytes, n_ops,
+                  kind, **extra):
+        b, by = bound_ms(n_bytes, n_ops, kind)
+        timed = [f for f in (call, plain, library) if f is not None]
+        ms = dict(zip(timed, time_in_turns(torch, timed, **timing)))
+        rows.append(dict(kernel=name, case=case, **check, ms=ms[call],
+                         plain_ms=ms[plain], library_ms=ms.get(library),
+                         device_ms=device_ms(torch, call, reps=5),
+                         bound_ms=b, bound_by=by, bytes=n_bytes, ops=n_ops,
+                         **extra))
+
+    def attn_case(case, B, S, H, KVH, D, dtype):
+        q, do = randn(B, S, H, D, dtype=dtype), randn(B, S, H, D, dtype=dtype)
+        k, v = (randn(B, S, KVH, D, dtype=dtype) for _ in range(2))
+        scale = 1.0 / math.sqrt(D)
+        # the plain forward's output, rounded once; the kernel's LSE
+        o = FA.flash_attention_plain(q, k, v).contiguous()
+        _, lse = FA._forward(q, k, v, True, None, True)
+        g = H // KVH
+        s = torch.einsum("bshd,bthd->bhst", q.float(),
+                         k.repeat_interleave(g, 2).float()) * scale
+        pos = torch.arange(S, device=dev)
+        s = s.masked_fill(~(pos[:, None] >= pos[None, :]), float("-inf"))
+        want_lse = torch.logsumexp(s, -1)
+        lse_err = (lse - want_lse).abs().max().item()
+        need(lse_err <= 1e-5 * (1.0 + want_lse.abs().max().item()),
+             f"flash_attention {case}: the log-sum-exp is {lse_err} off")
+        del s
+        call = partial(FA.flash_attention_backward, q, k, v, o, do, lse)
+        got, again = call(), call()
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"flash_attention_backward {case}: two runs differ")
+        want = grads_of(partial(FA.flash_attention_plain, causal=True),
+                        (q, k, v), do)
+        allowed = (pos[:, None] >= pos[None, :]) & ~(
+            (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+        fault = grads_of(lambda a, b, c: attention_f32(torch, a, b, c,
+                                                       allowed),
+                         (q, k, v), do)
+        if dtype == bf16:
+            tol = KERNEL_TOL["flash_attention_backward"]
+            extras = [tol["o_round"] * t for t in
+                      FA.backward_o_terms(q, k, v, o, do)]
+        else:
+            tol, extras = F32_GRAD_TOL, [None] * 3
+        check = _grads_close(torch, "flash_attention_backward", case, got,
+                             want, fault, extras, tol)
+        del fault, extras
+        plain = partial(FA.flash_attention_backward_plain, q, k, v, do)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        with torch.enable_grad():
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=H > KVH)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        fwd = 4 * B * H * D * S * (S + 1) // 2
+        es = q.element_size()
+        fwd_ms, fwd_lse_ms = time_in_turns(torch, [
+            partial(FA.flash_attention, q, k, v),
+            partial(FA._forward, q, k, v, True, None, True)], **timing)
+        timed_row("flash_attention_backward", case, check, call, plain,
+                  library, es * (2 * 3 * B * S * H * D + 2 * 2 * B * S * KVH
+                                 * D) + 4 * B * H * S,
+                  int(2.5 * fwd), "bf16" if dtype == bf16 else "f32",
+                  deterministic=True, lse_max_abs_err=lse_err,
+                  forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms)
+
+    def norm_case(name, case, R, D, dtype, residual, with_gres):
+        x, g = randn(R, D, dtype=dtype), randn(R, D, dtype=dtype)
+        w = (1.0 + 0.1 * randn(D)).to(dtype)
+        r = randn(R, D, dtype=dtype) if residual else None
+        gres = randn(R, D, dtype=dtype) if with_gres else None
+        eps = 1e-6
+        if residual:
+            call = partial(RN.rmsnorm_residual_backward, x, r, w, g, gres,
+                           eps=eps)
+            plain = partial(RN.rmsnorm_residual_backward_plain, x, r, w, g,
+                            gres, eps)
+        else:
+            call = partial(RN.rmsnorm_backward, x, w, g, eps=eps)
+            plain = partial(RN.rmsnorm_backward_plain, x, w, g, eps)
+        got, again = call(), call()
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"{name} {case}: two runs differ")
+        s = x.float() + (0.0 if r is None else r.float())
+        sd, wd = s.detach().requires_grad_(), w.detach().float() \
+            .requires_grad_()
+        with torch.enable_grad():
+            dsf, dwf = torch.autograd.grad(
+                rmsnorm_fault(torch, sd, wd, eps, f32), (sd, wd), g.float())
+        if gres is not None:
+            dsf = dsf + gres.float()
+        tol = KERNEL_TOL[name] if dtype == bf16 else F32_GRAD_TOL
+        check = _grads_close(torch, name, case, got, plain(), (dsf, dwf),
+                             (None, None), tol)
+        library = None
+        if not residual:
+            xr, wr = x.detach().requires_grad_(), w.detach().requires_grad_()
+            with torch.enable_grad():
+                y = F.rms_norm(xr, (D,), wr, eps=eps)
+
+            def library():
+                return torch.autograd.grad(y, (xr, wr), g,
+                                           retain_graph=True)
+        es = x.element_size()
+        reads = 2 + int(residual) + int(with_gres)
+        timed_row(name, case, check, call, plain, library,
+                  es * ((reads + 1) * R * D + 2 * D), 10 * R * D, "f32",
+                  deterministic=True,
+                  **({} if library else dict(
+                      library_note="no single PyTorch call")))
+
+    attn_case("f32 B=2 S=200 D=32", 2, 200, 4, 2, 32, f32)
+    attn_case("bf16 B=4 S=1024", 4, 1024, 32, 8, 128, bf16)
+    attn_case("bf16 B=2 S=1000", 2, 1000, 32, 8, 128, bf16)  # ragged tile
+    torch.cuda.empty_cache()
+    norm_case("rmsnorm_backward", "(4096, 2560)", 4096, 2560, bf16, False,
+              False)
+    norm_case("rmsnorm_backward", "(131072, 128)", 4096 * 32, 128, bf16,
+              False, False)
+    norm_case("rmsnorm_backward", "f32 (7, 1001)", 7, 1001, f32, False,
+              False)
+    norm_case("rmsnorm_residual_backward", "(4096, 2560) gres", 4096, 2560,
+              bf16, True, True)
+    norm_case("rmsnorm_residual_backward", "(4096, 2560)", 4096, 2560, bf16,
+              True, False)
+    norm_case("rmsnorm_residual_backward", "f32 (33, 1001) gres", 33, 1001,
+              f32, True, True)
+    emit(dict(phase="kernel", training=rows))
+    return rows
+
+
 # ------------------------------------------------ phase 3c: K5, ssd_chunk
 def ssd_inputs(torch, np, b, nc, c, h, p, n, g, xdtype, bcdtype, seed,
                valid=None):
@@ -3625,6 +3908,253 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
     return launches
 
 
+# ------------------------------------------------------- phase 10: train
+def train_counts(FA, RN):
+    """The six training-path counts: K2, K2-bwd, K4a, K4a-bwd, K4b,
+    K4b-bwd launches."""
+    return (FA.flash_attention.launches,
+            FA.flash_attention_backward.launches, RN.rmsnorm.launches,
+            RN.rmsnorm_backward.launches, RN.rmsnorm_residual.launches,
+            RN.rmsnorm_residual_backward.launches)
+
+
+TRAIN_COUNT_NAMES = ("flash_attention", "flash_attention_backward",
+                     "rmsnorm", "rmsnorm_backward", "rmsnorm_residual",
+                     "rmsnorm_residual_backward")
+
+
+def train_counts_want(n_layers):
+    """A step's launches from the code (`Model.loss` under per-layer
+    checkpointing, tests/test_torch_train.py): K2 forward twice a layer
+    (the forward, the recomputation), backward once; K4a the first norm1
+    and the q- and k-norms, twice, backward once; K4b each norm2 and each
+    later norm1 twice and the final norm once, backward once each."""
+    L = n_layers
+    return (2 * L, L, 2 * (1 + 2 * L), 1 + 2 * L, 2 * (2 * L - 1) + 1,
+            2 * L)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's kernels (K2 and K4a in `repro_torch.models.layers`, K4b
+    in `repro_torch.models.model`) swapped for their plain versions;
+    autograd through those is their plain backward."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    saved = (L.flash_attention, L.rmsnorm, M.rmsnorm_residual)
+    L.flash_attention = (lambda q, k, v, causal=True, scale=None:
+                         FA.flash_attention_plain(q, k, v, causal=causal,
+                                                  scale=scale))
+    L.rmsnorm = lambda x, w, eps=1e-6: RN.rmsnorm_plain(x, w, eps)
+    M.rmsnorm_residual = (lambda x, r, w, eps=1e-6:
+                          RN.rmsnorm_residual_plain(x, r, w, eps))
+    try:
+        yield
+    finally:
+        L.flash_attention, L.rmsnorm, M.rmsnorm_residual = saved
+
+
+def train_flops(cfg, n_params, batch, seq_len):
+    """Model FLOPs of one training step: 6 x parameters x tokens, plus
+    the causal attention's products (4 B H D S (S + 1) / 2 a layer
+    forward) three times (forward and backward)."""
+    attn = 4 * batch * cfg.n_heads * cfg.head_dim_ * seq_len * (
+        seq_len + 1) // 2
+    return 6 * n_params * batch * seq_len + 3 * cfg.n_layers * attn
+
+
+def phase_train(torch, np, FA, RN):
+    """The dense family's training on the card (see TRAIN_FULL and the
+    notes above it): (a) f32 against the JAX package's constants, (b) the
+    kernel path against the plain path at full width and 2 layers, (c) the
+    full-width run through `repro_torch.launch.train`, (d) crash and
+    restart."""
+    import gc
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.data import synthetic_lm_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    res = {"phase": "train"}
+    quiet = dict(log_every=1 << 30)
+
+    # (a) f32 smoke training against the JAX package
+    with open(TRAIN_EXPECTED_FILE) as f:
+        exp = json.load(f)
+    cfg = get_arch(exp["arch"]).smoke()
+    shapes = {k: tuple(v.shape) for k, v in
+              build_model(cfg, "cpu").state_dict().items()}
+    got = []
+    c0 = train_counts(FA, RN)
+    t0 = time.perf_counter()
+    train(exp["arch"], steps=exp["steps"], global_batch=exp["global_batch"],
+          seq_len=exp["seq_len"], lr=exp["lr"], seed=exp["seed"],
+          params=parity_weights(np, shapes), device="cuda",
+          on_step=lambda s, m: got.append(m), **quiet)
+    a_s = time.perf_counter() - t0
+    bad = []
+    for i, m in enumerate(got):
+        for key in ("loss", "grad_norm"):
+            rtol = TRAIN_RTOL_FIRST if (i, key) == (0, "loss") else \
+                TRAIN_RTOL
+            if not abs(m[key] - exp[key][i]) <= rtol * abs(exp[key][i]):
+                bad.append((i, key, m[key], exp[key][i]))
+    res["jax_parity"] = dict(
+        steps=len(got), loss=[m["loss"] for m in got],
+        grad_norm=[m["grad_norm"] for m in got],
+        loss_rel_err=[abs(m["loss"] / exp["loss"][i] - 1)
+                      for i, m in enumerate(got)],
+        grad_norm_rel_err=[abs(m["grad_norm"] / exp["grad_norm"][i] - 1)
+                           for i, m in enumerate(got)],
+        launches=dict(zip(TRAIN_COUNT_NAMES, (b - a for a, b in zip(
+            c0, train_counts(FA, RN))))), seconds=a_s,
+        step_seconds=[m["seconds"] for m in got])
+    need(len(got) == exp["steps"] and not bad, f"train (a): the f32 "
+         f"smoke training differs from the JAX package's: {bad}")
+
+    # (b) the kernel path against the plain path, full width, 2 layers
+    t0 = time.perf_counter()
+    cut = get_arch(TRAIN_FULL["arch"]).replace(n_layers=TRAIN_CUT["n_layers"])
+    model = build_model(cut, dev, trainable=True)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v).long().to(dev) for k, v in
+             synthetic_lm_batch(cut, TRAIN_CUT["global_batch"],
+                                TRAIN_CUT["seq_len"], 0).items()}
+
+    def loss_and_grads():
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = model.loss(batch)
+        loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in
+                             model.named_parameters()}
+    c0 = train_counts(FA, RN)
+    lk, gk = loss_and_grads()
+    c1 = train_counts(FA, RN)
+    with plain_kernels():
+        lp, gp = loss_and_grads()
+    need(train_counts(FA, RN) == c1, "train (b): a kernel launched on the "
+         "plain path")
+    rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gk}
+    rtol = KERNEL_TOL["flash_attention"]["rtol"]
+    launches = tuple(b - a for a, b in zip(c0, c1))
+    res["kernel_vs_plain"] = dict(
+        config="qwen3-4b full width, 2 layers, bf16, B=2, S=1024",
+        loss_kernel=lk, loss_plain=lp, loss_rel_err=abs(lk / lp - 1),
+        grad_rel_err=rel, rtol=rtol,
+        launches=dict(zip(TRAIN_COUNT_NAMES, launches)),
+        seconds=time.perf_counter() - t0)
+    need(abs(lk / lp - 1) <= rtol and max(rel.values()) <= rtol,
+         f"train (b): kernel and plain paths differ beyond rtol {rtol}: "
+         f"loss {lk} vs {lp}, gradients {rel}")
+    need(launches == train_counts_want(cut.n_layers), f"train (b): "
+         f"launches {launches}, the code gives "
+         f"{train_counts_want(cut.n_layers)}")
+    del model, gk, gp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the full-width run
+    full = get_arch(TRAIN_FULL["arch"])
+    per_step, steps = [], []
+    last = [None]
+
+    def on_step(s, m):
+        now = train_counts(FA, RN)
+        per_step.append(tuple(b - a for a, b in zip(last[0], now)))
+        last[0] = now
+        steps.append(dict(step=s, loss=m["loss"], grad_norm=m["grad_norm"],
+                          seconds=m["seconds"]))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last[0] = train_counts(FA, RN)
+    params, losses = train(
+        full.name, smoke=False, steps=TRAIN_FULL["steps"],
+        global_batch=TRAIN_FULL["global_batch"],
+        seq_len=TRAIN_FULL["seq_len"], lr=TRAIN_FULL["lr"],
+        seed=TRAIN_FULL["seed"], on_step=on_step, **quiet)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in params.values())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = sorted(x["seconds"] for x in steps[1:])
+    step_s = secs[len(secs) // 2]
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    flops = train_flops(full, n_params, TRAIN_FULL["global_batch"],
+                        TRAIN_FULL["seq_len"])
+    want = train_counts_want(full.n_layers)
+    res["full"] = dict(
+        config=f"qwen3-4b full width ({full.n_layers} layers, d "
+        f"{full.d_model}, {full.n_heads} / {full.n_kv_heads} heads of "
+        f"{full.head_dim_}, d_ff {full.d_ff}, vocab {full.vocab_size}), "
+        f"bf16, f32 moments", n_params=n_params, **TRAIN_FULL,
+        losses=losses, loss_drop=losses[0] - losses[-1], step_log=steps,
+        s_per_step=step_s, tokens_per_s=tokens / step_s,
+        max_memory_allocated_gib=peak / 2 ** 30,
+        model_flops_per_step=flops,
+        mfu_bf16_989=flops / step_s / PEAK_OPS_PER_S["bf16"],
+        launches_per_step=dict(zip(TRAIN_COUNT_NAMES, per_step[0])),
+        launches_per_step_want=dict(zip(TRAIN_COUNT_NAMES, want)),
+        launches=dict(zip(TRAIN_COUNT_NAMES, (sum(x) for x in
+                                               zip(*per_step)))),
+        wall_s=wall)
+    need(all(math.isfinite(x) for x in losses), f"train (c): a loss is not "
+         f"finite: {losses}")
+    need(losses[0] - losses[-1] >= TRAIN_LOSS_DROP, f"train (c): the loss "
+         f"fell by {losses[0] - losses[-1]} < {TRAIN_LOSS_DROP}: {losses}")
+    need(all(x == want for x in per_step), f"train (c): launches a step "
+         f"{per_step}, the code gives {want}")
+
+    # (d) crash and restart at (b)'s size
+    out = os.path.join(HERE, "build", "train_restart")
+    shutil.rmtree(out, ignore_errors=True)
+    kw = dict(smoke=False, steps=TRAIN_RESTART["steps"],
+              global_batch=TRAIN_CUT["global_batch"],
+              seq_len=TRAIN_CUT["seq_len"], seed=TRAIN_RESTART["seed"],
+              overrides=dict(n_layers=TRAIN_CUT["n_layers"]),
+              optimizer=AdamWConfig(
+                  lr=TRAIN_FULL["lr"],
+                  moment_dtype=TRAIN_RESTART["moment_dtype"]), **quiet)
+    t0 = time.perf_counter()
+    try:
+        train(full.name, ckpt_every=TRAIN_RESTART["ckpt_every"],
+              fail_at=TRAIN_RESTART["fail_at"], out=os.path.join(out, "a"),
+              **kw)
+        crashed = False
+    except RuntimeError as e:
+        crashed = "injected failure" in str(e)
+    need(crashed, "train (d): the run did not fail at fail_at")
+    resumed, r_losses = train(full.name, ckpt_every=TRAIN_RESTART[
+        "ckpt_every"], out=os.path.join(out, "a"), **kw)
+    restart_s = time.perf_counter() - t0
+    clean, c_losses = train(full.name, **kw)
+    diff = [n for n in clean if not torch.equal(resumed[n], clean[n])]
+    res["restart"] = dict(
+        **TRAIN_RESTART, resumed_losses=r_losses, clean_losses=c_losses,
+        bitwise=not diff, differing=diff, crash_and_resume_s=restart_s,
+        checkpoint_gib=sum(
+            os.path.getsize(os.path.join(d, f)) for d, _, fs in
+            os.walk(os.path.join(out, "a")) for f in fs) / 2 ** 30,
+        seconds=time.perf_counter() - t0)
+    shutil.rmtree(out, ignore_errors=True)
+    need(len(r_losses) == TRAIN_RESTART["steps"] - TRAIN_RESTART["ckpt_every"]
+         - 1, f"train (d): the resumed run ran {len(r_losses)} steps, not "
+         "from the checkpoint")
+    need(not diff, f"train (d): the resumed run's parameters differ from "
+         f"the uninterrupted run's in {diff}")
+    emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-requests", type=int, default=N_REQUESTS,
@@ -3681,6 +4211,8 @@ def main(argv=None) -> int:
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
         srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
+        trows = timed("kernel_training", phase_training_kernels, torch, FA,
+                      RN)
         cexp = load_cluster_expected()
         exp = load_expected()
         main, main_rs = timed("main_path", phase_main_path, torch, np, api,
@@ -3711,6 +4243,8 @@ def main(argv=None) -> int:
                                   RN),
                    "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
                                       np, FA, DA, RN, K5)}
+        tr = timed("train", phase_train, torch, np, FA, RN)
+        by_path["train"] = tr["full"]["launches"]
         if args.profile:
             timed("profile", phase_profile, torch, api, args.n_requests)
             timed("profile_serving", phase_profile_serving, torch)
@@ -3906,6 +4440,28 @@ def main(argv=None) -> int:
                if "fused_pair_ms" in rep else {}),
             **({k: rep[k] for k in ("body", "bound_f32_ms")}
                if name == "ssd_chunk" else {}),
+            tol=KERNEL_TOL[name],
+            tol_use=max(r["tol_use"] for r in mine),
+            fault_ratio_min=min(r["fault_ratio"] for r in mine),
+            check="passed", at=at))
+    for name, source, replaces, derived, at in TRAINING_KERNELS:
+        mine = [r for r in trows if r["kernel"] == name]
+        rep = next(r for r in mine if r["case"] == at)
+        kernels.append(dict(
+            name=name, entry=name, route="cuda",
+            source=f"src/repro_torch/csrc/{source}", replaces=replaces,
+            pallas=False, note=f"no Pallas twin: {derived} (the JAX "
+            "package has no backward kernel)",
+            launches=tr["full"]["launches"][name],
+            launches_by_path=dict(
+                train=tr["full"]["launches"][name],
+                train_f32_parity=tr["jax_parity"]["launches"][name],
+                train_kernel_vs_plain=tr["kernel_vs_plain"]["launches"][
+                    name]),
+            max_abs_err=max(r["max_abs_err"] for r in mine),
+            ms=rep["ms"], plain_ms=rep["plain_ms"],
+            bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
+            library_ms=rep["library_ms"], device_ms=rep["device_ms"],
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

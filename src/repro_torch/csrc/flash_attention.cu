@@ -49,6 +49,13 @@
 // output accumulator in registers; the running max and sum of each row
 // live in shared memory, updated by 4 threads a row with shuffles; at
 // D = 80 a thread owns 5 output columns of 16.
+//
+// Training asks for each row's log-sum-exp as well (f32, (B, H, S),
+// natural log of the scaled scores: lse_i = m_i + log l_i), which the
+// backward kernel (flash_attention_bwd.cu) reads to rebuild the softmax
+// weights. Both bodies take it as a compile-time flag (LSE): without it
+// the serving call is the kernel it was, register for register; with it
+// the rows' (m, l) are written once after the loop.
 
 #include <cstdint>
 #include <type_traits>
@@ -79,11 +86,12 @@ __host__ __device__ constexpr int padded(int D) {
   return D + 4 / static_cast<int>(sizeof(T));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int T_len, int H, int KVH, float scale, int causal) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int S, int T_len, int H,
+                       int KVH, float scale, int causal) {
   constexpr int QS = padded<T>(D);  // q and k tile row stride
   constexpr int PS = kBK + 1;       // score tile row stride
   constexpr int NC = D / 16;        // output columns per thread
@@ -233,6 +241,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < NC; ++j)
       o_b[(q0 + r) * q_row + tx + 16 * j] = from_f32<T>(acc[i][j] * inv_l);
   }
+  if constexpr (LSE) {
+    // m_s and l_s are in natural units; a row that saw nothing gets +inf
+    // (its weights exp(s - lse) are 0 in the backward)
+    if (tid < kBQ && q0 + tid < S) {
+      const float l = l_s[tid];
+      lse[(static_cast<size_t>(b) * H + h) * S + q0 + tid] =
+          l > 0.f ? m_s[tid] + logf(l) : __int_as_float(0x7f800000);
+    }
+  }
 }
 
 
@@ -264,14 +281,14 @@ struct FaPlan {
                 "unsupported head dim");
 };
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
-                             __nv_bfloat16* __restrict__ out, int S,
-                             int T_len, int H, int KVH, float scale_log2,
-                             int causal) {
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int S, int T_len,
+                             int H, int KVH, float scale_log2, int causal) {
   using P = FaPlan<D>;
   extern __shared__ __align__(1024) unsigned char fa_smem[];
   unsigned char* base = fa_smem + ((1024 - (smem_u32(fa_smem) & 1023)) & 1023);
@@ -441,6 +458,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const int row = hh == 0 ? r0 : r1;
       if (row >= S) continue;
+      if constexpr (LSE) {
+        // m_run is in base-2 units (scores times scale * log2(e))
+        if (t4 == 0)
+          lse[(static_cast<size_t>(b) * H + h) * S + row] =
+              l > 0.f ? (m_run[hh] + log2f(l)) * 0.6931471805599453f
+                      : __int_as_float(0x7f800000);
+      }
       const float inv_l = 1.f / fmaxf(l, 1e-30f);
       __nv_bfloat16* o_r = o_b + static_cast<size_t>(row) * H * D;
 #pragma unroll
@@ -452,10 +476,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int S, int T_len, int H, int KVH,
-                         float scale, int causal, cudaStream_t s) {
+                         void* out, float* lse, int B, int S, int T_len,
+                         int H, int KVH, float scale, int causal,
+                         cudaStream_t s) {
   using P = FaPlan<D>;
   CUtensorMap mq, mk, mv;
   if (!bf16_map(&mq, q, B, S, H, D, P::CW, kFaBQ) ||
@@ -465,7 +490,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D>,
+        flash_attention_wgmma_kernel<D, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
@@ -473,20 +498,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int n_q = (S + kFaBQ - 1) / kFaBQ;
   if (n_q > 65535) return cudaErrorInvalidValue;
   const float log2e = 1.4426950408889634f;
-  flash_attention_wgmma_kernel<D><<<dim3(H, B, n_q), kFaThreads, P::SMEM,
-                                    s>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), S, T_len, H, KVH,
-      scale * log2e, causal);
+  flash_attention_wgmma_kernel<D, LSE>
+      <<<dim3(H, B, n_q), kFaThreads, P::SMEM, s>>>(
+          mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, S, T_len, H,
+          KVH, scale * log2e, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool LSE>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int T_len, int H, int KVH, float scale,
-                     int causal, cudaStream_t s) {
+                     float* lse, int B, int S, int T_len, int H, int KVH,
+                     float scale, int causal, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_wgmma<D>(q, k, v, out, B, S, T_len, H, KVH, scale, causal,
-                           s);
+    return launch_wgmma<D, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                scale, causal, s);
   } else {
     const dim3 grid((S + kBQ - 1) / kBQ, H, B);
     const size_t smem =
@@ -495,62 +520,74 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
         sizeof(float) * (kBQ * (kBK + 1) + 3 * kBQ);
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
-          flash_attention_kernel<T, D>,
+          flash_attention_kernel<T, D, LSE>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    flash_attention_kernel<T, D><<<grid, kThreads, smem, s>>>(
+    flash_attention_kernel<T, D, LSE><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
-        scale, causal);
+        static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_len, H,
+        KVH, scale, causal);
     return cudaGetLastError();
   }
 }
 
-template <typename T>
+template <typename T, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int T_len, int H, int KVH, int D,
+                   float* lse, int B, int S, int T_len, int H, int KVH, int D,
                    float scale, int causal, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_d<T, 16>(q, k, v, out, B, S, T_len, H, KVH, scale,
-                             causal, s);
+      return launch_d<T, 16, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                  scale, causal, s);
     case 32:
-      return launch_d<T, 32>(q, k, v, out, B, S, T_len, H, KVH, scale,
-                             causal, s);
+      return launch_d<T, 32, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                  scale, causal, s);
     case 64:
-      return launch_d<T, 64>(q, k, v, out, B, S, T_len, H, KVH, scale,
-                             causal, s);
+      return launch_d<T, 64, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                  scale, causal, s);
     case 80:
-      return launch_d<T, 80>(q, k, v, out, B, S, T_len, H, KVH, scale,
-                             causal, s);
+      return launch_d<T, 80, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                  scale, causal, s);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, B, S, T_len, H, KVH, scale,
-                              causal, s);
+      return launch_d<T, 128, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                   scale, causal, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int B, int S, int T_len, int H, int KVH,
+                     int D, float scale, int causal, cudaStream_t s) {
+  if (lse == nullptr)
+    return launch<T, false>(q, k, v, out, nullptr, B, S, T_len, H, KVH, D,
+                            scale, causal, s);
+  return launch<T, true>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
+                         causal, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q and out (B, S, H, D), k and v
-// (B, T, KVH, D), all contiguous, H % KVH == 0. Returns the launch's
+// (B, T, KVH, D), all contiguous, H % KVH == 0; lse (B, H, S) f32, or
+// null when the caller does not want it (serving). Returns the launch's
 // cudaError_t.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int S,
                                int T_len, int H, int KVH, int D, float scale,
-                               int causal, void* stream) {
+                               int causal, float* lse, void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || KVH < 1 || H % KVH != 0 || B > 65535 ||
       H > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, S, T_len, H, KVH, D, scale, causal,
-                         s);
+    return launch_t<float>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
+                           causal, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, S, T_len, H, KVH, D, scale,
-                                 causal, s);
+    return launch_t<__nv_bfloat16>(q, k, v, out, lse, B, S, T_len, H, KVH, D,
+                                   scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -56,7 +56,8 @@ EVENT_LOOP_UNITS = (("event_loop",) + CLUSTER_UNITS + TRACED_UNITS
 EXTRA_FLAGS = {"frp_select": ("--fmad=false",),
                **{u: ("--fmad=false",) for u in EVENT_LOOP_UNITS}}
 SOURCES = (*EVENT_LOOP_UNITS, "frp_select", "rmsnorm", "decode_attention",
-           "flash_attention", "ssd_chunk")
+           "flash_attention", "ssd_chunk", "flash_attention_bwd",
+           "rmsnorm_bwd")
 # the sources another one includes (beside the shared headers)
 INCLUDES = {u: ("event_loop.cu",) for u in EVENT_LOOP_UNITS[1:]}
 

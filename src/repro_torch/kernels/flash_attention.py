@@ -16,6 +16,16 @@ anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
 (counted in ``launches``) or raises. There is no fallback from a failed
 build or launch to the plain version.
+
+Training: when q, k or v requires a gradient (and grad mode is on),
+`flash_attention` runs through `FlashAttention`, a
+``torch.autograd.Function``: its forward asks the kernel for each row's
+log-sum-exp as well, and its backward is `flash_attention_backward`, the
+hand-written backward kernel (``csrc/flash_attention_bwd.cu``; counted in
+its own ``launches``), which takes head dims `BWD_HEAD_DIMS`. On CPU
+tensors both take their plain versions: the forward `flash_attention_plain`
+and the backward `flash_attention_backward_plain` (autograd through the
+plain forward; counted in ``plain_calls``).
 """
 from __future__ import annotations
 
@@ -27,11 +37,18 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+# the backward kernel's head dims (80, the hybrid family's shared block,
+# comes with its training)
+BWD_HEAD_DIMS = (32, 64, 128)
 DTYPES = tuple(_build.DTYPE_CODE)
 _P = _build.PTR
 _I = ctypes.c_int
+# dtype, q, k, v, out, B, S, T, H, KVH, D, scale, causal, lse, stream
 _ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-             _P]
+             _P, _P]
+# dtype, q, k, v, o, do, lse, delta, dq, dk, dv, B, S, T, H, KVH, D, scale,
+# causal, stream
+_BWD_ARGTYPES = ([_I] + [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
@@ -53,10 +70,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
     return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """q (B, S, H, D); k, v (B, T, KVH, D) -> (B, S, H, D). H % KVH ==
-    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three."""
-    name = "flash_attention"
+def _check(name, q, k, v, head_dims=HEAD_DIMS):
+    """Raise on anything the kernels do not take; returns (B, S, T, H,
+    KVH, D)."""
     dev = q.device
     _build.check_tensor(f"{name}: q", q, DTYPES, dev, ndim=4)
     for nm, x in (("k", k), ("v", v)):
@@ -70,12 +86,22 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     if min(B, S, T, KVH) < 1 or H % KVH != 0:
         raise ValueError(f"{name}: need B, S, T >= 1 and H ({H}) a "
                          f"multiple of KVH ({KVH})")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D}, kernel takes {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head dim {D}, kernel takes {head_dims}")
+    return B, S, T, H, KVH, D
+
+
+def _forward(q, k, v, causal, scale, with_lse):
+    """The checked forward: (out, lse) with lse (B, H, S) f32 from the
+    kernel when ``with_lse`` on CUDA, else None."""
+    name = "flash_attention"
+    B, S, T, H, KVH, D = _check(name, q, k, v)
     scale = scale or 1.0 / math.sqrt(D)
+    dev = q.device
     if dev.type == "cpu":
         flash_attention.plain_calls += 1
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     scale=scale), None
     fn = _build.c_entry("flash_attention", "flash_attention", _ARGTYPES)
     _build.require_cuda(name, dev)
     # the bf16 kernel's TMA tensor maps need 16-byte aligned addresses
@@ -83,13 +109,135 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
         raise ValueError(f"{name}: q, k and v must start at 16-byte "
                          "aligned addresses")
     out = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=dev)
+           if with_lse else None)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, T, H, KVH, D, float(scale), int(causal),
+            v.data_ptr(), out.data_ptr(), B, S, T, H, KVH, D, float(scale),
+            int(causal), 0 if lse is None else lse.data_ptr(),
             _build.stream_of(dev))
     _build.launch_check(rc, name)
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """q (B, S, H, D); k, v (B, T, KVH, D) -> (B, S, H, D). H % KVH ==
+    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three. When grad
+    mode is on and q, k or v requires a gradient, the call goes through
+    `FlashAttention` (the kernel then also writes the log-sum-exp that
+    its backward reads)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale)
+    return _forward(q, k, v, causal, scale, False)[0]
 
 
 flash_attention.launches = 0
 flash_attention.plain_calls = 0
+
+
+def flash_attention_backward_plain(q, k, v, do, *, causal: bool = True,
+                                   scale=None):
+    """Plain backward: (dq, dk, dv) by autograd through
+    `flash_attention_plain` (what ``jax.grad`` of the JAX model's
+    attention computes), each in its input's dtype."""
+    with torch.enable_grad():
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        out = flash_attention_plain(qr, kr, vr, causal=causal, scale=scale)
+        return torch.autograd.grad(out, (qr, kr, vr), do)
+
+
+def backward_o_terms(q, k, v, o, do, *, causal: bool = True, scale=None):
+    """How far the backward may move per unit of relative error in the
+    forward's output ``o`` (its rounding to bf16), in f32: the kernel
+    forms Dl_i = sum_d do_id o_id from ``o``, so an error of e |o| there
+    moves Dl_i by at most e A_i, A_i = sum_d |do_id| |o_id|, and dS_ij by
+    P_ij e A_i. Returns (dq, dk, dv) terms: scale A_i sum_j P_ij |k_j|,
+    scale sum_i P_ij A_i |q_i| (summed over the group) and 0; the limits
+    in chip_smoke.py and the card tests add o_round times these. Plain
+    PyTorch (it forms P (B, H, S, T))."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    g = H // KVH
+    scale = scale or 1.0 / math.sqrt(D)
+    qf, kf, of, dof = (x.to(torch.float32) for x in (q, k, o, do))
+    kr = kf.repeat_interleave(g, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", qf, kr) * scale
+    if causal:
+        pos_q = torch.arange(S, device=q.device)
+        pos_k = torch.arange(T, device=q.device)
+        s = s.masked_fill(~(pos_q[:, None] >= pos_k[None, :]),
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    a = (dof.abs() * of.abs()).sum(-1)                    # (B, S, H)
+    t_dq = scale * a[..., None] * torch.einsum("bhst,bthd->bshd", p,
+                                                kr.abs())
+    t_dk = scale * torch.einsum("bhst,bshd->bthd", p,
+                                a[..., None] * qf.abs())
+    t_dk = t_dk.reshape(B, T, KVH, g, D).sum(3)
+    return t_dq, t_dk, torch.zeros_like(t_dk)
+
+
+def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
+                             scale=None):
+    """The gradient of `flash_attention` at (q, k, v), its output ``o``
+    and log-sum-exp ``lse`` (B, H, S) f32 from the forward, for the
+    output's gradient ``do`` (B, S, H, D): (dq, dk, dv) in q's dtype, D
+    in BWD_HEAD_DIMS. On CPU tensors: the plain backward (``o`` and
+    ``lse`` unused, may be None)."""
+    name = "flash_attention_backward"
+    B, S, T, H, KVH, D = _check(name, q, k, v, BWD_HEAD_DIMS)
+    dev = q.device
+    _build.check_tensor(f"{name}: do", do, (q.dtype,), dev, ndim=4)
+    if do.shape != q.shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    scale = scale or 1.0 / math.sqrt(D)
+    if dev.type == "cpu":
+        flash_attention_backward.plain_calls += 1
+        return flash_attention_backward_plain(q, k, v, do, causal=causal,
+                                              scale=scale)
+    _build.check_tensor(f"{name}: o", o, (q.dtype,), dev, ndim=4)
+    _build.check_tensor(f"{name}: lse", lse, (torch.float32,), dev, ndim=3)
+    if o.shape != q.shape or tuple(lse.shape) != (B, H, S):
+        raise ValueError(f"{name}: o {tuple(o.shape)} must be q's shape and "
+                         f"lse {tuple(lse.shape)} (B, H, S) = {(B, H, S)}")
+    fn = _build.c_entry("flash_attention_bwd", "flash_attention_backward",
+                        _BWD_ARGTYPES)
+    _build.require_cuda(name, dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=dev)
+    rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, T, H, KVH, D, float(scale), int(causal),
+            _build.stream_of(dev))
+    _build.launch_check(rc, name)
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+flash_attention_backward.plain_calls = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 with its gradient: the forward kernel (with the log-sum-exp on
+    CUDA) and `flash_attention_backward`. Saves q, k, v, the output and
+    the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        _check("flash_attention", q, k, v, BWD_HEAD_DIMS)
+        out, lse = _forward(q, k, v, causal, scale, q.device.type != "cpu")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, do.contiguous(), lse, causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None

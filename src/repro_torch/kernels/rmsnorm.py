@@ -18,6 +18,15 @@ build or launch to the plain version. A decode step calls these
 wrappers ~140 times a token, so the checks read each input's
 attributes once, the C entry is bound once and the stream is taken as
 its raw handle.
+
+Training: when x, the residual or the weight requires a gradient (and
+grad mode is on), `rmsnorm` and `rmsnorm_residual` run through
+`RMSNorm` and `RMSNormResidual`, ``torch.autograd.Function``s whose
+backward is `rmsnorm_backward` / `rmsnorm_residual_backward`, the
+hand-written backward kernel (``csrc/rmsnorm_bwd.cu``: dx, and dw
+reduced in two deterministic stages; each wrapper counts its own
+``launches``). On CPU tensors the backward is the plain one: autograd
+through `rmsnorm_plain` / `rmsnorm_residual_plain` (``plain_calls``).
 """
 from __future__ import annotations
 
@@ -212,7 +221,14 @@ def _launch(name, x, residual, weight, y, res, eps, index):
 
 def rmsnorm(x, weight, *, eps: float = 1e-6):
     """K4a over the last dim: x (..., D) f32/bf16, weight (D,) f32/bf16.
-    Returns x's shape and dtype."""
+    Returns x's shape and dtype. Through `RMSNorm` when a gradient is
+    wanted."""
+    if _wants_grad(x, weight):
+        return RMSNorm.apply(x, weight, eps)
+    return _rmsnorm(x, weight, eps)
+
+
+def _rmsnorm(x, weight, eps):
     index = _check_inputs("rmsnorm", x, None, weight)
     if index < 0 and x.is_cpu:
         rmsnorm.plain_calls += 1
@@ -229,7 +245,14 @@ rmsnorm.plain_calls = 0
 
 def rmsnorm_residual(x, residual, weight, *, eps: float = 1e-6):
     """K4b: (x + residual) -> RMSNorm. Returns (normed, new residual),
-    both in x's shape and dtype."""
+    both in x's shape and dtype. Through `RMSNormResidual` when a gradient
+    is wanted."""
+    if _wants_grad(x, residual, weight):
+        return RMSNormResidual.apply(x, residual, weight, eps)
+    return _rmsnorm_residual(x, residual, weight, eps)
+
+
+def _rmsnorm_residual(x, residual, weight, eps):
     index = _check_inputs("rmsnorm_residual", x, residual, weight)
     if index < 0 and x.is_cpu:
         rmsnorm_residual.plain_calls += 1
@@ -242,3 +265,149 @@ def rmsnorm_residual(x, residual, weight, *, eps: float = 1e-6):
 
 rmsnorm_residual.launches = 0
 rmsnorm_residual.plain_calls = 0
+
+
+# ------------------------------------------------------------ backward
+# x, r, w, g, gres, dx, dw, partial; R, D, the two dtype codes, G, grid
+# (pointer-sized words); eps; the stream
+_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_float, _P]
+# the backward's geometry: a warp a row up to BWD_WARP_ROW_D elements
+# (8 rows a block of 256 threads), else the block a row; at most
+# BWD_BLOCKS_PER_SM blocks a SM walk the rows (each writes one partial
+# row of dw)
+BWD_THREADS = 256
+BWD_WARP_ROW_D = 1024
+BWD_BLOCKS_PER_SM = 4
+
+
+def bwd_plan(R: int, D: int, n_sms: int = 132):
+    """(threads a row, blocks) of the backward kernel for x (R, D)."""
+    G = 32 if D <= BWD_WARP_ROW_D else BWD_THREADS
+    rows = BWD_THREADS // G
+    return G, min(_cdiv(R, rows), BWD_BLOCKS_PER_SM * n_sms)
+
+
+def rmsnorm_backward_plain(x, weight, g, eps: float = 1e-6):
+    """Plain backward of K4a: (dx, dw) by autograd through
+    `rmsnorm_plain`."""
+    with torch.enable_grad():
+        xr, wr = x.detach().requires_grad_(), weight.detach().requires_grad_()
+        return torch.autograd.grad(rmsnorm_plain(xr, wr, eps), (xr, wr), g)
+
+
+def rmsnorm_residual_backward_plain(x, residual, weight, g, gres=None,
+                                    eps: float = 1e-6):
+    """Plain backward of K4b: (dx, dw) by autograd through
+    `rmsnorm_residual_plain`, for the gradients ``g`` of the normed output
+    and ``gres`` of the new residual (None: not used); the residual's
+    gradient equals dx."""
+    with torch.enable_grad():
+        xr, rr, wr = (t.detach().requires_grad_()
+                      for t in (x, residual, weight))
+        y, res = rmsnorm_residual_plain(xr, rr, wr, eps)
+        outs, grads = ((y, res), (g, gres)) if gres is not None else \
+            ((y,), (g,))
+        dx, _, dw = torch.autograd.grad(outs, (xr, rr, wr), grads)
+    return dx, dw
+
+
+def _backward(name, x, residual, weight, g, gres, eps):
+    """The checked backward of K4a (``residual`` None) or K4b: (dx, dw);
+    the plain one on CPU tensors."""
+    index = _check_inputs(name, x, residual, weight)
+    for what, t in (("g", g), ("gres", gres)):
+        if t is not None:
+            _check(name, what, t, (x.dtype,), x)
+            if t.shape != x.shape:
+                raise ValueError(f"{name}: {what} shape {tuple(t.shape)} "
+                                 f"!= x shape {tuple(x.shape)}")
+    wrapper = rmsnorm_backward if residual is None else \
+        rmsnorm_residual_backward
+    if index < 0 and x.is_cpu:
+        wrapper.plain_calls += 1
+        if residual is None:
+            return rmsnorm_backward_plain(x, weight, g, eps)
+        return rmsnorm_residual_backward_plain(x, residual, weight, g, gres,
+                                               eps)
+    fn = _build.c_entry("rmsnorm_bwd", "rmsnorm_backward", _BWD_ARGTYPES)
+    if index < 0:
+        _build.require_cuda(name, x.device)
+    D = x.shape[-1]
+    R = x.numel() // D
+    G, grid = bwd_plan(R, D, _build.sm_count(index))
+    dx, dw = torch.empty_like(x), torch.empty_like(weight)
+    partial = torch.empty(grid, D, dtype=torch.float32, device=x.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    rc = fn(x.data_ptr(), ptr(residual), weight.data_ptr(), g.data_ptr(),
+            ptr(gres), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), R, D,
+            _CODE[x.dtype], _CODE[weight.dtype], G, grid, eps,
+            _build.stream_of(index))
+    _build.launch_check(rc, name)
+    wrapper.launches += 1
+    return dx, dw
+
+
+def rmsnorm_backward(x, weight, g, *, eps: float = 1e-6):
+    """The gradient of `rmsnorm` at (x, weight) for the output's gradient
+    ``g``: (dx in x's dtype, dw in the weight's)."""
+    return _backward("rmsnorm_backward", x, None, weight, g, None, eps)
+
+
+rmsnorm_backward.launches = 0
+rmsnorm_backward.plain_calls = 0
+
+
+def rmsnorm_residual_backward(x, residual, weight, g, gres=None, *,
+                              eps: float = 1e-6):
+    """The gradient of `rmsnorm_residual` at (x, residual, weight) for
+    the gradients ``g`` of the normed output and ``gres`` of the new
+    residual (None when it is not used): (dx, dw); dx is also the
+    residual's gradient."""
+    return _backward("rmsnorm_residual_backward", x, residual, weight, g,
+                     gres, eps)
+
+
+rmsnorm_residual_backward.launches = 0
+rmsnorm_residual_backward.plain_calls = 0
+
+
+class RMSNorm(torch.autograd.Function):
+    """K4a with its gradient (`rmsnorm_backward`); saves x and the
+    weight."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _rmsnorm(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = rmsnorm_backward(x, weight, g.contiguous(), eps=ctx.eps)
+        return dx, dw, None
+
+
+class RMSNormResidual(torch.autograd.Function):
+    """K4b with its gradient (`rmsnorm_residual_backward`); saves x, the
+    residual and the weight (the f32 sum is formed again from them)."""
+
+    @staticmethod
+    def forward(ctx, x, residual, weight, eps):
+        ctx.save_for_backward(x, residual, weight)
+        ctx.eps = eps
+        ctx.set_materialize_grads(False)
+        return _rmsnorm_residual(x, residual, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g, gres):
+        x, residual, weight = ctx.saved_tensors
+        g = torch.zeros_like(x) if g is None else g.contiguous()
+        dx, dw = rmsnorm_residual_backward(
+            x, residual, weight, g, None if gres is None else
+            gres.contiguous(), eps=ctx.eps)
+        return dx, dx, dw, None
+
+
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)

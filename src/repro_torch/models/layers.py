@@ -6,14 +6,17 @@ Parameters keep the JAX package's names and layouts (``wq`` (d, h, hd),
 axis as the JAX package stacks them for its scan, so that a JAX
 parameter tree maps onto the port's state one leaf to one tensor
 (`repro_torch.models.convert`). A layer's forward takes its index ``l``
-and reads its slice of every stacked tensor.
+and reads its slice of every stacked tensor, or (a training forward,
+`Model.loss`) a dict of the layer's tensors, unbound from the stacked
+parameters once a forward.
 
 Where the TPU package has a kernel, the port calls its hand-written one:
-`rms_norm` is K4a (`kernels.rmsnorm`) and full-sequence attention is K2
-(`kernels.flash_attention`). Projections and the MLP are plain
-`torch.matmul`, as the JAX package leaves them to XLA. MoE, MLA,
-LayerNorm/GELU blocks and the shard_map tensor-parallel paths are not
-ported (ROADMAP Queue 1, item 6).
+`rms_norm` is K4a (`kernels.rmsnorm`) and full-sequence attention K2
+(`kernels.flash_attention`), with gradients each through its autograd
+Function and backward kernel (the model calls K4b itself). Projections,
+the MLP and `cross_entropy` are plain torch ops, as the JAX package
+leaves them to XLA. MoE, MLA, LayerNorm/GELU blocks and the shard_map
+tensor-parallel paths are not ported (ROADMAP Queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -32,15 +35,22 @@ def stacked(n_layers, *shape, dtype, device) -> nn.Parameter:
     ``shape`` when ``n_layers`` is None: a block that is not stacked,
     such as the hybrid family's shared one): allocated, not filled, so
     that a full-width model is built in place on the card
-    (`init_normal_` and friends fill it)."""
+    (`init_normal_` and friends fill it). It requires no gradient until
+    the model is made trainable (``build_model(..., trainable=True)``)."""
     lead = () if n_layers is None else (n_layers,)
     return nn.Parameter(torch.empty(*lead, *shape, dtype=dtype,
                                     device=device), requires_grad=False)
 
 
-def at(p: torch.Tensor, l):
-    """Layer ``l`` of a stacked parameter; the parameter itself when
-    ``l`` is None (a block that is not stacked)."""
+def at(mod: nn.Module, name: str, l):
+    """Layer ``l``'s tensor ``name`` of ``mod``: the stacked parameter's
+    slice ``l``; the parameter itself when ``l`` is None (a block that is
+    not stacked); ``l[name]`` when ``l`` is a dict of the layer's
+    tensors (a training forward unbinds the stacked parameters once:
+    the backward of a slice would allocate the whole stacked tensor)."""
+    if isinstance(l, dict):
+        return l[name]
+    p = getattr(mod, name)
     return p if l is None else p[l]
 
 
@@ -120,22 +130,22 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, d = x.shape
         h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        q = (x @ at(self.wq, l).view(d, h * hd)).view(B, S, h, hd)
-        k = (x @ at(self.wk, l).view(d, kv * hd)).view(B, S, kv, hd)
-        v = (x @ at(self.wv, l).view(d, kv * hd)).view(B, S, kv, hd)
+        q = (x @ at(self, "wq", l).view(d, h * hd)).view(B, S, h, hd)
+        k = (x @ at(self, "wk", l).view(d, kv * hd)).view(B, S, kv, hd)
+        v = (x @ at(self, "wv", l).view(d, kv * hd)).view(B, S, kv, hd)
         if cfg.qkv_bias:
-            q = q + at(self.bq, l)
-            k = k + at(self.bk, l)
-            v = v + at(self.bv, l)
+            q = q + at(self, "bq", l)
+            k = k + at(self, "bk", l)
+            v = v + at(self, "bv", l)
         if cfg.qk_norm:
-            q = rms_norm(q, at(self.q_norm, l), cfg.norm_eps)
-            k = rms_norm(k, at(self.k_norm, l), cfg.norm_eps)
+            q = rms_norm(q, at(self, "q_norm", l), cfg.norm_eps)
+            k = rms_norm(k, at(self, "k_norm", l), cfg.norm_eps)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def out(self, l: int, y):
         """Output projection of the heads y (B, S, h, hd) -> (B, S, d)."""
         B, S, h, hd = y.shape
-        return y.reshape(B, S, h * hd) @ at(self.wo, l).view(h * hd, -1)
+        return y.reshape(B, S, h * hd) @ at(self, "wo", l).view(h * hd, -1)
 
     def forward(self, l: int, x, cos, sin):
         """Causal full-sequence attention (prefill) through K2. Returns
@@ -166,8 +176,8 @@ class MLP(nn.Module):
         init_normal_(self.w_down, gen, 1.0 / math.sqrt(cfg.d_ff))
 
     def forward(self, l: int, x):
-        return (F.silu(x @ at(self.w_gate, l)) * (x @ at(self.w_up, l))) \
-            @ at(self.w_down, l)
+        return (F.silu(x @ at(self, "w_gate", l)) * (x @ at(self, "w_up", l))) \
+            @ at(self, "w_down", l)
 
 
 # ----------------------------------------------------------- embeddings
@@ -183,3 +193,16 @@ def logits_from_hidden(head, cfg, x):
     embeddings are tied. The final norm itself runs in the trunk, fused
     with the last residual add (K4b)."""
     return x @ head.to(cfg.cdtype)
+
+
+def cross_entropy(logits, labels, vocab_size: int):
+    """Mean CE over positions with 0 <= label < vocab_size (the padded
+    vocab's tail and negative labels masked), as
+    `repro.models.layers.cross_entropy`: the f32 log-sum-exp over the
+    whole padded vocab minus the gold logit."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp(0, lf.shape[-1] - 1)[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < vocab_size)
+    loss = torch.where(mask, lse - gold, torch.zeros_like(lse))
+    return loss.sum() / mask.sum().clamp_min(1)

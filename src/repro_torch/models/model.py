@@ -39,6 +39,17 @@ kept (``z = z + mlp``, then ``h = h + z``), so the residual stream is
 the JAX one. A hybrid prompt longer than the cache takes a sliding
 window in the JAX package, which K2 does not have: it raises here.
 
+Training (the dense family): `Model.loss` is the JAX ``Model.loss``
+with the dense branch of its ``_trunk``: the embedding, each layer under
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (the JAX
+package's per-layer ``jax.checkpoint``), the final K4b, the head and
+`layers.cross_entropy`; K2, K4a and K4b run through their autograd
+Functions, so a step launches K2's forward twice a layer (the forward
+and the recomputation) and its backward once. The stacked parameters are
+unbound once a forward (`Model.layer_tensors`). Build a trainable model
+with ``build_model(cfg, device, trainable=True)``. The ssm and hybrid
+families' training waits for a backward of K5.
+
 Numbers: in f32 this is the JAX model's arithmetic up to the order of
 sums. In bf16 three places round differently: the norms multiply by the
 weight in f32 before their one cast (the JAX model casts first); a
@@ -53,6 +64,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.rmsnorm import rmsnorm_residual
@@ -175,6 +187,59 @@ class Model(nn.Module):
 
     def cache_spec(self, batch: int, max_len: int) -> CacheSpec:
         return cache_spec(self.cfg, batch, max_len)
+
+    # --------------------------------------------------------- training
+    def layer_tensors(self):
+        """Each layer's tensors as a dict (leaf name -> tensor), the
+        stacked block parameters unbound once: the backward of ``unbind``
+        is one ``stack``, where each layer's ``p[l]`` would allocate a
+        zero tensor the size of the whole stacked parameter in the
+        backward."""
+        leaves = {}
+        for mod in (self.blocks, self.blocks.attn, self.blocks.mlp):
+            for name, p in mod.named_parameters(recurse=False):
+                leaves[name] = p.unbind(0)
+        return [{name: t[li] for name, t in leaves.items()}
+                for li in range(self.cfg.n_layers)]
+
+    def _train_layer(self, p, y, h, cos, sin):
+        """One dense layer of the training trunk: the residual add of the
+        previous layer's MLP output ``y`` and its norm1 (K4b; the first
+        layer's norm1 K4a on the embeddings, ``y`` None), attention, K4b,
+        the MLP. Returns (the MLP's output, the residual stream)."""
+        cfg, blk = self.cfg, self.blocks
+        if y is None:
+            x = L.rms_norm(h, p["norm1"], cfg.norm_eps)
+        else:
+            x, h = rmsnorm_residual(y, h, p["norm1"], eps=cfg.norm_eps)
+        y, _ = blk.attn(p, x, cos, sin)
+        x, h = rmsnorm_residual(y, h, p["norm2"], eps=cfg.norm_eps)
+        return blk.mlp(p, x), h
+
+    def loss(self, batch):
+        """The training loss of ``batch`` (``tokens`` and ``labels`` (B,
+        S) int on the model's device): (loss, {"ce", "aux"}), loss = ce
+        (+ router_aux_coef * aux, 0 for a dense model), differentiable
+        through every trainable parameter. Dense family only."""
+        cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"Model.loss of the {cfg.family} family is not ported "
+                "(ROADMAP Queue 1, item 6 (ssm/hybrid training: K5's "
+                "backward))")
+        tokens, labels = batch["tokens"], batch["labels"]
+        h = L.embed_tokens(self.embed, cfg, tokens)
+        cos, sin = self._rope(torch.arange(tokens.shape[1],
+                                           device=h.device))
+        y = None
+        for p in self.layer_tensors():
+            y, h = checkpoint(self._train_layer, p, y, h, cos, sin,
+                              use_reentrant=False)
+        x, _ = rmsnorm_residual(y, h, self.final_norm, eps=cfg.norm_eps)
+        logits = L.logits_from_hidden(self._head(), cfg, x)
+        ce = L.cross_entropy(logits, labels, cfg.vocab_size)
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------- helpers
     def _head(self):
@@ -349,8 +414,10 @@ class Model(nn.Module):
         return self._logits(y, h), cache
 
 
-def build_model(cfg: ModelConfig, device=None) -> Model:
+def build_model(cfg: ModelConfig, device=None,
+                trainable: bool = False) -> Model:
     """Allocate ``cfg``'s model on ``device`` (CUDA unless "cpu" is
     asked for), its parameters not yet filled: call ``init_weights`` or
-    load a state dict."""
-    return Model(cfg, resolve_device(device))
+    load a state dict. With ``trainable`` every parameter requires a
+    gradient (`Model.loss`)."""
+    return Model(cfg, resolve_device(device)).requires_grad_(trainable)

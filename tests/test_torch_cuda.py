@@ -1,6 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain
 PyTorch version (the event-loop kernel and its K-node variant against
-the eager loops, bitwise),
+the eager loops, bitwise; the backward kernels against their plain
+backwards, bitwise repeatable),
 and the engine, the chunked SSD and the models (dense, ssm, hybrid) on
 the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
 kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
@@ -1344,3 +1345,165 @@ def test_model_on_card_matches_cpu(cuda, arch):
     assert (K5.ssd_chunk.launches > launches[2]) == (cfg.family != "dense")
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------- the training path's kernels
+# The backward kernels against their plain backwards (autograd through
+# the plain forwards), chip_smoke.py's limits: bf16 outputs rounded once
+# by the kernel (rtol 1e-2) after f32 sums in another order (atol 1e-3),
+# K2's backward also reading the forward's output o rounded to bf16
+# (2^-9 of `FA.backward_o_terms`); f32 at F32_TOL. Each case also holds
+# a planted fault that the limit must reject.
+O_ROUND = 2.0 ** -9
+
+
+def _use(got, want, tol, extra=None):
+    g, w = got.float(), want.float()
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    if extra is not None:
+        lim = lim + extra
+    return ((g - w).abs() / lim).max().item()
+
+
+def _grads_f32(fn, inputs, g):
+    xs = [x.detach().float().requires_grad_() for x in inputs]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*xs), xs, g.float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype", [
+    (2, 200, 4, 2, 32, torch.float32),
+    (1, 130, 4, 4, 64, torch.float32),
+    (2, 64, 8, 1, 128, torch.float32),         # G = 8, one tile
+    (1, 1024, 32, 8, 128, torch.bfloat16),     # Qwen3-4B
+    (2, 1000, 32, 8, 128, torch.bfloat16),     # a ragged tile
+    (1, 300, 4, 2, 32, torch.bfloat16),
+    (1, 129, 8, 4, 64, torch.bfloat16),
+])
+def test_flash_attention_backward_kernel_matches_plain(cuda, B, S, H, KVH,
+                                                       D, dtype):
+    q, do = (_bf16_or_f32((B, S, H, D), dtype, s, cuda) for s in (10, 11))
+    k, v = (_bf16_or_f32((B, S, KVH, D), dtype, s, cuda) for s in (12, 13))
+    o = FA.flash_attention_plain(q, k, v).contiguous()
+    _, lse = FA._forward(q, k, v, True, None, True)
+    launches = FA.flash_attention_backward.launches
+    got = FA.flash_attention_backward(q, k, v, o, do, lse)
+    again = FA.flash_attention_backward(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_backward.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = _grads_f32(FA.flash_attention_plain, (q, k, v), do)
+    pos = torch.arange(S, device=cuda)
+    allowed = (pos[:, None] >= pos[None, :]) & ~(
+        (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+
+    def dropped(a, b, c):
+        g = a.shape[2] // b.shape[2]
+        s = torch.einsum("bshd,bthd->bhst", a, b.repeat_interleave(g, 2)) \
+            / D ** 0.5
+        p = torch.softmax(s.masked_fill(~allowed, float("-inf")), -1)
+        return torch.einsum("bhst,bthd->bshd", p, c.repeat_interleave(g, 2))
+    fault = _grads_f32(dropped, (q, k, v), do)
+    if dtype == torch.float32:
+        tol, extras = F32_TOL, (None,) * 3
+    else:
+        tol = BF16_TOL
+        extras = [O_ROUND * t for t in FA.backward_o_terms(q, k, v, o, do)]
+    uses = [_use(a, b, tol, x) for a, b, x in zip(got, want, extras)]
+    assert max(uses) <= 1.0, uses
+    assert max(_use(f, b, tol, x) for f, b, x in zip(fault, want,
+                                                      extras)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype", [
+    (2, 200, 4, 2, 32, torch.float32), (1, 1024, 32, 8, 128, torch.bfloat16),
+    (2, 77, 4, 4, 64, torch.bfloat16)])
+def test_flash_attention_lse_and_serving_forward(cuda, B, S, H, KVH, D,
+                                                 dtype):
+    """The forward with the log-sum-exp writes the serving forward's
+    output bitwise, and the log-sum-exp of the scaled scores."""
+    q = _bf16_or_f32((B, S, H, D), dtype, 20, cuda)
+    k, v = (_bf16_or_f32((B, S, KVH, D), dtype, s, cuda) for s in (21, 22))
+    out, lse = FA._forward(q, k, v, True, None, True)
+    serving = FA.flash_attention(q, k, v)
+    s = torch.einsum("bshd,bthd->bhst", q.float(),
+                     k.repeat_interleave(H // KVH, 2).float()) / D ** 0.5
+    pos = torch.arange(S, device=cuda)
+    want = torch.logsumexp(s.masked_fill(~(pos[:, None] >= pos[None, :]),
+                                         float("-inf")), -1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, serving)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,D,dtype,residual,with_gres", [
+    (4096, 2560, torch.bfloat16, False, False),
+    (4096 * 32, 128, torch.bfloat16, False, False),
+    (4096, 2560, torch.bfloat16, True, True),
+    (4096, 2560, torch.bfloat16, True, False),
+    (7, 1001, torch.float32, False, False),
+    (33, 3000, torch.float32, True, True),
+    (100, 96, torch.bfloat16, True, True),
+])
+def test_rmsnorm_backward_kernels_match_plain(cuda, R, D, dtype, residual,
+                                              with_gres):
+    x, g = (_bf16_or_f32((R, D), dtype, s, cuda) for s in (30, 31))
+    w = (1.0 + 0.1 * _bf16_or_f32((D,), torch.float32, 32, cuda)).to(dtype)
+    r = _bf16_or_f32((R, D), dtype, 33, cuda) if residual else None
+    gres = _bf16_or_f32((R, D), dtype, 34, cuda) if with_gres else None
+    wrapper = RN.rmsnorm_residual_backward if residual else \
+        RN.rmsnorm_backward
+    launches = wrapper.launches
+    if residual:
+        got = RN.rmsnorm_residual_backward(x, r, w, g, gres)
+        again = RN.rmsnorm_residual_backward(x, r, w, g, gres)
+        want = RN.rmsnorm_residual_backward_plain(x, r, w, g, gres)
+    else:
+        got, again = (RN.rmsnorm_backward(x, w, g) for _ in range(2))
+        want = RN.rmsnorm_backward_plain(x, w, g)
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # the planted fault: the last D/8 of the row left out of the sum of
+    # squares
+    s = (x.float() + (0.0 if r is None else r.float())).requires_grad_()
+    wf = w.float().requires_grad_()
+    with torch.enable_grad():
+        var = s[:, :D - D // 8].square().sum(-1, keepdim=True) / D
+        dsf, dwf = torch.autograd.grad(s * torch.rsqrt(var + 1e-6) * wf,
+                                       (s, wf), g.float())
+    if gres is not None:
+        dsf = dsf + gres.float()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert max(_use(a, b, tol) for a, b in zip(got, want)) <= 1.0
+    assert max(_use(f, b, tol) for f, b in zip((dsf, dwf), want)) > 1.0
+
+
+@pytest.mark.cuda
+def test_model_loss_on_card_matches_cpu(cuda):
+    """The dense smoke model's loss and every gradient in f32 on the card
+    (K2, K4a, K4b and their backward kernels) against the CPU (their plain
+    versions), on the same weights; each kernel launched as the code
+    counts (tests/test_torch_train.py)."""
+    cfg = get_arch("qwen3-4b").smoke()
+    cpu = build_model(cfg, "cpu", trainable=True)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = build_model(cfg, cuda, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(0)
+    toks = torch.tensor(r.integers(0, cfg.vocab_size, (2, 48)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    loss_c, _ = cpu.loss(batch)
+    loss_c.backward()
+    before = FA.flash_attention_backward.launches
+    loss_g, _ = card.loss({k: v.to(cuda) for k, v in batch.items()})
+    loss_g.backward()
+    torch.cuda.synchronize()
+    assert FA.flash_attention_backward.launches == before + cfg.n_layers
+    torch.testing.assert_close(loss_g.cpu(), loss_c.detach(), **F32_TOL)
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=2e-4,
+                                   atol=2e-5, msg=name)

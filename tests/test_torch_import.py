@@ -88,6 +88,34 @@ def test_cluster_and_small_modules_load_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+_TRAINING_MODULES = ("repro_torch.train", "repro_torch.train.data",
+                     "repro_torch.train.train_step", "repro_torch.optim",
+                     "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+                     "repro_torch.checkpoint",
+                     "repro_torch.checkpoint.checkpointer",
+                     "repro_torch.distributed",
+                     "repro_torch.distributed.compression",
+                     "repro_torch.launch.train")
+
+
+def test_training_modules_load_no_jax():
+    """The training slice (data, train step, optimizer, checkpointer,
+    compression, the trainer), imported, leaves JAX and the JAX package
+    out of sys.modules."""
+    probe = ("import importlib, sys\n"
+             f"for n in {_TRAINING_MODULES!r}:\n"
+             "    importlib.import_module(n)\n"
+             "bad = sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or "
+             "m.startswith('repro.'))\n"
+             "print(bad)\n"
+             "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", probe], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_run_experiment_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = tapi.ExperimentSpec(
@@ -180,6 +208,17 @@ NEW_WRAPPERS = {
         _meta(2, 3, dtype=torch.bool), _meta(2, dtype=torch.float64), 0.1,
         kernel=ESFFKernel(), n_fns=4, capacity=3, queue_cap=16,
         trace=True)),
+    "flash_attention_backward": (
+        FA.flash_attention_backward, lambda: FA.flash_attention_backward(
+            _meta(1, 8, 4, 32), _meta(1, 8, 2, 32), _meta(1, 8, 2, 32),
+            _meta(1, 8, 4, 32), _meta(1, 8, 4, 32), _meta(1, 4, 8))),
+    "rmsnorm_backward": (RN.rmsnorm_backward, lambda: RN.rmsnorm_backward(
+        _meta(4, 32), _meta(32), _meta(4, 32))),
+    "rmsnorm_residual_backward": (
+        RN.rmsnorm_residual_backward,
+        lambda: RN.rmsnorm_residual_backward(
+            _meta(4, 32), _meta(4, 32), _meta(32), _meta(4, 32),
+            _meta(4, 32))),
     "ssd_chunk": (K5.ssd_chunk, lambda: K5.ssd_chunk(
         _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16), _meta(1, 2, 32, 4),
         _meta(1, 2, 32, 4), _meta(1, 2, 32, 1, 16),
@@ -217,7 +256,8 @@ def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
                                    "event_loop_cluster_traced_faas",
                                    "frp_select", "rmsnorm",
                                    "decode_attention", "flash_attention",
-                                   "ssd_chunk"}
+                                   "ssd_chunk", "flash_attention_bwd",
+                                   "rmsnorm_bwd"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine bodies need contraction off (bitwise parity)
