@@ -468,7 +468,13 @@ SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
 # - flash_attention_backward also reads the forward's output o, rounded
 #   to bf16 (2^-9 of it), in Dl = rowsum(do * o); its limit adds 2^-9
 #   times what that can move dq and dk (``o_round``,
-#   `kernels.flash_attention.backward_o_terms`); dv does not read o;
+#   `kernels.flash_attention.backward_o_terms`); dv does not read o. Its
+#   bf16 body (tensor cores) also rounds the weights P and their
+#   gradients dS to bf16 for dv = P^T do, dk = scale dS^T q and dq =
+#   scale dS k, at most 2^-8 of each term; its limit adds 2^-8 times the
+#   sums of those terms' magnitudes (``p_round``,
+#   `kernels.flash_attention.backward_round_terms`), as the forward's
+#   ``p_round`` bounds its rounding of P;
 # - rmsnorm_backward, rmsnorm_residual_backward: one f32 sum of squares
 #   and one of g w s a row, dw a two-stage f32 sum over the rows.
 # In f32 all three are held to F32_GRAD_TOL (tests/test_kernels.py's f32
@@ -480,7 +486,8 @@ KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
               "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3),
               "ssd_chunk": dict(rtol=1e-5, atol=3e-5),
               "flash_attention_backward": dict(rtol=1e-2, atol=1e-3,
-                                               o_round=2.0 ** -9),
+                                               o_round=2.0 ** -9,
+                                               p_round=2.0 ** -8),
               "rmsnorm_backward": dict(rtol=1e-2, atol=1e-3),
               "rmsnorm_residual_backward": dict(rtol=1e-2, atol=1e-3)}
 F32_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -533,6 +540,15 @@ TRAINING_KERNELS = (
      "src/repro/models/layers.py:70",
      "jax.grad of rms_norm after the residual add", "(4096, 2560) gres"),
 )
+# the backward kernels' instances whose ptxas lines the `kernels` line
+# carries: the bf16 bodies at the train phase's shapes (K2-bwd at D 128;
+# the norms' vector body with bf16 x and weight)
+TRAINING_PTXAS = {
+    "flash_attention_bwd": ("dkdv_wgmma_kernelILi128E",
+                            "dq_wgmma_kernelILi128E",
+                            "delta_kernelI13__nv_bfloat16Li128ELb1E"),
+    "rmsnorm_bwd": ("rmsnorm_bwd_vector_kernelI13__nv_bfloat16S1_Li1E",
+                    "dw_kernelI13__nv_bfloat16E")}
 # The train phase. (a) the qwen3-4b smoke config in f32 on
 # `parity_weights`, held step by step to the JAX package's losses and
 # grad norms (scripts/train_expected.json, made by
@@ -872,13 +888,12 @@ def time_in_turns(torch, fns, reps: int = 200, trials: int = 7):
     return [sorted(x)[len(x) // 2] for x in ts]
 
 
-def device_ms(torch, fn, reps: int = 20):
-    """Device time of one call of ``fn`` over ``reps`` calls
-    (torch.profiler): for each kernel it launches, the mean device time
-    of the records the profiler kept, times the launches a call makes
-    (its records / reps, rounded, at least 1). The profiler can drop
-    records; dividing its total by ``reps`` would then read low. None
-    when it records no device activity."""
+def device_split(torch, fn, reps: int = 20):
+    """Device ms of one call of ``fn`` by kernel name (torch.profiler):
+    for each kernel it launches, the mean device time of the records the
+    profiler kept, times the launches a call makes (its records / reps,
+    rounded, at least 1). The profiler can drop records; dividing its
+    total by ``reps`` would then read low."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -888,10 +903,17 @@ def device_ms(torch, fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.count)
-    return us / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / e.count
+            * max(1, round(e.count / reps)) / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def device_ms(torch, fn, reps: int = 20):
+    """Device time of one call of ``fn`` over ``reps`` calls: the sum of
+    `device_split`'s kernels; None when it records no device activity."""
+    ms = sum(device_split(torch, fn, reps).values())
+    return ms if ms > 0 else None
 
 
 def bound_ms(n_bytes: int, n_ops: int, kind: str):
@@ -3316,8 +3338,9 @@ def phase_training_kernels(torch, FA, RN):
                          (q, k, v), do)
         if dtype == bf16:
             tol = KERNEL_TOL["flash_attention_backward"]
-            extras = [tol["o_round"] * t for t in
-                      FA.backward_o_terms(q, k, v, o, do)]
+            extras = [tol["o_round"] * t + tol["p_round"] * u
+                      for t, u in zip(FA.backward_o_terms(q, k, v, o, do),
+                                      FA.backward_round_terms(q, k, v, do))]
         else:
             tol, extras = F32_GRAD_TOL, [None] * 3
         check = _grads_close(torch, "flash_attention_backward", case, got,
@@ -3339,12 +3362,17 @@ def phase_training_kernels(torch, FA, RN):
         fwd_ms, fwd_lse_ms = time_in_turns(torch, [
             partial(FA.flash_attention, q, k, v),
             partial(FA._forward, q, k, v, True, None, True)], **timing)
+        kind = "bf16" if dtype == bf16 else "f32"
         timed_row("flash_attention_backward", case, check, call, plain,
                   library, es * (2 * 3 * B * S * H * D + 2 * 2 * B * S * KVH
                                  * D) + 4 * B * H * S,
-                  int(2.5 * fwd), "bf16" if dtype == bf16 else "f32",
+                  int(2.5 * fwd), kind,
                   deterministic=True, lse_max_abs_err=lse_err,
-                  forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms)
+                  forward_ms=fwd_ms, forward_lse_ms=fwd_lse_ms,
+                  # the design's own floor: with the scores and do . v
+                  # formed in both passes, 3.5 times the forward's work
+                  design_bound_ms=1e3 * 3.5 * fwd / PEAK_OPS_PER_S[kind],
+                  device_ms_by_kernel=device_split(torch, call, reps=5))
 
     def norm_case(name, case, R, D, dtype, residual, with_gres):
         x, g = randn(R, D, dtype=dtype), randn(R, D, dtype=dtype)
@@ -3398,6 +3426,8 @@ def phase_training_kernels(torch, FA, RN):
     norm_case("rmsnorm_backward", "(4096, 2560)", 4096, 2560, bf16, False,
               False)
     norm_case("rmsnorm_backward", "(131072, 128)", 4096 * 32, 128, bf16,
+              False, False)
+    norm_case("rmsnorm_backward", "(32768, 128)", 4096 * 8, 128, bf16,
               False, False)
     norm_case("rmsnorm_backward", "f32 (7, 1001)", 7, 1001, f32, False,
               False)
@@ -4447,6 +4477,7 @@ def main(argv=None) -> int:
     for name, source, replaces, derived, at in TRAINING_KERNELS:
         mine = [r for r in trows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)
+        unit = source[:-len(".cu")]
         kernels.append(dict(
             name=name, entry=name, route="cuda",
             source=f"src/repro_torch/csrc/{source}", replaces=replaces,
@@ -4462,6 +4493,10 @@ def main(argv=None) -> int:
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"], device_ms=rep["device_ms"],
+            **{k: rep[k] for k in ("design_bound_ms", "device_ms_by_kernel")
+               if k in rep},
+            ptxas=ptxas_lines(_build.BUILD_INFO.get(unit, {}).get(
+                "ptxas", ""), *TRAINING_PTXAS[unit]),
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

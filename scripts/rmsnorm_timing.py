@@ -5,6 +5,7 @@ the kernel's device time in the ways the serving path sees it.
     python scripts/rmsnorm_timing.py --sweep       # geometry candidates
     python scripts/rmsnorm_timing.py --host [--src DIR/src]
     python scripts/rmsnorm_timing.py --reconcile   # decode-row device time
+    python scripts/rmsnorm_timing.py --bwd_sweep   # the backward's geometry
 
 - ``--sweep``: for each shape of the serving path (bf16 x and weight),
   every geometry the kernel takes from a set of candidates (threads a
@@ -26,6 +27,14 @@ the kernel's device time in the ways the serving path sees it.
   with the card idle 0.5 ms between launches, and idle with L2 evicted
   first, each with nvidia-smi's SM clock sampled every 20 ms.
 
+- ``--bwd_sweep``: the backward kernel (K4a-bwd, K4b-bwd) at the train
+  phase's shapes (bf16 (4096, 2560) with and without the residual and its
+  gradient, the q- and k-norms' (131072, 128) and (32768, 128)), every
+  vector-body geometry of a candidate set, each checked against the plain
+  backward (rtol 1e-2, atol 1e-3) and timed as ``--sweep`` times the
+  forward, with the bytes a call moves (x, r, g, gr read, dx written).
+  These back the ``BWD_*`` constants of `_bwd_plan`.
+
 Prints JSON lines, the card's name and power limit first, and appends
 them to ``<out>/rmsnorm_<mode>.jsonl`` too (``--out``, by default
 ``build/timing``). Needs a CUDA device; imports nothing of JAX.
@@ -43,7 +52,7 @@ REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402  (its timers; it imports no JAX)
 TOL = dict(rtol=1e-2, atol=1e-3)   # chip_smoke.KERNEL_TOL["rmsnorm"]
-MODES = ("sweep", "host", "reconcile")
+MODES = ("sweep", "host", "reconcile", "bwd_sweep")
 
 
 class Timer:
@@ -171,6 +180,87 @@ def mode_sweep(torch, RN, T, emit):
                   default=best.get((kernel, R, D, "default")),
                   library_us=T.device_us(lib),
                   bytes=2 * D * R * (4 if res else 2) + 2 * D))
+
+
+def bwd_candidates(RN, R, D, n_sms):
+    """Geometries the backward's vector body takes for bf16 (R, D):
+    (G, rows a block, vectors a thread, grid), deduplicated."""
+    nv, out = D // 8, set()
+    if nv <= 32:
+        G = 1 << (nv - 1).bit_length()
+        for threads in (128, 256, 512, 1024):
+            rows = threads // G
+            full = -(-R // rows)
+            for k in (1, 2, 4, 8, 16):
+                out.add((G, rows, 1, min(full, k * n_sms)))
+        return sorted(out)
+    for vpt in RN.BWD_VECTORS:
+        G = -(-(-(-nv // vpt)) // 32) * 32
+        if G > RN.bwd_max_threads(vpt):
+            continue
+        for rows in (1, 2, 3, 4, 6):
+            if G * rows > RN.bwd_max_threads(vpt):
+                continue
+            full = -(-R // rows)
+            for k in (1, 2, 3, 4, 8):
+                out.add((G, rows, vpt, min(full, k * n_sms)))
+    return sorted(out)
+
+
+def mode_bwd_sweep(torch, RN, T, emit):
+    dev = torch.device("cuda")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+    # (name, R, D, residual, the residual's gradient)
+    shapes = [("rmsnorm_residual_backward", 4096, 2560, True, True),
+              ("rmsnorm_residual_backward", 4096, 2560, True, False),
+              ("rmsnorm_backward", 4096, 2560, False, False),
+              ("rmsnorm_backward", 131072, 128, False, False),
+              ("rmsnorm_backward", 32768, 128, False, False)]
+    fn = RN._build.c_entry("rmsnorm_bwd", "rmsnorm_backward",
+                           RN._BWD_ARGTYPES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, R, D, res, with_gres in shapes:
+        x, g, r, gr = (torch.randn(R, D, generator=gen, device=dev).to(bf16)
+                       for _ in range(4))
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(bf16)
+        r = r if res else None
+        gr = gr if with_gres else None
+        want = (RN.rmsnorm_residual_backward_plain(x, r, w, g, gr) if res
+                else RN.rmsnorm_backward_plain(x, w, g))
+        dx, dw = torch.empty_like(x), torch.empty_like(w)
+        default = RN._bwd_plan(R, D, bf16, True, n_sms)
+        n_bytes = 2 * R * D * (3 + int(res) + int(with_gres)) + 4 * D
+        best = None
+        for G, rows, vpt, grid in bwd_candidates(RN, R, D, n_sms):
+            part = torch.empty(grid, D, dtype=torch.float32, device=dev)
+            ptrs = (x.data_ptr(), 0 if r is None else r.data_ptr(),
+                    w.data_ptr(), g.data_ptr(),
+                    0 if gr is None else gr.data_ptr(), dx.data_ptr(),
+                    dw.data_ptr(), part.data_ptr())
+            words = (R, D, 1, 1, vpt, G, rows, grid)
+
+            def call(ptrs=ptrs, words=words):
+                RN._build.launch_check(fn(*ptrs, *words, 1e-6, stream),
+                                       name)
+            dx.zero_()
+            call()
+            use = max(within(torch, a, b) for a, b in zip((dx, dw), want))
+            plan = RN.Plan("vector", G, rows, vpt, grid)
+            row = dict(kernel=name, R=R, D=D, G=G, rows=rows, vpt=vpt,
+                       grid=grid, default=plan == default, tol_use=use,
+                       device_us=T.device_us(call),
+                       events_ms=T.events_ms(call), bytes=n_bytes)
+            emit(row, quiet=True)
+            if use > 1.0:
+                emit(dict(error="beyond the limit", **row))
+            if best is None or row["events_ms"] < best["events_ms"]:
+                best = row
+            if row["default"]:
+                emit(dict(default=row))
+        emit(dict(kernel=name, R=R, D=D, best=best,
+                  bound_us=1e6 * n_bytes / cs.HBM_BYTES_PER_S))
 
 
 def mode_host(torch, RN, B, T, emit, n=2000, rounds=15):
@@ -318,8 +408,9 @@ def main(argv=None) -> int:
                 if not quiet:
                     print(json.dumps(obj), flush=True)
             emit(dict(card=cs.smi_line()))
-            B.build(("rmsnorm",))
+            B.build(("rmsnorm", "rmsnorm_bwd"))
             {"sweep": lambda: mode_sweep(torch, RN, T, emit),
+             "bwd_sweep": lambda: mode_bwd_sweep(torch, RN, T, emit),
              "host": lambda: mode_host(torch, RN, B, T, emit),
              "reconcile": lambda: mode_reconcile(torch, RN, emit)}[mode]()
     return 0

@@ -21,10 +21,11 @@ import os
 import subprocess
 import sys
 
-GROUPS = (("k2_backward", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+GROUPS = (("k2_backward", ("dkdv_", "dq_kernel", "dq_wgmma_kernel",
+                           "delta_kernel")),
           ("k2_forward", ("flash_attention_wgmma_kernel",
                           "flash_attention_kernel")),
-          ("norms_backward", ("rmsnorm_bwd_kernel", "dw_kernel")),
+          ("norms_backward", ("rmsnorm_bwd_", "dw_kernel")),
           ("norms_forward", ("rmsnorm",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")))
 

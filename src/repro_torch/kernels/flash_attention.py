@@ -22,10 +22,14 @@ Training: when q, k or v requires a gradient (and grad mode is on),
 ``torch.autograd.Function``: its forward asks the kernel for each row's
 log-sum-exp as well, and its backward is `flash_attention_backward`, the
 hand-written backward kernel (``csrc/flash_attention_bwd.cu``; counted in
-its own ``launches``), which takes head dims `BWD_HEAD_DIMS`. On CPU
-tensors both take their plain versions: the forward `flash_attention_plain`
-and the backward `flash_attention_backward_plain` (autograd through the
-plain forward; counted in ``plain_calls``).
+its own ``launches``), which takes head dims `BWD_HEAD_DIMS`. In bf16 it
+runs on the tensor cores (wgmma, TMA) and rounds the softmax weights P
+and their gradients dS to bf16 for the products that contract over a
+row or a key, roundings the plain backward does not make
+(`backward_round_terms` bounds them); in f32 it runs on the CUDA cores.
+On CPU tensors both take their plain versions: the forward
+`flash_attention_plain` and the backward `flash_attention_backward_plain`
+(autograd through the plain forward; counted in ``plain_calls``).
 """
 from __future__ import annotations
 
@@ -178,6 +182,43 @@ def backward_o_terms(q, k, v, o, do, *, causal: bool = True, scale=None):
     return t_dq, t_dk, torch.zeros_like(t_dk)
 
 
+def backward_round_terms(q, k, v, do, *, causal: bool = True, scale=None):
+    """How far the bf16 backward kernel's roundings of P and dS may move
+    each output, per unit of relative rounding error, in f32: the kernel
+    rounds each weight P_ij to bf16 for dv_j = sum_i P_ij do_i, and each
+    dS_ij = P_ij (do_i . v_j - Dl_i) to bf16 for dk_j = scale sum_i dS_ij
+    q_i and dq_i = scale sum_j dS_ij k_j, each a relative error of at most
+    2^-8 (the weight's in the forward: its ``p_round``). Returns (dq, dk,
+    dv) terms: scale sum_j |dS_ij| |k_j|, scale sum_i |dS_ij| |q_i| and
+    sum_i P_ij |do_i| (dk and dv summed over the group's heads); the limits
+    in chip_smoke.py and the card tests add p_round times these. Plain
+    PyTorch (it forms P and dS (B, H, S, T))."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    g = H // KVH
+    scale = scale or 1.0 / math.sqrt(D)
+    qf, dof = q.to(torch.float32), do.to(torch.float32)
+    kr = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vr = v.to(torch.float32).repeat_interleave(g, dim=2)
+    s = torch.einsum("bshd,bthd->bhst", qf, kr) * scale
+    if causal:
+        pos_q = torch.arange(S, device=q.device)
+        pos_k = torch.arange(T, device=q.device)
+        s = s.masked_fill(~(pos_q[:, None] >= pos_k[None, :]),
+                          float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    del s
+    o = torch.einsum("bhst,bthd->bshd", p, vr)
+    dl = (dof * o).sum(-1).transpose(1, 2)                # (B, H, S)
+    ds = (p * (torch.einsum("bshd,bthd->bhst", dof, vr)
+               - dl[..., None])).abs()
+    t_dq = scale * torch.einsum("bhst,bthd->bshd", ds, kr.abs())
+    t_dk = scale * torch.einsum("bhst,bshd->bthd", ds, qf.abs())
+    t_dv = torch.einsum("bhst,bshd->bthd", p, dof.abs())
+    return (t_dq, t_dk.reshape(B, T, KVH, g, D).sum(3),
+            t_dv.reshape(B, T, KVH, g, D).sum(3))
+
+
 def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
                              scale=None):
     """The gradient of `flash_attention` at (q, k, v), its output ``o``
@@ -205,8 +246,15 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
     fn = _build.c_entry("flash_attention_bwd", "flash_attention_backward",
                         _BWD_ARGTYPES)
     _build.require_cuda(name, dev)
+    # the bf16 kernel's TMA tensor maps need 16-byte aligned addresses
+    if any(x.data_ptr() % 16 for x in (q, k, v, o, do)):
+        raise ValueError(f"{name}: q, k, v, o and do must start at 16-byte "
+                         "aligned addresses")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty(B, H, S, dtype=torch.float32, device=dev)
+    # scratch: the rows' lse and Dl, padded to whole blocks of 128 rows
+    s_rows = -(-S // 128) * 128
+    delta = torch.empty(2 * B * H * s_rows, dtype=torch.float32,
+                        device=dev)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),

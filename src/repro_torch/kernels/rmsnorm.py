@@ -268,23 +268,100 @@ rmsnorm_residual.plain_calls = 0
 
 
 # ------------------------------------------------------------ backward
-# x, r, w, g, gres, dx, dw, partial; R, D, the two dtype codes, G, grid
-# (pointer-sized words); eps; the stream
-_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_float, _P]
-# the backward's geometry: a warp a row up to BWD_WARP_ROW_D elements
-# (8 rows a block of 256 threads), else the block a row; at most
-# BWD_BLOCKS_PER_SM blocks a SM walk the rows (each writes one partial
-# row of dw)
+# x, r, w, g, gres, dx, dw, partial; R, D, the two dtype codes and the
+# geometry (vectors a thread, threads a row, rows a block, grid) as
+# pointer-sized words; eps; the stream
+_BWD_ARGTYPES = [_P] * 16 + [ctypes.c_float, _P]
+# The backward's vector body: vectors a thread (the kernel's VPT), and
+# the most threads a block of each may have (its __launch_bounds__).
+BWD_VECTORS = (1, 2, 3, 4)
+
+
+def bwd_max_threads(vpt: int) -> int:
+    return 1024 if vpt <= 1 else (512 if vpt <= 2 else 256)
+
+
+# The backward's geometry by shape class (scripts/rmsnorm_timing.py
+# --bwd_sweep measures the candidates on an H100; the numbers are in
+# PERF.md). Narrow rows (at most 32 vectors) take a power-of-two group of
+# lanes a row, blocks of BWD_NARROW_THREADS and at most
+# BWD_NARROW_BLOCKS_PER_SM blocks a SM. Wide rows take the fewest vectors a
+# thread that keep a row's group within BWD_WIDE_ROW_THREADS threads,
+# about BWD_WIDE_THREADS threads a block (whole rows) and at most
+# BWD_WIDE_BLOCKS_PER_SM blocks a SM. Every block writes one partial row
+# of dw, so the grid is also the dw pass's depth. The general body (odd
+# widths, pointers off 16 bytes): a warp a row up to BWD_WARP_ROW_D
+# elements (8 rows a block of 256 threads), else the block a row, at most
+# BWD_GENERAL_BLOCKS_PER_SM blocks a SM.
+BWD_NARROW_THREADS = 512
+BWD_NARROW_BLOCKS_PER_SM = 2
+BWD_WIDE_ROW_THREADS = 320
+BWD_WIDE_THREADS = 960
+BWD_WIDE_BLOCKS_PER_SM = 1
 BWD_THREADS = 256
 BWD_WARP_ROW_D = 1024
-BWD_BLOCKS_PER_SM = 4
+BWD_GENERAL_BLOCKS_PER_SM = 4
 
 
-def bwd_plan(R: int, D: int, n_sms: int = 132):
-    """(threads a row, blocks) of the backward kernel for x (R, D)."""
+# the backward's launches by body (both wrappers), beside their counts
+bwd_body_launches = {"vector": 0, "general": 0}
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_plan(R: int, D: int, x_dtype, aligned: bool,
+              n_sms: int = 132) -> Plan:
+    """The backward kernel's body and geometry for x (R, D) of
+    ``x_dtype``; ``aligned`` says that every pointer (x, r, w, g, gres,
+    dx) is 16-byte aligned. The vector body takes D a multiple of the
+    vector's elements (8 bf16 or 4 f32) at aligned pointers, with a row's
+    group within the instances' blocks; everything else takes the general
+    body."""
+    V = 16 // x_dtype.itemsize
+    nv = D // V
+    if aligned and not D % V:
+        if nv <= 32:
+            # narrow: a power-of-two group of lanes a row, several rows a
+            # warp
+            G = 1 << (nv - 1).bit_length()
+            threads = min(BWD_NARROW_THREADS, max(32, _cdiv(R * G, 32) * 32))
+            rows = threads // G
+            return Plan("vector", G, rows, 1,
+                        min(_cdiv(R, rows), BWD_NARROW_BLOCKS_PER_SM * n_sms))
+        for vpt in BWD_VECTORS:
+            G = _cdiv(_cdiv(nv, vpt), 32) * 32
+            if G <= min(BWD_WIDE_ROW_THREADS, bwd_max_threads(vpt)):
+                rows = max(1, min(BWD_WIDE_THREADS,
+                                  bwd_max_threads(vpt)) // G)
+                return Plan("vector", G, rows, vpt,
+                            min(_cdiv(R, rows),
+                                BWD_WIDE_BLOCKS_PER_SM * n_sms))
     G = 32 if D <= BWD_WARP_ROW_D else BWD_THREADS
     rows = BWD_THREADS // G
-    return G, min(_cdiv(R, rows), BWD_BLOCKS_PER_SM * n_sms)
+    return Plan("general", G, rows, 0,
+                min(_cdiv(R, rows), BWD_GENERAL_BLOCKS_PER_SM * n_sms))
+
+
+_BWD_FN = None   # the backward's C entry, bound at its first launch
+
+
+def _bwd_entry():
+    global _BWD_FN
+    if _BWD_FN is None:
+        _BWD_FN = _build.c_entry("rmsnorm_bwd", "rmsnorm_backward",
+                                 _BWD_ARGTYPES)
+    return _BWD_FN
+
+
+@functools.lru_cache(maxsize=4096)
+def _bwd_words(R: int, D: int, x_dtype, w_dtype, aligned: bool,
+               index: int):
+    """`_bwd_plan`'s body for x (R, D) on CUDA device ``index``, and the
+    backward entry's integer words: R, D, the two dtype codes and the
+    geometry (vectors a thread, threads a row, rows a block, grid)."""
+    p = _bwd_plan(R, D, x_dtype, aligned, _build.sm_count(index))
+    return p.body, (R, D, _CODE[x_dtype], _CODE[w_dtype],
+                    p.vectors_per_thread, p.threads_per_row,
+                    p.rows_per_block, p.grid)
 
 
 def rmsnorm_backward_plain(x, weight, g, eps: float = 1e-6):
@@ -329,21 +406,24 @@ def _backward(name, x, residual, weight, g, gres, eps):
             return rmsnorm_backward_plain(x, weight, g, eps)
         return rmsnorm_residual_backward_plain(x, residual, weight, g, gres,
                                                eps)
-    fn = _build.c_entry("rmsnorm_bwd", "rmsnorm_backward", _BWD_ARGTYPES)
+    fn = _bwd_entry()
     if index < 0:
         _build.require_cuda(name, x.device)
     D = x.shape[-1]
-    R = x.numel() // D
-    G, grid = bwd_plan(R, D, _build.sm_count(index))
     dx, dw = torch.empty_like(x), torch.empty_like(weight)
-    partial = torch.empty(grid, D, dtype=torch.float32, device=x.device)
-    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    rc = fn(x.data_ptr(), ptr(residual), weight.data_ptr(), g.data_ptr(),
-            ptr(gres), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), R, D,
-            _CODE[x.dtype], _CODE[weight.dtype], G, grid, eps,
-            _build.stream_of(index))
+    xp, wp, gp, dxp = (x.data_ptr(), weight.data_ptr(), g.data_ptr(),
+                       dx.data_ptr())
+    rp = 0 if residual is None else residual.data_ptr()
+    grp = 0 if gres is None else gres.data_ptr()
+    body, words = _bwd_words(x.numel() // D, D, x.dtype, weight.dtype,
+                             not (xp | rp | wp | gp | grp | dxp) & 15, index)
+    partial = torch.empty((words[-1], D), dtype=torch.float32,
+                          device=x.device)
+    rc = fn(xp, rp, wp, gp, grp, dxp, dw.data_ptr(), partial.data_ptr(),
+            *words, eps, _build.stream_of(index))
     _build.launch_check(rc, name)
     wrapper.launches += 1
+    bwd_body_launches[body] += 1
     return dx, dw
 
 

@@ -1352,8 +1352,10 @@ def test_model_on_card_matches_cpu(cuda, arch):
 # the plain forwards), chip_smoke.py's limits: bf16 outputs rounded once
 # by the kernel (rtol 1e-2) after f32 sums in another order (atol 1e-3),
 # K2's backward also reading the forward's output o rounded to bf16
-# (2^-9 of `FA.backward_o_terms`); f32 at F32_TOL. Each case also holds
-# a planted fault that the limit must reject.
+# (2^-9 of `FA.backward_o_terms`) and rounding P and dS to bf16 for its
+# tensor-core products (2^-8 of `FA.backward_round_terms`); f32 at
+# F32_TOL. Each case also holds a planted fault that the limit must
+# reject, and two runs bitwise equal.
 O_ROUND = 2.0 ** -9
 
 
@@ -1371,32 +1373,44 @@ def _grads_f32(fn, inputs, g):
         return torch.autograd.grad(fn(*xs), xs, g.float())
 
 
+BF = torch.bfloat16
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,H,KVH,D,dtype", [
-    (2, 200, 4, 2, 32, torch.float32),
-    (1, 130, 4, 4, 64, torch.float32),
-    (2, 64, 8, 1, 128, torch.float32),         # G = 8, one tile
-    (1, 1024, 32, 8, 128, torch.bfloat16),     # Qwen3-4B
-    (2, 1000, 32, 8, 128, torch.bfloat16),     # a ragged tile
-    (1, 300, 4, 2, 32, torch.bfloat16),
-    (1, 129, 8, 4, 64, torch.bfloat16),
+@pytest.mark.parametrize("B,S,H,KVH,D,dtype,causal", [
+    (2, 200, 4, 2, 32, torch.float32, True),
+    (1, 130, 4, 4, 64, torch.float32, True),
+    (2, 64, 8, 1, 128, torch.float32, True),    # G = 8, one tile
+    (1, 1024, 32, 8, 128, BF, True),            # Qwen3-4B
+    (4, 1024, 32, 8, 128, BF, True),            # the train phase's B
+    (2, 1000, 32, 8, 128, BF, True),            # a ragged tile
+    (1, 300, 4, 2, 32, BF, True),
+    (1, 129, 8, 4, 64, BF, True),
+    (1, 1000, 8, 8, 128, BF, True),             # G = 1
+    (1, 300, 8, 1, 64, BF, True),               # G = 8
+    (1, 129, 8, 2, 32, BF, True),               # G = 4
+    (2, 1000, 32, 8, 128, BF, False),           # bidirectional
+    (1, 300, 4, 4, 64, BF, False),
+    (1, 129, 8, 1, 32, BF, False),
 ])
 def test_flash_attention_backward_kernel_matches_plain(cuda, B, S, H, KVH,
-                                                       D, dtype):
+                                                       D, dtype, causal):
     q, do = (_bf16_or_f32((B, S, H, D), dtype, s, cuda) for s in (10, 11))
     k, v = (_bf16_or_f32((B, S, KVH, D), dtype, s, cuda) for s in (12, 13))
-    o = FA.flash_attention_plain(q, k, v).contiguous()
-    _, lse = FA._forward(q, k, v, True, None, True)
+    o = FA.flash_attention_plain(q, k, v, causal=causal).contiguous()
+    _, lse = FA._forward(q, k, v, causal, None, True)
     launches = FA.flash_attention_backward.launches
-    got = FA.flash_attention_backward(q, k, v, o, do, lse)
-    again = FA.flash_attention_backward(q, k, v, o, do, lse)
+    got = FA.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
+    again = FA.flash_attention_backward(q, k, v, o, do, lse, causal=causal)
     torch.cuda.synchronize()
     assert FA.flash_attention_backward.launches == launches + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    want = _grads_f32(FA.flash_attention_plain, (q, k, v), do)
+    want = _grads_f32(lambda a, b, c: FA.flash_attention_plain(
+        a, b, c, causal=causal), (q, k, v), do)
     pos = torch.arange(S, device=cuda)
-    allowed = (pos[:, None] >= pos[None, :]) & ~(
-        (pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+    allowed = ~((pos >= S // 2) & (pos < S // 2 + 64))[None, :]
+    if causal:
+        allowed = allowed & (pos[:, None] >= pos[None, :])
 
     def dropped(a, b, c):
         g = a.shape[2] // b.shape[2]
@@ -1409,7 +1423,9 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, B, S, H, KVH,
         tol, extras = F32_TOL, (None,) * 3
     else:
         tol = BF16_TOL
-        extras = [O_ROUND * t for t in FA.backward_o_terms(q, k, v, o, do)]
+        extras = [O_ROUND * t + P_ROUND * u for t, u in zip(
+            FA.backward_o_terms(q, k, v, o, do, causal=causal),
+            FA.backward_round_terms(q, k, v, do, causal=causal))]
     uses = [_use(a, b, tol, x) for a, b, x in zip(got, want, extras)]
     assert max(uses) <= 1.0, uses
     assert max(_use(f, b, tol, x) for f, b, x in zip(fault, want,
@@ -1439,24 +1455,33 @@ def test_flash_attention_lse_and_serving_forward(cuda, B, S, H, KVH, D,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,D,dtype,residual,with_gres", [
-    (4096, 2560, torch.bfloat16, False, False),
-    (4096 * 32, 128, torch.bfloat16, False, False),
-    (4096, 2560, torch.bfloat16, True, True),
-    (4096, 2560, torch.bfloat16, True, False),
-    (7, 1001, torch.float32, False, False),
-    (33, 3000, torch.float32, True, True),
-    (100, 96, torch.bfloat16, True, True),
+@pytest.mark.parametrize("R,D,dtype,residual,with_gres,offset,body", [
+    (4096, 2560, torch.bfloat16, False, False, 0, "vector"),
+    (4096 * 32, 128, torch.bfloat16, False, False, 0, "vector"),
+    (4096 * 8, 128, torch.bfloat16, False, False, 0, "vector"),  # k-norm
+    (4096, 2560, torch.bfloat16, True, True, 0, "vector"),
+    (4096, 2560, torch.bfloat16, True, False, 0, "vector"),
+    (7, 1001, torch.float32, False, False, 0, "general"),
+    (33, 3000, torch.float32, True, True, 0, "vector"),
+    (100, 96, torch.bfloat16, True, True, 0, "vector"),
+    (65, 1001, torch.bfloat16, True, True, 0, "general"),  # an odd width
+    (64, 2560, torch.bfloat16, True, True, 1, "general"),  # off 16 bytes
+    (300, 128, torch.bfloat16, False, False, 3, "general"),
+    (33, 2560, torch.float32, False, False, 0, "vector"),  # 3 vectors
 ])
 def test_rmsnorm_backward_kernels_match_plain(cuda, R, D, dtype, residual,
-                                              with_gres):
-    x, g = (_bf16_or_f32((R, D), dtype, s, cuda) for s in (30, 31))
+                                              with_gres, offset, body):
+    """``offset``: x is a contiguous view that many elements into its
+    buffer (a pointer off 16 bytes: the general body); ``body`` the body
+    the plan must pick."""
+    x = _bf16_or_f32((R * D + offset,), dtype, 30, cuda)[offset:].view(R, D)
+    g = _bf16_or_f32((R, D), dtype, 31, cuda)
     w = (1.0 + 0.1 * _bf16_or_f32((D,), torch.float32, 32, cuda)).to(dtype)
     r = _bf16_or_f32((R, D), dtype, 33, cuda) if residual else None
     gres = _bf16_or_f32((R, D), dtype, 34, cuda) if with_gres else None
     wrapper = RN.rmsnorm_residual_backward if residual else \
         RN.rmsnorm_backward
-    launches = wrapper.launches
+    launches, bodies = wrapper.launches, dict(RN.bwd_body_launches)
     if residual:
         got = RN.rmsnorm_residual_backward(x, r, w, g, gres)
         again = RN.rmsnorm_residual_backward(x, r, w, g, gres)
@@ -1466,6 +1491,7 @@ def test_rmsnorm_backward_kernels_match_plain(cuda, R, D, dtype, residual,
         want = RN.rmsnorm_backward_plain(x, w, g)
     torch.cuda.synchronize()
     assert wrapper.launches == launches + 2
+    assert RN.bwd_body_launches[body] == bodies[body] + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     # the planted fault: the last D/8 of the row left out of the sum of
     # squares

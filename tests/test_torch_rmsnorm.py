@@ -189,3 +189,85 @@ def test_plan_covers_every_row_once_within_the_kernels_instances(
             rows, vecs = _covered(plan, R, D // V)
             assert (rows == 1).all(), (R, D, plan)
             assert (vecs == 1).all(), (R, D, plan)
+
+
+# ------------------------------------------------------- _bwd_plan
+def _train_shapes(arch, tokens):
+    """The (R, D) of every K4a-bwd and K4b-bwd call of ``arch`` at full
+    width over ``tokens`` positions: the hidden norms and the q- and
+    k-norms' rows."""
+    cfg = get_arch(arch)
+    return sorted({(tokens, cfg.d_model),
+                   (tokens * cfg.n_heads, cfg.head_dim_),
+                   (tokens * cfg.n_kv_heads, cfg.head_dim_)})
+
+
+# the train phase's global batch of 4 x 1,024 tokens and its 2-layer
+# checks' 2 x 1,024 (chip_smoke.TRAIN_FULL, TRAIN_CUT)
+@pytest.mark.parametrize("tokens", [4096, 2048])
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_bwd_plan_sends_every_training_shape_to_the_vector_body(tokens,
+                                                                 dtype):
+    for R, D in _train_shapes("qwen3-4b", tokens):
+        plan = RN._bwd_plan(R, D, dtype, True)
+        assert plan.body == "vector", (R, D, plan)
+        assert plan.vectors_per_thread in RN.BWD_VECTORS
+
+
+# the geometries measured on an H100 (scripts/rmsnorm_timing.py
+# --bwd_sweep, PERF.md): a wide row 320 threads (a vector each), three
+# rows a block, a block a SM; a 128-wide row 16 lanes, 32 rows a block
+@pytest.mark.parametrize("R,D,want", [
+    (4096, 2560, ("vector", 320, 3, 1, 132)),
+    (2048, 2560, ("vector", 320, 3, 1, 132)),
+    (131072, 128, ("vector", 16, 32, 1, 264)),
+    (32768, 128, ("vector", 16, 32, 1, 264)),
+    (16384, 128, ("vector", 16, 32, 1, 264)),
+])
+def test_bwd_plan_is_pinned_at_the_training_shapes(R, D, want):
+    assert tuple(RN._bwd_plan(R, D, BF16, True, 132)) == want
+
+
+@pytest.mark.parametrize("R,D,dtype,aligned", [
+    (7, 1001, BF16, True),      # D not a multiple of 8 bf16
+    (5, 1001, F32, True),
+    (1, 1, F32, True),
+    (3, 6, F32, True),          # 6 f32 is not whole 16-byte vectors
+    (4096, 2560, BF16, False),  # a pointer off 16 bytes
+    (1, 128, F32, False),
+    (2, 8192, F32, True),       # 2,048 vectors: no instance's block
+])
+def test_bwd_plan_sends_the_rest_to_the_general_body(R, D, dtype, aligned):
+    plan = RN._bwd_plan(R, D, dtype, aligned)
+    assert plan.body == "general" and plan.vectors_per_thread == 0
+    G = plan.threads_per_row
+    assert G == (32 if D <= RN.BWD_WARP_ROW_D else RN.BWD_THREADS)
+    assert plan.rows_per_block == RN.BWD_THREADS // G
+    assert 1 <= plan.grid <= -(-R // plan.rows_per_block)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_bwd_plan_covers_every_row_once_within_the_kernels_instances(
+        dtype):
+    """The backward walks rows as the forward does (a grid stride of
+    rows_per_block rows): every row once, every vector of a row once, a
+    block within its instance's __launch_bounds__ and the dw partials in
+    shared memory."""
+    V = 16 // dtype.itemsize
+    for R in (1, 3, 8, 32, 48, 132, 300, 2048, 4096, 32768, 131072):
+        for D in (8, 64, 96, 128, 256, 1536, 2560, 3000, 4096, 8192):
+            if D % V:
+                continue
+            plan = RN._bwd_plan(R, D, dtype, True)
+            if plan.body == "general":
+                assert D // V > RN.BWD_WIDE_ROW_THREADS, (R, D, plan)
+                continue
+            G, vpt = plan.threads_per_row, plan.vectors_per_thread
+            threads = G * plan.rows_per_block
+            assert vpt in RN.BWD_VECTORS
+            assert threads <= RN.bwd_max_threads(vpt) and threads % 32 == 0
+            assert (G & (G - 1)) == 0 if G <= 32 else G % 32 == 0
+            assert 4 * (plan.rows_per_block * D + 128) <= 200 * 1024
+            rows, vecs = _covered(plan, R, D // V)
+            assert (rows == 1).all(), (R, D, plan)
+            assert (vecs == 1).all(), (R, D, plan)
