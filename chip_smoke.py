@@ -34,8 +34,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  planted faults, the body that ran each case and the
                  ptxas report of both bodies. The backward kernels
                  (training): K2's (flash_attention_bwd.cu) at Qwen3-4B's
-                 shapes at B = 4, S = 1024 and a ragged S = 1000 in bf16
-                 and at D = 32 in f32, K4a's and K4b's (rmsnorm_bwd.cu)
+                 shapes at B = 4, S = 1024 and a ragged S = 1000 in bf16,
+                 at Zamba2-2.7B's shared block (H = KVH = 32, D = 80) in
+                 bf16 and at D = 32 and 80 in f32; K5's
+                 (ssd_chunk_bwd.cu) at Mamba2-780M's and Zamba2-2.7B's
+                 training shapes (B = 4, S = 1024) in bf16, a ragged S =
+                 1000, g = 8 and f32; K4a's and K4b's (rmsnorm_bwd.cu)
                  at (4096, 2560) and the qk-norm's (131072, 128) rows,
                  with and without the residual's gradient, and in f32:
                  each against the plain backward within its limit, a
@@ -68,7 +72,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
                  inputs, held bitwise to each other, for every policy at
-                 N = EAGER_N (100).
+                 N = EAGER_N (50).
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -208,12 +212,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  grid's launches and forms, K4a/K4b's pinned geometries,
                  the rail's absence from the untraced units, the lint; a
                  failing gate fails the run.
-5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 500), the options
+5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 250), the options
                  spec, the static cluster's two specs and the dynamic
                  cluster's K = 4 entries (both routers, ESFF and SFF) at
-                 N = 1,000, the churn phase's
+                 N = 500, the churn phase's
                  two specs (cycles scaled to SPAN / 3) and resil-tiers
-                 (ESFF and SFF, its cycle scaled alike) at N = 500, on
+                 (ESFF and SFF, its cycle scaled alike) at N = 250, on
                  the card (K0 and its K-node variant) and on the CPU (the
                  eager loops), bitwise on every metric; a planted one-ulp
                  fault in ``resp_sum`` must be rejected.
@@ -242,23 +246,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a prefill of the run, every time through its wgmma
                  body, K2 and K3 (head_dim 80) once a shared-block
                  application.
-9. ``train``     the dense family's training (TRAIN_FULL and the notes
-                 above it): (a) the qwen3-4b smoke config in f32 on numpy
+9. ``train``     training (TRAIN_FULL and the notes above it), for each
+                 of qwen3-4b (dense), mamba2-780m (ssm) and zamba2-2.7b
+                 (hybrid): (a) the smoke config in f32 on numpy
                  weights, 5 steps of `repro_torch.launch.train`, each
                  step's loss and grad norm against the JAX package's
-                 (scripts/train_expected.json); (b) Qwen3-4B at full
-                 width cut to 2 layers, bf16, B = 2, S = 1024: one loss
-                 and backward through K2, K4a, K4b and their backward
-                 kernels against the plain path, and its launches against
-                 the count from the code; (c) Qwen3-4B at full width (36
-                 layers), bf16, f32 moments, global batch 4, S = 1024, 10
-                 steps: losses finite and falling by at least 0.5, s a
-                 step, tokens/s, peak memory, the model-FLOPs share
+                 (scripts/train_expected.json); (b) the full width cut
+                 to 2 layers (Zamba2-2.7B to one Mamba2 layer and one
+                 shared block: TRAIN_ARCHS), bf16,
+                 B = 2, S = 1024: one loss and backward through the
+                 kernels (K2, K4a, K4b, K5) and their backward kernels
+                 against the plain path, and its launches against the
+                 count from the code; for Zamba2-2.7B also at 6 layers
+                 (a whole group at attn_every 6) in f32 (TRAIN_DEEP),
+                 with a bf16 control that must miss its limit; (c) the full width (36, 48 and 54
+                 layers), bf16, f32 moments, global batch 4, S = 1024,
+                 10 steps: losses finite and falling by at least 0.5, s
+                 a step, tokens/s, peak memory, the model-FLOPs share
                  (``mfu``) and each kernel's launches a step against the
                  count from the code, set to 0 just before the run and
-                 read after each step; (d) crash (``fail_at``) after a
-                 checkpoint and restart at (b)'s size, the resumed run's
-                 parameters bitwise the uninterrupted run's.
+                 read after each step; then (d) crash (``fail_at``)
+                 after a checkpoint and restart at Qwen3-4B's (b) size,
+                 the resumed run's parameters bitwise the uninterrupted
+                 run's.
 10. ``profile``  (``--profile`` only) torch.profiler over the Fig. 5
                  run (each policy's K0 device time a launch, the device
                  busy share)
@@ -313,36 +323,44 @@ EXPECTED_FILE = os.path.join(HERE, "scripts", "k0_expected.json")
 CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
                                      "cluster_expected.json")
 # the card-vs-CPU parities' N (Fig. 5's and the options'; 2,000 until the
-# resilience phase needed the room); their CPU sides run in worker
-# processes after the card's timed phases
-PARITY_N = 1000
-# Fig. 5's OpenWhisk-v2 parity job runs at N = 500: at 2,000 its timers
-# made it the parity phase's floor (123.3 s of CPU), at 1,000 it still took
-# 54 s of the smoke's run
-PARITY_N_OWV2 = 500
-# the dynamic cluster's parity: N = 1,000, K = 4 nodes of 8 slots under
-# both dynamic routers (the CPU side is the eager K-node loop)
-DYNAMIC_PARITY = dict(n_requests=1000, ks=(4,))
-# the churn parity: both churn specs at N = 500 (1,000 until the
-# resilience phase needed the room: its jobs took ~40 s of CPU each),
-# their churn cycles and delay swings SPAN / 3 of that trace's span, so
-# that outages fall in it
-CHURN_PARITY_N = 500
-# the static cluster's parity at N = 1,000 (2,000 until the resilience
+# resilience phase needed the room, 1,000 until the ssm and hybrid train
+# runs did: the parity phase took 59.2 s of a 429.9 s smoke at 1,000 on
+# an H100 at 700 W); their CPU sides run in worker processes after the
+# card's timed phases
+PARITY_N = 500
+# Fig. 5's OpenWhisk-v2 parity job runs at half of PARITY_N: at 2,000 its
+# timers made it the parity phase's floor (123.3 s of CPU), at 1,000 it
+# still took 54 s of the smoke's run
+PARITY_N_OWV2 = 250
+# the dynamic cluster's parity: N = 500 (1,000 until the ssm and hybrid
+# train runs needed the room), K = 4 nodes of 8 slots under both dynamic
+# routers (the CPU side is the eager K-node loop)
+DYNAMIC_PARITY = dict(n_requests=500, ks=(4,))
+# the churn parity: both churn specs at N = 250 (1,000 until the
+# resilience phase needed the room: its jobs took ~40 s of CPU each; 500
+# until the ssm and hybrid train runs did), their churn cycles and delay
+# swings SPAN / 3 of that trace's span, so that outages fall in it
+CHURN_PARITY_N = 250
+# the static cluster's parity at PARITY_N (2,000 until the resilience
 # phase needed the room: its jobs took ~46 s of CPU each)
 STATIC_PARITY_N = PARITY_N
-# the resilience parity: resil-tiers (ESFF and SFF) at N = 500, its churn
-# cycle SPAN / 3 of that trace's span
-RESIL_PARITY_N = 500
+# the resilience parity: resil-tiers (ESFF and SFF) at N = 250 (500 until
+# the ssm and hybrid train runs), its churn cycle SPAN / 3 of that
+# trace's span
+RESIL_PARITY_N = 250
 # the K-node variant's plain version on the card: the eager K-node loop
 # at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel (100
-# until the resilience phase needed the room)
-CLUSTER_EAGER_N = 60
-# ... and in the resilience phase at this N (ESFF and SFF), and for the
-# K-node variants that only that phase runs (ESFF-H, OpenWhisk,
-# FaasCache) at RESIL_EAGER_N_OTHERS
+# until the resilience phase needed the room, 60 until the ssm and hybrid
+# train runs did; both churn lanes still re-route at 30: 5 and 8 times)
+CLUSTER_EAGER_N = 30
+# ... and in the resilience phase at this N (ESFF and SFF; its breaker
+# lane trips once at 30, never at 20), and for the K-node variants that
+# only that phase runs (ESFF-H, OpenWhisk, FaasCache) at
+# RESIL_EAGER_N_OTHERS (15 until the ssm and hybrid train runs; at 8 each
+# lane still retries 2 requests and the churn lane re-routes one:
+# `resil_eager_quiet` holds every lane to acting)
 RESIL_EAGER_N = 30
-RESIL_EAGER_N_OTHERS = 15
+RESIL_EAGER_N_OTHERS = 8
 # the resilience specs whose launches are also timed alone by events
 # (each policy's): the heaviest fig_resilience spec, both breaker specs
 # and resil-tiers; every other spec's launch is timed by the host clock
@@ -359,9 +377,10 @@ PARITY_WORKERS = 6
 TELEMETRY_EXPECTED_FILE = os.path.join(HERE, "scripts",
                                        "telemetry_expected.json")
 # the telemetry phase: the traced eager loops on the card beside the traced
-# kernels on each case cut to this N, and the Fig. 5 lanes traced at full
-# size for these policies
-TELEMETRY_EAGER_N = 40
+# kernels on each case cut to this N (40 until the ssm and hybrid train
+# runs needed the room; every case still writes 49-142 records), and the
+# Fig. 5 lanes traced at full size for these policies
+TELEMETRY_EAGER_N = 20
 TELEMETRY_FULL = ("esff", "sff")
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
@@ -385,10 +404,11 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): every policy at N = 100 (a step
-# costs ~8-12 ms there; cut from 150 to make room for the train phase:
-# the smoke keeps under 450 s)
-EAGER_N = 100
+# the eager loop on the card (eager_card): every policy at N = 50 (a step
+# costs ~8-12 ms there; cut from 150 to 100 to make room for the dense
+# train phase, and to 50 for the ssm and hybrid ones: the smoke keeps
+# under 450 s)
+EAGER_N = 50
 # each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
 # cold_aware, sff>, false> of csrc/event_loop.cu, and its K-node variant
 # event_loop_cluster_kernel<..., true>, and how their mangled names
@@ -479,6 +499,17 @@ SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
 #   and one of g w s a row, dw a two-stage f32 sum over the rows.
 # In f32 all three are held to F32_GRAD_TOL (tests/test_kernels.py's f32
 # TOL).
+# - ssd_chunk_backward (K5-bwd), bf16 and f32 inputs alike: both sides
+#   widen the same inputs exactly and sum in f32, so only the order of the
+#   f32 sums differs (over up to c n products a term, and c terms a sum);
+#   an output in bf16 (dx, dB and dC of bf16 inputs) is rounded once on
+#   each side, so the two may be one bf16 ulp apart (``out_round``: 2^-7
+#   of the value: the limit ``out_round`` |plain| holds one ulp below
+#   it, so a bf16 case's use of the limit reaches ~0.95 by design). The
+#   f32 outputs' sums reach ~1e2 at the training shapes (mean |ddt| ~147,
+#   |dcum| ~21, |dx| ~2); measured at 4.6e-4 at most on Mamba2-780M's
+#   shape in f32 (an H100 at 700 W), so atol 2e-3
+#   (4.4x that) plus rtol 1e-5.
 KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                       p_round=2.0 ** -8),
               "decode_attention": dict(rtol=1e-2, atol=1e-3),
@@ -489,7 +520,9 @@ KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                                o_round=2.0 ** -9,
                                                p_round=2.0 ** -8),
               "rmsnorm_backward": dict(rtol=1e-2, atol=1e-3),
-              "rmsnorm_residual_backward": dict(rtol=1e-2, atol=1e-3)}
+              "rmsnorm_residual_backward": dict(rtol=1e-2, atol=1e-3),
+              "ssd_chunk_backward": dict(rtol=1e-5, atol=2e-3,
+                                         out_round=2.0 ** -7)}
 F32_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 # the planted faults: attention without one tile of 64 kv positions (or,
 # with a single valid position, with one position too many); RMSNorm
@@ -508,7 +541,9 @@ FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
                               "of the row left out of the sum of squares",
           "rmsnorm_residual_backward": "the gradient of RMSNorm with the "
                                        "last D/8 of the row left out of "
-                                       "the sum of squares"}
+                                       "the sum of squares",
+          "ssd_chunk_backward": "the gradient of K5 without the causal "
+                                "tile pair s in [64, 128), t in [0, 64)"}
 
 # the serving kernels in the `kernels` line: (name, the TPU kernel it
 # replaces, the kernel-phase case whose times the line carries: the
@@ -539,6 +574,10 @@ TRAINING_KERNELS = (
     ("rmsnorm_residual_backward", "rmsnorm_bwd.cu",
      "src/repro/models/layers.py:70",
      "jax.grad of rms_norm after the residual add", "(4096, 2560) gres"),
+    ("ssd_chunk_backward", "ssd_chunk_bwd.cu",
+     "src/repro/models/mamba.py:50",
+     "jax.grad of ssd_chunked (its intra-chunk block)",
+     "mamba2-780m bf16 B=4 S=1024"),
 )
 # the backward kernels' instances whose ptxas lines the `kernels` line
 # carries: the bf16 bodies at the train phase's shapes (K2-bwd at D 128;
@@ -546,7 +585,14 @@ TRAINING_KERNELS = (
 TRAINING_PTXAS = {
     "flash_attention_bwd": ("dkdv_wgmma_kernelILi128E",
                             "dq_wgmma_kernelILi128E",
-                            "delta_kernelI13__nv_bfloat16Li128ELb1E"),
+                            "delta_kernelI13__nv_bfloat16Li128ELb1E",
+                            "dkdv_wgmma_kernelILi80E",
+                            "dq_wgmma_kernelILi80E",
+                            "delta_kernelI13__nv_bfloat16Li80ELb1E"),
+    # K5-bwd with x, B and C in bf16 at n = 128 (Mamba2) and 64 (Zamba2)
+    "ssd_chunk_bwd": ("ssd_chunk_bwd_kernelI13__nv_bfloat16S1_Li2E",
+                      "ssd_chunk_bwd_kernelI13__nv_bfloat16S1_Li1E",
+                      "group_sum_kernelI13__nv_bfloat16E"),
     "rmsnorm_bwd": ("rmsnorm_bwd_vector_kernelI13__nv_bfloat16S1_Li1E",
                     "dw_kernelI13__nv_bfloat16E")}
 # The train phase. (a) the qwen3-4b smoke config in f32 on
@@ -570,6 +616,35 @@ TRAIN_EXPECTED_FILE = os.path.join(HERE, "scripts", "train_expected.json")
 TRAIN_RTOL_FIRST = 1e-5
 TRAIN_RTOL = 1e-3
 TRAIN_CUT = dict(n_layers=2, global_batch=2, seq_len=1024)
+# the trained families: arch -> (b)'s cut of the depth (the dense family's
+# TRAIN_CUT; Mamba2-780M at 2 layers; Zamba2-2.7B at one Mamba2 layer and
+# one shared-block application, K2 and K2-bwd at head dim 80, after it);
+# (a), (b) and (c) each run for every arch, (c) at TRAIN_FULL's batch,
+# length, steps and lr. Gate (b) compares two bf16 paths whose roundings
+# differ, so it can only be as tight as the plain path's gradients are
+# determined: scripts/train_grad_breakdown.py --perturb-ssd multiplies
+# K5's output by 1 + 1e-6 z on the plain path and measures the
+# gradients' move. For Zamba2-2.7B cut to 6 layers (a group of 6, then
+# the shared block) that move is 5.7-7.5 % and the kernel path's 5.0-5.7
+# %, at 2 layers 1.0 % and 0.95 %, at 1 layer 0.71 % and 0.72 % (an H100
+# at 700 W). Each bf16 Mamba2 layer compounds the plain path's rounding,
+# so the bf16 cut keeps one layer and the 1 % limit stays; the served
+# group size is held in f32 (TRAIN_DEEP).
+TRAIN_ARCHS = {"qwen3-4b": dict(n_layers=TRAIN_CUT["n_layers"]),
+               "mamba2-780m": dict(n_layers=2),
+               "zamba2-2.7b": dict(n_layers=1, attn_every=1)}
+# (b) deep: the hybrid family at its served group size, Zamba2-2.7B cut to
+# 6 layers (one whole group at attn_every 6, then the shared block on
+# concat(h, h0)), in f32, where the plain path is determined: the kernel
+# path against the plain path, loss and each gradient norm-wise within
+# TRAIN_DEEP_RTOL. The kernel path read 6.5e-5 there (its worst gradient,
+# A_log; scripts/train_grad_breakdown.py --perturb-ssd, an H100 at 700 W),
+# the limit is ~8x that. The control: the bf16 kernel path on the same
+# weights (rounded) and batch, against the same f32 plain path, must miss
+# the limit (it reads 28.8 %, its worst gradient w_bc), so that the
+# limit is shown to see an error of bf16's size.
+TRAIN_DEEP = dict(arch="zamba2-2.7b", n_layers=6, attn_every=6)
+TRAIN_DEEP_RTOL = 5e-4
 TRAIN_FULL = dict(arch="qwen3-4b", steps=10, global_batch=4, seq_len=1024,
                   lr=3e-4, seed=0)
 TRAIN_LOSS_DROP = 0.5
@@ -1455,9 +1530,10 @@ PARITY_PARTS = ("fig5", "options", "static_cluster", "dynamic_cluster",
 
 
 def phase_parity(np, api):
-    """The six parities: at N = 1,000 the Fig. 5 grid (OpenWhisk-v2 at N
-    = 500), the options phase's spec, the static cluster's two specs and
-    the dynamic cluster's K = 4 entries, at N = 500 the churn phase's two
+    """The six parities: at N = PARITY_N the Fig. 5 grid (OpenWhisk-v2 at
+    PARITY_N_OWV2), the options phase's spec, the static cluster's two
+    specs and the dynamic cluster's K = 4 entries, at CHURN_PARITY_N and
+    RESIL_PARITY_N the churn phase's two
     specs and resil-tiers (ESFF and SFF), each
     on the card (K0 and its K-node variant)
     against the CPU (the eager loops), bitwise on every metric; a planted
@@ -2314,7 +2390,32 @@ def phase_resilience(torch, np, api, fs, K0, cexp, n_requests):
            for p, x in rows.items()}
     need(not any(bad.values()), f"resilience: the eager K-node loop and the "
          f"kernel differ on the card in {bad}")
+    quiet = resil_eager_quiet(rows)
+    need(not quiet, f"resilience: eager K-node lanes on which the "
+         f"resilience layer did nothing: {quiet}")
     return res
+
+
+def resil_eager_quiet(rows):
+    """The eager K-node lanes (``eager_vs_kernel``'s rows by policy) on
+    which the layer never acted, so that a bitwise match would not show
+    it: every lane must retry or shed a request, a lane with churn
+    toggles must re-route one, and a breaker lane must trip."""
+    quiet = []
+    for p, x in rows.items():
+        for r in x:
+            for i, lab in enumerate(r["entries"]):
+                def of(k):
+                    return (r.get(k) or [0] * len(r["entries"]))[i]
+                if of("retried") + of("shed") == 0:
+                    quiet.append(f"{p} N={r['n_requests']} {lab}: no "
+                                 "retry or shed")
+                if of("toggles") and not of("reroutes"):
+                    quiet.append(f"{p} N={r['n_requests']} {lab}: no "
+                                 "re-route")
+                if lab.startswith("breaker") and not of("breaker_trips"):
+                    quiet.append(f"{p} N={r['n_requests']} {lab}: no trip")
+    return quiet
 
 
 def resil_eager_specs(np, api, CE):
@@ -3266,20 +3367,24 @@ def _grads_close(torch, name, case, gots, wants, faults, extras, tol):
     need(max(caught) > 1.0, f"{name} {case}: the limit {tol} does not "
          f"reject the planted fault ({FAULTS[name]}): {max(caught):.3g}")
     return dict(max_abs_err=max(errs), tol_use=max(uses),
-                fault_ratio=max(caught),
+                fault_ratio=max(caught), tol_use_by_output=uses,
+                max_abs_err_by_output=errs,
                 typical_abs=[w.float().abs().mean().item() for w in wants])
 
 
-def phase_training_kernels(torch, FA, RN):
+def phase_training_kernels(torch, np, FA, RN, K5):
     """The backward kernels against their plain backwards on the card, at
     the train phase's full-width shapes (Qwen3-4B: B = 4, S = 1024, H =
-    32, KVH = 8, D = 128; the norms' rows (4096, 2560) and the qk-norm's
-    (4096 x 32, 128)), bf16, and in f32 at small shapes: each within its
-    limit, a planted fault rejected, two runs bitwise equal; K2's forward
+    32, KVH = 8, D = 128; Zamba2-2.7B's shared block at H = KVH = 32, D =
+    80; the norms' rows (4096, 2560) and the qk-norm's (4096 x 32, 128);
+    K5-bwd at Mamba2-780M's and Zamba2-2.7B's training shapes, B = 4, S =
+    1024), bf16, and in f32 at small shapes: each within its limit, a
+    planted fault rejected, two runs bitwise equal; K2's forward
     log-sum-exp against torch.logsumexp, the forward timed with and
     without it; the kernel's, the plain backward's and one PyTorch call's
     times (the autograd backward of F.scaled_dot_product_attention or
-    F.rms_norm: a yardstick the port never calls) and the bound."""
+    F.rms_norm: a yardstick the port never calls; none computes K5's
+    backward) and the bound."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
@@ -3291,11 +3396,13 @@ def phase_training_kernels(torch, FA, RN):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     def grads_of(fn, inputs, g):
-        """autograd of fn(*inputs) for the output gradient g, on f32
-        copies."""
+        """autograd of fn(*inputs) for the output gradient g (a tuple for
+        a tuple of outputs), on f32 copies."""
         xs = [x.detach().float().requires_grad_() for x in inputs]
+        gs = tuple(t.float() for t in g) if isinstance(g, tuple) else \
+            g.float()
         with torch.enable_grad():
-            return torch.autograd.grad(fn(*xs), xs, g.float())
+            return torch.autograd.grad(fn(*xs), xs, gs)
 
     def timed_row(name, case, check, call, plain, library, n_bytes, n_ops,
                   kind, **extra):
@@ -3419,9 +3526,59 @@ def phase_training_kernels(torch, FA, RN):
                   **({} if library else dict(
                       library_note="no single PyTorch call")))
 
+    def ssd_case(case, shape, xd, bcd, valid=None):
+        b, nc, c, h, p, n, g = shape
+        args = ssd_inputs(torch, np, b, nc, c, h, p, n, g, xd, bcd,
+                          seed=len(rows), valid=valid)
+        r = np.random.default_rng(len(rows) + 100)
+        dy = torch.tensor(r.normal(size=(b, nc, c, h, p)), dtype=f32,
+                          device=dev)
+        dS = torch.tensor(r.normal(size=(b, nc, h, p, n)), dtype=f32,
+                          device=dev)
+        call = partial(K5.ssd_chunk_backward, *args, dy, dS)
+        got, again = call(), call()
+        need(all(torch.equal(a, b) for a, b in zip(got, again)),
+             f"ssd_chunk_backward {case}: two runs differ")
+        plain = partial(K5.ssd_chunk_backward_plain, *args, dy, dS)
+        want = plain()
+        fault = grads_of(lambda *a: ssd_fault_forward(torch, *a), args,
+                         (dy, dS))
+        tol = KERNEL_TOL["ssd_chunk_backward"]
+        extras = [tol["out_round"] * w.float().abs()
+                  if w.dtype == bf16 else None for w in want]
+        check = _grads_close(torch, "ssd_chunk_backward", case, got, want,
+                             fault, extras, tol)
+        del fault, extras, want, again
+        # the bound at the card's rate for the operands' type: x, B and
+        # C in bf16 at the tensor cores' rate (the weights split in three
+        # bf16 parts), else at the f32 CUDA-core rate; the f32 CUDA-core
+        # bound of the same work beside it (the rate this body runs at)
+        n_bytes, f32_ops, tc_ops = ssd_bwd_work(args[0], args[3])
+        b_f32, by_f32 = bound_ms(n_bytes, f32_ops, "f32")
+        tc = xd == bf16 and bcd == bf16
+        timed_row("ssd_chunk_backward", case, check, call, plain, None,
+                  n_bytes, tc_ops if tc else f32_ops, "bf16" if tc else
+                  "f32", deterministic=True,
+                  library_note="no single PyTorch call",
+                  bound_f32_ms=b_f32, bound_f32_by=by_f32,
+                  f32_ops=f32_ops, tc_ops=tc_ops,
+                  device_ms_by_kernel=device_split(torch, call, reps=5))
+
     attn_case("f32 B=2 S=200 D=32", 2, 200, 4, 2, 32, f32)
     attn_case("bf16 B=4 S=1024", 4, 1024, 32, 8, 128, bf16)
     attn_case("bf16 B=2 S=1000", 2, 1000, 32, 8, 128, bf16)  # ragged tile
+    # Zamba2-2.7B's shared block (MHA, D = 80) at the train phase's B
+    attn_case("bf16 B=4 S=1024 D=80", 4, 1024, 32, 32, 80, bf16)
+    attn_case("f32 B=1 S=200 D=80", 1, 200, 4, 4, 80, f32)
+    torch.cuda.empty_cache()
+    # K5-bwd at the training shapes (B 4, S 1024: 4 chunks of 256)
+    mamba, zamba = (4, 4, 256, 48, 64, 128, 1), (4, 4, 256, 80, 64, 64, 1)
+    ssd_case("mamba2-780m bf16 B=4 S=1024", mamba, bf16, bf16)
+    ssd_case("zamba2-2.7b bf16 B=4 S=1024", zamba, bf16, bf16)
+    ssd_case("mamba2-780m bf16 B=1 S=1000 ragged", (1,) + mamba[1:], bf16,
+             bf16, valid=1000)
+    ssd_case("g=8 bf16 B=1 S=1024", (1,) + mamba[1:6] + (8,), bf16, bf16)
+    ssd_case("mamba2-780m f32 B=1 S=1024", (1,) + mamba[1:], f32, f32)
     torch.cuda.empty_cache()
     norm_case("rmsnorm_backward", "(4096, 2560)", 4096, 2560, bf16, False,
               False)
@@ -3499,6 +3656,44 @@ def ssd_work(x, B):
     f32_ops = cells * (2 * tri * (n + p) + 4 * tri + 2 * c * p * n
                        + 3 * c * n)
     tc_ops = cells * (2 * tri * n + 3 * 2 * tri * p + 3 * 2 * c * p * n)
+    return n_bytes, f32_ops, tc_ops
+
+
+def ssd_fault_forward(torch, x, dt, cum, B, C):
+    """K5's plain forward (f32) without the causal tile pair s in [64,
+    128), t in [0, 64): the planted fault of K5-bwd, by autograd."""
+    c, h, g = x.shape[2], x.shape[3], B.shape[3]
+    keep = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    keep[64:128, :64] = False
+    Bh, Ch = (a.repeat_interleave(h // g, 3) for a in (B, C))
+    diff = (cum[:, :, :, None] - cum[:, :, None]).masked_fill(
+        ~keep[:, :, None], float("-inf"))
+    sc = torch.einsum("bcshn,bcthn->bcsth", Ch, Bh)
+    y = torch.einsum("bcsth,bcth,bcthp->bcshp", sc * torch.exp(diff), dt, x)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt
+    return y, torch.einsum("bcthn,bcth,bcthp->bchpn", Bh, w, x)
+
+
+def ssd_bwd_work(x, B):
+    """(bytes, f32 operations, tensor-core operations) of one K5-bwd
+    call: x, dt, cum, B, C, dy and dS read once and dx, ddt, dcum, dB and
+    dC written once, at their element sizes; the operations the gradient
+    needs over s >= t (the scores C B^T and dM = dy x^T, then M^T dy, dM
+    C and dM^T B) and the state's B dS^T and dS^T x, with the weights
+    (exponent, products); the tensor-core count takes the same products
+    at the bf16 rate with the weights split in three bf16 parts (as K5's
+    wgmma body does) for the four products that read them."""
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    cells = b * nc * h
+    tri = c * (c + 1) // 2
+    xs, bs = x.element_size(), B.element_size()
+    n_bytes = (2 * xs * cells * c * p + 4 * 4 * b * nc * c * h
+               + 2 * 2 * bs * b * nc * c * g * n + 4 * cells * c * p
+               + 4 * cells * p * n)
+    f32_ops = cells * (2 * tri * (3 * n + 2 * p) + 4 * c * p * n + 8 * tri)
+    tc_ops = cells * (2 * tri * (n + p) + 3 * 2 * tri * (2 * n + p)
+                      + 2 * 2 * c * p * n)
     return n_bytes, f32_ops, tc_ops
 
 
@@ -3939,95 +4134,110 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
 
 
 # ------------------------------------------------------- phase 10: train
-def train_counts(FA, RN):
-    """The six training-path counts: K2, K2-bwd, K4a, K4a-bwd, K4b,
-    K4b-bwd launches."""
+def train_counts(FA, RN, K5):
+    """The eight training-path counts: K2, K2-bwd, K4a, K4a-bwd, K4b,
+    K4b-bwd, K5, K5-bwd launches."""
     return (FA.flash_attention.launches,
             FA.flash_attention_backward.launches, RN.rmsnorm.launches,
             RN.rmsnorm_backward.launches, RN.rmsnorm_residual.launches,
-            RN.rmsnorm_residual_backward.launches)
+            RN.rmsnorm_residual_backward.launches, K5.ssd_chunk.launches,
+            K5.ssd_chunk_backward.launches)
 
 
 TRAIN_COUNT_NAMES = ("flash_attention", "flash_attention_backward",
                      "rmsnorm", "rmsnorm_backward", "rmsnorm_residual",
-                     "rmsnorm_residual_backward")
+                     "rmsnorm_residual_backward", "ssd_chunk",
+                     "ssd_chunk_backward")
 
 
-def train_counts_want(n_layers):
+def train_counts_want(n_layers, family="dense", attn_every=0):
     """A step's launches from the code (`Model.loss` under per-layer
-    checkpointing, tests/test_torch_train.py): K2 forward twice a layer
-    (the forward, the recomputation), backward once; K4a the first norm1
-    and the q- and k-norms, twice, backward once; K4b each norm2 and each
-    later norm1 twice and the final norm once, backward once each."""
+    checkpointing, tests/test_torch_train.py). Dense: K2 forward twice a
+    layer (the forward, the recomputation), backward once; K4a the first
+    norm1 and the q- and k-norms, twice, backward once; K4b each norm2
+    and each later norm1 twice and the final norm once, backward once
+    each. ssm and hybrid, with A = n_layers // attn_every shared-block
+    applications (not checkpointed; 0 for ssm): K5 twice a layer and its
+    backward once; K2 and K2-bwd A; K4a the first norm1 and each gate norm
+    twice and the shared norm1 once, backward once each; K4b each later
+    norm1 twice, the shared norm2 and the final norm once, backward once
+    each."""
     L = n_layers
-    return (2 * L, L, 2 * (1 + 2 * L), 1 + 2 * L, 2 * (2 * L - 1) + 1,
-            2 * L)
+    if family == "dense":
+        return (2 * L, L, 2 * (1 + 2 * L), 1 + 2 * L, 2 * (2 * L - 1) + 1,
+                2 * L, 0, 0)
+    A = L // attn_every if family == "hybrid" else 0
+    return (A, A, 2 * (1 + L) + A, 1 + L + A, 2 * (L - 1) + A + 1, L + A,
+            2 * L, L)
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """The model's kernels (K2 and K4a in `repro_torch.models.layers`, K4b
-    in `repro_torch.models.model`) swapped for their plain versions;
-    autograd through those is their plain backward."""
+    in `repro_torch.models.model`, K5 in `repro_torch.models.mamba`)
+    swapped for their plain versions; autograd through those is their
+    plain backward."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_chunk as K5
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
-    saved = (L.flash_attention, L.rmsnorm, M.rmsnorm_residual)
+    saved = (L.flash_attention, L.rmsnorm, M.rmsnorm_residual, MB.ssd_chunk)
     L.flash_attention = (lambda q, k, v, causal=True, scale=None:
                          FA.flash_attention_plain(q, k, v, causal=causal,
                                                   scale=scale))
     L.rmsnorm = lambda x, w, eps=1e-6: RN.rmsnorm_plain(x, w, eps)
     M.rmsnorm_residual = (lambda x, r, w, eps=1e-6:
                           RN.rmsnorm_residual_plain(x, r, w, eps))
+    MB.ssd_chunk = K5.ssd_chunk_plain
     try:
         yield
     finally:
-        L.flash_attention, L.rmsnorm, M.rmsnorm_residual = saved
+        (L.flash_attention, L.rmsnorm, M.rmsnorm_residual,
+         MB.ssd_chunk) = saved
 
 
 def train_flops(cfg, n_params, batch, seq_len):
-    """Model FLOPs of one training step: 6 x parameters x tokens, plus
-    the causal attention's products (4 B H D S (S + 1) / 2 a layer
-    forward) three times (forward and backward)."""
-    attn = 4 * batch * cfg.n_heads * cfg.head_dim_ * seq_len * (
-        seq_len + 1) // 2
-    return 6 * n_params * batch * seq_len + 3 * cfg.n_layers * attn
+    """Model FLOPs of one training step: 6 x parameters x tokens, plus,
+    three times (forward and backward), the products that no parameter
+    counts: the causal attention's (4 B H D S (S + 1) / 2 a layer, or a
+    shared-block application of the hybrid family) and the SSD block's
+    (a cell of chunk c: the scores and y over s >= t, 2 c (c + 1) / 2 (n
+    + p), the chunk state and the inter-chunk term, 4 c p n)."""
+    S = seq_len
+    flops = 6 * n_params * batch * S
+    apps = {"dense": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    if apps:
+        flops += 3 * apps * 4 * batch * cfg.n_heads * cfg.head_dim_ * S * (
+            S + 1) // 2
+    if cfg.family != "dense":
+        c = cfg.ssm_chunk
+        cells = batch * (-(-S // c)) * cfg.ssm_heads
+        p, n = cfg.ssm_headdim, cfg.ssm_state
+        flops += 3 * cfg.n_layers * cells * (c * (c + 1) * (n + p)
+                                             + 4 * c * p * n)
+    return flops
 
 
-def phase_train(torch, np, FA, RN):
-    """The dense family's training on the card (see TRAIN_FULL and the
-    notes above it): (a) f32 against the JAX package's constants, (b) the
-    kernel path against the plain path at full width and 2 layers, (c) the
-    full-width run through `repro_torch.launch.train`, (d) crash and
-    restart."""
-    import gc
-    import shutil
-
+def train_jax_parity(torch, np, arch, exp, counts):
+    """(a): the smoke config of ``arch`` in f32 on `parity_weights`,
+    `launch.train` step by step against the JAX package's losses and
+    grad norms ``exp`` (scripts/train_expected.json)."""
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.train.data import synthetic_lm_batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    dev = torch.device("cuda")
-    res = {"phase": "train"}
-    quiet = dict(log_every=1 << 30)
-
-    # (a) f32 smoke training against the JAX package
-    with open(TRAIN_EXPECTED_FILE) as f:
-        exp = json.load(f)
-    cfg = get_arch(exp["arch"]).smoke()
+    cfg = get_arch(arch).smoke()
     shapes = {k: tuple(v.shape) for k, v in
               build_model(cfg, "cpu").state_dict().items()}
     got = []
-    c0 = train_counts(FA, RN)
+    c0 = counts()
     t0 = time.perf_counter()
-    train(exp["arch"], steps=exp["steps"], global_batch=exp["global_batch"],
+    train(arch, steps=exp["steps"], global_batch=exp["global_batch"],
           seq_len=exp["seq_len"], lr=exp["lr"], seed=exp["seed"],
           params=parity_weights(np, shapes), device="cuda",
-          on_step=lambda s, m: got.append(m), **quiet)
+          on_step=lambda s, m: got.append(m), log_every=1 << 30)
     a_s = time.perf_counter() - t0
     bad = []
     for i, m in enumerate(got):
@@ -4036,80 +4246,189 @@ def phase_train(torch, np, FA, RN):
                 TRAIN_RTOL
             if not abs(m[key] - exp[key][i]) <= rtol * abs(exp[key][i]):
                 bad.append((i, key, m[key], exp[key][i]))
-    res["jax_parity"] = dict(
-        steps=len(got), loss=[m["loss"] for m in got],
+    out = dict(
+        arch=arch, seq_len=exp["seq_len"], steps=len(got),
+        loss=[m["loss"] for m in got],
         grad_norm=[m["grad_norm"] for m in got],
         loss_rel_err=[abs(m["loss"] / exp["loss"][i] - 1)
                       for i, m in enumerate(got)],
         grad_norm_rel_err=[abs(m["grad_norm"] / exp["grad_norm"][i] - 1)
                            for i, m in enumerate(got)],
         launches=dict(zip(TRAIN_COUNT_NAMES, (b - a for a, b in zip(
-            c0, train_counts(FA, RN))))), seconds=a_s,
+            c0, counts())))), seconds=a_s,
         step_seconds=[m["seconds"] for m in got])
-    need(len(got) == exp["steps"] and not bad, f"train (a): the f32 "
+    need(len(got) == exp["steps"] and not bad, f"train (a) {arch}: the f32 "
          f"smoke training differs from the JAX package's: {bad}")
+    return out
 
-    # (b) the kernel path against the plain path, full width, 2 layers
+
+def loss_and_grads(model, batch):
+    """One loss and backward of ``model`` on ``batch``: the loss and each
+    parameter's gradient in f32."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(batch)
+    loss.backward()
+    return loss.item(), {n: p.grad.float() for n, p in
+                         model.named_parameters()}
+
+
+def train_kernel_vs_plain(torch, arch, cut_to, counts):
+    """(b): ``arch`` at full width cut as ``cut_to`` says (config
+    overrides: the depth, and the hybrid family's group size), bf16, B =
+    2, S = 1024: one loss and backward through the kernels against the
+    same with the kernels swapped for their plain versions; the launches
+    against the count from the code."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.data import synthetic_lm_batch
+    dev = torch.device("cuda")
     t0 = time.perf_counter()
-    cut = get_arch(TRAIN_FULL["arch"]).replace(n_layers=TRAIN_CUT["n_layers"])
+    cut = get_arch(arch).replace(**cut_to)
     model = build_model(cut, dev, trainable=True)
     model.init_weights(torch.Generator(device=dev).manual_seed(0))
     batch = {k: torch.as_tensor(v).long().to(dev) for k, v in
              synthetic_lm_batch(cut, TRAIN_CUT["global_batch"],
                                 TRAIN_CUT["seq_len"], 0).items()}
 
-    def loss_and_grads():
-        for p in model.parameters():
-            p.grad = None
-        loss, _ = model.loss(batch)
-        loss.backward()
-        return loss.item(), {n: p.grad.float() for n, p in
-                             model.named_parameters()}
-    c0 = train_counts(FA, RN)
-    lk, gk = loss_and_grads()
-    c1 = train_counts(FA, RN)
+    c0 = counts()
+    lk, gk = loss_and_grads(model, batch)
+    c1 = counts()
     with plain_kernels():
-        lp, gp = loss_and_grads()
-    need(train_counts(FA, RN) == c1, "train (b): a kernel launched on the "
+        lp, gp = loss_and_grads(model, batch)
+    need(counts() == c1, f"train (b) {arch}: a kernel launched on the "
          "plain path")
     rel = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gk}
     rtol = KERNEL_TOL["flash_attention"]["rtol"]
     launches = tuple(b - a for a, b in zip(c0, c1))
-    res["kernel_vs_plain"] = dict(
-        config="qwen3-4b full width, 2 layers, bf16, B=2, S=1024",
+    want = train_counts_want(cut.n_layers, cut.family, cut.attn_every)
+    out = dict(
+        config=f"{arch} full width, {cut.n_layers} layers"
+        + (f" (attn_every {cut.attn_every})" if cut.attn_every else "")
+        + f", bf16, B={TRAIN_CUT['global_batch']}, "
+        f"S={TRAIN_CUT['seq_len']}",
         loss_kernel=lk, loss_plain=lp, loss_rel_err=abs(lk / lp - 1),
-        grad_rel_err=rel, rtol=rtol,
+        grad_rel_err=rel, grad_rel_err_max=max(rel.values()), rtol=rtol,
         launches=dict(zip(TRAIN_COUNT_NAMES, launches)),
         seconds=time.perf_counter() - t0)
-    need(abs(lk / lp - 1) <= rtol and max(rel.values()) <= rtol,
-         f"train (b): kernel and plain paths differ beyond rtol {rtol}: "
-         f"loss {lk} vs {lp}, gradients {rel}")
-    need(launches == train_counts_want(cut.n_layers), f"train (b): "
-         f"launches {launches}, the code gives "
-         f"{train_counts_want(cut.n_layers)}")
     del model, gk, gp, batch
     gc.collect()
     torch.cuda.empty_cache()
+    need(abs(lk / lp - 1) <= rtol and max(rel.values()) <= rtol,
+         f"train (b) {arch}: kernel and plain paths differ beyond rtol "
+         f"{rtol}: loss {lk} vs {lp}, gradients {rel}")
+    need(launches == want, f"train (b) {arch}: launches {launches}, the "
+         f"code gives {want}")
+    return out
 
-    # (c) the full-width run
-    full = get_arch(TRAIN_FULL["arch"])
+
+def train_deep_hybrid(torch, counts):
+    """(b) deep (TRAIN_DEEP): the hybrid family cut to one whole group at
+    its served size, f32, B = 2, S = 1024: the kernel path against the
+    plain path within TRAIN_DEEP_RTOL, the launches against the count
+    from the code; then the bf16 kernel path on the same weights and
+    batch, which must miss that limit against the f32 plain path."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.train.data import synthetic_lm_batch
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    arch = TRAIN_DEEP["arch"]
+    cut = get_arch(arch).replace(
+        n_layers=TRAIN_DEEP["n_layers"], attn_every=TRAIN_DEEP["attn_every"])
+    f32 = cut.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(f32, dev, trainable=True)
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: torch.as_tensor(v).long().to(dev) for k, v in
+             synthetic_lm_batch(f32, TRAIN_CUT["global_batch"],
+                                TRAIN_CUT["seq_len"], 0).items()}
+
+    def rel(g, ref):
+        return {n: ((g[n] - ref[n]).norm() / ref[n].norm()).item()
+                for n in g}
+    c0 = counts()
+    lk, gk = loss_and_grads(model, batch)
+    c1 = counts()
+    with plain_kernels():
+        lp, gp = loss_and_grads(model, batch)
+    need(counts() == c1, f"train (b) deep {arch}: a kernel launched on the "
+         "plain path")
+    err = rel(gk, gp)
+    del gk
+    launches = tuple(b - a for a, b in zip(c0, c1))
+    want = train_counts_want(cut.n_layers, cut.family, cut.attn_every)
+    m16 = build_model(cut.replace(param_dtype="bfloat16",
+                                  compute_dtype="bfloat16"), dev,
+                      trainable=True)
+    with torch.no_grad():
+        src = dict(model.named_parameters())
+        for n, p in m16.named_parameters():
+            p.copy_(src[n])
+    del model, src
+    l16, g16 = loss_and_grads(m16, batch)
+    control = rel(g16, gp)
+    del m16, g16, gp, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(
+        config=f"{arch} full width, {cut.n_layers} layers (attn_every "
+        f"{cut.attn_every}), f32, B={TRAIN_CUT['global_batch']}, "
+        f"S={TRAIN_CUT['seq_len']}",
+        loss_kernel=lk, loss_plain=lp, loss_rel_err=abs(lk / lp - 1),
+        grad_rel_err=err, grad_rel_err_max=max(err.values()),
+        worst=max(err, key=err.get), rtol=TRAIN_DEEP_RTOL,
+        control_bf16_loss_rel_err=abs(l16 / lp - 1),
+        control_bf16_grad_rel_err_max=max(control.values()),
+        control_bf16_worst=max(control, key=control.get),
+        launches=dict(zip(TRAIN_COUNT_NAMES, launches)),
+        seconds=time.perf_counter() - t0)
+    need(out["loss_rel_err"] <= TRAIN_DEEP_RTOL
+         and out["grad_rel_err_max"] <= TRAIN_DEEP_RTOL,
+         f"train (b) deep {arch}: kernel and plain paths differ in f32 "
+         f"beyond rtol {TRAIN_DEEP_RTOL}: loss {lk} vs {lp}, gradients "
+         f"{err}")
+    need(out["control_bf16_grad_rel_err_max"] > TRAIN_DEEP_RTOL,
+         f"train (b) deep {arch}: the bf16 control is within rtol "
+         f"{TRAIN_DEEP_RTOL} of the f32 plain path")
+    need(launches == want, f"train (b) deep {arch}: launches {launches}, "
+         f"the code gives {want}")
+    return out
+
+
+def train_full_run(torch, arch, counts):
+    """(c): ``arch`` at full width, bf16, f32 moments, random weights,
+    TRAIN_FULL's global batch, length, steps and lr, through
+    `repro_torch.launch.train`; losses finite and falling by
+    TRAIN_LOSS_DROP, each kernel's launches a step against the count from
+    the code (set to 0 just before the run, read after each step)."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    full = get_arch(arch)
     per_step, steps = [], []
     last = [None]
 
     def on_step(s, m):
-        now = train_counts(FA, RN)
+        now = counts()
         per_step.append(tuple(b - a for a, b in zip(last[0], now)))
         last[0] = now
         steps.append(dict(step=s, loss=m["loss"], grad_norm=m["grad_norm"],
                           seconds=m["seconds"]))
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    last[0] = train_counts(FA, RN)
+    last[0] = counts()
     params, losses = train(
-        full.name, smoke=False, steps=TRAIN_FULL["steps"],
+        arch, smoke=False, steps=TRAIN_FULL["steps"],
         global_batch=TRAIN_FULL["global_batch"],
         seq_len=TRAIN_FULL["seq_len"], lr=TRAIN_FULL["lr"],
-        seed=TRAIN_FULL["seed"], on_step=on_step, **quiet)
+        seed=TRAIN_FULL["seed"], on_step=on_step, log_every=1 << 30)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in params.values())
@@ -4121,12 +4440,20 @@ def phase_train(torch, np, FA, RN):
     tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
     flops = train_flops(full, n_params, TRAIN_FULL["global_batch"],
                         TRAIN_FULL["seq_len"])
-    want = train_counts_want(full.n_layers)
-    res["full"] = dict(
-        config=f"qwen3-4b full width ({full.n_layers} layers, d "
-        f"{full.d_model}, {full.n_heads} / {full.n_kv_heads} heads of "
-        f"{full.head_dim_}, d_ff {full.d_ff}, vocab {full.vocab_size}), "
-        f"bf16, f32 moments", n_params=n_params, **TRAIN_FULL,
+    want = train_counts_want(full.n_layers, full.family, full.attn_every)
+    if full.family == "dense":
+        widths = (f"{full.n_heads} / {full.n_kv_heads} heads of "
+                  f"{full.head_dim_}, d_ff {full.d_ff}")
+    else:
+        widths = (f"{full.ssm_heads} SSM heads of {full.ssm_headdim}, "
+                  f"state {full.ssm_state}, chunk {full.ssm_chunk}")
+        if full.family == "hybrid":
+            widths += (f", a shared block of {full.n_heads} heads of "
+                       f"{full.head_dim_} every {full.attn_every} layers")
+    out = dict(
+        config=f"{arch} full width ({full.n_layers} layers, d "
+        f"{full.d_model}, {widths}, vocab {full.vocab_size}), bf16, f32 "
+        "moments", n_params=n_params, **dict(TRAIN_FULL, arch=arch),
         losses=losses, loss_drop=losses[0] - losses[-1], step_log=steps,
         s_per_step=step_s, tokens_per_s=tokens / step_s,
         max_memory_allocated_gib=peak / 2 ** 30,
@@ -4137,12 +4464,47 @@ def phase_train(torch, np, FA, RN):
         launches=dict(zip(TRAIN_COUNT_NAMES, (sum(x) for x in
                                                zip(*per_step)))),
         wall_s=wall)
-    need(all(math.isfinite(x) for x in losses), f"train (c): a loss is not "
-         f"finite: {losses}")
-    need(losses[0] - losses[-1] >= TRAIN_LOSS_DROP, f"train (c): the loss "
-         f"fell by {losses[0] - losses[-1]} < {TRAIN_LOSS_DROP}: {losses}")
-    need(all(x == want for x in per_step), f"train (c): launches a step "
-         f"{per_step}, the code gives {want}")
+    need(all(math.isfinite(x) for x in losses), f"train (c) {arch}: a loss "
+         f"is not finite: {losses}")
+    need(losses[0] - losses[-1] >= TRAIN_LOSS_DROP, f"train (c) {arch}: the "
+         f"loss fell by {losses[0] - losses[-1]} < {TRAIN_LOSS_DROP}: "
+         f"{losses}")
+    need(all(x == want for x in per_step), f"train (c) {arch}: launches a "
+         f"step {per_step}, the code gives {want}")
+    return out
+
+
+def phase_train(torch, np, FA, RN, K5):
+    """Training on the card (see TRAIN_FULL and the notes above it): for
+    each of TRAIN_ARCHS, (a) f32 against the JAX package's constants, (b)
+    the kernel path against the plain path at full width, cut in depth
+    (and for the hybrid family also at its served group size in f32:
+    TRAIN_DEEP), (c) the full-width run through `repro_torch.launch.train`; then (d)
+    crash and restart (the dense family's: the checkpointer does not
+    depend on the family)."""
+    import shutil
+
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.launch.train import train
+    counts = partial(train_counts, FA, RN, K5)
+    with open(TRAIN_EXPECTED_FILE) as f:
+        exp = json.load(f)
+    res = {"phase": "train", "families": {}}
+    for arch, cut_to in TRAIN_ARCHS.items():
+        t0 = time.perf_counter()
+        fam = dict(jax_parity=train_jax_parity(torch, np, arch, exp[arch],
+                                               counts),
+                   kernel_vs_plain=train_kernel_vs_plain(
+                       torch, arch, cut_to, counts))
+        if arch == TRAIN_DEEP["arch"]:
+            fam["kernel_vs_plain_deep"] = train_deep_hybrid(torch, counts)
+        fam["full"] = train_full_run(torch, arch, counts)
+        fam["seconds"] = time.perf_counter() - t0
+        emit(dict(phase="train", arch=arch, **fam))
+        if arch == TRAIN_FULL["arch"]:
+            res.update(fam)
+        else:
+            res["families"][arch] = fam
 
     # (d) crash and restart at (b)'s size
     out = os.path.join(HERE, "build", "train_restart")
@@ -4153,20 +4515,22 @@ def phase_train(torch, np, FA, RN):
               overrides=dict(n_layers=TRAIN_CUT["n_layers"]),
               optimizer=AdamWConfig(
                   lr=TRAIN_FULL["lr"],
-                  moment_dtype=TRAIN_RESTART["moment_dtype"]), **quiet)
+                  moment_dtype=TRAIN_RESTART["moment_dtype"]),
+              log_every=1 << 30)
+    arch = TRAIN_FULL["arch"]
     t0 = time.perf_counter()
     try:
-        train(full.name, ckpt_every=TRAIN_RESTART["ckpt_every"],
+        train(arch, ckpt_every=TRAIN_RESTART["ckpt_every"],
               fail_at=TRAIN_RESTART["fail_at"], out=os.path.join(out, "a"),
               **kw)
         crashed = False
     except RuntimeError as e:
         crashed = "injected failure" in str(e)
     need(crashed, "train (d): the run did not fail at fail_at")
-    resumed, r_losses = train(full.name, ckpt_every=TRAIN_RESTART[
+    resumed, r_losses = train(arch, ckpt_every=TRAIN_RESTART[
         "ckpt_every"], out=os.path.join(out, "a"), **kw)
     restart_s = time.perf_counter() - t0
-    clean, c_losses = train(full.name, **kw)
+    clean, c_losses = train(arch, **kw)
     diff = [n for n in clean if not torch.equal(resumed[n], clean[n])]
     res["restart"] = dict(
         **TRAIN_RESTART, resumed_losses=r_losses, clean_losses=c_losses,
@@ -4181,7 +4545,7 @@ def phase_train(torch, np, FA, RN):
          "from the checkpoint")
     need(not diff, f"train (d): the resumed run's parameters differ from "
          f"the uninterrupted run's in {diff}")
-    emit(res)
+    emit(dict(phase="train", restart=res["restart"]))
     return res
 
 
@@ -4241,8 +4605,8 @@ def main(argv=None) -> int:
         srows = timed("kernel_serving", phase_serving_kernels, torch, FA,
                       DA, RN)
         srows += timed("kernel_ssd", phase_ssd_kernel, torch, np, K5)
-        trows = timed("kernel_training", phase_training_kernels, torch, FA,
-                      RN)
+        trows = timed("kernel_training", phase_training_kernels, torch, np,
+                      FA, RN, K5)
         cexp = load_cluster_expected()
         exp = load_expected()
         main, main_rs = timed("main_path", phase_main_path, torch, np, api,
@@ -4273,8 +4637,10 @@ def main(argv=None) -> int:
                                   RN),
                    "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
                                       np, FA, DA, RN, K5)}
-        tr = timed("train", phase_train, torch, np, FA, RN)
+        tr = timed("train", phase_train, torch, np, FA, RN, K5)
         by_path["train"] = tr["full"]["launches"]
+        for arch, fam in tr["families"].items():
+            by_path[f"train {arch}"] = fam["full"]["launches"]
         if args.profile:
             timed("profile", phase_profile, torch, api, args.n_requests)
             timed("profile_serving", phase_profile_serving, torch)
@@ -4483,17 +4849,26 @@ def main(argv=None) -> int:
             source=f"src/repro_torch/csrc/{source}", replaces=replaces,
             pallas=False, note=f"no Pallas twin: {derived} (the JAX "
             "package has no backward kernel)",
-            launches=tr["full"]["launches"][name],
+            # the full-width training runs of every family, and each run
+            # of the train phase beside them
+            launches=sum(v.get(name, 0) for k, v in by_path.items()
+                         if k.startswith("train")),
             launches_by_path=dict(
-                train=tr["full"]["launches"][name],
+                {k: v.get(name, 0) for k, v in by_path.items()
+                 if k.startswith("train")},
                 train_f32_parity=tr["jax_parity"]["launches"][name],
                 train_kernel_vs_plain=tr["kernel_vs_plain"]["launches"][
-                    name]),
+                    name],
+                **{f"{part} {arch}": fam[part]["launches"][name]
+                   for arch, fam in tr["families"].items()
+                   for part in ("jax_parity", "kernel_vs_plain",
+                                "kernel_vs_plain_deep") if part in fam}),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"],
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"], device_ms=rep["device_ms"],
-            **{k: rep[k] for k in ("design_bound_ms", "device_ms_by_kernel")
+            **{k: rep[k] for k in ("design_bound_ms", "device_ms_by_kernel",
+                                   "bound_f32_ms", "library_note")
                if k in rep},
             ptxas=ptxas_lines(_build.BUILD_INFO.get(unit, {}).get(
                 "ptxas", ""), *TRAINING_PTXAS[unit]),

@@ -14,7 +14,7 @@
 //   dk_j  = scale sum_{i, heads h of kv head j's group} dS_ij q_i
 //   dv_j  = sum_{i, heads of the group} P_ij do_i
 // in f32, each output cast once to q's type. f32 or bf16; D in {32, 64,
-// 128} (80, the hybrid family's shared block, waits for its training).
+// 80, 128} (80: the hybrid family's shared block).
 //
 // What bounds it on an H100: operations. Each visible (i, j) pair costs
 // 4 D multiply-adds in the dk/dv pass and 3 D in the dq pass (the scores
@@ -155,10 +155,21 @@ struct alignas(VE * sizeof(T)) Vec {
   T e[VE];
 };
 
-// Dl[b, h, i] = sum_d do[b, i, h, d] o[b, i, h, d]: LPR = D / VE lanes a
-// row (VE = 16 / sizeof(T) elements, one 16-byte access of each tensor a
-// lane), 32 / LPR rows a warp, the rows' sums by shuffles inside the
-// lane group. Without PAD (the f32 body) Dl goes to delta[(b H + h) S +
+// the lanes a row of delta_kernel: D / VE 16-byte accesses (VE = 16 /
+// sizeof(T) elements), rounded up to a power of two so that a row's lanes
+// are a shuffle group (at D = 80: 10 accesses on 16 lanes in bf16, 20 on
+// 32 in f32; the lanes past the row's end add 0)
+template <typename T, int D>
+__host__ __device__ constexpr int delta_lanes() {
+  int l = 1;
+  while (l * static_cast<int>(16 / sizeof(T)) < D) l *= 2;
+  return l;
+}
+
+// Dl[b, h, i] = sum_d do[b, i, h, d] o[b, i, h, d]: LPR = delta_lanes
+// lanes a row (one 16-byte access of each tensor a lane, VE elements),
+// 32 / LPR rows a warp, the rows' sums by shuffles inside the lane
+// group. Without PAD (the f32 body) Dl goes to delta[(b H + h) S +
 // i]. With PAD (the bf16 body) the rows run to S_rows (S rounded up to
 // whole blocks) and two (B, H, S_rows) arrays are written: lse * log2(e)
 // at delta[(b H + h) S_rows + i] and Dl B H S_rows further on; rows past S
@@ -169,8 +180,8 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
              const float* __restrict__ lse, float* __restrict__ delta, int B,
              int S, int S_rows, int H) {
   constexpr int VE = 16 / sizeof(T);
-  constexpr int LPR = D / VE;
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "head dim");
+  constexpr int LPR = delta_lanes<T, D>();
+  static_assert(D % VE == 0 && LPR <= 32, "head dim");
   const long long gid =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long n = static_cast<long long>(B) * S_rows * H;
@@ -182,7 +193,7 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int i = static_cast<int>((r / H) % S_rows);
   const int b = static_cast<int>(r / (static_cast<long long>(H) * S_rows));
   float acc = 0.f;
-  if (live && i < S) {
+  if (live && i < S && part * VE < D) {
     const size_t at = ((static_cast<size_t>(b) * S + i) * H + h) * D +
                       part * VE;
     const Vec<T, VE> ov = *reinterpret_cast<const Vec<T, VE>*>(o + at);
@@ -433,7 +444,7 @@ cudaError_t launch_cores(const void* q, const void* k, const void* v,
   const T* do_t = static_cast<const T*>(dout);
   const long long rows = static_cast<long long>(B) * S * H;
   const long long blocks =
-      (rows * (D * sizeof(T) / 16) + kThreads - 1) / kThreads;
+      (rows * delta_lanes<T, D>() + kThreads - 1) / kThreads;
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
   delta_kernel<T, D, false><<<static_cast<int>(blocks), kThreads, 0, s>>>(
       static_cast<const T*>(o), do_t, lse, delta, B, S, S, H);
@@ -909,7 +920,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   using PQ = BwdPlan<D, false>;
   const int S_rows = (S + kOwn - 1) / kOwn * kOwn;
   const long long n = static_cast<long long>(B) * S_rows * H;
-  const long long blocks = (n * (D * 2 / 16) + kThreads - 1) / kThreads;
+  const long long blocks =
+      (n * delta_lanes<__nv_bfloat16, D>() + kThreads - 1) / kThreads;
   const int n_kt = (T_len + kOwn - 1) / kOwn, n_qt = S_rows / kOwn;
   if (blocks > INT32_MAX || n_kt > 65535 || n_qt > 65535)
     return cudaErrorInvalidValue;
@@ -977,6 +989,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                              T_len, H, KVH, scale, causal, s);
     case 64:
       return launch_d<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
+                             T_len, H, KVH, scale, causal, s);
+    case 80:
+      return launch_d<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,
                              T_len, H, KVH, scale, causal, s);
     case 128:
       return launch_d<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, S,

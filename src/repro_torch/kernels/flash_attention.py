@@ -41,9 +41,8 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
-# the backward kernel's head dims (80, the hybrid family's shared block,
-# comes with its training)
-BWD_HEAD_DIMS = (32, 64, 128)
+# the backward kernel's head dims (80: the hybrid family's shared block)
+BWD_HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = tuple(_build.DTYPE_CODE)
 _P = _build.PTR
 _I = ctypes.c_int

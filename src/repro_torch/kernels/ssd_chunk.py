@@ -35,6 +35,20 @@ version (counted in ``plain_calls``); a CUDA tensor launches the kernel
 (counted in ``launches``, and by body in ``body_launches``) or raises.
 There is no fallback from a failed build or launch to the plain
 version.
+
+Training: when an input requires a gradient (and grad mode is on),
+`ssd_chunk` runs through `SSDChunk`, a ``torch.autograd.Function``
+whose forward is the kernel as above and whose backward is
+`ssd_chunk_backward`, the hand-written backward kernel
+(``csrc/ssd_chunk_bwd.cu``; counted in its own ``launches``). Given the
+gradients dy (b, nc, c, h, p) and dS (b, nc, h, p, n), both f32 (either
+may be None: zero), it returns dx in x's dtype, ddt and dcum f32, and dB
+and dC in B's dtype, each summed over the heads of its group. The JAX
+package has no Pallas backward: ``jax.grad`` differentiates its plain
+`repro.models.mamba.ssd_chunked`, which the plain backward
+`ssd_chunk_backward_plain` (autograd through `ssd_chunk_plain`; counted
+in ``plain_calls``) computes on CPU tensors. The serving call (no
+gradient) stays the kernel alone.
 """
 from __future__ import annotations
 
@@ -56,6 +70,12 @@ _P = _build.PTR
 _I = ctypes.c_int
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _I, _P]
+# x dtype, B/C dtype, x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC,
+# scratch, b * nc, c, h, g, p, n, stream
+_BWD_ARGTYPES = [_I, _I] + [_P] * 13 + [_I] * 6 + [_P]
+# rows of a tile of the backward kernel (its scratch holds one partial
+# sum a tile a cell)
+BWD_TILE = 64
 
 
 def ssd_chunk_plain(x, dt, cum, B, C):
@@ -95,12 +115,9 @@ def body_for(x, B, C) -> str:
     return "cuda_core"
 
 
-def ssd_chunk(x, dt, cum, B, C):
-    """K5: x (b, nc, c, h, p) f32/bf16; dt, cum (b, nc, c, h) f32; B, C
-    (b, nc, c, g, n), both f32 or both bf16 (bf16 only with x bf16),
-    h % g == 0, p <= 64, n <= 256. Returns (y_diag (b, nc, c, h, p), states (b, nc, h, p, n)),
-    both f32."""
-    name = "ssd_chunk"
+def _check(name, x, dt, cum, B, C):
+    """Raise on anything the kernels do not take; returns (b, nc, c, h,
+    p, g, n)."""
     dev = x.device
     f32 = (torch.float32,)
     _build.check_tensor(f"{name}: x", x, DTYPES, dev, ndim=5)
@@ -128,6 +145,15 @@ def ssd_chunk(x, dt, cum, B, C):
     if not (1 <= p <= MAX_P and 1 <= n <= MAX_N):
         raise ValueError(f"{name}: head dim {p} and state {n}, kernel "
                          f"takes p <= {MAX_P} and n <= {MAX_N}")
+    return b, nc, c, h, p, g, n
+
+
+def _forward(x, dt, cum, B, C):
+    """The checked forward: the kernel on CUDA tensors, the plain version
+    on CPU ones."""
+    name = "ssd_chunk"
+    b, nc, c, h, p, g, n = _check(name, x, dt, cum, B, C)
+    dev = x.device
     if dev.type == "cpu":
         ssd_chunk.plain_calls += 1
         return ssd_chunk_plain(x, dt, cum, B, C)
@@ -147,6 +173,102 @@ def ssd_chunk(x, dt, cum, B, C):
     return y, states
 
 
+def ssd_chunk(x, dt, cum, B, C):
+    """K5: x (b, nc, c, h, p) f32/bf16; dt, cum (b, nc, c, h) f32; B, C
+    (b, nc, c, g, n), both f32 or both bf16 (bf16 only with x bf16),
+    h % g == 0, p <= 64, n <= 256. Returns (y_diag (b, nc, c, h, p),
+    states (b, nc, h, p, n)), both f32. When grad mode is on and an
+    input requires a gradient, the call goes through `SSDChunk`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, cum, B, C)):
+        return SSDChunk.apply(x, dt, cum, B, C)
+    return _forward(x, dt, cum, B, C)
+
+
 ssd_chunk.launches = 0
 ssd_chunk.body_launches = dict.fromkeys(BODIES, 0)
 ssd_chunk.plain_calls = 0
+
+
+def ssd_chunk_backward_plain(x, dt, cum, B, C, dy=None, dS=None):
+    """Plain backward: (dx, ddt, dcum, dB, dC) by autograd through
+    `ssd_chunk_plain` (what ``jax.grad`` of the JAX package's
+    ``ssd_chunked`` computes for the intra-chunk block), each in its
+    input's dtype; dy or dS None counts as zero."""
+    ins = [t.detach().requires_grad_() for t in (x, dt, cum, B, C)]
+    with torch.enable_grad():
+        y, S = ssd_chunk_plain(*ins)
+        outs = [(o, g) for o, g in ((y, dy), (S, dS)) if g is not None]
+        grads = torch.autograd.grad([o for o, _ in outs],
+                                    ins, [g for _, g in outs],
+                                    allow_unused=True) if outs else \
+            (None,) * 5
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip(ins, grads))
+
+
+def ssd_chunk_backward(x, dt, cum, B, C, dy=None, dS=None):
+    """The gradient of `ssd_chunk` at (x, dt, cum, B, C) for dy (b, nc,
+    c, h, p) and dS (b, nc, h, p, n), both f32 and contiguous (None:
+    zero). Returns (dx in x's dtype, ddt (b, nc, c, h) f32, dcum f32, dB
+    and dC (b, nc, c, g, n) in B's dtype, each summed over the heads of
+    its group). On CPU tensors: the plain backward."""
+    name = "ssd_chunk_backward"
+    b, nc, c, h, p, g, n = _check(name, x, dt, cum, B, C)
+    dev = x.device
+    f32 = (torch.float32,)
+    if dy is None:
+        dy = torch.zeros(b, nc, c, h, p, dtype=torch.float32, device=dev)
+    if dS is None:
+        dS = torch.zeros(b, nc, h, p, n, dtype=torch.float32, device=dev)
+    _build.check_tensor(f"{name}: dy", dy, f32, dev, ndim=5)
+    _build.check_tensor(f"{name}: dS", dS, f32, dev, ndim=5)
+    if dy.shape != x.shape or dS.shape != (b, nc, h, p, n):
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} must be x's shape "
+                         f"and dS {tuple(dS.shape)} (b, nc, h, p, n) = "
+                         f"{(b, nc, h, p, n)}")
+    if dev.type == "cpu":
+        ssd_chunk_backward.plain_calls += 1
+        return ssd_chunk_backward_plain(x, dt, cum, B, C, dy, dS)
+    fn = _build.c_entry("ssd_chunk_bwd", "ssd_chunk_backward",
+                        _BWD_ARGTYPES)
+    _build.require_cuda(name, dev)
+    dx = torch.empty_like(x)
+    ddt, dcum = torch.empty_like(dt), torch.empty_like(cum)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    # scratch: each head's dB and dC (b, nc, c, h, n), then one partial
+    # sum a tile a cell
+    tiles = -(-c // BWD_TILE)
+    scratch = torch.empty(2 * b * nc * c * h * n + b * nc * h * tiles,
+                          dtype=torch.float32, device=dev)
+    rc = fn(_build.DTYPE_CODE[x.dtype], _build.DTYPE_CODE[B.dtype],
+            x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), dS.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            scratch.data_ptr(), b * nc, c, h, g, p, n,
+            _build.stream_of(dev))
+    _build.launch_check(rc, name)
+    ssd_chunk_backward.launches += 1
+    return dx, ddt, dcum, dB, dC
+
+
+ssd_chunk_backward.launches = 0
+ssd_chunk_backward.plain_calls = 0
+
+
+class SSDChunk(torch.autograd.Function):
+    """K5 with its gradient: the forward kernel and
+    `ssd_chunk_backward`. Saves the five inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B, C):
+        y, states = _forward(x, dt, cum, B, C)
+        ctx.save_for_backward(x, dt, cum, B, C)
+        ctx.set_materialize_grads(False)
+        return y, states
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        return ssd_chunk_backward(
+            *ctx.saved_tensors, None if dy is None else dy.contiguous(),
+            None if dS is None else dS.contiguous())

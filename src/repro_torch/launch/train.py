@@ -4,6 +4,10 @@ one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b \
         --full --steps 10 --global-batch 4 --seq-len 1024   # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-780m \
+        --full --steps 10 --global-batch 4 --seq-len 1024   # ssm, the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \
+        --device cpu --steps 30 --seq-len 64                # hybrid smoke
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
         --steps 20 --ckpt-every 5 --out runs/demo
 
@@ -13,9 +17,10 @@ from the latest valid checkpoint in ``out`` (atomic, crc-checked saves,
 the JAX package's format); ``--fail-at N`` raises at step N to exercise
 the path. The initial parameters come from a ``torch.Generator`` seeded
 with ``seed`` on the device, or from a JAX parameter tree through
-`repro_torch.models.convert.from_jax_params` (``params=``). Only the
-dense family trains (`Model.loss`); ``--model-parallel > 1`` waits for
-the sharding bullet (ROADMAP Queue 1, item 6 (sharding)).
+`repro_torch.models.convert.from_jax_params` (``params=``). The dense
+(Qwen), ssm (Mamba2) and hybrid (Zamba2) families train (`Model.loss`);
+``--model-parallel > 1`` waits for the sharding bullet (ROADMAP Queue 1,
+item 6 (sharding)).
 """
 from __future__ import annotations
 

@@ -9,6 +9,14 @@ as the JAX package's ``lax.scan``). Decode is the O(1) per-token
 recurrence on the (heads, headdim, state) SSM state, plain PyTorch.
 The gate norm is K4a (`kernels.rmsnorm`).
 
+Training (`Model.loss`): a layer's forward takes a dict of its tensors
+(`layers.at`), and K5 and K4a run through their autograd Functions, so
+that the intra-chunk block's gradient is K5's backward kernel
+(`kernels.ssd_chunk.ssd_chunk_backward`); the gradient of the chunk
+sums (``torch.cumsum``), of the inter-chunk loop, the conv and the
+projections is plain autograd, as ``jax.grad`` differentiates them in
+the JAX package.
+
 `Mamba` holds the block's parameters stacked on a leading layer axis,
 with the JAX package's names, layouts and init distributions
 (`repro.models.mamba.init_mamba`), so that `convert.from_jax_params`
@@ -24,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.ssd_chunk import ssd_chunk
-from repro_torch.models.layers import init_normal_, rms_norm, stacked
+from repro_torch.models.layers import at, init_normal_, rms_norm, stacked
 
 
 def _depthwise_causal_conv(x, w, b, state=None):
@@ -154,42 +162,44 @@ class Mamba(nn.Module):
         for p in (self.A_log, self.D, self.gate_norm):
             p.fill_(1.0)
 
-    def _in_proj(self, l: int, x, conv_state):
-        """The projections, dt and the causal conv of x (B, L, d):
+    def _in_proj(self, l, x, conv_state):
+        """The projections, dt and the causal conv of x (B, L, d), for
+        layer ``l`` (its index, or a dict of its tensors: `layers.at`):
         (xh (B, L, h, p), z, dt (B, L, h) f32, B, C (B, L, g, n), new
         conv state)."""
         cfg = self.cfg
         di, g, n, h = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, \
             cfg.ssm_heads
         Bsz, L = x.shape[:2]
-        xz = x @ self.w_xz[l]
+        xz = x @ at(self, "w_xz", l)
         xin, z = xz[..., :di], xz[..., di:]
-        bc = x @ self.w_bc[l]
-        dt = F.softplus((x @ self.w_dt[l]).to(torch.float32)
-                        + self.dt_bias[l].to(torch.float32))
+        bc = x @ at(self, "w_bc", l)
+        dt = F.softplus((x @ at(self, "w_dt", l)).to(torch.float32)
+                        + at(self, "dt_bias", l).to(torch.float32))
         conv_out, new_conv = _depthwise_causal_conv(
-            torch.cat([xin, bc], dim=-1), self.conv_w[l], self.conv_b[l],
-            conv_state)
+            torch.cat([xin, bc], dim=-1), at(self, "conv_w", l),
+            at(self, "conv_b", l), conv_state)
         xh = conv_out[..., :di].reshape(Bsz, L, h, cfg.ssm_headdim)
         Bm = conv_out[..., di:di + g * n].reshape(Bsz, L, g, n)
         Cm = conv_out[..., di + g * n:].reshape(Bsz, L, g, n)
         return xh, z, dt, Bm, Cm, new_conv
 
-    def _out_proj(self, l: int, y, z):
+    def _out_proj(self, l, y, z):
         """The gate norm (K4a) of y * silu(z), then the out projection."""
-        y = rms_norm((y * F.silu(z)).contiguous(), self.gate_norm[l],
+        y = rms_norm((y * F.silu(z)).contiguous(), at(self, "gate_norm", l),
                      self.cfg.norm_eps)
-        return y @ self.w_out[l]
+        return y @ at(self, "w_out", l)
 
-    def forward(self, l: int, x, conv_state=None, ssm_state=None):
-        """Full-sequence block ``l`` over x (B, L, d). Returns (out,
-        (new conv state (B, K-1, C), final SSM state (B, h, p, n) f32))."""
+    def forward(self, l, x, conv_state=None, ssm_state=None):
+        """Full-sequence block ``l`` (an index, or a dict of the layer's
+        tensors: a training forward) over x (B, L, d). Returns (out, (new
+        conv state (B, K-1, C), final SSM state (B, h, p, n) f32))."""
         cfg = self.cfg
         xh, z, dt, Bm, Cm, new_conv = self._in_proj(l, x, conv_state)
-        A = -torch.exp(self.A_log[l].to(torch.float32))
+        A = -torch.exp(at(self, "A_log", l).to(torch.float32))
         y, final = ssd_chunked(xh, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
                                init_state=ssm_state)
-        y = y + xh * self.D[l].to(y.dtype)[:, None]
+        y = y + xh * at(self, "D", l).to(y.dtype)[:, None]
         y = y.reshape(*x.shape[:2], cfg.d_inner)
         return self._out_proj(l, y, z), (new_conv, final)
 
@@ -201,13 +211,13 @@ class Mamba(nn.Module):
         f32 = torch.float32
         xh, z, dt, Bm, Cm, new_conv = self._in_proj(l, x, conv_state)
         xh, dt = xh[:, 0], dt[:, 0]                      # (B,h,p), (B,h)
-        A = -torch.exp(self.A_log[l].to(f32))
+        A = -torch.exp(at(self, "A_log", l).to(f32))
         dA = torch.exp(dt * A)                           # (B, h)
         Bh = Bm[:, 0].repeat_interleave(hg, dim=1).to(f32)
         Ch = Cm[:, 0].repeat_interleave(hg, dim=1).to(f32)
         S = ssm_state * dA[..., None, None] + torch.einsum(
             "bh,bhp,bhn->bhpn", dt, xh.to(f32), Bh)
         y = torch.einsum("bhpn,bhn->bhp", S, Ch)
-        y = y + xh.to(f32) * self.D[l].to(f32)[:, None]
+        y = y + xh.to(f32) * at(self, "D", l).to(f32)[:, None]
         y = y.reshape(-1, 1, cfg.d_inner).to(x.dtype)
         return self._out_proj(l, y, z), (new_conv, S)

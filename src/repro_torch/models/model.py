@@ -39,16 +39,21 @@ kept (``z = z + mlp``, then ``h = h + z``), so the residual stream is
 the JAX one. A hybrid prompt longer than the cache takes a sliding
 window in the JAX package, which K2 does not have: it raises here.
 
-Training (the dense family): `Model.loss` is the JAX ``Model.loss``
-with the dense branch of its ``_trunk``: the embedding, each layer under
+Training: `Model.loss` is the JAX ``Model.loss`` with the dense, ssm
+and hybrid branches of its ``_trunk``: the embedding, each layer under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (the JAX
 package's per-layer ``jax.checkpoint``), the final K4b, the head and
-`layers.cross_entropy`; K2, K4a and K4b run through their autograd
-Functions, so a step launches K2's forward twice a layer (the forward
-and the recomputation) and its backward once. The stacked parameters are
+`layers.cross_entropy`. A dense layer is norm1, attention, norm2 and
+the MLP; an ssm or hybrid layer norm1 and the Mamba2 mixer. The hybrid
+family runs the shared block after each whole group of ``attn_every``
+layers, not checkpointed, as the JAX package's ``group_body``, and the
+``n_layers % attn_every`` layers of the tail after the last group with
+no shared block (only serving needs whole groups). K2, K4a, K4b and K5
+run through their autograd Functions, so a step launches each forward
+twice for a checkpointed layer (the forward and the recomputation) and
+once outside one, and each backward once. The stacked parameters are
 unbound once a forward (`Model.layer_tensors`). Build a trainable model
-with ``build_model(cfg, device, trainable=True)``. The ssm and hybrid
-families' training waits for a backward of K5.
+with ``build_model(cfg, device, trainable=True)``.
 
 Numbers: in f32 this is the JAX model's arithmetic up to the order of
 sums. In bf16 three places round differently: the norms multiply by the
@@ -147,11 +152,8 @@ class Model(nn.Module):
             raise NotImplementedError(
                 "sliding windows, MLA and MoE are not ported (ROADMAP "
                 "Queue 1, item 6)")
-        if cfg.family == "hybrid" and (cfg.attn_every < 1 or
-                                       cfg.n_layers % cfg.attn_every):
-            raise ValueError(f"hybrid serving needs n_layers "
-                             f"({cfg.n_layers}) a multiple of attn_every "
-                             f"({cfg.attn_every})")
+        if cfg.family == "hybrid" and cfg.attn_every < 1:
+            raise ValueError(f"hybrid attn_every {cfg.attn_every} < 1")
         self.cfg = cfg
         self.device = torch.device(device)
         v, d = cfg.padded_vocab, cfg.d_model
@@ -196,7 +198,9 @@ class Model(nn.Module):
         zero tensor the size of the whole stacked parameter in the
         backward."""
         leaves = {}
-        for mod in (self.blocks, self.blocks.attn, self.blocks.mlp):
+        # dense: norm1, norm2 and the attention's and MLP's leaves; ssm and
+        # hybrid: norm1 and the Mamba2 mixer's (the names do not collide)
+        for mod in self.blocks.modules():
             for name, p in mod.named_parameters(recurse=False):
                 leaves[name] = p.unbind(0)
         return [{name: t[li] for name, t in leaves.items()}
@@ -216,25 +220,46 @@ class Model(nn.Module):
         x, h = rmsnorm_residual(y, h, p["norm2"], eps=cfg.norm_eps)
         return blk.mlp(p, x), h
 
+    def _train_mamba(self, p, y, h):
+        """One Mamba2 layer of the training trunk: the residual add of
+        the previous mixer's (or shared block's) output ``y`` and norm1
+        (K4b; the first layer's K4a on the embeddings, ``y`` None), then
+        the mixer. Returns (the mixer's output, the residual stream)."""
+        if y is None:
+            x = L.rms_norm(h, p["norm1"], self.cfg.norm_eps)
+        else:
+            x, h = rmsnorm_residual(y, h, p["norm1"], eps=self.cfg.norm_eps)
+        return self.blocks.mamba(p, x)[0], h
+
     def loss(self, batch):
         """The training loss of ``batch`` (``tokens`` and ``labels`` (B,
         S) int on the model's device): (loss, {"ce", "aux"}), loss = ce
-        (+ router_aux_coef * aux, 0 for a dense model), differentiable
-        through every trainable parameter. Dense family only."""
+        (+ router_aux_coef * aux, 0 for these families), differentiable
+        through every trainable parameter."""
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"Model.loss of the {cfg.family} family is not ported "
-                "(ROADMAP Queue 1, item 6 (ssm/hybrid training: K5's "
-                "backward))")
         tokens, labels = batch["tokens"], batch["labels"]
         h = L.embed_tokens(self.embed, cfg, tokens)
-        cos, sin = self._rope(torch.arange(tokens.shape[1],
-                                           device=h.device))
+        S = tokens.shape[1]
+        if cfg.family != "ssm":
+            cos, sin = self._rope(torch.arange(S, device=h.device))
         y = None
-        for p in self.layer_tensors():
-            y, h = checkpoint(self._train_layer, p, y, h, cos, sin,
-                              use_reentrant=False)
+        if cfg.family == "dense":
+            for p in self.layer_tensors():
+                y, h = checkpoint(self._train_layer, p, y, h, cos, sin,
+                                  use_reentrant=False)
+        else:
+            h0 = h
+
+            def attend(x):
+                return self.shared_attn.attn(None, x, cos, sin)[0]
+            for li, p in enumerate(self.layer_tensors()):
+                y, h = checkpoint(self._train_mamba, p, y, h,
+                                  use_reentrant=False)
+                if self._shared_after(li):
+                    # the shared block after a whole group, not
+                    # checkpointed (the JAX package's group_body)
+                    h = h + y
+                    y = self._shared_block(h, h0, attend)
         x, _ = rmsnorm_residual(y, h, self.final_norm, eps=cfg.norm_eps)
         logits = L.logits_from_hidden(self._head(), cfg, x)
         ce = L.cross_entropy(logits, labels, cfg.vocab_size)
@@ -271,6 +296,7 @@ class Model(nn.Module):
         S <= T only) the shared block's k and v into slots ``0..S-1``."""
         if self.cfg.family == "dense":
             return self._prefill_dense(batch, cache)
+        self._check_groups()
         return self._prefill_ssm(batch, cache)
 
     @torch.no_grad()
@@ -279,7 +305,18 @@ class Model(nn.Module):
         (logits (B, 1, V), cache) with ``length`` one further."""
         if self.cfg.family == "dense":
             return self._decode_dense(tokens, cache)
+        self._check_groups()
         return self._decode_ssm(tokens, cache)
+
+    def _check_groups(self) -> None:
+        """Hybrid serving needs whole groups (the JAX package asserts it
+        in its hybrid prefill): each shared-block application has its own
+        cache layer. Training takes a tail of n_layers % attn_every."""
+        cfg = self.cfg
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_every:
+            raise ValueError(f"hybrid serving needs n_layers "
+                             f"({cfg.n_layers}) a multiple of attn_every "
+                             f"({cfg.attn_every})")
 
     def _prefill_dense(self, batch, cache):
         cfg, blk = self.cfg, self.blocks

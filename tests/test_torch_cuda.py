@@ -1392,6 +1392,11 @@ BF = torch.bfloat16
     (2, 1000, 32, 8, 128, BF, False),           # bidirectional
     (1, 300, 4, 4, 64, BF, False),
     (1, 129, 8, 1, 32, BF, False),
+    (4, 1024, 32, 32, 80, BF, True),            # Zamba2's shared block
+    (1, 300, 8, 2, 80, BF, True),
+    (1, 200, 4, 4, 80, BF, False),
+    (1, 130, 4, 2, 80, torch.float32, True),
+    (1, 100, 4, 4, 80, torch.float32, False),
 ])
 def test_flash_attention_backward_kernel_matches_plain(cuda, B, S, H, KVH,
                                                        D, dtype, causal):
@@ -1529,6 +1534,131 @@ def test_model_loss_on_card_matches_cpu(cuda):
     loss_g.backward()
     torch.cuda.synchronize()
     assert FA.flash_attention_backward.launches == before + cfg.n_layers
+    torch.testing.assert_close(loss_g.cpu(), loss_c.detach(), **F32_TOL)
+    for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=2e-4,
+                                   atol=2e-5, msg=name)
+
+
+# K5's backward against its plain backward (autograd through
+# `ssd_chunk_plain` on the card) on the same inputs, widened exactly: the
+# f32 sums differ only in order, and an output in bf16 (dx, dB, dC with
+# bf16 inputs) is rounded once on each side, so the two may be one bf16
+# ulp apart (2^-7 of the value). chip_smoke.py's KERNEL_TOL
+# ["ssd_chunk_backward"] states the limit and its measurement.
+SSD_BWD_TOL = dict(rtol=1e-5, atol=2e-3, out_round=2.0 ** -7)
+
+
+def _ssd_bwd_use(got, want, tol):
+    g, w = got.float(), want.float()
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    if got.dtype == torch.bfloat16:
+        lim = lim + tol["out_round"] * w.abs()
+    return ((g - w).abs() / lim).max().item()
+
+
+def _ssd_fault_plain(x, dt, cum, B, C):
+    """K5's plain forward without the tile pair s in [64, 128), t in [0,
+    64): the planted fault of the backward (a dropped causal tile)."""
+    c = x.shape[2]
+    keep = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    keep[64:128, :64] = False
+    h, g = x.shape[3], B.shape[3]
+    xf, Bf, Cf = x.float(), B.float(), C.float()
+    Bh = Bf.repeat_interleave(h // g, 3)
+    Ch = Cf.repeat_interleave(h // g, 3)
+    diff = cum[:, :, :, None] - cum[:, :, None]
+    diff = diff.masked_fill(~keep[:, :, None], float("-inf"))
+    sc = torch.einsum("bcshn,bcthn->bcsth", Ch, Bh)
+    y = torch.einsum("bcsth,bcth,bcthp->bcshp", sc * torch.exp(diff), dt, xf)
+    w = torch.exp(cum[:, :, -1:] - cum) * dt
+    S = torch.einsum("bcthn,bcth,bcthp->bchpn", Bh, w, xf)
+    return y, S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,c,h,p,n,g,xdtype,bcdtype,valid", [
+    (4, 4, 256, 48, 64, 128, 1, BF, BF, None),      # Mamba2-780M, S 1024
+    (4, 4, 256, 80, 64, 64, 1, BF, BF, None),       # Zamba2-2.7B, S 1024
+    (4, 4, 256, 48, 64, 128, 1, BF, BF, 1000),      # ragged S 1000
+    (1, 4, 256, 48, 64, 128, 8, BF, BF, None),      # g 8
+    (1, 4, 256, 48, 64, 128, 1, BF, torch.float32, None),
+    (1, 2, 256, 8, 64, 128, 2, torch.float32, torch.float32, None),
+    (2, 3, 100, 6, 40, 72, 3, torch.float32, torch.float32, None),
+    (2, 3, 32, 16, 16, 16, 1, torch.float32, torch.float32, None),  # smoke
+])
+def test_ssd_chunk_backward_kernel_matches_plain(cuda, b, nc, c, h, p, n, g,
+                                                 xdtype, bcdtype, valid):
+    """Each output within SSD_BWD_TOL of the plain backward, a dropped
+    causal tile rejected (c > 128), two runs bitwise equal."""
+    args = _ssd_inputs(b, nc, c, h, p, n, g, xdtype, cuda, c + h + g,
+                       bcdtype=bcdtype, valid=valid)
+    r = np.random.default_rng(n + p)
+    dy = torch.tensor(r.normal(size=(b, nc, c, h, p)), dtype=torch.float32,
+                      device=cuda)
+    dS = torch.tensor(r.normal(size=(b, nc, h, p, n)), dtype=torch.float32,
+                      device=cuda)
+    launches = K5.ssd_chunk_backward.launches
+    got = K5.ssd_chunk_backward(*args, dy, dS)
+    again = K5.ssd_chunk_backward(*args, dy, dS)
+    torch.cuda.synchronize()
+    assert K5.ssd_chunk_backward.launches == launches + 2
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+    want = K5.ssd_chunk_backward_plain(*args, dy, dS)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+    uses = [_ssd_bwd_use(a, w, SSD_BWD_TOL) for a, w in zip(got, want)]
+    assert max(uses) <= 1.0, uses
+    if c > 128:
+        ins = [t.detach().float().requires_grad_() for t in args]
+        with torch.enable_grad():
+            y, S = _ssd_fault_plain(*ins)
+            fault = torch.autograd.grad((y, S), ins, (dy, dS))
+        assert max(_ssd_bwd_use(f.to(w.dtype), w, SSD_BWD_TOL)
+                   for f, w in zip(fault, want)) > 1.0
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_backward_takes_none_gradients(cuda):
+    args = _ssd_inputs(1, 2, 64, 4, 16, 16, 1, torch.float32, cuda, 3)
+    dy = torch.randn(1, 2, 64, 4, 16, device=cuda)
+    got = K5.ssd_chunk_backward(*args, dy, None)
+    want = K5.ssd_chunk_backward(*args, dy, torch.zeros(
+        1, 2, 4, 16, 16, device=cuda))
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_hybrid_loss_on_card_matches_cpu(cuda, arch):
+    """The ssm and hybrid smoke models' loss and every gradient in f32 on
+    the card (K5 and its backward kernel; K2 and K2-bwd in the shared
+    block) against the CPU (their plain versions), on the same weights,
+    at three chunks with a ragged tail; each backward kernel launched as
+    the code counts (tests/test_torch_train.py)."""
+    cfg = get_arch(arch).smoke()
+    cpu = build_model(cfg, "cpu", trainable=True)
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        m = cpu.blocks.mamba
+        m.A_log.copy_(torch.empty_like(m.A_log).uniform_(0.01, 0.1).log())
+        m.dt_bias.fill_(-3.0)
+    card = build_model(cfg, cuda, trainable=True)
+    card.load_state_dict(cpu.state_dict())
+    r = np.random.default_rng(0)
+    toks = torch.tensor(r.integers(0, cfg.vocab_size, (2, 80)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    loss_c, _ = cpu.loss(batch)
+    loss_c.backward()
+    before = (K5.ssd_chunk_backward.launches,
+              FA.flash_attention_backward.launches)
+    loss_g, _ = card.loss({k: v.to(cuda) for k, v in batch.items()})
+    loss_g.backward()
+    torch.cuda.synchronize()
+    apps = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    assert (K5.ssd_chunk_backward.launches - before[0],
+            FA.flash_attention_backward.launches - before[1]) == (
+        cfg.n_layers, apps)
     torch.testing.assert_close(loss_g.cpu(), loss_c.detach(), **F32_TOL)
     for (name, pc), pg in zip(cpu.named_parameters(), card.parameters()):
         torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=2e-4,

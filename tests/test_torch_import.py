@@ -223,6 +223,13 @@ NEW_WRAPPERS = {
         _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16), _meta(1, 2, 32, 4),
         _meta(1, 2, 32, 4), _meta(1, 2, 32, 1, 16),
         _meta(1, 2, 32, 1, 16))),
+    "ssd_chunk_backward": (
+        K5.ssd_chunk_backward, lambda: K5.ssd_chunk_backward(
+            _meta(1, 2, 32, 4, 16, dtype=torch.bfloat16),
+            _meta(1, 2, 32, 4), _meta(1, 2, 32, 4),
+            _meta(1, 2, 32, 1, 16, dtype=torch.bfloat16),
+            _meta(1, 2, 32, 1, 16, dtype=torch.bfloat16),
+            _meta(1, 2, 32, 4, 16), _meta(1, 2, 4, 16, 16))),
 }
 
 
@@ -257,7 +264,7 @@ def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
                                    "frp_select", "rmsnorm",
                                    "decode_attention", "flash_attention",
                                    "ssd_chunk", "flash_attention_bwd",
-                                   "rmsnorm_bwd"}
+                                   "rmsnorm_bwd", "ssd_chunk_bwd"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine bodies need contraction off (bitwise parity)
