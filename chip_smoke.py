@@ -39,7 +39,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bf16 and at D = 32 and 80 in f32; K5's
                  (ssd_chunk_bwd.cu) at Mamba2-780M's and Zamba2-2.7B's
                  training shapes (B = 4, S = 1024) in bf16, a ragged S =
-                 1000, g = 8 and f32; K4a's and K4b's (rmsnorm_bwd.cu)
+                 1000 and g = 8 (its wgmma body) and f32 (its CUDA-core
+                 body), each row naming its body, with the design's
+                 floor beside the bound; K4a's and K4b's (rmsnorm_bwd.cu)
                  at (4096, 2560) and the qk-norm's (131072, 128) rows,
                  with and without the residual's gradient, and in f32:
                  each against the plain backward within its limit, a
@@ -589,10 +591,12 @@ TRAINING_PTXAS = {
                             "dkdv_wgmma_kernelILi80E",
                             "dq_wgmma_kernelILi80E",
                             "delta_kernelI13__nv_bfloat16Li80ELb1E"),
-    # K5-bwd with x, B and C in bf16 at n = 128 (Mamba2) and 64 (Zamba2)
-    "ssd_chunk_bwd": ("ssd_chunk_bwd_kernelI13__nv_bfloat16S1_Li2E",
-                      "ssd_chunk_bwd_kernelI13__nv_bfloat16S1_Li1E",
-                      "group_sum_kernelI13__nv_bfloat16E"),
+    # K5-bwd's wgmma body at n = 128 (Mamba2) and 64 (Zamba2), its group
+    # and split passes; the CUDA-core body's f32 instance at n = 128
+    "ssd_chunk_bwd": ("ssd_bwd_main_kernelILi2E",
+                      "ssd_bwd_main_kernelILi1E",
+                      "ssd_bwd_group_kernel", "ssd_bwd_split_kernel",
+                      "ssd_chunk_bwd_kernelIffLi2E"),
     "rmsnorm_bwd": ("rmsnorm_bwd_vector_kernelI13__nv_bfloat16S1_Li1E",
                     "dw_kernelI13__nv_bfloat16E")}
 # The train phase. (a) the qwen3-4b smoke config in f32 on
@@ -3378,7 +3382,8 @@ def phase_training_kernels(torch, np, FA, RN, K5):
     32, KVH = 8, D = 128; Zamba2-2.7B's shared block at H = KVH = 32, D =
     80; the norms' rows (4096, 2560) and the qk-norm's (4096 x 32, 128);
     K5-bwd at Mamba2-780M's and Zamba2-2.7B's training shapes, B = 4, S =
-    1024), bf16, and in f32 at small shapes: each within its limit, a
+    1024, on its wgmma body), bf16, and in f32 at small shapes (K5-bwd on
+    its CUDA-core body, each row naming its body): each within its limit, a
     planted fault rejected, two runs bitwise equal; K2's forward
     log-sum-exp against torch.logsumexp, the forward timed with and
     without it; the kernel's, the plain backward's and one PyTorch call's
@@ -3536,7 +3541,13 @@ def phase_training_kernels(torch, np, FA, RN, K5):
         dS = torch.tensor(r.normal(size=(b, nc, h, p, n)), dtype=f32,
                           device=dev)
         call = partial(K5.ssd_chunk_backward, *args, dy, dS)
+        body = K5.body_for(args[0], args[3], args[4])
+        want_body = "wgmma" if xd == bf16 and bcd == bf16 else "cuda_core"
+        before = dict(K5.ssd_chunk_backward.body_launches)
         got, again = call(), call()
+        need(body == want_body and K5.ssd_chunk_backward.body_launches == {
+            k: v + 2 * (k == want_body) for k, v in before.items()},
+            f"ssd_chunk_backward {case}: ran on {body}, not {want_body}")
         need(all(torch.equal(a, b) for a, b in zip(got, again)),
              f"ssd_chunk_backward {case}: two runs differ")
         plain = partial(K5.ssd_chunk_backward_plain, *args, dy, dS)
@@ -3555,11 +3566,12 @@ def phase_training_kernels(torch, np, FA, RN, K5):
         # bound of the same work beside it (the rate this body runs at)
         n_bytes, f32_ops, tc_ops = ssd_bwd_work(args[0], args[3])
         b_f32, by_f32 = bound_ms(n_bytes, f32_ops, "f32")
-        tc = xd == bf16 and bcd == bf16
+        tc = body == "wgmma"
         timed_row("ssd_chunk_backward", case, check, call, plain, None,
                   n_bytes, tc_ops if tc else f32_ops, "bf16" if tc else
                   "f32", deterministic=True,
-                  library_note="no single PyTorch call",
+                  library_note="no single PyTorch call", body=body,
+                  **ssd_bwd_floor(args[0], args[3], body),
                   bound_f32_ms=b_f32, bound_f32_by=by_f32,
                   f32_ops=f32_ops, tc_ops=tc_ops,
                   device_ms_by_kernel=device_split(torch, call, reps=5))
@@ -3571,14 +3583,9 @@ def phase_training_kernels(torch, np, FA, RN, K5):
     attn_case("bf16 B=4 S=1024 D=80", 4, 1024, 32, 32, 80, bf16)
     attn_case("f32 B=1 S=200 D=80", 1, 200, 4, 4, 80, f32)
     torch.cuda.empty_cache()
-    # K5-bwd at the training shapes (B 4, S 1024: 4 chunks of 256)
-    mamba, zamba = (4, 4, 256, 48, 64, 128, 1), (4, 4, 256, 80, 64, 64, 1)
-    ssd_case("mamba2-780m bf16 B=4 S=1024", mamba, bf16, bf16)
-    ssd_case("zamba2-2.7b bf16 B=4 S=1024", zamba, bf16, bf16)
-    ssd_case("mamba2-780m bf16 B=1 S=1000 ragged", (1,) + mamba[1:], bf16,
-             bf16, valid=1000)
-    ssd_case("g=8 bf16 B=1 S=1024", (1,) + mamba[1:6] + (8,), bf16, bf16)
-    ssd_case("mamba2-780m f32 B=1 S=1024", (1,) + mamba[1:], f32, f32)
+    dtypes = dict(bf16=bf16, f32=f32)
+    for case, shape, xd, bcd, valid in SSD_BWD_CASES:
+        ssd_case(case, shape, dtypes[xd], dtypes[bcd], valid=valid)
     torch.cuda.empty_cache()
     norm_case("rmsnorm_backward", "(4096, 2560)", 4096, 2560, bf16, False,
               False)
@@ -3596,6 +3603,24 @@ def phase_training_kernels(torch, np, FA, RN, K5):
               f32, True, True)
     emit(dict(phase="kernel", training=rows))
     return rows
+
+
+# K5-bwd's cases in the kernel phase: (name, (b, nc, c, h, p, n, g), x
+# dtype, B and C dtype, valid length): the training shapes (B 4, S 1024:
+# 4 chunks of 256), a ragged S 1000 and g 8 on the wgmma body; f32 on the
+# CUDA-core body
+_MAMBA_BWD, _ZAMBA_BWD = (4, 4, 256, 48, 64, 128, 1), (4, 4, 256, 80, 64,
+                                                       64, 1)
+SSD_BWD_CASES = (
+    ("mamba2-780m bf16 B=4 S=1024", _MAMBA_BWD, "bf16", "bf16", None),
+    ("zamba2-2.7b bf16 B=4 S=1024", _ZAMBA_BWD, "bf16", "bf16", None),
+    ("mamba2-780m bf16 B=1 S=1000 ragged", (1,) + _MAMBA_BWD[1:], "bf16",
+     "bf16", 1000),
+    ("g=8 bf16 B=1 S=1024", (1,) + _MAMBA_BWD[1:6] + (8,), "bf16", "bf16",
+     None),
+    ("mamba2-780m f32 B=1 S=1024", (1,) + _MAMBA_BWD[1:], "f32", "f32",
+     None),
+)
 
 
 # ------------------------------------------------ phase 3c: K5, ssd_chunk
@@ -3678,23 +3703,70 @@ def ssd_bwd_work(x, B):
     """(bytes, f32 operations, tensor-core operations) of one K5-bwd
     call: x, dt, cum, B, C, dy and dS read once and dx, ddt, dcum, dB and
     dC written once, at their element sizes; the operations the gradient
-    needs over s >= t (the scores C B^T and dM = dy x^T, then M^T dy, dM
-    C and dM^T B) and the state's B dS^T and dS^T x, with the weights
-    (exponent, products); the tensor-core count takes the same products
-    at the bf16 rate with the weights split in three bf16 parts (as K5's
-    wgmma body does) for the four products that read them."""
+    needs over s >= t: once a (chunk, group), since B and C are the
+    group's, the scores C B^T and G's two products, dC = G B and dB =
+    G^T C (G = dM L dt summed over the group's heads first); once a
+    head, dM = dy x^T, dx's M^T dy, the state's B dS^T and dS^T x, and
+    the weights (exponent, products). The tensor-core count takes the
+    same products at the bf16 rate under the f32 contract of K5's wgmma
+    bodies: a product of two bf16 operands (the scores) one pass, an f32
+    operand in three bf16 parts against a bf16 one (dy in dM, G against
+    B and C, dS in the state terms) three, M^T dy (both f32) the six kept
+    cross terms. What a body adds (the scores in both of its kinds of
+    block and in every slice of heads, the scratch) is
+    `ssd_bwd_floor`'s."""
     b, nc, c, h, p = x.shape
     g, n = B.shape[3], B.shape[4]
-    cells = b * nc * h
+    cells, groups = b * nc * h, b * nc * g
     tri = c * (c + 1) // 2
     xs, bs = x.element_size(), B.element_size()
     n_bytes = (2 * xs * cells * c * p + 4 * 4 * b * nc * c * h
                + 2 * 2 * bs * b * nc * c * g * n + 4 * cells * c * p
                + 4 * cells * p * n)
-    f32_ops = cells * (2 * tri * (3 * n + 2 * p) + 4 * c * p * n + 8 * tri)
-    tc_ops = cells * (2 * tri * (n + p) + 3 * 2 * tri * (2 * n + p)
-                      + 2 * 2 * c * p * n)
+    f32_ops = (cells * (2 * tri * 2 * p + 4 * c * p * n + 8 * tri)
+               + groups * 2 * tri * 3 * n)
+    tc_ops = (cells * (2 * tri * (3 + 6) * p + 3 * 2 * 2 * c * p * n)
+              + groups * 2 * tri * (1 + 3 * 2) * n)
     return n_bytes, f32_ops, tc_ops
+
+
+def ssd_bwd_floor(x, B, body):
+    """The design's floor of one K5-bwd call on ``body``: the larger of
+    the operations that body performs, at the peak rate of its operands'
+    type, and the bytes it moves (the bound's plus its scratch, each
+    written once and read once) at 3.35 TB/s. The wgmma body (see
+    ``csrc/ssd_chunk_bwd.cu``): a dx block a head forms u (three passes)
+    and, for each tile pair, the scores and the six-term dx; a G block a
+    slice forms the scores a pair, dM (three passes) a head and pair and
+    the state term (three passes) a head; the group pass G's three parts
+    against B and C. Its scratch: dy's and dS's three bf16 parts, the
+    slices' G tiles and state terms, the column and row sums, dw. The
+    CUDA-core body forms, a head, the scores and dM in both roles, M^T
+    dy, dM C and dM^T B, and the state terms (f32), and passes each
+    head's dB and dC through f32 scratch."""
+    b, nc, c, h, p = x.shape
+    g, n = B.shape[3], B.shape[4]
+    bnc, cells = b * nc, b * nc * h
+    n_bytes = ssd_bwd_work(x, B)[0]
+    nt = -(-c // 64)
+    if body == "cuda_core":
+        tri = c * (c + 1) // 2
+        ops = cells * (2 * tri * (4 * n + 3 * p) + 4 * c * p * n + 8 * tri)
+        scratch = 2 * (2 * 4 * cells * c * n + 4 * cells * nt)
+        kind = "f32"
+    else:
+        cp, pairs, tile = 64 * nt, nt * (nt + 1) // 2, 64 * 64
+        nsl = g * -(-(h // g) // 8)
+        ops = bnc * (h * (12 * cp * p * n + pairs * tile * (2 * n + 18 * p))
+                     + nsl * pairs * tile * 2 * n
+                     + g * pairs * tile * 12 * n)
+        scratch = 2 * (6 * bnc * c * h * p + 6 * cells * p * n
+                       + 4 * bnc * nsl * (pairs * tile + cp * n)
+                       + 4 * cells * (pairs * 64 + 2 * cp + nt))
+        kind = "bf16"
+    ms, by = bound_ms(n_bytes + scratch, ops, kind)
+    return dict(floor_ms=ms, floor_by=by, design_ops=ops,
+                design_bytes=n_bytes + scratch, scratch_bytes=scratch)
 
 
 def ptxas_lines(report, *names):
@@ -4408,8 +4480,10 @@ def train_full_run(torch, arch, counts):
     import gc
 
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_chunk as K5
     from repro_torch.launch.train import train
     full = get_arch(arch)
+    bwd_before = dict(K5.ssd_chunk_backward.body_launches)
     per_step, steps = [], []
     last = [None]
 
@@ -4431,6 +4505,8 @@ def train_full_run(torch, arch, counts):
         seed=TRAIN_FULL["seed"], on_step=on_step, log_every=1 << 30)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    bwd_bodies = {k: v - bwd_before[k]
+                  for k, v in K5.ssd_chunk_backward.body_launches.items()}
     n_params = sum(p.numel() for p in params.values())
     del params
     gc.collect()
@@ -4463,7 +4539,10 @@ def train_full_run(torch, arch, counts):
         launches_per_step_want=dict(zip(TRAIN_COUNT_NAMES, want)),
         launches=dict(zip(TRAIN_COUNT_NAMES, (sum(x) for x in
                                                zip(*per_step)))),
-        wall_s=wall)
+        ssd_chunk_backward_by_body=bwd_bodies, wall_s=wall)
+    need(bwd_bodies["cuda_core"] == 0, f"train (c) {arch}: K5-bwd ran "
+         f"{bwd_bodies} times by body; bf16 at full width takes the wgmma "
+         "body")
     need(all(math.isfinite(x) for x in losses), f"train (c) {arch}: a loss "
          f"is not finite: {losses}")
     need(losses[0] - losses[-1] >= TRAIN_LOSS_DROP, f"train (c) {arch}: the "
@@ -4868,7 +4947,8 @@ def main(argv=None) -> int:
             bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
             library_ms=rep["library_ms"], device_ms=rep["device_ms"],
             **{k: rep[k] for k in ("design_bound_ms", "device_ms_by_kernel",
-                                   "bound_f32_ms", "library_note")
+                                   "bound_f32_ms", "library_note", "body",
+                                   "floor_ms", "floor_by", "scratch_bytes")
                if k in rep},
             ptxas=ptxas_lines(_build.BUILD_INFO.get(unit, {}).get(
                 "ptxas", ""), *TRAINING_PTXAS[unit]),

@@ -9,8 +9,8 @@ f32 AdamW moments; ``--layers`` cuts the depth), random weights,
 by CUDA events in three parts (the forward `Model.loss`, its backward,
 the AdamW update) and one step under torch.profiler, whose device time
 is summed by kernel group: K2 forward, K2 backward (its three kernels),
-K5 forward and backward (its three kernels), the norms forward (K4a,
-K4b) and backward, matrix products (cuBLAS), and the rest (elementwise,
+K5 forward and backward (its three kernels, on either body), the norms
+forward (K4a, K4b) and backward, matrix products (cuBLAS), and the rest (elementwise,
 the optimizer's passes, the SSD's plain ops, the cross-entropy, the
 embedding's scatter), with the kernel launches of the step and the
 device's busy share of the timed step. Prints one JSON line with the
@@ -25,8 +25,8 @@ import os
 import subprocess
 import sys
 
-GROUPS = (("k5_backward", ("ssd_chunk_bwd_kernel", "group_sum_kernel",
-                           "last_dcum_kernel")),
+GROUPS = (("k5_backward", ("ssd_bwd_", "ssd_chunk_bwd_kernel",
+                           "group_sum_kernel", "last_dcum_kernel")),
           ("k5_forward", ("ssd_chunk_wgmma_kernel", "ssd_chunk_kernel")),
           ("k2_backward", ("dkdv_", "dq_kernel", "dq_wgmma_kernel",
                            "delta_kernel")),

@@ -40,10 +40,14 @@ Training: when an input requires a gradient (and grad mode is on),
 `ssd_chunk` runs through `SSDChunk`, a ``torch.autograd.Function``
 whose forward is the kernel as above and whose backward is
 `ssd_chunk_backward`, the hand-written backward kernel
-(``csrc/ssd_chunk_bwd.cu``; counted in its own ``launches``). Given the
-gradients dy (b, nc, c, h, p) and dS (b, nc, h, p, n), both f32 (either
-may be None: zero), it returns dx in x's dtype, ddt and dcum f32, and dB
-and dC in B's dtype, each summed over the heads of its group. The JAX
+(``csrc/ssd_chunk_bwd.cu``; counted in its own ``launches``, and by body
+in its ``body_launches``). Given the gradients dy (b, nc, c, h, p) and
+dS (b, nc, h, p, n), both f32 (either may be None: zero), it returns dx
+in x's dtype, ddt and dcum f32, and dB and dC in B's dtype, each summed
+over the heads of its group. `body_for` picks its body too: "wgmma"
+(TMA + tensor cores, every f32 operand in three bf16 parts) for x, B
+and C in bf16 at the wgmma shape class, "cuda_core" (f32 FMA) for
+everything else; neither falls back to the other. The JAX
 package has no Pallas backward: ``jax.grad`` differentiates its plain
 `repro.models.mamba.ssd_chunked`, which the plain backward
 `ssd_chunk_backward_plain` (autograd through `ssd_chunk_plain`; counted
@@ -70,12 +74,12 @@ _P = _build.PTR
 _I = ctypes.c_int
 _ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _I, _P]
-# x dtype, B/C dtype, x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB, dC,
-# scratch, b * nc, c, h, g, p, n, stream
-_BWD_ARGTYPES = [_I, _I] + [_P] * 13 + [_I] * 6 + [_P]
-# rows of a tile of the backward kernel (its scratch holds one partial
-# sum a tile a cell)
-BWD_TILE = 64
+# body, x dtype, B/C dtype, x, dt, cum, B, C, dy, dS, dx, ddt, dcum, dB,
+# dC, scratch, b * nc, c, h, g, p, n, stream
+_BWD_ARGTYPES = [_I, _I, _I] + [_P] * 13 + [_I] * 6 + [_P]
+# heads of one group that a block of the wgmma body's G pass walks
+# (`kSliceHeads` of csrc/ssd_chunk_bwd.cu)
+SLICE_HEADS = 8
 
 
 def ssd_chunk_plain(x, dt, cum, B, C):
@@ -113,6 +117,22 @@ def body_for(x, B, C) -> str:
             and n % TC_N_STEP == 0 and c <= TC_MAX_C and aligned):
         return "wgmma"
     return "cuda_core"
+
+
+def _bwd_scratch_floats(body, bnc, c, h, g, n):
+    """f32 floats of one backward call's scratch on ``body``, as the
+    library sizes it (``ssd_chunk_backward_scratch_floats``: the layout
+    lives in ``csrc/ssd_chunk_bwd.cu`` alone)."""
+    f = getattr(_build.load_library("ssd_chunk_bwd"),
+                "ssd_chunk_backward_scratch_floats")
+    if f.argtypes is None:
+        f.argtypes = [_I] * 6
+        f.restype = ctypes.c_longlong
+    floats = f(BODIES.index(body), bnc, c, h, g, n)
+    if floats < 0:
+        raise ValueError(f"ssd_chunk_backward: no scratch size for {body} "
+                         f"at bnc {bnc}, c {c}, h {h}, g {g}, n {n}")
+    return floats
 
 
 def _check(name, x, dt, cum, B, C):
@@ -233,15 +253,14 @@ def ssd_chunk_backward(x, dt, cum, B, C, dy=None, dS=None):
     fn = _build.c_entry("ssd_chunk_bwd", "ssd_chunk_backward",
                         _BWD_ARGTYPES)
     _build.require_cuda(name, dev)
+    body = body_for(x, B, C)
     dx = torch.empty_like(x)
     ddt, dcum = torch.empty_like(dt), torch.empty_like(cum)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    # scratch: each head's dB and dC (b, nc, c, h, n), then one partial
-    # sum a tile a cell
-    tiles = -(-c // BWD_TILE)
-    scratch = torch.empty(2 * b * nc * c * h * n + b * nc * h * tiles,
+    scratch = torch.empty(_bwd_scratch_floats(body, b * nc, c, h, g, n),
                           dtype=torch.float32, device=dev)
-    rc = fn(_build.DTYPE_CODE[x.dtype], _build.DTYPE_CODE[B.dtype],
+    rc = fn(BODIES.index(body), _build.DTYPE_CODE[x.dtype],
+            _build.DTYPE_CODE[B.dtype],
             x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(),
             C.data_ptr(), dy.data_ptr(), dS.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dcum.data_ptr(), dB.data_ptr(), dC.data_ptr(),
@@ -249,10 +268,12 @@ def ssd_chunk_backward(x, dt, cum, B, C, dy=None, dS=None):
             _build.stream_of(dev))
     _build.launch_check(rc, name)
     ssd_chunk_backward.launches += 1
+    ssd_chunk_backward.body_launches[body] += 1
     return dx, ddt, dcum, dB, dC
 
 
 ssd_chunk_backward.launches = 0
+ssd_chunk_backward.body_launches = dict.fromkeys(BODIES, 0)
 ssd_chunk_backward.plain_calls = 0
 
 

@@ -1590,7 +1590,13 @@ def _ssd_fault_plain(x, dt, cum, B, C):
 def test_ssd_chunk_backward_kernel_matches_plain(cuda, b, nc, c, h, p, n, g,
                                                  xdtype, bcdtype, valid):
     """Each output within SSD_BWD_TOL of the plain backward, a dropped
-    causal tile rejected (c > 128), two runs bitwise equal."""
+    causal tile rejected (c > 128), two runs bitwise equal; x, B and C in
+    bf16 at p = 64, n % 64 == 0 (the training shapes, ragged S 1000, g
+    8) on the wgmma body, the rest on the CUDA-core body."""
+    _check_ssd_backward(cuda, b, nc, c, h, p, n, g, xdtype, bcdtype, valid)
+
+
+def _check_ssd_backward(cuda, b, nc, c, h, p, n, g, xdtype, bcdtype, valid):
     args = _ssd_inputs(b, nc, c, h, p, n, g, xdtype, cuda, c + h + g,
                        bcdtype=bcdtype, valid=valid)
     r = np.random.default_rng(n + p)
@@ -1598,11 +1604,16 @@ def test_ssd_chunk_backward_kernel_matches_plain(cuda, b, nc, c, h, p, n, g,
                       device=cuda)
     dS = torch.tensor(r.normal(size=(b, nc, h, p, n)), dtype=torch.float32,
                       device=cuda)
+    body = ("wgmma" if xdtype == BF and bcdtype == BF and p == 64
+            and n % 64 == 0 and c <= 256 else "cuda_core")
     launches = K5.ssd_chunk_backward.launches
+    before = dict(K5.ssd_chunk_backward.body_launches)
     got = K5.ssd_chunk_backward(*args, dy, dS)
     again = K5.ssd_chunk_backward(*args, dy, dS)
     torch.cuda.synchronize()
     assert K5.ssd_chunk_backward.launches == launches + 2
+    assert K5.ssd_chunk_backward.body_launches == {
+        k: v + 2 * (k == body) for k, v in before.items()}
     assert all(torch.equal(a, w) for a, w in zip(got, again))
     want = K5.ssd_chunk_backward_plain(*args, dy, dS)
     for a, w in zip(got, want):
@@ -1616,6 +1627,18 @@ def test_ssd_chunk_backward_kernel_matches_plain(cuda, b, nc, c, h, p, n, g,
             fault = torch.autograd.grad((y, S), ins, (dy, dS))
         assert max(_ssd_bwd_use(f.to(w.dtype), w, SSD_BWD_TOL)
                    for f, w in zip(fault, want)) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nc,c,h,p,n,g", [
+    (1, 2, 100, 12, 64, 64, 1),     # c in part of a tile; slices 8 + 4
+    (1, 1, 256, 8, 64, 192, 2),     # n 192: one block an SM
+    (1, 1, 200, 3, 64, 256, 3),     # n 256, a head a group
+])
+def test_ssd_chunk_backward_wgmma_shape_classes(cuda, b, nc, c, h, p, n, g):
+    """The wgmma body at the other shapes of its class: each output
+    within SSD_BWD_TOL of the plain backward, two runs bitwise equal."""
+    _check_ssd_backward(cuda, b, nc, c, h, p, n, g, BF, BF, None)
 
 
 @pytest.mark.cuda
