@@ -25,14 +25,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  PyTorch call computing the same (a yardstick the port
                  never calls) and the bound. K2 also at a ragged S =
                  2000 and at B = 2, K3 at B = 2, both at head_dim 80
-                 (Zamba2-2.7B's shared block, MHA). K5 (ssd_chunk)
+                 (Zamba2-2.7B's shared block, MHA); K2 with a sliding
+                 window (WINDOW_CASES, bf16 and f32; its planted faults
+                 the band one key too wide and the far edge's 64 keys
+                 dropped; SDPA with the band as a boolean mask beside
+                 it). K5 (ssd_chunk)
                  at Mamba2-780M's (S = 2048) and Zamba2-2.7B's (S =
                  1024) full-width shapes, a ragged S = 2000 and g = 8:
                  in the served dtypes (x, B, C bf16: its wgmma body)
                  and with B and C in f32 (x bf16 or f32: its CUDA-core
                  body), within its own limit, each case with two
                  planted faults, the body that ran each case and the
-                 ptxas report of both bodies. The backward kernels
+                 ptxas report of both bodies; each body called
+                 SSD_REPEATS times on the same inputs, bitwise equal.
+                 The backward kernels
                  (training): K2's (flash_attention_bwd.cu) at Qwen3-4B's
                  shapes at B = 4, S = 1024 and a ragged S = 1000 in bf16,
                  at Zamba2-2.7B's shared block (H = KVH = 32, D = 80) in
@@ -74,7 +80,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``eager_card`` the eager loop, K0's plain version, on the card (its
                  whole run and ms an event step) and K0 on the same
                  inputs, held bitwise to each other, for every policy at
-                 N = EAGER_N (50).
+                 N = EAGER_N (30).
    ``wide``      the same trace with seeds 0-7 x C = 8..32 (200 lanes,
                  ESFF, one lane chunk) at N = 30,000: wall time, req/s,
                  us an event; the seed-0 lanes at Fig. 5's capacities
@@ -214,26 +220,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  grid's launches and forms, K4a/K4b's pinned geometries,
                  the rail's absence from the untraced units, the lint; a
                  failing gate fails the run.
-5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 250), the options
+5. ``parity``    the Fig. 5 spec (OpenWhisk-v2 at 50), the options
                  spec, the static cluster's two specs and the dynamic
                  cluster's K = 4 entries (both routers, ESFF and SFF) at
-                 N = 500, the churn phase's
+                 N = 100, the churn phase's
                  two specs (cycles scaled to SPAN / 3) and resil-tiers
-                 (ESFF and SFF, its cycle scaled alike) at N = 250, on
+                 (ESFF and SFF, its cycle scaled alike) at N = 60, on
                  the card (K0 and its K-node variant) and on the CPU (the
                  eager loops), bitwise on every metric; a planted one-ulp
                  fault in ``resp_sum`` must be rejected.
                  The CPU sides run in six worker processes (one thread
                  each, one policy of a spec a job), started in this
                  phase, after every phase whose times are reported.
-6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m and
-                 zamba2-2.7b in f32 on the card, on weights and a prompt
-                 made with numpy, through prefill and 8 greedy decode
-                 steps, against the JAX package's tokens and logits (the
-                 constants below); then the same in bf16 (and Mamba2 at
-                 head dim 64, so that K5's wgmma body runs), fed the JAX
-                 tokens, each step's logits within 5e-2 of its largest
-                 |logit|, with the greedy-token agreement.
+6. ``model_parity`` the smoke() configs of qwen3-4b, mamba2-780m,
+                 zamba2-2.7b and deepseek-moe-16b in f32 on the card, on
+                 weights and a prompt made with numpy, through prefill
+                 and 8 greedy decode steps, against the JAX package's
+                 tokens and logits (the constants below and
+                 scripts/model_parity_expected.json: also the MoE
+                 capacity path dropping choices, their count exact, and
+                 zamba2 with a prompt past its cache); then the same in
+                 bf16 (and Mamba2 at head dim 64, so that K5's wgmma
+                 body runs; and the MoE model), fed the JAX tokens, each
+                 step's logits within 5e-2 of its largest |logit|, with
+                 the greedy-token agreement.
 7. ``serve``     `repro_torch.serving.EdgeServingEngine` (ESFF, 2 slots)
                  serves 12 requests from three full-width Qwen3-4B
                  functions (SERVE_CATALOGUE); cold starts, executions
@@ -241,13 +251,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  serving kernels' launch counts, set to 0 just before
                  the run, read just after. Then one warm instance per
                  function splits prefill tok/s from decode ms/token.
-8. ``serve_ssm`` the same engine, 2 slots and 12 requests over three
+8. ``serve_ssm`` the same engine, 2 slots and 6 requests over four
                  full-width functions of the ssm and hybrid families
                  (SERVE_SSM_CATALOGUE: Mamba2-780M chat and summarize,
-                 Zamba2-2.7B chat); K5 must launch exactly once a layer
+                 Zamba2-2.7B chat and long: a prompt of 6000 into a
+                 cache of 4096); K5 must launch exactly once a layer
                  a prefill of the run, every time through its wgmma
                  body, K2 and K3 (head_dim 80) once a shared-block
-                 application.
+                 application, K2 always with the window of the cache.
+8b. ``serve_moe`` the same engine on 1 slot, 6 requests over two
+                 DeepSeek-MoE-16B functions at published widths and
+                 full depth (SERVE_MOE_CATALOGUE); K2 and K3 once a
+                 layer a prefill and a decode step; peak memory.
 9. ``train``     training (TRAIN_FULL and the notes above it), for each
                  of qwen3-4b (dense), mamba2-780m (ssm) and zamba2-2.7b
                  (hybrid): (a) the smoke config in f32 on numpy
@@ -289,6 +304,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import multiprocessing
@@ -327,29 +343,34 @@ CLUSTER_EXPECTED_FILE = os.path.join(HERE, "scripts",
 # the card-vs-CPU parities' N (Fig. 5's and the options'; 2,000 until the
 # resilience phase needed the room, 1,000 until the ssm and hybrid train
 # runs did: the parity phase took 59.2 s of a 429.9 s smoke at 1,000 on
-# an H100 at 700 W); their CPU sides run in worker processes after the
-# card's timed phases
-PARITY_N = 500
+# an H100 at 700 W; 500 until serve_moe, the window rows and
+# hybrid-long needed the room: 44.7 s of a smoke past 500 s on a slow
+# host); their CPU sides run in worker processes after the card's timed
+# phases
+PARITY_N = 100
 # Fig. 5's OpenWhisk-v2 parity job runs at half of PARITY_N: at 2,000 its
 # timers made it the parity phase's floor (123.3 s of CPU), at 1,000 it
-# still took 54 s of the smoke's run
-PARITY_N_OWV2 = 250
-# the dynamic cluster's parity: N = 500 (1,000 until the ssm and hybrid
-# train runs needed the room), K = 4 nodes of 8 slots under both dynamic
-# routers (the CPU side is the eager K-node loop)
-DYNAMIC_PARITY = dict(n_requests=500, ks=(4,))
-# the churn parity: both churn specs at N = 250 (1,000 until the
+# still took 54 s of the smoke's run (250 until the MoE and window
+# phases)
+PARITY_N_OWV2 = 50
+# the dynamic cluster's parity: N = 100 (1,000 until the ssm and hybrid
+# train runs needed the room, 500 until the MoE and window phases), K =
+# 4 nodes of 8 slots under both dynamic routers (the CPU side is the
+# eager K-node loop)
+DYNAMIC_PARITY = dict(n_requests=100, ks=(4,))
+# the churn parity: both churn specs at N = 60 (1,000 until the
 # resilience phase needed the room: its jobs took ~40 s of CPU each; 500
-# until the ssm and hybrid train runs did), their churn cycles and delay
-# swings SPAN / 3 of that trace's span, so that outages fall in it
-CHURN_PARITY_N = 250
+# until the ssm and hybrid train runs did, 250 until the MoE and window
+# phases), their churn cycles and delay swings SPAN / 3 of that trace's
+# span, so that outages fall in it
+CHURN_PARITY_N = 60
 # the static cluster's parity at PARITY_N (2,000 until the resilience
 # phase needed the room: its jobs took ~46 s of CPU each)
 STATIC_PARITY_N = PARITY_N
-# the resilience parity: resil-tiers (ESFF and SFF) at N = 250 (500 until
-# the ssm and hybrid train runs), its churn cycle SPAN / 3 of that
-# trace's span
-RESIL_PARITY_N = 250
+# the resilience parity: resil-tiers (ESFF and SFF) at N = 60 (500 until
+# the ssm and hybrid train runs, 250 until the MoE and window phases),
+# its churn cycle SPAN / 3 of that trace's span
+RESIL_PARITY_N = 60
 # the K-node variant's plain version on the card: the eager K-node loop
 # at this N over the AGG = 32 spec's K = 4 lanes, beside the kernel (100
 # until the resilience phase needed the room, 60 until the ssm and hybrid
@@ -370,6 +391,10 @@ RESIL_EAGER_N_OTHERS = 8
 RESIL_TIMED = ("fp0.3/retry3", "breaker/fp0.15", "breaker/fp0.6",
                "resil-tiers")
 PARITY_WORKERS = 6
+# K0's launches timed alone by events a case (the median of 3 until the
+# MoE and window phases needed the room: the main path's OpenWhisk-v2
+# launch alone takes ~2.9 s)
+TIMED_REPS = 1
 # The JAX package's traced runs (event counts by kind, record counts and
 # the SHA-256 of each cell's int32 and f64 columns) for the telemetry
 # phase's cases, made on the CPU with (PYTHONPATH=src, JAX_PLATFORMS=cpu)
@@ -380,9 +405,10 @@ TELEMETRY_EXPECTED_FILE = os.path.join(HERE, "scripts",
                                        "telemetry_expected.json")
 # the telemetry phase: the traced eager loops on the card beside the traced
 # kernels on each case cut to this N (40 until the ssm and hybrid train
-# runs needed the room; every case still writes 49-142 records), and the
-# Fig. 5 lanes traced at full size for these policies
-TELEMETRY_EAGER_N = 20
+# runs needed the room, 20 until the MoE and window phases did; at 20
+# every case wrote 49-142 records), and the Fig. 5 lanes traced at full
+# size for these policies
+TELEMETRY_EAGER_N = 12
 TELEMETRY_FULL = ("esff", "sff")
 POLICIES = ("esff", "esff_h", "sff", "openwhisk", "faascache",
             "openwhisk_v2")
@@ -406,11 +432,11 @@ WIDE = dict(seeds=tuple(range(8)), capacities=tuple(range(8, 33)),
 # the metrics held against the JAX constants
 HELD = ("done", "overflow", "stalled", "cold_starts", "evictions",
         "n_events", "mean_response", "mean_slowdown", "max_response")
-# the eager loop on the card (eager_card): every policy at N = 50 (a step
+# the eager loop on the card (eager_card): every policy at N = 30 (a step
 # costs ~8-12 ms there; cut from 150 to 100 to make room for the dense
-# train phase, and to 50 for the ssm and hybrid ones: the smoke keeps
-# under 450 s)
-EAGER_N = 50
+# train phase, to 50 for the ssm and hybrid ones and to 30 for the
+# MoE and window phases: the smoke keeps under 450 s)
+EAGER_N = 30
 # each policy's kernel instantiation: event_loop_kernel<Policy<kind, lru,
 # cold_aware, sff>, false> of csrc/event_loop.cu, and its K-node variant
 # event_loop_cluster_kernel<..., true>, and how their mangled names
@@ -448,16 +474,39 @@ SERVE_ARCH = "qwen3-4b"
 SERVE_CATALOGUE = (("chat", 512, 32, 1024), ("summarize", 2048, 8, 2560),
                    ("classify", 256, 1, 512))
 SERVE_REQUESTS = dict(n=12, duration=5.0, seed=0)
+# the decode steps a warm instance's prefill / decode split times (the
+# function's own new tokens, at least 8, until the MoE and window phases
+# needed the room)
+SERVE_SPLIT_STEPS = 4
 # The ssm and hybrid serving path (serve_ssm): Mamba2-780M (48 layers, d
 # 1536, 48 SSM heads of 64, state 128, chunk 256, bf16) and Zamba2-2.7B
 # (54 Mamba2 layers at d 2560, 80 heads of 64, state 64, a shared MHA
 # block of 32 heads of 80 every 6 layers) at full width, random weights
 # seeded by the function's id; (name, arch, prompt, new tokens,
 # max_len). The prompt of 2000 pads its last chunk (8 chunks of 256).
-# ESFF on a 2-slot server, the same 12 requests' arrivals.
+# hybrid-long sends Zamba2 a prompt of 6000 into a cache of 4096 (its
+# long_context_window): the shared block's K2 runs with the sliding
+# window W = 4096 (S % W = 1904), the cache keeps the last 4096 keys and
+# decode writes the ring (summarizing a long document on an edge server
+# that bounds its cache). ESFF on a 2-slot server, 6 requests in 5 s (12
+# until the MoE and window phases needed the room).
 SERVE_SSM_CATALOGUE = (("ssm-chat", "mamba2-780m", 512, 32, 1024),
                        ("ssm-summarize", "mamba2-780m", 2000, 8, 2048),
-                       ("hybrid-chat", "zamba2-2.7b", 1024, 16, 1280))
+                       ("hybrid-chat", "zamba2-2.7b", 1024, 16, 1280),
+                       ("hybrid-long", "zamba2-2.7b", 6000, 8, 4096))
+SERVE_SSM_REQUESTS = dict(n=6, duration=5.0, seed=0)
+# The MoE serving path (serve_moe): DeepSeek-MoE-16B at published widths
+# and full depth (28 layers, the first dense at d_ff 10944, then 64
+# routed experts top-6 + 2 shared of d_ff 1408, 16 MHA heads of 128,
+# vocab 102400; 16.4 B parameters, 32.8 GB in bf16), random weights
+# seeded by the function's id; (name, arch, prompt, new tokens, max_len).
+# ESFF on a 1-slot server (one 32.8 GB instance warm: every switch of
+# function is a cold start and an eviction), 6 requests in 5 s. Users: a
+# sparse 16 B model served on one edge card, ~2.8 B parameters active a
+# token.
+SERVE_MOE_CATALOGUE = (("moe-chat", "deepseek-moe-16b", 512, 32, 1024),
+                       ("moe-summarize", "deepseek-moe-16b", 2048, 8, 2560))
+SERVE_MOE = dict(capacity=1, requests=dict(n=6, duration=5.0, seed=0))
 # The limit of each bf16 serving kernel against its plain version on
 # the card, elementwise |kernel - plain| <= atol + rtol * |plain|. Both
 # sides compute in f32 and round the output to bf16 once, so they may
@@ -547,6 +596,12 @@ FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
           "ssd_chunk_backward": "the gradient of K5 without the causal "
                                 "tile pair s in [64, 128), t in [0, 64)"}
 
+# K2's window rows (S, W, H, KVH, D), in bf16 and f32: Zamba2-2.7B's
+# shared block with a prompt of 6000 into its cache of 4096 (the
+# serve_ssm hybrid-long function), Qwen3-4B's heads at W 1000, and
+# windows of 63 and 64 keys, where one key is a large share of a row
+WINDOW_CASES = ((6000, 4096, 32, 32, 80), (2048, 1000, 32, 8, 128),
+                (512, 63, 32, 8, 128), (512, 64, 32, 8, 128))
 # the serving kernels in the `kernels` line: (name, the TPU kernel it
 # replaces, the kernel-phase case whose times the line carries: the
 # serving path's largest)
@@ -717,6 +772,14 @@ PARITY_CASES = {
         l2=22.521312696958773, top5=[12, 504, 199, 121, 44])),
 }
 PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
+# More rows, made by scripts/model_parity_expected.py (its docstring has
+# the recipe; rerun it after touching `parity_weights`): the MoE family's
+# smoke config in f32 (the dense oracle; then the capacity dispatch at a
+# capacity factor where the prefill drops choices, the count held
+# exactly) and in bf16, and Zamba2's smoke config with a prompt of 80
+# into a cache of 48 (the sliding window, S % W = 32).
+PARITY_EXPECTED_FILE = os.path.join(HERE, "scripts",
+                                    "model_parity_expected.json")
 # The bf16 rows of model_parity: the same smoke() configs (and Mamba2-780M's
 # at head dim 64, state 64 and chunk 64, so that its prefill takes K5's
 # wgmma body) with params and activations in bf16, on the same weights
@@ -947,9 +1010,10 @@ def time_ms(torch, fn, reps: int = 200, trials: int = 7) -> float:
 def time_in_turns(torch, fns, reps: int = 200, trials: int = 7):
     """`time_ms` of each of ``fns``, which take turns inside every trial
     (the first of a trial rotating), so that a slow spell of the host or
-    the card falls on all of them alike."""
+    the card falls on all of them alike; 5 warm-up calls each first (20
+    until the MoE and window phases needed the room)."""
     for fn in fns:
-        for _ in range(20):
+        for _ in range(5):
             fn()
     torch.cuda.synchronize()
     ts = [[] for _ in fns]
@@ -988,9 +1052,10 @@ def device_split(torch, fn, reps: int = 20):
             if e.device_type == DeviceType.CUDA and e.count}
 
 
-def device_ms(torch, fn, reps: int = 20):
-    """Device time of one call of ``fn`` over ``reps`` calls: the sum of
-    `device_split`'s kernels; None when it records no device activity."""
+def device_ms(torch, fn, reps: int = 10):
+    """Device time of one call of ``fn`` over ``reps`` calls (20 until the
+    MoE and window phases needed the room): the sum of `device_split`'s
+    kernels; None when it records no device activity."""
     ms = sum(device_split(torch, fn, reps).values())
     return ms if ms > 0 else None
 
@@ -1197,7 +1262,7 @@ def k0_differs(np, out, want, policy=None, keys=K0_KEYS):
             if not np.array_equal(lanes(out[k]), lanes(want[k]))]
 
 
-def k0_timed(torch, K0, kernel, args, kw, reps=3):
+def k0_timed(torch, K0, kernel, args, kw, reps=TIMED_REPS):
     """K0 alone on ``args`` by CUDA events (not counted in a path's
     launches): the median time (ms), the last launch's outputs and its
     (L, 3) policy counts (FRP scans, head scans, timer events)."""
@@ -1864,7 +1929,7 @@ def phase_static_cluster(torch, np, api, fs, K0, cexp, n_requests):
     return res
 
 
-def cluster_timed(torch, K0, args, kw, reps=3):
+def cluster_timed(torch, K0, args, kw, reps=TIMED_REPS):
     """The K-node variant alone on ``args`` by CUDA events: the median
     time (ms), the last launch's outputs and its (L, 3) policy counts."""
     ms = []
@@ -3174,7 +3239,9 @@ def phase_serving_kernels(torch, FA, DA, RN):
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(0)
     H, KVH, D, d = 32, 8, 128, 2560
-    timing = dict(reps=20, trials=5)
+    # calls a trial and trials (20 and 5 until the MoE and window phases
+    # needed the room)
+    timing = dict(reps=10, trials=3)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(bf16)
@@ -3248,6 +3315,48 @@ def phase_serving_kernels(torch, FA, DA, RN):
             2 * B * (2 * Hq * Dq + 2 * n * KVHq * Dq), 4 * B * Hq * Dq * n,
             "bf16"))
 
+    def window_case(S, W, Hq, KVHq, Dq, dtype):
+        """K2 with the sliding window W (row i sees keys i - W..i), its
+        fault the band one key too wide; at W >= 64 also the 64 keys at
+        the band's far edge dropped (both must be rejected); SDPA with
+        the band as a boolean mask beside it."""
+        case = f"window W={W} S={S} H={Hq} KVH={KVHq} D={Dq} " + (
+            "bf16" if dtype == bf16 else "f32")
+        q = randn(1, S, Hq, Dq).to(dtype)
+        k, v = randn(1, S, KVHq, Dq).to(dtype), randn(1, S, KVHq, Dq).to(
+            dtype)
+        call = partial(FA.flash_attention, q, k, v, window=W)
+        plain = partial(FA.flash_attention_plain, q, k, v, window=W)
+        band = FA.band_mask(S, S, W, dev)
+        pos = torch.arange(S, device=dev)
+        d = pos[:, None] - pos[None, :]
+        want = plain()
+        abs_v = FA.flash_attention_plain(q.float(), k.float(),
+                                         v.float().abs(), window=W)
+        check = _close(torch, "flash_attention", case, call(), want,
+                       attention_f32(torch, q, k, v,
+                                     (d >= 0) & (d <= W + 1)), abs_v)
+        if W >= 64:
+            edge = attention_f32(torch, q, k, v, (d >= 0) & (d <= W - 64))
+            check["fault_edge_ratio"] = _tol_use(
+                edge, want, KERNEL_TOL["flash_attention"], abs_v)
+            need(check["fault_edge_ratio"] > 1.0,
+                 f"flash_attention {case}: the limit does not reject the "
+                 "band's far 64 keys dropped")
+            check["fault_ratio"] = min(check["fault_ratio"],
+                                       check["fault_edge_ratio"])
+        del want, abs_v
+        keys = int(torch.clamp(pos, max=W).sum()) + S   # visible pairs
+        size = 2 if dtype == bf16 else 4
+        rows.append(dict(row(
+            "flash_attention", case, check, call, plain,
+            partial(F.scaled_dot_product_attention,
+                    *(x.transpose(1, 2) for x in (q, k, v)),
+                    attn_mask=band, enable_gqa=Hq > KVHq),
+            size * (2 * S * Hq * Dq + 2 * S * KVHq * Dq),
+            4 * Hq * Dq * keys, "bf16" if dtype == bf16 else "f32",
+            timing=dict(reps=5, trials=3)), window=W))
+
     for S in (256, 512, 2048):
         flash_case(f"causal S={S}", 1, S, H, KVH, D)
     flash_case("causal S=2000", 1, 2000, H, KVH, D)     # a ragged q tile
@@ -3255,6 +3364,13 @@ def phase_serving_kernels(torch, FA, DA, RN):
     # Zamba2-2.7B's shared block: MHA, 32 heads of 80, prompt 1024
     H8, D8 = 32, 80
     flash_case("D=80 causal S=1024", 1, 1024, H8, H8, D8)
+    # the window (ROADMAP Queue 1, item 6.2): Zamba2's shared block past
+    # its cache of 4096, Qwen3's widths at W 1000, and small windows
+    t_win = time.perf_counter()
+    for dtype in (bf16, torch.float32):
+        for S, W, Hq, KVHq, Dq in WINDOW_CASES:
+            window_case(S, W, Hq, KVHq, Dq, dtype)
+    t_win = time.perf_counter() - t_win
     T = 1280
     kc, vc = randn(1, T, H8, D8), randn(1, T, H8, D8)
     q = randn(1, 1, H8, D8)
@@ -3344,7 +3460,8 @@ def phase_serving_kernels(torch, FA, DA, RN):
     residual_case(7, 1001, "general")
     residual_case(64, d, "general", offset=1)
     t_norm = time.perf_counter() - t_norm
-    emit(dict(phase="kernel", serving=rows, rmsnorm_cases_s=t_norm))
+    emit(dict(phase="kernel", serving=rows, rmsnorm_cases_s=t_norm,
+              window_cases_s=t_win))
     return rows
 
 
@@ -3394,7 +3511,7 @@ def phase_training_kernels(torch, np, FA, RN, K5):
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(1)
-    timing = dict(reps=10, trials=5)
+    timing = dict(reps=10, trials=3)   # 5 trials before the MoE phases
     rows = []
 
     def randn(*shape, dtype=bf16):
@@ -3813,6 +3930,10 @@ SSD_CASES = (
 )
 
 
+# calls of each K5 body on the same inputs that must agree bitwise
+SSD_REPEATS = 20
+
+
 def phase_ssd_kernel(torch, np, K5):
     """K5 against its plain version on the card at Mamba2-780M's (S =
     2048) and Zamba2-2.7B's (S = 1024) full-width shapes, a ragged S =
@@ -3824,7 +3945,8 @@ def phase_ssd_kernel(torch, np, K5):
     the bound of a wgmma case counts its tensor-core passes, with the
     f32 CUDA-core bound beside it."""
     from repro_torch.kernels import _build
-    timing = dict(reps=20, trials=5)
+    # 20 calls, 5 trials before the MoE and window phases
+    timing = dict(reps=10, trials=3)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     rows = []
     for i, (case, shape, xd, bcd, valid, body) in enumerate(SSD_CASES):
@@ -3861,8 +3983,26 @@ def phase_ssd_kernel(torch, np, K5):
                          library_device_ms=None, bound_ms=bnd, bound_by=by,
                          bound_f32_ms=b_f32, bound_f32_by=by_f32,
                          bytes=n_bytes, ops=f32_ops, tc_ops=tc_ops))
+    # the repeat check (ROADMAP Queue 3, the f32 chunked SSD's miss): each
+    # body called SSD_REPEATS times on the same inputs gives the same bits
+    repeat = {}
+    for case, xd in (("mamba2-780m S=2000 ragged f32", "f32"),
+                     ("mamba2-780m S=2000 ragged bf16", "bf16")):
+        args = ssd_inputs(torch, np, 1, 8, 256, 48, 64, 128, 1,
+                          dtypes[xd], dtypes[xd], seed=0, valid=2000)
+        first = [o.clone() for o in K5.ssd_chunk(*args)]
+        body = K5.body_for(args[0], args[3], args[4])
+        differ = 0
+        for _ in range(SSD_REPEATS - 1):
+            differ += not all(torch.equal(a, b) for a, b in
+                              zip(K5.ssd_chunk(*args), first))
+        torch.cuda.synchronize()
+        repeat[case] = dict(body=body, calls=SSD_REPEATS,
+                            not_bitwise_first=differ)
+        need(differ == 0, f"ssd_chunk {case}: {differ} of {SSD_REPEATS} "
+             f"calls on the {body} body differ bitwise from the first")
     report = _build.BUILD_INFO.get("ssd_chunk", {}).get("ptxas", "")
-    emit(dict(phase="kernel", ssd_chunk=rows, ptxas=dict(
+    emit(dict(phase="kernel", ssd_chunk=rows, repeat=repeat, ptxas=dict(
         wgmma=ptxas_lines(report, "ssd_chunk_wgmma_kernel"),
         cuda_core=ptxas_lines(report, "16ssd_chunk_kernel"))))
     return rows
@@ -3876,7 +4016,9 @@ def parity_weights(np, shapes):
     weights (gate_norm too) 1 + 0.1 z; the Mamba2 leaves A_log = log U
     (0.01, 0.1) (a second, uniform draw), dt_bias -3 + 0.1 z, D = z and
     conv_b 0.1 z, so that the SSM state decays slowly and every skip
-    and bias counts; everything else z / sqrt(fan-in)."""
+    and bias counts; everything else z / sqrt(fan-in): the first dim of
+    the leaf's own shape (after the layer axis of a stacked block's), and
+    for the MoE experts' (L, E, d_in, d_out) weights d_in, not E."""
     r = np.random.default_rng(PARITY["seed"])
     out = {}
     for name in sorted(shapes):
@@ -3893,8 +4035,10 @@ def parity_weights(np, shapes):
         elif leaf in ("D", "conv_b"):
             a = z if leaf == "D" else 0.1 * z
         else:
-            fan_in = shape[1] if name.startswith("blocks.") else shape[0]
-            a = z / math.sqrt(fan_in)
+            stacked = name.split(".", 1)[0] in ("blocks", "dense_blocks",
+                                                "moe_blocks")
+            expert = leaf in ("we_gate", "we_up", "we_down")
+            a = z / math.sqrt(shape[int(stacked) + int(expert)])
         out[name] = a.astype(np.float32)
     return out
 
@@ -3904,62 +4048,109 @@ def parity_tokens(np, vocab_size, prompt_len):
     return r.integers(0, vocab_size, (1, prompt_len))
 
 
-def parity_model(torch, np, cfg):
+def parity_model(torch, np, cfg, dev="cuda"):
     """The port's model of ``cfg`` on the card with the parity weights
     (`parity_weights`, cast to the config's dtype)."""
     from repro_torch.models import build_model
     from repro_torch.models.convert import from_jax_params
-    model = build_model(cfg)
+    model = build_model(cfg, dev)
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     model.load_state_dict(from_jax_params(cfg, parity_weights(np, shapes)))
     return model
 
 
+def load_parity_expected():
+    """The rows of `scripts/model_parity_expected.py` (the MoE family and
+    the hybrid prompt past its cache): {"f32": {row: case}, "bf16": {row:
+    case}}."""
+    with open(PARITY_EXPECTED_FILE) as f:
+        return json.load(f)
+
+
+class CountDropped:
+    """Counts the MoE choices dropped by the port's capacity dispatch
+    (`layers.moe_dispatch_indices`) while it is entered."""
+
+    def __init__(self):
+        from repro_torch.models import layers
+        self.mod, self.dropped = layers, 0
+
+    def __enter__(self):
+        orig = self.orig = self.mod.moe_dispatch_indices
+
+        def counting(top_e, top_p, n_experts, capacity):
+            slot, w = orig(top_e, top_p, n_experts, capacity)
+            self.dropped += int((slot == capacity).sum())
+            return slot, w
+        self.mod.moe_dispatch_indices = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.moe_dispatch_indices = self.orig
+
+
+def model_parity_f32(torch, np, row, case, dev="cuda"):
+    """One f32 row: the greedy run against the JAX package's tokens,
+    last-step logits[:16], L2 and top-5 (PARITY_TOL, tokens exact); a
+    case with ``prefill_dropped`` (the MoE capacity dispatch) must drop
+    as many choices in the prefill as the JAX package."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(case["arch"]).smoke().replace(**case.get("config", {}))
+    model = parity_model(torch, np, cfg, dev)
+    toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
+                                      case["prompt_len"]), device=dev)
+    cache = model.cache_spec(1, case["max_len"]).zeros(dev)
+    with CountDropped() as drops:
+        logits, cache = model.prefill({"tokens": toks}, cache)
+    out = [int(logits[0, -1].argmax())]
+    for _ in range(PARITY["steps"]):
+        tok = torch.tensor([[out[-1]]], device=dev)
+        logits, cache = model.decode_step(tok, cache)
+        out.append(int(logits[0, -1].argmax()))
+    last = logits[0, -1].double().cpu().numpy()
+    exp = case["expected"]
+    got = dict(tokens=out, head=last[:16].tolist(),
+               l2=float(np.linalg.norm(last)),
+               top5=np.argsort(-last)[:5].tolist())
+    head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
+    emit(dict(phase="model_parity", arch=row, tokens=out,
+              expected_tokens=exp["tokens"], head_max_abs_err=head_err,
+              l2=got["l2"], expected_l2=exp["l2"], top5=got["top5"],
+              expected_top5=exp["top5"], prefill_dropped=drops.dropped,
+              expected_prefill_dropped=case.get("prefill_dropped")))
+    need(bool(np.isfinite(last).all()),
+         f"model_parity {row}: non-finite logits")
+    need(out == exp["tokens"], f"model_parity {row}: greedy tokens "
+         f"{out} != the JAX package's {exp['tokens']}")
+    need(got["top5"] == exp["top5"],
+         f"model_parity {row}: top-5 logits differ")
+    need(np.allclose(last[:16], exp["head"], **PARITY_TOL)
+         and math.isclose(got["l2"], exp["l2"], rel_tol=PARITY_TOL["rtol"]),
+         f"model_parity {row}: last-step logits beyond {PARITY_TOL} "
+         f"of the JAX package's (head err {head_err}, l2 {got['l2']} "
+         f"vs {exp['l2']})")
+    if case.get("prefill_dropped") is not None:
+        need(drops.dropped == case["prefill_dropped"],
+             f"model_parity {row}: the prefill dropped {drops.dropped} "
+             f"MoE choices, the JAX package's {case['prefill_dropped']}")
+
+
 def phase_model_parity(torch, np):
     """The port's models on the card against the JAX package's own
-    output (PARITY_CASES' expected, computed on the CPU), in f32; then
-    in bf16 (PARITY_BF16_CASES), fed the JAX package's tokens."""
-    from repro_torch.configs import get_arch
-    for arch, case in PARITY_CASES.items():
-        cfg = get_arch(arch).smoke()
-        model = parity_model(torch, np, cfg)
-        toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
-                                          case["prompt_len"]), device="cuda")
-        cache = model.cache_spec(1, case["max_len"]).zeros("cuda")
-        logits, cache = model.prefill({"tokens": toks}, cache)
-        out = [int(logits[0, -1].argmax())]
-        for _ in range(PARITY["steps"]):
-            tok = torch.tensor([[out[-1]]], device="cuda")
-            logits, cache = model.decode_step(tok, cache)
-            out.append(int(logits[0, -1].argmax()))
-        last = logits[0, -1].double().cpu().numpy()
-        exp = case["expected"]
-        got = dict(tokens=out, head=last[:16].tolist(),
-                   l2=float(np.linalg.norm(last)),
-                   top5=np.argsort(-last)[:5].tolist())
-        head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
-        emit(dict(phase="model_parity", arch=arch + " smoke f32",
-                  tokens=out, expected_tokens=exp["tokens"],
-                  head_max_abs_err=head_err, l2=got["l2"],
-                  expected_l2=exp["l2"], top5=got["top5"],
-                  expected_top5=exp["top5"]))
-        need(bool(np.isfinite(last).all()),
-             f"model_parity {arch}: non-finite logits")
-        need(out == exp["tokens"], f"model_parity {arch}: greedy tokens "
-             f"{out} != the JAX package's {exp['tokens']}")
-        need(got["top5"] == exp["top5"],
-             f"model_parity {arch}: top-5 logits differ")
-        need(np.allclose(last[:16], exp["head"], **PARITY_TOL)
-             and math.isclose(got["l2"], exp["l2"],
-                              rel_tol=PARITY_TOL["rtol"]),
-             f"model_parity {arch}: last-step logits beyond {PARITY_TOL} "
-             f"of the JAX package's (head err {head_err}, l2 {got['l2']} "
-             f"vs {exp['l2']})")
-    for row, case in PARITY_BF16_CASES.items():
+    output (PARITY_CASES' expected and the f32 rows of
+    `scripts/model_parity_expected.json`, computed on the CPU), in f32;
+    then in bf16 (PARITY_BF16_CASES and that file's bf16 rows), fed the
+    JAX package's tokens."""
+    more = load_parity_expected()
+    cases = {f"{arch} smoke f32": dict(case, arch=arch)
+             for arch, case in PARITY_CASES.items()}
+    for row, case in dict(cases, **more["f32"]).items():
+        model_parity_f32(torch, np, row, case)
+    for row, case in dict(PARITY_BF16_CASES, **more["bf16"]).items():
         model_parity_bf16(torch, np, row, case)
 
 
-def model_parity_bf16(torch, np, row, case):
+def model_parity_bf16(torch, np, row, case, dev="cuda"):
     """One bf16 row: prefill and decode fed the JAX package's greedy
     tokens, each step's logits within PARITY_BF16_TOL of its largest
     |logit| at the JAX top-5 and at logits[:8]; a greedy token that
@@ -3970,10 +4161,10 @@ def model_parity_bf16(torch, np, row, case):
     from repro_torch.kernels import ssd_chunk as K5
     before = dict(K5.ssd_chunk.body_launches)
     cfg = get_arch(case["arch"]).smoke().replace(**case["config"])
-    model = parity_model(torch, np, cfg)
+    model = parity_model(torch, np, cfg, dev)
     toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
-                                      case["prompt_len"]), device="cuda")
-    cache = model.cache_spec(1, case["max_len"]).zeros("cuda")
+                                      case["prompt_len"]), device=dev)
+    cache = model.cache_spec(1, case["max_len"]).zeros(dev)
     logits, cache = model.prefill({"tokens": toks}, cache)
     steps = case["steps"]
     mine, worst = [], 0.0
@@ -3993,7 +4184,7 @@ def model_parity_bf16(torch, np, row, case):
              f"package {tok} by a top-2 gap {gap} over the bound {bound:.4g}")
         if i + 1 < len(steps):
             logits, cache = model.decode_step(
-                torch.tensor([[tok]], device="cuda"), cache)
+                torch.tensor([[tok]], device=dev), cache)
     want = [s[0] for s in steps]
     bodies = {k: v - before[k]
               for k, v in K5.ssd_chunk.body_launches.items()}
@@ -4030,8 +4221,13 @@ class CountModelCalls:
 
     def _wrap(self, kind, orig):
         def call(model, *a, **kw):
-            key = (kind, model.cfg.name)
-            self.counts[key] = self.counts.get(key, 0) + 1
+            keys = [(kind, model.cfg.name)]
+            if kind == "prefill" and "k" in a[1] and \
+                    a[0]["tokens"].shape[1] > a[1]["k"].shape[2]:
+                # a prompt longer than the attention cache
+                keys.append(("prefill_past_cache", model.cfg.name))
+            for key in keys:
+                self.counts[key] = self.counts.get(key, 0) + 1
             return orig(model, *a, **kw)
         return call
 
@@ -4048,20 +4244,22 @@ class CountModelCalls:
         return self.counts.get((kind, name), 0)
 
 
-def serve_run(torch, np, phase, fns, kernels, calls=None):
-    """`repro_torch.serving.EdgeServingEngine` with ESFF on 2 slots
-    serving ``fns``: cold starts, executions and responses measured on
-    the card, with the launch counts of ``kernels`` ({name: wrapper})
+def serve_run(torch, np, phase, fns, kernels, calls=None, capacity=2,
+              requests=SERVE_REQUESTS):
+    """`repro_torch.serving.EdgeServingEngine` with ESFF on ``capacity``
+    slots serving ``fns`` the ``requests`` (n, duration, seed): cold
+    starts, executions and responses measured on the card, with the
+    launch counts of ``kernels`` ({name: wrapper})
     set to 0 just before the run and read just after (and, with
     ``calls``, the run's prefill and decode calls counted). Then one
     warm instance per function splits prefill tok/s from decode
     ms/token. Emits the phase's line and returns (launches, line)."""
     from repro_torch.serving import EdgeServingEngine
     from repro_torch.serving.instance import ModelInstance
-    eng = EdgeServingEngine(fns, capacity=2, policy="esff")
-    reqs = eng.make_requests(SERVE_REQUESTS["n"],
-                             duration=SERVE_REQUESTS["duration"],
-                             seed=SERVE_REQUESTS["seed"])
+    eng = EdgeServingEngine(fns, capacity=capacity, policy="esff")
+    reqs = eng.make_requests(requests["n"], duration=requests["duration"],
+                             seed=requests["seed"])
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # set-up: one throwaway instance a function measures its cold start
     # and execution (the engine's FunctionProfile)
@@ -4073,6 +4271,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
         f.launches = 0
         if hasattr(f, "body_launches"):
             f.body_launches = dict.fromkeys(f.body_launches, 0)
+        if hasattr(f, "window_launches"):
+            f.window_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if calls is None:
@@ -4085,6 +4285,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
     launches = {k: f.launches for k, f in kernels.items()}
     by_body = {k: dict(f.body_launches) for k, f in kernels.items()
                if hasattr(f, "body_launches")}
+    windowed = {k: f.window_launches for k, f in kernels.items()
+                if hasattr(f, "window_launches")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fn_of = np.array([r.fn_id for r in reqs])
     per_fn = []
@@ -4097,8 +4299,20 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
                            profiled_cold_s=profiles[fn.fn_id][0],
                            profiled_exec_s=profiles[fn.fn_id][1],
                            exec_s_mean=float(ex.mean()) if len(ex) else None))
+    stats = dict(mean_response=res.mean_response,
+                 max_response=float(res.responses.max()),
+                 p95_response=res.percentile(95),
+                 cold_starts=res.server.cold_starts,
+                 evictions=res.server.evictions,
+                 cold_time=res.server.cold_time)
+    done, responses = len(res.responses), res.responses
+    # the run's replicas stay reachable from its server's hooks: drop
+    # them before the warm instances (a 1-slot MoE server holds 32.8 GB)
+    del res, eng
+    gc.collect()
+    torch.cuda.empty_cache()
     # prefill / decode split and the output's shape, one warm instance
-    # per function
+    # per function, each dropped before the next is built
     for fn, row in zip(fns, per_fn):
         inst = ModelInstance(fn)
         row["cold_s"] = inst.cold_start()
@@ -4112,7 +4326,7 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             tok = logits[:, -1].argmax(-1)[:, None]
-            steps = max(fn.gen_tokens, 8)
+            steps = SERVE_SPLIT_STEPS
             for _ in range(steps):
                 logits, cache = model.decode_step(tok, cache)
                 tok = logits[:, -1].argmax(-1)[:, None]
@@ -4127,26 +4341,22 @@ def serve_run(torch, np, phase, fns, kernels, calls=None):
         row["prefill_tok_per_s"] = fn.prompt_len / row["prefill_s"]
         row["decode_ms_per_token"] = 1e3 * sorted(dec)[1]
         inst.evict()
+        del model, cache, logits, tok
+        torch.cuda.empty_cache()
     line = dict(phase=phase, archs=sorted({fn.cfg.name for fn in fns}),
-                policy="esff", capacity=2,
+                policy="esff", capacity=capacity,
                 n_requests=len(reqs), profile_s=profile_s, wall_s=wall,
-                mean_response=res.mean_response,
-                max_response=float(res.responses.max()),
-                p95_response=res.percentile(95),
-                cold_starts=res.server.cold_starts,
-                evictions=res.server.evictions,
-                cold_time=res.server.cold_time, peak_mem_gb=peak_gb,
+                **stats, peak_mem_gb=peak_gb,
                 launches=launches, launches_by_body=by_body,
-                functions=per_fn)
+                window_launches=windowed, functions=per_fn)
     if calls is not None:
         line["model_calls"] = {f"{k}:{n}": c
                                for (k, n), c in sorted(calls.counts.items())}
     emit(line)
-    need(len(res.responses) == len(reqs),
-         f"{phase}: not every request done")
-    need(bool(np.isfinite(res.responses).all()
-              and (res.responses > 0).all()), f"{phase}: bad response times")
-    need(res.server.cold_starts >= 1 and res.server.evictions >= 1,
+    need(done == len(reqs), f"{phase}: not every request done")
+    need(bool(np.isfinite(responses).all() and (responses > 0).all()),
+         f"{phase}: bad response times")
+    need(stats["cold_starts"] >= 1 and stats["evictions"] >= 1,
          f"{phase}: no cold start or no eviction")
     for k, n in launches.items():
         need(n > 0, f"{phase}: {k} was never launched")
@@ -4179,7 +4389,9 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
                "ssd_chunk": K5.ssd_chunk}
     fns = serve_catalogue(SERVE_SSM_CATALOGUE)
     calls = CountModelCalls()
-    launches, line = serve_run(torch, np, "serve_ssm", fns, kernels, calls)
+    launches, line = serve_run(torch, np, "serve_ssm", fns, kernels, calls,
+                               requests=SERVE_SSM_REQUESTS)
+    windowed = line["window_launches"]["flash_attention"]
     cfgs = {fn.cfg.name: fn.cfg for fn in fns}
     want_k5 = sum(c.n_layers * calls.get("prefill", n)
                   for n, c in cfgs.items())
@@ -4202,6 +4414,41 @@ def phase_serve_ssm(torch, np, FA, DA, RN, K5):
          f"serve_ssm: K2 / K3 launched {launches['flash_attention']} / "
          f"{launches['decode_attention']} times at head_dim 80, not "
          f"{want_k2} / {want_k3}")
+    # every hybrid prefill attends through the window of its cache's
+    # length, and hybrid-long's prompt is longer than that cache
+    long = sum(calls.get("prefill_past_cache", c.name) for c in hyb)
+    emit(dict(phase="serve_ssm_window", window_launches=windowed,
+              want=want_k2, prefills_past_cache=long))
+    need(windowed == want_k2 and long >= 1,
+         f"serve_ssm: K2 launched {windowed} times with a window, not once "
+         f"a shared-block application a hybrid prefill ({want_k2}), or no "
+         f"prompt past its cache was served ({long})")
+    launches["flash_attention_window"] = windowed
+    return launches
+
+
+def phase_serve_moe(torch, np, FA, DA, RN):
+    """SERVE_MOE_CATALOGUE's DeepSeek-MoE-16B functions at published
+    widths and full depth on a 1-slot server: every request served, K2
+    once a layer a prefill and K3 once a layer a decode step of the run
+    (warm-ups of its live cold starts included), K4a and K4b counted,
+    peak memory, cold start, prefill tokens/s and decode ms/token."""
+    kernels = {"flash_attention": FA.flash_attention,
+               "decode_attention": DA.decode_attention,
+               "rmsnorm": RN.rmsnorm,
+               "rmsnorm_residual": RN.rmsnorm_residual}
+    fns = serve_catalogue(SERVE_MOE_CATALOGUE)
+    calls = CountModelCalls()
+    launches, line = serve_run(torch, np, "serve_moe", fns, kernels, calls,
+                               **SERVE_MOE)
+    cfg = fns[0].cfg
+    want = (cfg.n_layers * calls.get("prefill", cfg.name),
+            cfg.n_layers * calls.get("decode", cfg.name))
+    need((launches["flash_attention"], launches["decode_attention"])
+         == want and want[0] > 0,
+         f"serve_moe: K2 / K3 launched {launches['flash_attention']} / "
+         f"{launches['decode_attention']} times, not {cfg.n_layers} a "
+         f"prefill and a decode step ({want[0]} / {want[1]})")
     return launches
 
 
@@ -4256,9 +4503,10 @@ def plain_kernels():
     from repro_torch.models import mamba as MB
     from repro_torch.models import model as M
     saved = (L.flash_attention, L.rmsnorm, M.rmsnorm_residual, MB.ssd_chunk)
-    L.flash_attention = (lambda q, k, v, causal=True, scale=None:
-                         FA.flash_attention_plain(q, k, v, causal=causal,
-                                                  scale=scale))
+    L.flash_attention = (lambda q, k, v, causal=True, scale=None,
+                         window=None: FA.flash_attention_plain(
+                             q, k, v, causal=causal, scale=scale,
+                             window=window))
     L.rmsnorm = lambda x, w, eps=1e-6: RN.rmsnorm_plain(x, w, eps)
     M.rmsnorm_residual = (lambda x, r, w, eps=1e-6:
                           RN.rmsnorm_residual_plain(x, r, w, eps))
@@ -4663,9 +4911,12 @@ def main(argv=None) -> int:
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
-        out = fn(*a)
-        phase_s[name] = time.perf_counter() - t0
-        return out
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+            print(f"chip_smoke: phase {name} {phase_s[name]:.1f} s",
+                  file=sys.stderr, flush=True)
 
     try:
         smi = smi_line()
@@ -4715,7 +4966,9 @@ def main(argv=None) -> int:
         by_path = {"serve": timed("serve", phase_serve, torch, np, FA, DA,
                                   RN),
                    "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
-                                      np, FA, DA, RN, K5)}
+                                      np, FA, DA, RN, K5),
+                   "serve_moe": timed("serve_moe", phase_serve_moe, torch,
+                                      np, FA, DA, RN)}
         tr = timed("train", phase_train, torch, np, FA, RN, K5)
         by_path["train"] = tr["full"]["launches"]
         for arch, fam in tr["families"].items():
@@ -4915,6 +5168,16 @@ def main(argv=None) -> int:
                if "fused_pair_ms" in rep else {}),
             **({k: rep[k] for k in ("body", "bound_f32_ms")}
                if name == "ssd_chunk" else {}),
+            **({"window_cases": [
+                {k: r[k] for k in ("case", "window", "ms", "device_ms",
+                                   "plain_ms", "library_ms", "bound_ms",
+                                   "bound_by", "max_abs_err", "tol_use",
+                                   "fault_ratio")}
+                for r in mine if "window" in r],
+                "window_launches": by_path["serve_ssm"][
+                    "flash_attention_window"],
+                "window_library_note": "SDPA with the band as a boolean "
+                "mask"} if name == "flash_attention" else {}),
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

@@ -206,9 +206,10 @@ def main(argv=None) -> int:
         (a set of GROUPS); None: the plain path (autograd through the
         plain functions)."""
         if on is None:
-            L.flash_attention = (lambda q, k, v, causal=True, scale=None:
-                                 FA.flash_attention_plain(q, k, v,
-                                                          causal=causal))
+            L.flash_attention = (
+                lambda q, k, v, causal=True, scale=None, window=None:
+                FA.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window))
             L.rmsnorm = lambda x, w, eps=1e-6: RN.rmsnorm_plain(x, w, eps)
             M.rmsnorm_residual = (lambda x, r, w, eps=1e-6:
                                   RN.rmsnorm_residual_plain(x, r, w, eps))
@@ -219,8 +220,10 @@ def main(argv=None) -> int:
         sf, sb = "ssd_fwd" in on, "ssd_bwd" in on
         MB.ssd_chunk = (lambda x, dt, cum, B, C:
                         SSD.apply(x, dt, cum, B, C, sf, sb))
-        L.flash_attention = (lambda q, k, v, causal=True, scale=None:
-                             Attn.apply(q, k, v, af, ab))
+        # training attends with no window (the hybrid's prefill past its
+        # cache is serving only)
+        L.flash_attention = (lambda q, k, v, causal=True, scale=None,
+                             window=None: Attn.apply(q, k, v, af, ab))
         L.rmsnorm = lambda x, w, eps=1e-6: Norm.apply(x, w, eps, nf, nb)
         M.rmsnorm_residual = (lambda x, r, w, eps=1e-6:
                               NormRes.apply(x, r, w, eps, nf, nb))

@@ -31,7 +31,8 @@ from typing import Iterator, List, Tuple
 # card's checks read (scripts/*_expected.json), and the trace preparer
 # that predates the port
 JAX_SIDE = ("cluster_expected.py", "k0_expected.py", "telemetry_expected.py",
-            "train_expected.py", "prepare_azure_trace.py")
+            "train_expected.py", "model_parity_expected.py",
+            "prepare_azure_trace.py")
 _BANNED_ROOTS = ("jax", "repro")
 # the retired env var, spelled in parts: the JAX package's lint scans src/
 # too, and would read a constant holding the whole name as a use of it

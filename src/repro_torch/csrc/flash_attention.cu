@@ -6,7 +6,10 @@
 // contract: q (B, S, H, D), k and v (B, T, KVH, D), H = KVH * G;
 //   out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / G])
 //                  v[b, j, h / G]
-// over j < T, and j <= i when causal. The running max and sum and the
+// over j < T, and j <= i when causal; with a window W >= 0 (causal
+// only) also j >= i - W, the JAX package's sliding window (W + 1 keys a
+// row: `(i - j) <= window` in repro/models/layers.py::chunked_attention).
+// The running max and sum and the
 // accumulator in f32, the output cast to q's type. f32 or bf16 (q, k, v
 // and out of one type); D in {16, 32, 64, 80, 128}.
 //
@@ -39,7 +42,9 @@
 // - Softmax in base 2 (scores times scale * log2(e), exp2f). Only the
 //   tiles that cross the diagonal or the end of T are masked; a causal
 //   block stops at the last tile that holds a position <= its last row.
-//   The blocks of the last (heaviest) q tiles are launched first.
+//   A window's block starts at the tile that holds its first row - W, and
+//   masks the tiles that cross that edge. The blocks of the last
+//   (heaviest) q tiles are launched first.
 // - p is rounded to bf16 for the value product, as the tensor cores
 //   take it; the running sum keeps the f32 p.
 // f32 has no tensor-core path at its precision and runs on the CUDA
@@ -91,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int S, int T_len, int H,
-                       int KVH, float scale, int causal) {
+                       int KVH, float scale, int causal, int window) {
   constexpr int QS = padded<T>(D);  // q and k tile row stride
   constexpr int PS = kBK + 1;       // score tile row stride
   constexpr int NC = D / 16;        // output columns per thread
@@ -131,9 +136,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-  // a causal block sees positions <= its last row only
+  // a causal block sees positions <= its last row only; with a window,
+  // positions >= its first row - W only: the tiles before are skipped
   const int k_end = causal ? min(T_len, q0 + kBQ) : T_len;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  const int k_start = window >= 0 ? max(0, q0 - window) / kBK * kBK : 0;
+  for (int k0 = k_start; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the previous tile is no longer read
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int t = i / D, d = i % D;
@@ -172,7 +179,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
-        const bool ok = k0 + c < T_len && (!causal || k0 + c <= q0 + r);
+        const bool ok = k0 + c < T_len && (!causal || k0 + c <= q0 + r) &&
+                        (window < 0 || q0 + r - (k0 + c) <= window);
         p_s[r * PS + c] = ok ? s[i][j] * scale : neg_inf();
       }
     }
@@ -288,7 +296,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_v,
                              __nv_bfloat16* __restrict__ out,
                              float* __restrict__ lse, int S, int T_len,
-                             int H, int KVH, float scale_log2, int causal) {
+                             int H, int KVH, float scale_log2, int causal,
+                             int window) {
   using P = FaPlan<D>;
   extern __shared__ __align__(1024) unsigned char fa_smem[];
   unsigned char* base = fa_smem + ((1024 - (smem_u32(fa_smem) & 1023)) & 1023);
@@ -302,7 +311,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kFaBQ;  // heaviest first
   const int kvh = h / (H / KVH);
   const int k_end = causal ? min(T_len, q0 + kFaBQ) : T_len;
-  const int n_k = (k_end + kFaBK - 1) / kFaBK;
+  // a window's block starts at the tile that holds its first row - W:
+  // the tiles wholly before the band are skipped; j0 + it is the tile of
+  // the it-th iteration, which takes ring stage it % STAGES
+  const int j0 = window >= 0 ? max(0, q0 - window) / kFaBK : 0;
+  const int n_k = (k_end + kFaBK - 1) / kFaBK - j0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -327,15 +340,16 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < n_k; ++j) {
         const int s = j % P::STAGES;
         if (j >= P::STAGES) mbar_wait(&empty[s], (j / P::STAGES - 1) & 1);
+        const int kt = (j0 + j) * kFaBK;
         mbar_expect_tx(&full[s], 2 * P::KV_BYTES);
         unsigned char* k_dst = kv_s + s * 2 * P::KV_BYTES;
         unsigned char* v_dst = k_dst + P::KV_BYTES;
 #pragma unroll
         for (int c = 0; c < P::NCH; ++c) {
           tma_load_4d(k_dst + c * kFaBK * P::SW, &tm_k, &full[s],
-                      c * P::CW, kvh, j * kFaBK, b);
+                      c * P::CW, kvh, kt, b);
           tma_load_4d(v_dst + c * kFaBK * P::SW, &tm_v, &full[s],
-                      c * P::CW, kvh, j * kFaBK, b);
+                      c * P::CW, kvh, kt, b);
         }
       }
     }
@@ -360,7 +374,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     for (int j = 0; j < n_k; ++j) {
       const int s = j % P::STAGES;
-      const int k0 = j * kFaBK;
+      const int k0 = (j0 + j) * kFaBK;
       mbar_wait(&full[s], (j / P::STAGES) & 1);
       const uint32_t k_addr = smem_u32(kv_s + s * 2 * P::KV_BYTES);
       const uint32_t v_addr = k_addr + P::KV_BYTES;
@@ -385,11 +399,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       pin<NS>(sc);
 
-      // scale (base 2), mask where the tile crosses the diagonal or the
-      // end of T, and the online softmax of rows r0 (sc[4i + 0, 1]) and
-      // r1 (sc[4i + 2, 3]); a row's scores sit in the 4 threads of a quad
+      // scale (base 2), mask where the tile crosses the diagonal, the
+      // end of T or the window's far edge (key < row - W for a row of
+      // this warpgroup's 64), and the online softmax of rows r0
+      // (sc[4i + 0, 1]) and r1 (sc[4i + 2, 3]); a row's scores sit in
+      // the 4 threads of a quad
       const bool masked =
-          k0 + kFaBK > T_len || (causal && k0 + kFaBK - 1 > row_lo);
+          k0 + kFaBK > T_len || (causal && k0 + kFaBK - 1 > row_lo) ||
+          (window >= 0 && k0 < row_lo + 63 - window);
       float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
       for (int e = 0; e < NS; ++e) {
@@ -397,7 +414,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (masked) {
           const int key = k0 + 8 * (e / 4) + 2 * t4 + (e & 1);
           const int row = (e & 2) ? r1 : r0;
-          if (key >= T_len || (causal && key > row)) x = neg_inf();
+          if (key >= T_len || (causal && key > row) ||
+              (window >= 0 && row - key > window))
+            x = neg_inf();
         }
         sc[e] = x;
         mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
@@ -480,7 +499,7 @@ template <int D, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int S, int T_len,
                          int H, int KVH, float scale, int causal,
-                         cudaStream_t s) {
+                         int window, cudaStream_t s) {
   using P = FaPlan<D>;
   CUtensorMap mq, mk, mv;
   if (!bf16_map(&mq, q, B, S, H, D, P::CW, kFaBQ) ||
@@ -501,17 +520,17 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   flash_attention_wgmma_kernel<D, LSE>
       <<<dim3(H, B, n_q), kFaThreads, P::SMEM, s>>>(
           mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, S, T_len, H,
-          KVH, scale * log2e, causal);
+          KVH, scale * log2e, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T, int D, bool LSE>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int S, int T_len, int H, int KVH,
-                     float scale, int causal, cudaStream_t s) {
+                     float scale, int causal, int window, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return launch_wgmma<D, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                scale, causal, s);
+                                scale, causal, window, s);
   } else {
     const dim3 grid((S + kBQ - 1) / kBQ, H, B);
     const size_t smem =
@@ -528,7 +547,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
     flash_attention_kernel<T, D, LSE><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_len, H,
-        KVH, scale, causal);
+        KVH, scale, causal, window);
     return cudaGetLastError();
   }
 }
@@ -536,23 +555,23 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 template <typename T, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int S, int T_len, int H, int KVH, int D,
-                   float scale, int causal, cudaStream_t s) {
+                   float scale, int causal, int window, cudaStream_t s) {
   switch (D) {
     case 16:
       return launch_d<T, 16, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, s);
+                                  scale, causal, window, s);
     case 32:
       return launch_d<T, 32, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, s);
+                                  scale, causal, window, s);
     case 64:
       return launch_d<T, 64, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, s);
+                                  scale, causal, window, s);
     case 80:
       return launch_d<T, 80, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, s);
+                                  scale, causal, window, s);
     case 128:
       return launch_d<T, 128, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                   scale, causal, s);
+                                   scale, causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -561,33 +580,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int S, int T_len, int H, int KVH,
-                     int D, float scale, int causal, cudaStream_t s) {
+                     int D, float scale, int causal, int window,
+                     cudaStream_t s) {
   if (lse == nullptr)
     return launch<T, false>(q, k, v, out, nullptr, B, S, T_len, H, KVH, D,
-                            scale, causal, s);
+                            scale, causal, window, s);
   return launch<T, true>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
-                         causal, s);
+                         causal, window, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q and out (B, S, H, D), k and v
-// (B, T, KVH, D), all contiguous, H % KVH == 0; lse (B, H, S) f32, or
-// null when the caller does not want it (serving). Returns the launch's
-// cudaError_t.
+// (B, T, KVH, D), all contiguous, H % KVH == 0; window the sliding
+// window W (causal only; key j visible to row i iff i - W <= j <= i), -1
+// for none; lse (B, H, S) f32, or null when the caller does not want it
+// (serving). Returns the launch's cudaError_t.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int S,
                                int T_len, int H, int KVH, int D, float scale,
-                               int causal, float* lse, void* stream) {
+                               int causal, int window, float* lse,
+                               void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || KVH < 1 || H % KVH != 0 || B > 65535 ||
-      H > 65535)
+      H > 65535 || window < -1 || (window >= 0 && !causal))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_t<float>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
-                           causal, s);
+                           causal, window, s);
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(q, k, v, out, lse, B, S, T_len, H, KVH, D,
-                                   scale, causal, s);
+                                   scale, causal, window, s);
   return cudaErrorInvalidValue;
 }

@@ -8,13 +8,20 @@ output in q's dtype. In bf16 the kernel runs on the tensor cores
 (wgmma, its tiles brought in by TMA) and rounds the softmax weights to
 bf16 for the value product, one rounding the plain version (all f32)
 does not make. The causal mask compares absolute indices from 0 (q row
-i sees positions j <= i), as the TPU kernel's does. The kernel is ``csrc/flash_attention.cu``; see its
-header for the bound and the design.
+i sees positions j <= i), as the TPU kernel's does. With ``window=W``
+(causal only) row i sees only positions ``i - W <= j <= i``, W + 1 of
+them: the JAX package's
+sliding window (``(aq - ak) <= window`` in
+`repro.models.layers.chunked_attention`), which the hybrid family's
+prefill past its cache takes; the kernel skips the tiles wholly before a
+block's band. The kernel is ``csrc/flash_attention.cu``; see its header
+for the bound and the design.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
-(counted in ``launches``) or raises. There is no fallback from a failed
+(counted in ``launches``, and in ``window_launches`` too when it has a
+window) or raises. There is no fallback from a failed
 build or launch to the plain version.
 
 Training: when q, k or v requires a gradient (and grad mode is on),
@@ -46,17 +53,42 @@ BWD_HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = tuple(_build.DTYPE_CODE)
 _P = _build.PTR
 _I = ctypes.c_int
-# dtype, q, k, v, out, B, S, T, H, KVH, D, scale, causal, lse, stream
+# dtype, q, k, v, out, B, S, T, H, KVH, D, scale, causal, window, lse,
+# stream
 _ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-             _P, _P]
+             _I, _P, _P]
 # dtype, q, k, v, o, do, lse, delta, dq, dk, dv, B, S, T, H, KVH, D, scale,
 # causal, stream
 _BWD_ARGTYPES = ([_I] + [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P])
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
+def band_mask(S: int, T: int, window, device):
+    """(S, T) bool, True where key j is visible to query i under the
+    causal mask and the sliding window ``window`` (None: causal only):
+    ``j <= i`` and ``i - j <= window``, the JAX package's mask."""
+    pos_q = torch.arange(S, device=device)[:, None]
+    pos_k = torch.arange(T, device=device)[None, :]
+    ok = pos_q >= pos_k
+    if window is not None:
+        ok &= (pos_q - pos_k) <= window
+    return ok
+
+
+def _check_window(name, causal, window):
+    if window is None:
+        return
+    if not causal:
+        raise ValueError(f"{name}: a window needs causal=True")
+    if isinstance(window, bool) or not isinstance(window, int) \
+            or window < 0:
+        raise ValueError(f"{name}: window {window!r} must be an int >= 0")
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
+                          window=None):
     """Plain version (`repro.kernels.ref.flash_attention_ref`, with the
-    kernel's ``* scale``)."""
+    kernel's ``* scale``; ``window`` as `band_mask`)."""
+    _check_window("flash_attention_plain", causal, window)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     g = H // KVH
@@ -65,10 +97,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None):
     vf = v.repeat_interleave(g, dim=2).to(torch.float32)
     s = torch.einsum("bshd,bthd->bhst", q.to(torch.float32), kf) * scale
     if causal:
-        pos_q = torch.arange(S, device=q.device)
-        pos_k = torch.arange(T, device=q.device)
-        s = s.masked_fill(~(pos_q[:, None] >= pos_k[None, :]),
-                          float("-inf"))
+        s = s.masked_fill(~band_mask(S, T, window, q.device), float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
 
@@ -94,17 +123,18 @@ def _check(name, q, k, v, head_dims=HEAD_DIMS):
     return B, S, T, H, KVH, D
 
 
-def _forward(q, k, v, causal, scale, with_lse):
+def _forward(q, k, v, causal, scale, with_lse, window=None):
     """The checked forward: (out, lse) with lse (B, H, S) f32 from the
     kernel when ``with_lse`` on CUDA, else None."""
     name = "flash_attention"
     B, S, T, H, KVH, D = _check(name, q, k, v)
+    _check_window(name, causal, window)
     scale = scale or 1.0 / math.sqrt(D)
     dev = q.device
     if dev.type == "cpu":
         flash_attention.plain_calls += 1
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     scale=scale), None
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     window=window), None
     fn = _build.c_entry("flash_attention", "flash_attention", _ARGTYPES)
     _build.require_cuda(name, dev)
     # the bf16 kernel's TMA tensor maps need 16-byte aligned addresses
@@ -116,26 +146,36 @@ def _forward(q, k, v, causal, scale, with_lse):
            if with_lse else None)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, S, T, H, KVH, D, float(scale),
-            int(causal), 0 if lse is None else lse.data_ptr(),
+            int(causal), -1 if window is None else window,
+            0 if lse is None else lse.data_ptr(),
             _build.stream_of(dev))
     _build.launch_check(rc, name)
     flash_attention.launches += 1
+    flash_attention.window_launches += window is not None
     return out, lse
 
 
-def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+def flash_attention(q, k, v, *, causal: bool = True, scale=None,
+                    window=None):
     """q (B, S, H, D); k, v (B, T, KVH, D) -> (B, S, H, D). H % KVH ==
-    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three. When grad
-    mode is on and q, k or v requires a gradient, the call goes through
-    `FlashAttention` (the kernel then also writes the log-sum-exp that
-    its backward reads)."""
+    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three; ``window``
+    an int >= 0 (causal only: row i sees keys i - window..i) or None.
+    When grad mode is on and q, k or v requires a gradient, the call goes
+    through `FlashAttention` (the kernel then also writes the
+    log-sum-exp that its backward reads); no path of the JAX package
+    trains with a window, so that raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if window is not None:
+            raise ValueError("flash_attention: a window has no backward "
+                             "kernel (no JAX path trains with one)")
         return FlashAttention.apply(q, k, v, causal, scale)
-    return _forward(q, k, v, causal, scale, False)[0]
+    return _forward(q, k, v, causal, scale, False, window)[0]
 
 
 flash_attention.launches = 0
+# of those launches, the ones with a window
+flash_attention.window_launches = 0
 flash_attention.plain_calls = 0
 
 

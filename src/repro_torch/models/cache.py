@@ -1,16 +1,20 @@
-"""Decode-time caches of the dense, ssm and hybrid families (counterpart
-of `repro.models.cache`).
+"""Decode-time caches of the dense, moe, ssm and hybrid families
+(counterpart of `repro.models.cache`).
 
 Per-layer tensors are stacked on a leading ``layers`` axis, as in the
 JAX package:
 
-* dense: k and v (L, B, T, KVH, hd) in the compute dtype, keys already
-  rotary-encoded (rope applied at write time);
+* dense and moe (no MLA): k and v (L, B, T, KVH, hd) in the compute
+  dtype, keys already rotary-encoded (rope applied at write time); the
+  moe family's first dense layers first, then its MoE layers;
 * ssm: ``conv`` (L, B, K-1, d_inner + 2 g n), the last K-1 inputs of
   each layer's causal conv, in the compute dtype, and ``ssm`` (L, B, h,
   p, n), the state, in f32 whatever the compute dtype;
 * hybrid: those two, plus k and v (L / attn_every, B, T, KVH, hd) for
   the shared attention block's applications.
+
+T, the attention length, is ``min(max_len, window)`` when a window is
+given (sliding-window serving), else ``max_len``.
 
 ``length`` is a Python int, so the decode loop never reads the device
 to know where it writes. Unlike the JAX package, whose functions return
@@ -42,24 +46,27 @@ class CacheSpec:
 # the families the JAX package serves that the port does not, and the
 # ROADMAP item that ports each
 NOT_PORTED = {
-    "moe": "ROADMAP Queue 1, item 6 (MoE)",
-    "encdec": "ROADMAP Queue 1, item 6 (encoder-decoder)",
-    "vlm": "ROADMAP Queue 1, item 6 (VLM)",
+    "encdec": "ROADMAP Queue 1, item 6.3 (enc-dec)",
+    "vlm": "ROADMAP Queue 1, item 6.3 (VLM)",
 }
 
 
-def cache_spec(cfg, batch: int, max_len: int) -> CacheSpec:
+def cache_spec(cfg, batch: int, max_len: int, window=None) -> CacheSpec:
     """The cache of ``cfg``'s family for ``batch`` sequences of at most
-    ``max_len`` positions."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    ``max_len`` positions, the attention cache bounded by ``window``."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"cache of family {cfg.family!r}: not ported "
             f"({NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
+    if cfg.mla:
+        raise NotImplementedError(
+            "the MLA cache is not ported (ROADMAP Queue 1, item 6.3 (MLA))")
     shapes, dtypes = {}, {}
     L = cfg.n_layers
+    attn_len = min(max_len, window) if window else max_len
     if cfg.family != "ssm":
-        kv = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    if cfg.family == "dense":
+        kv = (batch, attn_len, cfg.n_kv_heads, cfg.head_dim_)
+    if cfg.family in ("dense", "moe"):
         shapes["k"] = shapes["v"] = (L,) + kv
     else:
         conv_c = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state

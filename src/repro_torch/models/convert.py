@@ -5,7 +5,8 @@ dicts whose leaves are numpy arrays, or anything ``np.asarray`` takes;
 the ``blocks`` leaves stacked on a leading layer axis; the dense, ssm
 and hybrid trees: ``blocks.norm1``, ``blocks.attn.*`` / ``blocks.mlp.*``
 or ``blocks.mamba.*``, and the hybrid's ``shared_attn.{shared_in,
-norm1, norm2, attn.*, mlp.*}``) into the state dict of
+norm1, norm2, attn.*, mlp.*}``; the moe tree: ``dense_blocks.*`` and
+``moe_blocks.{norm1, norm2, attn.*, moe.*}``) into the state dict of
 `repro_torch.models.Model`: the module tree mirrors the JAX tree, so a
 leaf's path joined by dots is its parameter's name and its layout is
 the same. Load it with ``model.load_state_dict(...)`` (strict:

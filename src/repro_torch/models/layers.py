@@ -1,5 +1,5 @@
-"""Transformer layers of the port (counterpart of the dense subset of
-`repro.models.layers`).
+"""Transformer layers of the port (counterpart of the dense and MoE
+subset of `repro.models.layers`).
 
 Parameters keep the JAX package's names and layouts (``wq`` (d, h, hd),
 ``wo`` (h, hd, d), ``w_gate`` (d, f), ...), stacked on a leading layer
@@ -14,9 +14,13 @@ Where the TPU package has a kernel, the port calls its hand-written one:
 `rms_norm` is K4a (`kernels.rmsnorm`) and full-sequence attention K2
 (`kernels.flash_attention`), with gradients each through its autograd
 Function and backward kernel (the model calls K4b itself). Projections,
-the MLP and `cross_entropy` are plain torch ops, as the JAX package
-leaves them to XLA. MoE, MLA, LayerNorm/GELU blocks and the shard_map
-tensor-parallel paths are not ported (ROADMAP Queue 1, item 6).
+the MLP, the MoE layer's router, dispatch and expert products and
+`cross_entropy` are plain torch ops, as the JAX package leaves them to
+XLA (its expert products are einsums; here ``torch.bmm`` over the
+expert axis). MLA (ROADMAP Queue 1, item 6.3), LayerNorm/GELU blocks
+(item 6.3, enc-dec) and the shard_map tensor-parallel paths, the
+expert-parallel ``moe_apply_ep_shardmap`` among them (item 6.4), are not
+ported.
 """
 from __future__ import annotations
 
@@ -147,11 +151,12 @@ class Attention(nn.Module):
         B, S, h, hd = y.shape
         return y.reshape(B, S, h * hd) @ at(self, "wo", l).view(h * hd, -1)
 
-    def forward(self, l: int, x, cos, sin):
-        """Causal full-sequence attention (prefill) through K2. Returns
-        (y, (k, v)) with k already rotary-encoded."""
+    def forward(self, l: int, x, cos, sin, window=None):
+        """Causal full-sequence attention (prefill) through K2, with the
+        sliding ``window`` (row i sees keys i - window..i) when given.
+        Returns (y, (k, v)) with k already rotary-encoded."""
         q, k, v = self.qkv(l, x, cos, sin)
-        y = flash_attention(q, k, v, causal=True)
+        y = flash_attention(q, k, v, causal=True, window=window)
         return self.out(l, y), (k, v)
 
 
@@ -178,6 +183,146 @@ class MLP(nn.Module):
     def forward(self, l: int, x):
         return (F.silu(x @ at(self, "w_gate", l)) * (x @ at(self, "w_up", l))) \
             @ at(self, "w_down", l)
+
+
+# ------------------------------------------------------------------ MoE
+def router_probs(router, cfg, x):
+    """Softmax router over experts in f32, then top-k, renormalized:
+    (probs (B, T, E), top_p (B, T, K) f32, top_e (B, T, K) int64). The
+    top-k is a stable descending sort, so equal probabilities go to the
+    lower expert first, as ``lax.top_k`` breaks ties."""
+    logits = x.to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :cfg.topk], top_e[..., :cfg.topk]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, top_p, top_e
+
+
+def moe_aux_loss(probs, top_e, n_experts: int):
+    """Switch-style load-balancing loss: E * sum_e (share of the choices
+    that went to e) * (mean router probability of e)."""
+    density = F.one_hot(top_e, n_experts).to(torch.float32).mean((0, 1, 2))
+    mean_prob = probs.mean((0, 1))
+    return n_experts * (density * mean_prob).sum()
+
+
+def moe_dispatch_indices(top_e, top_p, n_experts: int, capacity: int):
+    """Capacity-based dispatch: (slot, weight), slot (B, T, K) the
+    choice's place in its expert's buffer, from a per-row cumsum over the
+    T * K choices in token-major order, or ``capacity`` where the buffer
+    was full (the choice is dropped, its weight 0)."""
+    B, T, K = top_e.shape
+    flat_e = top_e.reshape(B, T * K)
+    onehot = F.one_hot(flat_e, n_experts).to(torch.int32)
+    pos = onehot.cumsum(1) - 1                    # place within its expert
+    slot = pos.gather(-1, flat_e[..., None])[..., 0].reshape(B, T, K)
+    keep = slot < capacity
+    return (torch.where(keep, slot, torch.full_like(slot, capacity)),
+            torch.where(keep, top_p, torch.zeros_like(top_p)))
+
+
+def _expert_ffn(buf, we_gate, we_up, we_down):
+    """The E expert FFNs on their buffers (E, N, d) -> (E, N, d): three
+    ``torch.bmm`` over the expert axis."""
+    h = F.silu(torch.bmm(buf, we_gate)) * torch.bmm(buf, we_up)
+    return torch.bmm(h, we_down)
+
+
+def _shared_expert(moe, l, x):
+    """The shared experts as one SwiGLU MLP of width moe_d_ff *
+    n_shared_experts (0 when there are none)."""
+    if not moe.cfg.n_shared_experts:
+        return 0.0
+    return (F.silu(x @ at(moe, "ws_gate", l)) * (x @ at(moe, "ws_up", l))) \
+        @ at(moe, "ws_down", l)
+
+
+def moe_apply_capacity(moe, l, x, capacity: int, aux: bool = True):
+    """Capacity-dropping MoE: each row's tokens scattered into (B, E,
+    capacity + 1, d) buffers (row ``capacity`` the dropped choices',
+    discarded), every expert's FFN over its buffer, and the results
+    gathered back with the combine weights. Returns (y, aux), aux None
+    when not asked for (serving: the JAX package computes it and XLA
+    drops it unused). Every expert's buffer is computed, as in the JAX
+    package."""
+    cfg = moe.cfg
+    B, T, d = x.shape
+    E = cfg.n_experts
+    probs, top_p, top_e = router_probs(at(moe, "router", l), cfg, x)
+    slot, w = moe_dispatch_indices(top_e, top_p, E, capacity)
+    buf = torch.zeros(B, E, capacity + 1, d, dtype=x.dtype, device=x.device)
+    bidx = torch.arange(B, device=x.device)[:, None, None].expand_as(top_e)
+    buf.index_put_((bidx, top_e, slot),
+                   x[:, :, None, :] * (w[..., None] > 0).to(x.dtype),
+                   accumulate=True)
+    buf = buf[:, :, :capacity].transpose(0, 1).reshape(E, B * capacity, d)
+    y_buf = _expert_ffn(buf, at(moe, "we_gate", l), at(moe, "we_up", l),
+                        at(moe, "we_down", l))
+    y_buf = y_buf.reshape(E, B, capacity, d).transpose(0, 1)
+    y_buf = F.pad(y_buf, (0, 0, 0, 1))            # the drop slot: zeros
+    y = torch.einsum("btkd,btk->btd", y_buf[bidx, top_e, slot],
+                     w.to(x.dtype))
+    return (y + _shared_expert(moe, l, x),
+            moe_aux_loss(probs, top_e, E) if aux else None)
+
+
+def moe_apply_dense(moe, l, x, aux: bool = True):
+    """The O(E) oracle: every expert on every token, combined with the
+    top-k weights (the JAX package's impl when n_experts <= 8). Returns
+    (y, aux), aux as `moe_apply_capacity`'s."""
+    cfg = moe.cfg
+    B, T, d = x.shape
+    E = cfg.n_experts
+    probs, top_p, top_e = router_probs(at(moe, "router", l), cfg, x)
+    y_e = _expert_ffn(x.reshape(1, B * T, d).expand(E, B * T, d),
+                      at(moe, "we_gate", l), at(moe, "we_up", l),
+                      at(moe, "we_down", l)).reshape(E, B, T, d)
+    combine = (F.one_hot(top_e, E).to(x.dtype)
+               * top_p.to(x.dtype)[..., None]).sum(2)      # (B, T, E)
+    y = torch.einsum("ebtd,bte->btd", y_e, combine)
+    return (y + _shared_expert(moe, l, x),
+            moe_aux_loss(probs, top_e, E) if aux else None)
+
+
+class MoE(nn.Module):
+    """The routed and shared experts of ``n_layers`` MoE layers, stacked
+    on the layer axis: ``router`` (d, E), ``we_gate`` / ``we_up`` (E, d,
+    f), ``we_down`` (E, f, d), and (with shared experts) ``ws_gate`` /
+    ``ws_up`` (d, f * n_shared), ``ws_down`` (f * n_shared, d); f is
+    ``moe_d_ff``."""
+
+    def __init__(self, cfg, n_layers, device):
+        super().__init__()
+        self.cfg = cfg
+        d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+        kw = dict(dtype=cfg.pdtype, device=device)
+        self.router = stacked(n_layers, d, e, **kw)
+        self.we_gate = stacked(n_layers, e, d, f, **kw)
+        self.we_up = stacked(n_layers, e, d, f, **kw)
+        self.we_down = stacked(n_layers, e, f, d, **kw)
+        if cfg.n_shared_experts:
+            fs = f * cfg.n_shared_experts
+            self.ws_gate = stacked(n_layers, d, fs, **kw)
+            self.ws_up = stacked(n_layers, d, fs, **kw)
+            self.ws_down = stacked(n_layers, fs, d, **kw)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The JAX package's init: the router N(0, 0.02^2), every other
+        weight N(0, 1 / its first unstacked dim) (E for the expert
+        weights, as `repro.models.layers.ParamSet`'s default scale)."""
+        init_normal_(self.router, gen, 0.02)
+        for name, p in self.named_parameters(recurse=False):
+            if name != "router":
+                init_normal_(p, gen, 1.0 / math.sqrt(p.shape[1]))
+
+    def forward(self, l, x, impl: str, capacity: int, aux: bool = True):
+        """(y, aux) of layer ``l`` on x (B, T, d): ``impl`` "dense" (the
+        oracle) or "ep" (`moe_apply_capacity` at ``capacity``); aux None
+        unless asked for."""
+        if impl == "dense":
+            return moe_apply_dense(self, l, x, aux)
+        return moe_apply_capacity(self, l, x, capacity, aux)
 
 
 # ----------------------------------------------------------- embeddings

@@ -1,9 +1,12 @@
-"""Model assembly of the port: the dense, ssm and hybrid families
+"""Model assembly of the port: the dense, MoE, ssm and hybrid families
 (counterpart of `repro.models.model`).
 
 `Model` is an ``nn.Module`` whose module tree mirrors the JAX parameter
 tree (``embed``, ``unembed``, ``final_norm``; dense: ``blocks.norm1``,
-``blocks.attn.wq``, ...; ssm and hybrid: ``blocks.norm1``,
+``blocks.attn.wq``, ...; moe: ``dense_blocks.*`` (the first
+``first_dense_layers`` layers, MLP width ``d_ff``) and ``moe_blocks.*``
+(norm1, norm2, attn, ``moe.router``, ``moe.we_gate``, ...); ssm and
+hybrid: ``blocks.norm1``,
 ``blocks.mamba.w_xz``, ...; hybrid also ``shared_attn.shared_in``,
 ``shared_attn.attn.wq``, ...; block leaves stacked on a leading layer
 axis, the shared block's not). ``build_model(cfg, device)`` allocates it
@@ -16,12 +19,14 @@ The serving methods follow `repro.models.model.Model.prefill` and
 JAX package computes what a TPU kernel computes:
 
 * prefill attention: K2 (`kernels.flash_attention`), one launch a layer
-  (dense) or a shared-block application (hybrid, head_dim 80);
+  (dense, moe) or a shared-block application (hybrid, head_dim 80, with
+  the sliding window of the cache's length);
 * decode attention over the cache: K3 (`kernels.decode_attention`), one
-  launch a layer (or application) a token; the dense family writes slot
-  ``min(length, T - 1)``, the hybrid its ring slot ``length % T``, and
-  both attend the positions ``<= min(length, T - 1)`` (all of them once
-  the ring is full, as the JAX ring mask), scale ``1/sqrt(hd)``;
+  launch a layer (or application) a token; the dense and moe families
+  write slot ``min(length, T - 1)``, the hybrid its ring slot ``length
+  % T``, and all attend the positions ``<= min(length, T - 1)`` (all
+  of them once the ring is full, as the JAX ring mask), scale
+  ``1/sqrt(hd)``;
 * the SSD intra-chunk block of each Mamba2 layer's prefill: K5
   (`kernels.ssd_chunk`), one launch a layer (`models.mamba`); decode is
   the plain per-token recurrence;
@@ -36,11 +41,33 @@ layers, one shared attention block on ``concat(h, h0) @ shared_in``
 block's output is added to ``h``; each of its ``L / attn_every``
 applications has its own k/v cache layer. The JAX order of adds is
 kept (``z = z + mlp``, then ``h = h + z``), so the residual stream is
-the JAX one. A hybrid prompt longer than the cache takes a sliding
-window in the JAX package, which K2 does not have: it raises here.
+the JAX one.
+
+A hybrid prompt longer than the cache (S > W, W the cache's length)
+runs the shared block's K2 with ``window=W``, the JAX package's
+``window = cache["k"].shape[2]``: query i sees keys i - W..i, W + 1 of
+them (the JAX mask ``(aq - ak) <= window``), and the prefill keeps the
+last W keys in slots 0..W-1. Decode then writes the ring slot
+``length % W`` and attends all W slots. So the first decode step
+overwrites slot ``S % W``, which is the oldest key only when ``S % W ==
+0``: the port reproduces this caveat of the reference on purpose (the
+parity bar holds the port to the JAX package's results), and
+`tests/test_torch_window.py` pins it, the caches equal to the JAX
+package's after the prefill and each step, at S % W != 0 and == 0. At S
+<= W the window is passed too and changes nothing.
+
+The MoE family (DeepSeek-MoE, no MLA) runs ``first_dense_layers`` dense
+layers and then the MoE layers, each norm1, attention (K2 / K3), norm2
+and `layers.MoE`: the router, the capacity dispatch and the experts'
+products as ``torch.bmm`` (plain ops, as the JAX package's einsums).
+The impl is the JAX package's ``_moe_impl``: the O(E) ``dense`` oracle
+when n_experts <= 8, else ``ep`` (`layers.moe_apply_capacity`; the port
+has no mesh, so never ``ep_shardmap``), at the capacity of S tokens a row
+in the prefill and of one in a decode step (`moe_capacity`).
 
 Training: `Model.loss` is the JAX ``Model.loss`` with the dense, ssm
-and hybrid branches of its ``_trunk``: the embedding, each layer under
+and hybrid branches of its ``_trunk`` (the MoE family's raises: ROADMAP
+Queue 1, item 6.3 (MoE training)): the embedding, each layer under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (the JAX
 package's per-layer ``jax.checkpoint``), the final K4b, the head and
 `layers.cross_entropy`. A dense layer is norm1, attention, norm2 and
@@ -79,15 +106,35 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba import Mamba
 from repro_torch.utils.device import resolve_device
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def moe_capacity(cfg: ModelConfig, tokens_per_row: int) -> int:
+    """Expert capacity a (batch row, expert): the dispatch slots are a
+    per-row cumsum, so it scales with the row's tokens (the JAX package's
+    ``_moe_capacity``)."""
+    cap = int(cfg.capacity_factor * tokens_per_row * cfg.topk
+              / max(cfg.n_experts, 1))
+    return max(cap, 1)
+
+
+def moe_impl(cfg: ModelConfig) -> str:
+    """``cfg.moe_impl`` unless "auto": then "dense" (the oracle) for
+    n_experts <= 8, else "ep" (the JAX package's ``_moe_impl`` without a
+    mesh)."""
+    if cfg.moe_impl != "auto":
+        return cfg.moe_impl
+    return "dense" if cfg.n_experts <= 8 else "ep"
 
 
 class DenseBlocks(nn.Module):
-    """The stacked dense blocks: norm1, attention, norm2, MLP."""
+    """The stacked dense blocks: norm1, attention, norm2, MLP; ``n``
+    layers (default: all of cfg's; the moe family's first dense layers,
+    whose MLP width is ``cfg.d_ff`` as every dense block's)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, n=None):
         super().__init__()
-        n, d = cfg.n_layers, cfg.d_model
+        n, d = n or cfg.n_layers, cfg.d_model
         self.norm1 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
         self.norm2 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
         self.attn = L.Attention(cfg, n, device)
@@ -98,6 +145,24 @@ class DenseBlocks(nn.Module):
         self.norm2.fill_(1.0)
         self.attn.reset_parameters(gen)
         self.mlp.reset_parameters(gen)
+
+
+class MoEBlocks(nn.Module):
+    """The stacked MoE blocks: norm1, attention, norm2, MoE."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        n, d = cfg.n_layers - cfg.first_dense_layers, cfg.d_model
+        self.norm1 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
+        self.norm2 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
+        self.attn = L.Attention(cfg, n, device)
+        self.moe = L.MoE(cfg, n, device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.norm1.fill_(1.0)
+        self.norm2.fill_(1.0)
+        self.attn.reset_parameters(gen)
+        self.moe.reset_parameters(gen)
 
 
 class MambaBlocks(nn.Module):
@@ -139,7 +204,7 @@ class SharedAttention(nn.Module):
 
 
 class Model(nn.Module):
-    """A decoder-only LM of the dense, ssm or hybrid family on one
+    """A decoder-only LM of the dense, moe, ssm or hybrid family on one
     device."""
 
     def __init__(self, cfg: ModelConfig, device):
@@ -148,10 +213,10 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported ("
                 f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
-        if cfg.window is not None or cfg.mla or cfg.n_experts:
+        if cfg.mla or cfg.mtp:
             raise NotImplementedError(
-                "sliding windows, MLA and MoE are not ported (ROADMAP "
-                "Queue 1, item 6)")
+                "MLA and MTP are not ported (ROADMAP Queue 1, item 6.3 "
+                "(MLA))")
         if cfg.family == "hybrid" and cfg.attn_every < 1:
             raise ValueError(f"hybrid attn_every {cfg.attn_every} < 1")
         self.cfg = cfg
@@ -167,6 +232,11 @@ class Model(nn.Module):
                                        requires_grad=False)
         if cfg.family == "dense":
             self.blocks = DenseBlocks(cfg, self.device)
+        elif cfg.family == "moe":
+            if cfg.first_dense_layers:
+                self.dense_blocks = DenseBlocks(cfg, self.device,
+                                                cfg.first_dense_layers)
+            self.moe_blocks = MoEBlocks(cfg, self.device)
         else:
             self.blocks = MambaBlocks(cfg, self.device)
         if cfg.family == "hybrid":
@@ -182,13 +252,28 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             L.init_normal_(self.unembed, gen, cfg.d_model ** -0.5)
         self.final_norm.fill_(1.0)
-        self.blocks.reset_parameters(gen)
+        for blk in self._stacks():
+            blk.reset_parameters(gen)
         if cfg.family == "hybrid":
             self.shared_attn.reset_parameters(gen)
         return self
 
-    def cache_spec(self, batch: int, max_len: int) -> CacheSpec:
-        return cache_spec(self.cfg, batch, max_len)
+    def cache_spec(self, batch: int, max_len: int,
+                   window=None) -> CacheSpec:
+        return cache_spec(self.cfg, batch, max_len, window)
+
+    def _stacks(self):
+        """The stacked block modules in layer order."""
+        if self.cfg.family == "moe":
+            return [m for m in (getattr(self, "dense_blocks", None),
+                                self.moe_blocks) if m is not None]
+        return [self.blocks]
+
+    def _attn_layers(self):
+        """The dense and moe families' layers in order: (stacked blocks,
+        index in them)."""
+        return [(blk, li) for blk in self._stacks()
+                for li in range(blk.norm1.shape[0])]
 
     # --------------------------------------------------------- training
     def layer_tensors(self):
@@ -237,6 +322,10 @@ class Model(nn.Module):
         (+ router_aux_coef * aux, 0 for these families), differentiable
         through every trainable parameter."""
         cfg = self.cfg
+        if cfg.family == "moe":
+            raise NotImplementedError(
+                "training the moe family is not ported (ROADMAP Queue 1, "
+                "item 6.3 (MoE training))")
         tokens, labels = batch["tokens"], batch["labels"]
         h = L.embed_tokens(self.embed, cfg, tokens)
         S = tokens.shape[1]
@@ -290,12 +379,13 @@ class Model(nn.Module):
     def prefill(self, batch, cache):
         """Full-sequence forward that fills the cache. ``batch`` is
         ``{"tokens": (B, S) int}``. Sets ``length`` to S and returns
-        (last-position logits (B, 1, V), cache). Dense: writes the last
-        ``min(S, T)`` positions' k and v into cache slots ``0..``. ssm
-        and hybrid: writes each layer's conv and SSM state, and (hybrid,
-        S <= T only) the shared block's k and v into slots ``0..S-1``."""
-        if self.cfg.family == "dense":
-            return self._prefill_dense(batch, cache)
+        (last-position logits (B, 1, V), cache). Dense and moe: writes
+        the last ``min(S, T)`` positions' k and v into cache slots
+        ``0..``. ssm and hybrid: writes each layer's conv and SSM state,
+        and (hybrid) the shared block's last ``min(S, W)`` keys and
+        values into slots ``0..``, W the cache's length."""
+        if self.cfg.family in ("dense", "moe"):
+            return self._prefill_attn(batch, cache)
         self._check_groups()
         return self._prefill_ssm(batch, cache)
 
@@ -303,8 +393,8 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache):
         """One-token decode against the cache. tokens (B, 1). Returns
         (logits (B, 1, V), cache) with ``length`` one further."""
-        if self.cfg.family == "dense":
-            return self._decode_dense(tokens, cache)
+        if self.cfg.family in ("dense", "moe"):
+            return self._decode_attn(tokens, cache)
         self._check_groups()
         return self._decode_ssm(tokens, cache)
 
@@ -318,28 +408,52 @@ class Model(nn.Module):
                              f"({cfg.n_layers}) a multiple of attn_every "
                              f"({cfg.attn_every})")
 
-    def _prefill_dense(self, batch, cache):
-        cfg, blk = self.cfg, self.blocks
+    def _ffn(self, blk, li, x, impl, capacity):
+        """The layer's MLP (a dense block) or MoE (a moe block)."""
+        if isinstance(blk, MoEBlocks):
+            return blk.moe(li, x, impl, capacity, aux=False)[0]
+        return blk.mlp(li, x)
+
+    def _run_attn_layers(self, h, attend, capacity):
+        """The dense and moe families' trunk on the embeddings ``h``:
+        each layer's norm1 (K4a on the first, then K4b fused with the
+        previous layer's residual add), ``attend(blk, li, gi, x)`` (gi
+        the layer's cache index), K4b and the MLP or MoE. Returns the
+        last layer's output and the residual stream, for `_logits`."""
+        cfg = self.cfg
+        impl = moe_impl(cfg)
+        layers = self._attn_layers()
+        x = L.rms_norm(h, layers[0][0].norm1[layers[0][1]], cfg.norm_eps)
+        for gi, (blk, li) in enumerate(layers):
+            y = attend(blk, li, gi, x)
+            x, h = rmsnorm_residual(y, h, blk.norm2[li], eps=cfg.norm_eps)
+            y = self._ffn(blk, li, x, impl, capacity)
+            if gi + 1 < len(layers):
+                nb, nl = layers[gi + 1]
+                x, h = rmsnorm_residual(y, h, nb.norm1[nl],
+                                        eps=cfg.norm_eps)
+        return y, h
+
+    def _prefill_attn(self, batch, cache):
+        cfg = self.cfg
         tokens = batch["tokens"]
         S = tokens.shape[1]
         h = L.embed_tokens(self.embed, cfg, tokens)
         cos, sin = self._rope(torch.arange(S, device=h.device))
         n = min(S, cache["k"].shape[2])
-        x = L.rms_norm(h, blk.norm1[0], cfg.norm_eps)
-        for li in range(cfg.n_layers):
+
+        def attend(blk, li, gi, x):
             y, (k, v) = blk.attn(li, x, cos, sin)
-            cache["k"][li, :, :n] = k[:, S - n:]
-            cache["v"][li, :, :n] = v[:, S - n:]
-            x, h = rmsnorm_residual(y, h, blk.norm2[li], eps=cfg.norm_eps)
-            y = blk.mlp(li, x)
-            if li + 1 < cfg.n_layers:
-                x, h = rmsnorm_residual(y, h, blk.norm1[li + 1],
-                                        eps=cfg.norm_eps)
+            cache["k"][gi, :, :n] = k[:, S - n:]
+            cache["v"][gi, :, :n] = v[:, S - n:]
+            return y
+
+        y, h = self._run_attn_layers(h, attend, moe_capacity(cfg, S))
         cache["length"] = S
         return self._logits(y[:, -1:], h[:, -1:]), cache
 
-    def _decode_dense(self, tokens, cache):
-        cfg, blk = self.cfg, self.blocks
+    def _decode_attn(self, tokens, cache):
+        cfg = self.cfg
         length = cache["length"]
         T = cache["k"].shape[2]
         slot = min(length, T - 1)
@@ -347,18 +461,15 @@ class Model(nn.Module):
         # the position as a device arange: no host-to-device copy
         cos, sin = self._rope(torch.arange(length, length + 1,
                                            device=h.device))
-        x = L.rms_norm(h, blk.norm1[0], cfg.norm_eps)
-        for li in range(cfg.n_layers):
+
+        def attend(blk, li, gi, x):
             q, k, v = blk.attn.qkv(li, x, cos, sin)
-            k_l, v_l = cache["k"][li], cache["v"][li]
+            k_l, v_l = cache["k"][gi], cache["v"][gi]
             k_l[:, slot] = k[:, 0]
             v_l[:, slot] = v[:, 0]
-            y = blk.attn.out(li, decode_attention(q, k_l, v_l, length))
-            x, h = rmsnorm_residual(y, h, blk.norm2[li], eps=cfg.norm_eps)
-            y = blk.mlp(li, x)
-            if li + 1 < cfg.n_layers:
-                x, h = rmsnorm_residual(y, h, blk.norm1[li + 1],
-                                        eps=cfg.norm_eps)
+            return blk.attn.out(li, decode_attention(q, k_l, v_l, length))
+
+        y, h = self._run_attn_layers(h, attend, moe_capacity(cfg, 1))
         cache["length"] = length + 1
         return self._logits(y, h), cache
 
@@ -379,20 +490,19 @@ class Model(nn.Module):
         S = tokens.shape[1]
         h = L.embed_tokens(self.embed, cfg, tokens)
         if cfg.family == "hybrid":
-            if S > cache["k"].shape[2]:
-                raise NotImplementedError(
-                    f"hybrid prompt of {S} tokens longer than the cache "
-                    f"({cache['k'].shape[2]}): the JAX package's sliding-"
-                    "window prefill is not ported (ROADMAP Queue 1, item "
-                    "6, hybrid prompts longer than the cache)")
+            # the window of the JAX package: the cache's length W; the
+            # last n = min(S, W) keys go to slots 0..n-1
+            W = cache["k"].shape[2]
+            n = min(S, W)
             cos, sin = self._rope(torch.arange(S, device=h.device))
         h0 = h
 
         def attend(ai):
             def run(x):
-                y, (k, v) = self.shared_attn.attn(None, x, cos, sin)
-                cache["k"][ai, :, :S] = k
-                cache["v"][ai, :, :S] = v
+                y, (k, v) = self.shared_attn.attn(None, x, cos, sin,
+                                                  window=W)
+                cache["k"][ai, :, :n] = k[:, S - n:]
+                cache["v"][ai, :, :n] = v[:, S - n:]
                 return y
             return run
 

@@ -21,7 +21,7 @@ Qwen3-4B's stacked ``w_gate`` is 896 M elements, 3.6 GB in f32. The
 chunking changes no number (every operation is elementwise, the int8
 blocks run along the last axis). ``opt_state_axes`` (the optimizer
 state's sharding) waits for the sharding bullet (ROADMAP Queue 1,
-item 6).
+item 6 (sharding)).
 """
 from __future__ import annotations
 

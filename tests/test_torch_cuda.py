@@ -2,10 +2,11 @@
 PyTorch version (the event-loop kernel and its K-node variant against
 the eager loops, bitwise; the backward kernels against their plain
 backwards, bitwise repeatable),
-and the engine, the chunked SSD and the models (dense, ssm, hybrid) on
-the card against themselves on the CPU. Every test skips without a CUDA device (a CUDA
-kernel has no CPU mode). The file imports no JAX, so it runs on a machine without it
-(``--noconftest`` skips tests/conftest.py, which imports JAX):
+and the engine, the chunked SSD and the models (dense, moe, ssm, hybrid)
+on the card against themselves on the CPU. Every test skips without a
+CUDA device (a CUDA kernel has no CPU mode). The file imports no JAX,
+so it runs on a machine without it (``--noconftest`` skips
+tests/conftest.py, which imports JAX):
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
@@ -1058,6 +1059,59 @@ def test_flash_attention_wgmma_body_edges(cuda, D, S, T, H, KVH, causal):
     _assert_within(got, want, torch.bfloat16, abs_v)
 
 
+def _window_fault(q, k, v, window, kind):
+    """The window's planted faults: ``wide``, the band one key too wide
+    (W + 2 keys a row); ``edge``, the 64 keys at the band's far edge
+    (i - W .. i - W + 63) dropped."""
+    S, T = q.shape[1], k.shape[1]
+    pos_q = torch.arange(S, device=q.device)[:, None]
+    pos_k = torch.arange(T, device=q.device)[None, :]
+    d = pos_q - pos_k
+    if kind == "wide":
+        ok = (d >= 0) & (d <= window + 1)
+    else:
+        ok = (d >= 0) & (d <= window - 64)
+    g = q.shape[2] // k.shape[2]
+    kf = k.repeat_interleave(g, dim=2).float()
+    vf = v.repeat_interleave(g, dim=2).float()
+    sc = torch.einsum("bshd,bthd->bhst", q.float(), kf) / q.shape[-1] ** 0.5
+    p = torch.softmax(sc.masked_fill(~ok, float("-inf")), dim=-1)
+    return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KVH,D,window", [
+    (1, 6000, 32, 32, 80, 4096),    # Zamba2's shared block past its cache
+    (1, 2048, 32, 8, 128, 1000),
+    (2, 512, 8, 2, 64, 63),         # a small window: one key a large share
+    (2, 512, 8, 2, 64, 64),
+    (2, 300, 4, 4, 32, 0),          # a row sees itself only
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_window_matches_plain(cuda, B, S, H, KVH, D, window,
+                                              dtype):
+    """K2 with a sliding window, both bodies, against the plain version
+    within the limits of `test_flash_attention_kernel_matches_plain`; the
+    limit rejects the band one key too wide and the far edge's 64 keys
+    dropped (window >= 64)."""
+    q = _bf16_or_f32((B, S, H, D), dtype, 6, cuda)
+    k = _bf16_or_f32((B, S, KVH, D), dtype, 7, cuda)
+    v = _bf16_or_f32((B, S, KVH, D), dtype, 8, cuda)
+    launches = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, window=window)
+    want = FA.flash_attention_plain(q, k, v, window=window)
+    abs_v = FA.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == launches + 1
+    assert torch.isfinite(got.float()).all()
+    _assert_within(got, want, dtype, abs_v)
+    for kind in ("wide", "edge") if window >= 64 else ("wide",):
+        with pytest.raises(AssertionError):
+            _assert_within(_window_fault(q, k, v, window, kind), want,
+                           dtype, abs_v)
+
+
 def _length_at_boundary(T, n_heads_kv, n_sms, last):
     """The first length >= T // 2 whose cluster plan leaves ``last``
     positions (1, or a whole range) in the last block."""
@@ -1317,7 +1371,27 @@ def test_ssd_chunked_ragged_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m", "zamba2-2.7b"])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bodies_repeat_bitwise(cuda, xdtype):
+    """K5 called 20 times on the same inputs gives the same bits, through
+    the CUDA-core body (f32, the shape of
+    test_ssd_chunked_ragged_on_card_matches_cpu: 8 chunks of 256, 48
+    heads of 64, state 128) and the wgmma body (x, B and C bf16, the
+    same shape: Mamba2-780M's served one)."""
+    args = _ssd_inputs(1, 8, 256, 48, 64, 128, 1, xdtype, cuda, 0,
+                       bcdtype=xdtype, valid=2000)
+    body = "wgmma" if xdtype == torch.bfloat16 else "cuda_core"
+    first = [o.clone() for o in _run_body(args, body)]
+    for _ in range(19):
+        got = K5.ssd_chunk(*args)
+        torch.cuda.synchronize()
+        for a, w in zip(got, first):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m", "zamba2-2.7b",
+                                  "deepseek-moe-16b"])
 def test_model_on_card_matches_cpu(cuda, arch):
     """The smoke-size model through the kernels on the card against the
     same weights through the plain versions on the CPU (f32)."""
@@ -1342,7 +1416,8 @@ def test_model_on_card_matches_cpu(cuda, arch):
         outs.append([s.cpu() for s in steps])
     assert (FA.flash_attention.launches > launches[0]) == attn
     assert (DA.decode_attention.launches > launches[1]) == attn
-    assert (K5.ssd_chunk.launches > launches[2]) == (cfg.family != "dense")
+    assert (K5.ssd_chunk.launches > launches[2]) == (
+        cfg.family in ("ssm", "hybrid"))
     for a, b in zip(*outs):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-4)
 

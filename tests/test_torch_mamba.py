@@ -185,12 +185,20 @@ def test_cache_spec_is_the_jax_packages(arch):
 
 
 def test_hybrid_prompt_longer_than_the_cache_raises():
+    """A hybrid prompt longer than the cache no longer raises: it is
+    served through K2's sliding window (tests/test_torch_window.py holds
+    it to the JAX package). What still raises is training through that
+    window, which has no backward kernel (no JAX path trains with one)."""
     cfg = get_arch("zamba2-2.7b").smoke()
     model = build_model(cfg, "cpu").init_weights(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prefill({"tokens": torch.zeros(1, 40, dtype=torch.long)},
-                      model.cache_spec(1, 32).zeros("cpu"))
+    logits, cache = model.prefill(
+        {"tokens": torch.zeros(1, 40, dtype=torch.long)},
+        model.cache_spec(1, 32).zeros("cpu"))
+    assert cache["length"] == 40 and torch.isfinite(logits).all()
+    q = torch.zeros(1, 40, cfg.n_heads, cfg.head_dim, requires_grad=True)
+    with pytest.raises(ValueError, match="backward"):
+        FA.flash_attention(q, q, q, window=32)
 
 
 def test_full_width_parameter_counts():
