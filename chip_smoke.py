@@ -29,7 +29,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  window (WINDOW_CASES, bf16 and f32; its planted faults
                  the band one key too wide and the far edge's 64 keys
                  dropped; SDPA with the band as a boolean mask beside
-                 it). K5 (ssd_chunk)
+                 it); K2 at DeepSeek-V3's MLA head dims (q/k 192, v 128,
+                 H = KVH = 128) at S = 512 and 2048, bf16 and f32, its
+                 planted fault v's last 64 dims dropped; K3-mla
+                 (mla_decode.cu, the MLA decode over the latent cache:
+                 H = 128, R = 512, DR = 64) at length 0, 511, 2559 of
+                 T = 2560 and at B = 2, bf16 and f32, its planted faults
+                 the mask one position off and the rope term dropped,
+                 with SDPA over the one shared latent head beside it.
+                 K5 (ssd_chunk)
                  at Mamba2-780M's (S = 2048) and Zamba2-2.7B's (S =
                  1024) full-width shapes, a ragged S = 2000 and g = 8:
                  in the served dtypes (x, B, C bf16: its wgmma body)
@@ -243,9 +251,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bf16 (and Mamba2 at head dim 64, so that K5's wgmma
                  body runs; and the MoE model), fed the JAX tokens, each
                  step's logits within 5e-2 of its largest |logit|, with
-                 the greedy-token agreement.
+                 the greedy-token agreement. deepseek-v3-671b (MLA) at
+                 the smoke size with its published head dims, f32 with
+                 the dense oracle and with the capacity path dropping,
+                 and bf16 (its bound plus the JAX package's own bf16
+                 distance from its f32 run on the same weights).
 7. ``serve``     `repro_torch.serving.EdgeServingEngine` (ESFF, 2 slots)
-                 serves 12 requests from three full-width Qwen3-4B
+                 serves 8 requests from three full-width Qwen3-4B
                  functions (SERVE_CATALOGUE); cold starts, executions
                  and responses are measured on the card, and the
                  serving kernels' launch counts, set to 0 just before
@@ -259,10 +271,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  a prefill of the run, every time through its wgmma
                  body, K2 and K3 (head_dim 80) once a shared-block
                  application, K2 always with the window of the cache.
-8b. ``serve_moe`` the same engine on 1 slot, 6 requests over two
+8b. ``serve_moe`` the same engine on 1 slot, 4 requests over two
                  DeepSeek-MoE-16B functions at published widths and
                  full depth (SERVE_MOE_CATALOGUE); K2 and K3 once a
                  layer a prefill and a decode step; peak memory.
+8c. ``serve_mla`` the same engine on 1 slot, 4 requests over two
+                 DeepSeek-V3-671B functions at published widths cut to
+                 4 layers (3 dense + 1 MoE, MTP's parameters held:
+                 SERVE_MLA_CATALOGUE); K2 at head dims (192, 128) once a
+                 layer a prefill, K3-mla once a layer a decode step, K3
+                 never; peak memory.
 9. ``train``     training (TRAIN_FULL and the notes above it), for each
                  of qwen3-4b (dense), mamba2-780m (ssm) and zamba2-2.7b
                  (hybrid): (a) the smoke config in f32 on numpy
@@ -278,7 +296,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  (a whole group at attn_every 6) in f32 (TRAIN_DEEP),
                  with a bf16 control that must miss its limit; (c) the full width (36, 48 and 54
                  layers), bf16, f32 moments, global batch 4, S = 1024,
-                 10 steps: losses finite and falling by at least 0.5, s
+                 6 steps: losses finite and falling by at least 0.5, s
                  a step, tokens/s, peak memory, the model-FLOPs share
                  (``mfu``) and each kernel's launches a step against the
                  count from the code, set to 0 just before the run and
@@ -469,11 +487,12 @@ PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 # The serving path: three Qwen3-4B functions at full width (36 layers,
 # d 2560, 32 heads, 8 kv heads, head_dim 128, d_ff 9728, bf16), random
 # weights seeded by the function's id; (name, prompt, new tokens,
-# max_len). ESFF on a 2-slot server, 12 requests over 5 s.
+# max_len). ESFF on a 2-slot server, 8 requests over 5 s (12 until the
+# MLA phase needed the room).
 SERVE_ARCH = "qwen3-4b"
 SERVE_CATALOGUE = (("chat", 512, 32, 1024), ("summarize", 2048, 8, 2560),
                    ("classify", 256, 1, 512))
-SERVE_REQUESTS = dict(n=12, duration=5.0, seed=0)
+SERVE_REQUESTS = dict(n=8, duration=5.0, seed=0)
 # the decode steps a warm instance's prefill / decode split times (the
 # function's own new tokens, at least 8, until the MoE and window phases
 # needed the room)
@@ -501,12 +520,29 @@ SERVE_SSM_REQUESTS = dict(n=6, duration=5.0, seed=0)
 # vocab 102400; 16.4 B parameters, 32.8 GB in bf16), random weights
 # seeded by the function's id; (name, arch, prompt, new tokens, max_len).
 # ESFF on a 1-slot server (one 32.8 GB instance warm: every switch of
-# function is a cold start and an eviction), 6 requests in 5 s. Users: a
-# sparse 16 B model served on one edge card, ~2.8 B parameters active a
-# token.
+# function is a cold start and an eviction), 4 requests in 5 s (6 at seed
+# 0 until the MLA phase needed the room; seed 2's four reach both
+# functions, seed 0's go to the first alone). Users: a sparse 16 B model
+# served on one edge card, ~2.8 B parameters active a token.
 SERVE_MOE_CATALOGUE = (("moe-chat", "deepseek-moe-16b", 512, 32, 1024),
                        ("moe-summarize", "deepseek-moe-16b", 2048, 8, 2560))
-SERVE_MOE = dict(capacity=1, requests=dict(n=6, duration=5.0, seed=0))
+SERVE_MOE = dict(capacity=1, requests=dict(n=4, duration=5.0, seed=2))
+# The MLA serving path (serve_mla): DeepSeek-V3-671B at published widths
+# (d 7168, 128 heads of MLA: q_lora 1536, kv_lora 512, q/k heads of 128
+# + 64 rotary dims, v heads of 128; 256 routed experts top-8 + 1 shared
+# of d_ff 2048; dense d_ff 18432; vocab 129280) cut in depth to 4 layers,
+# the published 3 dense and 1 MoE, with MTP's parameters held (15.8 B
+# parameters, ~31.6 GB in bf16; two MoE layers would be 54.6 GB), random
+# weights seeded by the function's id; (name, arch, prompt, new tokens,
+# max_len). ESFF on a 1-slot server, 4 requests in 5 s (seed 2: the
+# first function, the second, the first twice: two switches, each a
+# cold start and an eviction). Users: DeepSeek-
+# V3's attention and routing at full width on one edge card, its latent
+# cache 1,152 bytes a token a layer where MHA's would take 64 KB.
+SERVE_MLA_CATALOGUE = (("mla-chat", "deepseek-v3-671b", 512, 32, 1024),
+                       ("mla-summarize", "deepseek-v3-671b", 2048, 8, 2560))
+SERVE_MLA = dict(capacity=1, requests=dict(n=4, duration=5.0, seed=2))
+SERVE_MLA_LAYERS = 4
 # The limit of each bf16 serving kernel against its plain version on
 # the card, elementwise |kernel - plain| <= atol + rtol * |plain|. Both
 # sides compute in f32 and round the output to bf16 once, so they may
@@ -521,6 +557,16 @@ SERVE_MOE = dict(capacity=1, requests=dict(n=6, duration=5.0, seed=0))
 # - decode_attention: f32 throughout, split over blocks (the ranges
 #   merged in f32);
 # - rmsnorm, rmsnorm_residual: one f32 sum of squares per row.
+# - mla_decode_attention (K3-mla): f32 products and softmax, split over
+#   blocks and merged in f32 (decode_attention's terms), and in bf16 the
+#   softmax weights rounded to bf16 for the product with c_kv on both
+#   sides, but at two scales: the plain version (the JAX package's order)
+#   rounds the normalized weights, the kernel each block's weights under
+#   its running max, so the two roundings of one weight differ by at
+#   most 2^-8 of it; its limit adds 2^-8 sum_t p_t |c_kv_t| (``p_round``
+#   times the attention of |c_kv|), as K2's ``p_round`` bounds its own
+#   rounding. f32 rows are held to the same limit (no rounding of the
+#   weights there: the term is slack).
 # Every case also holds the kernel against a planted fault in the plain
 # version (FAULTS) and fails unless the limit rejects it, so a limit
 # that would let a wrong kernel through fails the run.
@@ -564,6 +610,8 @@ SERVE_MOE = dict(capacity=1, requests=dict(n=6, duration=5.0, seed=0))
 KERNEL_TOL = {"flash_attention": dict(rtol=1e-2, atol=1e-3,
                                       p_round=2.0 ** -8),
               "decode_attention": dict(rtol=1e-2, atol=1e-3),
+              "mla_decode_attention": dict(rtol=1e-2, atol=1e-3,
+                                           p_round=2.0 ** -8),
               "rmsnorm": dict(rtol=1e-2, atol=1e-3),
               "rmsnorm_residual": dict(rtol=1e-2, atol=1e-3),
               "ssd_chunk": dict(rtol=1e-5, atol=3e-5),
@@ -579,6 +627,11 @@ F32_GRAD_TOL = dict(rtol=2e-4, atol=2e-4)
 # with a single valid position, with one position too many); RMSNorm
 # with the last eighth of each row left out of the sum of squares
 FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
+          "flash_attention_mla": "v's last 64 dims dropped (a kernel "
+                                 "that reads only Dv = 64)",
+          "mla_decode_attention": "the mask one position too long (at "
+                                  "length T - 1, one too short); the "
+                                  "rope term dropped",
           "decode_attention": "kv tile of 64 around length/2 dropped "
                               "(length 0: position 1 attended too)",
           "rmsnorm": "last D/8 of the row left out of the sum of squares",
@@ -602,6 +655,12 @@ FAULTS = {"flash_attention": "kv tile [S/2, S/2 + 64) dropped",
 # windows of 63 and 64 keys, where one key is a large share of a row
 WINDOW_CASES = ((6000, 4096, 32, 32, 80), (2048, 1000, 32, 8, 128),
                 (512, 63, 32, 8, 128), (512, 64, 32, 8, 128))
+# K2's MLA rows (S, H = KVH, D, Dv), bf16 and f32: DeepSeek-V3's prefill
+# of the serve_mla functions' prompts; K3-mla's rows (B, T, length) at
+# H = 128, (R, DR) = (512, 64), bf16 and f32
+MLA_FLASH_CASES = ((512, 128, 192, 128), (2048, 128, 192, 128))
+MLA_DECODE_CASES = ((1, 2560, 0), (1, 2560, 511), (1, 2560, 2559),
+                    (2, 2560, 2559))
 # the serving kernels in the `kernels` line: (name, the TPU kernel it
 # replaces, the kernel-phase case whose times the line carries: the
 # serving path's largest)
@@ -616,6 +675,8 @@ SERVING_KERNELS = (
      "(2048, 2560)"),
     ("ssd_chunk", "ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:54",
      "mamba2-780m S=2048 bf16"),
+    ("mla_decode_attention", "mla_decode.cu",
+     "src/repro/models/model.py:970", "mla B=1 T=2560 length=2559 bf16"),
 )
 # the backward kernels in the `kernels` line: (name, source, what they
 # replace: the JAX package has no backward Pallas kernel, and jax.grad
@@ -704,7 +765,9 @@ TRAIN_ARCHS = {"qwen3-4b": dict(n_layers=TRAIN_CUT["n_layers"]),
 # limit is shown to see an error of bf16's size.
 TRAIN_DEEP = dict(arch="zamba2-2.7b", n_layers=6, attn_every=6)
 TRAIN_DEEP_RTOL = 5e-4
-TRAIN_FULL = dict(arch="qwen3-4b", steps=10, global_batch=4, seq_len=1024,
+# (c) runs 6 steps (10 until the MLA phase needed the room: the full-width
+# losses fell 2.8-3.7 by step 5 on an H100 at 700 W, TRAIN_LOSS_DROP 0.5)
+TRAIN_FULL = dict(arch="qwen3-4b", steps=6, global_batch=4, seq_len=1024,
                   lr=3e-4, seed=0)
 TRAIN_LOSS_DROP = 0.5
 TRAIN_RESTART = dict(steps=4, ckpt_every=2, fail_at=3, seed=5,
@@ -776,8 +839,12 @@ PARITY_TOL = dict(rtol=2e-4, atol=2e-4)
 # the recipe; rerun it after touching `parity_weights`): the MoE family's
 # smoke config in f32 (the dense oracle; then the capacity dispatch at a
 # capacity factor where the prefill drops choices, the count held
-# exactly) and in bf16, and Zamba2's smoke config with a prompt of 80
-# into a cache of 48 (the sliding window, S % W = 32).
+# exactly) and in bf16, Zamba2's smoke config with a prompt of 80 into a
+# cache of 48 (the sliding window, S % W = 32), and DeepSeek-V3's (MLA)
+# smoke config at its published head dims (q/k 192 = 128 + 64 rotary,
+# v 128, kv_lora 512: K2 at (192, 128), K3-mla at (512, 64)) in f32 with
+# both impls and in bf16 (its bound widened by the JAX package's own
+# bf16 distance from f32, ``own``).
 PARITY_EXPECTED_FILE = os.path.join(HERE, "scripts",
                                     "model_parity_expected.json")
 # The bf16 rows of model_parity: the same smoke() configs (and Mamba2-780M's
@@ -3184,11 +3251,11 @@ def _tol_use(got, want, tol, abs_v=None):
     return ((g - w).abs() / lim).max().item()
 
 
-def _close(torch, name, case, got, want, fault, abs_v=None):
+def _close(torch, name, case, got, want, fault, abs_v=None, what=None):
     """Hold ``got`` within KERNEL_TOL[name] of the plain version
     ``want``, and make sure the same check fails for the planted fault
-    ``fault`` in its place. Returns the numbers the kernel row
-    carries."""
+    ``fault`` (FAULTS[what or name]) in its place. Returns the numbers
+    the kernel row carries."""
     tol = KERNEL_TOL[name]
     err = (got.float() - want.float()).abs().max().item()
     need(bool(torch.isfinite(got.float()).all()),
@@ -3199,7 +3266,8 @@ def _close(torch, name, case, got, want, fault, abs_v=None):
     # the same check on a kernel whose output were the fault
     caught = _tol_use(fault, want, tol, abs_v)
     need(caught > 1.0, f"{name} {case}: the limit {tol} does not reject "
-         f"the planted fault ({FAULTS[name]}): {caught:.3g} of the limit")
+         f"the planted fault ({FAULTS[what or name]}): {caught:.3g} of the "
+         "limit")
     return dict(max_abs_err=err, tol_use=use, fault_ratio=caught,
                 typical_abs=want.float().abs().mean().item())
 
@@ -3215,6 +3283,24 @@ def attention_f32(torch, q, k, v, allowed):
         q.shape[-1])
     p = torch.softmax(s.masked_fill(~allowed, float("-inf")), dim=-1)
     return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
+
+
+def mla_f32(torch, q_abs, q_rope, c_kv, k_rope, allowed, scale,
+            value=None, rope=True):
+    """The MLA decode attention in f32 over the positions ``allowed`` (a
+    (T,) bool mask), the rope term left out when not ``rope``, the
+    weights applied to ``value`` (default c_kv), the result in q_abs's
+    dtype: the planted faults of K3-mla and (``value`` |c_kv|) the
+    attention of |c_kv| its limit's ``p_round`` term takes."""
+    c = c_kv.float()
+    s = torch.einsum("bshr,btr->bhst", q_abs.float(), c)
+    if rope:
+        s = s + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             k_rope.float())
+    p = torch.softmax((s * scale).masked_fill(~allowed, float("-inf")),
+                      dim=-1)
+    v = c if value is None else value.float()
+    return torch.einsum("bhst,btr->bshr", p, v).to(q_abs.dtype)
 
 
 def rmsnorm_fault(torch, s, w, eps, dtype):
@@ -3383,6 +3469,94 @@ def phase_serving_kernels(torch, FA, DA, RN):
         decode_case(f"T={T} length={length}", q, kc, vc, length)
     decode_case(f"B=2 T={T} length={T - 1}", randn(2, 1, H, D),
                 randn(2, T, KVH, D), randn(2, T, KVH, D), T - 1)
+
+    def mla_flash_case(S, Hm, Dq, Dv, dtype):
+        """K2 at MLA's head dims (q/k Dq, v Dv), H = KVH, causal, scale
+        1/sqrt(Dq); its fault v's last 64 dims dropped; SDPA beside it."""
+        case = f"mla causal S={S} H={Hm} D={Dq} Dv={Dv} " + (
+            "bf16" if dtype == bf16 else "f32")
+        q, k = randn(1, S, Hm, Dq).to(dtype), randn(1, S, Hm, Dq).to(dtype)
+        v = randn(1, S, Hm, Dv).to(dtype)
+        scale = 1.0 / math.sqrt(Dq)
+        call = partial(FA.flash_attention, q, k, v, scale=scale)
+        plain = partial(FA.flash_attention_plain, q, k, v, scale=scale)
+        want = plain()
+        abs_v = FA.flash_attention_plain(q.float(), k.float(),
+                                         v.float().abs(), scale=scale)
+        short = v.clone()
+        short[..., 64:] = 0
+        check = _close(torch, "flash_attention", case, call(), want,
+                       FA.flash_attention_plain(q, k, short, scale=scale),
+                       abs_v, what="flash_attention_mla")
+        del want, abs_v, short
+        size = 2 if dtype == bf16 else 4
+        rows.append(dict(row(
+            "flash_attention", case, check, call, plain,
+            partial(F.scaled_dot_product_attention,
+                    *(x.transpose(1, 2) for x in (q, k, v)),
+                    is_causal=True, scale=scale),
+            size * S * Hm * (2 * Dq + 2 * Dv),
+            Hm * (Dq + Dv) * S * (S + 1), "bf16" if dtype == bf16 else "f32",
+            timing=dict(reps=5, trials=3)), mla=True))
+
+    def mla_decode_case(B, Tm, length, dtype):
+        """K3-mla at H 128, (R, DR) = (512, 64), scale 1/sqrt(128 + 64);
+        its faults the mask one position too long (at length T - 1 one
+        too short) and the rope term dropped (not at length 0: a single
+        position takes all the weight whatever its score); SDPA over the
+        one shared latent head (k = [c_kv, k_rope], v = c_kv, every
+        query head its group) beside it."""
+        Hm, R, DR = 128, 512, 64
+        case = f"mla B={B} T={Tm} length={length} " + (
+            "bf16" if dtype == bf16 else "f32")
+        q_abs, q_rope = randn(B, 1, Hm, R).to(dtype), randn(
+            B, 1, Hm, DR).to(dtype)
+        c_kv, k_rope = randn(B, Tm, R).to(dtype), randn(B, Tm, DR).to(dtype)
+        scale = 1.0 / math.sqrt(128 + DR)
+        args = (q_abs, q_rope, c_kv, k_rope, length)
+        call = partial(DA.mla_decode_attention, *args, scale=scale)
+        plain = partial(DA.mla_decode_attention_plain, *args, scale=scale)
+        pos = torch.arange(Tm, device=dev)
+        seen = pos <= length
+        off = pos <= length + 1 if length + 1 < Tm else pos < length
+        want = plain()
+        f = partial(mla_f32, torch, q_abs, q_rope, c_kv, k_rope,
+                    scale=scale)
+        abs_v = f(seen, value=c_kv.abs()).float()
+        check = _close(torch, "mla_decode_attention", case, call(), want,
+                       f(off), abs_v)
+        tol = KERNEL_TOL["mla_decode_attention"]
+        check["fault_rope_ratio"] = None
+        if length > 0:
+            check["fault_rope_ratio"] = _tol_use(f(seen, rope=False), want,
+                                                 tol, abs_v)
+            need(check["fault_rope_ratio"] > 1.0,
+                 f"mla_decode_attention {case}: the limit does not reject "
+                 "the rope term dropped")
+            check["fault_ratio"] = min(check["fault_ratio"],
+                                       check["fault_rope_ratio"])
+        del want, abs_v
+        n = min(length + 1, Tm)
+        kq = torch.cat([q_abs, q_rope], -1).transpose(1, 2)
+        kk = torch.cat([c_kv, k_rope], -1)[:, None, :n]
+        kv = c_kv[:, None, :n]
+        size = 2 if dtype == bf16 else 4
+        rows.append(dict(row(
+            "mla_decode_attention", case, check, call, plain,
+            partial(F.scaled_dot_product_attention, kq, kk, kv,
+                    scale=scale, enable_gqa=True),
+            size * B * (Hm * (R + DR) + n * (R + DR) + Hm * R),
+            2 * B * Hm * n * (2 * R + DR),
+            "bf16" if dtype == bf16 else "f32"), mla=True))
+
+    # MLA (DeepSeek-V3): K2 at head dims (192, 128) and K3-mla
+    t_mla = time.perf_counter()
+    for dtype in (bf16, torch.float32):
+        for S, Hm, Dq, Dv in MLA_FLASH_CASES:
+            mla_flash_case(S, Hm, Dq, Dv, dtype)
+        for B, Tm, length in MLA_DECODE_CASES:
+            mla_decode_case(B, Tm, length, dtype)
+    t_mla = time.perf_counter() - t_mla
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def norm_body(x, extra, w, want):
@@ -3461,7 +3635,7 @@ def phase_serving_kernels(torch, FA, DA, RN):
     residual_case(64, d, "general", offset=1)
     t_norm = time.perf_counter() - t_norm
     emit(dict(phase="kernel", serving=rows, rmsnorm_cases_s=t_norm,
-              window_cases_s=t_win))
+              window_cases_s=t_win, mla_cases_s=t_mla))
     return rows
 
 
@@ -4018,7 +4192,11 @@ def parity_weights(np, shapes):
     conv_b 0.1 z, so that the SSM state decays slowly and every skip
     and bias counts; everything else z / sqrt(fan-in): the first dim of
     the leaf's own shape (after the layer axis of a stacked block's), and
-    for the MoE experts' (L, E, d_in, d_out) weights d_in, not E."""
+    for the MoE experts' (L, E, d_in, d_out) weights d_in, not E. MLA
+    (DeepSeek-V3): its norms ``q_a_norm`` and ``kv_a_norm`` as the other
+    norms; ``wq_b`` (qr, h, .) and ``wk_b`` / ``wv_b`` (kvr, h, .) take
+    their first dim (qr, kvr) by that rule, and its ``wo`` (h, dv, d)
+    h dv, the JAX init's scale."""
     r = np.random.default_rng(PARITY["seed"])
     out = {}
     for name in sorted(shapes):
@@ -4026,7 +4204,7 @@ def parity_weights(np, shapes):
         z = r.standard_normal(shape)
         leaf = name.rsplit(".", 1)[-1]
         if leaf in ("final_norm", "norm1", "norm2", "q_norm", "k_norm",
-                    "gate_norm"):
+                    "gate_norm", "q_a_norm", "kv_a_norm"):
             a = 1.0 + 0.1 * z
         elif leaf == "A_log":
             a = np.log(r.uniform(0.01, 0.1, shape))
@@ -4038,7 +4216,10 @@ def parity_weights(np, shapes):
             stacked = name.split(".", 1)[0] in ("blocks", "dense_blocks",
                                                 "moe_blocks")
             expert = leaf in ("we_gate", "we_up", "we_down")
-            a = z / math.sqrt(shape[int(stacked) + int(expert)])
+            fan = shape[int(stacked) + int(expert)]
+            if leaf == "wo" and name[:-2] + "wv_b" in shapes:
+                fan *= shape[int(stacked) + 1]    # MLA's wo: h dv
+            a = z / math.sqrt(fan)
         out[name] = a.astype(np.float32)
     return out
 
@@ -4153,10 +4334,12 @@ def phase_model_parity(torch, np):
 def model_parity_bf16(torch, np, row, case, dev="cuda"):
     """One bf16 row: prefill and decode fed the JAX package's greedy
     tokens, each step's logits within PARITY_BF16_TOL of its largest
-    |logit| at the JAX top-5 and at logits[:8]; a greedy token that
-    differs from the JAX one where the JAX top-2 gap exceeds that bound
-    is a fault of the port. A row with ``k5_body`` must run K5's prefill
-    launches through that body."""
+    |logit| at the JAX top-5 and at logits[:8] (plus, for a row with
+    ``own``, that step's distance of the JAX package's bf16 logits from
+    its f32 run on the same weights: scripts/model_parity_expected.py);
+    a greedy token that differs from the JAX one where the JAX top-2 gap
+    exceeds that bound is a fault of the port. A row with ``k5_body``
+    must run K5's prefill launches through that body."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ssd_chunk as K5
     before = dict(K5.ssd_chunk.body_launches)
@@ -4167,12 +4350,13 @@ def model_parity_bf16(torch, np, row, case, dev="cuda"):
     cache = model.cache_spec(1, case["max_len"]).zeros(dev)
     logits, cache = model.prefill({"tokens": toks}, cache)
     steps = case["steps"]
+    own = case.get("own", [0.0] * len(steps))
     mine, worst = [], 0.0
     for i, (tok, amax, gap, ids, vals, head) in enumerate(steps):
         last = logits[0, -1].double().cpu().numpy()
         need(bool(np.isfinite(last).all()),
              f"model_parity {row}: non-finite logits at step {i}")
-        bound = PARITY_BF16_TOL * amax
+        bound = PARITY_BF16_TOL * amax + own[i]
         err = max(np.abs(last[ids] - vals).max(),
                   np.abs(last[:len(head)] - head).max())
         worst = max(worst, err / bound)
@@ -4201,13 +4385,14 @@ def model_parity_bf16(torch, np, row, case, dev="cuda"):
 
 
 # --------------------------------------------------------- phase 7: serve
-def serve_catalogue(catalogue):
+def serve_catalogue(catalogue, **over):
     """ServedFunctions of a catalogue of (name, arch, prompt, new
-    tokens, max_len); function i's weights are seeded by i."""
+    tokens, max_len), each config with the fields ``over`` (a depth cut);
+    function i's weights are seeded by i."""
     from repro_torch.configs import get_arch
     from repro_torch.serving import ServedFunction
-    return [ServedFunction(i, get_arch(arch), prompt_len=p, gen_tokens=g,
-                           max_len=m, name=name)
+    return [ServedFunction(i, get_arch(arch).replace(**over), prompt_len=p,
+                           gen_tokens=g, max_len=m, name=name)
             for i, (name, arch, p, g, m) in enumerate(catalogue)]
 
 
@@ -4273,6 +4458,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None, capacity=2,
             f.body_launches = dict.fromkeys(f.body_launches, 0)
         if hasattr(f, "window_launches"):
             f.window_launches = 0
+        if hasattr(f, "value_dim_launches"):
+            f.value_dim_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if calls is None:
@@ -4287,6 +4474,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None, capacity=2,
                if hasattr(f, "body_launches")}
     windowed = {k: f.window_launches for k, f in kernels.items()
                 if hasattr(f, "window_launches")}
+    value_dim = {k: f.value_dim_launches for k, f in kernels.items()
+                 if hasattr(f, "value_dim_launches")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fn_of = np.array([r.fn_id for r in reqs])
     per_fn = []
@@ -4348,7 +4537,8 @@ def serve_run(torch, np, phase, fns, kernels, calls=None, capacity=2,
                 n_requests=len(reqs), profile_s=profile_s, wall_s=wall,
                 **stats, peak_mem_gb=peak_gb,
                 launches=launches, launches_by_body=by_body,
-                window_launches=windowed, functions=per_fn)
+                window_launches=windowed, value_dim_launches=value_dim,
+                functions=per_fn)
     if calls is not None:
         line["model_calls"] = {f"{k}:{n}": c
                                for (k, n), c in sorted(calls.counts.items())}
@@ -4449,6 +4639,40 @@ def phase_serve_moe(torch, np, FA, DA, RN):
          f"serve_moe: K2 / K3 launched {launches['flash_attention']} / "
          f"{launches['decode_attention']} times, not {cfg.n_layers} a "
          f"prefill and a decode step ({want[0]} / {want[1]})")
+    return launches
+
+
+def phase_serve_mla(torch, np, FA, DA, RN):
+    """SERVE_MLA_CATALOGUE's DeepSeek-V3-671B functions at published
+    widths, cut to SERVE_MLA_LAYERS layers, on a 1-slot server: every
+    request served, K2 at head dims (192, 128) once a layer a prefill
+    and K3-mla once a layer a decode step of the run (warm-ups of its
+    live cold starts included), K3 never, K4a and K4b counted; peak
+    memory, cold start, prefill tokens/s and decode ms/token."""
+    kernels = {"flash_attention": FA.flash_attention,
+               "mla_decode_attention": DA.mla_decode_attention,
+               "rmsnorm": RN.rmsnorm,
+               "rmsnorm_residual": RN.rmsnorm_residual}
+    fns = serve_catalogue(SERVE_MLA_CATALOGUE, n_layers=SERVE_MLA_LAYERS)
+    cfg = fns[0].cfg
+    need(cfg.mla and cfg.mtp and cfg.first_dense_layers == 3
+         and cfg.n_layers == SERVE_MLA_LAYERS,
+         f"serve_mla: the config is not DeepSeek-V3's cut to "
+         f"{SERVE_MLA_LAYERS} layers: {cfg}")
+    calls = CountModelCalls()
+    dense_before = DA.decode_attention.launches
+    launches, line = serve_run(torch, np, "serve_mla", fns, kernels, calls,
+                               **SERVE_MLA)
+    want = (cfg.n_layers * calls.get("prefill", cfg.name),
+            cfg.n_layers * calls.get("decode", cfg.name))
+    got = (launches["flash_attention"], launches["mla_decode_attention"])
+    value_dim = line["value_dim_launches"]["flash_attention"]
+    need(got == want and want[0] > 0 and value_dim == want[0],
+         f"serve_mla: K2 / K3-mla launched {got} times ({value_dim} of K2's "
+         f"at head dims (192, 128)), not {cfg.n_layers} a prefill and a "
+         f"decode step ({want})")
+    need(DA.decode_attention.launches == dense_before,
+         "serve_mla: the dense decode kernel K3 ran")
     return launches
 
 
@@ -4968,6 +5192,8 @@ def main(argv=None) -> int:
                    "serve_ssm": timed("serve_ssm", phase_serve_ssm, torch,
                                       np, FA, DA, RN, K5),
                    "serve_moe": timed("serve_moe", phase_serve_moe, torch,
+                                      np, FA, DA, RN),
+                   "serve_mla": timed("serve_mla", phase_serve_mla, torch,
                                       np, FA, DA, RN)}
         tr = timed("train", phase_train, torch, np, FA, RN, K5)
         by_path["train"] = tr["full"]["launches"]
@@ -5152,13 +5378,19 @@ def main(argv=None) -> int:
         mine = [r for r in srows if r["kernel"] == name]
         rep = next(r for r in mine if r["case"] == at)
         # launches: the serving path that carries the kernel's timed case
-        # (serve for K2-K4 at Qwen3-4B's shapes, serve_ssm for K5); the
-        # counts of every serving path beside them
-        main = "serve_ssm" if name == "ssd_chunk" else "serve"
+        # (serve for K2-K4 at Qwen3-4B's shapes, serve_ssm for K5,
+        # serve_mla for K3-mla); the counts of every serving path beside
+        # them
+        main = {"ssd_chunk": "serve_ssm",
+                "mla_decode_attention": "serve_mla"}.get(name, "serve")
         kernels.append(dict(
             name=name, entry=name, route="cuda",
             source=f"src/repro_torch/csrc/{source}",
             replaces=replaces, launches=by_path[main][name],
+            **({"pallas": False, "note": "no Pallas twin: the attention "
+                "einsums of the JAX package's _decode_mla (MLA decode "
+                "with weight absorption)"}
+               if name == "mla_decode_attention" else {}),
             launches_by_path={k: v.get(name, 0) for k, v in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=rep["ms"], plain_ms=rep["plain_ms"],
@@ -5177,7 +5409,15 @@ def main(argv=None) -> int:
                 "window_launches": by_path["serve_ssm"][
                     "flash_attention_window"],
                 "window_library_note": "SDPA with the band as a boolean "
-                "mask"} if name == "flash_attention" else {}),
+                "mask",
+                "mla_cases": [
+                    {k: r[k] for k in ("case", "ms", "device_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err", "tol_use",
+                                       "fault_ratio")}
+                    for r in mine if r.get("mla")],
+                "mla_launches": by_path["serve_mla"]["flash_attention"]}
+               if name == "flash_attention" else {}),
             tol=KERNEL_TOL[name],
             tol_use=max(r["tol_use"] for r in mine),
             fault_ratio_min=min(r["fault_ratio"] for r in mine),

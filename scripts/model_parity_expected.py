@@ -1,6 +1,7 @@
 """The JAX package's outputs for the model_parity rows of chip_smoke.py
-that this script owns: the MoE family (DeepSeek-MoE-16B's smoke config)
-and the hybrid family's prompt longer than its cache. Writes
+that this script owns: the MoE family (DeepSeek-MoE-16B's smoke config),
+the hybrid family's prompt longer than its cache, and MLA (DeepSeek-V3's
+smoke config with its published head dims). Writes
 ``scripts/model_parity_expected.json``, which chip_smoke.py reads (the
 machine with the card has no JAX).
 
@@ -18,9 +19,18 @@ the JAX parameter tree's shapes) and `parity_tokens`: the prefill, then
     ``jax.debug.callback`` on ``moe_dispatch_indices``), asserts there is
     at least one and records the count, which the port must match;
   - ``zamba2-2.7b smoke f32 past the cache``: a prompt of 80 into a
-    cache of 48 (S % W = 32, the sliding-window prefill and the ring).
+    cache of 48 (S % W = 32, the sliding-window prefill and the ring);
+  - ``deepseek-v3-671b heads f32`` (the auto impl: the dense oracle) and
+    ``... f32 ep drop`` (the capacity path, asserted to drop): the smoke
+    size with DeepSeek-V3's published head dims (`MLA_HEADS`).
 * ``bf16`` rows keep each step's `chip_smoke.parity_step`, as
-  PARITY_BF16_CASES: ``deepseek-moe-16b smoke bf16``.
+  PARITY_BF16_CASES: ``deepseek-moe-16b smoke bf16`` and
+  ``deepseek-v3-671b heads bf16``. The MLA row also keeps ``own``: each
+  step's largest distance, at the logits the row compares (the top-5
+  and logits[:8]), of the JAX package's bf16 run from its f32 run on the
+  same weights (the bf16 ones, widened exactly) fed the same tokens:
+  chip_smoke adds it to the row's bound (the MLA chain's roundings move
+  the JAX package's own bf16 logits by about as much as the bound).
 
     PYTHONPATH=src:. JAX_PLATFORMS=cpu python scripts/model_parity_expected.py
 
@@ -43,12 +53,26 @@ F32_ROWS = {
                                            capacity_factor=0.5), 16, 32),
     "zamba2-2.7b smoke f32 past the cache": ("zamba2-2.7b", {}, 80, 48),
 }
-BF16_ROWS = {f"{MOE} smoke bf16": (MOE, _BF16, 16, 32)}
+MLA = "deepseek-v3-671b"
+# DeepSeek-V3's published head dims at the smoke size (d 128, 4 heads,
+# q_lora 64, 8 experts top-2, 4 layers: 1 dense + 3 MoE)
+MLA_HEADS = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+                 kv_lora_rank=512, head_dim=192)
+F32_ROWS.update({
+    f"{MLA} heads f32": (MLA, MLA_HEADS, 16, 32),
+    f"{MLA} heads f32 ep drop": (MLA, dict(MLA_HEADS, moe_impl="ep",
+                                           capacity_factor=0.5), 16, 32),
+})
+BF16_ROWS = {f"{MOE} smoke bf16": (MOE, _BF16, 16, 32),
+             f"{MLA} heads bf16": (MLA, dict(MLA_HEADS, **_BF16), 16, 32)}
 
 
-def run(cs, arch, config, prompt_len, max_len):
+def run(cs, arch, config, prompt_len, max_len, feed=None, round_to=None):
     """The JAX model's greedy run: (per-step last logits as f64 numpy,
-    tokens, choices dropped in the prefill's MoE dispatch)."""
+    tokens, choices dropped in the prefill's MoE dispatch). With ``feed``
+    (tokens), those tokens are decoded in place of the greedy ones; with
+    ``round_to`` (a dtype config), the weights are first rounded to its
+    param dtype."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -62,6 +86,10 @@ def run(cs, arch, config, prompt_len, max_len):
     flat = {".".join(k.key for k in path): leaf.shape for path, leaf
             in jax.tree_util.tree_flatten_with_path(abstract)[0]}
     w = cs.parity_weights(np, flat)
+    if round_to is not None:
+        # the weights of the row in that dtype, widened back exactly
+        w = {k: np.asarray(jnp.asarray(v, round_to["param_dtype"]),
+                           np.float32) for k, v in w.items()}
     params = jax.tree_util.tree_map_with_path(
         lambda path, leaf: jnp.asarray(w[".".join(k.key for k in path)],
                                        cfg.pdtype), abstract)
@@ -84,8 +112,9 @@ def run(cs, arch, config, prompt_len, max_len):
         prefill_dropped = sum(dropped)
         steps = [np.asarray(logits[0, -1], np.float64)]
         out = [int(np.argmax(steps[-1]))]
-        for _ in range(cs.PARITY["steps"]):
-            logits, cache = m.decode_step(params, jnp.asarray([[out[-1]]]),
+        for i in range(cs.PARITY["steps"]):
+            tok = out[-1] if feed is None else feed[i]
+            logits, cache = m.decode_step(params, jnp.asarray([[tok]]),
                                           cache)
             steps.append(np.asarray(logits[0, -1], np.float64))
             out.append(int(np.argmax(steps[-1])))
@@ -112,9 +141,21 @@ def main() -> int:
                           top5=np.argsort(-last)[:5].tolist()))
     for name, (arch, config, prompt_len, max_len) in BF16_ROWS.items():
         steps, out, _ = run(cs, arch, config, prompt_len, max_len)
+        kept = [cs.parity_step(np, s) for s in steps]
         rows["bf16"][name] = dict(
             arch=arch, config=config, prompt_len=prompt_len,
-            max_len=max_len, steps=[cs.parity_step(np, s) for s in steps])
+            max_len=max_len, steps=kept)
+        if arch == MLA:
+            # the same weights (parity_weights, rounded to bf16: `run`
+            # casts them) widened to f32 and the same tokens, in f32
+            wide = dict(config, param_dtype="float32",
+                        compute_dtype="float32")
+            exact, _, _ = run(cs, arch, wide, prompt_len, max_len,
+                              feed=out[:-1], round_to=_BF16)
+            rows["bf16"][name]["own"] = [
+                round(float(max(np.abs(np.asarray(k[4]) - e[k[3]]).max(),
+                                np.abs(s[:8] - e[:8]).max())), 4)
+                for k, s, e in zip(kept, steps, exact)]
     with open(OUT, "w") as f:
         json.dump(rows, f, indent=1)
         f.write("\n")

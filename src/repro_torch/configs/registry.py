@@ -1,11 +1,12 @@
 """Architecture registry of the port (counterpart of
 `repro.configs.registry`).
 
-The port's model runs the dense, moe (without MLA), ssm and hybrid
-families, so ``ARCHS`` holds the JAX package's configs of those
+The port's model runs the dense, moe (with or without MLA), ssm and
+hybrid families, so ``ARCHS`` holds the JAX package's configs of those
 families, copied field for field: the dense qwen3-4b and qwen3-14b
 (qk-norm), qwen1.5-4b (qkv bias) and internlm2-20b; the moe
-deepseek-moe-16b; the ssm mamba2-780m; the hybrid zamba2-2.7b; and
+deepseek-moe-16b and deepseek-v3-671b (MLA, MTP); the ssm mamba2-780m;
+the hybrid zamba2-2.7b; and
 the paper's scenario config ``paper_edge`` (`EdgeServingConfig`, not a
 model). Every other name the JAX package
 registers raises NotImplementedError naming the ROADMAP item that
@@ -21,12 +22,12 @@ from repro_torch.utils.registry import Registry
 ARCHS = Registry("architectures")
 
 _ARCH_MODULES = ["internlm2_20b", "qwen3_14b", "qwen1_5_4b", "qwen3_4b",
-                 "deepseek_moe_16b", "mamba2_780m", "zamba2_2_7b",
+                 "deepseek_moe_16b", "deepseek_v3_671b", "mamba2_780m",
+                 "zamba2_2_7b",
                  "paper_edge"]
 
 # names of the JAX package's registry that the port does not build yet
 NOT_PORTED = {
-    "deepseek-v3-671b": "ROADMAP Queue 1, item 6.3 (MLA)",
     "whisper-tiny": "ROADMAP Queue 1, item 6.3 (enc-dec)",
     "internvl2-76b": "ROADMAP Queue 1, item 6.3 (VLM)",
 }

@@ -3,15 +3,23 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (`_flash_kernel`, pallas_call at :103), with its
-// contract: q (B, S, H, D), k and v (B, T, KVH, D), H = KVH * G;
+// contract: q (B, S, H, D), k (B, T, KVH, D), v (B, T, KVH, Dv), H = KVH *
+// G;
 //   out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / G])
 //                  v[b, j, h / G]
 // over j < T, and j <= i when causal; with a window W >= 0 (causal
 // only) also j >= i - W, the JAX package's sliding window (W + 1 keys a
 // row: `(i - j) <= window` in repro/models/layers.py::chunked_attention).
 // The running max and sum and the
-// accumulator in f32, the output cast to q's type. f32 or bf16 (q, k, v
-// and out of one type); D in {16, 32, 64, 80, 128}.
+// accumulator in f32, the output (B, S, H, Dv) cast to q's type. f32 or
+// bf16 (q, k, v and out of one type); (D, Dv) = (D, D) for D in {16, 32,
+// 64, 80, 128}, or (192, 128): DeepSeek-V3's MLA prefill, whose q and k
+// heads carry 128 decompressed dims and 64 rotary ones and whose v heads
+// 128 (repro/models/layers.py::mla_apply; `chunked_attention` lets v
+// have its own head dim). The value head dim sizes the v tiles, the P V
+// product and the output; the q/k dim the q tile, the k tiles and the
+// Q K^T product. (192, 128) takes no window and no log-sum-exp: no path
+// of the JAX package trains MLA here or windows it.
 //
 // What bounds it on an H100: operations. A causal prefill of S tokens
 // does about 2 * S^2 * H * D multiply-adds (4 * S^2 * H * D / 2
@@ -38,7 +46,7 @@
 //   bytes a row, swizzled by the TMA and read by wgmma with the same
 //   swizzle: 128-byte chunks where D is a multiple of 64, 64 bytes at
 //   D = 32, 32 bytes at D = 16 and D = 80 (a 160-byte row is five
-//   32-byte chunks).
+//   32-byte chunks). q/k and v are chunked each by its own head dim.
 // - Softmax in base 2 (scores times scale * log2(e), exp2f). Only the
 //   tiles that cross the diagonal or the end of T are masked; a causal
 //   block stops at the last tile that holds a position <= its last row.
@@ -91,7 +99,7 @@ __host__ __device__ constexpr int padded(int D) {
   return D + 4 / static_cast<int>(sizeof(T));
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, int DV, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
@@ -99,12 +107,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int KVH, float scale, int causal, int window) {
   constexpr int QS = padded<T>(D);  // q and k tile row stride
   constexpr int PS = kBK + 1;       // score tile row stride
-  constexpr int NC = D / 16;        // output columns per thread
+  constexpr int NC = DV / 16;       // output columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);          // kBQ x QS
   T* k_s = q_s + kBQ * QS;                          // kBK x QS
-  T* v_s = k_s + kBK * QS;                          // kBK x D
-  float* p_s = reinterpret_cast<float*>(v_s + kBK * D);  // kBQ x PS
+  T* v_s = k_s + kBK * QS;                          // kBK x DV
+  float* p_s = reinterpret_cast<float*>(v_s + kBK * DV);  // kBQ x PS
   float* m_s = p_s + kBQ * PS;                      // kBQ
   float* l_s = m_s + kBQ;                           // kBQ
   float* c_s = l_s + kBQ;                           // kBQ
@@ -115,11 +123,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;  // rows ty*4.., cols tx + 16 j
 
-  const size_t q_row = static_cast<size_t>(H) * D;    // q/out position
-  const size_t kv_row = static_cast<size_t>(KVH) * D;  // k/v position
+  const size_t q_row = static_cast<size_t>(H) * D;     // q position
+  const size_t o_row = static_cast<size_t>(H) * DV;    // out position
+  const size_t kv_row = static_cast<size_t>(KVH) * D;  // k position
+  const size_t v_row = static_cast<size_t>(KVH) * DV;  // v position
   const T* q_b = q + static_cast<size_t>(b) * S * q_row + h * D;
   const T* k_b = k + static_cast<size_t>(b) * T_len * kv_row + kvh * D;
-  const T* v_b = v + static_cast<size_t>(b) * T_len * kv_row + kvh * D;
+  const T* v_b = v + static_cast<size_t>(b) * T_len * v_row + kvh * DV;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D;
@@ -144,13 +154,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile is no longer read
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int t = i / D, d = i % D;
-      T kv = from_f32<T>(0.f), vv = from_f32<T>(0.f);
-      if (k0 + t < T_len) {
-        kv = k_b[(k0 + t) * kv_row + d];
-        vv = v_b[(k0 + t) * kv_row + d];
-      }
-      k_s[t * QS + d] = kv;
-      v_s[t * D + d] = vv;
+      k_s[t * QS + d] =
+          k0 + t < T_len ? k_b[(k0 + t) * kv_row + d] : from_f32<T>(0.f);
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int t = i / DV, d = i % DV;
+      v_s[t * DV + d] =
+          k0 + t < T_len ? v_b[(k0 + t) * v_row + d] : from_f32<T>(0.f);
     }
     __syncthreads();
 
@@ -231,7 +241,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = p_s[(ty * 4 + i) * PS + t];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) vv[j] = to_f32(v_s[t * D + tx + 16 * j]);
+      for (int j = 0; j < NC; ++j) vv[j] = to_f32(v_s[t * DV + tx + 16 * j]);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -239,7 +249,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  T* o_b = out + static_cast<size_t>(b) * S * q_row + h * D;
+  T* o_b = out + static_cast<size_t>(b) * S * o_row + h * DV;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
@@ -247,7 +257,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      o_b[(q0 + r) * q_row + tx + 16 * j] = from_f32<T>(acc[i][j] * inv_l);
+      o_b[(q0 + r) * o_row + tx + 16 * j] = from_f32<T>(acc[i][j] * inv_l);
   }
   if constexpr (LSE) {
     // m_s and l_s are in natural units; a row that saw nothing gets +inf
@@ -267,29 +277,52 @@ constexpr int kFaBK = 128;       // k/v positions a tile
 constexpr int kFaThreads = 384;  // producer warpgroup + two consumers
 constexpr int kConsumerWarps = 8;
 constexpr int kSmemBudget = 200 * 1024;
+constexpr int kSmemMax = 232448;  // a block's dynamic shared memory at most
 
-// The shared-memory plan of head dim D: column chunks of CW elements
-// (SW = 2 CW bytes a row, the swizzle span), q (kFaBQ rows), then STAGES
-// k/v buffers (kFaBK rows each of k and v), then the mbarriers. Every
-// chunk starts on a multiple of its swizzle pattern (8 rows x SW bytes).
-template <int D>
+// The column chunk of a head dim d: CW elements, SW = 2 CW bytes a row
+// (the swizzle span), and wgmma's layout code of that swizzle.
+__host__ __device__ constexpr int chunk_of(int d) {
+  return d % 64 == 0 ? 64 : (d % 32 == 0 ? 32 : 16);
+}
+__host__ __device__ constexpr uint32_t layout_of(int sw) {
+  return sw == 128 ? 1 : (sw == 64 ? 2 : 3);
+}
+
+// The shared-memory plan of head dims (D, DV): q and k in column chunks
+// of CW elements, v in chunks of CWV; q (kFaBQ rows), then STAGES k/v
+// buffers (kFaBK rows each of k and v), then the mbarriers. Every chunk
+// starts on a multiple of its swizzle pattern (8 rows x SW bytes). The
+// stages fill kSmemBudget; a plan with fewer than two stages there
+// (DeepSeek-V3's (192, 128): a 48 KB q tile and 80 KB a stage) takes the
+// block's whole shared memory instead, which holds two.
+template <int D, int DV>
 struct FaPlan {
-  static constexpr int CW = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int CW = chunk_of(D);
   static constexpr int SW = 2 * CW;
   static constexpr int NCH = D / CW;
-  static constexpr uint32_t LAYOUT = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
+  static constexpr uint32_t LAYOUT = layout_of(SW);
+  static constexpr int CWV = chunk_of(DV);
+  static constexpr int SWV = 2 * CWV;
+  static constexpr int NCHV = DV / CWV;
+  static constexpr uint32_t LAYOUTV = layout_of(SWV);
   static constexpr int Q_BYTES = kFaBQ * D * 2;
-  static constexpr int KV_BYTES = kFaBK * D * 2;  // one of k, v
-  static constexpr int STAGES_FIT = (kSmemBudget - Q_BYTES) / (2 * KV_BYTES);
-  static constexpr int STAGES = STAGES_FIT < 4 ? STAGES_FIT : 4;
-  static constexpr int BAR_OFF = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static constexpr int K_BYTES = kFaBK * D * 2;
+  static constexpr int V_BYTES = kFaBK * DV * 2;
+  static constexpr int STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr int STAGES_FIT = (kSmemBudget - Q_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES_MAX =
+      (kSmemMax - 2048 - Q_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES_ANY = STAGES_FIT >= 2 ? STAGES_FIT : STAGES_MAX;
+  static constexpr int STAGES = STAGES_ANY < 4 ? STAGES_ANY : 4;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   // + the mbarriers, + 1 KB to align the base
   static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
-  static_assert(D % 16 == 0 && NCH * CW == D && STAGES >= 2,
-                "unsupported head dim");
+  static_assert(D % 16 == 0 && NCH * CW == D && DV % 16 == 0 &&
+                    NCHV * CWV == DV && STAGES >= 2 && SMEM <= kSmemMax,
+                "unsupported head dims");
 };
 
-template <int D, bool LSE>
+template <int D, int DV, bool LSE>
 __global__ void __launch_bounds__(kFaThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -298,7 +331,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              float* __restrict__ lse, int S, int T_len,
                              int H, int KVH, float scale_log2, int causal,
                              int window) {
-  using P = FaPlan<D>;
+  using P = FaPlan<D, DV>;
   extern __shared__ __align__(1024) unsigned char fa_smem[];
   unsigned char* base = fa_smem + ((1024 - (smem_u32(fa_smem) & 1023)) & 1023);
   unsigned char* q_s = base;
@@ -341,23 +374,24 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int s = j % P::STAGES;
         if (j >= P::STAGES) mbar_wait(&empty[s], (j / P::STAGES - 1) & 1);
         const int kt = (j0 + j) * kFaBK;
-        mbar_expect_tx(&full[s], 2 * P::KV_BYTES);
-        unsigned char* k_dst = kv_s + s * 2 * P::KV_BYTES;
-        unsigned char* v_dst = k_dst + P::KV_BYTES;
+        mbar_expect_tx(&full[s], P::STAGE_BYTES);
+        unsigned char* k_dst = kv_s + s * P::STAGE_BYTES;
+        unsigned char* v_dst = k_dst + P::K_BYTES;
 #pragma unroll
-        for (int c = 0; c < P::NCH; ++c) {
+        for (int c = 0; c < P::NCH; ++c)
           tma_load_4d(k_dst + c * kFaBK * P::SW, &tm_k, &full[s],
                       c * P::CW, kvh, kt, b);
-          tma_load_4d(v_dst + c * kFaBK * P::SW, &tm_v, &full[s],
-                      c * P::CW, kvh, kt, b);
-        }
+#pragma unroll
+        for (int c = 0; c < P::NCHV; ++c)
+          tma_load_4d(v_dst + c * kFaBK * P::SWV, &tm_v, &full[s],
+                      c * P::CWV, kvh, kt, b);
       }
     }
   } else {
     // ------------------------------------------------------ consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     constexpr int NS = kFaBK / 2;  // score registers a thread
-    constexpr int NO = D / 2;      // output registers a thread
+    constexpr int NO = DV / 2;     // output registers a thread
     const int tid = threadIdx.x - 128;
     const int cw = tid / 128;  // rows [64 cw, 64 cw + 64) of the tile
     const int warp = (tid / 32) % 4, lane = tid % 32;
@@ -376,8 +410,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int s = j % P::STAGES;
       const int k0 = (j0 + j) * kFaBK;
       mbar_wait(&full[s], (j / P::STAGES) & 1);
-      const uint32_t k_addr = smem_u32(kv_s + s * 2 * P::KV_BYTES);
-      const uint32_t v_addr = k_addr + P::KV_BYTES;
+      const uint32_t k_addr = smem_u32(kv_s + s * P::STAGE_BYTES);
+      const uint32_t v_addr = k_addr + P::K_BYTES;
 
       // S = Q K^T over D / 16 k-steps: k-step kk lies in chunk
       // kk * 16 / CW, at byte (kk * 16 % CW) * 2 of its rows
@@ -443,8 +477,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // O += P V: the scores of columns 16 kj .. 16 kj + 15 are the A
-      // fragment of k-step kj; V's rows 16 kj .. at 16 kj * SW bytes,
-      // its column chunks LBO = kFaBK * SW apart
+      // fragment of k-step kj; V's rows 16 kj .. at 16 kj * SWV bytes,
+      // its column chunks LBO = kFaBK * SWV apart
       uint32_t pa[kFaBK / 16][4];
 #pragma unroll
       for (int kj = 0; kj < kFaBK / 16; ++kj) {
@@ -456,9 +490,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kj = 0; kj < kFaBK / 16; ++kj) {
-        const uint64_t db = smem_desc(v_addr + kj * 16 * P::SW,
-                                      kFaBK * P::SW, 8 * P::SW, P::LAYOUT);
-        Wgmma<D>::rs(o, pa[kj], db, 1);
+        const uint64_t db = smem_desc(v_addr + kj * 16 * P::SWV,
+                                      kFaBK * P::SWV, 8 * P::SWV, P::LAYOUTV);
+        Wgmma<DV>::rs(o, pa[kj], db, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -469,7 +503,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 
     // the quad's row sums, then out = O / l, rows past S not stored
-    __nv_bfloat16* o_b = out + static_cast<size_t>(b) * S * H * D + h * D;
+    __nv_bfloat16* o_b = out + static_cast<size_t>(b) * S * H * DV + h * DV;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       float l = l_run[hh];
@@ -485,9 +519,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       : __int_as_float(0x7f800000);
       }
       const float inv_l = 1.f / fmaxf(l, 1e-30f);
-      __nv_bfloat16* o_r = o_b + static_cast<size_t>(row) * H * D;
+      __nv_bfloat16* o_r = o_b + static_cast<size_t>(row) * H * DV;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
+      for (int i = 0; i < DV / 8; ++i)
         *reinterpret_cast<uint32_t*>(o_r + 8 * i + 2 * t4) =
             pack_bf16(o[4 * i + 2 * hh] * inv_l,
                       o[4 * i + 2 * hh + 1] * inv_l);
@@ -495,21 +529,21 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D, bool LSE>
+template <int D, int DV, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int S, int T_len,
                          int H, int KVH, float scale, int causal,
                          int window, cudaStream_t s) {
-  using P = FaPlan<D>;
+  using P = FaPlan<D, DV>;
   CUtensorMap mq, mk, mv;
   if (!bf16_map(&mq, q, B, S, H, D, P::CW, kFaBQ) ||
       !bf16_map(&mk, k, B, T_len, KVH, D, P::CW, kFaBK) ||
-      !bf16_map(&mv, v, B, T_len, KVH, D, P::CW, kFaBK))
+      !bf16_map(&mv, v, B, T_len, KVH, DV, P::CWV, kFaBK))
     return cudaErrorInvalidValue;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<D, LSE>,
+        flash_attention_wgmma_kernel<D, DV, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
@@ -517,34 +551,34 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   const int n_q = (S + kFaBQ - 1) / kFaBQ;
   if (n_q > 65535) return cudaErrorInvalidValue;
   const float log2e = 1.4426950408889634f;
-  flash_attention_wgmma_kernel<D, LSE>
+  flash_attention_wgmma_kernel<D, DV, LSE>
       <<<dim3(H, B, n_q), kFaThreads, P::SMEM, s>>>(
           mq, mk, mv, static_cast<__nv_bfloat16*>(out), lse, S, T_len, H,
           KVH, scale * log2e, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool LSE>
+template <typename T, int D, int DV, bool LSE>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int S, int T_len, int H, int KVH,
                      float scale, int causal, int window, cudaStream_t s) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_wgmma<D, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                scale, causal, window, s);
+    return launch_wgmma<D, DV, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
+                                    scale, causal, window, s);
   } else {
     const dim3 grid((S + kBQ - 1) / kBQ, H, B);
     const size_t smem =
         sizeof(T) * (static_cast<size_t>(kBQ + kBK) * padded<T>(D) +
-                     kBK * D) +
+                     kBK * DV) +
         sizeof(float) * (kBQ * (kBK + 1) + 3 * kBQ);
     if (smem > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(
-          flash_attention_kernel<T, D, LSE>,
+          flash_attention_kernel<T, D, DV, LSE>,
           cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (e != cudaSuccess) return e;
     }
-    flash_attention_kernel<T, D, LSE><<<grid, kThreads, smem, s>>>(
+    flash_attention_kernel<T, D, DV, LSE><<<grid, kThreads, smem, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_len, H,
         KVH, scale, causal, window);
@@ -555,23 +589,34 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 template <typename T, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int S, int T_len, int H, int KVH, int D,
-                   float scale, int causal, int window, cudaStream_t s) {
+                   int Dv, float scale, int causal, int window,
+                   cudaStream_t s) {
+  if (Dv != D) {
+    // MLA's (192, 128): serving only, no window
+    if constexpr (!LSE) {
+      if (D == 192 && Dv == 128 && window < 0)
+        return launch_d<T, 192, 128, false>(q, k, v, out, lse, B, S, T_len,
+                                            H, KVH, scale, causal, window,
+                                            s);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (D) {
     case 16:
-      return launch_d<T, 16, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, window, s);
+      return launch_d<T, 16, 16, LSE>(q, k, v, out, lse, B, S, T_len, H,
+                                      KVH, scale, causal, window, s);
     case 32:
-      return launch_d<T, 32, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, window, s);
+      return launch_d<T, 32, 32, LSE>(q, k, v, out, lse, B, S, T_len, H,
+                                      KVH, scale, causal, window, s);
     case 64:
-      return launch_d<T, 64, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, window, s);
+      return launch_d<T, 64, 64, LSE>(q, k, v, out, lse, B, S, T_len, H,
+                                      KVH, scale, causal, window, s);
     case 80:
-      return launch_d<T, 80, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                  scale, causal, window, s);
+      return launch_d<T, 80, 80, LSE>(q, k, v, out, lse, B, S, T_len, H,
+                                      KVH, scale, causal, window, s);
     case 128:
-      return launch_d<T, 128, LSE>(q, k, v, out, lse, B, S, T_len, H, KVH,
-                                   scale, causal, window, s);
+      return launch_d<T, 128, 128, LSE>(q, k, v, out, lse, B, S, T_len, H,
+                                        KVH, scale, causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -580,36 +625,37 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 template <typename T>
 cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
                      float* lse, int B, int S, int T_len, int H, int KVH,
-                     int D, float scale, int causal, int window,
+                     int D, int Dv, float scale, int causal, int window,
                      cudaStream_t s) {
   if (lse == nullptr)
     return launch<T, false>(q, k, v, out, nullptr, B, S, T_len, H, KVH, D,
-                            scale, causal, window, s);
-  return launch<T, true>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
-                         causal, window, s);
+                            Dv, scale, causal, window, s);
+  return launch<T, true>(q, k, v, out, lse, B, S, T_len, H, KVH, D, Dv,
+                         scale, causal, window, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q and out (B, S, H, D), k and v
-// (B, T, KVH, D), all contiguous, H % KVH == 0; window the sliding
+// dtype: 0 = float32, 1 = bfloat16. q (B, S, H, D), k (B, T, KVH, D), v
+// (B, T, KVH, Dv), out (B, S, H, Dv), all contiguous, H % KVH == 0; Dv = D
+// or (D, Dv) = (192, 128); window the sliding
 // window W (causal only; key j visible to row i iff i - W <= j <= i), -1
 // for none; lse (B, H, S) f32, or null when the caller does not want it
 // (serving). Returns the launch's cudaError_t.
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, int B, int S,
-                               int T_len, int H, int KVH, int D, float scale,
-                               int causal, int window, float* lse,
-                               void* stream) {
+                               int T_len, int H, int KVH, int D, int Dv,
+                               float scale, int causal, int window,
+                               float* lse, void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || KVH < 1 || H % KVH != 0 || B > 65535 ||
       H > 65535 || window < -1 || (window >= 0 && !causal))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_t<float>(q, k, v, out, lse, B, S, T_len, H, KVH, D, scale,
-                           causal, window, s);
+    return launch_t<float>(q, k, v, out, lse, B, S, T_len, H, KVH, D, Dv,
+                           scale, causal, window, s);
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(q, k, v, out, lse, B, S, T_len, H, KVH, D,
-                                   scale, causal, window, s);
+                                   Dv, scale, causal, window, s);
   return cudaErrorInvalidValue;
 }

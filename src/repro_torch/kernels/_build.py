@@ -57,7 +57,7 @@ EXTRA_FLAGS = {"frp_select": ("--fmad=false",),
                **{u: ("--fmad=false",) for u in EVENT_LOOP_UNITS}}
 SOURCES = (*EVENT_LOOP_UNITS, "frp_select", "rmsnorm", "decode_attention",
            "flash_attention", "ssd_chunk", "flash_attention_bwd",
-           "rmsnorm_bwd", "ssd_chunk_bwd")
+           "rmsnorm_bwd", "ssd_chunk_bwd", "mla_decode")
 # the sources another one includes (beside the shared headers)
 INCLUDES = {u: ("event_loop.cu",) for u in EVENT_LOOP_UNITS[1:]}
 

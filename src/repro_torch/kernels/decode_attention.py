@@ -19,6 +19,14 @@ anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
 (counted in ``launches``) or raises. There is no fallback from a failed
 build or launch to the plain version.
+
+`mla_decode_attention` (K3-mla) is the decode attention of DeepSeek-V3's
+multi-head latent attention over its latent cache, the attention core of
+`repro.models.model._decode_mla` (plain einsums there: no TPU kernel):
+with the key weights absorbed into the query, every query head attends
+the one shared latent row ``[c_kv, k_rope]`` (R + DR dims) and reads
+``c_kv`` back as its value. Its kernel is ``csrc/mla_decode.cu``, its
+plain version `mla_decode_attention_plain`; it has counts of its own.
 """
 from __future__ import annotations
 
@@ -125,3 +133,93 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
 
 decode_attention.launches = 0
 decode_attention.plain_calls = 0
+
+
+# ------------------------------------------------------------ K3-mla
+# the (latent, rotary) dims the MLA decode kernel takes: DeepSeek-V3's
+# kv_lora_rank and qk_rope_dim
+MLA_DIMS = ((512, 64),)
+# dtype, q_abs, q_rope, c_kv, k_rope, lat, B, T, H, R, DR, length, per,
+# n_splits, scale, stream
+_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P]
+# the query heads a block of the kernel serves (its kHG)
+MLA_HEAD_GROUP = 16
+
+
+def mla_decode_attention_plain(q_abs, q_rope, c_kv, k_rope, length: int, *,
+                               scale: float):
+    """Plain version: the attention core of `repro.models.model.
+    _decode_mla` (its einsums, with the kernel's ``* scale``): f32 scores
+    ``q_abs . c_kv + q_rope . k_rope`` over the positions ``<= length``,
+    the softmax in f32, its weights cast to q's dtype before the f32
+    product with ``c_kv``, the result cast to q's dtype. It reads only
+    those positions."""
+    n = min(length + 1, c_kv.shape[1])
+    c = c_kv[:, :n].to(torch.float32)
+    s = (torch.einsum("bshr,btr->bhst", q_abs.to(torch.float32), c)
+         + torch.einsum("bshk,btk->bhst", q_rope.to(torch.float32),
+                        k_rope[:, :n].to(torch.float32))) * scale
+    p = torch.softmax(s, dim=-1).to(q_abs.dtype).to(torch.float32)
+    return torch.einsum("bhst,btr->bshr", p, c).to(q_abs.dtype)
+
+
+def mla_decode_attention(q_abs, q_rope, c_kv, k_rope, length: int, *,
+                         scale: float):
+    """q_abs (B, 1, H, R), q_rope (B, 1, H, DR); c_kv (B, T, R), k_rope
+    (B, T, DR); ``length`` a Python int >= 0 (positions ``<= length`` are
+    attended). Returns lat (B, 1, H, R) in q's dtype. f32 or bf16, one
+    dtype for all; on CUDA (R, DR) in MLA_DIMS and any H >= 1 (in groups
+    of MLA_HEAD_GROUP heads); on the CPU, the plain version at any
+    widths."""
+    name = "mla_decode_attention"
+    dev = q_abs.device
+    _build.check_tensor(f"{name}: q_abs", q_abs, DTYPES, dev, ndim=4)
+    _build.check_tensor(f"{name}: q_rope", q_rope, (q_abs.dtype,), dev,
+                        ndim=4)
+    for nm, x in (("c_kv", c_kv), ("k_rope", k_rope)):
+        _build.check_tensor(f"{name}: {nm}", x, (q_abs.dtype,), dev, ndim=3)
+    B, S1, H, R = q_abs.shape
+    T, DR = c_kv.shape[1], k_rope.shape[2]
+    if (S1 != 1 or tuple(q_rope.shape) != (B, 1, H, DR)
+            or tuple(c_kv.shape) != (B, T, R)
+            or tuple(k_rope.shape) != (B, T, DR)):
+        raise ValueError(f"{name}: q_abs {tuple(q_abs.shape)} and q_rope "
+                         f"{tuple(q_rope.shape)} must be (B, 1, H, R) and "
+                         f"(B, 1, H, DR), c_kv {tuple(c_kv.shape)} and "
+                         f"k_rope {tuple(k_rope.shape)} (B, T, R) and (B, "
+                         "T, DR)")
+    if min(B, T, H, R, DR) < 1:
+        raise ValueError(f"{name}: every dim must be >= 1")
+    if isinstance(length, bool) or not isinstance(length, int) \
+            or length < 0:
+        raise TypeError(f"{name}: length must be a Python int >= 0, got "
+                        f"{length!r}")
+    if dev.type == "cpu":
+        mla_decode_attention.plain_calls += 1
+        return mla_decode_attention_plain(q_abs, q_rope, c_kv, k_rope,
+                                          length, scale=scale)
+    if (R, DR) not in MLA_DIMS:
+        raise ValueError(f"{name}: (R, DR) = ({R}, {DR}), kernel takes "
+                         f"{MLA_DIMS}")
+    fn = _build.c_entry("mla_decode", "mla_decode_attention", _MLA_ARGTYPES)
+    _build.require_cuda(name, dev)
+    if any(x.data_ptr() % 16 for x in (q_abs, q_rope, c_kv, k_rope)):
+        raise ValueError(f"{name}: the kernel reads 16-byte vectors; every "
+                         "input must start on a 16-byte boundary")
+    n_valid = min(length + 1, T)
+    groups = B * -(-H // MLA_HEAD_GROUP)
+    per, n_splits = cluster_plan(n_valid, groups, _build.sm_count(
+        torch.cuda.current_device() if dev.index is None else dev.index))
+    lat = torch.empty_like(q_abs)
+    rc = fn(_build.DTYPE_CODE[q_abs.dtype], q_abs.data_ptr(),
+            q_rope.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
+            lat.data_ptr(), B, T, H, R, DR, n_valid - 1, per, n_splits,
+            float(scale), _build.stream_of(dev))
+    _build.launch_check(rc, name)
+    mla_decode_attention.launches += 1
+    return lat
+
+
+mla_decode_attention.launches = 0
+mla_decode_attention.plain_calls = 0

@@ -14,15 +14,18 @@ them: the JAX package's
 sliding window (``(aq - ak) <= window`` in
 `repro.models.layers.chunked_attention`), which the hybrid family's
 prefill past its cache takes; the kernel skips the tiles wholly before a
-block's band. The kernel is ``csrc/flash_attention.cu``; see its header
+block's band. v may have its own head dim (`HEAD_DIM_PAIRS`): DeepSeek-V3's
+MLA prefill attends with q/k heads of 192 and v heads of 128, as the JAX
+package's `chunked_attention` lets it; that pair takes no window and has
+no backward. The kernel is ``csrc/flash_attention.cu``; see its header
 for the bound and the design.
 
 The wrapper checks device, dtype, shape and contiguity and raises on
 anything the kernel does not take. A CPU tensor goes to the plain
 version (counted in ``plain_calls``); a CUDA tensor launches the kernel
 (counted in ``launches``, and in ``window_launches`` too when it has a
-window) or raises. There is no fallback from a failed
-build or launch to the plain version.
+window, in ``value_dim_launches`` when Dv != D) or raises. There is no
+fallback from a failed build or launch to the plain version.
 
 Training: when q, k or v requires a gradient (and grad mode is on),
 `flash_attention` runs through `FlashAttention`, a
@@ -48,15 +51,20 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 80, 128)
+# the (q/k, v) head dims the forward kernel takes: (D, D) for D in
+# HEAD_DIMS, and MLA's (192, 128) (DeepSeek-V3: 128 decompressed + 64
+# rotary dims a q/k head, 128 a v head)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 # the backward kernel's head dims (80: the hybrid family's shared block)
 BWD_HEAD_DIMS = (32, 64, 80, 128)
+_BWD_PAIRS = tuple((d, d) for d in BWD_HEAD_DIMS)
 DTYPES = tuple(_build.DTYPE_CODE)
 _P = _build.PTR
 _I = ctypes.c_int
-# dtype, q, k, v, out, B, S, T, H, KVH, D, scale, causal, window, lse,
+# dtype, q, k, v, out, B, S, T, H, KVH, D, Dv, scale, causal, window, lse,
 # stream
-_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I,
-             _I, _P, _P]
+_ARGTYPES = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+             _I, _I, _P, _P]
 # dtype, q, k, v, o, do, lse, delta, dq, dk, dv, B, S, T, H, KVH, D, scale,
 # causal, stream
 _BWD_ARGTYPES = ([_I] + [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _P])
@@ -87,7 +95,9 @@ def _check_window(name, causal, window):
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
                           window=None):
     """Plain version (`repro.kernels.ref.flash_attention_ref`, with the
-    kernel's ``* scale``; ``window`` as `band_mask`)."""
+    kernel's ``* scale``; ``window`` as `band_mask`). v may have its own
+    head dim (the output's), as in `repro.models.layers.chunked_attention`;
+    the scale defaults to 1/sqrt(q's head dim)."""
     _check_window("flash_attention_plain", causal, window)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
@@ -102,24 +112,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None,
     return torch.einsum("bhst,bthd->bshd", p, vf).to(q.dtype)
 
 
-def _check(name, q, k, v, head_dims=HEAD_DIMS):
-    """Raise on anything the kernels do not take; returns (B, S, T, H,
-    KVH, D)."""
+def _check(name, q, k, v, pairs=HEAD_DIM_PAIRS):
+    """Raise on anything the kernels do not take (``pairs``: the (q/k, v)
+    head dims they take); returns (B, S, T, H, KVH, D)."""
     dev = q.device
     _build.check_tensor(f"{name}: q", q, DTYPES, dev, ndim=4)
     for nm, x in (("k", k), ("v", v)):
         _build.check_tensor(f"{name}: {nm}", x, (q.dtype,), dev, ndim=4)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
-    if v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"{name}: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must both be (B={B}, T, KVH, "
-                         f"D={D})")
+    if (v.shape[:3] != k.shape[:3] or k.shape[0] != B
+            or k.shape[3] != D):
+        raise ValueError(f"{name}: k {tuple(k.shape)} must be (B={B}, T, "
+                         f"KVH, D={D}) and v {tuple(v.shape)} (B, T, KVH, "
+                         "Dv)")
     if min(B, S, T, KVH) < 1 or H % KVH != 0:
         raise ValueError(f"{name}: need B, S, T >= 1 and H ({H}) a "
                          f"multiple of KVH ({KVH})")
-    if D not in head_dims:
-        raise ValueError(f"{name}: head dim {D}, kernel takes {head_dims}")
+    if (D, v.shape[3]) not in pairs:
+        raise ValueError(f"{name}: head dim {D} (v {v.shape[3]}), kernel "
+                         f"takes (q/k, v) {pairs}")
     return B, S, T, H, KVH, D
 
 
@@ -128,7 +140,11 @@ def _forward(q, k, v, causal, scale, with_lse, window=None):
     kernel when ``with_lse`` on CUDA, else None."""
     name = "flash_attention"
     B, S, T, H, KVH, D = _check(name, q, k, v)
+    Dv = v.shape[3]
     _check_window(name, causal, window)
+    if window is not None and Dv != D:
+        raise ValueError(f"{name}: a window needs v's head dim ({Dv}) equal "
+                         f"to q's ({D}) (no JAX path windows MLA)")
     scale = scale or 1.0 / math.sqrt(D)
     dev = q.device
     if dev.type == "cpu":
@@ -141,28 +157,30 @@ def _forward(q, k, v, causal, scale, with_lse, window=None):
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{name}: q, k and v must start at 16-byte "
                          "aligned addresses")
-    out = torch.empty_like(q)
+    out = torch.empty(B, S, H, Dv, dtype=q.dtype, device=dev)
     lse = (torch.empty(B, H, S, dtype=torch.float32, device=dev)
            if with_lse else None)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, S, T, H, KVH, D, float(scale),
-            int(causal), -1 if window is None else window,
+            v.data_ptr(), out.data_ptr(), B, S, T, H, KVH, D, Dv,
+            float(scale), int(causal), -1 if window is None else window,
             0 if lse is None else lse.data_ptr(),
             _build.stream_of(dev))
     _build.launch_check(rc, name)
     flash_attention.launches += 1
     flash_attention.window_launches += window is not None
+    flash_attention.value_dim_launches += Dv != D
     return out, lse
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,
                     window=None):
-    """q (B, S, H, D); k, v (B, T, KVH, D) -> (B, S, H, D). H % KVH ==
-    0, D in HEAD_DIMS; f32 or bf16, one dtype for all three; ``window``
-    an int >= 0 (causal only: row i sees keys i - window..i) or None.
-    When grad mode is on and q, k or v requires a gradient, the call goes
-    through `FlashAttention` (the kernel then also writes the
-    log-sum-exp that its backward reads); no path of the JAX package
+    """q (B, S, H, D); k (B, T, KVH, D), v (B, T, KVH, Dv) -> (B, S, H,
+    Dv). H % KVH == 0, (D, Dv) in HEAD_DIM_PAIRS; f32 or bf16, one dtype
+    for all three; ``window`` an int >= 0 (causal only: row i sees keys i
+    - window..i; Dv = D only) or None. When grad mode is on and q, k or v
+    requires a gradient, the call goes through `FlashAttention` (the
+    kernel then also writes the log-sum-exp that its backward reads; Dv
+    = D in BWD_HEAD_DIMS, else ValueError); no path of the JAX package
     trains with a window, so that raises."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -174,8 +192,10 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None,
 
 
 flash_attention.launches = 0
-# of those launches, the ones with a window
+# of those launches, the ones with a window, and the ones whose v has a
+# head dim of its own (MLA's (192, 128))
 flash_attention.window_launches = 0
+flash_attention.value_dim_launches = 0
 flash_attention.plain_calls = 0
 
 
@@ -266,7 +286,7 @@ def flash_attention_backward(q, k, v, o, do, lse, *, causal: bool = True,
     in BWD_HEAD_DIMS. On CPU tensors: the plain backward (``o`` and
     ``lse`` unused, may be None)."""
     name = "flash_attention_backward"
-    B, S, T, H, KVH, D = _check(name, q, k, v, BWD_HEAD_DIMS)
+    B, S, T, H, KVH, D = _check(name, q, k, v, _BWD_PAIRS)
     dev = q.device
     _build.check_tensor(f"{name}: do", do, (q.dtype,), dev, ndim=4)
     if do.shape != q.shape:
@@ -315,7 +335,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        _check("flash_attention", q, k, v, BWD_HEAD_DIMS)
+        _check("flash_attention", q, k, v, _BWD_PAIRS)
         out, lse = _forward(q, k, v, causal, scale, q.device.type != "cpu")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale

@@ -84,12 +84,13 @@ SLICE_HEADS = 8
 
 def ssd_chunk_plain(x, dt, cum, B, C):
     """Plain version (`repro.kernels.ref.ssd_chunk_ref`, with B and C by
-    group; every input widened to f32). Returns (y (b, nc, c, h, p),
-    states (b, nc, h, p, n)), f32."""
+    group; every input widened to f32, or all in f64 where x is f64: the
+    CPU's reference precision). Returns (y (b, nc, c, h, p), states (b,
+    nc, h, p, n)), f32 (f64 for f64 inputs)."""
     b, nc, c, h, p = x.shape
     g, n = B.shape[3], B.shape[4]
     hg = h // g
-    f32 = torch.float32
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
     xf = x.to(f32).view(b, nc, c, g, hg, p)
     Bf, Cf = B.to(f32), C.to(f32)
     dtf = dt.view(b, nc, c, g, hg)
@@ -137,14 +138,17 @@ def _bwd_scratch_floats(body, bnc, c, h, g, n):
 
 def _check(name, x, dt, cum, B, C):
     """Raise on anything the kernels do not take; returns (b, nc, c, h,
-    p, g, n)."""
+    p, g, n). On the CPU the plain version also takes every input in f64
+    (a reference precision; the kernels take none)."""
     dev = x.device
-    f32 = (torch.float32,)
-    _build.check_tensor(f"{name}: x", x, DTYPES, dev, ndim=5)
+    f32, dtypes = (torch.float32,), DTYPES
+    if dev.type == "cpu" and x.dtype == torch.float64:
+        f32 = dtypes = (torch.float64,)
+    _build.check_tensor(f"{name}: x", x, dtypes, dev, ndim=5)
     for nm, t in (("dt", dt), ("cum", cum)):
         _build.check_tensor(f"{name}: {nm}", t, f32, dev, ndim=4)
     for nm, t in (("B", B), ("C", C)):
-        _build.check_tensor(f"{name}: {nm}", t, DTYPES, dev, ndim=5)
+        _build.check_tensor(f"{name}: {nm}", t, dtypes, dev, ndim=5)
     if C.dtype != B.dtype:
         raise TypeError(f"{name}: B is {B.dtype} and C {C.dtype}; the "
                         "kernel takes both f32 or both bf16")

@@ -7,6 +7,11 @@ JAX package:
 * dense and moe (no MLA): k and v (L, B, T, KVH, hd) in the compute
   dtype, keys already rotary-encoded (rope applied at write time); the
   moe family's first dense layers first, then its MoE layers;
+* moe with MLA (DeepSeek-V3): the latent ``c_kv`` (L, B, T,
+  kv_lora_rank) and the shared rotary key ``k_rope`` (L, B, T,
+  qk_rope_dim), rotary-encoded, in the compute dtype, dense layers
+  first: kv_lora_rank + qk_rope_dim values a token a layer (1,152 bytes
+  in bf16 at published widths, where MHA's k and v would take 64 KB);
 * ssm: ``conv`` (L, B, K-1, d_inner + 2 g n), the last K-1 inputs of
   each layer's causal conv, in the compute dtype, and ``ssm`` (L, B, h,
   p, n), the state, in f32 whatever the compute dtype;
@@ -58,15 +63,15 @@ def cache_spec(cfg, batch: int, max_len: int, window=None) -> CacheSpec:
         raise NotImplementedError(
             f"cache of family {cfg.family!r}: not ported "
             f"({NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
-    if cfg.mla:
-        raise NotImplementedError(
-            "the MLA cache is not ported (ROADMAP Queue 1, item 6.3 (MLA))")
     shapes, dtypes = {}, {}
     L = cfg.n_layers
     attn_len = min(max_len, window) if window else max_len
     if cfg.family != "ssm":
         kv = (batch, attn_len, cfg.n_kv_heads, cfg.head_dim_)
-    if cfg.family in ("dense", "moe"):
+    if cfg.mla:
+        shapes["c_kv"] = (L, batch, attn_len, cfg.kv_lora_rank)
+        shapes["k_rope"] = (L, batch, attn_len, cfg.qk_rope_dim)
+    elif cfg.family in ("dense", "moe"):
         shapes["k"] = shapes["v"] = (L,) + kv
     else:
         conv_c = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state

@@ -6,7 +6,10 @@ the ``blocks`` leaves stacked on a leading layer axis; the dense, ssm
 and hybrid trees: ``blocks.norm1``, ``blocks.attn.*`` / ``blocks.mlp.*``
 or ``blocks.mamba.*``, and the hybrid's ``shared_attn.{shared_in,
 norm1, norm2, attn.*, mlp.*}``; the moe tree: ``dense_blocks.*`` and
-``moe_blocks.{norm1, norm2, attn.*, moe.*}``) into the state dict of
+``moe_blocks.{norm1, norm2, attn.*, moe.*}``, with MLA the ``attn.*``
+leaves ``wq_a``, ``q_a_norm``, ``wq_b``, ``wkv_a``, ``kv_a_norm``,
+``wk_b``, ``wv_b`` and ``wo``, and with MTP ``mtp.{mtp_proj,
+mtp_block.*}``) into the state dict of
 `repro_torch.models.Model`: the module tree mirrors the JAX tree, so a
 leaf's path joined by dots is its parameter's name and its layout is
 the same. Load it with ``model.load_state_dict(...)`` (strict:

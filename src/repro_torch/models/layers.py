@@ -13,14 +13,17 @@ parameters once a forward.
 Where the TPU package has a kernel, the port calls its hand-written one:
 `rms_norm` is K4a (`kernels.rmsnorm`) and full-sequence attention K2
 (`kernels.flash_attention`), with gradients each through its autograd
-Function and backward kernel (the model calls K4b itself). Projections,
+Function and backward kernel (the model calls K4b itself). DeepSeek-V3's
+multi-head latent attention (`MLA`) runs its prefill through K2 at head
+dims (192, 128) and its decode through K3-mla
+(`kernels.decode_attention.mla_decode_attention`), the attention of the
+JAX package's `_decode_mla`, which has no TPU kernel. Projections,
 the MLP, the MoE layer's router, dispatch and expert products and
 `cross_entropy` are plain torch ops, as the JAX package leaves them to
 XLA (its expert products are einsums; here ``torch.bmm`` over the
-expert axis). MLA (ROADMAP Queue 1, item 6.3), LayerNorm/GELU blocks
-(item 6.3, enc-dec) and the shard_map tensor-parallel paths, the
-expert-parallel ``moe_apply_ep_shardmap`` among them (item 6.4), are not
-ported.
+expert axis). LayerNorm/GELU blocks (ROADMAP Queue 1, item 6.3,
+enc-dec) and the shard_map tensor-parallel paths, the expert-parallel
+``moe_apply_ep_shardmap`` among them (item 6.4), are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.decode_attention import mla_decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -158,6 +162,126 @@ class Attention(nn.Module):
         q, k, v = self.qkv(l, x, cos, sin)
         y = flash_attention(q, k, v, causal=True, window=window)
         return self.out(l, y), (k, v)
+
+
+# ------------------------------------------------------------------ MLA
+class MLA(nn.Module):
+    """DeepSeek multi-head latent attention of ``n_layers`` layers (one,
+    not stacked, when None), `repro.models.layers.init_mla` / `mla_apply`
+    and `repro.models.model._decode_mla`: ``wq_a`` (d, qr), ``q_a_norm``
+    (qr,), ``wq_b`` (qr, h, dn + dr), ``wkv_a`` (d, kvr + dr),
+    ``kv_a_norm`` (kvr,), ``wk_b`` (kvr, h, dn), ``wv_b`` (kvr, h, dv),
+    ``wo`` (h, dv, d). The cache keeps the latent ``c_kv`` (kvr) and the
+    one shared rotary key ``k_rope`` (dr) a token.
+
+    ``c_kv`` and ``k_rope`` are column slices of the (B, S, kvr + dr)
+    ``wkv_a`` product; K4a takes contiguous rows, so ``c_kv`` is copied
+    once before its norm (one (B, S, kvr) copy a layer a prefill or
+    decode step)."""
+
+    def __init__(self, cfg, n_layers, device):
+        super().__init__()
+        self.cfg = cfg
+        d, h = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kw = dict(dtype=cfg.pdtype, device=device)
+        self.wq_a = stacked(n_layers, d, qr, **kw)
+        self.q_a_norm = stacked(n_layers, qr, **kw)
+        self.wq_b = stacked(n_layers, qr, h, dn + dr, **kw)
+        self.wkv_a = stacked(n_layers, d, kvr + dr, **kw)
+        self.kv_a_norm = stacked(n_layers, kvr, **kw)
+        self.wk_b = stacked(n_layers, kvr, h, dn, **kw)
+        self.wv_b = stacked(n_layers, kvr, h, dv, **kw)
+        self.wo = stacked(n_layers, h, dv, d, **kw)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The JAX package's scales: 1/sqrt(first dim) for every matrix
+        but ``wo`` (1/sqrt(h dv)); the norms' weights ones."""
+        cfg = self.cfg
+        d, qr, kvr = cfg.d_model, cfg.q_lora_rank, cfg.kv_lora_rank
+        for p, fan_in in ((self.wq_a, d), (self.wq_b, qr), (self.wkv_a, d),
+                          (self.wk_b, kvr), (self.wv_b, kvr)):
+            init_normal_(p, gen, 1.0 / math.sqrt(fan_in))
+        init_normal_(self.wo, gen, 1.0 / math.sqrt(cfg.n_heads
+                                                   * cfg.v_head_dim))
+        self.q_a_norm.fill_(1.0)
+        self.kv_a_norm.fill_(1.0)
+
+    @property
+    def scale(self) -> float:
+        cfg = self.cfg
+        return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+    def _query(self, l, x, cos, sin):
+        """q_nope (B, S, h, dn) and the rotary-encoded q_rope (B, S, h,
+        dr) of x (B, S, d): the LoRA, K4a on ``q_a_norm``, ``wq_b``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        q = rms_norm(x @ at(self, "wq_a", l), at(self, "q_a_norm", l),
+                     cfg.norm_eps)
+        q = (q @ at(self, "wq_b", l).reshape(cfg.q_lora_rank,
+                                             h * (dn + dr))
+             ).view(B, S, h, dn + dr)
+        return q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+
+    def _latent(self, l, x, cos, sin):
+        """c_kv (B, S, kvr), K4a on ``kv_a_norm``, and the rotary-encoded
+        shared key k_rope (B, S, dr) of x (B, S, d)."""
+        cfg = self.cfg
+        kvr = cfg.kv_lora_rank
+        kv = x @ at(self, "wkv_a", l)
+        c_kv = rms_norm(kv[..., :kvr].contiguous(), at(self, "kv_a_norm", l),
+                        cfg.norm_eps)
+        k_rope = apply_rope(kv[:, :, None, kvr:], cos, sin)[:, :, 0]
+        return c_kv, k_rope
+
+    def prefill(self, l, x, cos, sin):
+        """The decompressed path (`mla_apply`): causal attention of q
+        ``[q_nope, q_rope]`` (192 dims a head at published widths) over
+        k ``[c_kv wk_b, k_rope]`` (the shared rotary key broadcast over
+        the heads) and v ``c_kv wv_b`` (128) through K2, scale 1/sqrt(dn
+        + dr), then ``wo``. Returns (y (B, S, d), (c_kv, k_rope))."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        h, kvr = cfg.n_heads, cfg.kv_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        q_nope, q_rope = self._query(l, x, cos, sin)
+        c_kv, k_rope = self._latent(l, x, cos, sin)
+        k_nope = (c_kv @ at(self, "wk_b", l).reshape(kvr, h * dn)
+                  ).view(B, S, h, dn)
+        v = (c_kv @ at(self, "wv_b", l).reshape(kvr, h * dv)
+             ).view(B, S, h, dv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, dr)],
+                      dim=-1)
+        y = flash_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True, scale=self.scale)
+        y = y.reshape(B, S, h * dv) @ at(self, "wo", l).reshape(h * dv, -1)
+        return y, (c_kv, k_rope)
+
+    def decode(self, l, x, cos, sin, c_kv_l, k_rope_l, slot: int,
+               length: int):
+        """One token (`_decode_mla`, weight absorption): writes the new
+        c_kv and k_rope into ``slot`` of the layer's caches (B, T, kvr)
+        and (B, T, dr), attends the positions ``<= length`` through
+        K3-mla with the absorbed query ``q_nope wk_b``, and decompresses
+        the latent result through ``wv_b``, then ``wo``. Returns y (B,
+        1, d)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        h, dv = cfg.n_heads, cfg.v_head_dim
+        q_nope, q_rope = self._query(l, x, cos, sin)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope,
+                             at(self, "wk_b", l)).contiguous()
+        c_new, kr_new = self._latent(l, x, cos, sin)
+        c_kv_l[:, slot] = c_new[:, 0]
+        k_rope_l[:, slot] = kr_new[:, 0]
+        lat = mla_decode_attention(q_abs, q_rope, c_kv_l, k_rope_l, length,
+                                   scale=self.scale)
+        out = torch.einsum("bshr,rhk->bshk", lat, at(self, "wv_b", l))
+        return out.reshape(B, 1, h * dv) @ at(self, "wo", l).reshape(
+            h * dv, -1)
 
 
 # ------------------------------------------------------------------ MLP

@@ -62,7 +62,9 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
     The length is padded to a multiple of ``chunk`` with zeros (dt = 0
     there, so the padded steps leave the state as it is). x, B and C go
     to K5 in their own dtype (it widens them exactly: bf16 ones take its
-    tensor-core body); dt and everything after K5 is f32.
+    tensor-core body); dt and everything after K5 is f32. f64 inputs on
+    the CPU (a reference precision) run in f64 throughout, the final
+    state too.
     """
     b, l, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -77,7 +79,8 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, init_state=None):
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
     nc = (l + pad) // chunk
     hg = h // g
-    f32 = torch.float32
+    # the working float: f32, or f64 for an f64 reference on the CPU
+    f32 = torch.float64 if x.dtype == torch.float64 else torch.float32
 
     xc = x.reshape(b, nc, chunk, h, p).contiguous()
     dtc = dt.reshape(b, nc, chunk, h).to(f32).contiguous()

@@ -1,12 +1,13 @@
-"""Model assembly of the port: the dense, MoE, ssm and hybrid families
-(counterpart of `repro.models.model`).
+"""Model assembly of the port: the dense, MoE (with or without MLA), ssm
+and hybrid families (counterpart of `repro.models.model`).
 
 `Model` is an ``nn.Module`` whose module tree mirrors the JAX parameter
 tree (``embed``, ``unembed``, ``final_norm``; dense: ``blocks.norm1``,
 ``blocks.attn.wq``, ...; moe: ``dense_blocks.*`` (the first
 ``first_dense_layers`` layers, MLP width ``d_ff``) and ``moe_blocks.*``
-(norm1, norm2, attn, ``moe.router``, ``moe.we_gate``, ...); ssm and
-hybrid: ``blocks.norm1``,
+(norm1, norm2, attn, ``moe.router``, ``moe.we_gate``, ...), and with
+MTP ``mtp.mtp_proj`` and ``mtp.mtp_block.*``; ssm and hybrid:
+``blocks.norm1``,
 ``blocks.mamba.w_xz``, ...; hybrid also ``shared_attn.shared_in``,
 ``shared_attn.attn.wq``, ...; block leaves stacked on a leading layer
 axis, the shared block's not). ``build_model(cfg, device)`` allocates it
@@ -56,18 +57,31 @@ parity bar holds the port to the JAX package's results), and
 package's after the prefill and each step, at S % W != 0 and == 0. At S
 <= W the window is passed too and changes nothing.
 
-The MoE family (DeepSeek-MoE, no MLA) runs ``first_dense_layers`` dense
-layers and then the MoE layers, each norm1, attention (K2 / K3), norm2
-and `layers.MoE`: the router, the capacity dispatch and the experts'
-products as ``torch.bmm`` (plain ops, as the JAX package's einsums).
+The MoE family (DeepSeek-MoE; DeepSeek-V3 with MLA) runs
+``first_dense_layers`` dense layers and then the MoE layers, each
+norm1, attention (K2 / K3), norm2 and `layers.MoE`: the router, the
+capacity dispatch and the experts' products as ``torch.bmm`` (plain
+ops, as the JAX package's einsums).
 The impl is the JAX package's ``_moe_impl``: the O(E) ``dense`` oracle
 when n_experts <= 8, else ``ep`` (`layers.moe_apply_capacity`; the port
 has no mesh, so never ``ep_shardmap``), at the capacity of S tokens a row
 in the prefill and of one in a decode step (`moe_capacity`).
 
+With ``cfg.mla`` (DeepSeek-V3) every layer's attention is `layers.MLA`:
+the prefill's K2 at head dims (192, 128), writing the latent ``c_kv``
+and the shared rotary key ``k_rope`` of the last ``min(S, T)``
+positions into cache slots ``0..``; a decode step writes slot
+``min(length, T - 1)`` and runs K3-mla over the positions ``<=
+length``; the rotary tables are built at ``qk_rope_dim``. With
+``cfg.mtp`` the model holds
+the multi-token-prediction module ``mtp`` (``mtp_proj`` and one dense
+block with MLA at ``d_ff``), initialised as the JAX package's; only the
+JAX ``Model.loss`` reads it, and serving never does.
+
 Training: `Model.loss` is the JAX ``Model.loss`` with the dense, ssm
-and hybrid branches of its ``_trunk`` (the MoE family's raises: ROADMAP
-Queue 1, item 6.3 (MoE training)): the embedding, each layer under
+and hybrid branches of its ``_trunk`` (the MoE family's raises, MTP's
+loss with it: ROADMAP Queue 1, item 6.3 (MoE training)): the embedding,
+each layer under
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` (the JAX
 package's per-layer ``jax.checkpoint``), the final K4b, the head and
 `layers.cross_entropy`. A dense layer is norm1, attention, norm2 and
@@ -127,17 +141,24 @@ def moe_impl(cfg: ModelConfig) -> str:
     return "dense" if cfg.n_experts <= 8 else "ep"
 
 
+def attention_of(cfg: ModelConfig):
+    """The attention module of cfg's blocks: `layers.MLA` with
+    ``cfg.mla``, else `layers.Attention`."""
+    return L.MLA if cfg.mla else L.Attention
+
+
 class DenseBlocks(nn.Module):
     """The stacked dense blocks: norm1, attention, norm2, MLP; ``n``
     layers (default: all of cfg's; the moe family's first dense layers,
-    whose MLP width is ``cfg.d_ff`` as every dense block's)."""
+    whose MLP width is ``cfg.d_ff`` as every dense block's); one block,
+    not stacked, with ``stacked=False`` (MTP's ``mtp_block``)."""
 
-    def __init__(self, cfg: ModelConfig, device, n=None):
+    def __init__(self, cfg: ModelConfig, device, n=None, stacked=True):
         super().__init__()
-        n, d = n or cfg.n_layers, cfg.d_model
+        n, d = (n or cfg.n_layers) if stacked else None, cfg.d_model
         self.norm1 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
         self.norm2 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
-        self.attn = L.Attention(cfg, n, device)
+        self.attn = attention_of(cfg)(cfg, n, device)
         self.mlp = L.MLP(cfg, n, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -155,7 +176,7 @@ class MoEBlocks(nn.Module):
         n, d = cfg.n_layers - cfg.first_dense_layers, cfg.d_model
         self.norm1 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
         self.norm2 = L.stacked(n, d, dtype=cfg.pdtype, device=device)
-        self.attn = L.Attention(cfg, n, device)
+        self.attn = attention_of(cfg)(cfg, n, device)
         self.moe = L.MoE(cfg, n, device)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -203,6 +224,26 @@ class SharedAttention(nn.Module):
         self.mlp.reset_parameters(gen)
 
 
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token-prediction module (depth 1):
+    ``mtp_proj`` (2d, d) and ``mtp_block``, one dense block (not
+    stacked) with MLA at ``d_ff``. Only the JAX package's ``Model.loss``
+    reads it (``_mtp_loss``); serving never calls it, and the port's
+    training of the moe family, which would, is not ported."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d = cfg.d_model
+        self.mtp_proj = L.stacked(None, 2 * d, d, dtype=cfg.pdtype,
+                                  device=device)
+        self.mtp_block = DenseBlocks(cfg, device, stacked=False)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        L.init_normal_(self.mtp_proj, gen, 1.0 / math.sqrt(
+            self.mtp_proj.shape[0]))
+        self.mtp_block.reset_parameters(gen)
+
+
 class Model(nn.Module):
     """A decoder-only LM of the dense, moe, ssm or hybrid family on one
     device."""
@@ -213,10 +254,11 @@ class Model(nn.Module):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported ("
                 f"{NOT_PORTED.get(cfg.family, 'ROADMAP Queue 1, item 6')})")
-        if cfg.mla or cfg.mtp:
+        if (cfg.mla or cfg.mtp) and cfg.family != "moe":
             raise NotImplementedError(
-                "MLA and MTP are not ported (ROADMAP Queue 1, item 6.3 "
-                "(MLA))")
+                f"MLA and MTP in family {cfg.family!r}: the port serves "
+                "them in the moe family (DeepSeek-V3), the only family of "
+                "a config of the JAX package that has them")
         if cfg.family == "hybrid" and cfg.attn_every < 1:
             raise ValueError(f"hybrid attn_every {cfg.attn_every} < 1")
         self.cfg = cfg
@@ -237,6 +279,8 @@ class Model(nn.Module):
                 self.dense_blocks = DenseBlocks(cfg, self.device,
                                                 cfg.first_dense_layers)
             self.moe_blocks = MoEBlocks(cfg, self.device)
+            if cfg.mtp:
+                self.mtp = MTP(cfg, self.device)
         else:
             self.blocks = MambaBlocks(cfg, self.device)
         if cfg.family == "hybrid":
@@ -254,6 +298,8 @@ class Model(nn.Module):
         self.final_norm.fill_(1.0)
         for blk in self._stacks():
             blk.reset_parameters(gen)
+        if hasattr(self, "mtp"):
+            self.mtp.reset_parameters(gen)
         if cfg.family == "hybrid":
             self.shared_attn.reset_parameters(gen)
         return self
@@ -324,8 +370,8 @@ class Model(nn.Module):
         cfg = self.cfg
         if cfg.family == "moe":
             raise NotImplementedError(
-                "training the moe family is not ported (ROADMAP Queue 1, "
-                "item 6.3 (MoE training))")
+                "training the moe family, and MTP's loss with it, is not "
+                "ported (ROADMAP Queue 1, item 6.3 (MoE training))")
         tokens, labels = batch["tokens"], batch["labels"]
         h = L.embed_tokens(self.embed, cfg, tokens)
         S = tokens.shape[1]
@@ -360,8 +406,9 @@ class Model(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
     def _rope(self, positions):
-        return L.rope_angles(positions, self.cfg.head_dim_,
-                             self.cfg.rope_theta)
+        cfg = self.cfg
+        dim = cfg.qk_rope_dim if cfg.mla else cfg.head_dim_
+        return L.rope_angles(positions, dim, cfg.rope_theta)
 
     def _logits(self, y, h):
         """Final norm of the last residual add (K4b), then the head."""
@@ -440,12 +487,16 @@ class Model(nn.Module):
         S = tokens.shape[1]
         h = L.embed_tokens(self.embed, cfg, tokens)
         cos, sin = self._rope(torch.arange(S, device=h.device))
-        n = min(S, cache["k"].shape[2])
+        names = ("c_kv", "k_rope") if cfg.mla else ("k", "v")
+        n = min(S, cache[names[0]].shape[2])
 
         def attend(blk, li, gi, x):
-            y, (k, v) = blk.attn(li, x, cos, sin)
-            cache["k"][gi, :, :n] = k[:, S - n:]
-            cache["v"][gi, :, :n] = v[:, S - n:]
+            if cfg.mla:
+                y, kv = blk.attn.prefill(li, x, cos, sin)
+            else:
+                y, kv = blk.attn(li, x, cos, sin)
+            for name, t in zip(names, kv):
+                cache[name][gi, :, :n] = t[:, S - n:]
             return y
 
         y, h = self._run_attn_layers(h, attend, moe_capacity(cfg, S))
@@ -455,7 +506,7 @@ class Model(nn.Module):
     def _decode_attn(self, tokens, cache):
         cfg = self.cfg
         length = cache["length"]
-        T = cache["k"].shape[2]
+        T = cache["c_kv" if cfg.mla else "k"].shape[2]
         slot = min(length, T - 1)
         h = L.embed_tokens(self.embed, cfg, tokens)
         # the position as a device arange: no host-to-device copy
@@ -463,6 +514,9 @@ class Model(nn.Module):
                                            device=h.device))
 
         def attend(blk, li, gi, x):
+            if cfg.mla:
+                return blk.attn.decode(li, x, cos, sin, cache["c_kv"][gi],
+                                       cache["k_rope"][gi], slot, length)
             q, k, v = blk.attn.qkv(li, x, cos, sin)
             k_l, v_l = cache["k"][gi], cache["v"][gi]
             k_l[:, slot] = k[:, 0]

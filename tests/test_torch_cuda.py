@@ -1032,6 +1032,107 @@ def test_decode_attention_kernel_matches_plain(cuda, T, H, KVH, D, length,
     _assert_within(got, want, dtype)
 
 
+def _limit_use(got, want, dtype, abs_v=None):
+    """max |got - want| over _assert_within's limit (at most 1 within)."""
+    g, w = got.float(), want.float()
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    lim = tol["atol"] + tol["rtol"] * w.abs()
+    if abs_v is not None and dtype != torch.float32:
+        lim = lim + P_ROUND * abs_v
+    return ((g - w).abs() / lim).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H,dtype", [
+    (512, 128, torch.bfloat16), (2048, 16, torch.bfloat16),
+    (300, 8, torch.bfloat16), (129, 4, torch.float32),
+    (512, 16, torch.float32)])
+def test_flash_attention_mla_head_dims_match_plain(cuda, S, H, dtype):
+    """K2 at DeepSeek-V3's MLA head dims (q/k 192, v 128; H = KVH),
+    causal, both bodies, against the plain version; a kernel that read
+    only v's first 64 dims would be rejected. Unverified until a run on
+    an H100 passes."""
+    q = _bf16_or_f32((2, S, H, 192), dtype, 0, cuda)
+    k = _bf16_or_f32((2, S, H, 192), dtype, 1, cuda)
+    v = _bf16_or_f32((2, S, H, 128), dtype, 2, cuda)
+    scale = 192 ** -0.5
+    launches = (FA.flash_attention.launches,
+                FA.flash_attention.value_dim_launches)
+    got = FA.flash_attention(q, k, v, scale=scale)
+    want = FA.flash_attention_plain(q, k, v, scale=scale)
+    abs_v = FA.flash_attention_plain(q.float(), k.float(), v.float().abs(),
+                                     scale=scale)
+    torch.cuda.synchronize()
+    assert got.shape == (2, S, H, 128)
+    assert (FA.flash_attention.launches,
+            FA.flash_attention.value_dim_launches) == (launches[0] + 1,
+                                                       launches[1] + 1)
+    assert torch.isfinite(got.float()).all()
+    _assert_within(got, want, dtype, abs_v)
+    short = v.clone()
+    short[..., 64:] = 0
+    fault = FA.flash_attention_plain(q, k, short, scale=scale)
+    assert _limit_use(fault, want, dtype, abs_v) > 1.0
+
+
+def _mla_f32(q_abs, q_rope, c_kv, k_rope, allowed, scale, value=None,
+             rope=True):
+    """The MLA decode attention in f32 over the positions ``allowed``
+    (chip_smoke.mla_f32): K3-mla's planted faults and |c_kv|'s
+    attention."""
+    c = c_kv.float()
+    s = torch.einsum("bshr,btr->bhst", q_abs.float(), c)
+    if rope:
+        s = s + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             k_rope.float())
+    p = torch.softmax((s * scale).masked_fill(~allowed, float("-inf")), -1)
+    v = c if value is None else value.float()
+    return torch.einsum("bhst,btr->bshr", p, v).to(q_abs.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,length,dtype", [
+    (1, 2560, 128, 2559, torch.bfloat16), (1, 2560, 128, 511, torch.bfloat16),
+    (1, 2560, 128, 0, torch.bfloat16), (2, 2560, 128, 2559, torch.bfloat16),
+    (2, 700, 48, 650, torch.bfloat16), (1, 300, 4, 299, torch.bfloat16),
+    (1, 2560, 128, 1000, torch.float32), (2, 300, 20, 0, torch.float32),
+    (1, 100, 16, 150, torch.float32)])
+def test_mla_decode_kernel_matches_plain(cuda, B, T, H, length, dtype):
+    """K3-mla (csrc/mla_decode.cu) against its plain version at
+    DeepSeek-V3's (R, DR) = (512, 64): one block's range and a cluster
+    of 16, a partial head group (H 4, 20, 48), B = 2, length past the
+    cache; the mask one position off and the rope term dropped are
+    rejected. Unverified until a run on an H100 passes."""
+    R, DR = 512, 64
+    q_abs = _bf16_or_f32((B, 1, H, R), dtype, 0, cuda)
+    q_rope = _bf16_or_f32((B, 1, H, DR), dtype, 1, cuda)
+    c_kv = _bf16_or_f32((B, T, R), dtype, 2, cuda)
+    k_rope = _bf16_or_f32((B, T, DR), dtype, 3, cuda)
+    scale = 192 ** -0.5
+    args = (q_abs, q_rope, c_kv, k_rope, length)
+    launches = DA.mla_decode_attention.launches
+    got = DA.mla_decode_attention(*args, scale=scale)
+    want = DA.mla_decode_attention_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert DA.mla_decode_attention.launches == launches + 1
+    assert got.shape == (B, 1, H, R) and torch.isfinite(got.float()).all()
+    pos = torch.arange(T, device=cuda)
+    seen = pos <= length
+    abs_v = _mla_f32(q_abs, q_rope, c_kv, k_rope, seen, scale,
+                     value=c_kv.abs()).float()
+    _assert_within(got, want, dtype, abs_v)
+    if length + 1 < T:
+        off = pos <= length + 1
+    else:
+        off = pos < min(length, T - 1)
+    assert _limit_use(_mla_f32(q_abs, q_rope, c_kv, k_rope, off, scale),
+                      want, dtype, abs_v) > 1.0
+    if length > 0:
+        assert _limit_use(_mla_f32(q_abs, q_rope, c_kv, k_rope, seen,
+                                   scale, rope=False),
+                          want, dtype, abs_v) > 1.0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", FA.HEAD_DIMS)
 @pytest.mark.parametrize("S,T,H,KVH,causal", [
@@ -1353,7 +1454,11 @@ def test_ssd_chunk_large_decay_finite_on_card(cuda, xdtype):
 
 @pytest.mark.cuda
 def test_ssd_chunked_ragged_on_card_matches_cpu(cuda):
-    """S = 2000 at Mamba2-780M's widths, padded to 8 chunks of 256."""
+    """S = 2000 at Mamba2-780M's widths, padded to 8 chunks of 256. The
+    card runs the f32 inputs; the CPU side, the oracle, runs the same
+    numpy inputs in f64 (cast to f32 for the comparison): an f32 oracle
+    on the CPU was itself up to 1.96e-3 from f64 in some first calls,
+    where the card's output is 8.15e-5 from it."""
     from repro_torch.models.mamba import ssd_chunked
     r = np.random.default_rng(0)
     l, h, p, n = 2000, 48, 64, 128
@@ -1362,10 +1467,11 @@ def test_ssd_chunked_ragged_on_card_matches_cpu(cuda):
     A = -r.uniform(0.5, 2.0, (h,))
     B, C = r.normal(size=(2, 1, l, 1, n))
     outs = []
-    for dev in ("cpu", cuda):
-        t = [torch.tensor(a, dtype=torch.float32, device=dev)
+    for dev, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        t = [torch.tensor(a, dtype=dtype, device=dev)
              for a in (x, dt, A, B, C)]
-        outs.append([o.cpu() for o in ssd_chunked(*t, chunk=256)])
+        outs.append([o.cpu().to(torch.float32)
+                     for o in ssd_chunked(*t, chunk=256)])
     for a, w in zip(outs[1], outs[0]):
         torch.testing.assert_close(a, w, **F32_TOL)
 
@@ -1389,13 +1495,23 @@ def test_ssd_chunk_bodies_repeat_bitwise(cuda, xdtype):
             assert torch.equal(a, w)
 
 
+# DeepSeek-V3's published head dims at the smoke size (chip_smoke's MLA
+# model_parity rows): K2 at (192, 128), K3-mla at (512, 64)
+MLA_HEADS = dict(qk_nope_dim=128, qk_rope_dim=64, v_head_dim=128,
+                 kv_lora_rank=512, head_dim=192)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-4b", "mamba2-780m", "zamba2-2.7b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "deepseek-v3-671b"])
 def test_model_on_card_matches_cpu(cuda, arch):
     """The smoke-size model through the kernels on the card against the
-    same weights through the plain versions on the CPU (f32)."""
+    same weights through the plain versions on the CPU (f32);
+    deepseek-v3-671b with its published head dims (its decode through
+    K3-mla; unverified until a run on an H100 passes)."""
     cfg = get_arch(arch).smoke()
+    if cfg.mla:
+        cfg = cfg.replace(**MLA_HEADS)
     cpu = build_model(cfg, "cpu").init_weights(
         torch.Generator().manual_seed(0))
     card = build_model(cfg, cuda)
@@ -1405,6 +1521,7 @@ def test_model_on_card_matches_cpu(cuda, arch):
     attn = cfg.family != "ssm"
     launches = (FA.flash_attention.launches, DA.decode_attention.launches,
                 K5.ssd_chunk.launches)
+    mla_launches = DA.mla_decode_attention.launches
     outs = []
     for m, dev in ((cpu, "cpu"), (card, cuda)):
         cache = m.cache_spec(2, 80).zeros(dev)
@@ -1415,7 +1532,9 @@ def test_model_on_card_matches_cpu(cuda, arch):
             steps.append(lg)
         outs.append([s.cpu() for s in steps])
     assert (FA.flash_attention.launches > launches[0]) == attn
-    assert (DA.decode_attention.launches > launches[1]) == attn
+    assert (DA.decode_attention.launches > launches[1]) == (
+        attn and not cfg.mla)
+    assert (DA.mla_decode_attention.launches > mla_launches) == cfg.mla
     assert (K5.ssd_chunk.launches > launches[2]) == (
         cfg.family in ("ssm", "hybrid"))
     for a, b in zip(*outs):

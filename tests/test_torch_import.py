@@ -68,6 +68,7 @@ _NEW_SUBMODULES = ("repro_torch.cluster", "repro_torch.cluster.routers",
                    "repro_torch.analysis.sass",
                    "repro_torch.analysis.telemetry_gate",
                    "repro_torch.configs.deepseek_moe_16b",
+                   "repro_torch.configs.deepseek_v3_671b",
                    "repro_torch.models.layers", "repro_torch.models.model")
 
 
@@ -192,6 +193,12 @@ NEW_WRAPPERS = {
         _meta(1, 8, 4, 32), _meta(1, 8, 2, 32), _meta(1, 8, 2, 32))),
     "decode_attention": (DA.decode_attention, lambda: DA.decode_attention(
         _meta(1, 1, 4, 32), _meta(1, 8, 2, 32), _meta(1, 8, 2, 32), 3)),
+    "flash_attention_mla": (FA.flash_attention, lambda: FA.flash_attention(
+        _meta(1, 8, 16, 192), _meta(1, 8, 16, 192), _meta(1, 8, 16, 128))),
+    "mla_decode_attention": (
+        DA.mla_decode_attention, lambda: DA.mla_decode_attention(
+            _meta(1, 1, 16, 512), _meta(1, 1, 16, 64), _meta(1, 8, 512),
+            _meta(1, 8, 64), 3, scale=0.1)),
     "rmsnorm": (RN.rmsnorm, lambda: RN.rmsnorm(_meta(4, 32),
                                                _meta(32))),
     "rmsnorm_residual": (RN.rmsnorm_residual, lambda: RN.rmsnorm_residual(
@@ -266,7 +273,8 @@ def test_nvcc_flags_per_source_and_in_the_digest(monkeypatch):
                                    "frp_select", "rmsnorm",
                                    "decode_attention", "flash_attention",
                                    "ssd_chunk", "flash_attention_bwd",
-                                   "rmsnorm_bwd", "ssd_chunk_bwd"}
+                                   "rmsnorm_bwd", "ssd_chunk_bwd",
+                                   "mla_decode"}
     for name in _build.SOURCES:
         assert "arch=compute_90a,code=sm_90a" in _build.nvcc_flags(name)
     # only the f64 engine bodies need contraction off (bitwise parity)

@@ -141,8 +141,7 @@ def test_decode_continues_prefill():
     assert cache["length"] == 9
 
 
-@pytest.mark.parametrize("name", ["internvl2-76b", "deepseek-v3-671b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("name", ["internvl2-76b", "whisper-tiny"])
 def test_other_families_name_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch(name)
@@ -159,6 +158,15 @@ def test_moe_config_is_the_jax_packages():
     """deepseek-moe-16b builds in the port (the MoE family, ROADMAP Queue
     1, item 6.3), field for field the JAX package's config."""
     a, b = get_arch("deepseek-moe-16b"), jax_get_arch("deepseek-moe-16b")
+    assert {k: getattr(a, k) for k in a.__dataclass_fields__} == \
+        {k: getattr(b, k) for k in b.__dataclass_fields__}
+
+
+def test_mla_config_is_the_jax_packages():
+    """deepseek-v3-671b builds in the port (MLA and MTP in the MoE
+    family, ROADMAP Queue 1, item 6.3), field for field the JAX
+    package's config."""
+    a, b = get_arch("deepseek-v3-671b"), jax_get_arch("deepseek-v3-671b")
     assert {k: getattr(a, k) for k in a.__dataclass_fields__} == \
         {k: getattr(b, k) for k in b.__dataclass_fields__}
 

@@ -282,7 +282,7 @@ def test_bf16_model_matches_jax_within_rounding():
 def test_full_width_parameter_count_and_training_refusal():
     """DeepSeek-MoE-16B at its published widths on the meta device: the
     JAX package's count (16.4 B); `Model.loss` names its ROADMAP item,
-    as does MLA."""
+    for the MLA smoke config too (MTP's loss comes with MoE training)."""
     from repro_torch.models import Model
     m = Model(get_arch(ARCH), "meta")
     assert sum(p.numel() for p in m.parameters()) == 16_375_728_128
@@ -292,5 +292,6 @@ def test_full_width_parameter_count_and_training_refusal():
     tok = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(NotImplementedError, match=r"item 6\.3 \(MoE tr"):
         model.loss({"tokens": tok, "labels": tok})
-    with pytest.raises(NotImplementedError, match=r"item 6\.3 \(MLA\)"):
-        build_model(cfg.replace(mla=True), "cpu")
+    mla = build_model(get_arch("deepseek-v3-671b").smoke(), "cpu")
+    with pytest.raises(NotImplementedError, match=r"MTP.*item 6\.3 \(MoE tr"):
+        mla.loss({"tokens": tok, "labels": tok})
