@@ -36,7 +36,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  H = 128, R = 512, DR = 64) at length 0, 511, 2559 of
                  T = 2560 and at B = 2, bf16 and f32, its planted faults
                  the mask one position off and the rope term dropped,
-                 with SDPA over the one shared latent head beside it.
+                 with SDPA over the one shared latent head beside it;
+                 each row names its body (bf16: the tensor-core body,
+                 f32: the CUDA-core body) and holds a repeated call
+                 bitwise equal; the bf16 B = 1, length 2559 row is also
+                 held and timed on the CUDA-core body; the ptxas report
+                 of both bodies.
                  K5 (ssd_chunk)
                  at Mamba2-780M's (S = 2048) and Zamba2-2.7B's (S =
                  1024) full-width shapes, a ragged S = 2000 and g = 8:
@@ -279,8 +284,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  DeepSeek-V3-671B functions at published widths cut to
                  4 layers (3 dense + 1 MoE, MTP's parameters held:
                  SERVE_MLA_CATALOGUE); K2 at head dims (192, 128) once a
-                 layer a prefill, K3-mla once a layer a decode step, K3
-                 never; peak memory.
+                 layer a prefill, K3-mla once a layer a decode step,
+                 every time through its tensor-core body, K3 never; peak
+                 memory.
 9. ``train``     training (TRAIN_FULL and the notes above it), for each
                  of qwen3-4b (dense), mamba2-780m (ssm) and zamba2-2.7b
                  (hybrid): (a) the smoke config in f32 on numpy
@@ -3333,11 +3339,13 @@ def phase_serving_kernels(torch, FA, DA, RN):
         return torch.randn(*shape, generator=gen, device=dev).to(bf16)
 
     def row(kernel, case, check, call, plain, library, n_bytes, n_ops,
-            kind, pair=None, timing=timing):
-        """The case's row: the kernel, its plain version, the library call
-        and (K4b) the ``pair`` of calls it fuses, timed in turns."""
+            kind, pair=None, timing=timing, old_body=None):
+        """The case's row: the kernel, its plain version, the library call,
+        (K4b) the ``pair`` of calls it fuses and (K3-mla) the kernel on
+        its ``old_body``, the CUDA-core one, timed in turns."""
         b, by = bound_ms(n_bytes, n_ops, kind)
-        timed = [f for f in (call, plain, library, pair) if f is not None]
+        timed = [f for f in (call, plain, library, pair, old_body)
+                 if f is not None]
         ms = dict(zip(timed, time_in_turns(torch, timed, **timing)))
         out = dict(kernel=kernel, case=case, **check, ms=ms[call],
                    plain_ms=ms[plain], library_ms=ms.get(library),
@@ -3352,6 +3360,9 @@ def phase_serving_kernels(torch, FA, DA, RN):
                        fused_pair_note="two PyTorch calls, torch.add then "
                                        "F.rms_norm: not a one-call library "
                                        "time")
+        if old_body is not None:
+            out.update(cuda_core_ms=ms[old_body],
+                       cuda_core_device_ms=device_ms(torch, old_body))
         return out
 
     rows = []
@@ -3523,9 +3534,32 @@ def phase_serving_kernels(torch, FA, DA, RN):
         f = partial(mla_f32, torch, q_abs, q_rope, c_kv, k_rope,
                     scale=scale)
         abs_v = f(seen, value=c_kv.abs()).float()
-        check = _close(torch, "mla_decode_attention", case, call(), want,
+        # the body the rule picks (bf16: the tensor cores), by the counts,
+        # and a repeated call bitwise equal
+        body = "mma" if dtype == bf16 else "cuda_core"
+        before = dict(DA.mla_decode_attention.body_launches)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        need(DA.mla_decode_attention.body_launches == {
+            k: v + 2 * (k == body) for k, v in before.items()},
+            f"mla_decode_attention {case}: did not run twice on the {body} "
+            "body")
+        need(torch.equal(got, again),
+             f"mla_decode_attention {case}: two calls differ bitwise")
+        check = _close(torch, "mla_decode_attention", case, got, want,
                        f(off), abs_v)
         tol = KERNEL_TOL["mla_decode_attention"]
+        check.update(body=body, bitwise_repeat=True)
+        # the served row in bf16: the CUDA-core body on the same inputs,
+        # held to the same limit and timed beside the tensor-core one
+        old_body = None
+        if dtype == bf16 and (B, length) == (1, Tm - 1):
+            old_body = partial(call, body="cuda_core")
+            check["cuda_core_tol_use"] = _tol_use(old_body(), want, tol,
+                                                  abs_v)
+            need(check["cuda_core_tol_use"] <= 1.0,
+                 f"mla_decode_attention {case}: the CUDA-core body is "
+                 f"{check['cuda_core_tol_use']:.3g} of the limit")
         check["fault_rope_ratio"] = None
         if length > 0:
             check["fault_rope_ratio"] = _tol_use(f(seen, rope=False), want,
@@ -3547,7 +3581,8 @@ def phase_serving_kernels(torch, FA, DA, RN):
                     scale=scale, enable_gqa=True),
             size * B * (Hm * (R + DR) + n * (R + DR) + Hm * R),
             2 * B * Hm * n * (2 * R + DR),
-            "bf16" if dtype == bf16 else "f32"), mla=True))
+            "bf16" if dtype == bf16 else "f32", old_body=old_body),
+            mla=True))
 
     # MLA (DeepSeek-V3): K2 at head dims (192, 128) and K3-mla
     t_mla = time.perf_counter()
@@ -3635,8 +3670,18 @@ def phase_serving_kernels(torch, FA, DA, RN):
     residual_case(64, d, "general", offset=1)
     t_norm = time.perf_counter() - t_norm
     emit(dict(phase="kernel", serving=rows, rmsnorm_cases_s=t_norm,
-              window_cases_s=t_win, mla_cases_s=t_mla))
+              window_cases_s=t_win, mla_cases_s=t_mla,
+              mla_ptxas=mla_ptxas()))
     return rows
+
+
+def mla_ptxas():
+    """The ptxas lines of K3-mla's two bodies (registers, spills; the
+    CUDA-core body's bf16 and f32 instances)."""
+    from repro_torch.kernels import _build
+    report = _build.BUILD_INFO.get("mla_decode", {}).get("ptxas", "")
+    return dict(mma=ptxas_lines(report, "mla_decode_mma_kernel"),
+                cuda_core=ptxas_lines(report, "17mla_decode_kernel"))
 
 
 # --------------------------------------- phase 3d: the backward kernels
@@ -4276,6 +4321,8 @@ def model_parity_f32(torch, np, row, case, dev="cuda"):
     case with ``prefill_dropped`` (the MoE capacity dispatch) must drop
     as many choices in the prefill as the JAX package."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as DA
+    mla_before = dict(DA.mla_decode_attention.body_launches)
     cfg = get_arch(case["arch"]).smoke().replace(**case.get("config", {}))
     model = parity_model(torch, np, cfg, dev)
     toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
@@ -4294,11 +4341,13 @@ def model_parity_f32(torch, np, row, case, dev="cuda"):
                l2=float(np.linalg.norm(last)),
                top5=np.argsort(-last)[:5].tolist())
     head_err = float(np.abs(last[:16] - np.asarray(exp["head"])).max())
+    mla = mla_bodies_since(DA, mla_before, "cuda_core", row)
     emit(dict(phase="model_parity", arch=row, tokens=out,
               expected_tokens=exp["tokens"], head_max_abs_err=head_err,
               l2=got["l2"], expected_l2=exp["l2"], top5=got["top5"],
               expected_top5=exp["top5"], prefill_dropped=drops.dropped,
-              expected_prefill_dropped=case.get("prefill_dropped")))
+              expected_prefill_dropped=case.get("prefill_dropped"),
+              mla_launches_by_body=mla))
     need(bool(np.isfinite(last).all()),
          f"model_parity {row}: non-finite logits")
     need(out == exp["tokens"], f"model_parity {row}: greedy tokens "
@@ -4314,6 +4363,16 @@ def model_parity_f32(torch, np, row, case, dev="cuda"):
         need(drops.dropped == case["prefill_dropped"],
              f"model_parity {row}: the prefill dropped {drops.dropped} "
              f"MoE choices, the JAX package's {case['prefill_dropped']}")
+
+
+def mla_bodies_since(DA, before, body, row):
+    """K3-mla's launches by body since ``before``; fails unless every one
+    took ``body`` (the rule's for the row's dtype)."""
+    got = {k: v - before[k]
+           for k, v in DA.mla_decode_attention.body_launches.items()}
+    need(sum(got.values()) == got[body], f"model_parity {row}: K3-mla ran "
+         f"{got} times by body, not all on its {body} body")
+    return got
 
 
 def phase_model_parity(torch, np):
@@ -4341,8 +4400,10 @@ def model_parity_bf16(torch, np, row, case, dev="cuda"):
     exceeds that bound is a fault of the port. A row with ``k5_body``
     must run K5's prefill launches through that body."""
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import ssd_chunk as K5
     before = dict(K5.ssd_chunk.body_launches)
+    mla_before = dict(DA.mla_decode_attention.body_launches)
     cfg = get_arch(case["arch"]).smoke().replace(**case["config"])
     model = parity_model(torch, np, cfg, dev)
     toks = torch.tensor(parity_tokens(np, cfg.vocab_size,
@@ -4372,11 +4433,12 @@ def model_parity_bf16(torch, np, row, case, dev="cuda"):
     want = [s[0] for s in steps]
     bodies = {k: v - before[k]
               for k, v in K5.ssd_chunk.body_launches.items()}
+    mla = mla_bodies_since(DA, mla_before, "mma", row)
     emit(dict(phase="model_parity", arch=row, tokens=mine,
               expected_tokens=want,
               token_agreement=sum(a == b for a, b in zip(mine, want)),
               steps=len(steps), tol_use=worst, tol=PARITY_BF16_TOL,
-              k5_launches_by_body=bodies))
+              k5_launches_by_body=bodies, mla_launches_by_body=mla))
     if "k5_body" in case:
         need(bodies[case["k5_body"]] == cfg.n_layers
              and sum(bodies.values()) == cfg.n_layers,
@@ -4673,7 +4735,11 @@ def phase_serve_mla(torch, np, FA, DA, RN):
          f"decode step ({want})")
     need(DA.decode_attention.launches == dense_before,
          "serve_mla: the dense decode kernel K3 ran")
-    return launches
+    bodies = line["launches_by_body"]["mla_decode_attention"]
+    need(bodies == {"cuda_core": 0, "mma": want[1]},
+         f"serve_mla: K3-mla ran {bodies} times by body, not every one of "
+         f"the {want[1]} launches on the tensor-core (mma) body")
+    return dict(launches, mla_decode_attention_by_body=bodies)
 
 
 # ------------------------------------------------------- phase 10: train
@@ -5389,7 +5455,18 @@ def main(argv=None) -> int:
             replaces=replaces, launches=by_path[main][name],
             **({"pallas": False, "note": "no Pallas twin: the attention "
                 "einsums of the JAX package's _decode_mla (MLA decode "
-                "with weight absorption)"}
+                "with weight absorption)", "body": rep["body"],
+                "cuda_core_ms": rep["cuda_core_ms"],
+                "cuda_core_device_ms": rep["cuda_core_device_ms"],
+                "launches_by_body": by_path["serve_mla"][
+                    "mla_decode_attention_by_body"],
+                "ptxas": mla_ptxas(),
+                "cases": [
+                    {k: r[k] for k in ("case", "body", "ms", "device_ms",
+                                       "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by", "max_abs_err", "tol_use",
+                                       "fault_ratio", "bitwise_repeat")}
+                    for r in mine]}
                if name == "mla_decode_attention" else {}),
             launches_by_path={k: v.get(name, 0) for k, v in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in mine),

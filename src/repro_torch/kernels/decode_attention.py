@@ -27,6 +27,11 @@ with the key weights absorbed into the query, every query head attends
 the one shared latent row ``[c_kv, k_rope]`` (R + DR dims) and reads
 ``c_kv`` back as its value. Its kernel is ``csrc/mla_decode.cu``, its
 plain version `mla_decode_attention_plain`; it has counts of its own.
+The kernel has two bodies, and `mla_body_for` picks one: "mma" (the
+tensor cores, mma.sync over bf16 tiles of ``c_kv``) for bf16 at the
+(R, DR) of MLA_DIMS, "cuda_core" (f32 FMAs) for f32. A call may name
+the body (``body=``), so the card tests run both on the same bf16
+inputs; launches are counted by body in ``body_launches``.
 """
 from __future__ import annotations
 
@@ -63,6 +68,24 @@ def cluster_plan(n_valid: int, n_heads_kv: int, n_sms: int):
     per = -(-n_valid // n_splits)
     per = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
     return per, -(-n_valid // per)
+
+
+def _ranges(name: str, length, T: int, n_clusters: int, dev):
+    """Check ``length`` (a Python int >= 0: the positions ``<= length``
+    are attended) and, on a CUDA device, plan the kernel's ranges over
+    the ``min(length + 1, T)`` valid positions of each of ``n_clusters``
+    clusters: (n_valid, per, n_splits) (`cluster_plan`); None on any
+    other device."""
+    if isinstance(length, bool) or not isinstance(length, int) \
+            or length < 0:
+        raise TypeError(f"{name}: length must be a Python int >= 0, got "
+                        f"{length!r}")
+    if dev.type != "cuda":
+        return None
+    n_valid = min(length + 1, T)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return (n_valid, *cluster_plan(n_valid, n_clusters,
+                                   _build.sm_count(index)))
 
 
 def decode_attention_plain(q, k_cache, v_cache, length: int, *,
@@ -104,10 +127,7 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D}, kernel takes D in "
                          f"{HEAD_DIMS}")
-    if isinstance(length, bool) or not isinstance(length, int) \
-            or length < 0:
-        raise TypeError(f"{name}: length must be a Python int >= 0, got "
-                        f"{length!r}")
+    ranges = _ranges(name, length, T, B * KVH, dev)
     scale = scale or 1.0 / math.sqrt(D)
     if dev.type == "cpu":
         decode_attention.plain_calls += 1
@@ -118,9 +138,7 @@ def decode_attention(q, k_cache, v_cache, length: int, *, scale=None):
     if any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
         raise ValueError(f"{name}: the kernel reads 16-byte vectors; q and "
                          "the caches must start on a 16-byte boundary")
-    n_valid = min(length + 1, T)
-    per, n_splits = cluster_plan(n_valid, B * KVH, _build.sm_count(
-        torch.cuda.current_device() if dev.index is None else dev.index))
+    n_valid, per, n_splits = ranges
     out = torch.empty_like(q)
     rc = fn(_build.DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), out.data_ptr(), B, T, KVH, H // KVH, D,
@@ -139,10 +157,12 @@ decode_attention.plain_calls = 0
 # the (latent, rotary) dims the MLA decode kernel takes: DeepSeek-V3's
 # kv_lora_rank and qk_rope_dim
 MLA_DIMS = ((512, 64),)
-# dtype, q_abs, q_rope, c_kv, k_rope, lat, B, T, H, R, DR, length, per,
-# n_splits, scale, stream
-_MLA_ARGTYPES = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                 ctypes.c_float, _P]
+# body, dtype, q_abs, q_rope, c_kv, k_rope, lat, B, T, H, R, DR, length,
+# per, n_splits, scale, stream
+_MLA_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _I, ctypes.c_float, _P]
+# the kernel's bodies, the entry's body codes 0, 1
+MLA_BODIES = ("cuda_core", "mma")
 # the query heads a block of the kernel serves (its kHG)
 MLA_HEAD_GROUP = 16
 
@@ -164,14 +184,27 @@ def mla_decode_attention_plain(q_abs, q_rope, c_kv, k_rope, length: int, *,
     return torch.einsum("bhst,btr->bshr", p, c).to(q_abs.dtype)
 
 
+def mla_body_for(q_abs, q_rope, c_kv, k_rope) -> str:
+    """The K3-mla body that takes these (checked) inputs: "mma" (the
+    tensor cores) for bf16 at (R, DR) in MLA_DIMS, every input starting
+    on 16 bytes (its copies' rule); else "cuda_core"."""
+    dims = (c_kv.shape[-1], k_rope.shape[-1])
+    aligned = not any(x.data_ptr() & 15
+                      for x in (q_abs, q_rope, c_kv, k_rope))
+    if q_abs.dtype == torch.bfloat16 and dims in MLA_DIMS and aligned:
+        return "mma"
+    return "cuda_core"
+
+
 def mla_decode_attention(q_abs, q_rope, c_kv, k_rope, length: int, *,
-                         scale: float):
+                         scale: float, body: str = None):
     """q_abs (B, 1, H, R), q_rope (B, 1, H, DR); c_kv (B, T, R), k_rope
     (B, T, DR); ``length`` a Python int >= 0 (positions ``<= length`` are
     attended). Returns lat (B, 1, H, R) in q's dtype. f32 or bf16, one
     dtype for all; on CUDA (R, DR) in MLA_DIMS and any H >= 1 (in groups
     of MLA_HEAD_GROUP heads); on the CPU, the plain version at any
-    widths."""
+    widths. ``body`` names the kernel's body (MLA_BODIES; "mma" takes
+    bf16 only); None takes `mla_body_for`'s."""
     name = "mla_decode_attention"
     dev = q_abs.device
     _build.check_tensor(f"{name}: q_abs", q_abs, DTYPES, dev, ndim=4)
@@ -191,10 +224,10 @@ def mla_decode_attention(q_abs, q_rope, c_kv, k_rope, length: int, *,
                          "T, DR)")
     if min(B, T, H, R, DR) < 1:
         raise ValueError(f"{name}: every dim must be >= 1")
-    if isinstance(length, bool) or not isinstance(length, int) \
-            or length < 0:
-        raise TypeError(f"{name}: length must be a Python int >= 0, got "
-                        f"{length!r}")
+    if body is not None and body not in MLA_BODIES:
+        raise ValueError(f"{name}: body {body!r}, the kernel has "
+                         f"{MLA_BODIES}")
+    ranges = _ranges(name, length, T, B * -(-H // MLA_HEAD_GROUP), dev)
     if dev.type == "cpu":
         mla_decode_attention.plain_calls += 1
         return mla_decode_attention_plain(q_abs, q_rope, c_kv, k_rope,
@@ -207,19 +240,37 @@ def mla_decode_attention(q_abs, q_rope, c_kv, k_rope, length: int, *,
     if any(x.data_ptr() % 16 for x in (q_abs, q_rope, c_kv, k_rope)):
         raise ValueError(f"{name}: the kernel reads 16-byte vectors; every "
                          "input must start on a 16-byte boundary")
-    n_valid = min(length + 1, T)
-    groups = B * -(-H // MLA_HEAD_GROUP)
-    per, n_splits = cluster_plan(n_valid, groups, _build.sm_count(
-        torch.cuda.current_device() if dev.index is None else dev.index))
+    rule = mla_body_for(q_abs, q_rope, c_kv, k_rope)
+    body = rule if body is None else body
+    if body == "mma" and rule != "mma":
+        raise ValueError(f"{name}: the mma body takes bf16 only, not "
+                         f"{q_abs.dtype}")
+    n_valid, per, n_splits = ranges
     lat = torch.empty_like(q_abs)
-    rc = fn(_build.DTYPE_CODE[q_abs.dtype], q_abs.data_ptr(),
-            q_rope.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
-            lat.data_ptr(), B, T, H, R, DR, n_valid - 1, per, n_splits,
-            float(scale), _build.stream_of(dev))
+    rc = fn(MLA_BODIES.index(body), _build.DTYPE_CODE[q_abs.dtype],
+            q_abs.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+            k_rope.data_ptr(), lat.data_ptr(), B, T, H, R, DR, n_valid - 1,
+            per, n_splits, float(scale), _build.stream_of(dev))
     _build.launch_check(rc, name)
     mla_decode_attention.launches += 1
+    mla_decode_attention.body_launches[body] += 1
     return lat
 
 
 mla_decode_attention.launches = 0
+mla_decode_attention.body_launches = dict.fromkeys(MLA_BODIES, 0)
 mla_decode_attention.plain_calls = 0
+
+
+def mla_kernel_info(body: str, dtype=torch.bfloat16) -> dict:
+    """What ``body``'s kernel takes on the current CUDA device for
+    ``dtype``: its dynamic shared memory a block (``smem_bytes``) and how
+    many of its blocks fit an SM (``blocks_per_sm``, the occupancy
+    calculator's)."""
+    f = _build.c_entry("mla_decode", "mla_decode_attention_info",
+                       [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)])
+    smem, blocks = _I(0), _I(0)
+    _build.launch_check(f(MLA_BODIES.index(body), _build.DTYPE_CODE[dtype],
+                          ctypes.byref(smem), ctypes.byref(blocks)),
+                        "mla_decode_attention_info")
+    return dict(smem_bytes=smem.value, blocks_per_sm=blocks.value)

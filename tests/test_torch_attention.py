@@ -4,6 +4,8 @@ kernels (interpret mode) and its pure-jnp oracles, at the shapes of
 tests/test_kernels.py and with its tolerances. The CUDA kernels' own
 checks against their plain versions need a card:
 tests/test_torch_cuda.py."""
+from functools import partial
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,3 +152,74 @@ def test_decode_split_plan_covers_every_position_once(n_valid, n_heads_kv,
             assert hi > lo
             seen[lo:hi] += 1
         assert (seen == 1).all()
+
+
+# ------------------------------------------------------------ K3-mla
+def _mla_inputs(dtype, R=512, DR=64, H=128, T=64, offset=0):
+    """K3-mla's inputs of zeros, c_kv ``offset`` elements into its
+    buffer (1: off 16 bytes)."""
+    z = partial(torch.zeros, dtype=dtype)
+    c_kv = z(T * R + offset)[offset:].view(1, T, R)
+    return z(1, 1, H, R), z(1, 1, H, DR), c_kv, z(1, T, DR)
+
+
+@pytest.mark.parametrize("dtype,R,DR,offset,body", [
+    (torch.bfloat16, 512, 64, 0, "mma"),        # the served decode
+    (torch.float32, 512, 64, 0, "cuda_core"),
+    (torch.bfloat16, 32, 16, 0, "cuda_core"),   # not the kernel's dims
+    (torch.bfloat16, 512, 64, 1, "cuda_core"),  # c_kv off 16 bytes
+])
+def test_mla_body_rule(dtype, R, DR, offset, body):
+    """`mla_body_for`: the tensor-core body for bf16 at DeepSeek-V3's
+    (R, DR) with every input on 16 bytes, the CUDA-core body else."""
+    assert DA.mla_body_for(*_mla_inputs(dtype, R, DR, offset=offset)) \
+        == body
+    assert body in DA.MLA_BODIES
+
+
+def test_mla_wrapper_body_argument():
+    """``body=`` names one of MLA_BODIES or raises; on the CPU the plain
+    version runs whichever is named."""
+    args = _mla_inputs(torch.float32, 32, 16, H=4, T=8)
+    with pytest.raises(ValueError, match="body"):
+        DA.mla_decode_attention(*args, 3, scale=0.1, body="wgmma")
+    before = DA.mla_decode_attention.plain_calls
+    for body in (None, *DA.MLA_BODIES):
+        DA.mla_decode_attention(*args, 3, scale=0.1, body=body)
+    assert DA.mla_decode_attention.plain_calls == before + 3
+
+
+def _ranges_of(n_valid, n_clusters, n_sms=132):
+    per, n_splits = DA.cluster_plan(n_valid, n_clusters, n_sms)
+    return [(i * per, min((i + 1) * per, n_valid)) for i in range(n_splits)]
+
+
+@pytest.mark.parametrize("B,H", [(1, 128), (2, 128), (1, 20), (2, 48),
+                                 (1, 4)])
+def test_mla_plan_at_served_shapes(B, H):
+    """K3-mla's plan (a cluster of ranges a batch row and group of 16
+    heads) at every length of serve_mla's caches (T up to 2560) on an
+    H100's 132 SMs: every valid position in exactly one range, no block
+    empty, at most 16 blocks a cluster, ~ a block an SM."""
+    n_clusters = B * -(-H // DA.MLA_HEAD_GROUP)
+    for n_valid in range(1, 2561):
+        ranges = _ranges_of(n_valid, n_clusters)
+        assert 1 <= len(ranges) <= DA.MAX_CLUSTER
+        assert len(ranges) <= -(-132 // n_clusters)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n_valid
+        assert all(hi > lo for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("length,last,per,n_splits", [
+    (1000, 41, 80, 13),   # ranges of 2.5 tiles of 32, the last 41
+    (960, 1, 80, 13),     # a last range of one position
+    (126, 127, 128, 1),   # a cluster of one block, 4 tiles, one ragged
+    (2559, 160, 160, 16), # the served row: 5 whole tiles a block
+])
+def test_mla_plan_at_the_card_tests_edges(length, last, per, n_splits):
+    """The card tests' tensor-core edges at B 1, H 128 (8 clusters) on
+    132 SMs get the ranges they are named for."""
+    assert DA.cluster_plan(length + 1, 8, 132) == (per, n_splits)
+    lo, hi = _ranges_of(length + 1, 8)[-1]
+    assert hi - lo == last

@@ -1090,19 +1090,22 @@ def _mla_f32(q_abs, q_rope, c_kv, k_rope, allowed, scale, value=None,
     return torch.einsum("bhst,btr->bshr", p, v).to(q_abs.dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,length,dtype", [
+# K3-mla's cases (B, T, H, length, dtype): the served rows, partial head
+# groups (H 4, 20, 48), B = 2, length 0 and past the cache; the bf16 ones
+# on both bodies (named through ``body=``), the f32 ones on the CUDA cores
+MLA_DECODE_CASES = [
     (1, 2560, 128, 2559, torch.bfloat16), (1, 2560, 128, 511, torch.bfloat16),
     (1, 2560, 128, 0, torch.bfloat16), (2, 2560, 128, 2559, torch.bfloat16),
     (2, 700, 48, 650, torch.bfloat16), (1, 300, 4, 299, torch.bfloat16),
     (1, 2560, 128, 1000, torch.float32), (2, 300, 20, 0, torch.float32),
-    (1, 100, 16, 150, torch.float32)])
-def test_mla_decode_kernel_matches_plain(cuda, B, T, H, length, dtype):
-    """K3-mla (csrc/mla_decode.cu) against its plain version at
-    DeepSeek-V3's (R, DR) = (512, 64): one block's range and a cluster
-    of 16, a partial head group (H 4, 20, 48), B = 2, length past the
-    cache; the mask one position off and the rope term dropped are
-    rejected. Unverified until a run on an H100 passes."""
+    (1, 100, 16, 150, torch.float32)]
+
+
+def _mla_check(cuda, B, T, H, length, dtype, body):
+    """K3-mla on ``body`` against its plain version at DeepSeek-V3's (R,
+    DR) = (512, 64): one launch of that body, a repeated call bitwise
+    equal, within the limit; the mask one position off and the rope term
+    dropped rejected by it."""
     R, DR = 512, 64
     q_abs = _bf16_or_f32((B, 1, H, R), dtype, 0, cuda)
     q_rope = _bf16_or_f32((B, 1, H, DR), dtype, 1, cuda)
@@ -1110,11 +1113,18 @@ def test_mla_decode_kernel_matches_plain(cuda, B, T, H, length, dtype):
     k_rope = _bf16_or_f32((B, T, DR), dtype, 3, cuda)
     scale = 192 ** -0.5
     args = (q_abs, q_rope, c_kv, k_rope, length)
+    assert DA.mla_body_for(*args[:4]) == (
+        "mma" if dtype == torch.bfloat16 else "cuda_core")
     launches = DA.mla_decode_attention.launches
-    got = DA.mla_decode_attention(*args, scale=scale)
+    bodies = dict(DA.mla_decode_attention.body_launches)
+    got = DA.mla_decode_attention(*args, scale=scale, body=body)
+    again = DA.mla_decode_attention(*args, scale=scale, body=body)
     want = DA.mla_decode_attention_plain(*args, scale=scale)
     torch.cuda.synchronize()
-    assert DA.mla_decode_attention.launches == launches + 1
+    assert DA.mla_decode_attention.launches == launches + 2
+    bodies[body] += 2
+    assert DA.mla_decode_attention.body_launches == bodies
+    assert torch.equal(got, again)
     assert got.shape == (B, 1, H, R) and torch.isfinite(got.float()).all()
     pos = torch.arange(T, device=cuda)
     seen = pos <= length
@@ -1131,6 +1141,56 @@ def test_mla_decode_kernel_matches_plain(cuda, B, T, H, length, dtype):
         assert _limit_use(_mla_f32(q_abs, q_rope, c_kv, k_rope, seen,
                                    scale, rope=False),
                           want, dtype, abs_v) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,length,dtype,body", [
+    (*c, body) for c in MLA_DECODE_CASES
+    for body in (("cuda_core", "mma") if c[-1] == torch.bfloat16
+                 else ("cuda_core",))])
+def test_mla_decode_kernel_matches_plain(cuda, B, T, H, length, dtype,
+                                         body):
+    """K3-mla (csrc/mla_decode.cu) against its plain version: one block's
+    range and a cluster of 16, a partial head group (H 4, 20, 48), B =
+    2, length past the cache, each bf16 case on both bodies; the mask one
+    position off and the rope term dropped are rejected."""
+    _mla_check(cuda, B, T, H, length, dtype, body)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,length", [
+    (1, 1100, 128, 1000),   # ranges of 80 positions: 2.5 tiles of 32
+    (1, 2560, 128, 960),    # a last range of one position
+    (1, 127, 128, 126),     # a cluster of one block, the last tile 31
+    (3, 200, 24, 150),      # B 3, a partial group: 6 clusters
+])
+def test_mla_decode_mma_body_edges(cuda, B, T, H, length):
+    """The tensor-core body's own edges (tests/test_torch_attention.py
+    pins their plans on 132 SMs): a range whose length is not a multiple
+    of the tile, a one-position range, a cluster of one block; the body
+    the rule picks for bf16, held as test_mla_decode_kernel_matches_plain
+    holds it."""
+    _mla_check(cuda, B, T, H, length, torch.bfloat16, "mma")
+    args = [_bf16_or_f32(s, torch.bfloat16, i, cuda) for i, s in enumerate(
+        ((B, 1, H, 512), (B, 1, H, 64), (B, T, 512), (B, T, 64)))]
+    before = DA.mla_decode_attention.body_launches["mma"]
+    DA.mla_decode_attention(*args, length, scale=0.1)
+    assert DA.mla_decode_attention.body_launches["mma"] == before + 1
+
+
+@pytest.mark.cuda
+def test_mla_decode_mma_body_refuses_f32(cuda):
+    """The tensor-core body takes bf16 only: named for f32 it raises (no
+    launch, no fallback). Its shared memory lets two blocks share an
+    SM."""
+    args = [_bf16_or_f32(s, torch.float32, i, cuda) for i, s in enumerate(
+        ((1, 1, 16, 512), (1, 1, 16, 64), (1, 64, 512), (1, 64, 64)))]
+    launches = DA.mla_decode_attention.launches
+    with pytest.raises(ValueError, match="bf16"):
+        DA.mla_decode_attention(*args, 10, scale=0.1, body="mma")
+    assert DA.mla_decode_attention.launches == launches
+    info = DA.mla_kernel_info("mma")
+    assert info["blocks_per_sm"] >= 2 and info["smem_bytes"] < 116 * 1024
 
 
 @pytest.mark.cuda
